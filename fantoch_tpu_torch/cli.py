@@ -1,0 +1,162 @@
+"""Command line: ``python -m fantoch_tpu_torch [--device cpu] sweep ...``.
+
+The ``sweep`` subcommand runs the batched engine over a (region subset
+× f × conflict) grid and prints the reference CLI's summary JSON (the
+keys that apply to this slice: closed-loop, flat-traffic, fault-free
+sweeps). It runs on the CUDA card unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import sys
+from typing import List
+
+from .core import Config, Planet
+
+
+# the port's main path: the reference bench's per-protocol grid
+# (bench.py) for Basic, 2,048 lanes; chip_smoke.py and step_profile.py
+# drive it
+MAIN_PATH = [
+    "sweep", "--protocol", "basic", "--n", "5", "--subsets", "256",
+    "--fs", "1,2", "--conflicts", "0,10,50,100", "--commands", "50",
+    "--clients-per-region", "1", "--batch-lanes", "512",
+]
+
+
+def _ints(s: str) -> List[int]:
+    return [int(x) for x in s.split(",") if x != ""]
+
+
+def sweep_setup(args):
+    """``(protocol, dims, specs)`` of a ``sweep`` command line: the
+    region subsets, dims and grid exactly as ``cmd_sweep`` runs them."""
+    from .engine import EngineDims
+    from .engine.protocols import dev_protocol
+    from .parallel.sweep import make_sweep_specs
+
+    planet = (
+        Planet.from_dataset("latency_aws_2021_02_13") if args.aws
+        else Planet.new()
+    )
+    all_regions = planet.regions()
+    if args.regions:
+        region_sets = [args.regions]
+    else:
+        region_sets = [
+            [all_regions[i] for i in combo]
+            for combo in itertools.islice(
+                itertools.combinations(range(len(all_regions)), args.n),
+                args.subsets,
+            )
+        ]
+    clients = args.n * args.clients_per_region
+    total = args.commands * clients
+    try:
+        dev = dev_protocol(args.protocol, clients)
+    except (NotImplementedError, ValueError) as e:
+        raise SystemExit(str(e))
+    dims = EngineDims.for_protocol(
+        dev,
+        n=args.n,
+        clients=clients,
+        payload=dev.payload_width(args.n),
+        total_commands=None if args.dot_slots else total,
+        dot_slots=args.dot_slots or total + 1,
+        regions=args.n,
+    )
+    fs = args.fs or [1]
+    conflicts = (
+        [args.conflict] if args.conflict is not None else args.conflicts
+    )
+    base = Config(n=args.n, f=fs[0], gc_interval_ms=args.gc_interval)
+    specs = make_sweep_specs(
+        dev,
+        planet,
+        region_sets=region_sets,
+        fs=fs,
+        conflicts=conflicts,
+        commands_per_client=args.commands,
+        clients_per_region=args.clients_per_region,
+        dims=dims,
+        config_base=base,
+        extra_time_ms=args.extra_time,
+        zipf=(
+            tuple(
+                f(x) for f, x in zip((float, int), args.zipf.split(","))
+            )
+            if args.zipf
+            else None
+        ),
+        pool_size=args.pool_size,
+    )
+    return dev, dims, specs
+
+
+def cmd_sweep(args) -> None:
+    from . import resolve_device
+    from .parallel.sweep import run_sweep
+
+    device = resolve_device(args.device)
+    dev, dims, specs = sweep_setup(args)
+    results = run_sweep(
+        dev, dims, specs, batch_lanes=args.batch_lanes, device=device
+    )
+    errs = sum(1 for r in results if r.err)
+    print(json.dumps({
+        "protocol": args.protocol,
+        "traffic": "flat",
+        "arrivals": "closed",
+        "points": len(specs),
+        "errors": errs,
+        "error_causes": sorted({r.err_cause for r in results if r.err}),
+        "stalled_lanes": sum(1 for r in results if r.requeues),
+    }))
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser(prog="fantoch_tpu_torch")
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device (default cuda; 'cpu' runs the plain PyTorch "
+        "twins of the kernels)",
+    )
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    sw = sub.add_parser("sweep", help="batched device-engine sweep")
+    sw.add_argument("--protocol", required=True)
+    sw.add_argument("--n", type=int, default=3)
+    sw.add_argument("--regions", type=lambda s: s.split(","), default=None,
+                    help="comma-separated region names (one region set)")
+    sw.add_argument("--aws", action="store_true",
+                    help="use the AWS planet instead of GCP")
+    sw.add_argument("--commands", type=int, default=100,
+                    help="commands per client")
+    sw.add_argument("--clients-per-region", type=int, default=1)
+    sw.add_argument("--conflict", type=int, default=None)
+    sw.add_argument("--conflicts", type=_ints, default=[0, 10, 50, 100])
+    sw.add_argument("--fs", type=_ints, default=None)
+    sw.add_argument("--subsets", type=int, default=16,
+                    help="number of n-region subsets when --regions unset")
+    sw.add_argument("--pool-size", type=int, default=1,
+                    help="ConflictPool shared-key pool size")
+    sw.add_argument("--zipf", default=None,
+                    help="coef,keys — Zipf key generator instead of pool")
+    sw.add_argument("--gc-interval", type=int, default=100)
+    sw.add_argument("--extra-time", type=int, default=1000)
+    sw.add_argument("--dot-slots", type=int, default=None)
+    sw.add_argument("--batch-lanes", type=int, default=512,
+                    help="lanes per device batch")
+    sw.set_defaults(fn=cmd_sweep)
+    return parser.parse_args(argv)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,0 +1,30 @@
+"""Hand-written CUDA kernels of the engine step, with their plain twins.
+
+Each wrapper launches its kernel (``csrc/*.cu``, built for ``sm_90a`` on
+first use) for CUDA tensors and runs its plain PyTorch twin for CPU
+tensors; it never falls back from one to the other. Each wrapper counts
+its kernel launches in a ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+from .basic_handle import basic_handle
+from .key_table import key_table
+from .land_emissions import land_emissions
+from .qualify_pop import qualify_pop
+
+WRAPPERS = {
+    "qualify_pop": qualify_pop,
+    "land_emissions": land_emissions,
+    "key_table": key_table,
+    "basic_handle": basic_handle,
+}
+
+
+def reset_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

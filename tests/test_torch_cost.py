@@ -1,0 +1,165 @@
+"""Each kernel module's ``work``: the bytes and operations its region
+needs on given inputs, which ``chip_smoke.py`` turns into the kernel's
+bound. Small cases whose counts are worked out by hand."""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from fantoch_tpu_torch.engine.dims import INF, PA, PDST, PMT, PPAY, EngineDims
+from fantoch_tpu_torch.engine.protocols import BasicDev
+from fantoch_tpu_torch.kernels import (
+    basic_handle, cost, key_table, land_emissions, qualify_pop,
+)
+from fantoch_tpu_torch.kernels.basic_handle import OUTBOX_KEYS
+from fantoch_tpu_torch.kernels.basic_handle import work as bh_work
+from fantoch_tpu_torch.kernels.key_table import THREEFRY_OPS
+from fantoch_tpu_torch.kernels.key_table import work as kt_work
+from fantoch_tpu_torch.kernels.land_emissions import work as le_work
+from fantoch_tpu_torch.kernels.qualify_pop import work as qp_work
+
+P = 5
+W = PPAY + P
+
+
+def test_bound_is_the_larger_time():
+    ms, by = cost.bound(3.35e9, 0)
+    assert by == "bytes" and ms == pytest.approx(1.0)
+    ms, by = cost.bound(0, cost.INT32_OPS_PER_S)
+    assert by == "operations" and ms == pytest.approx(1e3)
+    assert cost.nbytes(torch.zeros(3, dtype=torch.int32),
+                       torch.zeros(5, dtype=torch.bool)) == 17
+
+
+def test_qualify_pop_work_counts_the_competing_slots():
+    # slots 0 and 1 compete for process 0 (arrival 3), slot 2 for
+    # process 1; slot 3 is free
+    pool = torch.zeros((1, 4, W), dtype=torch.int32)
+    pool[0, :, PA] = torch.tensor([3, 3, 9, INF])
+    pool[0, :, PDST] = torch.tensor([0, 0, 1, 0])
+    timers = torch.full((1, 2, 1), INF, dtype=torch.int32)
+    lookahead = torch.full((1, 2, 2), INF, dtype=torch.int32)
+    out = qualify_pop(pool, timers, lookahead)
+    n_bytes, n_ops = qp_work(pool, timers, lookahead, out)
+    read = 4 * (2 * 4 + 3 * 3 + 2 * W) + 8 + 16
+    assert n_bytes == read + cost.nbytes(*out)
+    assert n_ops == 2 * 4 + 4 * 3 + 3 * 4
+
+
+@pytest.mark.parametrize(
+    "deliver, n_land, n_freed",
+    [
+        ([1, 0, 1], 2, 0),   # both free slots take a row
+        ([0, 1, 0], 1, 0),   # the freed slot 0 takes it
+        ([0, 0, 0], 0, 1),   # the freed arrival word is written alone
+    ],
+)
+def test_land_emissions_work_counts_the_rows_that_land(deliver, n_land,
+                                                       n_freed):
+    pool = torch.arange(4 * W, dtype=torch.int32).reshape(1, 4, W)
+    pool[0, :, PA] = torch.tensor([3, 5, INF, 7])
+    arrival = torch.tensor([[INF, 5, INF, 7]], dtype=torch.int32)
+    dl = torch.tensor([deliver], dtype=torch.bool)
+    rows = torch.ones((1, 3, W), dtype=torch.int32)
+    peak = torch.zeros((1,), dtype=torch.int32)
+    out = land_emissions(pool, arrival, dl, rows, peak)
+    n_bytes, n_ops = le_work(pool, arrival, dl, rows, peak, out)
+    read = 16 + 3 + 4 + 4 * W * n_land
+    write = 4 * W * n_land + 4 * n_freed + 1 + 4
+    assert n_bytes == read + write
+    assert n_ops == 2 * (4 + 3) + W * n_land
+
+
+def _kt_inputs(conflict, pool_size, kind, K=1):
+    L = len(conflict)
+    rng_key = torch.from_numpy(
+        np.arange(2 * L, dtype=np.uint32).reshape(L, 2) + 7
+    )
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    cum = torch.linspace(0.1, 1.0, K, dtype=torch.float32).expand(L, K)
+    return (rng_key, i32(conflict), i32(pool_size), i32(kind),
+            cum.contiguous())
+
+
+@pytest.mark.parametrize(
+    "conflict, pool_size, blocks_per_key",
+    [
+        (0, 1, 0),      # never a hit: the key is pool_size + client
+        (100, 1, 0),    # always a hit on a one-key pool: key 0
+        (50, 1, 5),     # the conflict draw and the seq fold
+    ],
+)
+def test_key_table_work_counts_the_draws_a_key_needs(conflict, pool_size,
+                                                     blocks_per_key):
+    C, T = 2, 3
+    a = _kt_inputs([conflict], [pool_size], [0])
+    out = key_table(*a, C, T)
+    n_bytes, n_ops = kt_work(*a, C, T, out)
+    folds_c = C if blocks_per_key else 0
+    assert n_ops == THREEFRY_OPS * (blocks_per_key * C * T + folds_c)
+    assert n_bytes == 8 + 3 * 4 + 4 * C * T
+
+
+def test_key_table_work_counts_pool_draws_on_hits_and_zipf_searches():
+    C, T, K = 2, 8, 6
+    a = _kt_inputs([50, 10], [4, 1], [0, 1], K)
+    out = key_table(*a, C, T)
+    n_bytes, n_ops = kt_work(*a, C, T, out)
+    hits = int((out[0] < 4).sum())
+    assert 0 < hits < C * T
+    pool_lane = 5 * C * T + 5 * hits + C
+    zipf_lane = 3 * C * T + C
+    search = math.ceil(math.log2(K + 1)) * C * T
+    assert n_ops == THREEFRY_OPS * (pool_lane + zipf_lane) + search
+    assert n_bytes == 2 * 8 + 3 * 2 * 4 + 4 * K + 4 * 2 * C * T
+
+
+def _basic_idle(L=2):
+    dims = EngineDims.for_protocol(BasicDev, n=3, clients=3, payload=P,
+                                   dot_slots=4)
+    N = dims.N
+    ctx_np = {"rows": np.int32(N)}
+    ps = {k: torch.from_numpy(np.stack([v] * L))
+          for k, v in BasicDev.init_state(dims, ctx_np).items()}
+    has = torch.zeros((L, N), dtype=torch.bool)
+    rows = torch.zeros((L, N, W), dtype=torch.int32)
+    fire = torch.zeros((L, N, dims.R), dtype=torch.bool)
+    ctx = {"n": torch.full((L,), N, dtype=torch.int32),
+           "quorum": torch.ones((L, N, N), dtype=torch.bool),
+           "q_size": torch.full((L,), 2, dtype=torch.int32)}
+    return dims, ps, has, rows, fire, ctx
+
+
+def _outboxes_bytes(out):
+    _rdy, _ps, pout, hout = out
+    return cost.nbytes(*(ob[k] for ob in (pout, hout)
+                         for k in OUTBOX_KEYS))
+
+
+def test_basic_handle_work_idle_submit_and_gc():
+    dims, ps, has, rows, fire, ctx = _basic_idle()
+    out = basic_handle(ps, has, rows, fire, ctx, dims)
+    idle, _ = bh_work(ps, has, rows, fire, ctx, dims, out)
+    L, N = has.shape
+    flags = cost.nbytes(has, fire, ctx["n"], ctx["q_size"])
+    assert idle == flags + L * N + _outboxes_bytes(out)
+    # one SUBMIT of client 2: reads its message and the own seq, writes
+    # the own seq and the slot's client (its ack count stays 0)
+    has[0, 1] = True
+    rows[0, 1, PMT] = BasicDev.SUBMIT
+    rows[0, 1, PPAY] = 2
+    out = basic_handle(ps, has, rows, fire, ctx, dims)
+    n_bytes, _ = bh_work(ps, has, rows, fire, ctx, dims, out)
+    assert n_bytes == idle + 4 * (2 + P) + 4 + 4 + 4
+    # one GC message from process 0 (an all-zero frontier): reads the
+    # frontiers, seen flags, stable clocks and the [N, D] dot slots, and
+    # changes one seen flag
+    has[1, 2] = True
+    rows[1, 2, PMT] = BasicDev.MGC
+    out = basic_handle(ps, has, rows, fire, ctx, dims)
+    with_gc, _ = bh_work(ps, has, rows, fire, ctx, dims, out)
+    D = dims.D
+    gc_read = 4 * N * N + N + 8 * N + 4 + 4 * N * D
+    assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1

@@ -1,0 +1,48 @@
+"""The step profiler's bookkeeping, and its rehearsal on the CPU (the
+card's numbers come only from a run on the card)."""
+
+import json
+
+import pytest
+import torch
+
+from fantoch_tpu_torch import cli, step_profile
+from fantoch_tpu_torch.engine.driver import prepare_batch
+
+
+@pytest.mark.parametrize(
+    "intervals, busy",
+    [
+        ([], 0.0),
+        ([(0, 2), (5, 6)], 3.0),
+        ([(0, 4), (1, 2), (3, 7)], 7.0),      # nested and overlapping
+        ([(5, 6), (0, 2), (2, 3)], 4.0),      # unsorted, touching
+    ],
+)
+def test_busy_time_is_the_union_of_intervals(intervals, busy):
+    assert step_profile._busy_us(intervals) == busy
+
+
+def test_main_path_is_the_bench_grid():
+    args = cli.parse_args(cli.MAIN_PATH)
+    protocol, dims, specs = cli.sweep_setup(args)
+    assert len(specs) == 256 * 2 * 4 and args.batch_lanes == 512
+    assert (dims.N, dims.C, dims.M, dims.D) == (5, 5, 2069, 251)
+    assert {s.config.f for s in specs} == {1, 2}
+    assert {int(s.ctx["conflict_rate"]) for s in specs} == {0, 10, 50, 100}
+
+
+def test_rehearsal_on_cpu_records_no_device_time():
+    args = cli.parse_args([
+        "sweep", "--protocol", "basic", "--n", "3", "--subsets", "1",
+        "--fs", "1", "--conflicts", "0,100", "--commands", "3",
+    ])
+    protocol, dims, specs = cli.sweep_setup(args)
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev)
+    out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
+    json.dumps(out)
+    assert out["card"] == "cpu" and out["lanes"] == 2
+    assert out["wall_ms_per_step"] > 0
+    assert out["device_busy_ms_per_step"] is None
+    assert out["device_activities_per_step"] == 0

@@ -1,0 +1,132 @@
+"""The port's lane construction equals the reference's ctx key for key,
+dtype for dtype, value for value; lane kinds outside this slice raise
+by name."""
+
+import itertools
+
+import numpy as np
+import pytest
+
+from fantoch_tpu.core import Config as RConfig
+from fantoch_tpu.core import Planet as RPlanet
+from fantoch_tpu.engine import EngineDims as RDims
+from fantoch_tpu.engine import make_lane as r_make_lane
+from fantoch_tpu.engine import stack_lanes as r_stack_lanes
+from fantoch_tpu.engine.protocols import BasicDev as RBasic
+from fantoch_tpu_torch.core import Config, Planet
+from fantoch_tpu_torch.engine import EngineDims, make_lane, stack_lanes
+from fantoch_tpu_torch.engine.protocols import BasicDev, dev_protocol
+from fantoch_tpu_torch.parallel import make_sweep_specs
+
+
+def _pair(planet_name, regions, clients_per_region, **kw):
+    n = len(regions)
+    f = kw.pop("f", 1)
+    clients = n * clients_per_region
+    rd = RDims.for_protocol(RBasic, n=n, clients=clients, payload=max(n, 3),
+                            regions=n)
+    pd = EngineDims.for_protocol(BasicDev, n=n, clients=clients,
+                                 payload=max(n, 3), regions=n)
+    assert rd.__dict__ == pd.__dict__
+    rplanet = (RPlanet.from_dataset(planet_name) if planet_name
+               else RPlanet.new())
+    planet = Planet.from_dataset(planet_name) if planet_name else Planet.new()
+    common = dict(
+        commands_per_client=7, clients_per_region=clients_per_region,
+        process_regions=regions, client_regions=regions, **kw,
+    )
+    ref = r_make_lane(RBasic, rplanet, RConfig(n=n, f=f, gc_interval_ms=100),
+                      dims=rd, **common)
+    port = make_lane(BasicDev, planet, Config(n=n, f=f, gc_interval_ms=100),
+                     dims=pd, **common)
+    return ref, port
+
+
+def _assert_ctx_equal(ref_ctx, port_ctx):
+    assert list(ref_ctx) == list(port_ctx)
+    for k in ref_ctx:
+        a, b = np.asarray(ref_ctx[k]), np.asarray(port_ctx[k])
+        assert a.dtype == b.dtype, (k, a.dtype, b.dtype)
+        assert a.shape == b.shape, (k, a.shape, b.shape)
+        np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+GCP = RPlanet.new().regions()
+CASES = [
+    (None, GCP[:3], 1, dict(f=0, conflict_rate=100, seed=0)),
+    (None, GCP[:3], 2, dict(f=1, conflict_rate=0, seed=5)),
+    (None, GCP[3:8], 1, dict(f=2, conflict_rate=10, seed=9)),
+    (None, [GCP[i] for i in (0, 4, 9, 13, 19)], 1,
+     dict(f=1, conflict_rate=50, pool_size=4, seed=1)),
+    (None, GCP[5:8], 1, dict(f=1, zipf=(1.0, 32), seed=2)),
+    ("latency_aws_2021_02_13", None, 1, dict(f=1, conflict_rate=50)),
+    (None, ["us-west1", "us-west1", "europe-west2"], 1,
+     dict(f=1, conflict_rate=100)),  # colocated: serialized lookahead
+]
+
+
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_make_lane_ctx_matches_reference(case):
+    planet_name, regions, cpr, kw = CASES[case]
+    if regions is None:
+        regions = RPlanet.from_dataset(planet_name).regions()[:3]
+    ref, port = _pair(planet_name, list(regions), cpr, **dict(kw))
+    _assert_ctx_equal(ref.ctx, port.ctx)
+    assert ref.region_rows == port.region_rows
+    assert ref.process_regions == port.process_regions
+    assert ref.fault_meta is None and port.fault_meta is None
+
+
+def test_sweep_specs_and_stack_match_reference():
+    from fantoch_tpu.parallel.sweep import (
+        make_sweep_specs as r_make_sweep_specs,
+    )
+
+    region_sets = [list(c) for c in itertools.islice(
+        itertools.combinations(GCP, 5), 3)]
+    kw = dict(region_sets=region_sets, fs=[1, 2], conflicts=[0, 100],
+              commands_per_client=4, clients_per_region=1)
+    rd = RDims.for_protocol(RBasic, n=5, clients=5, payload=5, regions=5)
+    pd = EngineDims.for_protocol(BasicDev, n=5, clients=5, payload=5,
+                                 regions=5)
+    ref = r_make_sweep_specs(RBasic, RPlanet.new(), dims=rd, **kw)
+    port = make_sweep_specs(BasicDev, Planet.new(), dims=pd, **kw)
+    assert len(ref) == len(port) == 12
+    _assert_ctx_equal(r_stack_lanes(ref), stack_lanes(port))
+
+
+@pytest.mark.parametrize(
+    "option, value, item",
+    [
+        ("faults", object(), "item 9"),
+        ("traffic", "diurnal", "item 11"),
+        ("arrivals", "poisson", "item 11"),
+        ("reorder", True, "item 9"),
+    ],
+)
+def test_out_of_slice_options_raise_by_name(option, value, item):
+    pd = EngineDims.for_protocol(BasicDev, n=3, clients=3, payload=3)
+    with pytest.raises(NotImplementedError, match=item):
+        make_lane(
+            BasicDev, Planet.new(), Config(n=3, f=1), dims=pd,
+            commands_per_client=1, clients_per_region=1,
+            process_regions=GCP[:3], client_regions=GCP[:3],
+            **{option: value},
+        )
+
+
+def test_partial_replication_and_other_protocols_raise_by_name():
+    pd = EngineDims.for_protocol(BasicDev, n=3, clients=3, payload=3)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        make_lane(
+            BasicDev, Planet.new(), Config(n=3, f=1, shard_count=2),
+            dims=pd, commands_per_client=1, clients_per_region=1,
+            process_regions=GCP[:3], client_regions=GCP[:3],
+        )
+    for name, item in [("fpaxos", "item 3"), ("tempo", "item 4"),
+                       ("caesar", "item 7")]:
+        with pytest.raises(NotImplementedError, match=item):
+            dev_protocol(name)
+    with pytest.raises(ValueError, match="unknown protocol"):
+        dev_protocol("paxos")
+    assert dev_protocol("basic") is BasicDev
