@@ -5,19 +5,24 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's CUDA kernels from ``fantoch_tpu_torch/kernels/csrc``
-(one nvcc per source, in parallel), holds each kernel against its plain
-PyTorch twin on the card at the main path's shapes (exact equality: all
-integer or bit-exact data; ``key_table`` also on a batch of Zipf lanes)
-beside the least time its region's work needs (each kernel module's
-``work``, ``kernels/cost.py``), checks the Basic golden numbers and the
-committed ``tests/fixtures/torch_basic_golden.json`` bytes on the card,
-then drives the main path — the 2,048-lane Basic sweep (n = 5, 256
-five-region subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50
-commands per client, one client per region) through ``run_sweep`` — with
-every launch counter set to 0 just before and read just after. Any
-failure raises; nothing is caught. The last two lines are one JSON object
-per kernel (``{"kernels": [...]}``) and the verdict ``{"ok": true, ...}``.
+It builds the engine's seven CUDA kernels from
+``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel),
+holds each kernel against its plain PyTorch twin on the card at both
+main paths' shapes (exact equality: all integer or bool data;
+``key_table`` also on a batch of Zipf lanes; ``lane_freeze`` also with
+frozen lanes) beside the least time its region's work needs (each kernel
+module's ``work``, ``kernels/cost.py``) — a kernel's ``ms`` is its device
+time per launch under ``torch.profiler``, ``call_ms`` the wrapper's whole
+call (host included) — checks the Basic golden numbers
+and the committed ``tests/fixtures/torch_basic_golden.json`` and
+``torch_fpaxos_golden.json`` bytes on the card, then drives both main
+paths — the 2,048-lane Basic and FPaxos sweeps (n = 5, 256 five-region
+subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50 commands per
+client, one client per region) through ``run_sweep`` — each with every
+launch counter set to 0 just before and read just after, and holds
+sampled lanes of each to the plain twins on the host. Any failure
+raises; nothing is caught. The last two lines are one JSON object per
+kernel (``{"kernels": [...]}``) and the verdict ``{"ok": true, ...}``.
 Without a CUDA card it exits non-zero and prints no result.
 """
 
@@ -31,9 +36,25 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-FIXTURE = ROOT / "tests" / "fixtures" / "torch_basic_golden.json"
+FIXTURES = ROOT / "tests" / "fixtures"
 
 GOLDEN_POINTS = [(f, cf) for f in (0, 1, 2) for cf in (0, 100)]
+# the FPaxos golden batch: (f, leader), conflict 100
+FPAXOS_POINTS = [(1, 1), (1, 3), (2, 2)]
+SAMPLE = [0, 7, 1000, 2047]
+
+# the reference region each kernel replaces
+REPLACES = {
+    "qualify_pop": "fantoch_tpu/engine/core.py:811",
+    "land_emissions": "fantoch_tpu/engine/core.py:1457",
+    "key_table": "fantoch_tpu/engine/core.py:439",
+    "basic_handle": "fantoch_tpu/engine/protocols/basic.py:119",
+    "fpaxos_handle": "fantoch_tpu/engine/protocols/fpaxos.py:127",
+    "emit_rewrite": "fantoch_tpu/engine/core.py:941",
+    "lane_freeze": "fantoch_tpu/engine/core.py:1565",
+}
+HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle"}
+OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
 def _nvidia_smi() -> str:
@@ -53,6 +74,12 @@ def _flatten(x):
     return [x]
 
 
+def _clone(x):
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x.clone()
+
+
 def _compare(got, want) -> float:
     """Exact equality of two output trees; returns the max abs error."""
     import torch
@@ -67,6 +94,17 @@ def _compare(got, want) -> float:
         if not torch.equal(x, y):
             raise AssertionError(f"kernel differs from its twin ({err})")
     return err
+
+
+def _handler_view(out):
+    """A handler's outputs with the kernel's outbox planes: the twin
+    also carries ``delay``/``src``, which must be all -1."""
+    rdy, ps, pout, hout = out
+    for ob in (pout, hout):
+        for k in ("delay", "src"):
+            assert k not in ob or bool((ob[k] == -1).all()), k
+    return (rdy, ps, *({k: ob[k] for k in OUTBOX_KEYS}
+                       for ob in (pout, hout)))
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -84,139 +122,175 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def _device_ms(fn, kernel: str, iters: int) -> float:
+    """Device time per launch of ``kernel`` over ``iters`` calls of
+    ``fn``, from ``torch.profiler``: the kernel's own time, without the
+    host's time to issue it (``_time_ms`` measures the call as a whole,
+    which for a short kernel is the host's)."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.name.startswith(kernel + "_kernel")]
+    assert len(us) == iters, (kernel, len(us))
+    return sum(us) / iters / 1e3
+
+
+def check_kernels(name, dev, rows):
+    """Phase 3 for one main path: its first batch, stepped 300 times
+    through the run loop, then one step's kernel arguments recorded;
+    each kernel of the step against its twin on them. Adds a row per
+    kernel to ``rows`` (the last path's row wins for shared kernels)."""
+    import torch
+
     from fantoch_tpu_torch import cli, kernels
     from fantoch_tpu_torch.carry import to_torch
-    from fantoch_tpu_torch.core import Config, Planet
-    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
     from fantoch_tpu_torch.engine import core as engine_core
     from fantoch_tpu_torch.engine.driver import prepare_batch
-    from fantoch_tpu_torch.engine.protocols import BasicDev
     from fantoch_tpu_torch.engine.spec import stack_lanes
-    from fantoch_tpu_torch.kernels import build, cost
-    from fantoch_tpu_torch.parallel import run_sweep
+    from fantoch_tpu_torch.kernels import cost
 
-    mods = {
-        name: importlib.import_module(f"fantoch_tpu_torch.kernels.{name}")
-        for name in kernels.WRAPPERS
-    }
-    dev = torch.device("cuda")
-    card = _nvidia_smi()
-    # 1. versions and the card
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]} | {torch.cuda.get_device_name(0)}")
-    print(card)
-
-    # 2. build
-    t0 = time.perf_counter()
-    build.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc+link {build.BUILD_SECONDS} s)")
-
-    # 3. every kernel against its plain twin at the main path's shapes:
-    # the first batch of the sweep, stepped into the middle of its run,
-    # then one step's kernel arguments recorded. The main path takes the
-    # CLI's dims and defaults (the reference CLI's: pool and dot window
-    # sized by the total command count).
-    sweep = cli.parse_args(cli.MAIN_PATH)
+    argv = cli.MAIN_PATH_FPAXOS if name == "fpaxos" else cli.MAIN_PATH
+    sweep = cli.parse_args(argv)
     protocol, dims, specs = cli.sweep_setup(sweep)
-    assert protocol is BasicDev and len(specs) == 2048
-    batch = specs[:sweep.batch_lanes]
-    state, ctx = prepare_batch(BasicDev, dims, batch, dev)
+    max_steps = 1 << 22
+    state, ctx = prepare_batch(protocol, dims, specs[:sweep.batch_lanes],
+                               dev)
     for _ in range(300):
-        state = engine_core.lane_step(BasicDev, dims, state, ctx)
-    captured = {}
-    originals = {
-        "qualify_pop": (engine_core, "qualify_pop"),
-        "land_emissions": (engine_core, "land_emissions"),
-        "basic_handle": (mods["basic_handle"], "basic_handle"),
+        state, _running = engine_core.frozen_step(protocol, dims, state,
+                                                  ctx, max_steps)
+    handler = HANDLERS[name]
+    mods = {k: importlib.import_module(f"fantoch_tpu_torch.kernels.{k}")
+            for k in ("qualify_pop", "land_emissions", "emit_rewrite",
+                      "lane_freeze", handler, "key_table")}
+    patched = {
+        "qualify_pop": engine_core,
+        "land_emissions": engine_core,
+        "emit_rewrite": engine_core,
+        "lane_freeze": engine_core,
+        handler: mods[handler],
     }
+    captured = {}
 
-    def recorder(name, fn):
+    def recorder(kname, fn):
         def wrapped(*args):
-            captured[name] = args
+            # lane_freeze writes into the step's new planes: keep a copy
+            captured[kname] = (
+                (_clone(args[0]),) + args[1:] if kname == "lane_freeze"
+                else args
+            )
             return fn(*args)
         # the wrapper counts through its module-global name, which is
         # this recorder while it stands in
         wrapped.launches = 0
         return wrapped
 
-    saved = {k: getattr(m, a) for k, (m, a) in originals.items()}
-    for k, (m, a) in originals.items():
-        setattr(m, a, recorder(k, saved[k]))
-    engine_core.lane_step(BasicDev, dims, state, ctx)
-    for k, (m, a) in originals.items():
-        setattr(m, a, saved[k])
-    kt_args = (ctx["rng_key"], ctx["conflict_rate"], ctx["pool_size"],
-               ctx["key_gen_kind"], ctx["zipf_cum"], dims.C,
-               ctx["key_table"].shape[2])
-
+    saved = {k: getattr(m, k) for k, m in patched.items()}
+    for k, m in patched.items():
+        setattr(m, k, recorder(k, saved[k]))
+    engine_core.frozen_step(protocol, dims, state, ctx, max_steps)
+    for k, m in patched.items():
+        setattr(m, k, saved[k])
+    T = ctx["key_table"].shape[2]
+    captured["key_table"] = (
+        ctx["rng_key"], ctx["conflict_rate"], ctx["pool_size"],
+        ctx["key_gen_kind"], ctx["zipf_cum"], dims.C, T,
+    )
     L, M, W = captured["qualify_pop"][0].shape
-    N, E = dims.N, captured["land_emissions"][2].shape[1]
-    C, T, K = dims.C, kt_args[-1], ctx["zipf_cum"].shape[1]
-    args = {
-        "qualify_pop": captured["qualify_pop"],
-        "land_emissions": captured["land_emissions"],
-        "key_table": kt_args,
-        "basic_handle": captured["basic_handle"],
-    }
-    rows = {}
-    for name, mod in mods.items():
-        kern, plain = getattr(mod, name), getattr(mod, name + "_plain")
-        a = args[name]
+    shapes = (f"L={L} N={dims.N} M={M} W={W} D={dims.D} F={dims.F} "
+              f"E={captured['land_emissions'][2].shape[1]} C={dims.C} T={T}")
+    for kname, a in captured.items():
+        mod = mods[kname]
+        kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
         before = kern.launches
-        got, want = kern(*a), plain(*a)
+        if kname == "lane_freeze":
+            got, want = kern(_clone(a[0]), *a[1:]), plain(*a)
+            run_kernel = (lambda a=a, new=_clone(a[0]): kern(new, *a[1:]))
+        else:
+            got, want = kern(*a), plain(*a)
+            run_kernel = (lambda a=a: kern(*a))
+        if kname == handler:
+            got, want = _handler_view(got), _handler_view(want)
         torch.cuda.synchronize()
         err = _compare(got, want)
-        ms = _time_ms(lambda: kern(*a), 50)
-        plain_ms = _time_ms(lambda: plain(*a), 5)
+        ms = _device_ms(run_kernel, kname, 50)
+        call_ms = _time_ms(run_kernel, 50)
+        plain_ms = _time_ms(lambda a=a: plain(*a), 5)
         # the least bytes and operations the region needs on these inputs
         n_bytes, n_ops = mod.work(*a, got)
         bound_ms, bound_by = cost.bound(n_bytes, n_ops)
         library_ms = None
-        if name == "land_emissions":
+        if kname == "land_emissions":
             free = a[1] == (1 << 30)
             library_ms = _time_ms(
                 lambda: torch.cumsum(free, dim=1, dtype=torch.int32), 50
             )
-        rows[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, library_ms=library_ms,
+        rows[kname] = dict(
+            path=name, max_abs_err=err, ms=ms, call_ms=call_ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=library_ms,
         )
-        print(f"kernel {name}: exact=True max_abs_err={err} ms={ms:.5f} "
-              f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
-              f"({bound_by}: {n_bytes} bytes, {n_ops} ops) "
-              f"library_ms={library_ms} launches={kern.launches - before} "
-              f"shapes L={L} N={N} M={M} W={W} E={E} C={C} T={T} K={K}")
+        print(f"kernel {kname} ({name} path): exact=True max_abs_err={err} "
+              f"ms={ms:.5f} call_ms={call_ms:.5f} plain_ms={plain_ms:.5f} "
+              f"bound_us={1e3 * bound_ms:.3f} ({bound_by}: {n_bytes} "
+              f"bytes, {n_ops} ops) library_ms={library_ms} "
+              f"launches={kern.launches - before} shapes {shapes}")
 
-    # K3's Zipf branch, which the main path's ConflictPool lanes do not
-    # take: one batch of Zipf lanes (the same grid's first 512 points
-    # with --zipf 1.0,1000)
-    zargv = list(cli.MAIN_PATH)
-    zargv[zargv.index("--subsets") + 1] = "64"
-    _zp, _zd, zspecs = cli.sweep_setup(
-        cli.parse_args(zargv + ["--zipf", "1.0,1000"])
+    # K7 with frozen lanes (every third lane failed), which it copies
+    new, old, fctx, ms_ = captured["lane_freeze"]
+    old = dict(old, err=old["err"].clone())
+    old["err"][::3] = 64
+    lf = mods["lane_freeze"]
+    got = lf.lane_freeze(_clone(new), old, fctx, ms_)
+    err = _compare(got, lf.lane_freeze_plain(new, old, fctx, ms_))
+    frozen = int((~got[1]).sum())
+    ms = _device_ms(
+        lambda n=_clone(new): lf.lane_freeze(n, old, fctx, ms_),
+        "lane_freeze", 50,
     )
-    zctx = to_torch(stack_lanes(zspecs[:sweep.batch_lanes]), dev)
-    assert bool((zctx["key_gen_kind"] == 1).all())
-    za = (zctx["rng_key"], zctx["conflict_rate"], zctx["pool_size"],
-          zctx["key_gen_kind"], zctx["zipf_cum"], dims.C, T)
-    got, want = kernels.key_table(*za), mods["key_table"].key_table_plain(*za)
-    torch.cuda.synchronize()
-    err = _compare(got, want)
-    assert int(got.max()) > 0 and int(got.min()) >= 0
-    print(f"kernel key_table (zipf): exact=True max_abs_err={err} "
-          f"L={got.shape[0]} C={C} T={T} K={zctx['zipf_cum'].shape[1]} "
-          f"distinct keys {int(torch.unique(got).numel())}")
-    del state, ctx, captured, args, zctx, za, got, want
+    n_bytes, n_ops = lf.work(new, old, fctx, ms_, got)
+    print(f"kernel lane_freeze ({name} path, {frozen} of {L} lanes "
+          f"frozen): exact=True max_abs_err={err} ms={ms:.5f} bound_us="
+          f"{1e3 * cost.bound(n_bytes, n_ops)[0]:.3f} ({n_bytes} bytes)")
 
-    # 4. the reference's golden Basic numbers on the card
+    if name == "basic":
+        # K3's Zipf branch, which the main path's ConflictPool lanes do
+        # not take: one batch of Zipf lanes (the same grid's first 512
+        # points with --zipf 1.0,1000)
+        zargv = list(argv)
+        zargv[zargv.index("--subsets") + 1] = "64"
+        _zp, _zd, zspecs = cli.sweep_setup(
+            cli.parse_args(zargv + ["--zipf", "1.0,1000"])
+        )
+        zctx = to_torch(stack_lanes(zspecs[:sweep.batch_lanes]), dev)
+        assert bool((zctx["key_gen_kind"] == 1).all())
+        za = (zctx["rng_key"], zctx["conflict_rate"], zctx["pool_size"],
+              zctx["key_gen_kind"], zctx["zipf_cum"], dims.C, T)
+        got = kernels.key_table(*za)
+        want = mods["key_table"].key_table_plain(*za)
+        torch.cuda.synchronize()
+        err = _compare(got, want)
+        assert int(got.max()) > 0 and int(got.min()) >= 0
+        print(f"kernel key_table (zipf): exact=True max_abs_err={err} "
+              f"L={got.shape[0]} C={dims.C} T={T} "
+              f"K={zctx['zipf_cum'].shape[1]} distinct keys "
+              f"{int(torch.unique(got).numel())}")
+
+
+def golden_basic(dev) -> None:
+    """Phase 4: the reference's golden Basic numbers and fixture bytes."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
+    from fantoch_tpu_torch.engine.protocols import BasicDev
+
     gdims = EngineDims.for_protocol(
         BasicDev, n=3, clients=2, payload=3, total_commands=200,
         dot_slots=201, regions=2,
@@ -241,66 +315,154 @@ def main() -> int:
     print("golden basic n=3 on cuda: means (us-west1, us-west2) "
           + ", ".join(f"f={f} {expected[f]}" for f in (0, 1, 2))
           + "; stable [200, 200, 200] at every f")
+    _match_fixture(golden, "torch_basic_golden.json")
 
-    # 5. byte comparison with the committed reference fixture
-    text = json.dumps([r.to_json() for r in golden], sort_keys=True) + "\n"
-    assert text == FIXTURE.read_text(), "to_json differs from the fixture"
-    print(f"fixture {FIXTURE.relative_to(ROOT)}: byte-identical "
+
+def golden_fpaxos(dev) -> None:
+    """Phase 5: the FPaxos golden batch (the three configurations of
+    tests/test_engine_fpaxos.py in one batch) against its fixture."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
+    from fantoch_tpu_torch.engine.protocols import FPaxosDev
+
+    gdims = EngineDims.for_protocol(
+        FPaxosDev, n=3, clients=2, payload=3, total_commands=100,
+        dot_slots=101, regions=2,
+    )
+    gspecs = [
+        make_lane(FPaxosDev, Planet.new(),
+                  Config(n=3, f=f, leader=leader, gc_interval_ms=100),
+                  conflict_rate=100, pool_size=1, commands_per_client=50,
+                  clients_per_region=1,
+                  process_regions=["asia-east1", "us-central1", "us-west1"],
+                  client_regions=["us-west1", "us-west2"], dims=gdims,
+                  extra_time_ms=1000, seed=i)
+        for i, (f, leader) in enumerate(FPAXOS_POINTS)
+    ]
+    golden = run_lanes(FPaxosDev, gdims, gspecs, device=dev)
+    for (f, leader), res in zip(FPAXOS_POINTS, golden):
+        assert res.err == 0, res.err_cause
+        assert int(res.lat_count.sum()) == 100
+        means = (res.latency_mean("us-west1"), res.latency_mean("us-west2"))
+        print(f"golden fpaxos n=3 on cuda: f={f} leader={leader} means "
+              f"(us-west1, us-west2) {means} stable "
+              f"{res.protocol_metrics['stable'].tolist()}")
+    _match_fixture(golden, "torch_fpaxos_golden.json")
+
+
+def _match_fixture(results, name) -> None:
+    text = json.dumps([r.to_json() for r in results], sort_keys=True) + "\n"
+    path = FIXTURES / name
+    assert text == path.read_text(), f"to_json differs from {name}"
+    print(f"fixture {path.relative_to(ROOT)}: byte-identical "
           f"({len(text)} bytes)")
 
-    # 6. the main path: the 2,048-lane sweep, counted
+
+def sweep(name, dev):
+    """Phases 6-7: one main path's 2,048-lane sweep, counted; sampled
+    lanes against the plain twins on the host. Returns its launches."""
+    import torch
+
+    from fantoch_tpu_torch import cli, kernels
+    from fantoch_tpu_torch.engine import run_lanes
+    from fantoch_tpu_torch.parallel import run_sweep
+
+    argv = cli.MAIN_PATH_FPAXOS if name == "fpaxos" else cli.MAIN_PATH
+    args = cli.parse_args(argv)
+    protocol, dims, specs = cli.sweep_setup(args)
     kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = run_sweep(BasicDev, dims, specs, batch_lanes=sweep.batch_lanes,
-                        device=dev)
+    results = run_sweep(protocol, dims, specs,
+                        batch_lanes=args.batch_lanes, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.counts()
     errors = sum(1 for r in results if r.err)
     steps = [r.steps for r in results]
-    total = sweep.commands * dims.C
+    total = args.commands * dims.C
     steps_run = launches["qualify_pop"]
-    print(f"sweep basic n=5 (M={dims.M} D={dims.D}): {len(results)} points "
+    stable = sorted({int(r.protocol_metrics["stable"].sum())
+                     for r in results})
+    print(f"sweep {name} n=5 (M={dims.M} D={dims.D}): {len(results)} points "
           f"in {wall:.3f} s = {len(results) / wall:.3f} points/s; errors "
           f"{errors} {sorted({r.err_cause for r in results if r.err})}; "
           f"steps per lane max {max(steps)} mean {sum(steps) / len(steps):.1f}"
           f"; batch steps {steps_run}; pool_peak max "
-          f"{max(r.pool_peak for r in results)}; launches {launches}; "
-          f"launches per batch step "
+          f"{max(r.pool_peak for r in results)}; requeues "
+          f"{sum(r.requeues for r in results)}; stable totals {stable}; "
+          f"launches {launches}; launches per batch step "
           f"{ {k: v / steps_run for k, v in launches.items()} }")
     assert len(results) == 2048 and errors == 0
-    assert all(v > 0 for v in launches.values()), launches
+    path_kernels = ["qualify_pop", HANDLERS[name], "emit_rewrite",
+                    "land_emissions", "lane_freeze", "key_table"]
+    assert all(launches[k] > 0 for k in path_kernels), launches
     for r in results:
-        assert r.completed == total and r.requeues == 0
-        assert list(r.protocol_metrics["stable"]) == [total] * dims.N
+        assert r.completed == total
         assert int(r.lat_count.sum()) == total
-    # a sample of lanes against the plain twins on the host
-    sample = [0, 7, 1000, 2047]
-    host = run_lanes(BasicDev, dims, [specs[i] for i in sample], device="cpu")
-    for i, h in zip(sample, host):
+        if name == "basic":
+            assert r.requeues == 0
+            assert list(r.protocol_metrics["stable"]) == [total] * dims.N
+    host = run_lanes(protocol, dims, [specs[i] for i in SAMPLE],
+                     device="cpu")
+    for i, h in zip(SAMPLE, host):
         assert json.dumps(h.to_json(), sort_keys=True) == json.dumps(
             results[i].to_json(), sort_keys=True
-        ), f"lane {i} differs from the host run"
-    print(f"lanes {sample}: card == host plain twins, byte for byte")
+        ), f"{name} lane {i} differs from the host run"
+    print(f"{name} lanes {SAMPLE}: card == host plain twins, byte for byte")
+    return launches
 
-    # 7. the kernels line, then the verdict
-    sources = {
-        "qualify_pop": "fantoch_tpu/engine/core.py:811",
-        "land_emissions": "fantoch_tpu/engine/core.py:1457",
-        "key_table": "fantoch_tpu/engine/core.py:439",
-        "basic_handle": "fantoch_tpu/engine/protocols/basic.py:119",
-    }
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    from fantoch_tpu_torch import kernels
+    from fantoch_tpu_torch.kernels import build
+
+    dev = torch.device("cuda")
+    card = _nvidia_smi()
+    # 1. versions and the card
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]} | {torch.cuda.get_device_name(0)}")
+    print(card)
+
+    # 2. build
+    t0 = time.perf_counter()
+    build.build()
+    print(f"build: {time.perf_counter() - t0:.2f} s "
+          f"(nvcc+link {build.BUILD_SECONDS} s)")
+
+    # 3. every kernel against its plain twin at both main paths' shapes
+    rows = {}
+    for name in ("basic", "fpaxos"):
+        check_kernels(name, dev, rows)
+    assert sorted(rows) == sorted(kernels.WRAPPERS), sorted(rows)
+
+    # 4-5. golden batches and fixture bytes on the card
+    golden_basic(dev)
+    golden_fpaxos(dev)
+
+    # 6-7. the main paths, each counted on its own
+    by_path = {name: sweep(name, dev) for name in ("basic", "fpaxos")}
+
+    # 8. the kernels line, then the verdict
     out = []
-    for name, row in rows.items():
+    for kname, row in rows.items():
+        counts = {p: c[kname] for p, c in by_path.items()}
         out.append({
-            "name": name,
+            "name": kname,
             "route": "cuda",
-            "source": f"fantoch_tpu_torch/kernels/csrc/{name}.cu",
-            "replaces": sources[name],
-            "launches": launches[name],
+            "source": f"fantoch_tpu_torch/kernels/csrc/{kname}.cu",
+            "replaces": REPLACES[kname],
+            "launches": counts[row["path"]],
+            "launches_by_path": counts,
             **row,
         })
+    assert all(k["launches"] > 0 for k in out), out
     print(json.dumps({"kernels": out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -17,13 +17,16 @@ from typing import List
 from .core import Config, Planet
 
 
-# the port's main path: the reference bench's per-protocol grid
-# (bench.py) for Basic, 2,048 lanes; chip_smoke.py and step_profile.py
-# drive it
+# the port's main paths: the reference bench's per-protocol grid
+# (bench.py), 2,048 lanes, for Basic and for FPaxos; chip_smoke.py and
+# step_profile.py drive them
 MAIN_PATH = [
     "sweep", "--protocol", "basic", "--n", "5", "--subsets", "256",
     "--fs", "1,2", "--conflicts", "0,10,50,100", "--commands", "50",
     "--clients-per-region", "1", "--batch-lanes", "512",
+]
+MAIN_PATH_FPAXOS = [
+    "fpaxos" if a == "basic" else a for a in MAIN_PATH
 ]
 
 
@@ -35,7 +38,7 @@ def sweep_setup(args):
     """``(protocol, dims, specs)`` of a ``sweep`` command line: the
     region subsets, dims and grid exactly as ``cmd_sweep`` runs them."""
     from .engine import EngineDims
-    from .engine.protocols import dev_protocol
+    from .engine.protocols import dev_config_kwargs, dev_protocol
     from .parallel.sweep import make_sweep_specs
 
     planet = (
@@ -72,7 +75,9 @@ def sweep_setup(args):
     conflicts = (
         [args.conflict] if args.conflict is not None else args.conflicts
     )
-    base = Config(n=args.n, f=fs[0], gc_interval_ms=args.gc_interval)
+    base = Config(**dev_config_kwargs(
+        args.protocol, args.n, fs[0], gc_interval_ms=args.gc_interval
+    ))
     specs = make_sweep_specs(
         dev,
         planet,

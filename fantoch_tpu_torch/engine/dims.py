@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 # simulated time / sequence sentinel: far enough from i32 overflow that
 # `INF + delay` cannot wrap
 INF = 1 << 30
@@ -54,6 +56,12 @@ ERR_NAMES = {
     ERR_STUCK: "requeue-livelock",
     ERR_UNAVAIL: "quorum-unavailable",
 }
+
+
+def dot_slot(seq, D: int):
+    """Recycled dot-slot index of a 1-based sequence: ``(seq - 1) mod D``
+    with floor modulo, as jnp's ``%`` (sequence 0 maps to slot D - 1)."""
+    return torch.remainder(seq - 1, D)
 
 
 def err_names(code: int) -> str:

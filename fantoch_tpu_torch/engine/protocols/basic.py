@@ -30,56 +30,13 @@ import numpy as np
 import torch
 
 from ..core import emit, emit_broadcast, empty_outbox
-from ..dims import ERR_DOT, ERR_PROTO, INF, PMT, PPAY, PSRC, EngineDims
+from ..dims import (
+    ERR_DOT, ERR_PROTO, INF, PMT, PPAY, PSRC, EngineDims, dot_slot,
+)
 from .identity import DevIdentity
+from .masked import put, put2, select, take
 
 I32 = torch.int32
-
-
-def _bcast(x, like):
-    """Append trailing singleton axes to ``x`` up to ``like``'s rank."""
-    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
-
-
-def _take(arr, idx):
-    """``arr[l, p, idx[l, p], ...]`` along axis 2; an out-of-range index
-    reads 0/False (the reference's ``oh_get``)."""
-    K = arr.shape[2]
-    ok = (idx >= 0) & (idx < K)
-    i = idx.clamp(0, K - 1).long()
-    i = i.reshape(i.shape + (1,) * (arr.dim() - 2)).expand(
-        arr.shape[:2] + (1,) + arr.shape[3:]
-    )
-    v = torch.gather(arr, 2, i).squeeze(2)
-    return torch.where(_bcast(ok, v), v, torch.zeros_like(v))
-
-
-def _hit(idx, K):
-    """One-hot ``[L, N, K]`` of ``idx`` (out of range hits nothing)."""
-    return torch.arange(K, device=idx.device, dtype=I32) == idx[..., None]
-
-
-def _set(arr, idx, val):
-    """``arr[l, p, idx] = val`` along axis 2; out-of-range drops."""
-    hit = _hit(idx, arr.shape[2])
-    hit = hit.reshape(hit.shape + (1,) * (arr.dim() - 3))
-    return torch.where(hit, val.unsqueeze(2), arr)
-
-
-def _set2(arr, i, j, val):
-    """``arr[l, p, i, j] = val`` for ``[L, N, A, B]``; out-of-range drops."""
-    hit = _hit(i, arr.shape[2])[..., :, None] & _hit(j, arr.shape[3])[
-        ..., None, :
-    ]
-    return torch.where(hit, val[..., None, None], arr)
-
-
-def _select(masks, values):
-    """``values[k]`` where ``masks[k]`` (first match), else the last."""
-    out = values[-1]
-    for m, v in zip(reversed(masks), reversed(values[:-1])):
-        out = torch.where(_bcast(m, out), v, out)
-    return out
 
 
 class BasicDev(DevIdentity):
@@ -180,9 +137,9 @@ class BasicDev(DevIdentity):
         """MStore needs a free dot slot; commits apply in per-source
         order (committed_cnt is a frontier counter)."""
         src, pay = rows[..., PSRC], rows[..., PPAY:]
-        store_slot = torch.remainder(pay[..., 0] - 1, dims.D)
-        store_ok = _take(_take(ps["seq_in_slot"], src), store_slot) == 0
-        in_order = pay[..., 1] == _take(ps["committed_cnt"], pay[..., 0]) + 1
+        store_slot = dot_slot(pay[..., 0], dims.D)
+        store_ok = take(take(ps["seq_in_slot"], src), store_slot) == 0
+        in_order = pay[..., 1] == take(ps["committed_cnt"], pay[..., 0]) + 1
         ok = torch.where(
             mtype == BasicDev.MSTORE, store_ok, torch.ones_like(store_ok)
         )
@@ -218,16 +175,16 @@ class BasicDev(DevIdentity):
             return ob
 
         def apply_commit(st, s, seq, do, ob, ob_slot):
-            expected = _take(st["committed_cnt"], s) + 1
+            expected = take(st["committed_cnt"], s) + 1
             st = dict(
                 st,
                 err=st["err"] | ERR_PROTO * (do & (seq != expected)).to(I32),
-                committed_cnt=_set(
+                committed_cnt=put(
                     st["committed_cnt"], s,
-                    _take(st["committed_cnt"], s) + do.to(I32),
+                    take(st["committed_cnt"], s) + do.to(I32),
                 ),
             )
-            client = _take(st["client_of"], torch.remainder(seq - 1, D))
+            client = take(st["client_of"], dot_slot(seq, D))
             ob = emit(
                 ob, ob_slot, N + client, BasicDev.TO_CLIENT, seq[..., None],
                 do & (me == s),
@@ -236,23 +193,23 @@ class BasicDev(DevIdentity):
 
         # 0 SUBMIT: next dot, MStore to all (basic.rs:113-129)
         seq0 = ps["own_seq"] + 1
-        slot0 = torch.remainder(seq0 - 1, D)
+        slot0 = dot_slot(seq0, D)
         st0 = dict(
             ps,
             own_seq=seq0,
-            client_of=_set(ps["client_of"], slot0, p0),
-            acks=_set(ps["acks"], slot0, torch.zeros_like(p0)),
+            client_of=put(ps["client_of"], slot0, p0),
+            acks=put(ps["acks"], slot0, torch.zeros_like(p0)),
         )
         ob0 = broadcast(BasicDev.MSTORE, [seq0, p2], valid)
 
         # 1 MSTORE: store payload; quorum members ack; apply a buffered
         # commit (basic.rs:152-162)
-        slot1 = torch.remainder(p0 - 1, D)
-        dirty = _take(_take(ps["seq_in_slot"], src), slot1) != 0
+        slot1 = dot_slot(p0, D)
+        dirty = take(take(ps["seq_in_slot"], src), slot1) != 0
         st1 = dict(
             ps,
             err=ps["err"] | ERR_DOT * dirty.to(I32),
-            seq_in_slot=_set2(ps["seq_in_slot"], src, slot1, p0),
+            seq_in_slot=put2(ps["seq_in_slot"], src, slot1, p0),
         )
         s_ok = (src >= 0) & (src < N)
         q_me = quorum[
@@ -263,42 +220,42 @@ class BasicDev(DevIdentity):
         ob1 = emit(
             zero_ob, 0, src, BasicDev.MSTOREACK, p0[..., None], s_ok & q_me
         )
-        buffered = _take(_take(ps["buffered_commit"], src), slot1)
+        buffered = take(take(ps["buffered_commit"], src), slot1)
         st1, ob1 = apply_commit(st1, src, p0, buffered, ob1, 1)
-        st1["buffered_commit"] = _set2(
+        st1["buffered_commit"] = put2(
             st1["buffered_commit"], src, slot1, torch.zeros_like(buffered)
         )
 
         # 2 MSTOREACK: count acks; on exactly f+1, commit everywhere
         # (basic.rs:163-169)
-        slot2 = torch.remainder(p0 - 1, D)
-        cnt = _take(ps["acks"], slot2) + 1
+        slot2 = dot_slot(p0, D)
+        cnt = take(ps["acks"], slot2) + 1
         reached = cnt == q_size[:, None]
         st2 = dict(
             ps,
-            acks=_set(ps["acks"], slot2, cnt),
+            acks=put(ps["acks"], slot2, cnt),
             m_fast_path=ps["m_fast_path"] + reached.to(I32),
         )
         ob2 = broadcast(BasicDev.MCOMMIT, [me, p0], reached)
 
         # 3 MCOMMIT: apply if the payload has arrived, else buffer
         # (basic.rs:171-186)
-        slot3 = torch.remainder(p1 - 1, D)
-        have = _take(_take(ps["seq_in_slot"], p0), slot3) == p1
+        slot3 = dot_slot(p1, D)
+        have = take(take(ps["seq_in_slot"], p0), slot3) == p1
         st3, ob3 = apply_commit(ps, p0, p1, have, zero_ob, 0)
-        st3["buffered_commit"] = _set2(
+        st3["buffered_commit"] = put2(
             st3["buffered_commit"], p0, slot3,
-            _take(_take(st3["buffered_commit"], p0), slot3) | ~have,
+            take(take(st3["buffered_commit"], p0), slot3) | ~have,
         )
 
         # 4 MGC: join the sender's frontier; recompute the stable clock
         # and free newly stable dot slots (gc/clock.rs:51-120)
         frontier = pay[..., :N]
-        of = _set(
+        of = put(
             ps["others_frontier"], src,
-            torch.maximum(_take(ps["others_frontier"], src), frontier),
+            torch.maximum(take(ps["others_frontier"], src), frontier),
         )
-        seen = _set(ps["seen"], src, torch.ones_like(valid))
+        seen = put(ps["seen"], src, torch.ones_like(valid))
         procs = torch.arange(N, device=dev, dtype=I32)
         nmask = procs[None, :] < n[:, None]                    # [L, N]
         others = nmask[:, None, :] & (procs[None, None, :] != me[..., None])
@@ -331,6 +288,6 @@ class BasicDev(DevIdentity):
         masks = [idx == k for k in range(BasicDev.NUM_TYPES)]
         states = [st0, st1, st2, st3, st4, ps]
         outs = [ob0, ob1, ob2, ob3, zero_ob, zero_ob]
-        new_ps = {k: _select(masks, [s[k] for s in states]) for k in ps}
-        new_ob = {k: _select(masks, [o[k] for o in outs]) for k in zero_ob}
+        new_ps = {k: select(masks, [s[k] for s in states]) for k in ps}
+        new_ob = {k: select(masks, [o[k] for o in outs]) for k in zero_ob}
         return new_ps, new_ob

@@ -9,8 +9,11 @@ its kernel launches in a ``launches`` attribute.
 from __future__ import annotations
 
 from .basic_handle import basic_handle
+from .emit_rewrite import emit_rewrite
+from .fpaxos_handle import fpaxos_handle
 from .key_table import key_table
 from .land_emissions import land_emissions
+from .lane_freeze import lane_freeze
 from .qualify_pop import qualify_pop
 
 WRAPPERS = {
@@ -18,6 +21,9 @@ WRAPPERS = {
     "land_emissions": land_emissions,
     "key_table": key_table,
     "basic_handle": basic_handle,
+    "fpaxos_handle": fpaxos_handle,
+    "emit_rewrite": emit_rewrite,
+    "lane_freeze": lane_freeze,
 }
 
 

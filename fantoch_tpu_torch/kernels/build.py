@@ -11,6 +11,7 @@ package and the CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -109,10 +110,12 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
+@functools.lru_cache(maxsize=None)
 def c_function(name: str, n_ptr: int, n_int: int):
     """Bind ``int name(void* x n_ptr, int x n_int, void* stream)``: every
     pointer and the stream as ``c_void_p`` (a plain int would cut them
-    to 32 bits), the return value the launch's ``cudaGetLastError()``."""
+    to 32 bits), the return value the launch's ``cudaGetLastError()``.
+    Bound once per entry point."""
     fn = getattr(library(), name)
     fn.argtypes = (
         [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int

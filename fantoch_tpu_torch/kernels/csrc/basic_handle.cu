@@ -153,7 +153,7 @@ __global__ void basic_handle_kernel(
     hob.row(ob_slot, done && me == s, N + client, TO_CLIENT, seq);
   };
 
-  switch (mtype) {
+  switch (min(max(mtype, 0), NUM_TYPES)) {  // the switch's clip
     case SUBMIT: {  // next dot, MStore to all (basic.rs:113-129)
       const int seq = own + 1, slot = floor_mod(seq - 1, D);
       own = seq;

@@ -7,6 +7,7 @@
 namespace fantoch {
 
 constexpr int INF = 1 << 30;  // engine/dims.py INF
+constexpr int ERR_POOL = 1;   // engine/dims.py ERR_POOL
 constexpr unsigned FULL = 0xffffffffu;
 
 // pool row layout (engine/dims.py)

@@ -7,7 +7,8 @@
 // the delivered emissions in row order and the free slots in index order;
 // the k-th delivered row lands in the k-th free slot, so the pool image
 // equals the reference's at every step. Ranks beyond the free count are
-// dropped (searchsorted returning M) and flagged as pool overflow. Every
+// dropped (searchsorted returning M) and flagged as pool overflow, which
+// also sets ERR_POOL in the lane's error word. Every
 // slot first copies its row with the freed arrival column, then the free
 // slots of rank < delivered count take their emission row.
 //
@@ -23,9 +24,9 @@ using namespace fantoch;
 __global__ void land_emissions_kernel(
     const int* __restrict__ pool, const int* __restrict__ arrival,
     const bool* __restrict__ deliver, const int* __restrict__ new_rows,
-    const int* __restrict__ peak_in, int M, int W, int E,
-    int* __restrict__ pool_out, bool* __restrict__ overflow_out,
-    int* __restrict__ peak_out) {
+    const int* __restrict__ peak_in, const int* __restrict__ err_in, int M,
+    int W, int E, int* __restrict__ pool_out, bool* __restrict__ overflow_out,
+    int* __restrict__ peak_out, int* __restrict__ err_out) {
   extern __shared__ int smem[];
   int* s_warp = smem;          // [32]
   int* s_row_of = smem + 32;   // [E]: k-th delivered emission row
@@ -54,19 +55,20 @@ __global__ void land_emissions_kernel(
   if (t == 0) {
     overflow_out[l] = n_del > n_free;
     peak_out[l] = max(peak_in[l], M - n_free + n_del);
+    err_out[l] = err_in[l] | (n_del > n_free ? ERR_POOL : 0);
   }
 }
 
 extern "C" int fantoch_land_emissions(
     const void* pool, const void* arrival, const void* deliver,
-    const void* new_rows, const void* peak_in, void* pool_out,
-    void* overflow_out, void* peak_out, int L, int M, int W, int E,
-    void* stream) {
+    const void* new_rows, const void* peak_in, const void* err_in,
+    void* pool_out, void* overflow_out, void* peak_out, void* err_out, int L,
+    int M, int W, int E, void* stream) {
   if (L == 0) return 0;
   land_emissions_kernel<<<L, 256, (32 + E) * sizeof(int),
                           (cudaStream_t)stream>>>(
       (const int*)pool, (const int*)arrival, (const bool*)deliver,
-      (const int*)new_rows, (const int*)peak_in, M, W, E, (int*)pool_out,
-      (bool*)overflow_out, (int*)peak_out);
+      (const int*)new_rows, (const int*)peak_in, (const int*)err_in, M, W, E,
+      (int*)pool_out, (bool*)overflow_out, (int*)peak_out, (int*)err_out);
   return (int)cudaGetLastError();
 }

@@ -13,17 +13,18 @@ from __future__ import annotations
 
 import torch
 
-from ..engine.dims import INF, PA
+from ..engine.dims import ERR_POOL, INF, PA
 from . import build, cost
 
 I32 = torch.int32
 
 
-def land_emissions_plain(pool, arrival, deliver, new_rows, pool_peak):
-    """``(new_pool, overflow, pool_peak)``: the k-th delivered row (in
-    row order) lands in the k-th free slot (in index order); ranks past
-    the free count drop. pool ``[L, M, W]``, arrival ``[L, M]`` (popped
-    slots already freed), deliver ``[L, E]``, new_rows ``[L, E, W]``."""
+def land_emissions_plain(pool, arrival, deliver, new_rows, pool_peak, err):
+    """``(new_pool, overflow, pool_peak, err)``: the k-th delivered row
+    (in row order) lands in the k-th free slot (in index order); ranks
+    past the free count drop and set ``ERR_POOL`` in the lane's error
+    word. pool ``[L, M, W]``, arrival ``[L, M]`` (popped slots already
+    freed), deliver ``[L, E]``, new_rows ``[L, E, W]``, err ``[L]``."""
     L, M, W = pool.shape
     rank = torch.cumsum(deliver, dim=1, dtype=I32)          # 1-based
     free = arrival == INF
@@ -35,32 +36,34 @@ def land_emissions_plain(pool, arrival, deliver, new_rows, pool_peak):
     out[..., PA] = arrival
     li, ei = torch.nonzero(deliver & (target < M), as_tuple=True)
     out[li, target[li, ei].long()] = new_rows[li, ei]
-    return out, n_del > n_free, torch.maximum(pool_peak, M - n_free + n_del)
+    overflow = n_del > n_free
+    return (out, overflow, torch.maximum(pool_peak, M - n_free + n_del),
+            err | ERR_POOL * overflow.to(I32))
 
 
-def work(pool, arrival, deliver, new_rows, pool_peak, out):
+def work(pool, arrival, deliver, new_rows, pool_peak, err, out):
     """``(bytes, ops)`` the region needs on these inputs (``out`` is its
     result). The region updates the pool: it reads the arrival column
     (the free mask), ``deliver`` and the rows that land, and writes the
     rows that land and the freed arrival words no landing row covers,
-    besides the overflow flag and the peak."""
+    besides the overflow flag, the peak and the error word."""
     L, M, W = pool.shape
     free = arrival == INF
     n_del = deliver.sum(1, dtype=I32)
     lands = free & (torch.cumsum(free, 1, dtype=I32) <= n_del[:, None])
     n_land = int(lands.sum())
     n_freed = int(((pool[..., PA] != arrival) & ~lands).sum())
-    read = cost.nbytes(arrival, deliver, pool_peak) + 4 * W * n_land
-    write = 4 * W * n_land + 4 * n_freed + cost.nbytes(out[1], out[2])
+    read = cost.nbytes(arrival, deliver, pool_peak, err) + 4 * W * n_land
+    write = 4 * W * n_land + 4 * n_freed + cost.nbytes(*out[1:])
     ops = 2 * L * (M + deliver.shape[1]) + W * n_land
     return read + write, ops
 
 
-def land_emissions(pool, arrival, deliver, new_rows, pool_peak):
+def land_emissions(pool, arrival, deliver, new_rows, pool_peak, err):
     """K2 on CUDA tensors, :func:`land_emissions_plain` on CPU tensors."""
     if pool.device.type == "cpu":
         return land_emissions_plain(
-            pool, arrival, deliver, new_rows, pool_peak
+            pool, arrival, deliver, new_rows, pool_peak, err
         )
     L, M, W = pool.shape
     E = deliver.shape[1]
@@ -70,19 +73,21 @@ def land_emissions(pool, arrival, deliver, new_rows, pool_peak):
     build.check("deliver", deliver, torch.bool, (L, E), dev)
     build.check("new_rows", new_rows, I32, (L, E, W), dev)
     build.check("pool_peak", pool_peak, I32, (L,), dev)
+    build.check("err", err, I32, (L,), dev)
     out = torch.empty_like(pool)
     overflow = torch.empty((L,), dtype=torch.bool, device=dev)
     peak = torch.empty((L,), dtype=I32, device=dev)
-    fn = build.c_function("fantoch_land_emissions", 8, 4)
+    new_err = torch.empty_like(err)
+    fn = build.c_function("fantoch_land_emissions", 10, 4)
     build.launch(
         fn,
-        [t.data_ptr() for t in (pool, arrival, deliver, new_rows,
-                                pool_peak, out, overflow, peak)],
+        [t.data_ptr() for t in (pool, arrival, deliver, new_rows, pool_peak,
+                                err, out, overflow, peak, new_err)],
         [L, M, W, E],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     land_emissions.launches += 1
-    return out, overflow, peak
+    return out, overflow, peak, new_err
 
 
 land_emissions.launches = 0

@@ -1,17 +1,19 @@
 """Where a batch step's time goes on the card.
 
-    python -m fantoch_tpu_torch.step_profile [--steps 128] [--warmup 300]
+    python -m fantoch_tpu_torch.step_profile [--protocol basic|fpaxos]
+        [--steps 128] [--warmup 300]
 
-Builds the first batch of the main-path sweep (``cli.MAIN_PATH``, the
-grid ``chip_smoke.py`` drives); :func:`profile` runs ``warmup`` steps
+Builds the first batch of the protocol's main-path sweep
+(``cli.MAIN_PATH`` or ``cli.MAIN_PATH_FPAXOS``, the grids
+``chip_smoke.py`` drives); :func:`profile` runs ``warmup`` steps
 of the run loop, then times ``steps`` more twice: once with
 CUDA-synchronised host clocks only, once under ``torch.profiler`` (CPU
 and CUDA activities).
 Prints one JSON line: wall ms per step, device-busy ms per step (the
 union of the device activities' intervals), the device's idle share
 (1 − busy / unprofiled wall), device activities per step, and device
-time per step by kernel name. Runs on the card unless ``--device cpu``
-(no device activities are recorded there).
+time and activities per step by kernel name. Runs on the card unless
+``--device cpu`` (no device activities are recorded there).
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int):
 
     def run(st, n):
         for _ in range(n):
-            st = frozen_step(protocol, dims, st, ctx, max_steps)
+            st, _running = frozen_step(protocol, dims, st, ctx, max_steps)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         return st
@@ -71,8 +73,10 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int):
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name = defaultdict(float)
+    count = defaultdict(int)
     for e in device:
         by_name[e.name] += e.time_range.elapsed_us()
+        count[e.name] += 1
     busy_ms = _busy_us(
         (e.time_range.start, e.time_range.end) for e in device
     ) / 1e3 / steps
@@ -84,6 +88,7 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int):
     ).stdout.strip().splitlines()[0]
     return {
         "card": card,
+        "protocol": protocol.__name__,
         "lanes": int(state["pool"].shape[0]),
         "steps": steps,
         "after_steps": warmup,
@@ -95,17 +100,24 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int):
         "device_ms_per_step_by_name": {
             name: us / 1e3 / steps for name, us in top
         },
+        "device_activities_per_step_by_name": {
+            name: n / steps for name, n in sorted(count.items())
+        },
     }
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="fantoch_tpu_torch.step_profile")
+    ap.add_argument("--protocol", choices=("basic", "fpaxos"),
+                    default="basic")
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--warmup", type=int, default=300)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    sweep = cli.parse_args(cli.MAIN_PATH)
+    sweep = cli.parse_args(
+        cli.MAIN_PATH_FPAXOS if args.protocol == "fpaxos" else cli.MAIN_PATH
+    )
     protocol, dims, specs = cli.sweep_setup(sweep)
     state, ctx = prepare_batch(
         protocol, dims, specs[:sweep.batch_lanes], dev

@@ -9,15 +9,19 @@ import pytest
 import torch
 
 from fantoch_tpu_torch.engine.dims import INF, PA, PDST, PMT, PPAY, EngineDims
-from fantoch_tpu_torch.engine.protocols import BasicDev
+from fantoch_tpu_torch.engine.protocols import BasicDev, FPaxosDev
 from fantoch_tpu_torch.kernels import (
-    basic_handle, cost, key_table, land_emissions, qualify_pop,
+    basic_handle, cost, emit_rewrite, fpaxos_handle, key_table,
+    land_emissions, lane_freeze, qualify_pop,
 )
 from fantoch_tpu_torch.kernels.basic_handle import OUTBOX_KEYS
 from fantoch_tpu_torch.kernels.basic_handle import work as bh_work
+from fantoch_tpu_torch.kernels.emit_rewrite import work as er_work
+from fantoch_tpu_torch.kernels.fpaxos_handle import work as fh_work
 from fantoch_tpu_torch.kernels.key_table import THREEFRY_OPS
 from fantoch_tpu_torch.kernels.key_table import work as kt_work
 from fantoch_tpu_torch.kernels.land_emissions import work as le_work
+from fantoch_tpu_torch.kernels.lane_freeze import work as lf_work
 from fantoch_tpu_torch.kernels.qualify_pop import work as qp_work
 
 P = 5
@@ -54,6 +58,7 @@ def test_qualify_pop_work_counts_the_competing_slots():
         ([1, 0, 1], 2, 0),   # both free slots take a row
         ([0, 1, 0], 1, 0),   # the freed slot 0 takes it
         ([0, 0, 0], 0, 1),   # the freed arrival word is written alone
+        ([1, 1, 1], 2, 0),   # one row more than free slots: ERR_POOL
     ],
 )
 def test_land_emissions_work_counts_the_rows_that_land(deliver, n_land,
@@ -64,10 +69,12 @@ def test_land_emissions_work_counts_the_rows_that_land(deliver, n_land,
     dl = torch.tensor([deliver], dtype=torch.bool)
     rows = torch.ones((1, 3, W), dtype=torch.int32)
     peak = torch.zeros((1,), dtype=torch.int32)
-    out = land_emissions(pool, arrival, dl, rows, peak)
-    n_bytes, n_ops = le_work(pool, arrival, dl, rows, peak, out)
-    read = 16 + 3 + 4 + 4 * W * n_land
-    write = 4 * W * n_land + 4 * n_freed + 1 + 4
+    err = torch.tensor([8], dtype=torch.int32)
+    out = land_emissions(pool, arrival, dl, rows, peak, err)
+    assert out[3].tolist() == [9 if sum(deliver) > 2 else 8]
+    n_bytes, n_ops = le_work(pool, arrival, dl, rows, peak, err, out)
+    read = 16 + 3 + 4 + 4 + 4 * W * n_land
+    write = 4 * W * n_land + 4 * n_freed + 1 + 4 + 4
     assert n_bytes == read + write
     assert n_ops == 2 * (4 + 3) + W * n_land
 
@@ -163,3 +170,129 @@ def test_basic_handle_work_idle_submit_and_gc():
     D = dims.D
     gc_read = 4 * N * N + N + 8 * N + 4 + 4 * N * D
     assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
+
+
+def _fpaxos_idle(L=2):
+    dims = EngineDims.for_protocol(FPaxosDev, n=3, clients=3, payload=P,
+                                   dot_slots=4)
+    N = dims.N
+    ps = {k: torch.from_numpy(np.stack([v] * L))
+          for k, v in FPaxosDev.init_state(dims, {}).items()}
+    has = torch.zeros((L, N), dtype=torch.bool)
+    rows = torch.zeros((L, N, W), dtype=torch.int32)
+    fire = torch.zeros((L, N, dims.R), dtype=torch.bool)
+    ctx = {"n": torch.full((L,), N, dtype=torch.int32),
+           "leader": torch.zeros((L,), dtype=torch.int32),
+           "write_quorum": torch.ones((L, N), dtype=torch.bool),
+           "q_size": torch.full((L,), 2, dtype=torch.int32),
+           "client_attach": torch.zeros((L, 3), dtype=torch.int32)}
+    return dims, ps, has, rows, fire, ctx
+
+
+def test_fpaxos_handle_work_idle_submit_and_gc():
+    dims, ps, has, rows, fire, ctx = _fpaxos_idle()
+    out = fpaxos_handle(ps, has, rows, fire, ctx, dims)
+    idle, _ = fh_work(ps, has, rows, fire, ctx, dims, out)
+    L, N = has.shape
+    assert idle == cost.nbytes(has, fire, ctx["n"]) + L * N + \
+        _outboxes_bytes(out)
+    # a SUBMIT at the leader (process 0): reads its message, the leader
+    # id, its last slot, the commander entry and the write quorum; writes
+    # the last slot and the entry's slot (its count stays 0)
+    has[0, 0] = True
+    rows[0, 0, PMT] = FPaxosDev.SUBMIT
+    out = fpaxos_handle(ps, has, rows, fire, ctx, dims)
+    n_bytes, _ = fh_work(ps, has, rows, fire, ctx, dims, out)
+    assert n_bytes == idle + 4 * (2 + P) + 4 + (4 + 4 + N) + 4 + 4
+    # a GC message from process 0 at process 2 (an all-zero frontier):
+    # reads the frontiers, seen flags, its own frontier, the [D] window
+    # and the stable count; changes one seen flag
+    has[1, 2] = True
+    rows[1, 2, PMT] = FPaxosDev.MGC
+    out = fpaxos_handle(ps, has, rows, fire, ctx, dims)
+    with_gc, ops = fh_work(ps, has, rows, fire, ctx, dims, out)
+    gc_read = 4 * N + N + 4 + 4 * dims.D + 4
+    assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
+    assert ops == 30 * L * N + 2 * dims.D + 3 * N
+
+
+def _emit_case():
+    """One lane, N = 2, C = 2, F = 3: all rows empty but for process 0's
+    handler slot 0, the result (TO_CLIENT) of client 0's first command."""
+    dims = EngineDims(N=2, C=2, M=8, D=4, F=3, R=1, P=P, H=4, RR=2)
+    N, C, F = dims.N, dims.C, dims.F
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)  # noqa: E731
+    b = lambda *s: torch.zeros(s, dtype=torch.bool)  # noqa: E731
+
+    def outbox():
+        return {"valid": b(1, N, F), "dst": i32(1, N, F),
+                "mtype": i32(1, N, F), "payload": i32(1, N, F, P)}
+
+    pout, hout = outbox(), outbox()
+    hout["valid"][0, 0, 0] = True
+    hout["dst"][0, 0, 0] = N + 0
+    st = {
+        "clients": {k: i32(1, C) for k in
+                    ("issued", "completed", "start_time", "parts",
+                     "part_max")},
+        "metrics": {"hist": i32(1, dims.RR, dims.H),
+                    "lat_sum": i32(1, dims.RR), "lat_count": i32(1, dims.RR),
+                    "lat_log": torch.full((1, C, 64), -1, dtype=torch.int32)},
+        "pair_cnt": i32(1, N, N),
+        "next_periodic": torch.full((1, N, 1), INF, dtype=torch.int32),
+        "requeues": i32(1), "max_completion": i32(1),
+        "done_time": torch.full((1,), INF, dtype=torch.int32),
+        "err": i32(1), "steps": i32(1),
+    }
+    ctx = {
+        "periodic_intervals": torch.full((1, 1), 100, dtype=torch.int32),
+        "client_delay": torch.full((1, C, N), 3, dtype=torch.int32),
+        "delay_pp": i32(1, N, N), "key_table": i32(1, C, 4),
+        "cmd_budget": torch.tensor([[1, 0]], dtype=torch.int32),
+        "client_attach": i32(1, C), "client_region_row": i32(1, C),
+    }
+    ep = torch.full((1, N), 5, dtype=torch.int32)
+    args = (st, ctx, ep, b(1, N, 1), b(1, N), b(1, N), i32(1, N, 8 + P),
+            pout, hout, i32(1, N), dims, 0)
+    return args, hout
+
+
+def test_emit_rewrite_work_counts_a_completion():
+    args, hout = _emit_case()
+    out = emit_rewrite(*args)
+    n_bytes, ops = er_work(*args, out)
+    # the lane's flags, times, error words, outbox flags and small state
+    # and ctx planes (the histogram and latency log apart): 162 bytes;
+    # the result row's words, its client delay, the issued SUBMIT's key
+    # and delay, and the histogram word it increments
+    read = 162 + 4 * (2 + P) + 4 + 8 + 4
+    # the landing SUBMIT row (its latency is 5 + 3 = 8 ms) and every
+    # valid flag; issued, completed, start time, histogram word,
+    # lat_sum, lat_count, lat_log, max_completion, done time and steps
+    write = 4 * (8 + P) + 14 + 10 * 4
+    assert out[1].sum() == 1 and out[2]["done_time"].tolist() == [8]
+    assert n_bytes == read + write
+    assert ops == 14 * (7 + 2 * 2 + 2 + 32)
+    # with no result at all only the step counter changes
+    hout["valid"][:] = False
+    out = emit_rewrite(*args)
+    assert er_work(*args, out)[0] == 162 + 14 + 4
+
+
+def test_lane_freeze_work_counts_the_frozen_lanes_changes():
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    old = {"done_time": i32([INF, INF]), "now": i32([3, 3]),
+           "err": i32([8, 0]), "steps": i32([1, 1]),
+           "x": i32([[1, 2, 3], [4, 5, 6]]),
+           "b": torch.tensor([[True, False], [True, True]]),
+           "same": i32([0, 0])}
+    new = dict(old, steps=i32([2, 2]), x=i32([[0, 0, 3], [0, 0, 0]]),
+               b=torch.tensor([[False, False], [False, True]]))
+    ctx = {"extra_time": i32([10, 10])}
+    out = lane_freeze(new, old, ctx, 100)
+    assert out[1].tolist() == [False, True]
+    assert out[0]["x"].tolist() == [[1, 2, 3], [0, 0, 0]]
+    n_bytes, ops = lf_work(new, old, ctx, 100, out)
+    moved = 4 + 2 * 4 + 1       # lane 0's steps, two x words, one flag
+    assert n_bytes == 5 * 2 * 4 + 2 * moved + 2
+    assert ops == 8 * 2 + moved // 4

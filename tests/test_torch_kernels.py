@@ -7,8 +7,9 @@ full pools, out-of-range sources and dot slots that wrap.
   ``frontier_min`` and ``mark_popped``);
 - ``land_emissions`` against §6 (core.py:1460-1492, with ``cumsum_i32``
   and ``searchsorted_left``);
-- ``basic_handle`` against ``BasicDev.ready/periodic`` and
-  ``run_handlers`` in the step's order (core.py:873-918).
+- ``basic_handle`` and ``fpaxos_handle`` against their protocol's
+  ``ready``/``periodic`` and ``run_handlers`` in the step's order
+  (core.py:873-918).
 
 The wrappers get CPU tensors, so they run their twins; the CUDA kernels
 are held against the same twins on the card by ``chip_smoke.py``."""
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from fantoch_tpu.engine import EngineDims as RDims
+from fantoch_tpu.engine.dims import ERR_POOL as R_ERR_POOL
 from fantoch_tpu.engine.core import (
     cumsum_i32,
     frontier_min,
@@ -28,12 +30,15 @@ from fantoch_tpu.engine.core import (
     searchsorted_left,
 )
 from fantoch_tpu.engine.protocols import BasicDev as RBasic
+from fantoch_tpu.engine.protocols import FPaxosDev as RFPaxos
 from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.dims import (
     INF, PA, PDST, PKC, PKS, PMT, PPAY, PPR, PSRC, EngineDims,
 )
-from fantoch_tpu_torch.engine.protocols import BasicDev
-from fantoch_tpu_torch.kernels import basic_handle, land_emissions, qualify_pop
+from fantoch_tpu_torch.engine.protocols import BasicDev, FPaxosDev
+from fantoch_tpu_torch.kernels import (
+    basic_handle, fpaxos_handle, land_emissions, qualify_pop,
+)
 
 I32 = jnp.int32
 SEEDS = [0, 1, 2, 3]
@@ -129,8 +134,9 @@ def test_qualify_pop_twin_matches_reference(seed):
 # K2 land_emissions
 # ----------------------------------------------------------------------
 
-def _ref_land(pool, arrival, deliver, new_rows, pool_peak):
-    """One lane of ``_lane_step`` §6, fault-free."""
+def _ref_land(pool, arrival, deliver, new_rows, pool_peak, err):
+    """One lane of ``_lane_step`` §6, fault-free, with §7's overflow
+    bit."""
     m = pool.shape[0]
     rank = cumsum_i32(deliver)
     free = arrival == INF
@@ -142,7 +148,7 @@ def _ref_land(pool, arrival, deliver, new_rows, pool_peak):
     new_pool = pool.at[:, PA].set(arrival).at[target].set(
         new_rows, mode="drop"
     )
-    return new_pool, overflow, peak
+    return new_pool, overflow, peak, err | R_ERR_POOL * overflow
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -157,12 +163,14 @@ def test_land_emissions_twin_matches_reference(seed, M=24, E=15):
     deliver = rng.random((L, E)) < 0.6
     new_rows = rng.integers(0, 50, (L, E, W)).astype(np.int32)
     pool_peak = rng.integers(0, M, (L,)).astype(np.int32)
+    err = (rng.integers(0, 2, (L,)) * 8).astype(np.int32)
     want = jax.jit(jax.vmap(_ref_land))(
-        pool, arrival, deliver, new_rows, pool_peak
+        pool, arrival, deliver, new_rows, pool_peak, err
     )
     got = land_emissions(*(torch.from_numpy(a) for a in
-                           (pool, arrival, deliver, new_rows, pool_peak)))
-    for name, g, w in zip(("pool", "overflow", "peak"), got, want):
+                           (pool, arrival, deliver, new_rows, pool_peak,
+                            err)))
+    for name, g, w in zip(("pool", "overflow", "peak", "err"), got, want):
         _assert_equal(g.numpy(), w, name)
     overflow = np.asarray(want[1])
     assert overflow.any() and not overflow.all()
@@ -216,29 +224,52 @@ def _basic_inputs(seed, dims, lanes=24):
     return ps, rb(0.8, N), rows, rb(0.3, N, dims.R), ctx
 
 
-def _ref_basic_lane(dims, ps, has, rows, fire, ctx):
+def _ref_handler_lane(proto, dims, ps, has, rows, fire, ctx):
     """One lane of the step's handler phase, in core.py:873-918's order."""
     procs = jnp.arange(dims.N, dtype=I32)
     msg = {
         "valid": has,
         "src": rows[:, PSRC],
-        "mtype": jnp.where(has, rows[:, PMT], RBasic.NUM_TYPES),
+        "mtype": jnp.where(has, rows[:, PMT], proto.NUM_TYPES),
         "payload": rows[:, PPAY:],
     }
     rdy = jax.vmap(
-        lambda p, m, me: RBasic.ready(p, m, me, ctx, dims)
+        lambda p, m, me: proto.ready(p, m, me, ctx, dims)
     )(ps, msg, procs)
     msg = dict(
         msg, valid=has & rdy,
-        mtype=jnp.where(has & rdy, msg["mtype"], RBasic.NUM_TYPES),
+        mtype=jnp.where(has & rdy, msg["mtype"], proto.NUM_TYPES),
     )
     ps, pout = jax.vmap(
-        lambda p, f, me: RBasic.periodic(p, f, me, 0, ctx, dims)
+        lambda p, f, me: proto.periodic(p, f, me, 0, ctx, dims)
     )(ps, fire, procs)
     ps, hout = run_handlers(
-        RBasic, ps, msg, procs, jnp.zeros((dims.N,), I32), ctx, dims
+        proto, ps, msg, procs, jnp.zeros((dims.N,), I32), ctx, dims
     )
     return rdy, ps, pout, hout
+
+
+def _run_handler_twin(wrapper, proto, rdims, dims, ps, has, rows, fire,
+                      ctx):
+    """The reference's handler phase and the port's wrapper (on CPU
+    tensors: its twin) on the same inputs; asserts equality and returns
+    the reference's outputs."""
+    want = jax.jit(jax.vmap(
+        lambda *a: _ref_handler_lane(proto, rdims, *a)
+    ))(ps, has, rows, fire, ctx)
+    before = wrapper.launches
+    got = wrapper(
+        carry.to_torch(ps, "cpu"), torch.from_numpy(has),
+        torch.from_numpy(rows), torch.from_numpy(fire),
+        carry.to_torch(ctx, "cpu"), dims,
+    )
+    assert wrapper.launches == before  # the twin, not the kernel
+    _assert_equal(got[0].numpy(), want[0], "rdy")
+    for name, g, w in zip(("ps", "periodic", "handler"), got[1:], want[1:]):
+        assert sorted(g) == sorted(w), name
+        for k in w:
+            _assert_equal(g[k].numpy(), w[k], f"{name}/{k}")
+    return jax.tree_util.tree_map(np.asarray, want)
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -247,20 +278,85 @@ def test_basic_handle_twin_matches_reference(seed):
     rdims = RDims.for_protocol(RBasic, **kw)
     dims = EngineDims.for_protocol(BasicDev, **kw)
     ps, has, rows, fire, ctx = _basic_inputs(seed, dims)
-    want = jax.jit(jax.vmap(
-        lambda *a: _ref_basic_lane(rdims, *a)
-    ))(ps, has, rows, fire, ctx)
-    got = basic_handle(
-        carry.to_torch(ps, "cpu"), torch.from_numpy(has),
-        torch.from_numpy(rows), torch.from_numpy(fire),
-        carry.to_torch(ctx, "cpu"), dims,
-    )
-    _assert_equal(got[0].numpy(), want[0], "rdy")
-    for name, g, w in zip(("ps", "periodic", "handler"), got[1:], want[1:]):
-        assert sorted(g) == sorted(w), name
-        for k in w:
-            _assert_equal(g[k].numpy(), w[k], f"{name}/{k}")
+    want = _run_handler_twin(basic_handle, RBasic, rdims, dims, ps, has,
+                             rows, fire, ctx)
     # every message type was handled somewhere, and some were refused
     handled = np.where(np.asarray(want[0]) & has, rows[..., PMT], -1)
     assert set(range(RBasic.NUM_TYPES)) <= set(handled.ravel().tolist())
     assert (has & ~np.asarray(want[0])).any()
+
+
+# ----------------------------------------------------------------------
+# K5 fpaxos_handle
+# ----------------------------------------------------------------------
+
+def _fpaxos_inputs(seed, dims, lanes=48):
+    """Every message type handled and refused somewhere; slots that wrap
+    (slot 0 → entry D - 1), stale and counted accepts, GC that frees
+    acceptor entries, clients past the attach table."""
+    rng = np.random.default_rng(seed)
+    D, C = dims.D, dims.C
+    ri = lambda lo, hi, *s: rng.integers(lo, hi, (lanes, *s)).astype(np.int32)  # noqa: E731
+    rb = lambda p, *s: rng.random((lanes, *s)) < p  # noqa: E731
+    X = RFPaxos
+    ps = {
+        "last_slot": ri(0, 7, N),
+        "cmd_slot": ri(0, 7, N, D) * rb(0.6, N, D),
+        "acc_count": ri(0, 3, N, D),
+        "acc_slot": ri(0, 7, N, D) * rb(0.5, N, D),
+        "exec_frontier": ri(0, 6, N),
+        "others_committed": ri(0, 6, N, N),
+        "seen": rb(0.7, N, N),
+        "m_stable": ri(0, 9, N),
+        "err": ri(0, 2, N) * 8,
+    }
+    rows = ri(0, 8, N, W)
+    rows[..., PSRC] = ri(0, N + C, N)        # clients are out of range
+    rows[..., PMT] = ri(0, X.NUM_TYPES + 2, N)
+    slot = ri(0, 9, N) * rb(0.8, N)          # slot 0 wraps to D - 1
+    mt = rows[..., PMT]
+    # most MChosen arrive in order; most MAccepted name their commander
+    in_order = ps["exec_frontier"] + 1
+    occupant = np.take_along_axis(
+        ps["cmd_slot"], ((slot - 1) % D)[..., None], axis=2
+    )[..., 0]
+    slot = np.where((mt == X.MCHOSEN) & rb(0.7, N), in_order, slot)
+    slot = np.where((mt == X.MACCEPTED) & rb(0.6, N) & (occupant > 0),
+                    occupant, slot)
+    rows[..., PPAY] = slot
+    rows[..., PPAY + 1] = ri(0, C + 2, N)    # clients past the table
+    ctx = {
+        "n": ri(2, N + 1),
+        "leader": ri(0, N),
+        "write_quorum": rb(0.6, N),
+        "q_size": ri(1, 4),
+        "client_attach": ri(0, N, C),
+    }
+    # half the MAccepted complete their quorum
+    li, pi = np.nonzero((mt == X.MACCEPTED) & rb(0.5, N))
+    ps["acc_count"][li, pi, (slot[li, pi] - 1) % D] = ctx["q_size"][li] - 1
+    return ps, rb(0.8, N), rows, rb(0.3, N, dims.R), ctx
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_fpaxos_handle_twin_matches_reference(seed):
+    kw = dict(n=N, clients=4, payload=P, dot_slots=4)
+    rdims = RDims.for_protocol(RFPaxos, **kw)
+    dims = EngineDims.for_protocol(FPaxosDev, **kw)
+    ps, has, rows, fire, ctx = _fpaxos_inputs(seed, dims)
+    rdy, new_ps, _pout, hout = _run_handler_twin(
+        fpaxos_handle, RFPaxos, rdims, dims, ps, has, rows, fire, ctx
+    )
+    X = RFPaxos
+    mt = np.where(rdy & has, rows[..., PMT], -1)
+    assert set(range(X.NUM_TYPES)) <= set(mt.ravel().tolist())
+    assert (has & ~rdy).any()
+    pay = rows[..., PPAY:]
+    # a slot-0 message (entry D - 1), a stale MAccepted, a chosen slot,
+    # an MGC that frees entries, a handled MChosen of an unknown client
+    assert ((mt >= X.MACCEPT) & (mt <= X.MACCEPTED) & (pay[..., 0] == 0)).any()
+    stale = (mt == X.MACCEPTED) & ((new_ps["err"] & 32) > (ps["err"] & 32))
+    assert stale.any()
+    assert ((mt == X.MACCEPTED) & hout["valid"].any(-1)).any()
+    assert ((mt == X.MGC) & (new_ps["m_stable"] > ps["m_stable"])).any()
+    assert ((mt == X.MCHOSEN) & (pay[..., 1] >= dims.C)).any()

@@ -46,3 +46,30 @@ def test_rehearsal_on_cpu_records_no_device_time():
     assert out["wall_ms_per_step"] > 0
     assert out["device_busy_ms_per_step"] is None
     assert out["device_activities_per_step"] == 0
+
+
+def test_fpaxos_main_path_is_the_bench_grid_with_leader_1():
+    from fantoch_tpu_torch.engine.protocols import FPaxosDev
+
+    args = cli.parse_args(cli.MAIN_PATH_FPAXOS)
+    protocol, dims, specs = cli.sweep_setup(args)
+    assert protocol is FPaxosDev and len(specs) == 2048
+    assert (dims.N, dims.C, dims.M, dims.D, dims.F, dims.P) == (
+        5, 5, 2069, 251, 6, 3
+    )
+    assert {s.config.leader for s in specs} == {1}
+    assert {int(s.ctx["leader"]) for s in specs} == {0}
+    assert {int(s.ctx["q_size"]) for s in specs} == {2, 3}
+
+
+def test_rehearsal_of_the_fpaxos_profile_on_cpu():
+    args = cli.parse_args([
+        "sweep", "--protocol", "fpaxos", "--n", "3", "--subsets", "1",
+        "--fs", "1", "--conflicts", "0,100", "--commands", "3",
+    ])
+    protocol, dims, specs = cli.sweep_setup(args)
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev)
+    out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
+    assert out["protocol"] == "FPaxosDev" and out["lanes"] == 2
+    assert out["device_activities_per_step_by_name"] == {}

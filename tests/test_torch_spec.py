@@ -15,7 +15,9 @@ from fantoch_tpu.engine import stack_lanes as r_stack_lanes
 from fantoch_tpu.engine.protocols import BasicDev as RBasic
 from fantoch_tpu_torch.core import Config, Planet
 from fantoch_tpu_torch.engine import EngineDims, make_lane, stack_lanes
-from fantoch_tpu_torch.engine.protocols import BasicDev, dev_protocol
+from fantoch_tpu_torch.engine.protocols import (
+    BasicDev, FPaxosDev, dev_protocol,
+)
 from fantoch_tpu_torch.parallel import make_sweep_specs
 
 
@@ -123,10 +125,11 @@ def test_partial_replication_and_other_protocols_raise_by_name():
             dims=pd, commands_per_client=1, clients_per_region=1,
             process_regions=GCP[:3], client_regions=GCP[:3],
         )
-    for name, item in [("fpaxos", "item 3"), ("tempo", "item 4"),
+    for name, item in [("tempo", "item 4"), ("epaxos", "item 6"),
                        ("caesar", "item 7")]:
         with pytest.raises(NotImplementedError, match=item):
             dev_protocol(name)
     with pytest.raises(ValueError, match="unknown protocol"):
         dev_protocol("paxos")
     assert dev_protocol("basic") is BasicDev
+    assert dev_protocol("fpaxos") is FPaxosDev

@@ -1,6 +1,7 @@
 """One engine step at a time: the port's ``lane_step`` (on the CPU, so
-through the plain twins of ``qualify_pop``, ``basic_handle`` and
-``land_emissions``) against ``jax.jit(jax.vmap(_lane_step))``, starting
+through the plain twins of ``qualify_pop``, the protocol's handler
+kernel, ``emit_rewrite`` and ``land_emissions``) against
+``jax.jit(jax.vmap(_lane_step))``, for Basic and FPaxos, starting
 from the reference's own lane state and ctx carried across with
 ``carry.to_torch``. The whole state tree must be equal after each of the
 first 64 steps."""
@@ -17,23 +18,32 @@ from fantoch_tpu.engine import EngineDims, make_lane, stack_lanes
 from fantoch_tpu.engine.core import _lane_step, key_table_fn
 from fantoch_tpu.engine.driver import stack_states
 from fantoch_tpu.engine.protocols import BasicDev as RBasic
+from fantoch_tpu.engine.protocols import FPaxosDev as RFPaxos
 from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.core import build_runner, lane_step
-from fantoch_tpu_torch.engine.protocols import BasicDev
+from fantoch_tpu_torch.engine.protocols import (
+    BasicDev, FPaxosDev, dev_config_kwargs,
+)
 
 STEPS = 64
 GCP = Planet.new().regions()
 
 
-def _batch(regions_list, fs, conflicts, cpr, commands, **dims_kw):
+# protocol name → (reference, port)
+PROTOCOLS = {"basic": (RBasic, BasicDev), "fpaxos": (RFPaxos, FPaxosDev)}
+
+
+def _batch(protocol, regions_list, fs, conflicts, cpr, commands, **dims_kw):
     n = len(regions_list[0])
+    ref = PROTOCOLS[protocol][0]
     dims = EngineDims.for_protocol(
-        RBasic, n=n, clients=n * cpr, payload=max(n, 3), regions=n,
+        ref, n=n, clients=n * cpr, payload=ref.payload_width(n), regions=n,
         **dims_kw,
     )
     specs = [
         make_lane(
-            RBasic, Planet.new(), Config(n=n, f=f, gc_interval_ms=100),
+            ref, Planet.new(),
+            Config(**dev_config_kwargs(protocol, n, f)),
             conflict_rate=cf, commands_per_client=commands,
             clients_per_region=cpr, process_regions=regions,
             client_regions=regions, dims=dims, extra_time_ms=100, seed=i,
@@ -48,20 +58,25 @@ def _batch(regions_list, fs, conflicts, cpr, commands, **dims_kw):
             ("rng_key", "conflict_rate", "pool_size", "key_gen_kind",
              "zipf_cum")}
     ctx["key_table"] = np.asarray(jax.vmap(key_table_fn(dims.C, T))(kctx))
-    return dims, ctx, stack_states(RBasic, dims, specs)
+    return dims, ctx, stack_states(ref, dims, specs)
 
 
-# (a) n=3, two clients per region and a 2-slot dot window: MStores
-#     bounce off the readiness gate (requeue rows, kept channel keys);
-# (b) n=5 with a pool too small for the first broadcasts: the emission
-#     ranks past the free count drop and ERR_POOL is raised
+# (a) Basic, n=3, two clients per region and a 2-slot dot window:
+#     MStores bounce off the readiness gate (requeue rows, kept channel
+#     keys);
+# (b) Basic, n=5 with a pool too small for the first broadcasts: the
+#     emission ranks past the free count drop and ERR_POOL is raised;
+# (c) FPaxos, the same lanes as (a) with leader 1: MAccepts bounce off
+#     the acceptor window's gate and requeue
+REQUEUE = dict(regions_list=[GCP[:3], ["asia-east1", "us-central1",
+                                       "us-west1"]],
+               fs=[0, 1, 2], conflicts=[0, 100], cpr=2, commands=6,
+               dot_slots=2)
 CASES = {
-    "requeue": dict(regions_list=[GCP[:3], ["asia-east1", "us-central1",
-                                             "us-west1"]],
-                    fs=[0, 1, 2], conflicts=[0, 100], cpr=2, commands=6,
-                    dot_slots=2),
-    "overflow": dict(regions_list=[GCP[2:7]], fs=[1, 2], conflicts=[50],
-                     cpr=1, commands=4, pool=14),
+    "requeue": dict(protocol="basic", **REQUEUE),
+    "overflow": dict(protocol="basic", regions_list=[GCP[2:7]], fs=[1, 2],
+                     conflicts=[50], cpr=1, commands=4, pool=14),
+    "fpaxos_requeue": dict(protocol="fpaxos", **REQUEUE),
 }
 
 
@@ -82,8 +97,10 @@ def _assert_tree_equal(ref, port, path=""):
 @pytest.fixture(scope="module", params=sorted(CASES))
 def trajectories(request):
     """Both engines stepped ``STEPS`` times from one initial state."""
-    dims, ctx, state = _batch(**CASES[request.param])
-    step = jax.jit(jax.vmap(functools.partial(_lane_step, RBasic, dims)))
+    case = CASES[request.param]
+    ref, port = PROTOCOLS[case["protocol"]]
+    dims, ctx, state = _batch(**case)
+    step = jax.jit(jax.vmap(functools.partial(_lane_step, ref, dims)))
     ref_states = []
     st = jax.tree_util.tree_map(jnp.asarray, state)
     jctx = jax.tree_util.tree_map(jnp.asarray, ctx)
@@ -94,13 +111,14 @@ def trajectories(request):
     port_states = []
     pst = carry.to_torch(state, "cpu")
     for _ in range(STEPS):
-        pst = lane_step(BasicDev, dims, pst, port_ctx)
+        pst = lane_step(port, dims, pst, port_ctx)
         port_states.append(carry.to_numpy(pst))
-    return request.param, dims, ref_states, port_states, state, port_ctx
+    return (request.param, port, dims, ref_states, port_states, state,
+            port_ctx)
 
 
 def test_whole_state_equal_after_every_step(trajectories):
-    name, _dims, ref_states, port_states, _s, _c = trajectories
+    name, _port, _dims, ref_states, port_states, _s, _c = trajectories
     for i, (ref, port) in enumerate(zip(ref_states, port_states)):
         try:
             _assert_tree_equal(ref, port)
@@ -111,9 +129,9 @@ def test_whole_state_equal_after_every_step(trajectories):
 def test_cases_reach_their_paths(trajectories):
     """The requeue case bounces messages and the overflow case overflows
     within the compared steps, so those paths are held too."""
-    name, _dims, ref_states, _p, _s, _c = trajectories
+    name, _port, _dims, ref_states, _p, _s, _c = trajectories
     last = ref_states[-1]
-    if name == "requeue":
+    if name.endswith("requeue"):
         assert last["requeues"].max() > 0
         assert (last["metrics"]["lat_count"].sum(-1) > 0).any()
     else:
@@ -124,8 +142,8 @@ def test_runner_freezes_finished_lanes(trajectories):
     """The run loop's per-lane freeze: a lane that stops (an error, or
     ``max_steps``) keeps its state exactly, as under the reference's
     vmapped while loop."""
-    name, dims, ref_states, _p, state, port_ctx = trajectories
-    final = build_runner(BasicDev, dims, max_steps=5)(
+    name, port, dims, ref_states, _p, state, port_ctx = trajectories
+    final = build_runner(port, dims, max_steps=5)(
         carry.to_torch(state, "cpu"), port_ctx
     )
     final = carry.to_numpy(final)
