@@ -5,23 +5,25 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's seven CUDA kernels from
+It builds the engine's eight CUDA kernels from
 ``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel),
-holds each kernel against its plain PyTorch twin on the card at both
-main paths' shapes (exact equality: all integer or bool data;
+holds each kernel against its plain PyTorch twin on the card at the
+three main paths' shapes (exact equality: all integer or bool data;
 ``key_table`` also on a batch of Zipf lanes; ``lane_freeze`` also with
-frozen lanes) beside the least time its region's work needs (each kernel
-module's ``work``, ``kernels/cost.py``) — a kernel's ``ms`` is its device
-time per launch under ``torch.profiler``, ``call_ms`` the wrapper's whole
-call (host included) — checks the Basic golden numbers
-and the committed ``tests/fixtures/torch_basic_golden.json`` and
-``torch_fpaxos_golden.json`` bytes on the card, then drives both main
-paths — the 2,048-lane Basic and FPaxos sweeps (n = 5, 256 five-region
-subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50 commands per
-client, one client per region) through ``run_sweep`` — each with every
-launch counter set to 0 just before and read just after, and holds
-sampled lanes of each to the plain twins on the host. Any failure
-raises; nothing is caught. The last two lines are one JSON object per
+frozen lanes; ``tempo_handle`` over further steps until every Tempo
+message type and the GC and detached-send timers have been handled)
+beside the least time its region's work needs (each kernel module's
+``work``, ``kernels/cost.py``) — a kernel's ``ms`` is its device time
+per launch under ``torch.profiler``, ``call_ms`` the wrapper's whole
+call (host included) — checks the Basic golden numbers and the
+committed ``tests/fixtures/torch_{basic,fpaxos,tempo}_golden.json``
+bytes on the card, then drives the three main paths — the 2,048-lane
+Basic, FPaxos and Tempo sweeps (n = 5, 256 five-region subsets × f ∈
+{1, 2} × conflict ∈ {0, 10, 50, 100}, 50 commands per client, one client
+per region) through ``run_sweep`` — each with every launch counter set
+to 0 just before and read just after, and holds sampled lanes of each to
+the plain twins on the host. Any failure raises; nothing is caught. Each
+phase prints its seconds. The last two lines are one JSON object per
 kernel (``{"kernels": [...]}``) and the verdict ``{"ok": true, ...}``.
 Without a CUDA card it exits non-zero and prints no result.
 """
@@ -41,7 +43,23 @@ FIXTURES = ROOT / "tests" / "fixtures"
 GOLDEN_POINTS = [(f, cf) for f in (0, 1, 2) for cf in (0, 100)]
 # the FPaxos golden batch: (f, leader), conflict 100
 FPAXOS_POINTS = [(1, 1), (1, 3), (2, 2)]
-SAMPLE = [0, 7, 1000, 2047]
+# the Tempo golden batches (tests/test_torch_tempo.py): (n, f, conflict,
+# commands, clients per region, clock bump ms) in one batch, and (..., the
+# skip_fast_ack knob) in one skip-capable batch
+TEMPO_MAIN = [
+    (3, 1, 100, 30, 2, None),
+    (3, 1, 0, 30, 2, None),
+    (5, 1, 100, 10, 1, None),
+    (5, 2, 100, 20, 1, None),
+    (5, 1, 100, 30, 2, None),
+    (3, 1, 100, 30, 2, 50),
+]
+TEMPO_SKIP = [(3, 1, 100, 20, 1, True), (3, 1, 100, 20, 1, False)]
+# sampled lanes held to the host's plain twins: (regions, f, conflict) =
+# (0, 1, 0), (0, 2, 100), (125, 1, 0), (255, 2, 100); Tempo's twin is
+# slower on the host, so two of them, both f = 2 at conflict 100
+SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
+          "tempo": [7, 2047]}
 
 # the reference region each kernel replaces
 REPLACES = {
@@ -52,8 +70,11 @@ REPLACES = {
     "fpaxos_handle": "fantoch_tpu/engine/protocols/fpaxos.py:127",
     "emit_rewrite": "fantoch_tpu/engine/core.py:941",
     "lane_freeze": "fantoch_tpu/engine/core.py:1565",
+    "tempo_handle": "fantoch_tpu/engine/protocols/tempo.py:226",
 }
-HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle"}
+HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
+            "tempo": "tempo_handle"}
+PATHS = ("basic", "fpaxos", "tempo")
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
@@ -126,22 +147,27 @@ def _device_ms(fn, kernel: str, iters: int) -> float:
     """Device time per launch of ``kernel`` over ``iters`` calls of
     ``fn``, from ``torch.profiler``: the kernel's own time, without the
     host's time to issue it (``_time_ms`` measures the call as a whole,
-    which for a short kernel is the host's)."""
+    which for a short kernel is the host's). The profiler may lose a few
+    of a burst of short launches' records; the time is the mean over the
+    launches it recorded, and the line says how many that was."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and e.name.startswith(kernel + "_kernel")]
-    assert len(us) == iters, (kernel, len(us))
-    return sum(us) / iters / 1e3
+    assert 0 < len(us) <= iters, (kernel, len(us))
+    if len(us) < iters:
+        print(f"profiler: {len(us)} of {iters} {kernel} launches recorded; "
+              f"ms is their mean")
+    return sum(us) / len(us) / 1e3
 
 
 def check_kernels(name, dev, rows):
@@ -158,7 +184,7 @@ def check_kernels(name, dev, rows):
     from fantoch_tpu_torch.engine.spec import stack_lanes
     from fantoch_tpu_torch.kernels import cost
 
-    argv = cli.MAIN_PATH_FPAXOS if name == "fpaxos" else cli.MAIN_PATH
+    argv = cli.MAIN_PATHS[name]
     sweep = cli.parse_args(argv)
     protocol, dims, specs = cli.sweep_setup(sweep)
     max_steps = 1 << 22
@@ -196,7 +222,8 @@ def check_kernels(name, dev, rows):
     saved = {k: getattr(m, k) for k, m in patched.items()}
     for k, m in patched.items():
         setattr(m, k, recorder(k, saved[k]))
-    engine_core.frozen_step(protocol, dims, state, ctx, max_steps)
+    state, _running = engine_core.frozen_step(protocol, dims, state, ctx,
+                                              max_steps)
     for k, m in patched.items():
         setattr(m, k, saved[k])
     T = ctx["key_table"].shape[2]
@@ -244,6 +271,13 @@ def check_kernels(name, dev, rows):
               f"bytes, {n_ops} ops) library_ms={library_ms} "
               f"launches={kern.launches - before} shapes {shapes}")
 
+    if name == "tempo":
+        rows["tempo_handle"]["max_abs_err"] = max(
+            rows["tempo_handle"]["max_abs_err"],
+            tempo_coverage(protocol, dims, state, ctx, max_steps,
+                           captured["tempo_handle"], mods["tempo_handle"]),
+        )
+
     # K7 with frozen lanes (every third lane failed), which it copies
     new, old, fctx, ms_ = captured["lane_freeze"]
     old = dict(old, err=old["err"].clone())
@@ -283,6 +317,66 @@ def check_kernels(name, dev, rows):
               f"L={got.shape[0]} C={dims.C} T={T} "
               f"K={zctx['zipf_cum'].shape[1]} distinct keys "
               f"{int(torch.unique(got).numel())}")
+
+
+def tempo_coverage(protocol, dims, state, ctx, max_steps, first, mod,
+                   every=25, bound=80):
+    """K8 against its twin, exactly, on the arguments of one step in
+    every ``every`` after phase 3's, until each of the ten message types
+    and the GC and detached-send timer rows have been handled in some
+    compared step (at most ``bound`` captures; the main path never fires
+    the clock-bump row, which the golden batch covers). Returns the max
+    abs error."""
+    import torch
+
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.dims import PMT
+
+    names = ("SUBMIT", "MCOLLECT", "MCOLLECTACK", "MCOMMIT", "MDETACHED",
+             "MCONSENSUS", "MCONSENSUSACK", "MGC", "MDRAIN", "DETACH_DRAIN")
+    handled = [0] * len(names)
+    fired = [0] * dims.R
+    err, args, captures = 0.0, first, 0
+    while True:
+        got = mod.tempo_handle(*args)
+        want = mod.tempo_handle_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, _compare(_handler_view(got), _handler_view(want)))
+        has, rows, fire = args[1], args[2], args[3]
+        mt = torch.where(has & want[0], rows[..., PMT], -1)
+        for t in range(len(names)):
+            handled[t] += int((mt == t).sum())
+        for r in range(dims.R):
+            fired[r] += int(fire[..., r].sum())
+        captures += 1
+        if min(handled) > 0 and fired[0] > 0 and fired[2] > 0:
+            break
+        if captures >= bound:
+            raise AssertionError(
+                f"tempo_handle coverage incomplete after {captures} "
+                f"captures: {dict(zip(names, handled))}, timers {fired}")
+        for _ in range(every - 1):
+            state, _running = engine_core.frozen_step(protocol, dims, state,
+                                                      ctx, max_steps)
+        box = {}
+        real = mod.tempo_handle
+
+        def record(*a):
+            box["args"] = a
+            return real(*a)
+
+        mod.tempo_handle = record
+        try:
+            state, _running = engine_core.frozen_step(protocol, dims, state,
+                                                      ctx, max_steps)
+        finally:
+            mod.tempo_handle = real
+        args = box["args"]
+    print(f"kernel tempo_handle (tempo path): exact=True over {captures} "
+          f"compared steps, one in {every} from step 301; handled "
+          f"{dict(zip(names, handled))}; timer rows fired {fired} "
+          f"(GC, clock bump, detached send); max_abs_err={err}")
+    return err
 
 
 def golden_basic(dev) -> None:
@@ -350,6 +444,54 @@ def golden_fpaxos(dev) -> None:
     _match_fixture(golden, "torch_fpaxos_golden.json")
 
 
+def golden_tempo(dev) -> None:
+    """Phase 6: the Tempo golden batches (the configurations of
+    tests/test_engine_tempo.py, a clock-bump lane and a skip-capable
+    batch) against their fixture."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
+    from fantoch_tpu_torch.engine.protocols import TempoDev
+
+    planet = Planet.new()
+    regions = planet.regions()
+    results = []
+    for points, skip_capable in ((TEMPO_MAIN, False), (TEMPO_SKIP, True)):
+        clients = max(n * cpr for n, _f, _c, _k, cpr, _x in points)
+        total = max(k * n * cpr for n, _f, _c, k, cpr, _x in points)
+        n_max = max(pt[0] for pt in points)
+        proto = TempoDev(keys=1 + clients, skip_capable=skip_capable)
+        dims = EngineDims.for_protocol(
+            proto, n=n_max, clients=clients,
+            payload=proto.payload_width(n_max), total_commands=total,
+            dot_slots=total + 1, regions=n_max,
+        )
+        specs = [
+            make_lane(
+                proto, planet,
+                Config(n=n, f=f, gc_interval_ms=100,
+                       tempo_detached_send_interval_ms=100,
+                       tempo_clock_bump_interval_ms=(
+                           None if skip_capable else x),
+                       skip_fast_ack=bool(skip_capable and x)),
+                conflict_rate=conflict, pool_size=1,
+                commands_per_client=commands, clients_per_region=cpr,
+                process_regions=regions[:n], client_regions=regions[:n],
+                dims=dims, seed=i,
+            )
+            for i, (n, f, conflict, commands, cpr, x) in enumerate(points)
+        ]
+        batch = run_lanes(proto, dims, specs, device=dev)
+        for (n, f, _c, commands, cpr, x), res in zip(points, batch):
+            assert res.err == 0, res.err_cause
+            assert res.completed == commands * cpr * n
+            m = {k: int(v.sum()) for k, v in res.protocol_metrics.items()}
+            print(f"golden tempo on {dev}: n={n} f={f} commands={commands} "
+                  f"x{cpr} {'skip' if skip_capable else 'bump'}={x} "
+                  f"steps {res.steps} metrics {m}")
+        results += batch
+    _match_fixture(results, "torch_tempo_golden.json")
+
+
 def _match_fixture(results, name) -> None:
     text = json.dumps([r.to_json() for r in results], sort_keys=True) + "\n"
     path = FIXTURES / name
@@ -359,7 +501,7 @@ def _match_fixture(results, name) -> None:
 
 
 def sweep(name, dev):
-    """Phases 6-7: one main path's 2,048-lane sweep, counted; sampled
+    """Phase 7: one main path's 2,048-lane sweep, counted; sampled
     lanes against the plain twins on the host. Returns its launches."""
     import torch
 
@@ -367,8 +509,7 @@ def sweep(name, dev):
     from fantoch_tpu_torch.engine import run_lanes
     from fantoch_tpu_torch.parallel import run_sweep
 
-    argv = cli.MAIN_PATH_FPAXOS if name == "fpaxos" else cli.MAIN_PATH
-    args = cli.parse_args(argv)
+    args = cli.parse_args(cli.MAIN_PATHS[name])
     protocol, dims, specs = cli.sweep_setup(args)
     kernels.reset_counts()
     torch.cuda.synchronize()
@@ -397,19 +538,37 @@ def sweep(name, dev):
     path_kernels = ["qualify_pop", HANDLERS[name], "emit_rewrite",
                     "land_emissions", "lane_freeze", "key_table"]
     assert all(launches[k] > 0 for k in path_kernels), launches
-    for r in results:
+    other = set(HANDLERS.values()) - {HANDLERS[name]}
+    assert all(launches[k] == 0 for k in other), launches
+    for spec, r in zip(specs, results):
         assert r.completed == total
         assert int(r.lat_count.sum()) == total
         if name == "basic":
             assert r.requeues == 0
             assert list(r.protocol_metrics["stable"]) == [total] * dims.N
-    host = run_lanes(protocol, dims, [specs[i] for i in SAMPLE],
+        if name == "tempo":
+            # every command committed once, on the fast or the slow path;
+            # every process GCs every command (test_engine_tempo.py)
+            m = {k: int(v.sum()) for k, v in r.protocol_metrics.items()}
+            assert m["fast_path"] + m["slow_path"] == total, m
+            assert m["stable"] == dims.N * total, m
+            if spec.config.f == 1:
+                assert m["slow_path"] == 0, m
+    if name == "tempo":
+        slow = sum(int(r.protocol_metrics["slow_path"].sum())
+                   for r in results)
+        print(f"tempo: fast + slow == {total} and stable == "
+              f"{dims.N * total} on every lane; slow-path commits {slow}")
+    t0 = time.perf_counter()
+    sample = SAMPLE[name]
+    host = run_lanes(protocol, dims, [specs[i] for i in sample],
                      device="cpu")
-    for i, h in zip(SAMPLE, host):
+    for i, h in zip(sample, host):
         assert json.dumps(h.to_json(), sort_keys=True) == json.dumps(
             results[i].to_json(), sort_keys=True
         ), f"{name} lane {i} differs from the host run"
-    print(f"{name} lanes {SAMPLE}: card == host plain twins, byte for byte")
+    print(f"{name} lanes {sample}: card == host plain twins, byte for byte "
+          f"({time.perf_counter() - t0:.1f} s on the host)")
     return launches
 
 
@@ -430,24 +589,30 @@ def main() -> int:
           f"python {sys.version.split()[0]} | {torch.cuda.get_device_name(0)}")
     print(card)
 
-    # 2. build
-    t0 = time.perf_counter()
-    build.build()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"(nvcc+link {build.BUILD_SECONDS} s)")
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+        return out
 
-    # 3. every kernel against its plain twin at both main paths' shapes
+    # 2. build
+    phase("2 build", build.build)
+    print(f"build: nvcc+link {build.BUILD_SECONDS} s")
+
+    # 3. every kernel against its plain twin at the main paths' shapes
     rows = {}
-    for name in ("basic", "fpaxos"):
-        check_kernels(name, dev, rows)
+    for name in PATHS:
+        phase(f"3 kernels ({name} path)", check_kernels, name, dev, rows)
     assert sorted(rows) == sorted(kernels.WRAPPERS), sorted(rows)
 
-    # 4-5. golden batches and fixture bytes on the card
-    golden_basic(dev)
-    golden_fpaxos(dev)
+    # 4-6. golden batches and fixture bytes on the card
+    phase("4 golden basic", golden_basic, dev)
+    phase("5 golden fpaxos", golden_fpaxos, dev)
+    phase("6 golden tempo", golden_tempo, dev)
 
-    # 6-7. the main paths, each counted on its own
-    by_path = {name: sweep(name, dev) for name in ("basic", "fpaxos")}
+    # 7. the main paths, each counted on its own
+    by_path = {name: phase(f"7 sweep {name}", sweep, name, dev)
+               for name in PATHS}
 
     # 8. the kernels line, then the verdict
     out = []

@@ -18,8 +18,8 @@ from .core import Config, Planet
 
 
 # the port's main paths: the reference bench's per-protocol grid
-# (bench.py), 2,048 lanes, for Basic and for FPaxos; chip_smoke.py and
-# step_profile.py drive them
+# (bench.py), 2,048 lanes, for Basic, FPaxos and Tempo; chip_smoke.py
+# and step_profile.py drive them
 MAIN_PATH = [
     "sweep", "--protocol", "basic", "--n", "5", "--subsets", "256",
     "--fs", "1,2", "--conflicts", "0,10,50,100", "--commands", "50",
@@ -28,6 +28,11 @@ MAIN_PATH = [
 MAIN_PATH_FPAXOS = [
     "fpaxos" if a == "basic" else a for a in MAIN_PATH
 ]
+MAIN_PATH_TEMPO = [
+    "tempo" if a == "basic" else a for a in MAIN_PATH
+]
+MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
+              "tempo": MAIN_PATH_TEMPO}
 
 
 def _ints(s: str) -> List[int]:
@@ -76,7 +81,7 @@ def sweep_setup(args):
         [args.conflict] if args.conflict is not None else args.conflicts
     )
     base = Config(**dev_config_kwargs(
-        args.protocol, args.n, fs[0], gc_interval_ms=args.gc_interval
+        args.protocol, args.n, fs[0], **_config_overrides(args)
     ))
     specs = make_sweep_specs(
         dev,
@@ -99,6 +104,18 @@ def sweep_setup(args):
         pool_size=args.pool_size,
     )
     return dev, dims, specs
+
+
+def _config_overrides(args) -> dict:
+    """The CLI's config knobs, as the reference's ``_build_config``:
+    the GC interval, and for Tempo the detached-send interval and the
+    optional real-time clock bump."""
+    kw = dict(gc_interval_ms=args.gc_interval)
+    if args.protocol == "tempo":
+        kw["tempo_detached_send_interval_ms"] = args.detached_interval
+        if args.clock_bump_interval:
+            kw["tempo_clock_bump_interval_ms"] = args.clock_bump_interval
+    return kw
 
 
 def cmd_sweep(args) -> None:
@@ -150,6 +167,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     sw.add_argument("--zipf", default=None,
                     help="coef,keys — Zipf key generator instead of pool")
     sw.add_argument("--gc-interval", type=int, default=100)
+    sw.add_argument("--detached-interval", type=int, default=100,
+                    help="Tempo: ms between detached-vote sends")
+    sw.add_argument("--clock-bump-interval", type=int, default=None,
+                    help="Tempo: ms between real-time clock bumps "
+                    "(default: none)")
     sw.add_argument("--extra-time", type=int, default=1000)
     sw.add_argument("--dot-slots", type=int, default=None)
     sw.add_argument("--batch-lanes", type=int, default=512,

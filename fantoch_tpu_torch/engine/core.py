@@ -9,9 +9,9 @@ A conservative-lookahead parallel DES, step for step the reference's
   2. each qualifying process pops its earliest message (prio
      self-messages first, then the lowest (src, channel emission index)
      key) — 1 and 2 are the ``qualify_pop`` kernel;
-  3. the protocol's readiness gate, periodic timers and handlers run
-     (``protocol.handlers``: the ``basic_handle`` or ``fpaxos_handle``
-     kernel);
+  3. the protocol's readiness gate, periodic timers and handlers run,
+     each process at its event time (``protocol.handlers``: the
+     ``basic_handle``, ``fpaxos_handle`` or ``tempo_handle`` kernel);
   4. emissions are flattened; TO_CLIENT messages are rewritten into the
      client's next SUBMIT (closed loop), latency is recorded, channel
      counters advance; with the termination bookkeeping this is the
@@ -196,9 +196,10 @@ def lane_step(protocol, dims: EngineDims, st, ctx):
         pool, st["next_periodic"], ctx["lookahead"]
     )
 
-    # 3. readiness gate, periodic timers and handlers (protocol kernel)
+    # 3. readiness gate, periodic timers and handlers, each process at
+    # its event time ep (protocol kernel)
     rdy, ps, pout, outbox = protocol.handlers(
-        st["ps"], has, rows, fire, ctx, dims
+        st["ps"], has, rows, fire, ep, ctx, dims
     )
 
     # 4-5 and 7. the emission tail and the termination bookkeeping

@@ -2,17 +2,18 @@
 
 Each module is the fixed-shape twin of a protocol of the reference's
 device engine, batched over an explicit ``[L, N]`` (lane, process) axis.
-Basic and FPaxos are ported; the other protocols raise by name.
+Basic, FPaxos and Tempo are ported; the other protocols raise by name.
 """
 
 from .basic import BasicDev
 from .fpaxos import FPaxosDev
+from .tempo import TempoDev
 
-__all__ = ["BasicDev", "FPaxosDev", "dev_config_kwargs", "dev_protocol"]
+__all__ = ["BasicDev", "FPaxosDev", "TempoDev", "dev_config_kwargs",
+           "dev_protocol"]
 
 # protocol → the ROADMAP Queue A item that ports it
 _NOT_PORTED = {
-    "tempo": "4",
     "atlas": "6",
     "epaxos": "6",
     "caesar": "7",
@@ -20,8 +21,13 @@ _NOT_PORTED = {
 
 
 def dev_protocol(name: str, clients: int = 0, keys: "int | None" = None):
-    """The protocol-name → device-protocol switch."""
-    del clients, keys  # capacity knobs of protocols not yet ported
+    """The protocol-name → device-protocol switch. Tempo's capacity
+    follows the load: ``keys`` (default one per client plus the shared
+    conflict key) and ``clients``, as the reference's
+    ``dev_protocol``."""
+    if name == "tempo":
+        keys = keys if keys is not None else 1 + clients
+        return TempoDev.for_load(keys=keys, clients=clients)
     if name == "basic":
         return BasicDev
     if name == "fpaxos":
@@ -37,8 +43,11 @@ def dev_protocol(name: str, clients: int = 0, keys: "int | None" = None):
 def dev_config_kwargs(name: str, n: int, f: int, **overrides):
     """Default Config kwargs per protocol, as the reference's
     ``dev_config_kwargs`` for the ported ones (FPaxos's initial leader
-    is process 1); ``overrides`` win."""
+    is process 1; Tempo sends detached votes every 100 ms);
+    ``overrides`` win."""
     kw = dict(n=n, f=f, gc_interval_ms=100)
+    if name == "tempo":
+        kw["tempo_detached_send_interval_ms"] = 100
     if name == "fpaxos":
         kw["leader"] = 1
     kw.update(overrides)

@@ -105,9 +105,10 @@ class BasicDev(DevIdentity):
     # -- the handler step ----------------------------------------------
 
     @staticmethod
-    def handlers(ps, has, rows, fire, ctx, dims: EngineDims):
+    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims):
         """Readiness gate, periodic timer and message handler of every
-        (lane, process): ``(rdy, ps, periodic outbox, handler outbox)``.
+        (lane, process): ``(rdy, ps, periodic outbox, handler outbox)``
+        (the event times ``ep`` are not read).
         Runs the ``basic_handle`` kernel on CUDA tensors."""
         from ...kernels.basic_handle import basic_handle
 

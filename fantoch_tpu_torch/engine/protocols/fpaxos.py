@@ -106,9 +106,10 @@ class FPaxosDev(DevIdentity):
     # -- the handler step ----------------------------------------------
 
     @staticmethod
-    def handlers(ps, has, rows, fire, ctx, dims: EngineDims):
+    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims):
         """Readiness gate, periodic timer and message handler of every
-        (lane, process): ``(rdy, ps, periodic outbox, handler outbox)``.
+        (lane, process): ``(rdy, ps, periodic outbox, handler outbox)``
+        (the event times ``ep`` are not read).
         Runs the ``fpaxos_handle`` kernel on CUDA tensors."""
         from ...kernels.fpaxos_handle import fpaxos_handle
 

@@ -42,11 +42,14 @@ def put(arr, idx, val):
 
 
 def put2(arr, i, j, val):
-    """``arr[l, p, i, j] = val`` for ``[L, N, A, B]``; out-of-range drops."""
+    """``arr[l, p, i, j] = val`` for ``[L, N, A, B, ...]`` (``val``
+    ``[L, N, ...]``); out-of-range drops."""
     h = hit(i, arr.shape[2])[..., :, None] & hit(j, arr.shape[3])[
         ..., None, :
     ]
-    return torch.where(h, val[..., None, None], arr)
+    h = h.reshape(h.shape + (1,) * (arr.dim() - 4))
+    return torch.where(h, val.reshape(val.shape[:2] + (1, 1)
+                                      + val.shape[2:]), arr)
 
 
 def select(masks, values):

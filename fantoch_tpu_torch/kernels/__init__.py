@@ -15,6 +15,7 @@ from .key_table import key_table
 from .land_emissions import land_emissions
 from .lane_freeze import lane_freeze
 from .qualify_pop import qualify_pop
+from .tempo_handle import tempo_handle
 
 WRAPPERS = {
     "qualify_pop": qualify_pop,
@@ -24,6 +25,7 @@ WRAPPERS = {
     "fpaxos_handle": fpaxos_handle,
     "emit_rewrite": emit_rewrite,
     "lane_freeze": lane_freeze,
+    "tempo_handle": tempo_handle,
 }
 
 

@@ -20,8 +20,13 @@ from . import build, cost
 
 I32 = torch.int32
 
-# planes one launch can carry (csrc/lane_freeze.cu MAX_PLANES)
+# planes one launch can carry (csrc/lane_freeze.cu MAX_PLANES); a Tempo
+# lane tree has 52
 MAX_PLANES = 64
+
+
+class TooManyPlanesError(ValueError):
+    """A lane tree with more changed planes than one launch carries."""
 
 
 def lane_running(st, ctx, max_steps: int):
@@ -60,6 +65,18 @@ def _leaves(new, old):
     return [(new, old)]
 
 
+def plane_pairs(new, old):
+    """The ``(new, old)`` planes the kernel copies (those the step did
+    not pass through), at most :data:`MAX_PLANES`; raises
+    :class:`TooManyPlanesError` for a larger tree."""
+    pairs = [(n, o) for n, o in _leaves(new, old) if n is not o]
+    if len(pairs) > MAX_PLANES:
+        raise TooManyPlanesError(
+            f"lane_freeze: {len(pairs)} planes > MAX_PLANES = {MAX_PLANES}"
+        )
+    return pairs
+
+
 def work(new, old, ctx, max_steps: int, out):
     """``(bytes, ops)`` the region needs on these inputs (``new`` as the
     step left it, ``out`` the result): the predicate reads four words of
@@ -92,9 +109,7 @@ def lane_freeze(new, old, ctx, max_steps: int):
     for k in ("done_time", "now", "err", "steps"):
         build.check(f"old/{k}", old[k], I32, (L,), dev)
     build.check("extra_time", ctx["extra_time"], I32, (L,), dev)
-    pairs = [(n, o) for n, o in _leaves(new, old) if n is not o]
-    if len(pairs) > MAX_PLANES:
-        raise ValueError(f"lane_freeze: {len(pairs)} planes > {MAX_PLANES}")
+    pairs = plane_pairs(new, old)
     for i, (n, o) in enumerate(pairs):
         build.check(f"plane {i}", n, o.dtype, tuple(o.shape), dev)
         build.check(f"plane {i} (old)", o, o.dtype, (L,) + o.shape[1:], dev)

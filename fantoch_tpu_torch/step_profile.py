@@ -1,12 +1,12 @@
 """Where a batch step's time goes on the card.
 
-    python -m fantoch_tpu_torch.step_profile [--protocol basic|fpaxos]
-        [--steps 128] [--warmup 300]
+    python -m fantoch_tpu_torch.step_profile
+        [--protocol basic|fpaxos|tempo] [--steps 128] [--warmup 300]
 
 Builds the first batch of the protocol's main-path sweep
-(``cli.MAIN_PATH`` or ``cli.MAIN_PATH_FPAXOS``, the grids
-``chip_smoke.py`` drives); :func:`profile` runs ``warmup`` steps
-of the run loop, then times ``steps`` more twice: once with
+(``cli.MAIN_PATHS``, the grids ``chip_smoke.py`` drives);
+:func:`profile` runs ``warmup`` steps of the run loop, then times
+``steps`` more twice: once with
 CUDA-synchronised host clocks only, once under ``torch.profiler`` (CPU
 and CUDA activities).
 Prints one JSON line: wall ms per step, device-busy ms per step (the
@@ -88,7 +88,7 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int):
     ).stdout.strip().splitlines()[0]
     return {
         "card": card,
-        "protocol": protocol.__name__,
+        "protocol": getattr(protocol, "__name__", type(protocol).__name__),
         "lanes": int(state["pool"].shape[0]),
         "steps": steps,
         "after_steps": warmup,
@@ -108,16 +108,14 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int):
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="fantoch_tpu_torch.step_profile")
-    ap.add_argument("--protocol", choices=("basic", "fpaxos"),
+    ap.add_argument("--protocol", choices=sorted(cli.MAIN_PATHS),
                     default="basic")
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--warmup", type=int, default=300)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    sweep = cli.parse_args(
-        cli.MAIN_PATH_FPAXOS if args.protocol == "fpaxos" else cli.MAIN_PATH
-    )
+    sweep = cli.parse_args(cli.MAIN_PATHS[args.protocol])
     protocol, dims, specs = cli.sweep_setup(sweep)
     state, ctx = prepare_batch(
         protocol, dims, specs[:sweep.batch_lanes], dev

@@ -9,10 +9,10 @@ import pytest
 import torch
 
 from fantoch_tpu_torch.engine.dims import INF, PA, PDST, PMT, PPAY, EngineDims
-from fantoch_tpu_torch.engine.protocols import BasicDev, FPaxosDev
+from fantoch_tpu_torch.engine.protocols import BasicDev, FPaxosDev, TempoDev
 from fantoch_tpu_torch.kernels import (
     basic_handle, cost, emit_rewrite, fpaxos_handle, key_table,
-    land_emissions, lane_freeze, qualify_pop,
+    land_emissions, lane_freeze, qualify_pop, tempo_handle,
 )
 from fantoch_tpu_torch.kernels.basic_handle import OUTBOX_KEYS
 from fantoch_tpu_torch.kernels.basic_handle import work as bh_work
@@ -23,6 +23,7 @@ from fantoch_tpu_torch.kernels.key_table import work as kt_work
 from fantoch_tpu_torch.kernels.land_emissions import work as le_work
 from fantoch_tpu_torch.kernels.lane_freeze import work as lf_work
 from fantoch_tpu_torch.kernels.qualify_pop import work as qp_work
+from fantoch_tpu_torch.kernels.tempo_handle import work as th_work
 
 P = 5
 W = PPAY + P
@@ -214,6 +215,67 @@ def test_fpaxos_handle_work_idle_submit_and_gc():
     gc_read = 4 * N + N + 4 + 4 * dims.D + 4
     assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
     assert ops == 30 * L * N + 2 * dims.D + 3 * N
+
+
+def _tempo_idle(L=2):
+    t = TempoDev(keys=2, pending_per_key=4, detached_slots=3, gap_slots=2)
+    dims = EngineDims.for_protocol(t, n=3, clients=3,
+                                   payload=t.payload_width(3), dot_slots=4)
+    N = dims.N
+    ps = {k: torch.from_numpy(np.stack([v] * L))
+          for k, v in t.init_state(dims, {}).items()}
+    has = torch.zeros((L, N), dtype=torch.bool)
+    rows = torch.zeros((L, N, PPAY + dims.P), dtype=torch.int32)
+    fire = torch.zeros((L, N, dims.R), dtype=torch.bool)
+    now = torch.zeros((L, N), dtype=torch.int32)
+    i32 = lambda v, *s: torch.full((L, *s), v, dtype=torch.int32)  # noqa: E731
+    b = lambda v, *s: torch.full((L, *s), v, dtype=torch.bool)  # noqa: E731
+    ctx = {"n": i32(N), "f": i32(1), "fast_quorum": b(True, N, N),
+           "write_quorum": b(True, N, N), "fq_size": i32(2),
+           "wq_size": i32(2), "threshold": i32(2),
+           "clock_bump_mode": b(False), "skip_fast_ack": b(False),
+           "client_attach": i32(0, 3)}
+    return t, dims, ps, has, rows, fire, now, ctx
+
+
+def test_tempo_handle_work_idle_submit_and_gc():
+    t, dims, ps, has, rows, fire, now, ctx = _tempo_idle()
+    args = (ps, has, rows, fire, now, ctx, dims, False)
+    out = tempo_handle(*args)
+    idle, idle_ops = th_work(*args, out)
+    L, N = has.shape
+    P = dims.P
+    assert idle == cost.nbytes(has, fire, now) + L * N + \
+        _outboxes_bytes(out)
+    assert idle_ops == 40 * L * N
+    # a SUBMIT at process 0 on key 0: reads its message, its sequence and
+    # the key's clock; writes its sequence, the clock, the dot's vote
+    # count and its own vote range (its voter id 0 and the zeroed quorum
+    # counters do not change)
+    has[0, 0] = True
+    rows[0, 0, PMT] = TempoDev.SUBMIT
+    out = tempo_handle(*args)
+    n_bytes, _ = th_work(*args, out)
+    assert n_bytes == idle + 4 * (2 + P) + 4 * 2 + 4 * 5
+    # a GC message from process 0 at process 2 (an all-zero frontier):
+    # reads the frontier table, the seen flags, the committed and stable
+    # clocks and the [N, D] dot words; changes one seen flag (process 1
+    # has not been seen, so nothing is stable yet)
+    has[1, 2] = True
+    rows[1, 2, PMT] = TempoDev.MGC
+    out = tempo_handle(*args)
+    with_gc, ops = th_work(*args, out)
+    D = dims.D
+    gc_read = 4 * N * N + N + 4 * 2 * N + 4 * N * D
+    assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
+    assert ops == 40 * L * N + 2 * N * D + 3 * N * N
+    # a firing GC timer reads the committed clock; a detached kick-off
+    # the detached table
+    fire[0, 1, 0] = True
+    fire[0, 1, 2] = True
+    out = tempo_handle(*args)
+    with_timers, _ = th_work(*args, out)
+    assert with_timers == with_gc + 4 * N + 4 * t.K * t.R
 
 
 def _emit_case():

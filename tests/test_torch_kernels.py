@@ -7,9 +7,9 @@ full pools, out-of-range sources and dot slots that wrap.
   ``frontier_min`` and ``mark_popped``);
 - ``land_emissions`` against §6 (core.py:1460-1492, with ``cumsum_i32``
   and ``searchsorted_left``);
-- ``basic_handle`` and ``fpaxos_handle`` against their protocol's
-  ``ready``/``periodic`` and ``run_handlers`` in the step's order
-  (core.py:873-918).
+- ``basic_handle``, ``fpaxos_handle`` and ``tempo_handle`` against
+  their protocol's ``ready``/``periodic`` and ``run_handlers`` in the
+  step's order (core.py:873-918), Tempo's at each process's event time.
 
 The wrappers get CPU tensors, so they run their twins; the CUDA kernels
 are held against the same twins on the card by ``chip_smoke.py``."""
@@ -31,13 +31,14 @@ from fantoch_tpu.engine.core import (
 )
 from fantoch_tpu.engine.protocols import BasicDev as RBasic
 from fantoch_tpu.engine.protocols import FPaxosDev as RFPaxos
+from fantoch_tpu.engine.protocols import TempoDev as RTempo
 from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.dims import (
     INF, PA, PDST, PKC, PKS, PMT, PPAY, PPR, PSRC, EngineDims,
 )
-from fantoch_tpu_torch.engine.protocols import BasicDev, FPaxosDev
+from fantoch_tpu_torch.engine.protocols import BasicDev, FPaxosDev, TempoDev
 from fantoch_tpu_torch.kernels import (
-    basic_handle, fpaxos_handle, land_emissions, qualify_pop,
+    basic_handle, fpaxos_handle, land_emissions, qualify_pop, tempo_handle,
 )
 
 I32 = jnp.int32
@@ -224,8 +225,10 @@ def _basic_inputs(seed, dims, lanes=24):
     return ps, rb(0.8, N), rows, rb(0.3, N, dims.R), ctx
 
 
-def _ref_handler_lane(proto, dims, ps, has, rows, fire, ctx):
-    """One lane of the step's handler phase, in core.py:873-918's order."""
+def _ref_handler_lane(proto, dims, ps, has, rows, fire, ctx, ep=None):
+    """One lane of the step's handler phase, in core.py:873-918's order,
+    each process at its event time ``ep`` (0 where not given)."""
+    ep = jnp.zeros((dims.N,), I32) if ep is None else ep
     procs = jnp.arange(dims.N, dtype=I32)
     msg = {
         "valid": has,
@@ -241,27 +244,33 @@ def _ref_handler_lane(proto, dims, ps, has, rows, fire, ctx):
         mtype=jnp.where(has & rdy, msg["mtype"], proto.NUM_TYPES),
     )
     ps, pout = jax.vmap(
-        lambda p, f, me: proto.periodic(p, f, me, 0, ctx, dims)
-    )(ps, fire, procs)
-    ps, hout = run_handlers(
-        proto, ps, msg, procs, jnp.zeros((dims.N,), I32), ctx, dims
-    )
+        lambda p, f, me, t: proto.periodic(p, f, me, t, ctx, dims)
+    )(ps, fire, procs, ep)
+    ps, hout = run_handlers(proto, ps, msg, procs, ep, ctx, dims)
     return rdy, ps, pout, hout
 
 
 def _run_handler_twin(wrapper, proto, rdims, dims, ps, has, rows, fire,
-                      ctx):
+                      ctx, ep=None, extra=()):
     """The reference's handler phase and the port's wrapper (on CPU
     tensors: its twin) on the same inputs; asserts equality and returns
-    the reference's outputs."""
-    want = jax.jit(jax.vmap(
-        lambda *a: _ref_handler_lane(proto, rdims, *a)
-    ))(ps, has, rows, fire, ctx)
+    the reference's outputs. With ``ep`` (the processes' event times)
+    the wrapper takes it after ``fire``, and ``extra`` after ``dims``."""
+    if ep is None:
+        want = jax.jit(jax.vmap(
+            lambda *a: _ref_handler_lane(proto, rdims, *a)
+        ))(ps, has, rows, fire, ctx)
+        times = ()
+    else:
+        want = jax.jit(jax.vmap(
+            lambda *a: _ref_handler_lane(proto, rdims, *a)
+        ))(ps, has, rows, fire, ctx, ep)
+        times = (torch.from_numpy(ep),)
     before = wrapper.launches
     got = wrapper(
         carry.to_torch(ps, "cpu"), torch.from_numpy(has),
-        torch.from_numpy(rows), torch.from_numpy(fire),
-        carry.to_torch(ctx, "cpu"), dims,
+        torch.from_numpy(rows), torch.from_numpy(fire), *times,
+        carry.to_torch(ctx, "cpu"), dims, *extra,
     )
     assert wrapper.launches == before  # the twin, not the kernel
     _assert_equal(got[0].numpy(), want[0], "rdy")
@@ -360,3 +369,203 @@ def test_fpaxos_handle_twin_matches_reference(seed):
     assert ((mt == X.MACCEPTED) & hout["valid"].any(-1)).any()
     assert ((mt == X.MGC) & (new_ps["m_stable"] > ps["m_stable"])).any()
     assert ((mt == X.MCHOSEN) & (pay[..., 1] >= dims.C)).any()
+
+
+# ----------------------------------------------------------------------
+# K8 tempo_handle
+# ----------------------------------------------------------------------
+
+# small tables, so that inputs reach full ones: K keys, PK pending slots,
+# R detached slots and G gap slots per interval set
+TEMPO_SIZES = dict(keys=3, pending_per_key=4, detached_slots=4, gap_slots=3)
+
+
+def _gap_sets(rng, shape, G, lo_max=6):
+    """Interval sets ``(frontier, gaps)`` over ``shape``: gap chains above
+    the frontier (some touching it after an add), free and full buffers,
+    slots in no particular order."""
+    front = rng.integers(0, lo_max, shape).astype(np.int32)
+    gaps = np.zeros(shape + (G, 2), np.int32)
+    lo = front + 1 + rng.integers(0, 3, shape)
+    for j in range(G):
+        start = lo + rng.integers(0, 3, shape)
+        end = start + rng.integers(0, 3, shape)
+        keep = rng.random(shape) < 0.6
+        gaps[..., j, 0] = np.where(keep, start, 0)
+        gaps[..., j, 1] = np.where(keep, end, 0)
+        lo = np.where(keep, end + 1, lo)
+    perm = np.argsort(rng.random(shape + (G,)), axis=-1)
+    return front, np.take_along_axis(gaps, perm[..., None], axis=-2)
+
+
+def _tempo_inputs(seed, dims, t, lanes=64):
+    """Every message type handled somewhere, the gated ones (MCollect,
+    MCommit, MConsensus) also refused; all three timer rows firing at
+    real event times (some past the micros saturation point); occupied
+    and full gap, pending and detached tables; MCommits with duplicate
+    voters and with dot sources out of range; keys and clients out of
+    range; dot slots that wrap (seq 0 → slot D - 1)."""
+    rng = np.random.default_rng(seed)
+    D, C, P = dims.D, dims.C, dims.P
+    K, PK, R, G = t.K, t.PK, t.R, t.G
+    ri = lambda lo, hi, *s: rng.integers(lo, hi, (lanes, *s)).astype(np.int32)  # noqa: E731
+    rb = lambda p, *s: rng.random((lanes, *s)) < p  # noqa: E731
+    X = RTempo
+    det = np.zeros((lanes, N, K, R, 2), np.int32)
+    det[..., 0] = ri(1, 12, N, K, R) * rb(0.5, N, K, R)
+    det[..., 1] = det[..., 0] + ri(0, 4, N, K, R)
+    det[rb(0.15, N, K)] = [30, 31]                       # full rows
+    det[..., 1] = np.where(det[..., 0] > 0, det[..., 1], 0)
+    vf, vg = _gap_sets(rng, (lanes, N, K, N), G)
+    cf, cg = _gap_sets(rng, (lanes, N, N), G)
+    pend_clock = ri(1, 16, N, K, PK) * rb(0.6, N, K, PK)
+    pend_clock[rb(0.2, N, K)] = 9                        # full rows
+    ps = {
+        "clocks": ri(0, 20, N, K),
+        "det": det,
+        "max_commit_clock": ri(0, 30, N),
+        "seq_in_slot": ri(0, 9, N, N, D) * rb(0.6, N, N, D),
+        "key_of": ri(0, K + 1, N, N, D),
+        "client_of": ri(0, C + 1, N, N, D),
+        "own_seq": ri(0, 9, N),
+        "ack_cnt": ri(0, 4, N, D),
+        "max_clock": ri(0, 20, N, D),
+        "max_cnt": ri(0, 3, N, D),
+        "slow_acks": ri(0, 3, N, D),
+        "votes_n": ri(0, N + 1, N, D),
+        "votes_by": ri(0, N, N, D, N),
+        "votes_s": ri(0, 12, N, D, N),
+        "votes_e": ri(0, 16, N, D, N),
+        "vote_front": vf,
+        "vote_gaps": vg,
+        "pend_clock": pend_clock,
+        "pend_src": ri(0, N, N, K, PK),
+        "pend_seq": ri(0, 9, N, K, PK),
+        "pend_client": ri(0, C + 1, N, K, PK),
+        "comm_front": cf,
+        "comm_gaps": cg,
+        "others_frontier": ri(0, 8, N, N, N),
+        "seen": rb(0.7, N, N),
+        "prev_stable": ri(0, 4, N, N),
+        "m_fast": ri(0, 9, N),
+        "m_slow": ri(0, 9, N),
+        "m_stable": ri(0, 9, N),
+        "err": ri(0, 2, N) * 8,
+    }
+    rows = ri(0, 12, N, PPAY + P)
+    rows[..., PSRC] = ri(0, N + C, N)                    # clients too
+    mt = ri(0, X.NUM_TYPES + 2, N)
+    rows[..., PMT] = mt
+    pay = rows[..., PPAY:]
+    pay[..., 0] = np.where(mt == X.SUBMIT, ri(0, C + 1, N), pay[..., 0])
+    pay[..., 2] = np.where(mt == X.SUBMIT, ri(0, K + 1, N), pay[..., 2])
+    # MCollect [seq, key, rclock, client, vs, ve]: half find a free slot
+    src = rows[..., PSRC]
+    sis = ps["seq_in_slot"]
+    seq = ri(0, 9, N)
+    occ = np.take_along_axis(
+        np.take_along_axis(
+            sis, np.minimum(src, N - 1)[..., None, None].repeat(D, -1),
+            axis=2)[:, :, 0], ((seq - 1) % D)[..., None], axis=2)[..., 0]
+    collect = mt == X.MCOLLECT
+    pay[..., 0] = np.where(collect, seq, pay[..., 0])
+    pay[..., 1] = np.where(collect, ri(0, K + 1, N), pay[..., 1])
+    sis_src = np.where(collect & (src < N) & rb(0.6, N), 0, occ)
+    li, pi = np.nonzero(collect & (src < N))
+    sis[li, pi, src[li, pi], (seq[li, pi] - 1) % D] = sis_src[li, pi]
+    # MCommit / MConsensus [dsrc, seq, ...]: most name a stored dot; some
+    # MCommits name a source out of range with seq 0 (which reads 0)
+    commit = (mt == X.MCOMMIT) | (mt == X.MCONSENSUS)
+    dsrc = ri(0, N, N)
+    slot = ri(0, D, N)
+    stored = sis[np.arange(lanes)[:, None], np.arange(N)[None, :], dsrc,
+                 slot]
+    good = commit & rb(0.7, N) & (stored > 0)
+    pay[..., 0] = np.where(commit, dsrc, pay[..., 0])
+    pay[..., 1] = np.where(good, stored, np.where(commit, ri(0, 9, N),
+                                                  pay[..., 1]))
+    oob = (mt == X.MCOMMIT) & rb(0.2, N)
+    pay[..., 0] = np.where(oob, ri(N, 2 * N, N) * np.where(
+        rb(0.5, N), 1, -1), pay[..., 0])
+    pay[..., 1] = np.where(oob, 0, pay[..., 1])
+    # MCommit's votes: nv ranges (by, start, end), voters often repeated
+    mc = mt == X.MCOMMIT
+    pay[..., 3] = np.where(mc, ri(0, K + 1, N), pay[..., 3])
+    pay[..., 5] = np.where(mc, ri(0, N + 2, N), pay[..., 5])
+    by = ri(0, N, N, N)
+    by[..., 1] = np.where(rb(0.4, N), by[..., 0], by[..., 1])
+    for v in range(N):
+        pay[..., 6 + 3 * v] = np.where(mc, by[..., v], pay[..., 6 + 3 * v])
+        s0 = ri(0, 12, N)
+        pay[..., 7 + 3 * v] = np.where(mc, s0, pay[..., 7 + 3 * v])
+        pay[..., 8 + 3 * v] = np.where(mc, s0 + ri(-1, 4, N),
+                                       pay[..., 8 + 3 * v])
+    # MDetached [key, nr, (start, end) * per_msg]
+    md = mt == X.MDETACHED
+    per = t.detached_per_msg(dims)
+    pay[..., 0] = np.where(md, ri(0, K + 1, N), pay[..., 0])
+    pay[..., 1] = np.where(md, ri(0, per + 2, N), pay[..., 1])
+    for i in range(per):
+        s0 = ri(0, 14, N)
+        pay[..., 2 + 2 * i] = np.where(md, s0, pay[..., 2 + 2 * i])
+        pay[..., 3 + 2 * i] = np.where(md, s0 + ri(-1, 3, N),
+                                       pay[..., 3 + 2 * i])
+    for key_type in (X.MDRAIN,):
+        pay[..., 0] = np.where(mt == key_type, ri(0, K + 1, N), pay[..., 0])
+    rows[..., PPAY:] = pay
+
+    fq = rb(0.6, N, N)
+    ctx = {
+        "n": ri(2, N + 1),
+        "f": ri(1, 3),
+        "fast_quorum": fq,
+        "write_quorum": rb(0.6, N, N),
+        "fq_size": ri(1, N + 1),
+        "wq_size": ri(1, 4),
+        "threshold": ri(1, 4),
+        "clock_bump_mode": rb(0.5),
+        "skip_fast_ack": rb(0.5),
+        "client_attach": ri(0, N, C),
+    }
+    fire = rb(0.3, N, 3)
+    ep = np.where(rb(0.1, N), ri(1 << 20, 1 << 30, N), ri(0, 40, N))
+    return ps, rb(0.8, N), rows, fire, ctx, ep.astype(np.int32)
+
+
+@pytest.mark.parametrize("seed, skip", [(0, False), (1, False), (2, True),
+                                        (3, True)])
+def test_tempo_handle_twin_matches_reference(seed, skip):
+    t = TempoDev(**TEMPO_SIZES, skip_capable=skip)
+    rt = RTempo(**TEMPO_SIZES, skip_capable=skip)
+    kw = dict(n=N, clients=4, payload=t.payload_width(N), dot_slots=4)
+    rdims = RDims.for_protocol(rt, **kw)
+    dims = EngineDims.for_protocol(t, **kw)
+    assert dims == EngineDims(**vars(rdims))
+    ps, has, rows, fire, ctx, ep = _tempo_inputs(seed, dims, t)
+    rdy, new_ps, _pout, hout = _run_handler_twin(
+        tempo_handle, rt, rdims, dims, ps, has, rows, fire, ctx, ep,
+        extra=(skip,),
+    )
+    X = RTempo
+    handled = rdy & has
+    mt = np.where(handled, rows[..., PMT], -1)
+    assert set(range(X.NUM_TYPES)) <= set(mt.ravel().tolist())
+    refused = np.where(has & ~rdy, rows[..., PMT], -1)
+    assert {X.MCOLLECT, X.MCOMMIT, X.MCONSENSUS} <= set(refused.ravel().tolist())
+    assert fire.any((0, 1)).all()
+    pay = rows[..., PPAY:]
+    grew = (new_ps["err"] & 16) > (ps["err"] & 16)       # ERR_CAPACITY
+    assert (grew & (mt == X.MCOMMIT)).any()
+    assert (grew & (mt == X.MDETACHED)).any()
+    # a duplicate voter and an out-of-range source among handled commits
+    mc = mt == X.MCOMMIT
+    assert (mc & (pay[..., 6] == pay[..., 9]) & (pay[..., 5] > 1)).any()
+    assert (mc & ((pay[..., 0] < 0) | (pay[..., 0] >= N))).any()
+    # drains executed (slot 0 TO_CLIENT) and chained (slot 1 MDRAIN)
+    drains = (mt == X.MCOMMIT) | (mt == X.MDETACHED) | (mt == X.MDRAIN)
+    assert (drains & hout["valid"][..., 0]).any()
+    assert (drains & hout["valid"][..., 1]).any()
+    if skip:
+        assert (mt == X.MCOLLECT)[hout["valid"].any(-1)
+                                  & (hout["mtype"][..., 0] == X.MCOMMIT)
+                                  ].any()

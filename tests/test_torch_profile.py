@@ -73,3 +73,37 @@ def test_rehearsal_of_the_fpaxos_profile_on_cpu():
     out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
     assert out["protocol"] == "FPaxosDev" and out["lanes"] == 2
     assert out["device_activities_per_step_by_name"] == {}
+
+
+def test_tempo_main_path_is_the_bench_grid_at_the_cli_defaults():
+    """The reference bench's grid at the reference CLI's Tempo defaults:
+    detached sends every 100 ms, no clock bump, the load-sized capacity
+    (K = 6, PK = 40, R = 20, G = 10)."""
+    from fantoch_tpu_torch.engine.protocols import TempoDev
+
+    args = cli.parse_args(cli.MAIN_PATH_TEMPO)
+    protocol, dims, specs = cli.sweep_setup(args)
+    assert protocol == TempoDev(keys=6, pending_per_key=40,
+                                detached_slots=20, gap_slots=10)
+    assert len(specs) == 2048
+    assert (dims.N, dims.C, dims.M, dims.D, dims.F, dims.R, dims.P) == (
+        5, 5, 2069, 251, 6, 3, 21
+    )
+    assert {s.config.tempo_detached_send_interval_ms for s in specs} == {100}
+    assert {s.config.tempo_clock_bump_interval_ms for s in specs} == {None}
+    assert {tuple(s.ctx["periodic_intervals"]) for s in specs} == {
+        (100, 1 << 30, 100)
+    }
+
+
+def test_rehearsal_of_the_tempo_profile_on_cpu():
+    args = cli.parse_args([
+        "sweep", "--protocol", "tempo", "--n", "3", "--subsets", "1",
+        "--fs", "1", "--conflicts", "0,100", "--commands", "3",
+    ])
+    protocol, dims, specs = cli.sweep_setup(args)
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev)
+    out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
+    assert out["protocol"] == "TempoDev" and out["lanes"] == 2
+    assert out["device_activities_per_step_by_name"] == {}

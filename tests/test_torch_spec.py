@@ -125,7 +125,7 @@ def test_partial_replication_and_other_protocols_raise_by_name():
             dims=pd, commands_per_client=1, clients_per_region=1,
             process_regions=GCP[:3], client_regions=GCP[:3],
         )
-    for name, item in [("tempo", "item 4"), ("epaxos", "item 6"),
+    for name, item in [("atlas", "item 6"), ("epaxos", "item 6"),
                        ("caesar", "item 7")]:
         with pytest.raises(NotImplementedError, match=item):
             dev_protocol(name)
