@@ -5,26 +5,29 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's eight CUDA kernels from
+It builds the engine's nine CUDA kernels from
 ``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch twin on the card at the
-three main paths' shapes (exact equality: all integer or bool data;
+five main paths' shapes (exact equality: all integer or bool data;
 ``key_table`` also on a batch of Zipf lanes; ``lane_freeze`` also with
 frozen lanes; ``tempo_handle`` over further steps until every Tempo
-message type and the GC and detached-send timers have been handled)
-beside the least time its region's work needs (each kernel module's
-``work``, ``kernels/cost.py``) — a kernel's ``ms`` is its device time
-per launch under ``torch.profiler``, ``call_ms`` the wrapper's whole
-call (host included) — checks the Basic golden numbers and the
-committed ``tests/fixtures/torch_{basic,fpaxos,tempo}_golden.json``
-bytes on the card, then drives the three main paths — the 2,048-lane
-Basic, FPaxos and Tempo sweeps (n = 5, 256 five-region subsets × f ∈
-{1, 2} × conflict ∈ {0, 10, 50, 100}, 50 commands per client, one client
-per region) through ``run_sweep`` — each with every launch counter set
-to 0 just before and read just after, and holds sampled lanes of each to
-the plain twins on the host. Any failure raises; nothing is caught. Each
-phase prints its seconds. The last two lines are one JSON object per
-kernel (``{"kernels": [...]}``) and the verdict ``{"ok": true, ...}``.
+message type and the GC and detached-send timers have been handled;
+``graphdep_handle``, on the Atlas and on the EPaxos path, until every
+message type, the GC timer and a drain chain have been) beside the
+least time its region's work needs (each kernel module's ``work``,
+``kernels/cost.py``) — a kernel's ``ms`` is its device time per launch
+under ``torch.profiler``, ``call_ms`` the wrapper's whole call (host
+included) — checks the Basic golden numbers and the committed
+``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep}_golden.json`` bytes
+on the card, then drives the five main paths — the 2,048-lane Basic,
+FPaxos, Tempo, Atlas and EPaxos sweeps (n = 5, 256 five-region subsets
+× f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50 commands per client, one
+client per region) through ``run_sweep`` — each with every launch
+counter set to 0 just before and read just after, and holds sampled
+lanes of each to the plain twins on the host. Any failure raises;
+nothing is caught. Each phase prints its seconds. The last two lines
+are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
+``{"ok": true, ...}``.
 Without a CUDA card it exits non-zero and prints no result.
 """
 
@@ -55,11 +58,20 @@ TEMPO_MAIN = [
     (3, 1, 100, 30, 2, 50),
 ]
 TEMPO_SKIP = [(3, 1, 100, 20, 1, True), (3, 1, 100, 20, 1, False)]
+# the Atlas and EPaxos golden batches (tests/test_torch_graphdep.py):
+# (n, f, conflict, commands, clients per region), one batch per protocol
+GRAPHDEP_POINTS = [
+    (3, 1, 100, 30, 1),
+    (3, 1, 0, 30, 2),
+    (5, 2, 100, 10, 1),
+    (5, 2, 100, 20, 2),
+]
 # sampled lanes held to the host's plain twins: (regions, f, conflict) =
-# (0, 1, 0), (0, 2, 100), (125, 1, 0), (255, 2, 100); Tempo's twin is
-# slower on the host, so two of them, both f = 2 at conflict 100
+# (0, 1, 0), (0, 2, 100), (125, 1, 0), (255, 2, 100); the twins of Tempo,
+# Atlas and EPaxos are slower on the host, so two of them, both f = 2 at
+# conflict 100
 SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
-          "tempo": [7, 2047]}
+          "tempo": [7, 2047], "atlas": [7, 2047], "epaxos": [7, 2047]}
 
 # the reference region each kernel replaces
 REPLACES = {
@@ -71,10 +83,12 @@ REPLACES = {
     "emit_rewrite": "fantoch_tpu/engine/core.py:941",
     "lane_freeze": "fantoch_tpu/engine/core.py:1565",
     "tempo_handle": "fantoch_tpu/engine/protocols/tempo.py:226",
+    "graphdep_handle": "fantoch_tpu/engine/protocols/graphdep.py:215",
 }
 HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
-            "tempo": "tempo_handle"}
-PATHS = ("basic", "fpaxos", "tempo")
+            "tempo": "tempo_handle", "atlas": "graphdep_handle",
+            "epaxos": "graphdep_handle"}
+PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos")
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
@@ -271,11 +285,11 @@ def check_kernels(name, dev, rows):
               f"bytes, {n_ops} ops) library_ms={library_ms} "
               f"launches={kern.launches - before} shapes {shapes}")
 
-    if name == "tempo":
-        rows["tempo_handle"]["max_abs_err"] = max(
-            rows["tempo_handle"]["max_abs_err"],
-            tempo_coverage(protocol, dims, state, ctx, max_steps,
-                           captured["tempo_handle"], mods["tempo_handle"]),
+    if handler in COVERAGE:
+        rows[handler]["max_abs_err"] = max(
+            rows[handler]["max_abs_err"],
+            coverage(name, handler, protocol, dims, state, ctx, max_steps,
+                     captured[handler], mods[handler]),
         )
 
     # K7 with frozen lanes (every third lane failed), which it copies
@@ -319,27 +333,41 @@ def check_kernels(name, dev, rows):
               f"{int(torch.unique(got).numel())}")
 
 
-def tempo_coverage(protocol, dims, state, ctx, max_steps, first, mod,
-                   every=25, bound=80):
-    """K8 against its twin, exactly, on the arguments of one step in
-    every ``every`` after phase 3's, until each of the ten message types
-    and the GC and detached-send timer rows have been handled in some
-    compared step (at most ``bound`` captures; the main path never fires
-    the clock-bump row, which the golden batch covers). Returns the max
-    abs error."""
+# the message types each handler's coverage phase waits for, in type
+# order, the timer rows that must fire, and whether a drain chain (MDRAIN
+# in the graph drain's slot F - 1) must have been emitted
+COVERAGE = {
+    "tempo_handle": (("SUBMIT", "MCOLLECT", "MCOLLECTACK", "MCOMMIT",
+                      "MDETACHED", "MCONSENSUS", "MCONSENSUSACK", "MGC",
+                      "MDRAIN", "DETACH_DRAIN"), (0, 2), False),
+    "graphdep_handle": (("SUBMIT", "MCOLLECT", "MCOLLECTACK", "MCOMMIT",
+                         "MCONSENSUS", "MCONSENSUSACK", "MGC", "MDRAIN"),
+                        (0,), True),
+}
+
+
+def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
+             mod, every=25, bound=80):
+    """A handler kernel against its twin, exactly, on the arguments of
+    one step in every ``every`` after phase 3's, until each of its
+    message types and the timer rows (and for the graph drain a chain)
+    have been handled in some compared step (at most ``bound``
+    captures; Tempo's main path never fires the clock-bump row, which
+    the golden batch covers). Returns the max abs error."""
     import torch
 
     from fantoch_tpu_torch.engine import core as engine_core
     from fantoch_tpu_torch.engine.dims import PMT
 
-    names = ("SUBMIT", "MCOLLECT", "MCOLLECTACK", "MCOMMIT", "MDETACHED",
-             "MCONSENSUS", "MCONSENSUSACK", "MGC", "MDRAIN", "DETACH_DRAIN")
+    names, rows_needed, chain_needed = COVERAGE[kname]
+    kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
     handled = [0] * len(names)
     fired = [0] * dims.R
+    chains = 0
     err, args, captures = 0.0, first, 0
     while True:
-        got = mod.tempo_handle(*args)
-        want = mod.tempo_handle_plain(*args)
+        got = kern(*args)
+        want = plain(*args)
         torch.cuda.synchronize()
         err = max(err, _compare(_handler_view(got), _handler_view(want)))
         has, rows, fire = args[1], args[2], args[3]
@@ -348,34 +376,38 @@ def tempo_coverage(protocol, dims, state, ctx, max_steps, first, mod,
             handled[t] += int((mt == t).sum())
         for r in range(dims.R):
             fired[r] += int(fire[..., r].sum())
+        chains += int(want[3]["valid"][..., dims.F - 1].sum())
         captures += 1
-        if min(handled) > 0 and fired[0] > 0 and fired[2] > 0:
+        if (min(handled) > 0 and all(fired[r] > 0 for r in rows_needed)
+                and (chains > 0 or not chain_needed)):
             break
         if captures >= bound:
             raise AssertionError(
-                f"tempo_handle coverage incomplete after {captures} "
-                f"captures: {dict(zip(names, handled))}, timers {fired}")
+                f"{kname} coverage incomplete after {captures} captures: "
+                f"{dict(zip(names, handled))}, timers {fired}, drain "
+                f"chains {chains}")
         for _ in range(every - 1):
             state, _running = engine_core.frozen_step(protocol, dims, state,
                                                       ctx, max_steps)
         box = {}
-        real = mod.tempo_handle
 
         def record(*a):
             box["args"] = a
-            return real(*a)
+            return kern(*a)
 
-        mod.tempo_handle = record
+        setattr(mod, kname, record)
         try:
             state, _running = engine_core.frozen_step(protocol, dims, state,
                                                       ctx, max_steps)
         finally:
-            mod.tempo_handle = real
+            setattr(mod, kname, kern)
         args = box["args"]
-    print(f"kernel tempo_handle (tempo path): exact=True over {captures} "
+    print(f"kernel {kname} ({name} path): exact=True over {captures} "
           f"compared steps, one in {every} from step 301; handled "
-          f"{dict(zip(names, handled))}; timer rows fired {fired} "
-          f"(GC, clock bump, detached send); max_abs_err={err}")
+          f"{dict(zip(names, handled))}; timer rows fired {fired}"
+          + (f"; drain chains (MDRAIN in slot F - 1) {chains}"
+             if chain_needed else "")
+          + f"; max_abs_err={err}")
     return err
 
 
@@ -492,6 +524,50 @@ def golden_tempo(dev) -> None:
     _match_fixture(results, "torch_tempo_golden.json")
 
 
+def golden_graphdep(dev) -> None:
+    """Phase 6: the Atlas and EPaxos golden batches (the configurations
+    of tests/test_engine_graphdep.py, one batch per protocol) against
+    their fixture."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
+    from fantoch_tpu_torch.engine.protocols import AtlasDev, EPaxosDev
+
+    planet = Planet.new()
+    regions = planet.regions()
+    points = GRAPHDEP_POINTS
+    clients = max(n * cpr for n, _f, _c, _k, cpr in points)
+    total = max(k * n * cpr for n, _f, _c, k, cpr in points)
+    n_max = max(pt[0] for pt in points)
+    results = []
+    for cls in (AtlasDev, EPaxosDev):
+        proto = cls(keys=1 + clients)
+        dims = EngineDims.for_protocol(
+            proto, n=n_max, clients=clients,
+            payload=proto.payload_width(n_max), total_commands=total,
+            dot_slots=total + 1, regions=n_max,
+        )
+        specs = [
+            make_lane(proto, planet, Config(n=n, f=f, gc_interval_ms=100),
+                      conflict_rate=conflict, pool_size=1,
+                      commands_per_client=commands, clients_per_region=cpr,
+                      process_regions=regions[:n],
+                      client_regions=regions[:n], dims=dims, seed=i)
+            for i, (n, f, conflict, commands, cpr) in enumerate(points)
+        ]
+        batch = run_lanes(proto, dims, specs, device=dev)
+        for (n, f, _c, commands, cpr), res in zip(points, batch):
+            assert res.err == 0, res.err_cause
+            done = commands * cpr * n
+            m = {k: int(v.sum()) for k, v in res.protocol_metrics.items()}
+            assert m["fast_path"] + m["slow_path"] == done, m
+            assert m["stable"] == n * done, m
+            print(f"golden {cls.__name__} on {dev}: n={n} f={f} "
+                  f"commands={commands} x{cpr} steps {res.steps} "
+                  f"metrics {m}")
+        results += batch
+    _match_fixture(results, "torch_graphdep_golden.json")
+
+
 def _match_fixture(results, name) -> None:
     text = json.dumps([r.to_json() for r in results], sort_keys=True) + "\n"
     path = FIXTURES / name
@@ -546,18 +622,20 @@ def sweep(name, dev):
         if name == "basic":
             assert r.requeues == 0
             assert list(r.protocol_metrics["stable"]) == [total] * dims.N
-        if name == "tempo":
+        if name in ("tempo", "atlas", "epaxos"):
             # every command committed once, on the fast or the slow path;
-            # every process GCs every command (test_engine_tempo.py)
+            # every process GCs every command; with f = 1, Tempo's and
+            # Atlas's fast path always holds (test_engine_tempo.py,
+            # test_engine_graphdep.py)
             m = {k: int(v.sum()) for k, v in r.protocol_metrics.items()}
             assert m["fast_path"] + m["slow_path"] == total, m
             assert m["stable"] == dims.N * total, m
-            if spec.config.f == 1:
+            if spec.config.f == 1 and name != "epaxos":
                 assert m["slow_path"] == 0, m
-    if name == "tempo":
+    if name in ("tempo", "atlas", "epaxos"):
         slow = sum(int(r.protocol_metrics["slow_path"].sum())
                    for r in results)
-        print(f"tempo: fast + slow == {total} and stable == "
+        print(f"{name}: fast + slow == {total} and stable == "
               f"{dims.N * total} on every lane; slow-path commits {slow}")
     t0 = time.perf_counter()
     sample = SAMPLE[name]
@@ -609,6 +687,7 @@ def main() -> int:
     phase("4 golden basic", golden_basic, dev)
     phase("5 golden fpaxos", golden_fpaxos, dev)
     phase("6 golden tempo", golden_tempo, dev)
+    phase("6 golden atlas/epaxos", golden_graphdep, dev)
 
     # 7. the main paths, each counted on its own
     by_path = {name: phase(f"7 sweep {name}", sweep, name, dev)

@@ -18,8 +18,8 @@ from .core import Config, Planet
 
 
 # the port's main paths: the reference bench's per-protocol grid
-# (bench.py), 2,048 lanes, for Basic, FPaxos and Tempo; chip_smoke.py
-# and step_profile.py drive them
+# (bench.py), 2,048 lanes, for Basic, FPaxos, Tempo, Atlas and EPaxos;
+# chip_smoke.py and step_profile.py drive them
 MAIN_PATH = [
     "sweep", "--protocol", "basic", "--n", "5", "--subsets", "256",
     "--fs", "1,2", "--conflicts", "0,10,50,100", "--commands", "50",
@@ -31,8 +31,15 @@ MAIN_PATH_FPAXOS = [
 MAIN_PATH_TEMPO = [
     "tempo" if a == "basic" else a for a in MAIN_PATH
 ]
+MAIN_PATH_ATLAS = [
+    "atlas" if a == "basic" else a for a in MAIN_PATH
+]
+MAIN_PATH_EPAXOS = [
+    "epaxos" if a == "basic" else a for a in MAIN_PATH
+]
 MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
-              "tempo": MAIN_PATH_TEMPO}
+              "tempo": MAIN_PATH_TEMPO, "atlas": MAIN_PATH_ATLAS,
+              "epaxos": MAIN_PATH_EPAXOS}
 
 
 def _ints(s: str) -> List[int]:

@@ -11,7 +11,8 @@ A conservative-lookahead parallel DES, step for step the reference's
      key) — 1 and 2 are the ``qualify_pop`` kernel;
   3. the protocol's readiness gate, periodic timers and handlers run,
      each process at its event time (``protocol.handlers``: the
-     ``basic_handle``, ``fpaxos_handle`` or ``tempo_handle`` kernel);
+     ``basic_handle``, ``fpaxos_handle``, ``tempo_handle`` or
+     ``graphdep_handle`` kernel);
   4. emissions are flattened; TO_CLIENT messages are rewritten into the
      client's next SUBMIT (closed loop), latency is recorded, channel
      counters advance; with the termination bookkeeping this is the

@@ -4,14 +4,16 @@ The counterpart of the reference's ``fantoch_tpu/engine/iset.py``: a
 *frontier* (all of 1..=frontier present) plus up to G buffered gap
 ranges above it, ``gaps [..., G, 2]`` as (start, end) with start == 0
 marking a free slot. Tempo keeps one per (key, voter) for its table
-executor's vote clocks and one per source for the GC committed clock.
+executor's vote clocks, Atlas and EPaxos one per source for the graph
+executor's executed clock, and all three one per source for the GC
+committed clock.
 Every function works elementwise over the leading axes that
 ``frontier`` and ``gaps`` share; overflowing G is returned as a flag,
 which callers raise as a lane error.
 
-Tempo's handler kernel (``kernels/csrc/iset.cuh``) carries the add side;
-the membership tests are plain torch until a protocol that needs them on
-the card is ported.
+The handler kernels carry both sides on the card
+(``kernels/csrc/iset.cuh``): Tempo's the add side, Atlas/EPaxos's the
+add side and the membership test of the graph drain.
 """
 
 from __future__ import annotations
@@ -80,14 +82,21 @@ def iset_contains(frontier, gaps, x):
 
 def iset_contains_gathered(front_by_src, gaps_by_src, src, x):
     """Membership of ``x[...]`` in the set of ``src[...]``, per-source
-    state ``front_by_src [S]`` and ``gaps_by_src [S, G, 2]``. ``src``
-    indexes as jnp's does: a negative entry counts from the end, and the
-    result is clamped into range."""
-    S = front_by_src.shape[0]
+    state ``front_by_src [*B, S]`` and ``gaps_by_src [*B, S, G, 2]``
+    (``src`` and ``x`` lead with the same batch axes ``B``, which may be
+    none). ``src`` indexes as jnp's does: a negative entry counts from
+    the end, and the result is clamped into range."""
+    S = front_by_src.shape[-1]
+    b = front_by_src.dim() - 1
     src = torch.where(src < 0, src + S, src).clamp(0, S - 1).long()
-    out = (x >= 1) & (x <= front_by_src[src])
+    idx = src.flatten(b)
+
+    def at(plane):                                  # [*B, S] → src's shape
+        return torch.gather(plane, b, idx).reshape(src.shape)
+
+    out = (x >= 1) & (x <= at(front_by_src))
     for g in range(gaps_by_src.shape[-2]):
-        s = gaps_by_src[src, g, 0]
-        e = gaps_by_src[src, g, 1]
+        s = at(gaps_by_src[..., g, 0])
+        e = at(gaps_by_src[..., g, 1])
         out = out | ((s > 0) & (s <= x) & (x <= e))
     return out

@@ -2,32 +2,36 @@
 
 Each module is the fixed-shape twin of a protocol of the reference's
 device engine, batched over an explicit ``[L, N]`` (lane, process) axis.
-Basic, FPaxos and Tempo are ported; the other protocols raise by name.
+Basic, FPaxos, Tempo, Atlas and EPaxos are ported; Caesar raises by
+name.
 """
 
 from .basic import BasicDev
 from .fpaxos import FPaxosDev
+from .graphdep import AtlasDev, EPaxosDev
 from .tempo import TempoDev
 
-__all__ = ["BasicDev", "FPaxosDev", "TempoDev", "dev_config_kwargs",
-           "dev_protocol"]
+__all__ = ["AtlasDev", "BasicDev", "EPaxosDev", "FPaxosDev", "TempoDev",
+           "dev_config_kwargs", "dev_protocol"]
 
 # protocol → the ROADMAP Queue A item that ports it
 _NOT_PORTED = {
-    "atlas": "6",
-    "epaxos": "6",
     "caesar": "7",
 }
 
 
 def dev_protocol(name: str, clients: int = 0, keys: "int | None" = None):
-    """The protocol-name → device-protocol switch. Tempo's capacity
-    follows the load: ``keys`` (default one per client plus the shared
-    conflict key) and ``clients``, as the reference's
-    ``dev_protocol``."""
+    """The protocol-name → device-protocol switch. The key tables
+    follow the load: ``keys`` (default one per client plus the shared
+    conflict key), and Tempo's capacity also ``clients``, as the
+    reference's ``dev_protocol``."""
+    keys = keys if keys is not None else 1 + clients
     if name == "tempo":
-        keys = keys if keys is not None else 1 + clients
         return TempoDev.for_load(keys=keys, clients=clients)
+    if name == "atlas":
+        return AtlasDev(keys=keys)
+    if name == "epaxos":
+        return EPaxosDev(keys=keys)
     if name == "basic":
         return BasicDev
     if name == "fpaxos":

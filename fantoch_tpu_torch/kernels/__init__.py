@@ -11,6 +11,7 @@ from __future__ import annotations
 from .basic_handle import basic_handle
 from .emit_rewrite import emit_rewrite
 from .fpaxos_handle import fpaxos_handle
+from .graphdep_handle import graphdep_handle
 from .key_table import key_table
 from .land_emissions import land_emissions
 from .lane_freeze import lane_freeze
@@ -26,6 +27,7 @@ WRAPPERS = {
     "emit_rewrite": emit_rewrite,
     "lane_freeze": lane_freeze,
     "tempo_handle": tempo_handle,
+    "graphdep_handle": graphdep_handle,
 }
 
 

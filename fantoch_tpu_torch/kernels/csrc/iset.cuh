@@ -1,6 +1,7 @@
-// Interval-set union on the device: the add side of
-// fantoch_tpu/engine/iset.py (iset_add_range :29, iset_add :68), under the
-// names of the port's plain twin (fantoch_tpu_torch/engine/iset.py).
+// Interval sets on the device: the add side of fantoch_tpu/engine/iset.py
+// (iset_add_range :29, iset_add :68) and its membership side
+// (iset_contains :72, iset_contains_gathered :92), under the names of the
+// port's plain twin (fantoch_tpu_torch/engine/iset.py).
 //
 // A set is a frontier (all of 1..=frontier present) and G gap slots
 // gaps[2*j] = start, gaps[2*j + 1] = end above it (start == 0: free).
@@ -52,6 +53,30 @@ __device__ inline bool iset_add_range(int& frontier, int* gaps, int G,
 __device__ inline bool iset_add(int& frontier, int* gaps, int G, int event,
                                 bool enable = true) {
   return iset_add_range(frontier, gaps, G, event, event, enable);
+}
+
+// Membership of x (0 and below are never members).
+__device__ inline bool iset_contains(int frontier, const int* gaps, int G,
+                                     int x) {
+  if (x < 1) return false;
+  if (x <= frontier) return true;
+  for (int j = 0; j < G; ++j) {
+    const int s = gaps[2 * j];
+    if (s > 0 && s <= x && x <= gaps[2 * j + 1]) return true;
+  }
+  return false;
+}
+
+// Membership of x in the set of source `src`, per-source state
+// front_by_src[S] and gaps_by_src[S][G][2]. `src` indexes as jnp's gather
+// does: a negative one counts from the end, the result is clamped into
+// range.
+__device__ inline bool iset_contains_gathered(const int* front_by_src,
+                                              const int* gaps_by_src, int S,
+                                              int G, int src, int x) {
+  src = src < 0 ? src + S : src;
+  src = min(max(src, 0), S - 1);
+  return iset_contains(front_by_src[src], gaps_by_src + 2 * G * src, G, x);
 }
 
 }  // namespace fantoch

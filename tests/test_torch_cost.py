@@ -9,15 +9,18 @@ import pytest
 import torch
 
 from fantoch_tpu_torch.engine.dims import INF, PA, PDST, PMT, PPAY, EngineDims
-from fantoch_tpu_torch.engine.protocols import BasicDev, FPaxosDev, TempoDev
+from fantoch_tpu_torch.engine.protocols import (
+    AtlasDev, BasicDev, FPaxosDev, TempoDev,
+)
 from fantoch_tpu_torch.kernels import (
-    basic_handle, cost, emit_rewrite, fpaxos_handle, key_table,
-    land_emissions, lane_freeze, qualify_pop, tempo_handle,
+    basic_handle, cost, emit_rewrite, fpaxos_handle, graphdep_handle,
+    key_table, land_emissions, lane_freeze, qualify_pop, tempo_handle,
 )
 from fantoch_tpu_torch.kernels.basic_handle import OUTBOX_KEYS
 from fantoch_tpu_torch.kernels.basic_handle import work as bh_work
 from fantoch_tpu_torch.kernels.emit_rewrite import work as er_work
 from fantoch_tpu_torch.kernels.fpaxos_handle import work as fh_work
+from fantoch_tpu_torch.kernels.graphdep_handle import work as gh_work
 from fantoch_tpu_torch.kernels.key_table import THREEFRY_OPS
 from fantoch_tpu_torch.kernels.key_table import work as kt_work
 from fantoch_tpu_torch.kernels.land_emissions import work as le_work
@@ -277,6 +280,75 @@ def test_tempo_handle_work_idle_submit_and_gc():
     with_timers, _ = th_work(*args, out)
     assert with_timers == with_gc + 4 * N + 4 * t.K * t.R
 
+
+
+def _graphdep_idle(L=2):
+    t = AtlasDev(keys=2, gap_slots=2)
+    dims = EngineDims.for_protocol(t, n=3, clients=3,
+                                   payload=t.payload_width(3), dot_slots=4)
+    N = dims.N
+    ps = {k: torch.from_numpy(np.stack([v] * L))
+          for k, v in t.init_state(dims, {}).items()}
+    has = torch.zeros((L, N), dtype=torch.bool)
+    rows = torch.zeros((L, N, PPAY + dims.P), dtype=torch.int32)
+    fire = torch.zeros((L, N, dims.R), dtype=torch.bool)
+    i32 = lambda v, *s: torch.full((L, *s), v, dtype=torch.int32)  # noqa: E731
+    b = lambda v, *s: torch.full((L, *s), v, dtype=torch.bool)  # noqa: E731
+    ctx = {"n": i32(N), "f": i32(1), "fast_quorum": b(True, N, N),
+           "write_quorum": b(True, N, N), "expected_acks": i32(2),
+           "fp_mode": i32(0), "ack_self": b(True),
+           "client_attach": i32(0, 3)}
+    return t, dims, ps, has, rows, fire, ctx
+
+
+def test_graphdep_handle_work_idle_submit_gc_and_drain():
+    t, dims, ps, has, rows, fire, ctx = _graphdep_idle()
+    args = (ps, has, rows, fire, ctx, dims)
+    out = graphdep_handle(*args)
+    idle, idle_ops = gh_work(*args, out)
+    L, N = has.shape
+    P, D, Q, G = dims.P, dims.D, t.dep_slots(N), t.G
+    # every process runs the drain: it reads the [N, D] committed flags,
+    # the executed sets and the pick's client and attach entry
+    drain = N * D + 4 * N * (1 + 2 * G) + 4 * 2
+    assert idle == cost.nbytes(has, fire) + L * N * drain + L * N + \
+        _outboxes_bytes(out)
+    assert idle_ops == 40 * L * N + L * N * 2 * N * D
+    # a SUBMIT at process 0 on key 0: reads its message, its sequence
+    # and the key's latest dot; writes its sequence and the key's latest
+    # sequence (its latest source, process 0, and the zeroed report
+    # table do not change)
+    has[0, 0] = True
+    rows[0, 0, PMT] = AtlasDev.SUBMIT
+    out = graphdep_handle(*args)
+    n_bytes, _ = gh_work(*args, out)
+    assert n_bytes == idle + 4 * (2 + P) + 4 * 3 + 4 * 2
+    # a GC message from process 0 at process 2 (an all-zero frontier):
+    # reads the frontier table, the seen flags, the committed and stable
+    # clocks and the [N, D] dot words; changes one seen flag (process 1
+    # has not been seen, so nothing is stable yet)
+    has[1, 2] = True
+    rows[1, 2, PMT] = AtlasDev.MGC
+    out = graphdep_handle(*args)
+    with_gc, ops = gh_work(*args, out)
+    gc_read = 4 * N * N + N + 4 * 2 * N + 4 * N * D
+    assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
+    assert ops == idle_ops + 2 * N * D + 3 * N * N
+    # one committed vertex with no deps at process 1 of lane 0, its
+    # drain disabled: the drain also reads its sequence, deps and their
+    # vertex words, and checks its Q deps in one pass that changes
+    # nothing
+    ps["vx_committed"][0, 1, 2, 0] = True
+    ps["vx_seq"][0, 1, 2, 0] = 1
+    out = graphdep_handle(*args)
+    with_vertex, vops = gh_work(*args, out)
+    assert with_vertex == with_gc + 4 * (1 + 3 * Q)
+    assert vops == ops + Q * (2 * G + 6) + Q * 3
+    # a firing GC timer reads the committed clock
+    fire[0, 1, 0] = True
+    out = graphdep_handle(*args)
+    with_timer, _ = gh_work(*args, out)
+    assert with_timer == with_vertex + 4 * N
 
 def _emit_case():
     """One lane, N = 2, C = 2, F = 3: all rows empty but for process 0's

@@ -20,6 +20,7 @@ from fantoch_tpu.engine.protocols import FPaxosDev as RFPaxos
 from fantoch_tpu_torch.core import Config, Planet
 from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
 from fantoch_tpu_torch.engine.protocols import FPaxosDev
+from torch_threads import one_torch_thread  # noqa: F401
 
 FIXTURE = Path(__file__).parent / "fixtures" / "torch_fpaxos_golden.json"
 COMMANDS = 50

@@ -127,3 +127,31 @@ def test_empty_matches_reference():
     pf, pg = P.iset_empty(G, (3, 2))
     assert pf.shape == (3, 2) and pg.shape == (3, 2, G, 2)
     assert not bool(pg.any()) and pf.dtype == pg.dtype == torch.int32
+
+
+@pytest.mark.parametrize("seed", SEEDS[:3])
+def test_contains_gathered_on_the_exec_sets_shapes(seed):
+    """The graph drain's call: every (lane, process)'s executed sets
+    ``[L, N, S]`` / ``[L, N, S, G, 2]`` against its vertex store's dep
+    cells ``[L, N, S, D, Q]`` (sources out of range, negative ones
+    counting from the end), as the reference's per-process call under
+    ``vmap`` over lanes and processes; and a batch of no cells."""
+    rng = np.random.default_rng(seed)
+    L, N, D, Q = 4, 5, 6, 6
+    front, gaps = _sets(rng, L * N * N)
+    front = front.reshape(L, N, N)
+    gaps = gaps.reshape(L, N, N, G, 2)
+    src = rng.integers(-N - 1, N + 2, (L, N, N, D, Q)).astype(np.int32)
+    x = rng.integers(0, 16, (L, N, N, D, Q)).astype(np.int32)
+    want = jax.jit(jax.vmap(jax.vmap(R.iset_contains_gathered)))(
+        front, gaps, src, x)
+    got = P.iset_contains_gathered(*(torch.from_numpy(a) for a in
+                                     (front, gaps, src, x)))
+    _eq(got, want, "contains_gathered [L, N]")
+    assert np.asarray(want).any() and not np.asarray(want).all()
+    # the twin's sparse form: one batch row per committed vertex, here
+    # none
+    none = torch.zeros((0, Q), dtype=torch.int32)
+    got = P.iset_contains_gathered(torch.from_numpy(front[0, :0]),
+                                   torch.from_numpy(gaps[0, :0]), none, none)
+    assert got.shape == (0, Q) and got.dtype == torch.bool

@@ -7,9 +7,10 @@ full pools, out-of-range sources and dot slots that wrap.
   ``frontier_min`` and ``mark_popped``);
 - ``land_emissions`` against §6 (core.py:1460-1492, with ``cumsum_i32``
   and ``searchsorted_left``);
-- ``basic_handle``, ``fpaxos_handle`` and ``tempo_handle`` against
-  their protocol's ``ready``/``periodic`` and ``run_handlers`` in the
-  step's order (core.py:873-918), Tempo's at each process's event time.
+- ``basic_handle``, ``fpaxos_handle``, ``tempo_handle`` and
+  ``graphdep_handle`` against their protocol's ``ready``/``periodic``
+  and ``run_handlers`` in the step's order (core.py:873-918), Tempo's at
+  each process's event time, Atlas/EPaxos's in both fast-path modes.
 
 The wrappers get CPU tensors, so they run their twins; the CUDA kernels
 are held against the same twins on the card by ``chip_smoke.py``."""
@@ -31,14 +32,18 @@ from fantoch_tpu.engine.core import (
 )
 from fantoch_tpu.engine.protocols import BasicDev as RBasic
 from fantoch_tpu.engine.protocols import FPaxosDev as RFPaxos
+from fantoch_tpu.engine.protocols import AtlasDev as RAtlas
 from fantoch_tpu.engine.protocols import TempoDev as RTempo
 from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.dims import (
     INF, PA, PDST, PKC, PKS, PMT, PPAY, PPR, PSRC, EngineDims,
 )
-from fantoch_tpu_torch.engine.protocols import BasicDev, FPaxosDev, TempoDev
+from fantoch_tpu_torch.engine.protocols import (
+    AtlasDev, BasicDev, FPaxosDev, TempoDev,
+)
 from fantoch_tpu_torch.kernels import (
-    basic_handle, fpaxos_handle, land_emissions, qualify_pop, tempo_handle,
+    basic_handle, fpaxos_handle, graphdep_handle, land_emissions,
+    qualify_pop, tempo_handle,
 )
 
 I32 = jnp.int32
@@ -569,3 +574,187 @@ def test_tempo_handle_twin_matches_reference(seed, skip):
         assert (mt == X.MCOLLECT)[hout["valid"].any(-1)
                                   & (hout["mtype"][..., 0] == X.MCOMMIT)
                                   ].any()
+
+
+# ----------------------------------------------------------------------
+# K9 graphdep_handle
+# ----------------------------------------------------------------------
+
+# small tables, so that inputs reach full ones: K keys, G gap slots per
+# interval set (Q = N + 1 dep slots)
+GRAPHDEP_SIZES = dict(keys=3, gap_slots=3)
+
+
+def _graphdep_inputs(seed, dims, K, G, fp_mode, lanes=64):
+    """Every message type handled somewhere, the gated ones (MCollect,
+    MCommit) also refused; report tables with matching, free and full
+    rows; a vertex store whose committed vertices depend on each other
+    (chains and cycles), on executed dots, on cells that no longer hold
+    the dep, and through sources out of range (negative ones count from
+    the end, large ones clamp); MCommits naming stored, already
+    committed and out-of-range dots; keys and clients out of range; dot
+    slots that wrap (seq 0 → slot D - 1)."""
+    rng = np.random.default_rng(seed)
+    D, C = dims.D, dims.C
+    Q = N + 1
+    ri = lambda lo, hi, *s: rng.integers(lo, hi, (lanes, *s)).astype(np.int32)  # noqa: E731
+    rb = lambda p, *s: rng.random((lanes, *s)) < p  # noqa: E731
+    X = RAtlas
+    qd_seq = ri(1, 6, N, D, Q) * rb(0.5, N, D, Q)
+    qd_seq[rb(0.2, N, D)] = 5                            # full rows
+    # the vertex store: a present cell holds a seq of its own slot
+    vx_seq = (np.arange(D)[None, None, None, :] + 1
+              + D * ri(0, 2, N, N, D)) * rb(0.7, N, N, D)
+    committed = rb(0.6, N, N, D) & (vx_seq > 0)
+    # deps: mostly a present vertex's (src, seq), some stale seqs, some
+    # absent; sources sometimes shifted by -N (same cell) or clamped
+    tsrc, tslot = ri(0, N, N, N, D, Q), ri(0, D, N, N, D, Q)
+    li = np.arange(lanes)[:, None, None, None, None]
+    pi = np.arange(N)[None, :, None, None, None]
+    target = vx_seq[li, pi, tsrc, tslot]
+    dep_seq = np.where(rb(0.8, N, N, D, Q), target, ri(1, 9, N, N, D, Q))
+    dep_seq = dep_seq * rb(0.6, N, N, D, Q)
+    dep_src = tsrc - N * rb(0.1, N, N, D, Q)
+    dep_src = np.where(rb(0.05, N, N, D, Q), N + 2, dep_src)
+    ef, eg = _gap_sets(rng, (lanes, N, N), G, lo_max=4)
+    cf, cg = _gap_sets(rng, (lanes, N, N), G)
+    ps = {
+        "latest_src": ri(0, N, N, K),
+        "latest_seq": ri(0, 9, N, K),
+        "seq_in_slot": ri(0, 9, N, N, D) * rb(0.6, N, N, D),
+        "key_of": ri(0, K + 1, N, N, D),
+        "client_of": ri(0, C + 1, N, N, D),
+        "own_seq": ri(0, 9, N),
+        "ack_cnt": ri(0, 4, N, D),
+        "qd_src": ri(0, N, N, D, Q),
+        "qd_seq": qd_seq,
+        "qd_cnt": ri(1, 4, N, D, Q) * (qd_seq > 0),
+        "slow_acks": ri(0, 3, N, D),
+        "vx_committed": committed,
+        "vx_seq": vx_seq.astype(np.int32),
+        "vx_key": ri(0, K + 1, N, N, D),
+        "vx_client": ri(0, C + 1, N, N, D),
+        "vx_nd": ri(0, Q + 1, N, N, D),
+        "vx_dep_src": dep_src.astype(np.int32),
+        "vx_dep_seq": dep_seq.astype(np.int32),
+        "exec_front": ef,
+        "exec_gaps": eg,
+        "comm_front": cf,
+        "comm_gaps": cg,
+        "others_frontier": ri(0, 8, N, N, N),
+        "seen": rb(0.7, N, N),
+        "prev_stable": ri(0, 4, N, N),
+        "m_fast": ri(0, 9, N),
+        "m_slow": ri(0, 9, N),
+        "m_stable": ri(0, 9, N),
+        "err": ri(0, 2, N) * 8,
+    }
+    rows = ri(0, 9, N, PPAY + dims.P)
+    rows[..., PSRC] = ri(0, N + C, N)                    # clients too
+    mt = ri(0, X.NUM_TYPES + 2, N)
+    rows[..., PMT] = mt
+    pay = rows[..., PPAY:]
+    src = rows[..., PSRC]
+    lp = (np.arange(lanes)[:, None], np.arange(N)[None, :])
+    pay[..., 0] = np.where(mt == X.SUBMIT, ri(0, C + 1, N), pay[..., 0])
+    pay[..., 2] = np.where(mt == X.SUBMIT, ri(0, K + 1, N), pay[..., 2])
+    # MCollect [seq, key, client, cdsrc, cdseq]: half find a free slot
+    collect = mt == X.MCOLLECT
+    seq = ri(0, 9, N)
+    pay[..., 0] = np.where(collect, seq, pay[..., 0])
+    pay[..., 1] = np.where(collect, ri(0, K + 1, N), pay[..., 1])
+    free = collect & (src < N) & rb(0.6, N)
+    li, pj = np.nonzero(free)
+    cs = (seq[li, pj] - 1) % D
+    ps["seq_in_slot"][li, pj, src[li, pj], cs] = 0
+    ps["vx_seq"][li, pj, src[li, pj], cs] = 0
+    ps["vx_committed"][li, pj, src[li, pj], cs] = False
+    # MCollectAck [seq, d1src, d1seq, d2src, d2seq]: reports that match
+    # an entry of the dot's row, new ones, and absent ones (seq 0)
+    ack = mt == X.MCOLLECTACK
+    aslot = ri(0, D, N)
+    q = ri(0, Q, N)
+    for w in (1, 3):
+        hit = rb(0.5, N)
+        old_src = ps["qd_src"][lp[0], lp[1], aslot, q]
+        old_seq = ps["qd_seq"][lp[0], lp[1], aslot, q]
+        pay[..., w] = np.where(ack, np.where(hit, old_src, ri(0, N, N)),
+                               pay[..., w])
+        pay[..., w + 1] = np.where(ack, np.where(hit, old_seq, ri(0, 6, N)),
+                                   pay[..., w + 1])
+    pay[..., 0] = np.where(ack, aslot + 1 + D * ri(0, 2, N), pay[..., 0])
+    # MCommit [dsrc, seq, key, client, nd, (src, seq) * Q]: most name a
+    # stored dot, some one already in the vertex store, some a source out
+    # of range with seq 0 (which reads 0)
+    mc = mt == X.MCOMMIT
+    dsrc, slot = ri(0, N, N), ri(0, D, N)
+    stored = ps["seq_in_slot"][lp[0], lp[1], dsrc, slot]
+    good = mc & rb(0.8, N) & (stored > 0)
+    pay[..., 0] = np.where(mc, dsrc, pay[..., 0])
+    pay[..., 1] = np.where(good, stored, np.where(mc, ri(0, 9, N),
+                                                  pay[..., 1]))
+    li, pj = np.nonzero(good & rb(0.2, N))
+    ps["vx_seq"][li, pj, dsrc[li, pj], slot[li, pj]] = stored[li, pj]
+    oob = mc & rb(0.15, N)
+    pay[..., 0] = np.where(oob, ri(N, 2 * N, N) * np.where(
+        rb(0.5, N), 1, -1), pay[..., 0])
+    pay[..., 1] = np.where(oob, 0, pay[..., 1])
+    pay[..., 2] = np.where(mc, ri(0, K + 1, N), pay[..., 2])
+    pay[..., 4] = np.where(mc, ri(0, Q + 2, N), pay[..., 4])
+    for j in range(Q):
+        tsrc = ri(0, N, N)
+        tgt = ps["vx_seq"][lp[0], lp[1], tsrc, ri(0, D, N)]
+        pay[..., 5 + 2 * j] = np.where(mc, tsrc, pay[..., 5 + 2 * j])
+        pay[..., 6 + 2 * j] = np.where(mc, tgt * rb(0.7, N),
+                                       pay[..., 6 + 2 * j])
+    rows[..., PPAY:] = pay
+
+    ctx = {
+        "n": ri(2, N + 1),
+        "f": ri(1, 3),
+        "fast_quorum": rb(0.6, N, N),
+        "write_quorum": rb(0.6, N, N),
+        "expected_acks": ri(1, 4),
+        "fp_mode": np.full((lanes,), fp_mode, np.int32),
+        "ack_self": rb(0.5),
+        "client_attach": ri(0, N, C),
+    }
+    return ps, rb(0.85, N), rows, rb(0.3, N, 1), ctx
+
+
+@pytest.mark.parametrize("seed, fp_mode", [(0, 0), (1, 0), (2, 1), (3, 1)])
+def test_graphdep_handle_twin_matches_reference(seed, fp_mode):
+    t = AtlasDev(**GRAPHDEP_SIZES)
+    rt = RAtlas(**GRAPHDEP_SIZES)
+    kw = dict(n=N, clients=4, payload=t.payload_width(N), dot_slots=4)
+    rdims = RDims.for_protocol(rt, **kw)
+    dims = EngineDims.for_protocol(t, **kw)
+    assert dims == EngineDims(**vars(rdims))
+    ps, has, rows, fire, ctx = _graphdep_inputs(seed, dims, t.K, t.G,
+                                                fp_mode)
+    rdy, new_ps, _pout, hout = _run_handler_twin(
+        graphdep_handle, rt, rdims, dims, ps, has, rows, fire, ctx,
+    )
+    X = RAtlas
+    F = dims.F
+    mt = np.where(rdy & has, rows[..., PMT], -1)
+    assert set(range(X.NUM_TYPES)) <= set(mt.ravel().tolist())
+    refused = np.where(has & ~rdy, rows[..., PMT], -1)
+    assert {X.MCOLLECT, X.MCOMMIT} <= set(refused.ravel().tolist())
+    assert fire.any()
+    grew = (new_ps["err"] & 16) > (ps["err"] & 16)       # ERR_CAPACITY
+    assert (grew & (mt == X.MCOLLECTACK)).any()
+    # both paths of the fast-path predicate, and the kept consensus rows
+    done = mt == X.MCOLLECTACK
+    assert (done & (new_ps["m_fast"] > ps["m_fast"])).any()
+    assert (done & (new_ps["m_slow"] > ps["m_slow"])).any()
+    assert (done & (hout["mtype"][..., 0] == X.MCONSENSUS)
+            & ~hout["valid"].any(-1)).any()
+    # drains executed (TO_CLIENT) and chained (MDRAIN), some through a
+    # cycle (no ready vertex), and a disabled drain's pick elsewhere
+    drains = (mt == X.MCOMMIT) | (mt == X.MDRAIN)
+    assert (drains & hout["valid"][..., F - 2]).any()
+    assert (drains & hout["valid"][..., F - 1]).any()
+    assert (~drains & (hout["dst"][..., F - 2] != N)).any()
+    executed = (new_ps["exec_front"] != ps["exec_front"]).any(-1)
+    assert (drains & executed).any()

@@ -107,3 +107,46 @@ def test_rehearsal_of_the_tempo_profile_on_cpu():
     out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
     assert out["protocol"] == "TempoDev" and out["lanes"] == 2
     assert out["device_activities_per_step_by_name"] == {}
+
+
+@pytest.mark.parametrize("name, expected_acks", [
+    ("atlas", {3, 4}),          # n/2 + f, the coordinator acking itself
+    ("epaxos", {2}),            # f = n/2 = 2: fast quorum 3, minus self
+])
+def test_graphdep_main_paths_are_the_bench_grid(name, expected_acks):
+    """The reference bench's grid for Atlas and EPaxos at the CLI's
+    sizing: K = 6 keys, Q = 6 dep slots, P = 5 + 2Q = 17 (W = 25),
+    F = n + 1 + 2 drain slots, one GC timer row; the lane tree is 29
+    protocol planes, 29,082 int32 words and 1,260 bool bytes per
+    process."""
+    from fantoch_tpu_torch.engine.protocols import AtlasDev, EPaxosDev
+
+    args = cli.parse_args(cli.MAIN_PATHS[name])
+    assert args.protocol == name
+    protocol, dims, specs = cli.sweep_setup(args)
+    cls = AtlasDev if name == "atlas" else EPaxosDev
+    assert protocol == cls(keys=6, gap_slots=8) and len(specs) == 2048
+    assert (dims.N, dims.C, dims.M, dims.D, dims.F, dims.R, dims.P) == (
+        5, 5, 2069, 251, 8, 1, 17
+    )
+    assert {int(s.ctx["expected_acks"]) for s in specs} == expected_acks
+    assert {int(s.ctx["fp_mode"]) for s in specs} == {int(name == "epaxos")}
+    state = protocol.init_state(dims, specs[0].ctx)
+    assert len(state) == 29
+    words = sum(v.size for v in state.values() if v.dtype != bool)
+    flags = sum(v.size for v in state.values() if v.dtype == bool)
+    assert (words // dims.N, flags // dims.N) == (29082, 1260)
+
+
+@pytest.mark.parametrize("name", ["atlas", "epaxos"])
+def test_rehearsal_of_the_graphdep_profile_on_cpu(name):
+    args = cli.parse_args([
+        "sweep", "--protocol", name, "--n", "3", "--subsets", "1",
+        "--fs", "1", "--conflicts", "0,100", "--commands", "3",
+    ])
+    protocol, dims, specs = cli.sweep_setup(args)
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev)
+    out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
+    assert out["protocol"] == type(protocol).__name__ and out["lanes"] == 2
+    assert out["device_activities_per_step_by_name"] == {}
