@@ -5,22 +5,26 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's nine CUDA kernels from
+It builds the engine's ten CUDA kernels from
 ``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch twin on the card at the
-five main paths' shapes (exact equality: all integer or bool data;
+six main paths' shapes (exact equality: all integer or bool data;
 ``key_table`` also on a batch of Zipf lanes; ``lane_freeze`` also with
 frozen lanes; ``tempo_handle`` over further steps until every Tempo
 message type and the GC and detached-send timers have been handled;
 ``graphdep_handle``, on the Atlas and on the EPaxos path, until every
-message type, the GC timer and a drain chain have been) beside the
+message type, the GC timer and a drain chain have been;
+``caesar_handle`` until every Caesar message type, both timers, an exec
+and a wait chain, a reject reply and an MRetry broadcast have been)
+beside the
 least time its region's work needs (each kernel module's ``work``,
 ``kernels/cost.py``) — a kernel's ``ms`` is its device time per launch
 under ``torch.profiler``, ``call_ms`` the wrapper's whole call (host
 included) — checks the Basic golden numbers and the committed
-``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep}_golden.json`` bytes
-on the card, then drives the five main paths — the 2,048-lane Basic,
-FPaxos, Tempo, Atlas and EPaxos sweeps (n = 5, 256 five-region subsets
+``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep,caesar}_golden.json``
+bytes on the card, then drives the six main paths — the 2,048-lane
+Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar sweeps (n = 5, 256
+five-region subsets
 × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50 commands per client, one
 client per region) through ``run_sweep`` — each with every launch
 counter set to 0 just before and read just after, and holds sampled
@@ -66,12 +70,22 @@ GRAPHDEP_POINTS = [
     (5, 2, 100, 10, 1),
     (5, 2, 100, 20, 2),
 ]
+# the Caesar golden batch (tests/test_torch_caesar.py): (n, f, wait
+# condition, conflict, commands, clients per region)
+CAESAR_POINTS = [
+    (3, 1, True, 100, 30, 1),
+    (3, 1, False, 100, 30, 1),
+    (3, 1, True, 0, 30, 2),
+    (5, 2, True, 100, 10, 1),
+    (5, 2, False, 100, 10, 1),
+]
 # sampled lanes held to the host's plain twins: (regions, f, conflict) =
 # (0, 1, 0), (0, 2, 100), (125, 1, 0), (255, 2, 100); the twins of Tempo,
-# Atlas and EPaxos are slower on the host, so two of them, both f = 2 at
-# conflict 100
+# Atlas, EPaxos and Caesar are slower on the host, so two of them, both
+# f = 2 at conflict 100
 SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
-          "tempo": [7, 2047], "atlas": [7, 2047], "epaxos": [7, 2047]}
+          "tempo": [7, 2047], "atlas": [7, 2047], "epaxos": [7, 2047],
+          "caesar": [7, 2047]}
 
 # the reference region each kernel replaces
 REPLACES = {
@@ -84,11 +98,12 @@ REPLACES = {
     "lane_freeze": "fantoch_tpu/engine/core.py:1565",
     "tempo_handle": "fantoch_tpu/engine/protocols/tempo.py:226",
     "graphdep_handle": "fantoch_tpu/engine/protocols/graphdep.py:215",
+    "caesar_handle": "fantoch_tpu/engine/protocols/caesar.py:239",
 }
 HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo": "tempo_handle", "atlas": "graphdep_handle",
-            "epaxos": "graphdep_handle"}
-PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos")
+            "epaxos": "graphdep_handle", "caesar": "caesar_handle"}
+PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar")
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
@@ -157,13 +172,35 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _event_ms(fn, iters: int) -> float:
+    """Device time per call of ``fn`` from a CUDA event pair around each
+    call. The pairs queue behind a device-side sleep while the host
+    issues them, so the host's issue time between calls is not counted;
+    each pair also counts its launch's few microseconds on the device."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of the card's cycles
+    for start, end in pairs:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
 def _device_ms(fn, kernel: str, iters: int) -> float:
     """Device time per launch of ``kernel`` over ``iters`` calls of
     ``fn``, from ``torch.profiler``: the kernel's own time, without the
     host's time to issue it (``_time_ms`` measures the call as a whole,
     which for a short kernel is the host's). The profiler may lose a few
     of a burst of short launches' records; the time is the mean over the
-    launches it recorded, and the line says how many that was."""
+    launches it recorded, and the line says how many that was. Where it
+    recorded none (seen for K3's launches of a few microseconds), the
+    time comes from :func:`_event_ms`, and the line says so."""
     import torch
 
     fn()
@@ -177,7 +214,11 @@ def _device_ms(fn, kernel: str, iters: int) -> float:
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and e.name.startswith(kernel + "_kernel")]
-    assert 0 < len(us) <= iters, (kernel, len(us))
+    if not us:
+        print(f"profiler: no {kernel} launch of {iters} recorded; ms is "
+              f"from CUDA events around each launch instead")
+        return _event_ms(fn, iters)
+    assert len(us) <= iters, (kernel, len(us))
     if len(us) < iters:
         print(f"profiler: {len(us)} of {iters} {kernel} launches recorded; "
               f"ms is their mean")
@@ -334,15 +375,49 @@ def check_kernels(name, dev, rows):
 
 
 # the message types each handler's coverage phase waits for, in type
-# order, the timer rows that must fire, and whether a drain chain (MDRAIN
-# in the graph drain's slot F - 1) must have been emitted
+# order, the timer rows that must fire, and the further events that must
+# have been seen in some compared step: each a count over the twin's
+# outputs ``(rdy, ps, periodic outbox, handler outbox)``
+
+
+def _slot_valid(slot):
+    """Valid messages in handler outbox slot ``slot`` (negative: from
+    the end)."""
+    return lambda out, dims: int(out[3]["valid"][..., slot].sum())
+
+
+def _sent(mtype, word=None, value=None):
+    """Valid handler messages of type ``mtype`` (with payload ``word``
+    equal to ``value``)."""
+    def count(out, dims):
+        hout = out[3]
+        hit = hout["valid"] & (hout["mtype"] == mtype)
+        if word is not None:
+            hit = hit & (hout["payload"][..., word] == value)
+        return int(hit.sum())
+    return count
+
+
 COVERAGE = {
     "tempo_handle": (("SUBMIT", "MCOLLECT", "MCOLLECTACK", "MCOMMIT",
                       "MDETACHED", "MCONSENSUS", "MCONSENSUSACK", "MGC",
-                      "MDRAIN", "DETACH_DRAIN"), (0, 2), False),
+                      "MDRAIN", "DETACH_DRAIN"), (0, 2), {}),
     "graphdep_handle": (("SUBMIT", "MCOLLECT", "MCOLLECTACK", "MCOMMIT",
                          "MCONSENSUS", "MCONSENSUSACK", "MGC", "MDRAIN"),
-                        (0,), True),
+                        (0,),
+                        {"drain chains (MDRAIN in slot F - 1)":
+                         _slot_valid(-1)}),
+    # Caesar (engine/protocols/caesar.py): MPROPOSEACK = 2, MRETRY = 4;
+    # a reject reply carries 0 in payload word 3 (an accept 1)
+    "caesar_handle": (("SUBMIT", "MPROPOSE", "MPROPOSEACK", "MCOMMIT",
+                       "MRETRY", "MRETRYACK", "MGC", "WAIT_DRAIN",
+                       "EXEC_DRAIN", "GC_DRAIN"), (0, 1),
+                      {"exec chains (EXEC_DRAIN in slot F - 3)":
+                       _slot_valid(-3),
+                       "wait chains (WAIT_DRAIN in slot F - 1)":
+                       _slot_valid(-1),
+                       "reject replies": _sent(2, 3, 0),
+                       "MRETRY broadcasts": _sent(4)}),
 }
 
 
@@ -350,20 +425,20 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
              mod, every=25, bound=80):
     """A handler kernel against its twin, exactly, on the arguments of
     one step in every ``every`` after phase 3's, until each of its
-    message types and the timer rows (and for the graph drain a chain)
-    have been handled in some compared step (at most ``bound``
-    captures; Tempo's main path never fires the clock-bump row, which
-    the golden batch covers). Returns the max abs error."""
+    message types, the timer rows and the further events have been seen
+    in some compared step (at most ``bound`` captures; Tempo's main path
+    never fires the clock-bump row, which the golden batch covers).
+    Returns the max abs error."""
     import torch
 
     from fantoch_tpu_torch.engine import core as engine_core
     from fantoch_tpu_torch.engine.dims import PMT
 
-    names, rows_needed, chain_needed = COVERAGE[kname]
+    names, rows_needed, extras = COVERAGE[kname]
     kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
     handled = [0] * len(names)
     fired = [0] * dims.R
-    chains = 0
+    seen = dict.fromkeys(extras, 0)
     err, args, captures = 0.0, first, 0
     while True:
         got = kern(*args)
@@ -376,16 +451,16 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
             handled[t] += int((mt == t).sum())
         for r in range(dims.R):
             fired[r] += int(fire[..., r].sum())
-        chains += int(want[3]["valid"][..., dims.F - 1].sum())
+        for label, count in extras.items():
+            seen[label] += count(want, dims)
         captures += 1
         if (min(handled) > 0 and all(fired[r] > 0 for r in rows_needed)
-                and (chains > 0 or not chain_needed)):
+                and all(seen.values())):
             break
         if captures >= bound:
             raise AssertionError(
                 f"{kname} coverage incomplete after {captures} captures: "
-                f"{dict(zip(names, handled))}, timers {fired}, drain "
-                f"chains {chains}")
+                f"{dict(zip(names, handled))}, timers {fired}, {seen}")
         for _ in range(every - 1):
             state, _running = engine_core.frozen_step(protocol, dims, state,
                                                       ctx, max_steps)
@@ -405,8 +480,7 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
     print(f"kernel {kname} ({name} path): exact=True over {captures} "
           f"compared steps, one in {every} from step 301; handled "
           f"{dict(zip(names, handled))}; timer rows fired {fired}"
-          + (f"; drain chains (MDRAIN in slot F - 1) {chains}"
-             if chain_needed else "")
+          + "".join(f"; {label} {n}" for label, n in seen.items())
           + f"; max_abs_err={err}")
     return err
 
@@ -568,6 +642,48 @@ def golden_graphdep(dev) -> None:
     _match_fixture(results, "torch_graphdep_golden.json")
 
 
+def golden_caesar(dev) -> None:
+    """Phase 6: the Caesar golden batch (the five configurations of
+    tests/test_engine_caesar.py that are not slow, wait condition on and
+    off, in one batch) against its fixture."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
+    from fantoch_tpu_torch.engine.protocols import CaesarDev
+
+    planet = Planet.new()
+    regions = planet.regions()
+    points = CAESAR_POINTS
+    clients = max(n * cpr for n, _f, _w, _c, _k, cpr in points)
+    total = max(k * n * cpr for n, _f, _w, _c, k, cpr in points)
+    n_max = max(pt[0] for pt in points)
+    proto = CaesarDev.for_load(keys=1 + clients, clients=clients)
+    dims = EngineDims.for_protocol(
+        proto, n=n_max, clients=clients,
+        payload=proto.payload_width(n_max), total_commands=total,
+        dot_slots=total + 1, regions=n_max,
+    )
+    specs = [
+        make_lane(proto, planet,
+                  Config(n=n, f=f, gc_interval_ms=100,
+                         caesar_wait_condition=wait),
+                  conflict_rate=conflict, pool_size=1,
+                  commands_per_client=commands, clients_per_region=cpr,
+                  process_regions=regions[:n], client_regions=regions[:n],
+                  dims=dims, seed=i)
+        for i, (n, f, wait, conflict, commands, cpr) in enumerate(points)
+    ]
+    results = run_lanes(proto, dims, specs, device=dev)
+    for (n, f, wait, _c, commands, cpr), res in zip(points, results):
+        assert res.err == 0, res.err_cause
+        done = commands * cpr * n
+        m = {k: int(v.sum()) for k, v in res.protocol_metrics.items()}
+        assert m["fast_path"] + m["slow_path"] == done, m
+        assert m["stable"] == n * done, m
+        print(f"golden caesar on {dev}: n={n} f={f} wait={wait} "
+              f"commands={commands} x{cpr} steps {res.steps} metrics {m}")
+    _match_fixture(results, "torch_caesar_golden.json")
+
+
 def _match_fixture(results, name) -> None:
     text = json.dumps([r.to_json() for r in results], sort_keys=True) + "\n"
     path = FIXTURES / name
@@ -622,17 +738,17 @@ def sweep(name, dev):
         if name == "basic":
             assert r.requeues == 0
             assert list(r.protocol_metrics["stable"]) == [total] * dims.N
-        if name in ("tempo", "atlas", "epaxos"):
+        if name in ("tempo", "atlas", "epaxos", "caesar"):
             # every command committed once, on the fast or the slow path;
             # every process GCs every command; with f = 1, Tempo's and
             # Atlas's fast path always holds (test_engine_tempo.py,
-            # test_engine_graphdep.py)
+            # test_engine_graphdep.py, test_engine_caesar.py)
             m = {k: int(v.sum()) for k, v in r.protocol_metrics.items()}
             assert m["fast_path"] + m["slow_path"] == total, m
             assert m["stable"] == dims.N * total, m
-            if spec.config.f == 1 and name != "epaxos":
+            if spec.config.f == 1 and name in ("tempo", "atlas"):
                 assert m["slow_path"] == 0, m
-    if name in ("tempo", "atlas", "epaxos"):
+    if name in ("tempo", "atlas", "epaxos", "caesar"):
         slow = sum(int(r.protocol_metrics["slow_path"].sum())
                    for r in results)
         print(f"{name}: fast + slow == {total} and stable == "
@@ -688,6 +804,7 @@ def main() -> int:
     phase("5 golden fpaxos", golden_fpaxos, dev)
     phase("6 golden tempo", golden_tempo, dev)
     phase("6 golden atlas/epaxos", golden_graphdep, dev)
+    phase("6 golden caesar", golden_caesar, dev)
 
     # 7. the main paths, each counted on its own
     by_path = {name: phase(f"7 sweep {name}", sweep, name, dev)

@@ -18,7 +18,8 @@ from .core import Config, Planet
 
 
 # the port's main paths: the reference bench's per-protocol grid
-# (bench.py), 2,048 lanes, for Basic, FPaxos, Tempo, Atlas and EPaxos;
+# (bench.py), 2,048 lanes, for Basic, FPaxos, Tempo, Atlas, EPaxos and
+# Caesar (with the wait condition, the reference's default);
 # chip_smoke.py and step_profile.py drive them
 MAIN_PATH = [
     "sweep", "--protocol", "basic", "--n", "5", "--subsets", "256",
@@ -37,9 +38,12 @@ MAIN_PATH_ATLAS = [
 MAIN_PATH_EPAXOS = [
     "epaxos" if a == "basic" else a for a in MAIN_PATH
 ]
+MAIN_PATH_CAESAR = [
+    "caesar" if a == "basic" else a for a in MAIN_PATH
+]
 MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
               "tempo": MAIN_PATH_TEMPO, "atlas": MAIN_PATH_ATLAS,
-              "epaxos": MAIN_PATH_EPAXOS}
+              "epaxos": MAIN_PATH_EPAXOS, "caesar": MAIN_PATH_CAESAR}
 
 
 def _ints(s: str) -> List[int]:
@@ -115,13 +119,15 @@ def sweep_setup(args):
 
 def _config_overrides(args) -> dict:
     """The CLI's config knobs, as the reference's ``_build_config``:
-    the GC interval, and for Tempo the detached-send interval and the
-    optional real-time clock bump."""
+    the GC interval, for Tempo the detached-send interval and the
+    optional real-time clock bump, for Caesar the wait condition."""
     kw = dict(gc_interval_ms=args.gc_interval)
     if args.protocol == "tempo":
         kw["tempo_detached_send_interval_ms"] = args.detached_interval
         if args.clock_bump_interval:
             kw["tempo_clock_bump_interval_ms"] = args.clock_bump_interval
+    if args.protocol == "caesar":
+        kw["caesar_wait_condition"] = not args.no_wait_condition
     return kw
 
 
@@ -179,6 +185,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     sw.add_argument("--clock-bump-interval", type=int, default=None,
                     help="Tempo: ms between real-time clock bumps "
                     "(default: none)")
+    sw.add_argument("--no-wait-condition", action="store_true",
+                    help="Caesar: reply to a blocked proposal at once "
+                    "(reject) instead of waiting")
     sw.add_argument("--extra-time", type=int, default=1000)
     sw.add_argument("--dot-slots", type=int, default=None)
     sw.add_argument("--batch-lanes", type=int, default=512,

@@ -2,29 +2,24 @@
 
 Each module is the fixed-shape twin of a protocol of the reference's
 device engine, batched over an explicit ``[L, N]`` (lane, process) axis.
-Basic, FPaxos, Tempo, Atlas and EPaxos are ported; Caesar raises by
-name.
+Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar are ported.
 """
 
 from .basic import BasicDev
+from .caesar import CaesarDev
 from .fpaxos import FPaxosDev
 from .graphdep import AtlasDev, EPaxosDev
 from .tempo import TempoDev
 
-__all__ = ["AtlasDev", "BasicDev", "EPaxosDev", "FPaxosDev", "TempoDev",
-           "dev_config_kwargs", "dev_protocol"]
-
-# protocol → the ROADMAP Queue A item that ports it
-_NOT_PORTED = {
-    "caesar": "7",
-}
+__all__ = ["AtlasDev", "BasicDev", "CaesarDev", "EPaxosDev", "FPaxosDev",
+           "TempoDev", "dev_config_kwargs", "dev_protocol"]
 
 
 def dev_protocol(name: str, clients: int = 0, keys: "int | None" = None):
     """The protocol-name → device-protocol switch. The key tables
     follow the load: ``keys`` (default one per client plus the shared
-    conflict key), and Tempo's capacity also ``clients``, as the
-    reference's ``dev_protocol``."""
+    conflict key), and Tempo's and Caesar's capacities also
+    ``clients``, as the reference's ``dev_protocol``."""
     keys = keys if keys is not None else 1 + clients
     if name == "tempo":
         return TempoDev.for_load(keys=keys, clients=clients)
@@ -36,23 +31,23 @@ def dev_protocol(name: str, clients: int = 0, keys: "int | None" = None):
         return BasicDev
     if name == "fpaxos":
         return FPaxosDev
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"protocol {name!r} is not ported yet (ROADMAP Queue A item "
-            f"{_NOT_PORTED[name]})"
-        )
+    if name == "caesar":
+        return CaesarDev.for_load(keys=keys, clients=clients)
     raise ValueError(f"unknown protocol {name!r}")
 
 
 def dev_config_kwargs(name: str, n: int, f: int, **overrides):
     """Default Config kwargs per protocol, as the reference's
     ``dev_config_kwargs`` for the ported ones (FPaxos's initial leader
-    is process 1; Tempo sends detached votes every 100 ms);
+    is process 1; Tempo sends detached votes every 100 ms; Caesar runs
+    with the wait condition);
     ``overrides`` win."""
     kw = dict(n=n, f=f, gc_interval_ms=100)
     if name == "tempo":
         kw["tempo_detached_send_interval_ms"] = 100
     if name == "fpaxos":
         kw["leader"] = 1
+    if name == "caesar":
+        kw["caesar_wait_condition"] = True
     kw.update(overrides)
     return kw

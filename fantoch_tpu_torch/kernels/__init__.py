@@ -9,6 +9,7 @@ its kernel launches in a ``launches`` attribute.
 from __future__ import annotations
 
 from .basic_handle import basic_handle
+from .caesar_handle import caesar_handle
 from .emit_rewrite import emit_rewrite
 from .fpaxos_handle import fpaxos_handle
 from .graphdep_handle import graphdep_handle
@@ -28,6 +29,7 @@ WRAPPERS = {
     "lane_freeze": lane_freeze,
     "tempo_handle": tempo_handle,
     "graphdep_handle": graphdep_handle,
+    "caesar_handle": caesar_handle,
 }
 
 

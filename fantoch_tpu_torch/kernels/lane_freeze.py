@@ -21,7 +21,7 @@ from . import build, cost
 I32 = torch.int32
 
 # planes one launch can carry (csrc/lane_freeze.cu MAX_PLANES); a Tempo
-# lane tree has 52
+# lane tree has 52, a Caesar one 60
 MAX_PLANES = 64
 
 
@@ -55,6 +55,8 @@ def lane_freeze_plain(new, old, ctx, max_steps: int):
     state the step started from; ``state`` is ``new`` for running lanes
     and ``old`` for the others."""
     running = lane_running(old, ctx, max_steps)
+    if bool(running.all()):
+        return new, running  # no lane is frozen: the select is ``new``
     return _tree_where(running, new, old), running
 
 

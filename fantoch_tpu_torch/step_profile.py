@@ -1,7 +1,7 @@
 """Where a batch step's time goes on the card.
 
     python -m fantoch_tpu_torch.step_profile
-        [--protocol basic|fpaxos|tempo|atlas|epaxos] [--steps 128]
+        [--protocol basic|fpaxos|tempo|atlas|epaxos|caesar] [--steps 128]
         [--warmup 300]
 
 Builds the first batch of the protocol's main-path sweep

@@ -10,14 +10,16 @@ import torch
 
 from fantoch_tpu_torch.engine.dims import INF, PA, PDST, PMT, PPAY, EngineDims
 from fantoch_tpu_torch.engine.protocols import (
-    AtlasDev, BasicDev, FPaxosDev, TempoDev,
+    AtlasDev, BasicDev, CaesarDev, FPaxosDev, TempoDev,
 )
 from fantoch_tpu_torch.kernels import (
-    basic_handle, cost, emit_rewrite, fpaxos_handle, graphdep_handle,
-    key_table, land_emissions, lane_freeze, qualify_pop, tempo_handle,
+    basic_handle, caesar_handle, cost, emit_rewrite, fpaxos_handle,
+    graphdep_handle, key_table, land_emissions, lane_freeze, qualify_pop,
+    tempo_handle,
 )
 from fantoch_tpu_torch.kernels.basic_handle import OUTBOX_KEYS
 from fantoch_tpu_torch.kernels.basic_handle import work as bh_work
+from fantoch_tpu_torch.kernels.caesar_handle import work as ch_work
 from fantoch_tpu_torch.kernels.emit_rewrite import work as er_work
 from fantoch_tpu_torch.kernels.fpaxos_handle import work as fh_work
 from fantoch_tpu_torch.kernels.graphdep_handle import work as gh_work
@@ -349,6 +351,72 @@ def test_graphdep_handle_work_idle_submit_gc_and_drain():
     out = graphdep_handle(*args)
     with_timer, _ = gh_work(*args, out)
     assert with_timer == with_vertex + 4 * N
+
+def _caesar_idle(L=2):
+    t = CaesarDev(keys=2, key_slots=4, dep_slots=4, blocker_slots=2,
+                  gap_slots=2, exec_buffer=4)
+    dims = EngineDims.for_protocol(t, n=3, clients=3,
+                                   payload=t.payload_width(3), dot_slots=4)
+    N = dims.N
+    ps = {k: torch.from_numpy(np.stack([v] * L))
+          for k, v in t.init_state(dims, {}).items()}
+    has = torch.zeros((L, N), dtype=torch.bool)
+    rows = torch.zeros((L, N, PPAY + dims.P), dtype=torch.int32)
+    fire = torch.zeros((L, N, dims.R), dtype=torch.bool)
+    i32 = lambda v, *s: torch.full((L, *s), v, dtype=torch.int32)  # noqa: E731
+    ctx = {"n": i32(N), "fq_size": i32(3), "wq_size": i32(2),
+           "wait_condition": torch.ones((L,), dtype=torch.bool),
+           "client_attach": i32(0, 3)}
+    return t, dims, ps, has, rows, fire, ctx
+
+
+def test_caesar_handle_work_idle_submit_and_gc():
+    t, dims, ps, has, rows, fire, ctx = _caesar_idle()
+    args = (ps, has, rows, fire, ctx, dims)
+    out = caesar_handle(*args)
+    idle, idle_ops = ch_work(*args, out)
+    L, N = has.shape
+    P, D, S, DEP, G = dims.P, dims.D, t.S, t.DEP, t.G
+    # every process runs both scans: they read the [N, D] statuses, the
+    # executed sets and the exec pick's client and attach entry
+    scans = 4 * N * D + 4 * N * (1 + 2 * G) + 4 * 2
+    assert idle == cost.nbytes(has, fire) + L * N * scans + L * N + \
+        _outboxes_bytes(out)
+    assert idle_ops == 40 * L * N + L * N * 2 * N * D
+    # a SUBMIT at process 0 on key 0: reads its message, its sequence and
+    # clock; writes both (the quorum bookkeeping of slot 0 is unchanged)
+    has[0, 0] = True
+    rows[0, 0, PMT] = CaesarDev.SUBMIT
+    out = caesar_handle(*args)
+    n_bytes, _ = ch_work(*args, out)
+    assert n_bytes == idle + 4 * (2 + P) + 4 * 2 + 4 * 2
+    # an MGC at process 2 of lane 1 with one sighting of dot (0, 1),
+    # which it holds: reads the message and, for the dot, its words and
+    # the key row's clocks; writes its sighting count (1 of n = 3)
+    ps["pseq"][1, 2, 0, 0] = 1
+    has[1, 2] = True
+    rows[1, 2, PMT] = CaesarDev.MGC
+    rows[1, 2, PPAY:PPAY + 3] = torch.tensor([1, 0, 1])
+    out = caesar_handle(*args)
+    with_gc, ops = ch_work(*args, out)
+    assert bool(out[0][1, 2]) and int(out[1]["gc_cnt"][1, 2, 0, 0]) == 1
+    assert with_gc == n_bytes + 4 * (2 + P) + 4 * (5 + 2 * S) + 4
+    assert ops == idle_ops
+    # a committed dot with no deps at process 1 of lane 0, its exec scan
+    # disabled: the scan also reads its clock and its dep cells, and
+    # checks its DEP deps
+    ps["status"][0, 1, 2, 0] = 5                         # ST_COMMIT
+    ps["pseq"][0, 1, 2, 0] = 1
+    out = caesar_handle(*args)
+    with_dot, dops = ch_work(*args, out)
+    assert with_dot == with_gc + 4 * (2 + 6 * DEP)
+    assert dops == ops + DEP * (2 * G + 8)
+    # a firing notification timer reads the (empty) executed buffer
+    fire[0, 1, 1] = True
+    out = caesar_handle(*args)
+    with_timer, _ = ch_work(*args, out)
+    assert with_timer == with_dot + 4
+
 
 def _emit_case():
     """One lane, N = 2, C = 2, F = 3: all rows empty but for process 0's

@@ -33,6 +33,7 @@ from fantoch_tpu.engine.core import (
 from fantoch_tpu.engine.protocols import BasicDev as RBasic
 from fantoch_tpu.engine.protocols import FPaxosDev as RFPaxos
 from fantoch_tpu.engine.protocols import AtlasDev as RAtlas
+from fantoch_tpu.engine.protocols import CaesarDev as RCaesar
 from fantoch_tpu.engine.protocols import TempoDev as RTempo
 from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.dims import (
@@ -758,3 +759,289 @@ def test_graphdep_handle_twin_matches_reference(seed, fp_mode):
     assert (~drains & (hout["dst"][..., F - 2] != N)).any()
     executed = (new_ps["exec_front"] != ps["exec_front"]).any(-1)
     assert (drains & executed).any()
+
+
+# ----------------------------------------------------------------------
+# K10 caesar_handle
+# ----------------------------------------------------------------------
+
+CAESAR_SIZES = dict(keys=3, key_slots=4, dep_slots=6, blocker_slots=3,
+                    gap_slots=3, exec_buffer=4)
+_CAESAR_REF = {}
+
+
+def _caesar_inputs(seed, dims, t, wait, lanes=96):
+    """Every message type handled somewhere, the gated ones (MPropose,
+    MCommit, MRetry, MGC) also refused; both timer rows firing, with
+    executed dots buffered and GC buffers fuller than one message; key
+    rows with free slots, duplicate and full ones; dots that wait on
+    blockers that are safe (with this dot in their deps or not), unsafe,
+    freed (a stale sequence) and absent; committed dots whose deps are
+    live, executed, dead, lower and higher in clock order, through
+    sources out of range (negative ones count from the end, large ones
+    clamp); acks that fill, dedup against and overflow the union rows;
+    self-deps in MCommit; MGC sightings that reach n and free the dot;
+    keys and clients out of range; dot slots that wrap."""
+    from fantoch_tpu_torch.engine.protocols.caesar import (
+        ST_ACCEPT, ST_COMMIT, ST_EXECUTED, ST_PROPOSE_END, ST_REJECT,
+    )
+
+    rng = np.random.default_rng(seed)
+    D, C, P = dims.D, dims.C, dims.P
+    K, S, DEP, BB, G, EB = t.K, t.S, t.DEP, t.BB, t.G, t.EB
+    ri = lambda lo, hi, *s: rng.integers(lo, hi, (lanes, *s)).astype(np.int32)  # noqa: E731
+    rb = lambda p, *s: rng.random((lanes, *s)) < p  # noqa: E731
+    X = RCaesar
+    li = np.arange(lanes)[:, None, None, None]
+    pi = np.arange(N)[None, :, None, None]
+    # dots: a present cell holds a sequence of its own slot
+    pseq = ((np.arange(D)[None, None, None, :] + 1 + D * ri(0, 2, N, N, D))
+            * rb(0.75, N, N, D)).astype(np.int32)
+    statuses = np.array([0, ST_PROPOSE_END, ST_REJECT, ST_ACCEPT, ST_COMMIT,
+                         ST_EXECUTED], np.int32)
+    status = statuses[rng.choice(6, (lanes, N, N, D),
+                                 p=[0.1, 0.25, 0.1, 0.15, 0.3, 0.1])]
+    status = np.where(pseq > 0, status, 0).astype(np.int32)
+
+    def refs(shape, p_live=0.7):
+        """(src, seq) pairs naming present dots, stale sequences, absent
+        entries and sources shifted by -N or out of range."""
+        tsrc, tslot = ri(0, N, *shape), ri(0, D, *shape)
+        idx = (li.reshape((lanes,) + (1,) * len(shape)),
+               pi.reshape((1, N) + (1,) * (len(shape) - 1)))
+        target = pseq[idx[0], idx[1], tsrc, tslot] if len(shape) > 1 else None
+        seq = np.where(rb(p_live, *shape), target, ri(1, 9, *shape))
+        seq = seq * rb(0.8, *shape)
+        src = tsrc - N * rb(0.1, *shape)
+        src = np.where(rb(0.05, *shape), N + 2, src)
+        return src.astype(np.int32), seq.astype(np.int32)
+
+    dep_src, dep_seq = refs((N, N, D, DEP))
+    bb_src, bb_seq = refs((N, N, D, BB), p_live=0.8)
+    bb_src = np.where(bb_src < 0, bb_src + N, bb_src) % (N + 3)
+    # a blocker lists the blocked dot in its deps for about half of them
+    ls, ps_, ss, ds, bs = np.nonzero(rb(0.5, N, N, D, BB) & (bb_seq > 0))
+    bsrc = np.clip(bb_src[ls, ps_, ss, ds, bs], 0, N - 1)
+    bslot = (bb_seq[ls, ps_, ss, ds, bs] - 1) % D
+    j = rng.integers(0, DEP, ls.shape)
+    dep_src[ls, ps_, bsrc, bslot, j] = ss
+    dep_seq[ls, ps_, bsrc, bslot, j] = pseq[ls, ps_, ss, ds]
+    # clock-table rows: registrations with distinct-ish clocks, free slots
+    kc_cseq = ri(1, 7, N, K, S) * rb(0.7, N, K, S)
+    kc_cseq[rb(0.15, N, K)] = 5                      # full rows
+    ef, eg = _gap_sets(rng, (lanes, N, N), G, lo_max=4)
+    ag_seq = ri(1, 6, N, D, DEP) * rb(0.5, N, D, DEP)
+    ag_seq[rb(0.2, N, D)] = 4                        # full rows
+    ps = {
+        "kc_src": ri(0, N, N, K, S),
+        "kc_seq": ri(1, 9, N, K, S),
+        "kc_cseq": kc_cseq.astype(np.int32),
+        "kc_cpid": ri(0, N + 1, N, K, S),
+        "clk_counter": ri(0, 8, N),
+        "pseq": pseq,
+        "status": status,
+        "key_of": ri(0, K + 1, N, N, D),
+        "client_of": ri(0, C + 1, N, N, D),
+        "clk_seq": ri(0, 7, N, N, D),
+        "clk_pid": ri(0, N + 1, N, N, D),
+        "dep_src": dep_src,
+        "dep_seq": dep_seq,
+        "bb_src": bb_src.astype(np.int32),
+        "bb_seq": bb_seq,
+        "own_seq": ri(0, 8, N),
+        "qa_cnt": ri(0, 4, N, D),
+        "qa_ok": rb(0.7, N, D),
+        "qa_done": rb(0.2, N, D),
+        "qa_cseq": ri(0, 6, N, D),
+        "qa_cpid": ri(0, N + 1, N, D),
+        "ag_src": ri(0, N, N, D, DEP),
+        "ag_seq": ag_seq.astype(np.int32),
+        "qr_cnt": ri(0, 3, N, D),
+        "ex_front": ef,
+        "ex_gaps": eg,
+        "eb_src": ri(0, N, N, EB),
+        "eb_seq": ri(0, 9, N, EB),
+        "eb_n": ri(0, EB + 1, N),
+        "gb_src": ri(0, N, N, EB),
+        "gb_seq": ri(1, 9, N, EB),
+        "gb_n": ri(0, EB + 1, N),
+        "gb_gc": ri(0, EB + 2, N),
+        "gc_cnt": ri(0, N, N, N, D),
+        "m_fast": ri(0, 9, N),
+        "m_slow": ri(0, 9, N),
+        "m_stable": ri(0, 9, N),
+        "err": ri(0, 2, N) * 8,
+    }
+    # the executed buffer names present dots, so notifications free some
+    es, esl = ri(0, N, N, EB), ri(0, D, N, EB)
+    lp2 = (np.arange(lanes)[:, None, None], np.arange(N)[None, :, None])
+    ps["eb_src"], ps["eb_seq"] = es, pseq[lp2[0], lp2[1], es, esl]
+
+    rows = ri(0, 9, N, PPAY + P)
+    rows[..., PSRC] = ri(0, N + C, N)                    # clients too
+    mt = ri(0, X.NUM_TYPES + 2, N)
+    rows[..., PMT] = mt
+    pay = rows[..., PPAY:]
+    src = rows[..., PSRC]
+    lp = (np.arange(lanes)[:, None], np.arange(N)[None, :])
+    me = np.broadcast_to(np.arange(N), (lanes, N))
+
+    def pairs(at, nd_max, base_src, base_seq, kind):
+        """Dep pairs from word ``at``: present dots, a few repeats."""
+        for q in range(DEP + 1):
+            s_, q_ = ri(0, N, N), ri(0, 9, N)
+            hit = rb(0.5, N)
+            w = at + 2 * q
+            if w + 1 < P:
+                pay[..., w] = np.where(kind, np.where(hit, base_src, s_),
+                                       pay[..., w])
+                pay[..., w + 1] = np.where(kind, np.where(hit, base_seq, q_),
+                                           pay[..., w + 1])
+
+    sub = mt == X.SUBMIT
+    pay[..., 0] = np.where(sub, ri(0, C + 1, N), pay[..., 0])
+    pay[..., 2] = np.where(sub, ri(0, K + 1, N), pay[..., 2])
+    # MPropose [seq, key, client, cseq]: half find a free slot
+    prop = mt == X.MPROPOSE
+    seq = ri(1, 9, N)
+    pay[..., 0] = np.where(prop, seq, pay[..., 0])
+    pay[..., 1] = np.where(prop, ri(0, K + 1, N), pay[..., 1])
+    pay[..., 3] = np.where(prop, ri(0, 7, N), pay[..., 3])
+    free = prop & (src < N) & rb(0.6, N)
+    fl, fp = np.nonzero(free)
+    ps["pseq"][fl, fp, src[fl, fp], (seq[fl, fp] - 1) % D] = 0
+    # MProposeAck [seq, cseq, cpid, ok, nd, pairs]: live dots of mine
+    ack = mt == X.MPROPOSEACK
+    aslot = ri(0, D, N)
+    ps["status"][lp[0], lp[1], me, aslot] = np.where(
+        ack & rb(0.8, N), np.where(rb(0.5, N), ST_PROPOSE_END, ST_REJECT),
+        ps["status"][lp[0], lp[1], me, aslot])
+    pay[..., 0] = np.where(ack, aslot + 1 + D * ri(0, 2, N), pay[..., 0])
+    pay[..., 3] = np.where(ack, rb(0.7, N), pay[..., 3])
+    # half of them are the quorum's last ack
+    fq_size = ri(1, 5)
+    last = ack & rb(0.5, N)
+    ps["qa_cnt"][lp[0], lp[1], aslot] = np.where(
+        last, fq_size[:, None] - 1, ps["qa_cnt"][lp[0], lp[1], aslot])
+    pay[..., 4] = np.where(ack, ri(0, DEP + 2, N), pay[..., 4])
+    q = ri(0, DEP, N)
+    pairs(5, DEP, ps["ag_src"][lp[0], lp[1], aslot, q],
+          ps["ag_seq"][lp[0], lp[1], aslot, q], ack)
+    # MCommit / MRetry [dsrc, seq, cseq, cpid, nd, pairs]: stored dots,
+    # some self-deps, some already committed, some sources out of range
+    cr = (mt == X.MCOMMIT) | (mt == X.MRETRY)
+    dsrc, cslot = ri(0, N, N), ri(0, D, N)
+    stored = ps["pseq"][lp[0], lp[1], dsrc, cslot]
+    good = cr & rb(0.8, N) & (stored > 0)
+    pay[..., 0] = np.where(cr, dsrc, pay[..., 0])
+    pay[..., 1] = np.where(good, stored, np.where(cr, ri(0, 9, N),
+                                                  pay[..., 1]))
+    oob = cr & rb(0.1, N)
+    pay[..., 0] = np.where(oob, ri(N, 2 * N, N) * np.where(
+        rb(0.5, N), 1, -1), pay[..., 0])
+    pay[..., 1] = np.where(oob, 0, pay[..., 1])
+    pay[..., 2] = np.where(cr, ri(0, 7, N), pay[..., 2])
+    pay[..., 3] = np.where(cr, ri(0, N + 1, N), pay[..., 3])
+    pay[..., 4] = np.where(cr, ri(0, DEP + 2, N), pay[..., 4])
+    pairs(5, DEP, pay[..., 0].copy(), pay[..., 1].copy(), cr)
+    # MRetryAck [dsrc, seq, nd, pairs]: my accepted dots
+    ra = mt == X.MRETRYACK
+    rslot = ri(0, D, N)
+    ps["status"][lp[0], lp[1], me, rslot] = np.where(
+        ra & rb(0.8, N), ST_ACCEPT, ps["status"][lp[0], lp[1], me, rslot])
+    pay[..., 1] = np.where(ra, rslot + 1 + D * ri(0, 2, N), pay[..., 1])
+    pay[..., 2] = np.where(ra, ri(0, DEP + 2, N), pay[..., 2])
+    q = ri(0, DEP, N)
+    pairs(3, DEP, ps["ag_src"][lp[0], lp[1], rslot, q],
+          ps["ag_seq"][lp[0], lp[1], rslot, q], ra)
+    # MGC [nd, (src, seq)...]: sightings of present dots, most ready
+    gc = mt == X.MGC
+    dpm = (P - 1) // 2
+    pay[..., 0] = np.where(gc, ri(0, dpm + 2, N), pay[..., 0])
+    ok_gc = gc & rb(0.7, N)
+    for i in range(dpm):
+        gs, gsl = ri(0, N, N), ri(0, D, N)
+        pay[..., 1 + 2 * i] = np.where(gc, gs, pay[..., 1 + 2 * i])
+        pay[..., 2 + 2 * i] = np.where(
+            ok_gc, ps["pseq"][lp[0], lp[1], gs, gsl],
+            np.where(gc, ri(0, 9, N), pay[..., 2 + 2 * i]))
+    rows[..., PPAY:] = pay
+    ctx = {
+        "n": ri(2, N + 1),
+        "fq_size": fq_size,
+        "wq_size": ri(1, 4),
+        "wait_condition": np.full((lanes,), wait, bool),
+        "client_attach": ri(0, N, C),
+    }
+    return ps, rb(0.85, N), rows, rb(0.3, N, 2), ctx
+
+
+@pytest.mark.parametrize("seed, wait", [(0, True), (1, True), (2, False),
+                                        (3, False)])
+def test_caesar_handle_twin_matches_reference(seed, wait):
+    """The twin of K10 against the reference's vmapped ``ready``,
+    ``periodic`` and ``handle`` (one jit for every case)."""
+    from fantoch_tpu_torch.engine.protocols import CaesarDev
+    from fantoch_tpu_torch.kernels import caesar_handle
+
+    t = CaesarDev(**CAESAR_SIZES)
+    rt = RCaesar(**CAESAR_SIZES)
+    kw = dict(n=N, clients=4, payload=t.payload_width(N), dot_slots=4)
+    rdims = RDims.for_protocol(rt, **kw)
+    dims = EngineDims.for_protocol(t, **kw)
+    assert dims == EngineDims(**vars(rdims))
+    assert t.gc_per_msg(dims) > t.EB      # the GC drain's clamped gather
+    ps, has, rows, fire, ctx = _caesar_inputs(seed, dims, t, wait)
+    if "fn" not in _CAESAR_REF:
+        _CAESAR_REF["fn"] = jax.jit(jax.vmap(
+            lambda *a: _ref_handler_lane(rt, rdims, *a)))
+    want = jax.tree_util.tree_map(
+        np.asarray, _CAESAR_REF["fn"](ps, has, rows, fire, ctx))
+    before = caesar_handle.launches
+    got = caesar_handle(
+        carry.to_torch(ps, "cpu"), torch.from_numpy(has),
+        torch.from_numpy(rows), torch.from_numpy(fire),
+        carry.to_torch(ctx, "cpu"), dims,
+    )
+    assert caesar_handle.launches == before  # the twin, not the kernel
+    _assert_equal(got[0].numpy(), want[0], "rdy")
+    for name, g, w in zip(("ps", "periodic", "handler"), got[1:], want[1:]):
+        assert sorted(g) == sorted(w), name
+        for k in w:
+            _assert_equal(g[k].numpy(), w[k], f"{name}/{k}")
+
+    rdy, new_ps, pout, hout = want
+    X = RCaesar
+    F = dims.F
+    mt = np.where(rdy & has, rows[..., PMT], -1)
+    assert set(range(X.NUM_TYPES)) <= set(mt.ravel().tolist())
+    refused = np.where(has & ~rdy, rows[..., PMT], -1)
+    assert {X.MPROPOSE, X.MCOMMIT, X.MRETRY, X.MGC} <= set(
+        refused.ravel().tolist())
+    assert fire[..., 0].any() and fire[..., 1].any()
+    # both timers' work: a GC round kicked, buffered dots moved and freed
+    assert pout["valid"][..., 0].any()
+    assert (fire[..., 1] & (new_ps["m_stable"] > ps["m_stable"])).any()
+    # MPropose decided both ways and left some waiting
+    prop = mt == X.MPROPOSE
+    accepted = hout["valid"][..., 0] & (hout["payload"][..., 0, 3] == 1)
+    rejected = hout["valid"][..., 0] & (hout["payload"][..., 0, 3] == 0)
+    assert (prop & accepted).any() and (prop & rejected).any()
+    assert (prop & ~hout["valid"][..., 0]).any() == wait
+    # the wait scan replied both ways and chained; the exec scan executed
+    # and chained; both wrote their slots where disabled too
+    wait_ack = hout["valid"][..., F - 2]
+    assert (wait_ack & (hout["payload"][..., F - 2, 3] == 1)).any()
+    assert (wait_ack & (hout["payload"][..., F - 2, 3] == 0)).any()
+    assert hout["valid"][..., F - 1].any() and hout["valid"][..., F - 3].any()
+    assert (~wait_ack).any()
+    assert (hout["mtype"][..., F - 2] == X.MPROPOSEACK).all()
+    assert (hout["mtype"][..., F - 3] == X.EXEC_DRAIN).all()
+    # fast and slow decisions, MRetry broadcasts and union overflows
+    done = mt == X.MPROPOSEACK
+    assert (done & (new_ps["m_fast"] > ps["m_fast"])).any()
+    assert (done & (new_ps["m_slow"] > ps["m_slow"])).any()
+    assert (done & hout["valid"].any(-1)
+            & (hout["mtype"][..., 0] == X.MRETRY)).any()
+    grew = (new_ps["err"] & 16) > (ps["err"] & 16)       # ERR_CAPACITY
+    assert (grew & (mt == X.MPROPOSEACK)).any()

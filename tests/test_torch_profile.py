@@ -150,3 +150,17 @@ def test_rehearsal_of_the_graphdep_profile_on_cpu(name):
     out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
     assert out["protocol"] == type(protocol).__name__ and out["lanes"] == 2
     assert out["device_activities_per_step_by_name"] == {}
+
+
+def test_rehearsal_of_the_caesar_profile_on_cpu():
+    args = cli.parse_args([
+        "sweep", "--protocol", "caesar", "--n", "3", "--subsets", "1",
+        "--fs", "1", "--conflicts", "0,100", "--commands", "3",
+    ])
+    protocol, dims, specs = cli.sweep_setup(args)
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev)
+    out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
+    assert out["protocol"] == "CaesarDev" and out["lanes"] == 2
+    assert out["device_activities_per_step_by_name"] == {}
+    assert "caesar" in cli.MAIN_PATHS

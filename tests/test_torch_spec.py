@@ -125,11 +125,15 @@ def test_partial_replication_and_other_protocols_raise_by_name():
             dims=pd, commands_per_client=1, clients_per_region=1,
             process_regions=GCP[:3], client_regions=GCP[:3],
         )
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dev_protocol("caesar")
     # Atlas and EPaxos are ported: their key tables are sized as the
     # reference's (one key per client plus the shared conflict key)
     from fantoch_tpu.engine.protocols import dev_protocol as r_dev
+
+    # Caesar is ported: sized by load as the reference's (K = 1 + clients,
+    # DEP = max(64, 8 × clients), BB = max(16, DEP / 4))
+    caesar = dev_protocol("caesar", 5)
+    assert (caesar.K, caesar.DEP, caesar.BB) == (6, 64, 16)
+    assert vars(caesar) == vars(r_dev("caesar", 5))
 
     for name in ("atlas", "epaxos"):
         got, want = dev_protocol(name, 5), r_dev(name, 5)
