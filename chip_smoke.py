@@ -5,30 +5,36 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's ten CUDA kernels from
+It builds the engine's eleven CUDA kernels from
 ``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch twin on the card at the
-six main paths' shapes (exact equality: all integer or bool data;
+seven main paths' shapes (exact equality: all integer or bool data;
 ``key_table`` also on a batch of Zipf lanes; ``lane_freeze`` also with
 frozen lanes; ``tempo_handle`` over further steps until every Tempo
 message type and the GC and detached-send timers have been handled;
 ``graphdep_handle``, on the Atlas and on the EPaxos path, until every
 message type, the GC timer and a drain chain have been;
 ``caesar_handle`` until every Caesar message type, both timers, an exec
-and a wait chain, a reject reply and an MRetry broadcast have been)
+and a wait chain, a reject reply and an MRetry broadcast have been;
+``tempo_partial_handle`` until every one of its fifteen message types,
+the GC and detached-send timers, a two-shard commit (MShardCommit →
+MShardAgg) and a StableAtShard round have been, then on every step of a
+small batch whose clock bump fires)
 beside the
 least time its region's work needs (each kernel module's ``work``,
 ``kernels/cost.py``) — a kernel's ``ms`` is its device time per launch
 under ``torch.profiler``, ``call_ms`` the wrapper's whole call (host
 included) — checks the Basic golden numbers and the committed
-``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep,caesar}_golden.json``
-bytes on the card, then drives the six main paths — the 2,048-lane
-Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar sweeps (n = 5, 256
-five-region subsets
-× f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50 commands per client, one
-client per region) through ``run_sweep`` — each with every launch
-counter set to 0 just before and read just after, and holds sampled
-lanes of each to the plain twins on the host. Any failure raises;
+``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep,caesar,tempo_partial}
+_golden.json`` bytes on the card, then drives the seven main paths — the
+2,048-lane Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar sweeps (n = 5,
+256 five-region subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50
+commands per client, one client per region) and the 512-lane sweep of
+Tempo under partial replication (2 shards of 5 rows, 2 keys per command
+from a pool of 4, the first 64 subsets, conflict 1 in place of 0) —
+through ``run_sweep``, each with every launch counter set to 0 just
+before and read just after, and holds sampled lanes of each to the
+plain twins on the host. Any failure raises;
 nothing is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
 ``{"ok": true, ...}``.
@@ -70,6 +76,18 @@ GRAPHDEP_POINTS = [
     (5, 2, 100, 10, 1),
     (5, 2, 100, 20, 2),
 ]
+# the partial-replication golden batches (tests/test_torch_tempo_partial.py,
+# one batch each): (n, f, shards, conflict, pool, keys per command), 10
+# commands per client
+TEMPO_PARTIAL_POINTS = [(3, 1, 2, 0, 1, 1), (3, 1, 2, 100, 4, 2)]
+# the clock-bump batch of tests/test_torch_tempo_partial_step.py:
+# (regions, f, conflict, clock bump ms), GC every 10 ms, detached sends
+# every 20 ms, 4 commands per client
+EU5 = ["europe-west1", "europe-west2", "europe-west3", "europe-west4",
+       "europe-west6"]
+EU3 = ["europe-west1", "europe-west3", "europe-west4"]
+BUMP_POINTS = [(EU5, 2, 100, None), (EU5, 2, 50, 10), (EU3, 1, 100, None),
+               (EU3, 1, 10, 10)]
 # the Caesar golden batch (tests/test_torch_caesar.py): (n, f, wait
 # condition, conflict, commands, clients per region)
 CAESAR_POINTS = [
@@ -82,10 +100,11 @@ CAESAR_POINTS = [
 # sampled lanes held to the host's plain twins: (regions, f, conflict) =
 # (0, 1, 0), (0, 2, 100), (125, 1, 0), (255, 2, 100); the twins of Tempo,
 # Atlas, EPaxos and Caesar are slower on the host, so two of them, both
-# f = 2 at conflict 100
+# f = 2 at conflict 100; a partial lane takes some 11,700 serialized
+# steps, so one (subset 0, f = 2, conflict 100)
 SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
           "tempo": [7, 2047], "atlas": [7, 2047], "epaxos": [7, 2047],
-          "caesar": [7, 2047]}
+          "caesar": [7, 2047], "tempo_partial": [7]}
 
 # the reference region each kernel replaces
 REPLACES = {
@@ -99,11 +118,15 @@ REPLACES = {
     "tempo_handle": "fantoch_tpu/engine/protocols/tempo.py:226",
     "graphdep_handle": "fantoch_tpu/engine/protocols/graphdep.py:215",
     "caesar_handle": "fantoch_tpu/engine/protocols/caesar.py:239",
+    "tempo_partial_handle":
+        "fantoch_tpu/engine/protocols/tempo_partial.py:198",
 }
 HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo": "tempo_handle", "atlas": "graphdep_handle",
-            "epaxos": "graphdep_handle", "caesar": "caesar_handle"}
-PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar")
+            "epaxos": "graphdep_handle", "caesar": "caesar_handle",
+            "tempo_partial": "tempo_partial_handle"}
+PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
+         "tempo_partial")
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
@@ -332,6 +355,10 @@ def check_kernels(name, dev, rows):
             coverage(name, handler, protocol, dims, state, ctx, max_steps,
                      captured[handler], mods[handler]),
         )
+    if name == "tempo_partial":
+        rows[handler]["max_abs_err"] = max(
+            rows[handler]["max_abs_err"], bump_coverage(dev, mods[handler]),
+        )
 
     # K7 with frozen lanes (every third lane failed), which it copies
     new, old, fctx, ms_ = captured["lane_freeze"]
@@ -407,6 +434,20 @@ COVERAGE = {
                         (0,),
                         {"drain chains (MDRAIN in slot F - 1)":
                          _slot_valid(-1)}),
+    # Tempo partial (engine/protocols/tempo_partial.py): MSHARDAGG = 13,
+    # which MShardCommit sends once every shard of a command reported;
+    # STABLEAT = 14, which a drain sends once a multi-key command is
+    # stable at its keys here
+    "tempo_partial_handle": (("SUBMIT", "MCOLLECT", "MCOLLECTACK",
+                              "MCOMMIT", "MDETACHED", "MCONSENSUS",
+                              "MCONSENSUSACK", "MGC", "MDRAIN",
+                              "DETACH_DRAIN", "MFWDSUBMIT", "MBUMP",
+                              "MSHARDCOMMIT", "MSHARDAGG", "STABLEAT"),
+                             (0, 2),
+                             {"two-shard commits (MSHARDAGG sent)":
+                              _sent(13),
+                              "StableAtShard rounds (STABLEAT sent)":
+                              _sent(14)}),
     # Caesar (engine/protocols/caesar.py): MPROPOSEACK = 2, MRETRY = 4;
     # a reject reply carries 0 in payload word 3 (an accept 1)
     "caesar_handle": (("SUBMIT", "MPROPOSE", "MPROPOSEACK", "MCOMMIT",
@@ -422,19 +463,21 @@ COVERAGE = {
 
 
 def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
-             mod, every=25, bound=80):
+             mod, every=25, bound=80, rows_needed=None, start=301):
     """A handler kernel against its twin, exactly, on the arguments of
     one step in every ``every`` after phase 3's, until each of its
     message types, the timer rows and the further events have been seen
-    in some compared step (at most ``bound`` captures; Tempo's main path
-    never fires the clock-bump row, which the golden batch covers).
-    Returns the max abs error."""
+    in some compared step (at most ``bound`` captures; the Tempo main
+    paths never fire the clock-bump row, which the golden batch and, for
+    the partial twin, :func:`bump_coverage` cover). Returns the max abs
+    error."""
     import torch
 
     from fantoch_tpu_torch.engine import core as engine_core
     from fantoch_tpu_torch.engine.dims import PMT
 
-    names, rows_needed, extras = COVERAGE[kname]
+    names, default_rows, extras = COVERAGE[kname]
+    rows_needed = default_rows if rows_needed is None else rows_needed
     kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
     handled = [0] * len(names)
     fired = [0] * dims.R
@@ -470,6 +513,8 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
             box["args"] = a
             return kern(*a)
 
+        # the wrapper counts through its module-global name
+        record.launches = 0
         setattr(mod, kname, record)
         try:
             state, _running = engine_core.frozen_step(protocol, dims, state,
@@ -478,11 +523,61 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
             setattr(mod, kname, kern)
         args = box["args"]
     print(f"kernel {kname} ({name} path): exact=True over {captures} "
-          f"compared steps, one in {every} from step 301; handled "
+          f"compared steps, one in {every} from step {start}; handled "
           f"{dict(zip(names, handled))}; timer rows fired {fired}"
           + "".join(f"; {label} {n}" for label, n in seen.items())
           + f"; max_abs_err={err}")
     return err
+
+
+def bump_coverage(dev, mod) -> float:
+    """K11 against its twin on every step of the clock-bump batch of
+    tests/test_torch_tempo_partial_step.py (close regions, GC every 10
+    ms, the clock bump every 10 ms on two lanes), until all three timer
+    rows and all fifteen types have been compared. Returns the max abs
+    error."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.driver import prepare_batch
+    from fantoch_tpu_torch.engine.protocols import TempoPartialDev
+
+    proto = TempoPartialDev(keys=4 + 5 + 1, shards=2, keys_per_cmd=2,
+                            pending_per_key=8, detached_slots=6, gap_slots=4)
+    dims = EngineDims.for_partial(proto, 5, 5, 20, regions=5)
+    specs = [
+        make_lane(proto, Planet.new(),
+                  Config(n=len(regions), f=f, shard_count=2,
+                         gc_interval_ms=10,
+                         tempo_detached_send_interval_ms=20,
+                         tempo_clock_bump_interval_ms=bump,
+                         executor_executed_notification_interval_ms=100,
+                         executor_cleanup_interval_ms=100),
+                  conflict_rate=conflict, pool_size=4, commands_per_client=4,
+                  clients_per_region=1, process_regions=regions,
+                  client_regions=regions, dims=dims, extra_time_ms=100,
+                  seed=i)
+        for i, (regions, f, conflict, bump) in enumerate(BUMP_POINTS)
+    ]
+    state, ctx = prepare_batch(proto, dims, specs, dev)
+    kname = "tempo_partial_handle"
+    kern = getattr(mod, kname)
+    box = {}
+
+    def record(*a):
+        box["args"] = a
+        return kern(*a)
+
+    record.launches = 0
+    setattr(mod, kname, record)
+    try:
+        state, _running = engine_core.frozen_step(proto, dims, state, ctx,
+                                                  1 << 22)
+    finally:
+        setattr(mod, kname, kern)
+    return coverage("bump batch", kname, proto, dims, state, ctx, 1 << 22,
+                    box["args"], mod, every=1, rows_needed=(0, 1, 2),
+                    start=1)
 
 
 def golden_basic(dev) -> None:
@@ -684,6 +779,42 @@ def golden_caesar(dev) -> None:
     _match_fixture(results, "torch_caesar_golden.json")
 
 
+def golden_tempo_partial(dev) -> None:
+    """Phase 6: the partial-replication golden batches (the two
+    configurations of tests/test_engine_partial.py that are not slow, one
+    batch each) against their fixture."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
+    from fantoch_tpu_torch.engine.protocols import TempoPartialDev
+
+    planet = Planet.new()
+    results = []
+    for n, f, shards, conflict, pool, kpc in TEMPO_PARTIAL_POINTS:
+        regions = planet.regions()[:n]
+        proto = TempoPartialDev(keys=pool + n + 1, shards=shards,
+                                keys_per_cmd=kpc)
+        dims = EngineDims.for_partial(proto, n, n, 10 * n, regions=n)
+        config = Config(n=n, f=f, shard_count=shards, gc_interval_ms=100,
+                        executor_executed_notification_interval_ms=100,
+                        executor_cleanup_interval_ms=100,
+                        tempo_detached_send_interval_ms=100)
+        spec = make_lane(proto, planet, config, conflict_rate=conflict,
+                         pool_size=pool, commands_per_client=10,
+                         clients_per_region=1, process_regions=regions,
+                         client_regions=regions, dims=dims)
+        (res,) = run_lanes(proto, dims, [spec], device=dev)
+        assert res.err == 0, res.err_cause
+        assert res.completed == 10 * n
+        m = {k: int(v.sum()) for k, v in res.protocol_metrics.items()}
+        assert 10 * n <= m["fast_path"] + m["slow_path"] <= 10 * n * shards
+        assert m["stable"] == n * 10 * n, m
+        print(f"golden tempo partial on {dev}: n={n} f={f} shards={shards} "
+              f"conflict={conflict} pool={pool} keys per command={kpc} "
+              f"steps {res.steps} metrics {m}")
+        results.append(res)
+    _match_fixture(results, "torch_tempo_partial_golden.json")
+
+
 def _match_fixture(results, name) -> None:
     text = json.dumps([r.to_json() for r in results], sort_keys=True) + "\n"
     path = FIXTURES / name
@@ -693,7 +824,7 @@ def _match_fixture(results, name) -> None:
 
 
 def sweep(name, dev):
-    """Phase 7: one main path's 2,048-lane sweep, counted; sampled
+    """Phase 7: one main path's sweep, counted; sampled
     lanes against the plain twins on the host. Returns its launches."""
     import torch
 
@@ -717,7 +848,8 @@ def sweep(name, dev):
     steps_run = launches["qualify_pop"]
     stable = sorted({int(r.protocol_metrics["stable"].sum())
                      for r in results})
-    print(f"sweep {name} n=5 (M={dims.M} D={dims.D}): {len(results)} points "
+    print(f"sweep {name} n=5 (N={dims.N} M={dims.M} D={dims.D}): "
+          f"{len(results)} points "
           f"in {wall:.3f} s = {len(results) / wall:.3f} points/s; errors "
           f"{errors} {sorted({r.err_cause for r in results if r.err})}; "
           f"steps per lane max {max(steps)} mean {sum(steps) / len(steps):.1f}"
@@ -726,7 +858,8 @@ def sweep(name, dev):
           f"{sum(r.requeues for r in results)}; stable totals {stable}; "
           f"launches {launches}; launches per batch step "
           f"{ {k: v / steps_run for k, v in launches.items()} }")
-    assert len(results) == 2048 and errors == 0
+    grid = args.subsets * len(args.fs) * len(args.conflicts)
+    assert len(results) == grid and grid in (512, 2048) and errors == 0
     path_kernels = ["qualify_pop", HANDLERS[name], "emit_rewrite",
                     "land_emissions", "lane_freeze", "key_table"]
     assert all(launches[k] > 0 for k in path_kernels), launches
@@ -748,11 +881,27 @@ def sweep(name, dev):
             assert m["stable"] == dims.N * total, m
             if spec.config.f == 1 and name in ("tempo", "atlas"):
                 assert m["slow_path"] == 0, m
+        if name == "tempo_partial":
+            # a command commits once per shard it touches; the n rows of
+            # its dot owner's shard GC it (test_engine_partial.py)
+            m = {k: int(v.sum()) for k, v in r.protocol_metrics.items()}
+            shards = spec.config.shard_count
+            assert total <= m["fast_path"] + m["slow_path"] <= total * shards
+            assert m["stable"] == spec.config.n * total, m
     if name in ("tempo", "atlas", "epaxos", "caesar"):
         slow = sum(int(r.protocol_metrics["slow_path"].sum())
                    for r in results)
         print(f"{name}: fast + slow == {total} and stable == "
               f"{dims.N * total} on every lane; slow-path commits {slow}")
+    if name == "tempo_partial":
+        commits = sorted({int(r.protocol_metrics["fast_path"].sum()
+                              + r.protocol_metrics["slow_path"].sum())
+                          for r in results})
+        slow = sum(int(r.protocol_metrics["slow_path"].sum())
+                   for r in results)
+        print(f"{name}: {total} <= fast + slow <= {2 * total} (from "
+              f"{commits[0]} to {commits[-1]}) and stable == 5 x {total} on "
+              f"every lane; slow-path commits {slow}")
     t0 = time.perf_counter()
     sample = SAMPLE[name]
     host = run_lanes(protocol, dims, [specs[i] for i in sample],
@@ -805,6 +954,7 @@ def main() -> int:
     phase("6 golden tempo", golden_tempo, dev)
     phase("6 golden atlas/epaxos", golden_graphdep, dev)
     phase("6 golden caesar", golden_caesar, dev)
+    phase("6 golden tempo partial", golden_tempo_partial, dev)
 
     # 7. the main paths, each counted on its own
     by_path = {name: phase(f"7 sweep {name}", sweep, name, dev)

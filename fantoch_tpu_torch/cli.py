@@ -18,9 +18,9 @@ from .core import Config, Planet
 
 
 # the port's main paths: the reference bench's per-protocol grid
-# (bench.py), 2,048 lanes, for Basic, FPaxos, Tempo, Atlas, EPaxos and
-# Caesar (with the wait condition, the reference's default);
-# chip_smoke.py and step_profile.py drive them
+# (bench.py), 2,048 lanes, for Basic, FPaxos, Tempo, Atlas, EPaxos,
+# Caesar (with the wait condition, the reference's default) and Tempo
+# under partial replication; chip_smoke.py and step_profile.py drive them
 MAIN_PATH = [
     "sweep", "--protocol", "basic", "--n", "5", "--subsets", "256",
     "--fs", "1,2", "--conflicts", "0,10,50,100", "--commands", "50",
@@ -41,9 +41,26 @@ MAIN_PATH_EPAXOS = [
 MAIN_PATH_CAESAR = [
     "caesar" if a == "basic" else a for a in MAIN_PATH
 ]
+# Tempo under partial replication: the same grid, every process row
+# replicated per shard (2 shards, 2 keys per command, as the reference's
+# inter-machine scalability runs); a pool of 4 shared keys, since with
+# one conflict 100 could not give 2 unique keys, and conflict 1 where
+# the grid has 0: at 0 a client draws only its private key, so no
+# command gets 2 unique keys and the workload (the reference's too)
+# refuses the lane. Depth is cut to the first 64 region subsets (512
+# lanes, one batch): the lanes step in serialized global time (the
+# shards' co-region rows sit at distance 0) and take 10,000-13,000
+# steps each, so the whole grid would not fit chip_smoke.py's time
+MAIN_PATH_TEMPO_PARTIAL = [
+    "sweep", "--protocol", "tempo", "--n", "5", "--shards", "2",
+    "--keys-per-command", "2", "--pool-size", "4", "--subsets", "64",
+    "--fs", "1,2", "--conflicts", "1,10,50,100", "--commands", "50",
+    "--clients-per-region", "1", "--batch-lanes", "512",
+]
 MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
               "tempo": MAIN_PATH_TEMPO, "atlas": MAIN_PATH_ATLAS,
-              "epaxos": MAIN_PATH_EPAXOS, "caesar": MAIN_PATH_CAESAR}
+              "epaxos": MAIN_PATH_EPAXOS, "caesar": MAIN_PATH_CAESAR,
+              "tempo_partial": MAIN_PATH_TEMPO_PARTIAL}
 
 
 def _ints(s: str) -> List[int]:
@@ -54,7 +71,9 @@ def sweep_setup(args):
     """``(protocol, dims, specs)`` of a ``sweep`` command line: the
     region subsets, dims and grid exactly as ``cmd_sweep`` runs them."""
     from .engine import EngineDims
-    from .engine.protocols import dev_config_kwargs, dev_protocol
+    from .engine.protocols import (
+        dev_config_kwargs, dev_protocol, partial_dev_protocol,
+    )
     from .parallel.sweep import make_sweep_specs
 
     planet = (
@@ -75,18 +94,29 @@ def sweep_setup(args):
     clients = args.n * args.clients_per_region
     total = args.commands * clients
     try:
-        dev = dev_protocol(args.protocol, clients)
+        if args.shards > 1:
+            dev = partial_dev_protocol(
+                args.protocol, clients, args.shards,
+                keys_per_cmd=args.keys_per_command,
+                pool_size=args.pool_size,
+            )
+        else:
+            dev = dev_protocol(args.protocol, clients)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
-    dims = EngineDims.for_protocol(
-        dev,
-        n=args.n,
-        clients=clients,
-        payload=dev.payload_width(args.n),
-        total_commands=None if args.dot_slots else total,
-        dot_slots=args.dot_slots or total + 1,
-        regions=args.n,
-    )
+    if args.shards > 1:
+        dims = EngineDims.for_partial(dev, args.n, clients, total,
+                                      dot_slots=args.dot_slots)
+    else:
+        dims = EngineDims.for_protocol(
+            dev,
+            n=args.n,
+            clients=clients,
+            payload=dev.payload_width(args.n),
+            total_commands=None if args.dot_slots else total,
+            dot_slots=args.dot_slots or total + 1,
+            regions=args.n,
+        )
     fs = args.fs or [1]
     conflicts = (
         [args.conflict] if args.conflict is not None else args.conflicts
@@ -94,6 +124,13 @@ def sweep_setup(args):
     base = Config(**dev_config_kwargs(
         args.protocol, args.n, fs[0], **_config_overrides(args)
     ))
+    if args.shards > 1:
+        # the reference CLI's shard config
+        base = base.with_(
+            shard_count=args.shards,
+            executor_executed_notification_interval_ms=100,
+            executor_cleanup_interval_ms=100,
+        )
     specs = make_sweep_specs(
         dev,
         planet,
@@ -190,6 +227,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "(reject) instead of waiting")
     sw.add_argument("--extra-time", type=int, default=1000)
     sw.add_argument("--dot-slots", type=int, default=None)
+    sw.add_argument("--shards", type=int, default=1,
+                    help="partial replication: shard count (tempo)")
+    sw.add_argument("--keys-per-command", type=int, default=2,
+                    help="keys per command when --shards > 1")
     sw.add_argument("--batch-lanes", type=int, default=512,
                     help="lanes per device batch")
     sw.set_defaults(fn=cmd_sweep)

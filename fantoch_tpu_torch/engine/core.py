@@ -91,16 +91,20 @@ def emit(outbox, i: int, dst, mtype, words, valid):
     return ob
 
 
-def emit_broadcast(outbox, mtype, words, n, me=None, exclude_me=False):
-    """Fill every slot f with a message to process f, valid for f < n
-    (the reference's ``ToSend{target: all()}``; ``all_but_me()`` with
-    ``exclude_me``). ``n`` is ``[L]``, ``me`` and ``words`` carry the
+def emit_broadcast(outbox, mtype, words, n, me=None, exclude_me=False,
+                   base=None):
+    """Fill every slot f with a message to process ``base + f``, valid
+    for f < n (the reference's ``ToSend{target: all()}``;
+    ``all_but_me()`` with ``exclude_me``; ``base`` > 0 targets one
+    shard's block of process rows). ``n`` is ``[L]`` (or the outbox's
+    first leading axis), ``me``, ``base`` and ``words`` carry the
     outbox's leading axes (``words`` ``[*lead, k]``)."""
     valid = outbox["valid"]
     f = valid.shape[-1]
-    procs = torch.arange(f, dtype=I32, device=valid.device)
-    ok = procs < n.reshape(n.shape + (1,) * (valid.dim() - 1))
+    slots = torch.arange(f, dtype=I32, device=valid.device)
+    ok = slots < n.reshape(n.shape + (1,) * (valid.dim() - 1))
     ok = ok.expand(valid.shape)
+    procs = slots if base is None else slots + base[..., None]
     if exclude_me:
         ok = ok & (procs != me[..., None])
     payload = torch.zeros_like(outbox["payload"])
@@ -129,7 +133,14 @@ def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
     pool = np.zeros((M, POOL_FIELDS + P), np.int32)
     pool[:, PA] = INF
     budget = ctx_np["cmd_budget"]
-    attach = ctx_np["client_attach"]
+    if "cmd_target" in ctx_np:
+        # partial replication: each client's first SUBMIT goes to its
+        # connected process of the first command's target shard
+        attach = ctx_np["client_attach_s"][
+            np.arange(C), ctx_np["cmd_target"][:, 1]
+        ]
+    else:
+        attach = ctx_np["client_attach"]
     live = budget > 0
     assert live.sum() <= M, "pool must hold the initial submit wave"
     slot = 0
@@ -152,6 +163,7 @@ def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
     next_periodic = np.broadcast_to(
         np.where(intervals >= INF, INF, intervals), (N, R)
     ).astype(np.int32).copy()
+    # timers run only on live process rows (every shard's rows)
     next_periodic[int(ctx_np["rows"]):, :] = INF
     return {
         "pool": pool,

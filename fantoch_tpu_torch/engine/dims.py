@@ -128,3 +128,25 @@ class EngineDims:
             H=hist_buckets,
             RR=regions,
         )
+
+    @staticmethod
+    def for_partial(protocol, n: int, clients: int, total_commands: int,
+                    dot_slots: int | None = None,
+                    regions: int | None = None) -> "EngineDims":
+        """Bounds for a partial-replication (multi-shard) lane, the
+        reference's ``EngineDims.for_partial``: the process axis spans
+        every shard's rows (N = S·n), the pool covers the cross-shard
+        fan-out (forwards, shard commits, StableAtShard) and the
+        histogram is 2,048 buckets wide."""
+        S = protocol.S
+        return EngineDims(
+            N=S * n,
+            C=clients,
+            M=total_commands * 4 * S * n + 64,
+            D=dot_slots if dot_slots is not None else total_commands + 1,
+            F=protocol.fanout(n),
+            R=protocol.PERIODIC_ROWS,
+            P=protocol.payload_width(n),
+            H=2048,
+            RR=regions if regions is not None else n,
+        )

@@ -10,7 +10,43 @@ from ..kernels.key_table import key_table
 from .core import build_runner, init_lane_state
 from .dims import EngineDims
 from .results import LaneResults, collect_results
-from .spec import LaneSpec, stack_lanes
+from .spec import LaneSpec, command_tables, stack_lanes
+
+
+# the ctx planes the key stream is drawn from
+KEY_CTX = ("rng_key", "conflict_rate", "pool_size", "key_gen_kind",
+           "zipf_cum")
+
+
+def _keys(ctx, dims: EngineDims, T: int):
+    """Every lane's (client, draw) key stream ``[L, C, T]`` (the
+    ``key_table`` kernel on the ctx's device)."""
+    return key_table(
+        ctx["rng_key"], ctx["conflict_rate"], ctx["pool_size"],
+        ctx["key_gen_kind"], ctx["zipf_cum"], dims.C, T,
+    )
+
+
+def partial_tables(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
+                   ctx):
+    """The per-command shard/key tables of partial-replication lanes
+    (``spec.command_tables``), stacked: the key stream is drawn on the
+    ctx's device (the ``key_table`` kernel), copied to the host and
+    replayed there; a lane whose redraws outrun the stream draws it
+    again at twice the width, as the reference's ``_partial_tables``
+    does. Every lane shares the batch's command budget T."""
+    T = int(max(s.ctx["cmd_budget"].max() for s in specs))
+    width = T * protocol.KPC * 4 + 1
+    draws = _keys(ctx, dims, width).cpu().numpy()
+    tables = []
+    for i in range(len(specs)):
+        def more(w, i=i):
+            lane = {k: ctx[k][i:i + 1] for k in KEY_CTX}
+            return _keys(lane, dims, 2 * w)[0].cpu().numpy()
+
+        tables.append(command_tables(draws[i], protocol.S, protocol.KPC, T,
+                                     more))
+    return tables
 
 
 def prepare_batch(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
@@ -18,18 +54,23 @@ def prepare_batch(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
     """Stack the lanes' ctx onto ``device``, compute every lane's
     (client, seq) key table there (``key_table`` kernel; T = max budget
     + 2 columns, as the reference's sweep does) and build the initial
-    state from its first column. Returns ``(state, ctx)`` tensor trees."""
+    state from its first column. Partial-replication lanes also get
+    their per-command tables (:func:`partial_tables`), and their first
+    SUBMITs go to the first command's target shard. Returns ``(state,
+    ctx)`` tensor trees."""
     ctx_np = stack_lanes(specs)
     ctx = to_torch(ctx_np, device)
+    lane_ctx = [s.ctx for s in specs]
+    if "shard_of" in ctx_np:
+        tables = partial_tables(protocol, dims, specs, ctx)
+        lane_ctx = [dict(c, **t) for c, t in zip(lane_ctx, tables)]
+        ctx.update(to_torch(stack_trees(tables), device))
     T = int(max(2, ctx_np["cmd_budget"].max() + 2))
-    ctx["key_table"] = key_table(
-        ctx["rng_key"], ctx["conflict_rate"], ctx["pool_size"],
-        ctx["key_gen_kind"], ctx["zipf_cum"], dims.C, T,
-    )
+    ctx["key_table"] = _keys(ctx, dims, T)
     first = ctx["key_table"][:, :, 1].cpu().numpy()
     state = stack_trees([
-        init_lane_state(protocol, dims, s.ctx, first[i])
-        for i, s in enumerate(specs)
+        init_lane_state(protocol, dims, c, first[i])
+        for i, c in enumerate(lane_ctx)
     ])
     return to_torch(state, device), ctx
 

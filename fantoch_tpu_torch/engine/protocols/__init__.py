@@ -2,7 +2,8 @@
 
 Each module is the fixed-shape twin of a protocol of the reference's
 device engine, batched over an explicit ``[L, N]`` (lane, process) axis.
-Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar are ported.
+Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar are ported, and Tempo's
+partial-replication twin.
 """
 
 from .basic import BasicDev
@@ -10,9 +11,11 @@ from .caesar import CaesarDev
 from .fpaxos import FPaxosDev
 from .graphdep import AtlasDev, EPaxosDev
 from .tempo import TempoDev
+from .tempo_partial import TempoPartialDev
 
 __all__ = ["AtlasDev", "BasicDev", "CaesarDev", "EPaxosDev", "FPaxosDev",
-           "TempoDev", "dev_config_kwargs", "dev_protocol"]
+           "TempoDev", "TempoPartialDev", "dev_config_kwargs",
+           "dev_protocol", "partial_dev_protocol"]
 
 
 def dev_protocol(name: str, clients: int = 0, keys: "int | None" = None):
@@ -34,6 +37,27 @@ def dev_protocol(name: str, clients: int = 0, keys: "int | None" = None):
     if name == "caesar":
         return CaesarDev.for_load(keys=keys, clients=clients)
     raise ValueError(f"unknown protocol {name!r}")
+
+
+def partial_dev_protocol(name: str, clients: int, shards: int,
+                         keys_per_cmd: int = 2, pool_size: int = 1):
+    """The partial-replication twin switch, as the reference's: only
+    the protocols whose reference implements partial.rs have one. The
+    key table holds the conflict pool, one private key per client and
+    a spare."""
+    keys = pool_size + clients + 1
+    if name == "tempo":
+        return TempoPartialDev(keys=keys, shards=shards,
+                               keys_per_cmd=keys_per_cmd)
+    if name == "atlas":
+        raise NotImplementedError(
+            "Atlas's partial-replication twin is not ported yet (ROADMAP "
+            "Queue A item 8)"
+        )
+    raise ValueError(
+        f"{name} does not support partial replication (only tempo and "
+        "atlas implement the reference's partial.rs paths)"
+    )
 
 
 def dev_config_kwargs(name: str, n: int, f: int, **overrides):

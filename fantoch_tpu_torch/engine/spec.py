@@ -8,9 +8,12 @@ process (util.rs:188-230), and message delay is half the ping latency
 *lane context* — equal key for key and dtype for dtype to the JAX
 reference's, ready to be stacked into a batch and moved to the device.
 
-This slice builds single-shard, closed-loop, fault-free lanes with the
-static key generator; the other lane kinds raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+This port builds closed-loop, fault-free lanes with the static key
+generator, single-shard or partially replicated (one process row per
+(shard, region), per-shard client attachment and per-command shard/key
+tables: :func:`command_tables`, filled in by ``driver.prepare_batch``
+from the batch's key stream); the other lane kinds raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from .. import random as rnd
 from ..client.key_gen import zipf_weights
 from ..core.config import Config
 from ..core.planet import Planet
+from ..core.util import key_hash
 from .dims import INF, EngineDims
 
 # fixed width of the (inert) link-window fault tables every lane carries
@@ -112,37 +116,45 @@ def make_lane(
         raise _not_ported("open-loop arrivals=", "11")
     if reorder:
         raise _not_ported("reorder=True", "9")
-    if config.shard_count > 1:
-        raise _not_ported("shard_count > 1 (partial replication)", "8")
     n = config.n
+    S = config.shard_count
+    partial = S > 1 or getattr(protocol, "KPC", 1) > 1
+    if partial:
+        assert getattr(protocol, "S", 1) == S, (
+            "protocol shards must match config.shard_count"
+        )
     assert len(process_regions) == n
-    assert n <= dims.N
+    assert S * n <= dims.N
     N, C = dims.N, dims.C
+    total = S * n  # live process rows; row = shard * n + region index
+
+    def row_region(row: int) -> str:
+        return process_regions[row % n]
 
     # process↔process delays: half the ping latency (runner.rs:575-595)
     delay_pp = np.zeros((N, N), np.int32)
-    for i in range(n):
-        for j in range(n):
+    for i in range(total):
+        for j in range(total):
             delay_pp[i, j] = (
-                planet.ping_latency(process_regions[i], process_regions[j])
-                // 2
+                planet.ping_latency(row_region(i), row_region(j)) // 2
             )
 
     # conservative-lookahead matrix: lookahead[q, p] = minimum time any
     # chain of messages starting at q can take to reach p (all-pairs
     # shortest path over delay_pp). The diagonal and padded rows are INF.
     lookahead = np.full((N, N), INF, np.int64)
-    sp = delay_pp[:n, :n].astype(np.int64)
-    for k in range(n):
+    sp = delay_pp[:total, :total].astype(np.int64)
+    for k in range(total):
         sp = np.minimum(sp, sp[:, k, None] + sp[None, k, :])
-    lookahead[:n, :n] = sp
-    np.fill_diagonal(lookahead[:n, :n], INF)
-    # with a zero inter-process delay (colocated regions) fall back to
-    # serialized global-time stepping — such schedules are inherently tied
-    offdiag = delay_pp[:n, :n][~np.eye(n, dtype=bool)]
-    if n > 1 and offdiag.min() < 1:
-        lookahead[:n, :n] = 0
-        np.fill_diagonal(lookahead[:n, :n], INF)
+    lookahead[:total, :total] = sp
+    np.fill_diagonal(lookahead[:total, :total], INF)
+    # with a zero inter-process delay (colocated regions, and always the
+    # co-region rows of two shards) fall back to serialized global-time
+    # stepping — such schedules are inherently tied
+    offdiag = delay_pp[:total, :total][~np.eye(total, dtype=bool)]
+    if total > 1 and offdiag.min() < 1:
+        lookahead[:total, :total] = 0
+        np.fill_diagonal(lookahead[:total, :total], INF)
 
     sorted_idx = _sorted_indices(planet, process_regions)
 
@@ -151,7 +163,7 @@ def make_lane(
     region_rows = list(dict.fromkeys(client_regions))
     assert len(region_rows) <= dims.RR
     client_attach = np.zeros((C,), np.int32)
-    client_attach_s = np.zeros((C, 1), np.int32)
+    client_attach_s = np.zeros((C, S), np.int32)
     client_region_row = np.full((C,), dims.RR, np.int32)
     client_delay = np.zeros((C, N), np.int32)
     cmd_budget = np.zeros((C,), np.int32)
@@ -162,11 +174,14 @@ def make_lane(
         for _ in range(clients_per_region):
             assert c < C, "raise EngineDims.C"
             client_attach[c] = closest
-            client_attach_s[c, 0] = closest
+            # the connected process of every shard: shards share the
+            # region layout, so the closest row repeats per shard block
+            for s in range(S):
+                client_attach_s[c, s] = s * n + closest
             client_region_row[c] = region_rows.index(region)
-            for p in range(n):
+            for p in range(total):
                 client_delay[c, p] = (
-                    planet.ping_latency(region, process_regions[p]) // 2
+                    planet.ping_latency(region, row_region(p)) // 2
                 )
             cmd_budget[c] = commands_per_client
             c += 1
@@ -191,7 +206,7 @@ def make_lane(
 
     ctx: Dict[str, np.ndarray] = {
         "n": np.int32(n),
-        "rows": np.int32(n),
+        "rows": np.int32(total),
         "f": np.int32(config.f),
         "delay_pp": delay_pp,
         "lookahead": np.minimum(lookahead, INF).astype(np.int32),
@@ -212,6 +227,8 @@ def make_lane(
         "extra_time": np.int32(extra_time_ms),
     }
     ctx.update(_fault_ctx(dims))
+    if partial:
+        ctx.update(_shard_tables(planet, process_regions, n, S, N))
     ctx.update(protocol.lane_ctx(config, dims, sorted_idx))
     return LaneSpec(
         ctx=ctx,
@@ -219,6 +236,88 @@ def make_lane(
         region_rows=region_rows,
         process_regions=list(process_regions),
     )
+
+
+def _shard_tables(planet: Planet, process_regions: Sequence[str], n: int,
+                  S: int, N: int) -> Dict[str, np.ndarray]:
+    """Per-row shard id and the closest process of every shard (the
+    discovery view each process routes cross-shard messages through,
+    util.rs:188-230; ties break by process id). Pad rows carry the
+    invalid shard id S, so no shard-membership mask includes them."""
+    shard_of = np.full((N,), S, np.int32)
+    closest = np.zeros((N, S), np.int32)
+    for p in range(S * n):
+        shard_of[p] = p // n
+        order = {
+            r: i
+            for i, (_l, r) in enumerate(planet.sorted(process_regions[p % n]))
+        }
+        i_star = min(range(n), key=lambda i: (order[process_regions[i]], i))
+        for s in range(S):
+            closest[p, s] = s * n + i_star
+    return {"shard_of": shard_of, "closest": closest}
+
+
+def command_tables(draws: np.ndarray, S: int, KPC: int, T: int,
+                   more) -> Dict[str, np.ndarray]:
+    """One lane's per-command shard/key tables, replayed on the host from
+    its key stream ``draws`` ``[C, W]`` (column i = the i-th draw of the
+    client's counter stream, as the ``key_table`` kernel gives it).
+
+    A command is fully determined by (client, seq): ``KPC`` unique keys
+    (a duplicate draw is redrawn, workload.rs:156-186), each on shard
+    ``key_hash(str(key)) % S`` (client/workload.py:106-107), grouped:
+    ``cmd_skey[c, j, s, :]`` = the command's keys on shard s (-1 pad),
+    ``cmd_kmask`` the touched-shard bitmask, ``cmd_parts`` the key count
+    (the client's expected result parts), ``cmd_target`` the first key's
+    shard (the submit target, client/workload.py:84). When a client's
+    redraws run past the stream's width, ``more(width)`` returns the
+    lane's stream at twice that width (the reference's table grows the
+    same way)."""
+    C = draws.shape[0]
+    kmask = np.zeros((C, T + 1), np.int32)
+    skey = np.full((C, T + 1, S, KPC), -1, np.int32)
+    parts = np.ones((C, T + 1), np.int32)
+    target = np.zeros((C, T + 1), np.int32)
+    shard_cache: Dict[int, int] = {}
+    for c in range(C):
+        i = 1  # draw counter, 1-based like the engine's key stream
+        for j in range(1, T + 1):
+            keys: List[int] = []
+            redraws = 0
+            while len(keys) < KPC:
+                if i >= draws.shape[1]:
+                    draws = more(draws.shape[1])
+                k = int(draws[c, i])
+                i += 1
+                if k in keys:
+                    redraws += 1
+                    assert redraws < 10_000, (
+                        "workload cannot produce unique keys (pool too "
+                        "small for keys_per_command at this conflict "
+                        "rate)"
+                    )
+                    continue
+                keys.append(k)
+            mask, tgt = 0, None
+            per_shard: Dict[int, List[int]] = {}
+            for k in keys:
+                s = shard_cache.get(k)
+                if s is None:
+                    s = key_hash(str(k)) % S
+                    shard_cache[k] = s
+                if tgt is None:
+                    tgt = s
+                mask |= 1 << s
+                per_shard.setdefault(s, []).append(k)
+            kmask[c, j] = mask
+            parts[c, j] = len(keys)
+            target[c, j] = tgt
+            for s, ks in per_shard.items():
+                for d, k in enumerate(ks):
+                    skey[c, j, s, d] = k
+    return {"cmd_kmask": kmask, "cmd_skey": skey, "cmd_parts": parts,
+            "cmd_target": target}
 
 
 def stack_lanes(specs: Sequence[LaneSpec]) -> Dict[str, np.ndarray]:

@@ -18,6 +18,7 @@ from .land_emissions import land_emissions
 from .lane_freeze import lane_freeze
 from .qualify_pop import qualify_pop
 from .tempo_handle import tempo_handle
+from .tempo_partial_handle import tempo_partial_handle
 
 WRAPPERS = {
     "qualify_pop": qualify_pop,
@@ -30,6 +31,7 @@ WRAPPERS = {
     "tempo_handle": tempo_handle,
     "graphdep_handle": graphdep_handle,
     "caesar_handle": caesar_handle,
+    "tempo_partial_handle": tempo_partial_handle,
 }
 
 

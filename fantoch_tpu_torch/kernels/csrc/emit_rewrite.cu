@@ -12,9 +12,13 @@
 //      the requeue row's are 1 and the popped sender) and, for a
 //      TO_CLIENT row, its client and the result's arrival time;
 //   2. thread c < C folds its client's rows: arrivals, the latest
-//      arrival, the last row, completion, the next issue, start time;
+//      arrival, the last row, completion (all of the command's key parts
+//      under partial replication, core.py:1177-1182), the next issue,
+//      start time;
 //   3. each row decides whether it completes its client and issues the
-//      next SUBMIT (the key table gives its key), rewrites destination,
+//      next SUBMIT (the key table gives its key; partial replication sends
+//      it to the target shard's connected process, core.py:1273-1279),
+//      rewrites destination,
 //      type, sender, delay and priority, and records the latency in the
 //      histogram and the latency log;
 //   4. each row counts the earlier counted rows of its emitter to the
@@ -56,6 +60,10 @@ struct Args {
   // lane ctx
   const int *client_delay, *delay_pp, *key_table, *cmd_budget;
   const int *client_attach, *client_region_row, *intervals;
+  // partial replication (null on single-shard lanes): parts per command
+  // [C, TP], target shard per command [C, TT], connected process per
+  // shard [C, S]
+  const int *cmd_parts, *cmd_target, *attach_s;
   // outputs
   int* new_rows;
   bool* valid;
@@ -63,7 +71,7 @@ struct Args {
   int *hist_o, *lat_sum_o, *lat_count_o, *lat_log_o;
   int *pair_cnt_o, *next_periodic_o;
   int *requeues_o, *max_completion_o, *done_time_o, *err_o, *steps_o;
-  int N, F, P, C, R, RR, H, T, LOG, W, submit;
+  int N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -152,7 +160,10 @@ __global__ void emit_rewrite_kernel(const Args a) {
     const size_t k = lC + t;
     const int part_max = max(a.part_max[k], pmx);
     const int parts_new = a.parts[k] + arrivals;
-    const bool complete = arrivals > 0 && parts_new >= 1;
+    // a command completes when all its key parts arrived
+    const int need = a.cmd_parts
+        ? a.cmd_parts[k * a.TP + min(a.issued[k], a.TP - 1)] : 1;
+    const bool complete = arrivals > 0 && parts_new >= need;
     const int ncomp = a.completed[k] + (complete ? 1 : 0);
     const bool more = a.issued[k] < a.cmd_budget[k];
     const bool issue = last >= 0 && complete && more;
@@ -178,7 +189,13 @@ __global__ void emit_rewrite_kernel(const Args a) {
     issue = compl_ && a.issued[kc] < a.cmd_budget[kc];
     next_seq = a.issued[kc] + 1;
     key = a.key_table[kc * a.T + min(next_seq, a.T - 1)];
-    const int attach = a.client_attach[kc];
+    // the next SUBMIT goes to the connected process of the command's
+    // target shard under partial replication
+    const int attach = a.cmd_target
+        ? a.attach_s[kc * a.S +
+                     clampi(a.cmd_target[kc * a.TT + min(next_seq, a.TT - 1)],
+                            0, a.S - 1)]
+        : a.client_attach[kc];
     dst2 = issue ? attach : dst;
     mt2 = issue ? a.submit : mt;
     src2 = isc ? N + c : p;
@@ -300,14 +317,16 @@ extern "C" int fantoch_emit_rewrite(
     const void* max_completion, const void* done_time, const void* err,
     const void* steps, const void* client_delay, const void* delay_pp,
     const void* key_table, const void* cmd_budget, const void* client_attach,
-    const void* client_region_row, const void* intervals, void* new_rows,
+    const void* client_region_row, const void* intervals,
+    const void* cmd_parts, const void* cmd_target, const void* attach_s,
+    void* new_rows,
     void* valid, void* issued_o, void* completed_o, void* start_o,
     void* parts_o, void* part_max_o, void* hist_o, void* lat_sum_o,
     void* lat_count_o, void* lat_log_o, void* pair_cnt_o,
     void* next_periodic_o, void* requeues_o, void* max_completion_o,
     void* done_time_o, void* err_o, void* steps_o, int L, int N, int F,
     int P, int C, int R, int RR, int H, int T, int LOG, int W, int submit,
-    void* stream) {
+    int S, int TP, int TT, void* stream) {
   if (L == 0) return 0;
   Args a;
   a.pv = (const bool*)pv;
@@ -347,6 +366,9 @@ extern "C" int fantoch_emit_rewrite(
   a.client_attach = (const int*)client_attach;
   a.client_region_row = (const int*)client_region_row;
   a.intervals = (const int*)intervals;
+  a.cmd_parts = (const int*)cmd_parts;
+  a.cmd_target = (const int*)cmd_target;
+  a.attach_s = (const int*)attach_s;
   a.new_rows = (int*)new_rows;
   a.valid = (bool*)valid;
   a.issued_o = (int*)issued_o;
@@ -376,6 +398,9 @@ extern "C" int fantoch_emit_rewrite(
   a.LOG = LOG;
   a.W = W;
   a.submit = submit;
+  a.S = S;
+  a.TP = TP;
+  a.TT = TT;
   const int E = N * (2 * F + 1);
   const int need = std::max({E, C, N * N, RR, N * R, 32});
   const int threads = (need + 31) / 32 * 32;

@@ -5,7 +5,9 @@ bookkeeping.
 Replaces ``fantoch_tpu/engine/core.py`` ``_lane_step`` §4 (:941, the
 requeue row and ``merge_emissions`` :399), §5 (:1042, the closed-loop,
 fault-free, no-reorder branch: ``emitter_times`` :252, the TO_CLIENT →
-SUBMIT rewrite, latency metrics, channel ranks and ``pair_cnt``) and §7
+SUBMIT rewrite, latency metrics, channel ranks and ``pair_cnt``; with
+partial replication's parts counting and target-shard SUBMIT,
+:1177-1182, 1218-1224, 1273-1279) and §7
 (:1494-1563, with ``fold_health`` :215 and ``fold_count`` :244). CUDA
 source: ``csrc/emit_rewrite.cu`` (bound by bytes, :func:`work`).
 :func:`emit_rewrite_plain` is its plain PyTorch twin, used for tensors
@@ -127,7 +129,15 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     part_max = torch.maximum(
         cl["part_max"], torch.where(oh_done, t_arr[..., None], 0).amax(1)
     )
-    complete_c = (arrivals > 0) & (parts_new >= 1)
+    if "cmd_parts" in ctx:
+        # partial replication: a command completes when all its key
+        # parts arrived (the table's column clamped to its last)
+        t_parts = ctx["cmd_parts"].shape[2]
+        need = _take2(ctx["cmd_parts"], iota_c[None, :],
+                      cl["issued"].clamp(max=t_parts - 1))
+    else:
+        need = 1
+    complete_c = (arrivals > 0) & (parts_new >= need)
     completed = cl["completed"] + complete_c.to(I32)
     parts = torch.where(complete_c, 0, parts_new)
     done_t = part_max
@@ -177,8 +187,15 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         rec & (c < C) & (log_src < log_depth), latency, add=False,
     ).reshape(m["lat_log"].shape)
 
-    # rewrite entries in place
-    attach = _take(ctx["client_attach"], cc)
+    # rewrite entries in place; under partial replication the next
+    # SUBMIT goes to the client's connected process of the command's
+    # target shard (the shard of its first key)
+    if "cmd_target" in ctx:
+        t_tgt = ctx["cmd_target"].shape[2]
+        shard = _take2(ctx["cmd_target"], cc, next_seq.clamp(max=t_tgt - 1))
+        attach = _take2(ctx["client_attach_s"], cc, shard)
+    else:
+        attach = _take(ctx["client_attach"], cc)
     dst = torch.where(issue, attach, dst)
     mtype = torch.where(issue, submit, out["mtype"])
     payload = torch.where(issue[..., None], sub_payload, out["payload"])
@@ -294,8 +311,9 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     message's type, keys and payload, the lane's client, channel, timer
     and scalar planes, the small per-client ctx planes, one client
     delay per TO_CLIENT row, one process delay per other valid row, a
-    key and a delay per issued SUBMIT, and the histogram words it
-    increments. It writes the rows that land, every ``valid`` flag and
+    key and a delay per issued SUBMIT (and under partial replication
+    each client's part count, each SUBMIT's target shard and connected
+    process), and the histogram words it increments. It writes the rows that land, every ``valid`` flag and
     the state words that change."""
     del submit
     new_rows, valid, upd = out
@@ -323,6 +341,10 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         + 4 * to_client + 4 * (n_valid - to_client) + 8 * n_issue
         + 4 * hist_changed
     )
+    if "cmd_parts" in ctx:
+        # a part count per client; a target shard and its connected
+        # process per issued SUBMIT
+        read += 4 * L * C + 8 * n_issue
     write = 4 * W * int(valid.sum()) + cost.nbytes(valid)
     for a, b in zip(old, new):
         write += int((a != b).sum()) * a.element_size()
@@ -379,18 +401,31 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     }
     for name, shape in ctx_shapes.items():
         chk(f"ctx/{name}", ctx[name], I32, shape, dev)
+    # partial replication's tables, or null pointers (single-shard lanes)
+    S = TP = TT = 0
+    partial = [None, None, None]
+    if "cmd_parts" in ctx:
+        S = ctx["client_attach_s"].shape[2]
+        TP = ctx["cmd_parts"].shape[2]
+        TT = ctx["cmd_target"].shape[2]
+        chk("ctx/cmd_parts", ctx["cmd_parts"], I32, (L, C, TP), dev)
+        chk("ctx/cmd_target", ctx["cmd_target"], I32, (L, C, TT), dev)
+        chk("ctx/client_attach_s", ctx["client_attach_s"], I32, (L, C, S),
+            dev)
+        partial = [ctx[k] for k in ("cmd_parts", "cmd_target",
+                                    "client_attach_s")]
     new_rows = torch.empty((L, E, W), dtype=I32, device=dev)
     valid = torch.empty((L, E), dtype=torch.bool, device=dev)
     new = [torch.empty_like(t) for t in old]
     tensors = (
         [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
         + [has, rdy, rows, ep, fire, perr] + old
-        + [ctx[k] for k in ctx_shapes] + [new_rows, valid] + new
+        + [ctx[k] for k in ctx_shapes] + partial + [new_rows, valid] + new
     )
-    fn = build.c_function("fantoch_emit_rewrite", len(tensors), 12)
+    fn = build.c_function("fantoch_emit_rewrite", len(tensors), 15)
     build.launch(
-        fn, [t.data_ptr() for t in tensors],
-        [L, N, F, P, C, R, RR, H, T, LOG, W, submit],
+        fn, [0 if t is None else t.data_ptr() for t in tensors],
+        [L, N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     emit_rewrite.launches += 1

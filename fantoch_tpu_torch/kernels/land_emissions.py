@@ -29,7 +29,9 @@ def land_emissions_plain(pool, arrival, deliver, new_rows, pool_peak, err):
     rank = torch.cumsum(deliver, dim=1, dtype=I32)          # 1-based
     free = arrival == INF
     free_cum = torch.cumsum(free, dim=1, dtype=I32)
-    target = (free_cum[:, None, :] < rank[:, :, None]).sum(-1, dtype=I32)
+    # how many free slots come before the rank-th one: the count of
+    # free_cum entries below the rank (free_cum does not decrease)
+    target = torch.searchsorted(free_cum, rank).to(I32)
     n_free = free.sum(1, dtype=I32)
     n_del = deliver.sum(1, dtype=I32)
     out = pool.clone()

@@ -19,17 +19,31 @@ I32 = torch.int32
 
 def qualify_pop_plain(pool, next_periodic, lookahead):
     """``(arrival, ep, now, active, fire, slot, has, rows)`` for a batch:
-    pool ``[L, M, W]``, timers ``[L, N, R]``, lookahead ``[L, N, N]``."""
+    pool ``[L, M, W]``, timers ``[L, N, R]``, lookahead ``[L, N, N]``.
+    Each slot is reduced into its destination's row (a slot whose
+    destination is out of range takes part in no pop), so the work is
+    ``[L, M]`` per reduction."""
     L, M, W = pool.shape
     N = next_periodic.shape[1]
     dev = pool.device
     arrival = pool[..., PA]
     ksrc = pool[..., PKS]
     prio = pool[..., PPR] != 0
-    procs = torch.arange(N, device=dev, dtype=I32)
+    dst = pool[..., PDST]
     inf = torch.tensor(INF, dtype=I32, device=dev)
-    dstmask = pool[:, None, :, PDST] == procs[None, :, None]  # [L, N, M]
-    arr_p = torch.where(dstmask, arrival[:, None, :], inf).amin(-1)
+    mine = (dst >= 0) & (dst < N)
+    d = torch.where(mine, dst, N).long()        # column N collects the rest
+
+    def per_process(vals, reduce, init):
+        """``[L, N]``: ``reduce`` of each destination's slot values."""
+        out = torch.full((L, N + 1), init, dtype=vals.dtype, device=dev)
+        return out.scatter_reduce(1, d, vals, reduce)[:, :N]
+
+    def at_dst(per):
+        """``[L, M]``: each slot's destination's value of ``per``."""
+        return torch.gather(per, 1, d.clamp(max=N - 1))
+
+    arr_p = per_process(arrival, "amin", INF)
     ep = torch.minimum(arr_p, next_periodic.amin(-1))
     reach = torch.where(
         (ep[..., None] >= INF) | (lookahead >= INF), inf,
@@ -39,28 +53,27 @@ def qualify_pop_plain(pool, next_periodic, lookahead):
     now = ep.amin(1)
     active = (ep < INF) & ((ep < bound) | (ep == now[:, None]))
     fire = (next_periodic == ep[..., None]) & active[..., None]
-    fired_any = fire.any(-1)
-    cand = (
-        (arrival[:, None, :] == ep[..., None]) & dstmask
-        & active[..., None] & ~fired_any[..., None]
-    )
-    cand_prio = cand & prio[:, None, :]
-    use = torch.where(cand_prio.any(-1, keepdim=True), cand_prio, cand)
-    min_src = torch.where(use, ksrc[:, None, :], inf).amin(-1)
-    order = torch.where(
-        use & (ksrc[:, None, :] == min_src[..., None]),
-        pool[:, None, :, PKC], inf,
-    )
-    slot = order.argmin(-1).to(I32)  # first minimum, as jnp.argmin
-    has = use.any(-1)
+    pops = active & ~fire.any(-1)
+    cand = mine & (arrival == at_dst(ep)) & at_dst(pops)
+    any_prio = per_process((cand & prio).to(I32), "amax", 0) > 0
+    use = cand & (prio | ~at_dst(any_prio))
+    min_src = per_process(torch.where(use, ksrc, inf), "amin", INF)
+    first = use & (ksrc == at_dst(min_src))
+    min_kcnt = per_process(torch.where(first, pool[..., PKC], inf), "amin",
+                           INF)
+    best = first & (pool[..., PKC] == at_dst(min_kcnt))
+    # the first slot among the best (jnp.argmin's tie-break); 0 if none
+    idx = torch.arange(M, device=dev, dtype=I32).expand(L, M)
+    slot = per_process(torch.where(best, idx, M), "amin", M)
+    has = slot < M
+    slot = torch.where(has, slot, 0)
     rows = torch.gather(
         pool, 1, slot.long()[..., None].expand(L, N, W)
     )
-    popped = (
-        (torch.arange(M, device=dev, dtype=I32) == slot[..., None])
-        & has[..., None]
-    ).any(1)
-    arrival = torch.where(popped, inf, arrival)
+    popped = torch.zeros((L, M + 1), dtype=torch.bool, device=dev)
+    popped.scatter_(1, torch.where(has, slot, M).long(),
+                    torch.ones_like(has))
+    arrival = torch.where(popped[:, :M], inf, arrival)
     return arrival, ep, now, active, fire, slot, has, rows
 
 

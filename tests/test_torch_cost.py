@@ -8,14 +8,16 @@ import numpy as np
 import pytest
 import torch
 
-from fantoch_tpu_torch.engine.dims import INF, PA, PDST, PMT, PPAY, EngineDims
+from fantoch_tpu_torch.engine.dims import (
+    INF, PA, PDST, PMT, PPAY, PSRC, EngineDims,
+)
 from fantoch_tpu_torch.engine.protocols import (
-    AtlasDev, BasicDev, CaesarDev, FPaxosDev, TempoDev,
+    AtlasDev, BasicDev, CaesarDev, FPaxosDev, TempoDev, TempoPartialDev,
 )
 from fantoch_tpu_torch.kernels import (
     basic_handle, caesar_handle, cost, emit_rewrite, fpaxos_handle,
     graphdep_handle, key_table, land_emissions, lane_freeze, qualify_pop,
-    tempo_handle,
+    tempo_handle, tempo_partial_handle,
 )
 from fantoch_tpu_torch.kernels.basic_handle import OUTBOX_KEYS
 from fantoch_tpu_torch.kernels.basic_handle import work as bh_work
@@ -29,6 +31,7 @@ from fantoch_tpu_torch.kernels.land_emissions import work as le_work
 from fantoch_tpu_torch.kernels.lane_freeze import work as lf_work
 from fantoch_tpu_torch.kernels.qualify_pop import work as qp_work
 from fantoch_tpu_torch.kernels.tempo_handle import work as th_work
+from fantoch_tpu_torch.kernels.tempo_partial_handle import work as tp_work
 
 P = 5
 W = PPAY + P
@@ -282,6 +285,80 @@ def test_tempo_handle_work_idle_submit_and_gc():
     with_timers, _ = th_work(*args, out)
     assert with_timers == with_gc + 4 * N + 4 * t.K * t.R
 
+
+
+def _tempo_partial_idle(L=2):
+    """Two shards of two rows; every command of both clients is key 0,
+    alone on shard 0."""
+    t = TempoPartialDev(keys=2, shards=2, keys_per_cmd=2, pending_per_key=4,
+                        detached_slots=3, gap_slots=2)
+    dims = EngineDims.for_partial(t, 2, 2, 3)
+    N, C, S = dims.N, dims.C, t.S
+    ps = {k: torch.from_numpy(np.stack([v] * L))
+          for k, v in t.init_state(dims, {}).items()}
+    has = torch.zeros((L, N), dtype=torch.bool)
+    rows = torch.zeros((L, N, PPAY + dims.P), dtype=torch.int32)
+    fire = torch.zeros((L, N, dims.R), dtype=torch.bool)
+    now = torch.zeros((L, N), dtype=torch.int32)
+    i32 = lambda v, *s: torch.full((L, *s), v, dtype=torch.int32)  # noqa: E731
+    b = lambda v, *s: torch.full((L, *s), v, dtype=torch.bool)  # noqa: E731
+    skey = i32(-1, C, 4, S, 2)
+    skey[..., 0, 0] = 0
+    ctx = {"n": i32(2), "f": i32(1), "fast_quorum": b(True, N, N),
+           "write_quorum": b(True, N, N), "fq_size": i32(2),
+           "wq_size": i32(2), "threshold": i32(2),
+           "clock_bump_mode": b(False),
+           "shard_of": torch.tensor([[0, 0, 1, 1]] * L, dtype=torch.int32),
+           "closest": torch.tensor([[[0, 2]] * N] * L, dtype=torch.int32),
+           "client_attach_s": torch.tensor([[[0, 2], [1, 3]]] * L,
+                                           dtype=torch.int32),
+           "cmd_kmask": i32(1, C, 4), "cmd_skey": skey}
+    return t, dims, ps, has, rows, fire, now, ctx
+
+
+def test_tempo_partial_handle_work_idle_submit_and_gc():
+    t, dims, ps, has, rows, fire, now, ctx = _tempo_partial_idle()
+    args = (ps, has, rows, fire, now, ctx, dims)
+    out = tempo_partial_handle(*args)
+    idle, idle_ops = tp_work(*args, out)
+    L, N = has.shape
+    P, D, S, KPC = dims.P, dims.D, t.S, t.KPC
+    assert idle == cost.nbytes(has, fire, now) + L * N + \
+        _outboxes_bytes(out)
+    assert idle_ops == 40 * L * N
+    # a SUBMIT of client 0's first command at process 0: reads its
+    # message, its sequence, the command's table row (mask and S × KPC
+    # keys) and both local keys' clocks and detached rows; writes its
+    # sequence, key 0's clock, the dot's vote count and key 0's vote
+    # range (its voter id 0, the pad key's empty range and the zeroed
+    # counters do not change)
+    has[0, 0] = True
+    rows[0, 0, PMT] = TempoPartialDev.SUBMIT
+    rows[0, 0, PPAY + 1] = 1
+    out = tempo_partial_handle(*args)
+    n_bytes, _ = tp_work(*args, out)
+    cmd = 4 * (1 + S * KPC)
+    keys = KPC * 4 * (1 + 2 * t.R)
+    assert out[1]["votes_s"][0, 0, 0, 0, 0, 0] == 1
+    assert n_bytes == idle + 4 * (2 + P) + 4 * 3 + cmd + keys + 4 * 5
+    # a GC message from process 3 at process 2 (an all-zero frontier):
+    # reads the frontier table, the seen flags, the committed and stable
+    # clocks and the [N, D] dot words; changes one seen flag
+    has[1, 2] = True
+    rows[1, 2, PMT] = TempoPartialDev.MGC
+    rows[1, 2, PSRC] = 3
+    out = tempo_partial_handle(*args)
+    with_gc, ops = tp_work(*args, out)
+    gc_read = 4 * N * N + N + 4 * 2 * N + 4 * N * D
+    assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
+    assert ops == 40 * L * N + 2 * N * D + 3 * N * N
+    # a firing GC timer reads the committed clock; a detached kick-off
+    # the detached table
+    fire[0, 1, 0] = True
+    fire[0, 1, 2] = True
+    out = tempo_partial_handle(*args)
+    with_timers, _ = tp_work(*args, out)
+    assert with_timers == with_gc + 4 * N + 4 * t.K * t.R
 
 
 def _graphdep_idle(L=2):

@@ -170,9 +170,52 @@ def _port_step(st, ctx, dims):
             "err": err}, has, ps["rdy"]
 
 
+def _partial_inputs(seed, S=2):
+    """``_inputs`` with partial replication's tables: a command needs
+    1-3 result parts (results arrive in parts already), and its next
+    SUBMIT goes to its target shard's connected process."""
+    st, ctx = _inputs(seed)
+    rng = np.random.default_rng(seed + 100)
+    ri = lambda lo, hi, *s: rng.integers(lo, hi, (L, *s)).astype(np.int32)  # noqa: E731
+    st["clients"]["parts"] = ri(0, 3, C)
+    ctx["cmd_parts"] = ri(1, 4, C, T - 1)
+    ctx["cmd_target"] = ri(0, S, C, T - 1)
+    ctx["client_attach_s"] = ri(0, N, C, S)
+    return st, ctx
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_emit_rewrite_partial_twin_matches_reference_step(seed):
+    """The partial-replication branch (core.py:1177-1182, 1273-1279):
+    completion once the command's parts arrived, and the next SUBMIT at
+    the target shard's connected process."""
+    st, ctx = _partial_inputs(seed)
+    want = _check_step(st, ctx)
+    issued = want["clients"]["issued"] > st["clients"]["issued"]
+    assert issued.any()
+    parts = st["clients"]["parts"]
+    # results that completed nothing: their count grew short of the need
+    assert ((want["clients"]["parts"] > parts) & ~issued).any()
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 def test_emit_rewrite_twin_matches_reference_step(seed):
     st, ctx = _inputs(seed)
+    want = _check_step(st, ctx)
+    # the inputs reach the paths they are meant to: requeues, a result
+    # for a client past the table, a client completing and issuing, the
+    # pool overflowing, a protocol error bit past the eight the fold keeps
+    # (the requeues: _check_step)
+    ps = st["ps"]
+    assert any((ps[s + "v"] & (ps[s + "d"] >= N + C)).any() for s in "ph")
+    assert (want["clients"]["issued"] > st["clients"]["issued"]).any()
+    assert (want["metrics"]["lat_count"] > st["metrics"]["lat_count"]).any()
+    assert (want["err"] & 1).any() and not (want["err"] & 256).any()
+
+
+def _check_step(st, ctx):
+    """The reference's step and the port's on the same inputs; asserts
+    every plane equal and returns the reference's new state."""
     rdims, dims = _dims()
     want = jax.jit(jax.vmap(lambda s, c: _lane_step(Stub, rdims, s, c)))(
         st, ctx
@@ -189,15 +232,8 @@ def test_emit_rewrite_twin_matches_reference_step(seed):
         ):
             assert g.dtype == w.dtype and g.shape == w.shape, path
             np.testing.assert_array_equal(g, w, err_msg=path)
-    # the inputs reach the paths they are meant to: requeues, a result
-    # for a client past the table, a client completing and issuing, the
-    # pool overflowing, a protocol error bit past the eight the fold keeps
     assert (has.numpy() & ~rdy.numpy()).any()
-    ps = st["ps"]
-    assert any((ps[s + "v"] & (ps[s + "d"] >= N + C)).any() for s in "ph")
-    assert (want["clients"]["issued"] > st["clients"]["issued"]).any()
-    assert (want["metrics"]["lat_count"] > st["metrics"]["lat_count"]).any()
-    assert (want["err"] & 1).any() and not (want["err"] & 256).any()
+    return want
 
 
 def _freeze_inputs(seed):

@@ -7,10 +7,11 @@ full pools, out-of-range sources and dot slots that wrap.
   ``frontier_min`` and ``mark_popped``);
 - ``land_emissions`` against §6 (core.py:1460-1492, with ``cumsum_i32``
   and ``searchsorted_left``);
-- ``basic_handle``, ``fpaxos_handle``, ``tempo_handle`` and
-  ``graphdep_handle`` against their protocol's ``ready``/``periodic``
-  and ``run_handlers`` in the step's order (core.py:873-918), Tempo's at
-  each process's event time, Atlas/EPaxos's in both fast-path modes.
+- ``basic_handle``, ``fpaxos_handle``, ``tempo_handle``,
+  ``graphdep_handle``, ``caesar_handle`` and ``tempo_partial_handle``
+  against their protocol's ``ready``/``periodic`` and ``run_handlers``
+  in the step's order (core.py:873-918), Tempo's (both twins') at each
+  process's event time, Atlas/EPaxos's in both fast-path modes.
 
 The wrappers get CPU tensors, so they run their twins; the CUDA kernels
 are held against the same twins on the card by ``chip_smoke.py``."""
@@ -35,6 +36,7 @@ from fantoch_tpu.engine.protocols import FPaxosDev as RFPaxos
 from fantoch_tpu.engine.protocols import AtlasDev as RAtlas
 from fantoch_tpu.engine.protocols import CaesarDev as RCaesar
 from fantoch_tpu.engine.protocols import TempoDev as RTempo
+from fantoch_tpu.engine.protocols import TempoPartialDev as RTempoPartial
 from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.dims import (
     INF, PA, PDST, PKC, PKS, PMT, PPAY, PPR, PSRC, EngineDims,
@@ -1045,3 +1047,266 @@ def test_caesar_handle_twin_matches_reference(seed, wait):
             & (hout["mtype"][..., 0] == X.MRETRY)).any()
     grew = (new_ps["err"] & 16) > (ps["err"] & 16)       # ERR_CAPACITY
     assert (grew & (mt == X.MPROPOSEACK)).any()
+
+
+# ----------------------------------------------------------------------
+# K11 tempo_partial_handle
+# ----------------------------------------------------------------------
+
+# two shards of three rows (N = 6); small tables, so that inputs reach
+# full ones: K keys, PK pending slots, R detached slots, G gap slots
+PARTIAL_SIZES = dict(keys=4, shards=2, keys_per_cmd=2, pending_per_key=4,
+                     detached_slots=4, gap_slots=3)
+PARTIAL_N, PARTIAL_T1 = 3, 5
+_PARTIAL_REF = {}
+
+
+def _tempo_partial_inputs(seed, dims, t, lanes=96):
+    """Every message type handled somewhere, the gated ones (MCollect,
+    MCommit, MConsensus, MShardAgg, MShardCommit) also refused; all
+    three timer rows firing at real event times (some past the micros
+    saturation point); lanes with n = 2 and n = 3 rows per shard (pad
+    rows carry shard id S); occupied and full gap, pending and detached
+    tables; parked queue heads that a StableAtShard matches, and
+    buffered counts; single- and multi-shard commands with one or two
+    local keys (-1 pads), keys out of range; MCommits with duplicate
+    voters and with dot sources out of range; clients and command
+    sequences out of range of the tables; dot slots that wrap."""
+    rng = np.random.default_rng(seed)
+    Np, D, C, P = dims.N, dims.D, dims.C, dims.P
+    K, PK, R, G, S, KPC = t.K, t.PK, t.R, t.G, t.S, t.KPC
+    T1 = PARTIAL_T1
+    ri = lambda lo, hi, *s: rng.integers(lo, hi, (lanes, *s)).astype(np.int32)  # noqa: E731
+    rb = lambda p, *s: rng.random((lanes, *s)) < p  # noqa: E731
+    X = RTempoPartial
+    n = np.where(rb(0.3), 2, PARTIAL_N).astype(np.int32)
+    rows_ = np.arange(Np)[None, :]
+    shard_of = np.where(rows_ < S * n[:, None], rows_ // n[:, None],
+                        S).astype(np.int32)
+    closest = np.zeros((lanes, Np, S), np.int32)
+    for s in range(S):
+        closest[..., s] = s * n[:, None] + ri(0, 1, Np) + np.minimum(
+            ri(0, 2, Np), n[:, None] - 1)
+    det = np.zeros((lanes, Np, K, R, 2), np.int32)
+    det[..., 0] = ri(1, 12, Np, K, R) * rb(0.5, Np, K, R)
+    det[..., 1] = det[..., 0] + ri(0, 4, Np, K, R)
+    det[rb(0.15, Np, K)] = [30, 31]                      # full rows
+    det[..., 1] = np.where(det[..., 0] > 0, det[..., 1], 0)
+    vf, vg = _gap_sets(rng, (lanes, Np, K, Np), G, lo_max=12)
+    cf, cg = _gap_sets(rng, (lanes, Np, Np), G)
+    pend_clock = ri(1, 14, Np, K, PK) * rb(0.7, Np, K, PK)
+    pend_clock[rb(0.2, Np, K)] = 9                       # full rows
+    phase = np.where(pend_clock > 0, ri(1, 3, Np, K, PK), 0)
+    phase = np.where(rb(0.05, Np, K, PK), 2, phase)      # parked, clock 0
+    cmd_skey = ri(-1, K + 1, C, T1, S, KPC)
+    cmd_skey[..., 1] = np.where(rb(0.3, C, T1, S), -1, cmd_skey[..., 1])
+    ps = {
+        "clocks": ri(0, 20, Np, K),
+        "det": det,
+        "max_commit_clock": ri(0, 30, Np),
+        "seq_in_slot": ri(0, 9, Np, Np, D) * rb(0.6, Np, Np, D),
+        "client_of": ri(0, C + 1, Np, Np, D),
+        "cseq_of": ri(0, T1 + 2, Np, Np, D),
+        "own_seq": ri(0, 9, Np),
+        "ack_cnt": ri(0, 4, Np, Np, D),
+        "max_clock": ri(0, 20, Np, Np, D),
+        "max_cnt": ri(0, 3, Np, Np, D),
+        "slow_acks": ri(0, 3, Np, Np, D),
+        "votes_n": ri(0, Np + 1, Np, Np, D),
+        "votes_by": ri(0, Np, Np, Np, D, Np),
+        "votes_s": ri(0, 12, Np, Np, D, KPC, Np),
+        "votes_e": ri(0, 16, Np, Np, D, KPC, Np),
+        "shag_cnt": ri(0, 2, Np, D),
+        "shag_max": ri(0, 20, Np, D),
+        "mbump_buf": ri(0, 20, Np, Np, D) * rb(0.3, Np, Np, D),
+        "vote_front": vf,
+        "vote_gaps": vg,
+        "pend_clock": pend_clock,
+        "pend_src": ri(0, Np, Np, K, PK),
+        "pend_seq": ri(0, 9, Np, K, PK),
+        "pend_client": ri(0, C + 1, Np, K, PK),
+        "pend_cseq": ri(0, T1 + 1, Np, K, PK),
+        "pend_kmask": ri(1, 4, Np, K, PK),
+        "pend_missing": ri(0, 4, Np, K, PK),
+        "pend_phase": phase.astype(np.int32),
+        "stable_cnt": ri(0, 3, Np, C),
+        "stable_cnt_seq": ri(0, T1 + 1, Np, C),
+        "buf_cnt": ri(0, 3, Np, K, C),
+        "buf_seq": ri(0, T1 + 1, Np, K, C),
+        "comm_front": cf,
+        "comm_gaps": cg,
+        "others_frontier": ri(0, 8, Np, Np, Np),
+        "seen": rb(0.7, Np, Np),
+        "prev_stable": ri(0, 4, Np, Np),
+        "m_fast": ri(0, 9, Np),
+        "m_slow": ri(0, 9, Np),
+        "m_stable": ri(0, 9, Np),
+        "err": ri(0, 2, Np) * 8,
+    }
+    rows = ri(0, 8, Np, PPAY + P)
+    rows[..., PSRC] = ri(0, Np + C, Np)                  # clients too
+    mt = ri(0, X.NUM_TYPES + 2, Np)
+    rows[..., PMT] = mt
+    pay = rows[..., PPAY:]
+    me = np.broadcast_to(np.arange(Np)[None, :], (lanes, Np))
+    # dots: (dsrc, seq) words; gated types mostly name a stored dot, an
+    # MCollect half the time a free slot
+    dsrc, slot = ri(0, Np, Np), ri(0, D, Np)
+    li = np.arange(lanes)[:, None]
+    stored = ps["seq_in_slot"][li, me, dsrc, slot]
+    dotted = np.isin(mt, [X.MCOLLECT, X.MCOLLECTACK, X.MCOMMIT,
+                          X.MCONSENSUS, X.MCONSENSUSACK, X.MBUMP,
+                          X.MSHARDCOMMIT, X.MSHARDAGG, X.MFWDSUBMIT])
+    dsrc = np.where(mt == X.MSHARDCOMMIT,
+                    np.where(rb(0.8, Np), me, dsrc), dsrc)
+    stored = ps["seq_in_slot"][li, me, dsrc, slot]
+    good = rb(0.7, Np) & (stored > 0)
+    seq = np.where(good, stored, ri(0, 9, Np))
+    free = (mt == X.MCOLLECT) & rb(0.5, Np)
+    ps["seq_in_slot"][li, me, dsrc, (seq - 1) % D] = np.where(
+        free, 0, ps["seq_in_slot"][li, me, dsrc, (seq - 1) % D])
+    pay[..., 0] = np.where(dotted, dsrc, pay[..., 0])
+    pay[..., 1] = np.where(dotted, seq, pay[..., 1])
+    # SUBMIT [client, cseq]; MFwdSubmit/MCollect [.., client, cseq, clk]
+    sub = mt == X.SUBMIT
+    pay[..., 0] = np.where(sub, ri(0, C + 1, Np), pay[..., 0])
+    pay[..., 1] = np.where(sub, ri(0, T1 + 2, Np), pay[..., 1])
+    fwd = (mt == X.MCOLLECT) | (mt == X.MFWDSUBMIT)
+    pay[..., 2] = np.where(fwd, ri(0, C + 1, Np), pay[..., 2])
+    pay[..., 3] = np.where(fwd, ri(0, T1 + 2, Np), pay[..., 3])
+    rows[..., PSRC] = np.where(mt == X.MCOLLECT,
+                               np.where(rb(0.3, Np), me, ri(0, Np, Np)),
+                               rows[..., PSRC])
+    # MCollectAck [dsrc, seq, clock, (vs, ve) per key]: some vote nothing
+    ack = mt == X.MCOLLECTACK
+    for k in range(KPC):
+        vs = ri(0, 12, Np) * rb(0.6, Np)
+        pay[..., 3 + 2 * k] = np.where(ack, vs, pay[..., 3 + 2 * k])
+        pay[..., 4 + 2 * k] = np.where(ack, vs + ri(0, 4, Np),
+                                       pay[..., 4 + 2 * k])
+    # MCommit [dsrc, seq, clock, client, cseq, nv, by * N, (s, e) per
+    # (key, voter)]: voters often repeated; some sources out of range
+    mc = mt == X.MCOMMIT
+    pay[..., 3] = np.where(mc, ri(0, C + 1, Np), pay[..., 3])
+    pay[..., 4] = np.where(mc, ri(0, T1 + 1, Np), pay[..., 4])
+    pay[..., 5] = np.where(mc, ri(0, Np + 2, Np), pay[..., 5])
+    by = ri(0, Np, Np, Np)
+    by[..., 1] = np.where(rb(0.4, Np), by[..., 0], by[..., 1])
+    pay[..., 6:6 + Np] = np.where(mc[..., None], by, pay[..., 6:6 + Np])
+    for j in range(KPC * Np):
+        s0 = ri(0, 12, Np)
+        lo = 6 + Np + 2 * j
+        pay[..., lo] = np.where(mc, s0, pay[..., lo])
+        pay[..., lo + 1] = np.where(mc, s0 + ri(-1, 4, Np), pay[..., lo + 1])
+    oob = mc & rb(0.15, Np)
+    pay[..., 0] = np.where(oob, ri(Np, 2 * Np, Np) * np.where(
+        rb(0.5, Np), 1, -1), pay[..., 0])
+    pay[..., 1] = np.where(oob, 0, pay[..., 1])
+    # MDetached [key, nr, (start, end) * per_msg]
+    md = mt == X.MDETACHED
+    per = t.detached_per_msg(dims)
+    pay[..., 0] = np.where(md, ri(0, K + 1, Np), pay[..., 0])
+    pay[..., 1] = np.where(md, ri(0, per + 2, Np), pay[..., 1])
+    for i in range(per):
+        s0 = ri(0, 14, Np)
+        pay[..., 2 + 2 * i] = np.where(md, s0, pay[..., 2 + 2 * i])
+        pay[..., 3 + 2 * i] = np.where(md, s0 + ri(-1, 3, Np),
+                                       pay[..., 3 + 2 * i])
+    pay[..., 0] = np.where(mt == X.MDRAIN, ri(-1, K + 1, Np), pay[..., 0])
+    # StableAtShard [key, client, cseq]: most name a parked head
+    sa = mt == X.STABLEAT
+    key = ri(0, K + 1, Np)
+    kk = np.minimum(key, K - 1)
+    j = ri(0, PK, Np)
+    head_client = ps["pend_client"][li, me, kk, j]
+    head_cseq = ps["pend_cseq"][li, me, kk, j]
+    match = rb(0.6, Np)
+    pay[..., 0] = np.where(sa, key, pay[..., 0])
+    pay[..., 1] = np.where(sa, np.where(match, head_client, ri(0, C + 1, Np)),
+                           pay[..., 1])
+    pay[..., 2] = np.where(sa, np.where(match, head_cseq,
+                                        ri(0, T1 + 1, Np)), pay[..., 2])
+    rows[..., PPAY:] = pay
+
+    ctx = {
+        "n": n,
+        "f": ri(1, 3),
+        "fast_quorum": rb(0.6, Np, Np),
+        "write_quorum": rb(0.6, Np, Np),
+        "fq_size": ri(1, 4),
+        "wq_size": ri(1, 3),
+        "threshold": ri(1, 3),
+        "clock_bump_mode": rb(0.5),
+        "shard_of": shard_of,
+        "closest": closest,
+        "client_attach_s": (np.arange(S)[None, None, :] * n[:, None, None]
+                            + ri(0, 2, C, S)).astype(np.int32),
+        "cmd_kmask": ri(1, 4, C, T1),
+        "cmd_skey": cmd_skey,
+    }
+    fire = rb(0.3, Np, 3)
+    ep = np.where(rb(0.1, Np), ri(1 << 20, 1 << 30, Np), ri(0, 40, Np))
+    return ps, rb(0.85, Np), rows, fire, ctx, ep.astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_tempo_partial_handle_twin_matches_reference(seed):
+    """The twin of K11 against the reference's vmapped ``ready``,
+    ``periodic`` and ``handle`` at each process's event time (one jit
+    for every case)."""
+    from fantoch_tpu_torch.engine.protocols import TempoPartialDev
+    from fantoch_tpu_torch.kernels import tempo_partial_handle
+
+    t = TempoPartialDev(**PARTIAL_SIZES)
+    rt = RTempoPartial(**PARTIAL_SIZES)
+    rdims = RDims.for_partial(rt, PARTIAL_N, 4, 3)
+    dims = EngineDims.for_partial(t, PARTIAL_N, 4, 3)
+    assert dims == EngineDims(**vars(rdims))
+    ps, has, rows, fire, ctx, ep = _tempo_partial_inputs(seed, dims, t)
+    if "fn" not in _PARTIAL_REF:
+        _PARTIAL_REF["fn"] = jax.jit(jax.vmap(
+            lambda *a: _ref_handler_lane(rt, rdims, *a)))
+    want = jax.tree_util.tree_map(
+        np.asarray, _PARTIAL_REF["fn"](ps, has, rows, fire, ctx, ep))
+    before = tempo_partial_handle.launches
+    got = tempo_partial_handle(
+        carry.to_torch(ps, "cpu"), torch.from_numpy(has),
+        torch.from_numpy(rows), torch.from_numpy(fire), torch.from_numpy(ep),
+        carry.to_torch(ctx, "cpu"), dims,
+    )
+    assert tempo_partial_handle.launches == before  # the twin
+    _assert_equal(got[0].numpy(), want[0], "rdy")
+    for name, g, w in zip(("ps", "periodic", "handler"), got[1:], want[1:]):
+        assert sorted(g) == sorted(w), name
+        for k in w:
+            _assert_equal(g[k].numpy(), w[k], f"{name}/{k}")
+
+    rdy, new_ps, _pout, hout = want
+    X = RTempoPartial
+    mt = np.where(rdy & has, rows[..., PMT], -1)
+    assert set(range(X.NUM_TYPES)) <= set(mt.ravel().tolist())
+    refused = np.where(has & ~rdy, rows[..., PMT], -1)
+    assert {X.MCOLLECT, X.MCOMMIT, X.MCONSENSUS, X.MSHARDAGG,
+            X.MSHARDCOMMIT} <= set(refused.ravel().tolist())
+    assert fire.any((0, 1)).all()
+    grew = (new_ps["err"] & 16) > (ps["err"] & 16)       # ERR_CAPACITY
+    assert (grew & (mt == X.MCOMMIT)).any()
+    # drains executed (TO_CLIENT in slot 0), chained (MDRAIN in slot 1)
+    # and parked with a StableAtShard fan-out (slots 2 on)
+    drains = (mt == X.MDETACHED) | (mt == X.MDRAIN)
+    assert (drains & hout["valid"][..., 0]).any()
+    assert (drains & hout["valid"][..., 1]).any()
+    assert (drains & hout["valid"][..., 2:6].any(-1)).any()
+    parked = (new_ps["pend_phase"] == 2) & (ps["pend_phase"] != 2)
+    assert (drains & parked.any((-1, -2))).any()
+    # StableAtShard: executes a matched head (and chains a drain in
+    # slot 1), buffers the others
+    sa = mt == X.STABLEAT
+    assert (sa & hout["valid"][..., 1]).any()
+    assert (sa & (new_ps["buf_cnt"] != ps["buf_cnt"]).any((-1, -2))).any()
+    # the shard aggregation completes and the multi-shard commit path
+    # goes to the owner
+    assert ((mt == X.MSHARDCOMMIT) & hout["valid"][..., 0]).any()
+    assert (((mt == X.MCOLLECTACK) | (mt == X.MCONSENSUSACK))
+            & hout["valid"][..., 0]
+            & (hout["mtype"][..., 0] == X.MSHARDCOMMIT)).any()

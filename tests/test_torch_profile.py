@@ -164,3 +164,31 @@ def test_rehearsal_of_the_caesar_profile_on_cpu():
     assert out["protocol"] == "CaesarDev" and out["lanes"] == 2
     assert out["device_activities_per_step_by_name"] == {}
     assert "caesar" in cli.MAIN_PATHS
+
+
+def test_tempo_partial_main_path_is_the_cut_grid():
+    """The partial path: 2 shards of the bench's n = 5 rows, 2 keys per
+    command from a pool of 4, the first 64 region subsets × f ∈ {1, 2}
+    × conflict ∈ {1, 10, 50, 100} (one 512-lane batch)."""
+    args = cli.parse_args(cli.MAIN_PATHS["tempo_partial"])
+    protocol, dims, specs = cli.sweep_setup(args)
+    assert (protocol.S, protocol.KPC) == (2, 2) and len(specs) == 512
+    assert args.batch_lanes == 512 and dims.N == 10
+    assert {s.config.f for s in specs} == {1, 2}
+    assert {s.config.shard_count for s in specs} == {2}
+    assert {int(s.ctx["conflict_rate"]) for s in specs} == {1, 10, 50, 100}
+    assert {int(s.ctx["pool_size"]) for s in specs} == {4}
+
+
+def test_rehearsal_of_the_tempo_partial_profile_on_cpu():
+    args = cli.parse_args([
+        "sweep", "--protocol", "tempo", "--n", "3", "--shards", "2",
+        "--pool-size", "4", "--subsets", "1", "--fs", "1",
+        "--conflicts", "10,100", "--commands", "3",
+    ])
+    protocol, dims, specs = cli.sweep_setup(args)
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev)
+    out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
+    assert out["protocol"] == "TempoPartialDev" and out["lanes"] == 2
+    assert out["device_activities_per_step_by_name"] == {}

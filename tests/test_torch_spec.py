@@ -118,13 +118,28 @@ def test_out_of_slice_options_raise_by_name(option, value, item):
 
 
 def test_partial_replication_and_other_protocols_raise_by_name():
-    pd = EngineDims.for_protocol(BasicDev, n=3, clients=3, payload=3)
+    # partial replication is ported for Tempo: a protocol without a
+    # partial twin fails the reference's own assertion (its shard count
+    # must match the config's), and Atlas's twin still raises naming its
+    # ROADMAP item
+    from fantoch_tpu.engine.protocols import (
+        partial_dev_protocol as r_partial,
+    )
+    from fantoch_tpu_torch.engine.protocols import partial_dev_protocol
+
+    kw = dict(commands_per_client=1, clients_per_region=1,
+              process_regions=GCP[:3], client_regions=GCP[:3])
+    rd = RDims.for_protocol(RBasic, n=6, clients=3, payload=3)
+    pd = EngineDims.for_protocol(BasicDev, n=6, clients=3, payload=3)
+    with pytest.raises(AssertionError, match="protocol shards must match"):
+        r_make_lane(RBasic, RPlanet.new(),
+                    RConfig(n=3, f=1, shard_count=2), dims=rd, **kw)
+    with pytest.raises(AssertionError, match="protocol shards must match"):
+        make_lane(BasicDev, Planet.new(), Config(n=3, f=1, shard_count=2),
+                  dims=pd, **kw)
+    assert type(r_partial("atlas", 5, 2)).__name__ == "AtlasPartialDev"
     with pytest.raises(NotImplementedError, match="item 8"):
-        make_lane(
-            BasicDev, Planet.new(), Config(n=3, f=1, shard_count=2),
-            dims=pd, commands_per_client=1, clients_per_region=1,
-            process_regions=GCP[:3], client_regions=GCP[:3],
-        )
+        partial_dev_protocol("atlas", 5, 2)
     # Atlas and EPaxos are ported: their key tables are sized as the
     # reference's (one key per client plus the shared conflict key)
     from fantoch_tpu.engine.protocols import dev_protocol as r_dev
