@@ -5,10 +5,10 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's eleven CUDA kernels from
+It builds the engine's twelve CUDA kernels from
 ``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch twin on the card at the
-seven main paths' shapes (exact equality: all integer or bool data;
+eight main paths' shapes (exact equality: all integer or bool data;
 ``key_table`` also on a batch of Zipf lanes; ``lane_freeze`` also with
 frozen lanes; ``tempo_handle`` over further steps until every Tempo
 message type and the GC and detached-send timers have been handled;
@@ -19,20 +19,26 @@ and a wait chain, a reject reply and an MRetry broadcast have been;
 ``tempo_partial_handle`` until every one of its fifteen message types,
 the GC and detached-send timers, a two-shard commit (MShardCommit →
 MShardAgg) and a StableAtShard round have been, then on every step of a
-small batch whose clock bump fires)
+small batch whose clock bump fires; ``atlas_partial_handle`` until every
+one of its fourteen message types, both timers, a two-shard commit, a
+request answered at once and one answered by the cleanup tick, and a
+drain chain have been, then on every step of a small batch whose
+cleanup tick runs every 5 ms)
 beside the
 least time its region's work needs (each kernel module's ``work``,
 ``kernels/cost.py``) — a kernel's ``ms`` is its device time per launch
 under ``torch.profiler``, ``call_ms`` the wrapper's whole call (host
 included) — checks the Basic golden numbers and the committed
-``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep,caesar,tempo_partial}
-_golden.json`` bytes on the card, then drives the seven main paths — the
+``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep,caesar,tempo_partial,
+atlas_partial}_golden.json`` bytes on the card, then drives the eight
+main paths — the
 2,048-lane Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar sweeps (n = 5,
 256 five-region subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50
 commands per client, one client per region) and the 512-lane sweep of
 Tempo under partial replication (2 shards of 5 rows, 2 keys per command
-from a pool of 4, the first 64 subsets, conflict 1 in place of 0) —
-through ``run_sweep``, each with every launch counter set to 0 just
+from a pool of 4, the first 64 subsets, conflict 1 in place of 0) and
+the same 512-lane grid of Atlas under partial replication at 9 commands
+per client — through ``run_sweep``, each with every launch counter set to 0 just
 before and read just after, and holds sampled lanes of each to the
 plain twins on the host. Any failure raises;
 nothing is caught. Each phase prints its seconds. The last two lines
@@ -80,6 +86,10 @@ GRAPHDEP_POINTS = [
 # one batch each): (n, f, shards, conflict, pool, keys per command), 10
 # commands per client
 TEMPO_PARTIAL_POINTS = [(3, 1, 2, 0, 1, 1), (3, 1, 2, 100, 4, 2)]
+# the Atlas partial golden batch (tests/test_torch_atlas_partial.py):
+# (n, f, shards, conflict, pool, keys per command), 10 commands per
+# client, one batch
+ATLAS_PARTIAL_POINTS = [(3, 1, 2, 100, 4, 2), (3, 1, 2, 10, 4, 2)]
 # the clock-bump batch of tests/test_torch_tempo_partial_step.py:
 # (regions, f, conflict, clock bump ms), GC every 10 ms, detached sends
 # every 20 ms, 4 commands per client
@@ -88,6 +98,10 @@ EU5 = ["europe-west1", "europe-west2", "europe-west3", "europe-west4",
 EU3 = ["europe-west1", "europe-west3", "europe-west4"]
 BUMP_POINTS = [(EU5, 2, 100, None), (EU5, 2, 50, 10), (EU3, 1, 100, None),
                (EU3, 1, 10, 10)]
+# the batch of tests/test_torch_atlas_partial_step.py, on EU5: (f,
+# conflict), GC every 10 ms, the cleanup tick every 5 ms, 4 commands per
+# client
+REQUEST_POINTS = [(2, 100), (2, 50), (1, 100), (1, 10)]
 # the Caesar golden batch (tests/test_torch_caesar.py): (n, f, wait
 # condition, conflict, commands, clients per region)
 CAESAR_POINTS = [
@@ -101,10 +115,10 @@ CAESAR_POINTS = [
 # (0, 1, 0), (0, 2, 100), (125, 1, 0), (255, 2, 100); the twins of Tempo,
 # Atlas, EPaxos and Caesar are slower on the host, so two of them, both
 # f = 2 at conflict 100; a partial lane takes some 11,700 serialized
-# steps, so one (subset 0, f = 2, conflict 100)
+# steps, so one (subset 0, f = 2, conflict 100); so for Atlas partial
 SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
           "tempo": [7, 2047], "atlas": [7, 2047], "epaxos": [7, 2047],
-          "caesar": [7, 2047], "tempo_partial": [7]}
+          "caesar": [7, 2047], "tempo_partial": [7], "atlas_partial": [7]}
 
 # the reference region each kernel replaces
 REPLACES = {
@@ -120,13 +134,16 @@ REPLACES = {
     "caesar_handle": "fantoch_tpu/engine/protocols/caesar.py:239",
     "tempo_partial_handle":
         "fantoch_tpu/engine/protocols/tempo_partial.py:198",
+    "atlas_partial_handle":
+        "fantoch_tpu/engine/protocols/graphdep_partial.py:219",
 }
 HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo": "tempo_handle", "atlas": "graphdep_handle",
             "epaxos": "graphdep_handle", "caesar": "caesar_handle",
-            "tempo_partial": "tempo_partial_handle"}
+            "tempo_partial": "tempo_partial_handle",
+            "atlas_partial": "atlas_partial_handle"}
 PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
-         "tempo_partial")
+         "tempo_partial", "atlas_partial")
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
@@ -359,6 +376,11 @@ def check_kernels(name, dev, rows):
         rows[handler]["max_abs_err"] = max(
             rows[handler]["max_abs_err"], bump_coverage(dev, mods[handler]),
         )
+    if name == "atlas_partial":
+        rows[handler]["max_abs_err"] = max(
+            rows[handler]["max_abs_err"],
+            request_coverage(dev, mods[handler]),
+        )
 
     # K7 with frozen lanes (every third lane failed), which it copies
     new, old, fctx, ms_ = captured["lane_freeze"]
@@ -413,6 +435,12 @@ def _slot_valid(slot):
     return lambda out, dims: int(out[3]["valid"][..., slot].sum())
 
 
+def _tick_answers(out, dims):
+    """Valid periodic messages past slot N: the cleanup tick's answers
+    to buffered requests."""
+    return int(out[2]["valid"][..., dims.N + 1:].sum())
+
+
 def _sent(mtype, word=None, value=None):
     """Valid handler messages of type ``mtype`` (with payload ``word``
     equal to ``value``)."""
@@ -448,6 +476,18 @@ COVERAGE = {
                               _sent(13),
                               "StableAtShard rounds (STABLEAT sent)":
                               _sent(14)}),
+    # Atlas partial (engine/protocols/graphdep_partial.py): MDRAIN = 7,
+    # which only the drain sends; MSHARDAGG = 10, which MShardCommit sends
+    # once every shard of a command reported (the request events are
+    # waited for on request_coverage's batch)
+    "atlas_partial_handle": (("SUBMIT", "MCOLLECT", "MCOLLECTACK", "MCOMMIT",
+                              "MCONSENSUS", "MCONSENSUSACK", "MGC", "MDRAIN",
+                              "MFWDSUBMIT", "MSHARDCOMMIT", "MSHARDAGG",
+                              "GREQ", "GREPLY", "GREPLYEXEC"),
+                             (0, 1),
+                             {"two-shard commits (MSHARDAGG sent)":
+                              _sent(10),
+                              "drain chains (MDRAIN sent)": _sent(7)}),
     # Caesar (engine/protocols/caesar.py): MPROPOSEACK = 2, MRETRY = 4;
     # a reject reply carries 0 in payload word 3 (an accept 1)
     "caesar_handle": (("SUBMIT", "MPROPOSE", "MPROPOSEACK", "MCOMMIT",
@@ -463,7 +503,8 @@ COVERAGE = {
 
 
 def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
-             mod, every=25, bound=80, rows_needed=None, start=301):
+             mod, every=25, bound=80, rows_needed=None, start=301,
+             extras=None):
     """A handler kernel against its twin, exactly, on the arguments of
     one step in every ``every`` after phase 3's, until each of its
     message types, the timer rows and the further events have been seen
@@ -476,8 +517,9 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
     from fantoch_tpu_torch.engine import core as engine_core
     from fantoch_tpu_torch.engine.dims import PMT
 
-    names, default_rows, extras = COVERAGE[kname]
+    names, default_rows, main_extras = COVERAGE[kname]
     rows_needed = default_rows if rows_needed is None else rows_needed
+    extras = main_extras if extras is None else extras
     kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
     handled = [0] * len(names)
     fired = [0] * dims.R
@@ -530,6 +572,31 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
     return err
 
 
+def _batch_coverage(label, kname, proto, dims, specs, dev, mod, **kw):
+    """``kname`` against its twin on every step of a small batch, from
+    its first step (:func:`coverage` with ``every=1``)."""
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.driver import prepare_batch
+
+    state, ctx = prepare_batch(proto, dims, specs, dev)
+    kern = getattr(mod, kname)
+    box = {}
+
+    def record(*a):
+        box["args"] = a
+        return kern(*a)
+
+    record.launches = 0
+    setattr(mod, kname, record)
+    try:
+        state, _running = engine_core.frozen_step(proto, dims, state, ctx,
+                                                  1 << 22)
+    finally:
+        setattr(mod, kname, kern)
+    return coverage(label, kname, proto, dims, state, ctx, 1 << 22,
+                    box["args"], mod, every=1, start=1, **kw)
+
+
 def bump_coverage(dev, mod) -> float:
     """K11 against its twin on every step of the clock-bump batch of
     tests/test_torch_tempo_partial_step.py (close regions, GC every 10
@@ -538,8 +605,6 @@ def bump_coverage(dev, mod) -> float:
     error."""
     from fantoch_tpu_torch.core import Config, Planet
     from fantoch_tpu_torch.engine import EngineDims, make_lane
-    from fantoch_tpu_torch.engine import core as engine_core
-    from fantoch_tpu_torch.engine.driver import prepare_batch
     from fantoch_tpu_torch.engine.protocols import TempoPartialDev
 
     proto = TempoPartialDev(keys=4 + 5 + 1, shards=2, keys_per_cmd=2,
@@ -559,25 +624,44 @@ def bump_coverage(dev, mod) -> float:
                   seed=i)
         for i, (regions, f, conflict, bump) in enumerate(BUMP_POINTS)
     ]
-    state, ctx = prepare_batch(proto, dims, specs, dev)
-    kname = "tempo_partial_handle"
-    kern = getattr(mod, kname)
-    box = {}
+    return _batch_coverage("bump batch", "tempo_partial_handle", proto, dims,
+                           specs, dev, mod, rows_needed=(0, 1, 2))
 
-    def record(*a):
-        box["args"] = a
-        return kern(*a)
 
-    record.launches = 0
-    setattr(mod, kname, record)
-    try:
-        state, _running = engine_core.frozen_step(proto, dims, state, ctx,
-                                                  1 << 22)
-    finally:
-        setattr(mod, kname, kern)
-    return coverage("bump batch", kname, proto, dims, state, ctx, 1 << 22,
-                    box["args"], mod, every=1, rows_needed=(0, 1, 2),
-                    start=1)
+def request_coverage(dev, mod) -> float:
+    """K12 against its twin on every step of the batch of
+    tests/test_torch_atlas_partial_step.py (close regions, GC every 10
+    ms, the cleanup tick every 5 ms, a request buffer of 4), until all
+    fourteen types and both timer rows have been compared, and requests
+    answered at once with either reply, one answered by the cleanup tick,
+    a two-shard commit and a drain chain have been seen. Returns the max
+    abs error."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane
+    from fantoch_tpu_torch.engine.protocols import AtlasPartialDev
+
+    proto = AtlasPartialDev(keys=4 + 5 + 1, shards=2, keys_per_cmd=2,
+                            gap_slots=4, req_buffer=4)
+    dims = EngineDims.for_partial(proto, 5, 5, 20, regions=5)
+    specs = [
+        make_lane(proto, Planet.new(),
+                  Config(n=5, f=f, shard_count=2, gc_interval_ms=10,
+                         executor_executed_notification_interval_ms=100,
+                         executor_cleanup_interval_ms=5),
+                  conflict_rate=conflict, pool_size=4, commands_per_client=4,
+                  clients_per_region=1, process_regions=EU5,
+                  client_regions=EU5, dims=dims, extra_time_ms=100, seed=i)
+        for i, (f, conflict) in enumerate(REQUEST_POINTS)
+    ]
+    extras = {
+        "two-shard commits (MSHARDAGG sent)": _sent(10),
+        "requests answered at once (GREPLY sent)": _sent(12),
+        "requests answered at once (GREPLYEXEC sent)": _sent(13),
+        "requests answered by the cleanup tick": _tick_answers,
+        "drain chains (MDRAIN sent)": _sent(7),
+    }
+    return _batch_coverage("request batch", "atlas_partial_handle", proto,
+                           dims, specs, dev, mod, bound=200, extras=extras)
 
 
 def golden_basic(dev) -> None:
@@ -815,6 +899,44 @@ def golden_tempo_partial(dev) -> None:
     _match_fixture(results, "torch_tempo_partial_golden.json")
 
 
+def golden_atlas_partial(dev) -> None:
+    """Phase 6: the Atlas partial golden batch (the configuration of
+    tests/test_engine_partial.py's Atlas test that is not slow and one at
+    conflict 10, in one batch) against its fixture."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
+    from fantoch_tpu_torch.engine.protocols import AtlasPartialDev
+
+    planet = Planet.new()
+    n, _f, shards, _c, pool, kpc = ATLAS_PARTIAL_POINTS[0]
+    regions = planet.regions()[:n]
+    proto = AtlasPartialDev(keys=pool + n + 1, shards=shards,
+                            keys_per_cmd=kpc)
+    dims = EngineDims.for_partial(proto, n, n, 10 * n, regions=n)
+    specs = [
+        make_lane(proto, planet,
+                  Config(n=n, f=f, shard_count=shards, gc_interval_ms=100,
+                         executor_executed_notification_interval_ms=100,
+                         executor_cleanup_interval_ms=100),
+                  conflict_rate=conflict, pool_size=pool,
+                  commands_per_client=10, clients_per_region=1,
+                  process_regions=regions, client_regions=regions, dims=dims)
+        for n, f, shards, conflict, pool, kpc in ATLAS_PARTIAL_POINTS
+    ]
+    results = run_lanes(proto, dims, specs, device=dev)
+    for (n, f, shards, conflict, pool, kpc), res in zip(ATLAS_PARTIAL_POINTS,
+                                                        results):
+        assert res.err == 0, res.err_cause
+        assert res.completed == 10 * n
+        m = {k: int(v.sum()) for k, v in res.protocol_metrics.items()}
+        assert 10 * n <= m["fast_path"] + m["slow_path"] <= 10 * n * shards
+        assert m["stable"] == n * 10 * n, m
+        print(f"golden atlas partial on {dev}: n={n} f={f} shards={shards} "
+              f"conflict={conflict} pool={pool} keys per command={kpc} "
+              f"steps {res.steps} metrics {m}")
+    _match_fixture(results, "torch_atlas_partial_golden.json")
+
+
 def _match_fixture(results, name) -> None:
     text = json.dumps([r.to_json() for r in results], sort_keys=True) + "\n"
     path = FIXTURES / name
@@ -881,7 +1003,7 @@ def sweep(name, dev):
             assert m["stable"] == dims.N * total, m
             if spec.config.f == 1 and name in ("tempo", "atlas"):
                 assert m["slow_path"] == 0, m
-        if name == "tempo_partial":
+        if name in ("tempo_partial", "atlas_partial"):
             # a command commits once per shard it touches; the n rows of
             # its dot owner's shard GC it (test_engine_partial.py)
             m = {k: int(v.sum()) for k, v in r.protocol_metrics.items()}
@@ -893,7 +1015,7 @@ def sweep(name, dev):
                    for r in results)
         print(f"{name}: fast + slow == {total} and stable == "
               f"{dims.N * total} on every lane; slow-path commits {slow}")
-    if name == "tempo_partial":
+    if name in ("tempo_partial", "atlas_partial"):
         commits = sorted({int(r.protocol_metrics["fast_path"].sum()
                               + r.protocol_metrics["slow_path"].sum())
                           for r in results})
@@ -955,6 +1077,7 @@ def main() -> int:
     phase("6 golden atlas/epaxos", golden_graphdep, dev)
     phase("6 golden caesar", golden_caesar, dev)
     phase("6 golden tempo partial", golden_tempo_partial, dev)
+    phase("6 golden atlas partial", golden_atlas_partial, dev)
 
     # 7. the main paths, each counted on its own
     by_path = {name: phase(f"7 sweep {name}", sweep, name, dev)

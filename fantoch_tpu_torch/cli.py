@@ -19,8 +19,9 @@ from .core import Config, Planet
 
 # the port's main paths: the reference bench's per-protocol grid
 # (bench.py), 2,048 lanes, for Basic, FPaxos, Tempo, Atlas, EPaxos,
-# Caesar (with the wait condition, the reference's default) and Tempo
-# under partial replication; chip_smoke.py and step_profile.py drive them
+# Caesar (with the wait condition, the reference's default), and Tempo
+# and Atlas under partial replication; chip_smoke.py and step_profile.py
+# drive them
 MAIN_PATH = [
     "sweep", "--protocol", "basic", "--n", "5", "--subsets", "256",
     "--fs", "1,2", "--conflicts", "0,10,50,100", "--commands", "50",
@@ -57,10 +58,26 @@ MAIN_PATH_TEMPO_PARTIAL = [
     "--fs", "1,2", "--conflicts", "1,10,50,100", "--commands", "50",
     "--clients-per-region", "1", "--batch-lanes", "512",
 ]
+# Atlas under partial replication: the Tempo partial grid with Atlas,
+# its two cuts kept (conflict 1 for 0, the first 64 subsets), and 9
+# commands per client in place of 50. The reference itself overflows a
+# fixed-width table (ERR_CAPACITY) on lanes of this grid at 10 commands
+# and more (23 of 512 lanes at 10, 401 at 20): a process's executed set
+# of a source in the other shard (G = 8 gap slots) gets a hole for
+# every dot of that source that never touches its shard. At 9 the whole
+# grid runs clean, so it is the most commands a sweep of only lanes
+# that do not err allows
+MAIN_PATH_ATLAS_PARTIAL = [
+    "sweep", "--protocol", "atlas", "--n", "5", "--shards", "2",
+    "--keys-per-command", "2", "--pool-size", "4", "--subsets", "64",
+    "--fs", "1,2", "--conflicts", "1,10,50,100", "--commands", "9",
+    "--clients-per-region", "1", "--batch-lanes", "512",
+]
 MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
               "tempo": MAIN_PATH_TEMPO, "atlas": MAIN_PATH_ATLAS,
               "epaxos": MAIN_PATH_EPAXOS, "caesar": MAIN_PATH_CAESAR,
-              "tempo_partial": MAIN_PATH_TEMPO_PARTIAL}
+              "tempo_partial": MAIN_PATH_TEMPO_PARTIAL,
+              "atlas_partial": MAIN_PATH_ATLAS_PARTIAL}
 
 
 def _ints(s: str) -> List[int]:
@@ -228,7 +245,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     sw.add_argument("--extra-time", type=int, default=1000)
     sw.add_argument("--dot-slots", type=int, default=None)
     sw.add_argument("--shards", type=int, default=1,
-                    help="partial replication: shard count (tempo)")
+                    help="partial replication: shard count (tempo, "
+                    "atlas)")
     sw.add_argument("--keys-per-command", type=int, default=2,
                     help="keys per command when --shards > 1")
     sw.add_argument("--batch-lanes", type=int, default=512,

@@ -2,18 +2,19 @@
 
 Each module is the fixed-shape twin of a protocol of the reference's
 device engine, batched over an explicit ``[L, N]`` (lane, process) axis.
-Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar are ported, and Tempo's
-partial-replication twin.
+Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar are ported, and the
+partial-replication twins of Tempo and Atlas.
 """
 
 from .basic import BasicDev
 from .caesar import CaesarDev
 from .fpaxos import FPaxosDev
 from .graphdep import AtlasDev, EPaxosDev
+from .graphdep_partial import AtlasPartialDev
 from .tempo import TempoDev
 from .tempo_partial import TempoPartialDev
 
-__all__ = ["AtlasDev", "BasicDev", "CaesarDev", "EPaxosDev", "FPaxosDev",
+__all__ = ["AtlasDev", "AtlasPartialDev", "BasicDev", "CaesarDev", "EPaxosDev", "FPaxosDev",
            "TempoDev", "TempoPartialDev", "dev_config_kwargs",
            "dev_protocol", "partial_dev_protocol"]
 
@@ -50,10 +51,8 @@ def partial_dev_protocol(name: str, clients: int, shards: int,
         return TempoPartialDev(keys=keys, shards=shards,
                                keys_per_cmd=keys_per_cmd)
     if name == "atlas":
-        raise NotImplementedError(
-            "Atlas's partial-replication twin is not ported yet (ROADMAP "
-            "Queue A item 8)"
-        )
+        return AtlasPartialDev(keys=keys, shards=shards,
+                               keys_per_cmd=keys_per_cmd)
     raise ValueError(
         f"{name} does not support partial replication (only tempo and "
         "atlas implement the reference's partial.rs paths)"

@@ -408,7 +408,7 @@ def _relax(ps, N, D):
     nothing). Only committed vertices can be ok, so only their dep rows
     are gathered."""
     committed = ps["vx_committed"]
-    L = committed.shape[0]
+    L, NP = committed.shape[:2]   # (lane, process); NP may be 1 (rows)
     # the M committed vertices, by flat index, and their (lane, process)
     vert = committed.flatten().nonzero().squeeze(1)
     lp = vert // (N * D)
@@ -427,7 +427,7 @@ def _relax(ps, N, D):
     # own, and the operator is monotone, so once a set stands still it
     # is that process's fixed point
     ok = committed.flatten().clone()
-    passes = torch.zeros(L * N, dtype=torch.int64, device=ok.device)
+    passes = torch.zeros(L * NP, dtype=torch.int64, device=ok.device)
     active = torch.ones_like(passes, dtype=torch.bool)
     while bool(active.any()):
         old = ok[vert]
@@ -438,7 +438,8 @@ def _relax(ps, N, D):
         ok[vert] = new
     ready = torch.zeros_like(ok)
     ready[vert] = ok[vert] & static.all(-1)
-    return ok.view_as(committed), ready.view_as(committed), passes.view(L, N)
+    return (ok.view_as(committed), ready.view_as(committed),
+            passes.view(L, NP))
 
 
 def _drain(B, ps, ob, enable):

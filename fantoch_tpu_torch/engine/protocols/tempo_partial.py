@@ -277,7 +277,10 @@ class TempoPartialDev(TempoDev):
 class _Rows:
     """The (lane, process) pairs ``(li, pi)`` that take one branch: their
     state rows, popped messages and lane ctx, each with leading axes
-    ``[A, 1]`` (so the masked helpers index axis 2 as on ``[L, N]``)."""
+    ``[A, 1]`` (so the masked helpers index axis 2 as on ``[L, N]``).
+    ``CTX`` names the lane ctx the handlers read."""
+
+    CTX = CTX_KEYS
 
     def __init__(self, t, ps, rows, ctx, dims, li, pi):
         self.t = t
@@ -291,7 +294,7 @@ class _Rows:
         self.src = row[..., PSRC]
         self.pay = row[..., PPAY:]
         self.ps = {k: v[li, pi][:, None] for k, v in ps.items()}
-        self.ctx = {k: ctx[k][li][:, None] for k in CTX_KEYS}
+        self.ctx = {k: ctx[k][li][:, None] for k in self.CTX}
         self.n = ctx["n"][li]
         self.s_me = take(self.ctx["shard_of"], self.me)
         self.base = self.s_me * self.n[:, None]

@@ -8,6 +8,7 @@ its kernel launches in a ``launches`` attribute.
 
 from __future__ import annotations
 
+from .atlas_partial_handle import atlas_partial_handle
 from .basic_handle import basic_handle
 from .caesar_handle import caesar_handle
 from .emit_rewrite import emit_rewrite
@@ -32,6 +33,7 @@ WRAPPERS = {
     "graphdep_handle": graphdep_handle,
     "caesar_handle": caesar_handle,
     "tempo_partial_handle": tempo_partial_handle,
+    "atlas_partial_handle": atlas_partial_handle,
 }
 
 

@@ -730,9 +730,10 @@ struct Proc {
   // execute the entry: the key's result part to the client when I am its
   // connected process of my shard, free the slot
   __device__ void execute(int key, int idx, int client, bool enable) {
-    const bool connected =
-        in(client, d.C) && in(s_me, d.S) &&
-        attach_s[(long long)client * d.S + s_me] == me;
+    // take2 reads 0 out of range, so process 0 counts as connected then
+    const int att = in(client, d.C) && in(s_me, d.S)
+        ? attach_s[(long long)client * d.S + s_me] : 0;
+    const bool connected = att == me;
     emit1(hob, 0, enable && connected, d.N + client, TO_CLIENT, 0);
     if (enable) {
       pend_set(pend_clock, key, idx, 0);

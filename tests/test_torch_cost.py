@@ -12,13 +12,16 @@ from fantoch_tpu_torch.engine.dims import (
     INF, PA, PDST, PMT, PPAY, PSRC, EngineDims,
 )
 from fantoch_tpu_torch.engine.protocols import (
-    AtlasDev, BasicDev, CaesarDev, FPaxosDev, TempoDev, TempoPartialDev,
+    AtlasDev, AtlasPartialDev, BasicDev, CaesarDev, FPaxosDev, TempoDev,
+    TempoPartialDev,
 )
 from fantoch_tpu_torch.kernels import (
-    basic_handle, caesar_handle, cost, emit_rewrite, fpaxos_handle,
+    atlas_partial_handle, basic_handle, caesar_handle, cost, emit_rewrite,
+    fpaxos_handle,
     graphdep_handle, key_table, land_emissions, lane_freeze, qualify_pop,
     tempo_handle, tempo_partial_handle,
 )
+from fantoch_tpu_torch.kernels.atlas_partial_handle import work as ap_work
 from fantoch_tpu_torch.kernels.basic_handle import OUTBOX_KEYS
 from fantoch_tpu_torch.kernels.basic_handle import work as bh_work
 from fantoch_tpu_torch.kernels.caesar_handle import work as ch_work
@@ -428,6 +431,99 @@ def test_graphdep_handle_work_idle_submit_gc_and_drain():
     out = graphdep_handle(*args)
     with_timer, _ = gh_work(*args, out)
     assert with_timer == with_vertex + 4 * N
+
+def _atlas_partial_idle(L=2):
+    """Two shards of two rows; every command of both clients is key 0,
+    alone on shard 0."""
+    t = AtlasPartialDev(keys=2, shards=2, keys_per_cmd=2, gap_slots=2,
+                        req_buffer=2)
+    dims = EngineDims.for_partial(t, 2, 2, 3)
+    N, C, S = dims.N, dims.C, t.S
+    ps = {k: torch.from_numpy(np.stack([v] * L))
+          for k, v in t.init_state(dims, {"n": 2}).items()}
+    has = torch.zeros((L, N), dtype=torch.bool)
+    rows = torch.zeros((L, N, PPAY + dims.P), dtype=torch.int32)
+    fire = torch.zeros((L, N, dims.R), dtype=torch.bool)
+    i32 = lambda v, *s: torch.full((L, *s), v, dtype=torch.int32)  # noqa: E731
+    b = lambda v, *s: torch.full((L, *s), v, dtype=torch.bool)  # noqa: E731
+    skey = i32(-1, C, 4, S, 2)
+    skey[..., 0, 0] = 0
+    ctx = {"n": i32(2), "f": i32(1), "expected_acks": i32(2),
+           "fp_mode": i32(0), "ack_self": b(True),
+           "fast_quorum": b(True, N, N), "write_quorum": b(True, N, N),
+           "shard_of": torch.tensor([[0, 0, 1, 1]] * L, dtype=torch.int32),
+           "closest": torch.tensor([[[0, 2]] * N] * L, dtype=torch.int32),
+           "client_attach_s": torch.tensor([[[0, 2], [1, 3]]] * L,
+                                           dtype=torch.int32),
+           "cmd_kmask": i32(1, C, 4), "cmd_skey": skey}
+    return t, dims, ps, has, rows, fire, ctx
+
+
+def test_atlas_partial_handle_work_idle_submit_gc_drain_and_tick():
+    t, dims, ps, has, rows, fire, ctx = _atlas_partial_idle()
+    args = (ps, has, rows, fire, ctx, dims)
+    out = atlas_partial_handle(*args)
+    idle, idle_ops = ap_work(*args, out)
+    L, N = has.shape
+    P, D, G, S, KPC = dims.P, dims.D, t.G, t.S, t.KPC
+    QS = t.q_union(2)
+    assert idle == cost.nbytes(has, fire) + L * N + _outboxes_bytes(out)
+    assert idle_ops == 40 * L * N
+    # a SUBMIT of client 0's first command at process 0: reads its
+    # message, its sequence, the command's table row (mask and S × KPC
+    # keys) and both keys' latest (src, seq, km) deps; writes its
+    # sequence and key 0's latest sequence and shard mask (its latest
+    # source, process 0, and the zeroed tables do not change)
+    has[0, 0] = True
+    rows[0, 0, PMT] = AtlasPartialDev.SUBMIT
+    rows[0, 0, PPAY + 1] = 1
+    out = atlas_partial_handle(*args)
+    n_bytes, _ = ap_work(*args, out)
+    cmd = 4 * (1 + S * KPC)
+    keys = 4 * 3 * KPC
+    assert n_bytes == idle + 4 * (2 + P) + 4 * 3 + cmd + keys + 4 * 3
+    # a GC message from process 1 at process 0 of lane 1 (an all-zero
+    # frontier): reads the frontier table, the seen flags, the committed
+    # and stable clocks and the [N, D] dot words; changes one seen flag
+    has[1, 0] = True
+    rows[1, 0, PMT] = AtlasPartialDev.MGC
+    rows[1, 0, PSRC] = 1
+    out = atlas_partial_handle(*args)
+    with_gc, ops = ap_work(*args, out)
+    gc_read = 4 * N * N + N + 4 * 2 * N + 4 * N * D
+    assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
+    assert ops == idle_ops + 2 * N * D + 3 * N * N
+    # an MDRAIN at process 2 of lane 0, whose one committed vertex (no
+    # deps) executes: the drain reads the [N, D] committed flags, the
+    # executed sets, the pick's vertex words and client row, and the
+    # vertex's sequence, dep rows and their vertex and request words;
+    # it writes the vertex's flag and sequence and the executed clock,
+    # after one relaxation pass that changes nothing
+    ps["vx_committed"][0, 2, 3, 0] = True
+    ps["vx_seq"][0, 2, 3, 0] = 1
+    has[0, 2] = True
+    rows[0, 2, PMT] = AtlasPartialDev.MDRAIN
+    out = atlas_partial_handle(*args)
+    with_drain, dops = ap_work(*args, out)
+    assert out[1]["exec_front"][0, 2, 3] == 1
+    drain = N * D + 4 * N * (1 + 2 * G) + 4 * (5 + 3 * QS) + cmd
+    assert with_drain == (with_gc + 4 * (2 + P) + drain
+                          + 4 * (1 + 5 * QS) + 1 + 4 + 4)
+    assert dops == ops + 4 * N * D + QS * (2 * G + 12) + QS * 3
+    # the cleanup tick at process 1 of lane 1 with one buffered request
+    # for a dot it does not know: reads the buffer, the dot's vertex
+    # words and dep rows and the source's executed set; the GC timer at
+    # the same process reads the committed clock
+    ps["breq_from"][1, 1, 0] = 1
+    ps["breq_src"][1, 1, 0] = 3
+    ps["breq_seq"][1, 1, 0] = 2
+    fire[1, 1] = True
+    out = atlas_partial_handle(*args)
+    with_tick, _ = ap_work(*args, out)
+    assert not out[2]["valid"][1, 1, N + 1]
+    assert with_tick == (with_drain + 4 * N + 4 * t.B
+                         + 4 * (5 + 3 * QS) + 4 * (1 + 2 * G))
+
 
 def _caesar_idle(L=2):
     t = CaesarDev(keys=2, key_slots=4, dep_slots=4, blocker_slots=2,

@@ -8,8 +8,8 @@ full pools, out-of-range sources and dot slots that wrap.
 - ``land_emissions`` against §6 (core.py:1460-1492, with ``cumsum_i32``
   and ``searchsorted_left``);
 - ``basic_handle``, ``fpaxos_handle``, ``tempo_handle``,
-  ``graphdep_handle``, ``caesar_handle`` and ``tempo_partial_handle``
-  against their protocol's ``ready``/``periodic`` and ``run_handlers``
+  ``graphdep_handle``, ``caesar_handle``, ``tempo_partial_handle`` and
+  ``atlas_partial_handle`` against their protocol's ``ready``/``periodic`` and ``run_handlers``
   in the step's order (core.py:873-918), Tempo's (both twins') at each
   process's event time, Atlas/EPaxos's in both fast-path modes.
 
@@ -34,6 +34,7 @@ from fantoch_tpu.engine.core import (
 from fantoch_tpu.engine.protocols import BasicDev as RBasic
 from fantoch_tpu.engine.protocols import FPaxosDev as RFPaxos
 from fantoch_tpu.engine.protocols import AtlasDev as RAtlas
+from fantoch_tpu.engine.protocols import AtlasPartialDev as RAtlasPartial
 from fantoch_tpu.engine.protocols import CaesarDev as RCaesar
 from fantoch_tpu.engine.protocols import TempoDev as RTempo
 from fantoch_tpu.engine.protocols import TempoPartialDev as RTempoPartial
@@ -1304,6 +1305,283 @@ def test_tempo_partial_handle_twin_matches_reference(seed):
     sa = mt == X.STABLEAT
     assert (sa & hout["valid"][..., 1]).any()
     assert (sa & (new_ps["buf_cnt"] != ps["buf_cnt"]).any((-1, -2))).any()
+    # the shard aggregation completes and the multi-shard commit path
+    # goes to the owner
+    assert ((mt == X.MSHARDCOMMIT) & hout["valid"][..., 0]).any()
+    assert (((mt == X.MCOLLECTACK) | (mt == X.MCONSENSUSACK))
+            & hout["valid"][..., 0]
+            & (hout["mtype"][..., 0] == X.MSHARDCOMMIT)).any()
+
+
+# ----------------------------------------------------------------------
+# K12 atlas_partial_handle
+# ----------------------------------------------------------------------
+
+# two shards of three rows (N = 6); small tables, so that inputs reach
+# full ones: K keys, G gap slots, B buffered requests (Q = 8, QS = 16)
+ATLAS_PARTIAL_SIZES = dict(keys=4, shards=2, keys_per_cmd=2, gap_slots=3,
+                           req_buffer=4)
+_ATLAS_PARTIAL_REF = {}
+
+
+def _atlas_partial_inputs(seed, dims, t, lanes=96):
+    """Every message type handled somewhere, the gated ones (MCollect,
+    MCommit, MShardCommit, MShardAgg) also refused; both timer rows
+    firing; lanes with n = 2 and n = 3 rows per shard (pad rows carry
+    shard id S); report, union and request tables with matching, free
+    and full rows; a vertex store whose committed vertices depend on each
+    other (chains and cycles), on executed dots, on cells that no longer
+    hold the dep, on requested dots, on deps whose command touches or
+    misses the process's shard, and through sources out of range
+    (negative ones count from the end, large ones clamp, in the drain's
+    plain gathers; the payload's triples carry such sources too);
+    MCommits and GReplies naming stored, already installed and colliding
+    dots and sources out of range; GReqs for pending, executed and
+    unknown dots; clients and command sequences out of range of the
+    tables; dot slots that wrap (seq 0 → slot D - 1)."""
+    rng = np.random.default_rng(seed)
+    Np, D, C, P = dims.N, dims.D, dims.C, dims.P
+    K, G, S, KPC, BB = t.K, t.G, t.S, t.KPC, t.B
+    Q, QS = t.q_shard(PARTIAL_N), t.q_union(PARTIAL_N)
+    T1 = PARTIAL_T1
+    ri = lambda lo, hi, *s: rng.integers(lo, hi, (lanes, *s)).astype(np.int32)  # noqa: E731
+    rb = lambda p, *s: rng.random((lanes, *s)) < p  # noqa: E731
+    X = RAtlasPartial
+    li = np.arange(lanes)[:, None]
+    me = np.broadcast_to(np.arange(Np)[None, :], (lanes, Np))
+    n = np.where(rb(0.3), 2, PARTIAL_N).astype(np.int32)
+    rows_ = np.arange(Np)[None, :]
+    shard_of = np.where(rows_ < S * n[:, None], rows_ // n[:, None],
+                        S).astype(np.int32)
+    closest = np.zeros((lanes, Np, S), np.int32)
+    for s in range(S):
+        closest[..., s] = s * n[:, None] + np.minimum(ri(0, 2, Np),
+                                                      n[:, None] - 1)
+    qd_seq = ri(1, 6, Np, Np, D, Q) * rb(0.4, Np, Np, D, Q)
+    qd_seq[rb(0.2, Np, Np, D)] = 5                       # full rows
+    sh_seq = ri(1, 6, Np, D, QS) * rb(0.4, Np, D, QS)
+    sh_seq[rb(0.2, Np, D)] = 5
+    # the vertex store: a present cell holds a seq of its own slot
+    vx_seq = (np.arange(D)[None, None, None, :] + 1
+              + D * ri(0, 2, Np, Np, D)) * rb(0.7, Np, Np, D)
+    committed = rb(0.6, Np, Np, D) & (vx_seq > 0)
+    tsrc, tslot = ri(0, Np, Np, Np, D, QS), ri(0, D, Np, Np, D, QS)
+    target = vx_seq[li[..., None, None, None], me[..., None, None, None],
+                    tsrc, tslot]
+    dep_seq = np.where(rb(0.7, Np, Np, D, QS), target,
+                       ri(1, 9, Np, Np, D, QS))
+    dep_seq = dep_seq * rb(0.4, Np, Np, D, QS)
+    dep_src = tsrc - Np * rb(0.1, Np, Np, D, QS)
+    dep_src = np.where(rb(0.05, Np, Np, D, QS), Np + 2, dep_src)
+    # requested markers: some deps already asked for
+    req_seq = ri(1, 9, Np, Np, D) * rb(0.3, Np, Np, D)
+    ef, eg = _gap_sets(rng, (lanes, Np, Np), G, lo_max=4)
+    cf, cg = _gap_sets(rng, (lanes, Np, Np), G)
+    breq_from = np.where(rb(0.5, Np, BB), ri(0, S + 1, Np, BB), -1)
+    breq_from[rb(0.3, Np)] = 0                           # full buffers
+    # buffered requests: most for stored vertices, some for executed dots
+    bsrc, bslot = ri(0, Np, Np, BB), ri(0, D, Np, BB)
+    bseq = vx_seq[li[..., None], me[..., None], bsrc, bslot]
+    bseq = np.where(rb(0.7, Np, BB), bseq, ri(0, 5, Np, BB))
+    cmd_skey = ri(-1, K + 1, C, T1, S, KPC)
+    cmd_skey[..., 1] = np.where(rb(0.3, C, T1, S), -1, cmd_skey[..., 1])
+    ps = {
+        "latest_src": ri(0, Np, Np, K),
+        "latest_seq": ri(0, 9, Np, K) * rb(0.7, Np, K),
+        "latest_km": ri(1, 4, Np, K),
+        "seq_in_slot": ri(0, 9, Np, Np, D) * rb(0.6, Np, Np, D),
+        "client_of": ri(0, C + 1, Np, Np, D),
+        "cseq_of": ri(0, T1 + 2, Np, Np, D),
+        "own_seq": ri(0, 9, Np),
+        "ack_cnt": ri(0, 4, Np, Np, D),
+        "slow_acks": ri(0, 3, Np, Np, D),
+        "qd_src": ri(0, Np, Np, Np, D, Q),
+        "qd_seq": qd_seq,
+        "qd_km": ri(1, 4, Np, Np, D, Q),
+        "qd_cnt": ri(1, 4, Np, Np, D, Q) * (qd_seq > 0),
+        "sh_cnt": ri(0, 2, Np, D),
+        "sh_src": ri(0, Np, Np, D, QS),
+        "sh_seq": sh_seq,
+        "sh_km": ri(1, 4, Np, D, QS),
+        "vx_committed": committed,
+        "vx_seq": vx_seq.astype(np.int32),
+        "vx_client": ri(0, C + 1, Np, Np, D),
+        "vx_cseq": ri(0, T1 + 2, Np, Np, D),
+        "vx_nd": ri(0, QS + 1, Np, Np, D),
+        "vx_dep_src": dep_src.astype(np.int32),
+        "vx_dep_seq": dep_seq.astype(np.int32),
+        "vx_dep_km": ri(1, 4, Np, Np, D, QS),
+        "req_seq": req_seq,
+        "breq_from": breq_from.astype(np.int32),
+        "breq_src": bsrc.astype(np.int32),
+        "breq_seq": bseq.astype(np.int32),
+        "exec_front": ef,
+        "exec_gaps": eg,
+        "comm_front": cf,
+        "comm_gaps": cg,
+        "others_frontier": ri(0, 8, Np, Np, Np),
+        "seen": rb(0.7, Np, Np),
+        "prev_stable": ri(0, 4, Np, Np),
+        "m_fast": ri(0, 9, Np),
+        "m_slow": ri(0, 9, Np),
+        "m_stable": ri(0, 9, Np),
+        "err": ri(0, 2, Np) * 32,
+    }
+    rows = ri(0, 8, Np, PPAY + P)
+    rows[..., PSRC] = ri(0, Np + C, Np)                  # clients too
+    mt = ri(0, X.NUM_TYPES + 2, Np)
+    rows[..., PMT] = mt
+    pay = rows[..., PPAY:]
+    # dep triples from word 3 (reports, unions) or 5 (collects, commits,
+    # replies): sources in and out of range, present and empty seqs
+    at3 = np.isin(mt, [X.MCOLLECTACK, X.MSHARDCOMMIT, X.MSHARDAGG])
+    lo = np.where(at3, 3, 5)
+    for j in range(QS):
+        w = lo + 3 * j
+        src = np.where(rb(0.1, Np), ri(-Np, 2 * Np, Np), ri(0, Np, Np))
+        for word, v in ((w, src), (w + 1, ri(0, 7, Np) * rb(0.7, Np)),
+                        (w + 2, ri(0, 4, Np))):
+            np.put_along_axis(pay, np.minimum(word, P - 1)[..., None],
+                              v[..., None], -1)
+    nd = np.where(at3, ri(0, 2 * KPC + 2, Np), ri(0, QS + 2, Np))
+    nd = np.where(mt == X.MSHARDCOMMIT, ri(0, Q + 2, Np), nd)
+    nd = np.where(mt == X.MCOLLECT, ri(0, KPC + 2, Np), nd)
+    pay[..., 2] = np.where(at3, nd, pay[..., 2])
+    pay[..., 4] = np.where(~at3, nd, pay[..., 4])
+    # dots: (dsrc, seq) words; gated types mostly name a stored dot, an
+    # MCollect half the time a free slot
+    dotted = ~np.isin(mt, [X.SUBMIT, X.MGC, X.MDRAIN])
+    dsrc, slot = ri(0, Np, Np), ri(0, D, Np)
+    dsrc = np.where(mt == X.MSHARDCOMMIT,
+                    np.where(rb(0.8, Np), me, dsrc), dsrc)
+    stored = ps["seq_in_slot"][li, me, dsrc, slot]
+    vertex = ps["vx_seq"][li, me, dsrc, slot]
+    good = rb(0.7, Np) & (stored > 0)
+    seq = np.where(good, stored, ri(0, 9, Np))
+    # GReq and GReply name vertices half the time
+    named = np.isin(mt, [X.GREQ, X.GREPLY]) & rb(0.5, Np) & (vertex > 0)
+    seq = np.where(named, vertex, seq)
+    # and GReq a dot known nowhere here a third of the time
+    unknown = (mt == X.GREQ) & ~named & rb(0.3, Np)
+    seq = np.where(unknown, 40 + ri(0, D, Np), seq)
+    free = (mt == X.MCOLLECT) & rb(0.5, Np)
+    fslot = (seq - 1) % D
+    # most gated messages find their payload; half the shard commits a
+    # full union row
+    gated = np.isin(mt, [X.MCOMMIT, X.MSHARDCOMMIT, X.MSHARDAGG])
+    cell = ps["seq_in_slot"][li, me, dsrc, fslot]
+    ps["seq_in_slot"][li, me, dsrc, fslot] = np.where(
+        gated & good, seq, cell)
+    full = (mt == X.MSHARDCOMMIT) & rb(0.5, Np)
+    ps["sh_seq"][li, me, fslot] = np.where(full[..., None], 6,
+                                           ps["sh_seq"][li, me, fslot])
+    for k in ("seq_in_slot", "vx_seq"):
+        ps[k][li, me, dsrc, fslot] = np.where(free, 0,
+                                              ps[k][li, me, dsrc, fslot])
+    ps["vx_committed"][li, me, dsrc, fslot] &= ~free
+    pay[..., 0] = np.where(dotted, dsrc, pay[..., 0])
+    pay[..., 1] = np.where(dotted, seq, pay[..., 1])
+    oob = np.isin(mt, [X.MCOMMIT, X.GREPLY, X.GREPLYEXEC, X.GREQ]) & rb(
+        0.1, Np)
+    pay[..., 0] = np.where(oob, ri(Np, 2 * Np, Np) * np.where(
+        rb(0.5, Np), 1, -1), pay[..., 0])
+    # SUBMIT [client, cseq]; MFwdSubmit/MCollect/MCommit/GReply
+    # [dsrc, seq, client, cseq, ..]
+    sub = mt == X.SUBMIT
+    pay[..., 0] = np.where(sub, ri(0, C + 1, Np), pay[..., 0])
+    pay[..., 1] = np.where(sub, ri(0, T1 + 2, Np), pay[..., 1])
+    fwd = np.isin(mt, [X.MCOLLECT, X.MFWDSUBMIT, X.MCOMMIT, X.GREPLY])
+    pay[..., 2] = np.where(fwd, ri(0, C + 1, Np), pay[..., 2])
+    pay[..., 3] = np.where(fwd, ri(0, T1 + 2, Np), pay[..., 3])
+    rows[..., PSRC] = np.where(mt == X.MCOLLECT,
+                               np.where(rb(0.3, Np), me, ri(0, Np, Np)),
+                               rows[..., PSRC])
+    # MGC [frontier of every row]
+    pay[..., :Np] = np.where((mt == X.MGC)[..., None], ri(0, 8, Np, Np),
+                             pay[..., :Np])
+    rows[..., PPAY:] = pay
+
+    ctx = {
+        "n": n,
+        "f": ri(1, 3),
+        "expected_acks": ri(1, 4),
+        "fp_mode": ri(0, 2),
+        "ack_self": rb(0.5),
+        "fast_quorum": rb(0.6, Np, Np),
+        "write_quorum": rb(0.6, Np, Np),
+        "shard_of": shard_of,
+        "closest": closest,
+        "client_attach_s": (np.arange(S)[None, None, :] * n[:, None, None]
+                            + ri(0, 2, C, S)).astype(np.int32),
+        "cmd_kmask": ri(1, 4, C, T1),
+        "cmd_skey": cmd_skey,
+    }
+    return ps, rb(0.85, Np), rows, rb(0.3, Np, 2), ctx
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_atlas_partial_handle_twin_matches_reference(seed):
+    """The twin of K12 against the reference's vmapped ``ready``,
+    ``periodic`` and ``handle`` (one jit for every case)."""
+    from fantoch_tpu_torch.engine.protocols import AtlasPartialDev
+    from fantoch_tpu_torch.kernels import atlas_partial_handle
+
+    t = AtlasPartialDev(**ATLAS_PARTIAL_SIZES)
+    rt = RAtlasPartial(**ATLAS_PARTIAL_SIZES)
+    rdims = RDims.for_partial(rt, PARTIAL_N, 4, 3)
+    dims = EngineDims.for_partial(t, PARTIAL_N, 4, 3)
+    assert dims == EngineDims(**vars(rdims))
+    ps, has, rows, fire, ctx = _atlas_partial_inputs(seed, dims, t)
+    if "fn" not in _ATLAS_PARTIAL_REF:
+        _ATLAS_PARTIAL_REF["fn"] = jax.jit(jax.vmap(
+            lambda *a: _ref_handler_lane(rt, rdims, *a)))
+    want = jax.tree_util.tree_map(
+        np.asarray, _ATLAS_PARTIAL_REF["fn"](ps, has, rows, fire, ctx))
+    before = atlas_partial_handle.launches
+    got = atlas_partial_handle(
+        carry.to_torch(ps, "cpu"), torch.from_numpy(has),
+        torch.from_numpy(rows), torch.from_numpy(fire),
+        carry.to_torch(ctx, "cpu"), dims,
+    )
+    assert atlas_partial_handle.launches == before  # the twin
+    _assert_equal(got[0].numpy(), want[0], "rdy")
+    for name, g, w in zip(("ps", "periodic", "handler"), got[1:], want[1:]):
+        assert sorted(g) == sorted(w), name
+        for k in w:
+            _assert_equal(g[k].numpy(), w[k], f"{name}/{k}")
+
+    rdy, new_ps, pout, hout = want
+    X = RAtlasPartial
+    N, KPC = dims.N, t.KPC
+    mt = np.where(rdy & has, rows[..., PMT], -1)
+    assert set(range(X.NUM_TYPES)) <= set(mt.ravel().tolist())
+    refused = np.where(has & ~rdy, rows[..., PMT], -1)
+    assert {X.MCOLLECT, X.MCOMMIT, X.MSHARDCOMMIT,
+            X.MSHARDAGG} <= set(refused.ravel().tolist())
+    grew = (new_ps["err"] & 16) > (ps["err"] & 16)       # ERR_CAPACITY
+    for t_ in (X.MCOLLECTACK, X.MSHARDCOMMIT, X.GREQ):
+        assert (grew & (mt == t_)).any(), t_
+    dot = (new_ps["err"] & 8) > (ps["err"] & 8)          # ERR_DOT
+    assert (dot & (mt == X.GREPLY)).any()
+    # drains executed (a part in slot 0 or 1), requested (GREQ in slot
+    # KPC) and chained (MDRAIN in slot KPC + 1)
+    drains = np.isin(mt, [X.MCOMMIT, X.MDRAIN, X.GREPLY, X.GREPLYEXEC])
+    assert (drains & hout["valid"][..., :KPC].any(-1)).any()
+    assert (drains & hout["valid"][..., KPC]).any()
+    assert (drains & hout["valid"][..., KPC + 1]).any()
+    assert ((new_ps["req_seq"] != ps["req_seq"]).any((-1, -2))
+            & drains).any()
+    # a GReq answered with each reply type, another buffered; the
+    # cleanup tick answers buffered requests with both types
+    greq = mt == X.GREQ
+    for reply in (X.GREPLY, X.GREPLYEXEC):
+        assert (greq & hout["valid"][..., 0]
+                & (hout["mtype"][..., 0] == reply)).any(), reply
+    assert (greq & (new_ps["breq_from"] != ps["breq_from"]).any(-1)).any()
+    tick = pout["valid"][..., N + 1:N + 1 + t.B]
+    for reply in (X.GREPLY, X.GREPLYEXEC):
+        assert (tick & (pout["mtype"][..., N + 1:N + 1 + t.B]
+                        == reply)).any(), reply
     # the shard aggregation completes and the multi-shard commit path
     # goes to the owner
     assert ((mt == X.MSHARDCOMMIT) & hout["valid"][..., 0]).any()

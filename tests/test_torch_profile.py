@@ -192,3 +192,37 @@ def test_rehearsal_of_the_tempo_partial_profile_on_cpu():
     out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
     assert out["protocol"] == "TempoPartialDev" and out["lanes"] == 2
     assert out["device_activities_per_step_by_name"] == {}
+
+
+def test_atlas_partial_main_path_is_the_cut_grid():
+    """The Atlas partial path: the Tempo partial grid with Atlas at 9
+    commands per client (from 10 on the reference overflows a table on
+    lanes of the grid)."""
+    args = cli.parse_args(cli.MAIN_PATHS["atlas_partial"])
+    protocol, dims, specs = cli.sweep_setup(args)
+    assert type(protocol).__name__ == "AtlasPartialDev"
+    assert (protocol.S, protocol.KPC) == (2, 2) and len(specs) == 512
+    assert args.batch_lanes == 512 and dims.N == 10 and args.commands == 9
+    assert {s.config.f for s in specs} == {1, 2}
+    assert {s.config.shard_count for s in specs} == {2}
+    assert {int(s.ctx["conflict_rate"]) for s in specs} == {1, 10, 50, 100}
+    assert {int(s.ctx["pool_size"]) for s in specs} == {4}
+    tempo = cli.parse_args(cli.MAIN_PATHS["tempo_partial"])
+    assert ({k: v for k, v in vars(args).items()
+             if k not in ("protocol", "commands")}
+            == {k: v for k, v in vars(tempo).items()
+                if k not in ("protocol", "commands")})
+
+
+def test_rehearsal_of_the_atlas_partial_profile_on_cpu():
+    args = cli.parse_args([
+        "sweep", "--protocol", "atlas", "--n", "3", "--shards", "2",
+        "--pool-size", "4", "--subsets", "1", "--fs", "1",
+        "--conflicts", "10,100", "--commands", "3",
+    ])
+    protocol, dims, specs = cli.sweep_setup(args)
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev)
+    out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
+    assert out["protocol"] == "AtlasPartialDev" and out["lanes"] == 2
+    assert out["device_activities_per_step_by_name"] == {}

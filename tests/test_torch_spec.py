@@ -118,10 +118,10 @@ def test_out_of_slice_options_raise_by_name(option, value, item):
 
 
 def test_partial_replication_and_other_protocols_raise_by_name():
-    # partial replication is ported for Tempo: a protocol without a
-    # partial twin fails the reference's own assertion (its shard count
-    # must match the config's), and Atlas's twin still raises naming its
-    # ROADMAP item
+    # partial replication is ported for Tempo and Atlas: a protocol
+    # without a partial twin fails the reference's own assertion (its
+    # shard count must match the config's), and Atlas's twin is sized as
+    # the reference's
     from fantoch_tpu.engine.protocols import (
         partial_dev_protocol as r_partial,
     )
@@ -138,8 +138,11 @@ def test_partial_replication_and_other_protocols_raise_by_name():
         make_lane(BasicDev, Planet.new(), Config(n=3, f=1, shard_count=2),
                   dims=pd, **kw)
     assert type(r_partial("atlas", 5, 2)).__name__ == "AtlasPartialDev"
-    with pytest.raises(NotImplementedError, match="item 8"):
-        partial_dev_protocol("atlas", 5, 2)
+    got, want = partial_dev_protocol("atlas", 5, 2), r_partial("atlas", 5, 2)
+    assert type(got).__name__ == "AtlasPartialDev"
+    assert (got.K, got.G, got.B, got.S, got.KPC, got.q_shard(5),
+            got.q_union(5)) == (want.K, want.G, want.B, want.S, want.KPC,
+                                want.q_shard(5), want.q_union(5))
     # Atlas and EPaxos are ported: their key tables are sized as the
     # reference's (one key per client plus the shared conflict key)
     from fantoch_tpu.engine.protocols import dev_protocol as r_dev

@@ -215,9 +215,8 @@ def _assert_tree_equal(want, got, path=""):
 
 def test_partial_dev_protocol_as_the_reference():
     """Tempo's twin is sized as the reference's (keys = pool + clients +
-    1); Atlas's twin is not ported yet and raises naming its ROADMAP
-    item; a protocol without partial.rs paths raises ValueError, as the
-    reference's switch does."""
+    1), and so is Atlas's; a protocol without partial.rs paths raises
+    ValueError, as the reference's switch does."""
     from fantoch_tpu.engine.protocols import (
         partial_dev_protocol as r_partial,
     )
@@ -227,8 +226,11 @@ def test_partial_dev_protocol_as_the_reference():
     assert (got.K, got.PK, got.R, got.G, got.S, got.KPC) == (
         want.K, want.PK, want.R, want.G, want.S, want.KPC) == (
         10, 32, 16, 8, 2, 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        partial_dev_protocol("atlas", 5, 2)
+    got = partial_dev_protocol("atlas", 5, 2, keys_per_cmd=2, pool_size=4)
+    want = r_partial("atlas", 5, 2, keys_per_cmd=2, pool_size=4)
+    assert (got.K, got.G, got.B, got.q_shard(5), got.q_union(5)) == (
+        want.K, want.G, want.B, want.q_shard(5), want.q_union(5)) == (
+        10, 8, 16, 12, 24)
     for name in ("basic", "caesar"):
         with pytest.raises(ValueError, match="partial replication"):
             partial_dev_protocol(name, 5, 2)
