@@ -23,14 +23,21 @@ small batch whose clock bump fires; ``atlas_partial_handle`` until every
 one of its fourteen message types, both timers, a two-shard commit, a
 request answered at once and one answered by the cleanup tick, and a
 drain chain have been, then on every step of a small batch whose
-cleanup tick runs every 5 ms)
+cleanup tick runs every 5 ms; ``qualify_pop``, ``emit_rewrite`` and
+``lane_freeze`` under the fault flags on every step of a fault-coverage
+batch until a crash purge, a crashed timer, a halted client, an
+unavailable lane, a multiplier and an override window, a partition, an
+overflowing multiplier, a jitter multiplier, a drop and a horizon-cut
+result have been compared, ``emit_rewrite`` on every step of a small
+reorder batch and of a partially replicated reorder lane, and at 1,060
+and 1,540 emission rows a lane)
 beside the
 least time its region's work needs (each kernel module's ``work``,
 ``kernels/cost.py``) — a kernel's ``ms`` is its device time per launch
 under ``torch.profiler``, ``call_ms`` the wrapper's whole call (host
 included) — checks the Basic golden numbers and the committed
 ``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep,caesar,tempo_partial,
-atlas_partial}_golden.json`` bytes on the card, then drives the eight
+atlas_partial,faults}_golden.json`` bytes on the card, then drives the nine
 main paths — the
 2,048-lane Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar sweeps (n = 5,
 256 five-region subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50
@@ -38,9 +45,11 @@ commands per client, one client per region) and the 512-lane sweep of
 Tempo under partial replication (2 shards of 5 rows, 2 keys per command
 from a pool of 4, the first 64 subsets, conflict 1 in place of 0) and
 the same 512-lane grid of Atlas under partial replication at 9 commands
-per client — through ``run_sweep``, each with every launch counter set to 0 just
-before and read just after, and holds sampled lanes of each to the
-plain twins on the host. Any failure raises;
+per client, and the 2,048-lane Tempo grid under four fault plans (the
+first 64 subsets, each point once per plan; its fault-free lanes equal
+the Tempo sweep's byte for byte) — through ``run_sweep``, each with
+every launch counter set to 0 just before and read just after, and
+holds sampled lanes of each to the plain twins on the host. Any failure raises;
 nothing is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
 ``{"ok": true, ...}``.
@@ -111,14 +120,59 @@ CAESAR_POINTS = [
     (5, 2, True, 100, 10, 1),
     (5, 2, False, 100, 10, 1),
 ]
+# the faults golden batches (tests/test_torch_faults.py): Tempo, n = 3,
+# f = 1, one client per region; the fault batch's plans at 15 commands,
+# the reorder batch's seeds at 20 commands with 30 s of extra time
+FAULT_PLANS = [
+    {"crash": {"0": 150}},
+    {"crash": {"2": 150}},
+    {"windows": [{"src": 0, "dst": 1, "t0": 50, "t1": 400, "mult": 6},
+                 {"src": 1, "dst": 0, "t0": 50, "t1": 400, "mult": 6}]},
+    {"windows": [{"src": 0, "dst": 1, "t0": 0, "t1": 800,
+                  "mult": 1 << 29}], "horizon": 5000},
+    {"crash": {"2": 200}},
+    {"crash": {"1": 0}},
+    {"crash": {"1": 100, "2": 400}},
+]
+REORDER_SEEDS = [0, 1]
+# the fault-coverage batch: Tempo, n = 3, two clients in each of the
+# COVERAGE_CLIENTS regions, GC and detached sends every 20 ms; lane i
+# runs plan i, each plan made to show its event within a few hundred
+# steps (the horizon's on one of three lanes)
+COVERAGE_PLANS = [
+    ("crash purges, crashed timers, halted clients", {"crash": {"1": 30}}),
+    ("multiplier window", {"windows": [{"src": 0, "dst": 1, "t0": 0,
+                                        "t1": 300, "mult": 6}]}),
+    ("override window", {"windows": [{"src": 2, "dst": 0, "t0": 0,
+                                      "t1": 300, "delay": 3}]}),
+    ("partition loss", {"windows": [{"src": 1, "dst": 2, "t0": 0,
+                                     "t1": 200, "delay": "inf"}],
+                        "horizon": 5000}),
+    ("overflow-multiplier partition",
+     {"windows": [{"src": 0, "dst": 1, "t0": 0, "t1": 800,
+                   "mult": 1 << 29}], "horizon": 5000}),
+    ("jitter multiplier", {"jitter_max": 8, "jitter_seed": 1}),
+    ("drop", {"drop_bp": 3000, "seed": 7, "horizon": 5000}),
+    ("unavailable lane (ERR_UNAVAIL)", {"crash": {"1": 100, "2": 400}}),
+    ("horizon-cut TO_CLIENT", {"horizon": 100}),
+    ("horizon-cut TO_CLIENT", {"horizon": 150}),
+    ("horizon-cut TO_CLIENT", {"horizon": 200}),
+]
+# the fault-coverage batch's client regions: two beside their process
+# (rows 0 and 1), one 17 ms from it (row 1), so that a result can reach
+# its client past the horizon
+COVERAGE_CLIENTS = ["asia-east1", "asia-east2", "asia-southeast1"]
 # sampled lanes held to the host's plain twins: (regions, f, conflict) =
 # (0, 1, 0), (0, 2, 100), (125, 1, 0), (255, 2, 100); the twins of Tempo,
 # Atlas, EPaxos and Caesar are slower on the host, so two of them, both
 # f = 2 at conflict 100; a partial lane takes some 11,700 serialized
-# steps, so one (subset 0, f = 2, conflict 100); so for Atlas partial
+# steps, so one (subset 0, f = 2, conflict 100); so for Atlas partial;
+# under faults the four plans of point 0 (subset 0, f = 1, conflict 0)
+# and the drop plan of point 7, whose lane overflows a Tempo table
 SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
           "tempo": [7, 2047], "atlas": [7, 2047], "epaxos": [7, 2047],
-          "caesar": [7, 2047], "tempo_partial": [7], "atlas_partial": [7]}
+          "caesar": [7, 2047], "tempo_partial": [7], "atlas_partial": [7],
+          "tempo_faults": [0, 1, 2, 3, 31]}
 
 # the reference region each kernel replaces
 REPLACES = {
@@ -141,9 +195,13 @@ HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo": "tempo_handle", "atlas": "graphdep_handle",
             "epaxos": "graphdep_handle", "caesar": "caesar_handle",
             "tempo_partial": "tempo_partial_handle",
-            "atlas_partial": "atlas_partial_handle"}
+            "atlas_partial": "atlas_partial_handle",
+            "tempo_faults": "tempo_handle"}
 PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
-         "tempo_partial", "atlas_partial")
+         "tempo_partial", "atlas_partial", "tempo_faults")
+# the Tempo sweep's to_json lines of its first 512 lanes, which the
+# fault path's fault-free lanes must equal
+TEMPO_LINES = []
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
@@ -275,7 +333,10 @@ def check_kernels(name, dev, rows):
     from fantoch_tpu_torch import cli, kernels
     from fantoch_tpu_torch.carry import to_torch
     from fantoch_tpu_torch.engine import core as engine_core
-    from fantoch_tpu_torch.engine.driver import prepare_batch
+    from fantoch_tpu_torch.engine.driver import (
+        batch_reorder_flag, prepare_batch,
+    )
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags
     from fantoch_tpu_torch.engine.spec import stack_lanes
     from fantoch_tpu_torch.kernels import cost
 
@@ -283,11 +344,13 @@ def check_kernels(name, dev, rows):
     sweep = cli.parse_args(argv)
     protocol, dims, specs = cli.sweep_setup(sweep)
     max_steps = 1 << 22
-    state, ctx = prepare_batch(protocol, dims, specs[:sweep.batch_lanes],
-                               dev)
+    batch = specs[:sweep.batch_lanes]
+    # the batch's reorder flag and fault-flag union, as run_sweep's
+    flags = (batch_reorder_flag(batch), batch_fault_flags(batch))
+    state, ctx = prepare_batch(protocol, dims, batch, dev)
     for _ in range(300):
         state, _running = engine_core.frozen_step(protocol, dims, state,
-                                                  ctx, max_steps)
+                                                  ctx, max_steps, *flags)
     handler = HANDLERS[name]
     mods = {k: importlib.import_module(f"fantoch_tpu_torch.kernels.{k}")
             for k in ("qualify_pop", "land_emissions", "emit_rewrite",
@@ -318,7 +381,7 @@ def check_kernels(name, dev, rows):
     for k, m in patched.items():
         setattr(m, k, recorder(k, saved[k]))
     state, _running = engine_core.frozen_step(protocol, dims, state, ctx,
-                                              max_steps)
+                                              max_steps, *flags)
     for k, m in patched.items():
         setattr(m, k, saved[k])
     T = ctx["key_table"].shape[2]
@@ -366,7 +429,7 @@ def check_kernels(name, dev, rows):
               f"bytes, {n_ops} ops) library_ms={library_ms} "
               f"launches={kern.launches - before} shapes {shapes}")
 
-    if handler in COVERAGE:
+    if handler in COVERAGE and name != "tempo_faults":
         rows[handler]["max_abs_err"] = max(
             rows[handler]["max_abs_err"],
             coverage(name, handler, protocol, dims, state, ctx, max_steps,
@@ -383,18 +446,18 @@ def check_kernels(name, dev, rows):
         )
 
     # K7 with frozen lanes (every third lane failed), which it copies
-    new, old, fctx, ms_ = captured["lane_freeze"]
+    new, old, fctx, ms_, lflags = captured["lane_freeze"]
     old = dict(old, err=old["err"].clone())
     old["err"][::3] = 64
     lf = mods["lane_freeze"]
-    got = lf.lane_freeze(_clone(new), old, fctx, ms_)
-    err = _compare(got, lf.lane_freeze_plain(new, old, fctx, ms_))
+    got = lf.lane_freeze(_clone(new), old, fctx, ms_, lflags)
+    err = _compare(got, lf.lane_freeze_plain(new, old, fctx, ms_, lflags))
     frozen = int((~got[1]).sum())
     ms = _device_ms(
-        lambda n=_clone(new): lf.lane_freeze(n, old, fctx, ms_),
+        lambda n=_clone(new): lf.lane_freeze(n, old, fctx, ms_, lflags),
         "lane_freeze", 50,
     )
-    n_bytes, n_ops = lf.work(new, old, fctx, ms_, got)
+    n_bytes, n_ops = lf.work(new, old, fctx, ms_, lflags, got)
     print(f"kernel lane_freeze ({name} path, {frozen} of {L} lanes "
           f"frozen): exact=True max_abs_err={err} ms={ms:.5f} bound_us="
           f"{1e3 * cost.bound(n_bytes, n_ops)[0]:.3f} ({n_bytes} bytes)")
@@ -662,6 +725,291 @@ def request_coverage(dev, mod) -> float:
     }
     return _batch_coverage("request batch", "atlas_partial_handle", proto,
                            dims, specs, dev, mod, bound=200, extras=extras)
+
+
+def _checked(mod_name, kname, compare, clone_first=False):
+    """A stand-in for kernel ``kname`` in ``engine.core``: each call runs
+    the kernel and its twin on the same arguments, ``compare(args,
+    got, want)`` holds them equal, and the kernel's result goes on. The
+    stand-in counts nothing (the kernel's own counter does)."""
+    mod = importlib.import_module(f"fantoch_tpu_torch.kernels.{mod_name}")
+    kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
+
+    def run(*a):
+        if clone_first:  # lane_freeze writes into the step's new planes
+            want = plain(_clone(a[0]), *a[1:])
+            got = kern(_clone(a[0]), *a[1:])
+        else:
+            want = plain(*a)
+            got = kern(*a)
+        import torch
+
+        torch.cuda.synchronize()
+        compare(a, got, want)
+        return got
+
+    run.launches = 0
+    return run
+
+
+class _Patched:
+    """Swaps ``engine.core``'s kernel names for stand-ins while open."""
+
+    def __init__(self, **stand_ins):
+        from fantoch_tpu_torch.engine import core as engine_core
+
+        self.core, self.new = engine_core, stand_ins
+        self.old = {k: getattr(engine_core, k) for k in stand_ins}
+
+    def __enter__(self):
+        for k, v in self.new.items():
+            setattr(self.core, k, v)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            setattr(self.core, k, v)
+
+
+def _tempo_lanes(plans, commands, cpr=1, seeds=None, reorder=False,
+                 extra=1000, interval=100, client_regions=None):
+    """``(protocol, dims, specs)``: Tempo lanes at n = 3 on the first
+    three GCP regions, one per plan (from_json form or None); clients in
+    those regions unless ``client_regions`` names others."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane
+    from fantoch_tpu_torch.engine.faults import FaultPlan
+    from fantoch_tpu_torch.engine.protocols import TempoDev
+
+    n, clients = 3, 3 * cpr
+    proto = TempoDev(keys=1 + clients)
+    total = commands * clients
+    dims = EngineDims.for_protocol(
+        proto, n=n, clients=clients, payload=proto.payload_width(n),
+        total_commands=total, dot_slots=total + 1, regions=n,
+    )
+    regions = Planet.new().regions()[:n]
+    clients_at = client_regions or regions
+    seeds = seeds or [0] * len(plans)
+    specs = [
+        make_lane(proto, Planet.new(),
+                  Config(n=n, f=1, gc_interval_ms=interval,
+                         tempo_detached_send_interval_ms=interval),
+                  conflict_rate=100, pool_size=1,
+                  commands_per_client=commands, clients_per_region=cpr,
+                  process_regions=regions, client_regions=clients_at,
+                  dims=dims, extra_time_ms=extra, seed=seed,
+                  reorder=reorder,
+                  faults=FaultPlan.from_json(plan) if plan else None)
+        for plan, seed in zip(plans, seeds)
+    ]
+    return proto, dims, specs
+
+
+def fault_coverage(dev) -> float:
+    """K1, K6 and K7 against their twins under the fault flags on every
+    step of the fault-coverage batch (lane i runs COVERAGE_PLANS[i]),
+    until each plan's event has been seen in a compared step: the event
+    is where the twin's result with the plan's flag differs from it with
+    the flag taken away (lost rows for the lossy plans, the error bit for
+    the unavailable lane). Returns the max abs error."""
+    import torch
+
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine import faults as fm
+    from fantoch_tpu_torch.engine.driver import prepare_batch
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags
+
+    er = importlib.import_module("fantoch_tpu_torch.kernels.emit_rewrite")
+    qp = importlib.import_module("fantoch_tpu_torch.kernels.qualify_pop")
+    labels = [label for label, _p in COVERAGE_PLANS]
+    proto, dims, specs = _tempo_lanes(
+        [plan for _l, plan in COVERAGE_PLANS], 6, cpr=2, interval=20,
+        seeds=list(range(len(COVERAGE_PLANS))),
+        client_regions=COVERAGE_CLIENTS)
+    seen = dict.fromkeys(labels, 0)
+    halted = specs[0].fault_meta["halted_clients"]
+    errs = [0.0]
+
+    def k1(a, got, want):
+        errs[0] = max(errs[0], _compare(got, want))
+        off = qp.qualify_pop_plain(*a[:5], a[5] & ~fm.FLAG_CRASH)
+        purged = (want[0] >= (1 << 30)) & (off[0] < (1 << 30))
+        dead = (want[8] >= (1 << 30)) & (a[1] < (1 << 30))
+        seen[labels[0]] += int(purged[0].sum()) + int(dead[0].sum())
+
+    def k6(a, got, want):
+        errs[0] = max(errs[0], _compare(got, want))
+        lost = (want[2]["fault_dropped"] - a[0]["fault_dropped"]).tolist()
+        for i in (3, 4, 6):
+            seen[labels[i]] += lost[i]
+        for i, bit in ((1, fm.FLAG_WINDOWS), (2, fm.FLAG_WINDOWS),
+                       (5, fm.FLAG_JITTER)):
+            off = er.emit_rewrite_plain(*a[:12], a[12] & ~bit)
+            moved = (off[0][i, :, 0] != want[0][i, :, 0]) & want[1][i]
+            seen[labels[i]] += int(moved.sum())
+        seen[labels[7]] += int(want[2]["err"][7] & 128 != 0)
+        off = er.emit_rewrite_plain(*a[:12], a[12] & ~fm.FLAG_HORIZON)
+        done = [x[2]["clients"]["completed"][8:] for x in (off, want)]
+        seen[labels[8]] += int((done[0] != done[1]).sum())
+
+    def k7(a, got, want):
+        errs[0] = max(errs[0], _compare(got, want))
+
+    flags = batch_fault_flags(specs)
+    state, ctx = prepare_batch(proto, dims, specs, dev)
+    steps = 0
+    with _Patched(
+        qualify_pop=_checked("qualify_pop", "qualify_pop", k1),
+        emit_rewrite=_checked("emit_rewrite", "emit_rewrite", k6),
+        lane_freeze=_checked("lane_freeze", "lane_freeze", k7, True),
+    ):
+        while not (all(seen.values()) and halted):
+            state, running = engine_core.frozen_step(
+                proto, dims, state, ctx, 1 << 22, False, flags)
+            steps += 1
+            if steps >= 600 or not bool(running.any()):
+                break
+    torch.cuda.synchronize()
+    assert halted > 0 and all(seen.values()), (
+        f"fault coverage incomplete after {steps} steps: {seen}, "
+        f"halted clients {halted}")
+    print(f"kernels qualify_pop, emit_rewrite, lane_freeze (fault-coverage "
+          f"batch, flags {fm.flag_bits(flags)}): exact=True on every one of "
+          f"{steps} steps; seen "
+          + "; ".join(f"{k} {v}" for k, v in seen.items())
+          + f"; halted clients {halted}; max_abs_err={errs[0]}")
+    return errs[0]
+
+
+def reorder_coverage(dev) -> float:
+    """K6 against its twin on every step of the faults golden batch's
+    Tempo reorder lanes and of the Tempo partial reorder lane of
+    tests/test_torch_faults_reorder.py (2 shards, seed 5), run to their
+    end. Returns the max abs error."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
+    from fantoch_tpu_torch.engine.protocols import TempoPartialDev
+
+    errs, calls = [0.0], [0]
+
+    def k6(a, got, want):
+        errs[0] = max(errs[0], _compare(got, want))
+        calls[0] += 1
+
+    batches = [_tempo_lanes([None] * len(REORDER_SEEDS), 20,
+                            seeds=REORDER_SEEDS, reorder=True,
+                            extra=30_000)]
+    regions = Planet.new().regions()[:3]
+    proto = TempoPartialDev(keys=4 + 3 + 1, shards=2, keys_per_cmd=2)
+    dims = EngineDims.for_partial(proto, 3, 3, 30)
+    batches.append((proto, dims, [make_lane(
+        proto, Planet.new(),
+        Config(n=3, f=1, shard_count=2, gc_interval_ms=100,
+               executor_executed_notification_interval_ms=100,
+               executor_cleanup_interval_ms=100,
+               tempo_detached_send_interval_ms=100),
+        conflict_rate=100, pool_size=4, commands_per_client=10,
+        clients_per_region=1, process_regions=regions,
+        client_regions=regions, dims=dims, extra_time_ms=30_000, seed=5,
+        reorder=True)]))
+    with _Patched(emit_rewrite=_checked("emit_rewrite", "emit_rewrite", k6)):
+        for label, (p, d, specs) in zip(("tempo", "tempo partial"), batches):
+            before = calls[0]
+            res = run_lanes(p, d, specs, device=dev)
+            assert all(r.err == 0 for r in res), [r.err_cause for r in res]
+            print(f"kernel emit_rewrite ({label} reorder batch): exact=True "
+                  f"on every one of {calls[0] - before} steps; lanes' steps "
+                  f"{[r.steps for r in res]}, requeues "
+                  f"{[r.requeues for r in res]}")
+    return errs[0]
+
+
+def wide_emit(dev) -> float:
+    """K6 at 1,060 and 1,540 emission rows a lane: one step's arguments
+    of a small Tempo partial and Atlas partial batch at 4 shards of n = 5
+    (N = 20), stepped on the host twins to step 40, on the card against
+    the twin. Returns the max abs error."""
+    import torch
+
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import EngineDims, make_lane
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.driver import prepare_batch
+    from fantoch_tpu_torch.engine.protocols import partial_dev_protocol
+
+    er = importlib.import_module("fantoch_tpu_torch.kernels.emit_rewrite")
+    err = 0.0
+    regions = Planet.new().regions()[:5]
+    for name in ("tempo", "atlas"):
+        proto = partial_dev_protocol(name, 5, 4, keys_per_cmd=2, pool_size=4)
+        dims = EngineDims.for_partial(proto, 5, 5, 10)
+        kw = dict(tempo_detached_send_interval_ms=100) if name == "tempo" \
+            else {}
+        specs = [
+            make_lane(proto, Planet.new(),
+                      Config(n=5, f=f, shard_count=4, gc_interval_ms=100,
+                             executor_executed_notification_interval_ms=100,
+                             executor_cleanup_interval_ms=100, **kw),
+                      conflict_rate=100, pool_size=4, commands_per_client=2,
+                      clients_per_region=1, process_regions=regions,
+                      client_regions=regions, dims=dims, seed=f)
+            for f in (1, 2)
+        ]
+        state, ctx = prepare_batch(proto, dims, specs, "cpu")
+        box = {}
+
+        def record(*a):
+            box["args"] = a
+            return er.emit_rewrite_plain(*a)
+
+        record.launches = 0
+        with _Patched(emit_rewrite=record):
+            for _ in range(40):
+                state, _running = engine_core.frozen_step(
+                    proto, dims, state, ctx, 1 << 22)
+        a = box["args"]
+        args = (*(to_torch_tree(x, dev) for x in a[:10]), *a[10:])
+        got = er.emit_rewrite(*args)
+        want = er.emit_rewrite_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, _compare(got, want))
+        E = got[0].shape[1]
+        print(f"kernel emit_rewrite ({name} partial, 4 shards of n = 5): "
+              f"exact=True at E={E} rows a lane, {int(got[1].sum())} rows "
+              f"landing, {er.smem_bytes(dims.N, dims.F, dims.C)} bytes of "
+              f"shared memory a block; max_abs_err={err}")
+    return err
+
+
+def to_torch_tree(x, dev):
+    """A tree of CPU tensors moved to ``dev`` (ints pass through)."""
+    if isinstance(x, dict):
+        return {k: to_torch_tree(v, dev) for k, v in x.items()}
+    return x.to(dev) if hasattr(x, "to") else x
+
+
+def golden_faults(dev) -> None:
+    """Phase 6: the faults golden batches (tests/test_torch_faults.py:
+    the Tempo fault batch and the Tempo reorder batch) against their
+    fixture."""
+    from fantoch_tpu_torch.engine import run_lanes
+    from fantoch_tpu_torch.engine.dims import ERR_UNAVAIL
+
+    results = []
+    for batch in (_tempo_lanes(FAULT_PLANS, 15),
+                  _tempo_lanes([None] * len(REORDER_SEEDS), 20,
+                               seeds=REORDER_SEEDS, reorder=True,
+                               extra=30_000)):
+        results += run_lanes(*batch, device=dev)
+    unavail = results[len(FAULT_PLANS) - 1]
+    assert unavail.err & ERR_UNAVAIL and unavail.steps <= 2
+    for res in results[:4] + results[4:6] + results[len(FAULT_PLANS):]:
+        assert res.err == 0, res.err_cause
+    print(f"golden faults on {dev}: "
+          + "; ".join(f"{r.faults or 'reorder'}: steps {r.steps} completed "
+                      f"{r.completed} dropped {r.dropped} err {r.err}"
+                      for r in results))
+    _match_fixture(results, "torch_faults_golden.json")
 
 
 def golden_basic(dev) -> None:
@@ -980,13 +1328,72 @@ def sweep(name, dev):
           f"{sum(r.requeues for r in results)}; stable totals {stable}; "
           f"launches {launches}; launches per batch step "
           f"{ {k: v / steps_run for k, v in launches.items()} }")
-    grid = args.subsets * len(args.fs) * len(args.conflicts)
-    assert len(results) == grid and grid in (512, 2048) and errors == 0
     path_kernels = ["qualify_pop", HANDLERS[name], "emit_rewrite",
                     "land_emissions", "lane_freeze", "key_table"]
     assert all(launches[k] > 0 for k in path_kernels), launches
     other = set(HANDLERS.values()) - {HANDLERS[name]}
     assert all(launches[k] == 0 for k in other), launches
+    if name == "tempo":
+        TEMPO_LINES.extend(json.dumps(r.to_json(), sort_keys=True)
+                           for r in results[:512])
+    if name == "tempo_faults":
+        fault_sweep_checks(specs, results, total, wall, launches)
+    else:
+        grid = args.subsets * len(args.fs) * len(args.conflicts)
+        assert len(results) == grid and grid in (512, 2048) and errors == 0
+        main_path_checks(name, dims, specs, results, total)
+    t0 = time.perf_counter()
+    sample = SAMPLE[name]
+    host = run_lanes(protocol, dims, [specs[i] for i in sample],
+                     device="cpu")
+    for i, h in zip(sample, host):
+        assert json.dumps(h.to_json(), sort_keys=True) == json.dumps(
+            results[i].to_json(), sort_keys=True
+        ), f"{name} lane {i} differs from the host run"
+    print(f"{name} lanes {sample}: card == host plain twins, byte for byte "
+          f"({time.perf_counter() - t0:.1f} s on the host)")
+    return launches
+
+
+def fault_sweep_checks(specs, results, total, wall, launches) -> None:
+    """The fault path's checks: per plan its lanes, error causes,
+    completed commands and lost messages; its fault-free lanes equal the
+    Tempo sweep's first 512 lanes byte for byte; the fault-free and crash
+    lanes end clean with every surviving client's budget done (the
+    contract of test_engine_faults.py test_crash_liveness)."""
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.engine.faults import parse_fault_specs
+
+    plans = parse_fault_specs(cli.TEMPO_FAULT_PLANS)
+    k = len(plans)
+    assert len(results) == 2048 == 512 * k
+    for j, plan in enumerate(plans):
+        lanes = results[j::k]
+        causes = sorted({r.err_cause for r in lanes if r.err})
+        print(f"tempo_faults plan {j} {plan.meta() if plan else {}}: "
+              f"{len(lanes)} lanes, erring {sum(1 for r in lanes if r.err)} "
+              f"{causes}, completed {sum(r.completed for r in lanes)}, "
+              f"dropped {sum(r.dropped for r in lanes)}, steps max "
+              f"{max(r.steps for r in lanes)}")
+    print(f"tempo_faults: {len(results) / wall:.3f} points/s over the four "
+          f"plans, batch steps {launches['qualify_pop']}")
+    clean = [json.dumps(r.to_json(), sort_keys=True) for r in results[::k]]
+    assert len(TEMPO_LINES) == 512 and clean == TEMPO_LINES, (
+        "fault-free lanes differ from the Tempo sweep's")
+    for spec, r in zip(specs, results):
+        if spec.fault_meta is None or "crash" in spec.fault_meta:
+            # halted clients' budgets are zeroed: the survivors' remain
+            survivors = int(spec.ctx["cmd_budget"].sum())
+            assert r.err == 0, r.err_cause
+            assert r.completed == survivors < total or (
+                spec.fault_meta is None and r.completed == total)
+    print("tempo_faults: the 512 fault-free lanes equal the Tempo sweep's "
+          "byte for byte; every fault-free and crash lane clean with its "
+          "surviving clients' budgets done")
+
+
+def main_path_checks(name, dims, specs, results, total) -> None:
+    """A fault-free main path's checks on every lane."""
     for spec, r in zip(specs, results):
         assert r.completed == total
         assert int(r.lat_count.sum()) == total
@@ -1024,17 +1431,6 @@ def sweep(name, dev):
         print(f"{name}: {total} <= fast + slow <= {2 * total} (from "
               f"{commits[0]} to {commits[-1]}) and stable == 5 x {total} on "
               f"every lane; slow-path commits {slow}")
-    t0 = time.perf_counter()
-    sample = SAMPLE[name]
-    host = run_lanes(protocol, dims, [specs[i] for i in sample],
-                     device="cpu")
-    for i, h in zip(sample, host):
-        assert json.dumps(h.to_json(), sort_keys=True) == json.dumps(
-            results[i].to_json(), sort_keys=True
-        ), f"{name} lane {i} differs from the host run"
-    print(f"{name} lanes {sample}: card == host plain twins, byte for byte "
-          f"({time.perf_counter() - t0:.1f} s on the host)")
-    return launches
 
 
 def main() -> int:
@@ -1078,6 +1474,19 @@ def main() -> int:
     phase("6 golden caesar", golden_caesar, dev)
     phase("6 golden tempo partial", golden_tempo_partial, dev)
     phase("6 golden atlas partial", golden_atlas_partial, dev)
+    phase("6 golden faults", golden_faults, dev)
+
+    # the fault branches of K1, K6 and K7, and K6's reorder draws and wide
+    # lanes, each against its twin
+    for label, fn, knames in (
+        ("fault coverage", fault_coverage,
+         ("qualify_pop", "emit_rewrite", "lane_freeze")),
+        ("reorder", reorder_coverage, ("emit_rewrite",)),
+        ("wide emit", wide_emit, ("emit_rewrite",)),
+    ):
+        err = phase(f"6 kernels ({label})", fn, dev)
+        for kname in knames:
+            rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
 
     # 7. the main paths, each counted on its own
     by_path = {name: phase(f"7 sweep {name}", sweep, name, dev)

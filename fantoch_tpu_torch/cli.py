@@ -1,9 +1,10 @@
 """Command line: ``python -m fantoch_tpu_torch [--device cpu] sweep ...``.
 
 The ``sweep`` subcommand runs the batched engine over a (region subset
-× f × conflict) grid and prints the reference CLI's summary JSON (the
-keys that apply to this slice: closed-loop, flat-traffic, fault-free
-sweeps). It runs on the CUDA card unless ``--device cpu`` is given.
+× f × conflict) grid, each point once per fault plan of ``--faults``,
+and prints the reference CLI's summary JSON (the keys that apply to
+closed-loop, flat-traffic sweeps). It runs on the CUDA card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -73,11 +74,30 @@ MAIN_PATH_ATLAS_PARTIAL = [
     "--fs", "1,2", "--conflicts", "1,10,50,100", "--commands", "9",
     "--clients-per-region", "1", "--batch-lanes", "512",
 ]
+# Tempo under fault plans: the Tempo grid, each point once per plan. The
+# first three plans are the --faults example of the reference CLI's help
+# (fault-free, a crash, a partitioned link under a horizon); the fourth
+# takes the rest of the fault model at the reference tests' settings (a
+# 6x window on one link, drops at 4 % with seed 7, jitter up to 8x, the
+# mc subcommand's default). Depth is cut to the first 64 subsets: 4
+# plans x 512 points = 2,048 lanes, as many as the other main paths
+TEMPO_FAULT_PLANS = (
+    '[{}, {"crash": {"1": 200}}, '
+    '{"windows": [{"src": 0, "dst": 1, "t0": 0, "t1": 500, '
+    '"delay": "inf"}], "horizon": 5000}, '
+    '{"windows": [{"src": 1, "dst": 0, "t0": 50, "t1": 400, "mult": 6}], '
+    '"drop_bp": 400, "seed": 7, "jitter_max": 8, "jitter_seed": 1, '
+    '"horizon": 5000}]'
+)
+MAIN_PATH_TEMPO_FAULTS = [
+    "64" if a == "256" else a for a in MAIN_PATH_TEMPO
+] + ["--faults", TEMPO_FAULT_PLANS]
 MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
               "tempo": MAIN_PATH_TEMPO, "atlas": MAIN_PATH_ATLAS,
               "epaxos": MAIN_PATH_EPAXOS, "caesar": MAIN_PATH_CAESAR,
               "tempo_partial": MAIN_PATH_TEMPO_PARTIAL,
-              "atlas_partial": MAIN_PATH_ATLAS_PARTIAL}
+              "atlas_partial": MAIN_PATH_ATLAS_PARTIAL,
+              "tempo_faults": MAIN_PATH_TEMPO_FAULTS}
 
 
 def _ints(s: str) -> List[int]:
@@ -88,10 +108,17 @@ def sweep_setup(args):
     """``(protocol, dims, specs)`` of a ``sweep`` command line: the
     region subsets, dims and grid exactly as ``cmd_sweep`` runs them."""
     from .engine import EngineDims
+    from .engine.faults import parse_fault_specs
     from .engine.protocols import (
         dev_config_kwargs, dev_protocol, partial_dev_protocol,
     )
     from .parallel.sweep import make_sweep_specs
+
+    fault_plans = None
+    if args.faults:
+        fault_plans = parse_fault_specs(args.faults)
+        if args.shards > 1:
+            raise SystemExit("--faults is single-shard for now")
 
     planet = (
         Planet.from_dataset("latency_aws_2021_02_13") if args.aws
@@ -167,6 +194,7 @@ def sweep_setup(args):
             else None
         ),
         pool_size=args.pool_size,
+        faults=fault_plans,
     )
     return dev, dims, specs
 
@@ -195,7 +223,7 @@ def cmd_sweep(args) -> None:
         dev, dims, specs, batch_lanes=args.batch_lanes, device=device
     )
     errs = sum(1 for r in results if r.err)
-    print(json.dumps({
+    summary = {
         "protocol": args.protocol,
         "traffic": "flat",
         "arrivals": "closed",
@@ -203,7 +231,16 @@ def cmd_sweep(args) -> None:
         "errors": errs,
         "error_causes": sorted({r.err_cause for r in results if r.err}),
         "stalled_lanes": sum(1 for r in results if r.requeues),
-    }))
+    }
+    if args.faults:
+        summary["fault_lanes"] = sum(
+            1 for r in results if r.faults is not None
+        )
+        summary["unavailable_lanes"] = sum(
+            1 for r in results if r.faults and r.faults.get("unavail")
+        )
+        summary["messages_dropped"] = sum(r.dropped for r in results)
+    print(json.dumps(summary))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -251,6 +288,14 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="keys per command when --shards > 1")
     sw.add_argument("--batch-lanes", type=int, default=512,
                     help="lanes per device batch")
+    sw.add_argument(
+        "--faults", default=None,
+        help="fault-plan spec: JSON object/list or @file; each sweep "
+        'point runs once per plan ({} = fault-free), e.g. '
+        '\'[{}, {"crash": {"1": 200}}, {"windows": [{"src": 0, '
+        '"dst": 1, "t0": 0, "t1": 500, "delay": "inf"}], '
+        '"horizon": 5000}]\' (lossy plans need a horizon)',
+    )
     sw.set_defaults(fn=cmd_sweep)
     return parser.parse_args(argv)
 

@@ -15,10 +15,16 @@ A conservative-lookahead parallel DES, step for step the reference's
      ``graphdep_handle`` kernel);
   4. emissions are flattened; TO_CLIENT messages are rewritten into the
      client's next SUBMIT (closed loop), latency is recorded, channel
-     counters advance; with the termination bookkeeping this is the
-     ``emit_rewrite`` kernel;
+     counters advance, and the fault plan's wire faults (link windows,
+     jitter, drops) and the reorder draws apply; with the termination
+     bookkeeping this is the ``emit_rewrite`` kernel;
   5. the delivered emissions land in free pool slots (``land_emissions``
      kernel).
+
+The batch's fault flags and the reorder switch are fixed for a run, as
+they are trace-time in the reference: they reach K1, K6 and K7 as one
+integer (``faults.flag_bits``), and each fault branch runs only under
+its flag, so a fault-free batch runs exactly the fault-free step.
 
 State and ctx are dicts of tensors with a leading ``[L]`` lane axis.
 :func:`build_runner` runs the step until every lane ends: as under the
@@ -43,6 +49,7 @@ from .dims import (
     ERR_TRUNCATED, INF, PA, PDST, PKC, PKS, PMT, POOL_FIELDS, PPAY, PSRC,
     EngineDims,
 )
+from .faults import NO_FAULTS, FaultFlags, flag_bits
 
 I32 = torch.int32
 
@@ -200,13 +207,18 @@ def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
 # the step
 # ----------------------------------------------------------------------
 
-def lane_step(protocol, dims: EngineDims, st, ctx):
-    """One engine step of every lane (closed loop, fault-free)."""
+def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
+              faults: FaultFlags = NO_FAULTS):
+    """One engine step of every lane (closed loop) under the batch's
+    ``faults`` flags and ``reorder`` switch."""
     pool = st["pool"]
+    flags = flag_bits(faults, reorder)
 
-    # 1-2. qualification and pop (kernel K1)
-    arrival, ep, now, _active, fire, _slot, has, rows = qualify_pop(
-        pool, st["next_periodic"], ctx["lookahead"]
+    # 0-2. the crash cut-off, qualification, the horizon and the pop
+    # (kernel K1); the crash-masked arrivals and timers are written back
+    arrival, ep, now, _active, fire, _slot, has, rows, timers = qualify_pop(
+        pool, st["next_periodic"], ctx["lookahead"], ctx["fault_crash_t"],
+        ctx["fault_horizon"], flags,
     )
 
     # 3. readiness gate, periodic timers and handlers, each process at
@@ -215,17 +227,19 @@ def lane_step(protocol, dims: EngineDims, st, ctx):
         st["ps"], has, rows, fire, ep, ctx, dims
     )
 
-    # 4-5 and 7. the emission tail and the termination bookkeeping
-    # (kernel K6)
-    new_rows, valid, upd = emit_rewrite(
-        st, ctx, ep, fire, has, rdy, rows, pout, outbox,
-        protocol.error(ps), dims, protocol.SUBMIT,
+    # 4-5 and 7. the emission tail, the wire faults and the termination
+    # bookkeeping (kernel K6); fired timers re-arm from the masked ones
+    st_in = st if timers is st["next_periodic"] else dict(
+        st, next_periodic=timers)
+    new_rows, deliver, upd = emit_rewrite(
+        st_in, ctx, ep, fire, has, rdy, rows, pout, outbox,
+        protocol.error(ps), dims, protocol.SUBMIT, flags,
     )
 
     # 6. land the delivered emissions in free pool slots (kernel K2),
     # which also raises ERR_POOL on overflow
     new_pool, _overflow, pool_peak, err = land_emissions(
-        pool, arrival, valid, new_rows, st["pool_peak"], upd["err"]
+        pool, arrival, deliver, new_rows, st["pool_peak"], upd["err"]
     )
     return {
         **upd,
@@ -233,34 +247,40 @@ def lane_step(protocol, dims: EngineDims, st, ctx):
         "ps": ps,
         "now": now,
         "pool_peak": pool_peak,
-        "fault_dropped": st["fault_dropped"],
         "hlog": st["hlog"],
         "hlog_n": st["hlog_n"],
         "err": err,
     }
 
 
-def frozen_step(protocol, dims: EngineDims, st, ctx, max_steps: int):
+def frozen_step(protocol, dims: EngineDims, st, ctx, max_steps: int,
+                reorder: bool = False, faults: FaultFlags = NO_FAULTS):
     """One step of the run loop: ``(state, running)``. The lanes whose
     predicate is false on ``st`` keep their state, as under the
     reference's vmapped ``lax.while_loop`` (kernel K7)."""
-    return lane_freeze(lane_step(protocol, dims, st, ctx), st, ctx,
-                       max_steps)
+    return lane_freeze(
+        lane_step(protocol, dims, st, ctx, reorder, faults), st, ctx,
+        max_steps, flag_bits(faults, reorder),
+    )
 
 
-def build_runner(protocol, dims: EngineDims,
-                 max_steps: int = 1 << 22) -> Callable[[Any, Any], Any]:
+def build_runner(protocol, dims: EngineDims, max_steps: int = 1 << 22,
+                 reorder: bool = False, faults: FaultFlags = NO_FAULTS
+                 ) -> Callable[[Any, Any], Any]:
     """The batched runner: (state, ctx) → final state. Every step
     freezes the lanes whose predicate is false; once every
     :data:`CHECK_EVERY` steps the host reads whether any lane was still
     running at the last step. A lane cut by ``max_steps`` before
-    finishing reports ``ERR_TRUNCATED``."""
+    finishing reports ``ERR_TRUNCATED``. ``reorder`` and ``faults`` are
+    the batch's (``driver.batch_reorder_flag``,
+    ``faults.batch_fault_flags``)."""
 
     def run(state, ctx):
         st = state
         while True:
             for _ in range(CHECK_EVERY):
-                st, running = frozen_step(protocol, dims, st, ctx, max_steps)
+                st, running = frozen_step(protocol, dims, st, ctx, max_steps,
+                                          reorder, faults)
             if not bool(running.any()):
                 break
         truncated = (st["steps"] >= max_steps) & (st["done_time"] >= INF)

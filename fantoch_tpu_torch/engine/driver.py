@@ -9,6 +9,7 @@ from ..carry import stack_trees, to_torch
 from ..kernels.key_table import key_table
 from .core import build_runner, init_lane_state
 from .dims import EngineDims
+from .faults import batch_fault_flags
 from .results import LaneResults, collect_results
 from .spec import LaneSpec, command_tables, stack_lanes
 
@@ -49,6 +50,23 @@ def partial_tables(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
     return tables
 
 
+def batch_reorder_flag(specs: Sequence[LaneSpec]) -> bool:
+    """A batch runs one step, so every lane must agree on the reorder
+    perturbation (the reference's trace-time flag)."""
+    flags = {bool(s.ctx["reorder"]) for s in specs}
+    assert len(flags) == 1, "cannot mix reorder and FIFO lanes in a batch"
+    return flags.pop()
+
+
+def batch_runner(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
+                 max_steps: int = 1 << 22):
+    """The run loop of one batch, under its reorder flag and the union
+    of its lanes' fault flags."""
+    return build_runner(protocol, dims, max_steps,
+                        reorder=batch_reorder_flag(specs),
+                        faults=batch_fault_flags(specs))
+
+
 def prepare_batch(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
                   device):
     """Stack the lanes' ctx onto ``device``, compute every lane's
@@ -86,6 +104,6 @@ def run_lanes(
     CUDA card; ``"cpu"`` runs the plain twins)."""
     dev = resolve_device(device)
     state, ctx = prepare_batch(protocol, dims, specs, dev)
-    final = build_runner(protocol, dims, max_steps)(state, ctx)
+    final = batch_runner(protocol, dims, specs, max_steps)(state, ctx)
     return collect_results(protocol, dims, final, specs)
 

@@ -62,6 +62,12 @@ class BasicDev(DevIdentity):
         return [gc if gc is not None else INF]
 
     @staticmethod
+    def min_live(config) -> int:
+        """f+1 store-quorum members must ack every MStore (deeper crash
+        plans end the lane with ERR_UNAVAIL, engine/faults.py)."""
+        return config.basic_quorum_size()
+
+    @staticmethod
     def lane_ctx(config, dims: EngineDims, sorted_idx: np.ndarray):
         """Fast quorum = first f+1 processes in each process's discovery
         order (base.rs:107-131 with basic_quorum_size, config.rs:265)."""

@@ -65,6 +65,13 @@ class FPaxosDev(DevIdentity):
         return [gc if gc is not None else INF]
 
     @staticmethod
+    def min_live(config) -> int:
+        """f+1 write-quorum members (the leader included). A crashed
+        leader is not unavailability: it halts every client (no election
+        is modelled, engine/faults.py)."""
+        return config.fpaxos_quorum_size()
+
+    @staticmethod
     def lane_ctx(config, dims: EngineDims, sorted_idx: np.ndarray):
         """Write quorum = first f+1 processes in the leader's discovery
         order (fpaxos_quorum_size, config.rs:270-272)."""

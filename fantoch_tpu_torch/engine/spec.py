@@ -8,12 +8,13 @@ process (util.rs:188-230), and message delay is half the ping latency
 *lane context* — equal key for key and dtype for dtype to the JAX
 reference's, ready to be stacked into a batch and moved to the device.
 
-This port builds closed-loop, fault-free lanes with the static key
-generator, single-shard or partially replicated (one process row per
-(shard, region), per-shard client attachment and per-command shard/key
-tables: :func:`command_tables`, filled in by ``driver.prepare_batch``
-from the batch's key stream); the other lane kinds raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+This port builds closed-loop lanes with the static key generator,
+single-shard or partially replicated (one process row per (shard,
+region), per-shard client attachment and per-command shard/key tables:
+:func:`command_tables`, filled in by ``driver.prepare_batch`` from the
+batch's key stream), with an optional fault plan (single-shard,
+``engine/faults.py``) and the reorder perturbation; the other lane kinds
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -29,9 +30,10 @@ from ..core.config import Config
 from ..core.planet import Planet
 from ..core.util import key_hash
 from .dims import INF, EngineDims
-
-# fixed width of the (inert) link-window fault tables every lane carries
-MAX_WINDOWS = 8
+from .faults import (
+    NO_FAULTS, FaultFlags, FaultPlan, fault_ctx, halted_client_mask,
+    min_link_delays, reorder_doomed_last, unavailable,
+)
 
 
 @dataclass
@@ -42,7 +44,9 @@ class LaneSpec:
     config: Config
     region_rows: List[str]  # row index → client region name
     process_regions: List[str] = field(default_factory=list)
-    # fault-plan metadata; always None in this slice (fault-free lanes)
+    # fault-plan capabilities and compact metadata (engine/faults.py);
+    # NO_FAULTS / None for fault-free lanes
+    fault_flags: FaultFlags = NO_FAULTS
     fault_meta: "dict | None" = None
 
 
@@ -64,26 +68,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def _fault_ctx(dims: EngineDims) -> Dict[str, np.ndarray]:
-    """The inert fault-plan ctx every reference lane carries (a
-    fault-free lane's defaults), so ctx trees match key for key."""
-    return {
-        "fault_crash_t": np.full((dims.N,), INF, np.int32),
-        "fault_win_src": np.full((MAX_WINDOWS,), -1, np.int32),
-        "fault_win_dst": np.full((MAX_WINDOWS,), -1, np.int32),
-        "fault_win_t0": np.zeros((MAX_WINDOWS,), np.int32),
-        "fault_win_t1": np.zeros((MAX_WINDOWS,), np.int32),
-        "fault_win_mul": np.ones((MAX_WINDOWS,), np.int32),
-        "fault_win_ovr": np.full((MAX_WINDOWS,), -1, np.int32),
-        "fault_drop_num": np.int32(0),
-        "fault_drop_key": rnd.fold_in(rnd.PRNGKey(0), 0xFA17),
-        "fault_jitter_num": np.int32(1),
-        "fault_jitter_key": rnd.fold_in(rnd.PRNGKey(0), 0x717E),
-        "fault_horizon": np.int32(INF),
-        "fault_unavail": np.int32(0),
-    }
-
-
 def make_lane(
     protocol,
     planet: Planet,
@@ -100,22 +84,23 @@ def make_lane(
     extra_time_ms: int = 1000,
     seed: int = 0,
     reorder: bool = False,
-    faults=None,
+    faults: "FaultPlan | None" = None,
     traffic=None,
     arrivals=None,
 ) -> LaneSpec:
     """``zipf=(coefficient, total_keys)`` switches the workload from the
     ConflictPool generator to Zipf sampling over ``total_keys`` keys
     (key_gen.rs:113-119); lanes batched together must share the same
-    zipf table size."""
-    if faults is not None:
-        raise _not_ported("faults=", "9")
+    zipf table size.
+
+    ``reorder`` scales every message delay by a uniform [0, 10) draw per
+    step (runner.rs:520-524); such lanes run serialized (lookahead 0).
+    ``faults`` attaches a single-shard :class:`FaultPlan`; lanes with and
+    without plans share a batch, run under the batch's flag union."""
     if traffic not in (None, "flat"):
         raise _not_ported("a non-flat traffic= schedule", "11")
     if arrivals not in (None, "closed"):
         raise _not_ported("open-loop arrivals=", "11")
-    if reorder:
-        raise _not_ported("reorder=True", "9")
     n = config.n
     S = config.shard_count
     partial = S > 1 or getattr(protocol, "KPC", 1) > 1
@@ -127,6 +112,20 @@ def make_lane(
     assert S * n <= dims.N
     N, C = dims.N, dims.C
     total = S * n  # live process rows; row = shard * n + region index
+
+    if faults is not None and faults.is_noop():
+        faults = None
+    if faults is not None:
+        assert S == 1, "fault plans are single-shard for now"
+        assert all(r < n for r in faults.crashes), (
+            f"crash rows {sorted(faults.crashes)} out of range for n={n}"
+        )
+        assert all(
+            w.src < n and w.dst < n for w in faults.windows
+        ), "window endpoints out of range"
+    # crashes beyond what the protocol tolerates: the lane ends at once
+    # with ERR_UNAVAIL, so quorum selection keeps its fault-free default
+    unavail = faults is not None and unavailable(faults, protocol, config)
 
     def row_region(row: int) -> str:
         return process_regions[row % n]
@@ -143,20 +142,30 @@ def make_lane(
     # chain of messages starting at q can take to reach p (all-pairs
     # shortest path over delay_pp). The diagonal and padded rows are INF.
     lookahead = np.full((N, N), INF, np.int64)
-    sp = delay_pp[:total, :total].astype(np.int64)
+    if faults is not None and faults.windows:
+        # a window override may undercut the base delay: the bound is
+        # taken over each pair's least delay across the run
+        sp = min_link_delays(faults, delay_pp, total)
+    else:
+        sp = delay_pp[:total, :total].astype(np.int64)
     for k in range(total):
         sp = np.minimum(sp, sp[:, k, None] + sp[None, k, :])
     lookahead[:total, :total] = sp
     np.fill_diagonal(lookahead[:total, :total], INF)
     # with a zero inter-process delay (colocated regions, and always the
     # co-region rows of two shards) fall back to serialized global-time
-    # stepping — such schedules are inherently tied
+    # stepping — such schedules are inherently tied; so do reorder
+    # lanes, whose random delays void the lookahead bound
     offdiag = delay_pp[:total, :total][~np.eye(total, dtype=bool)]
-    if total > 1 and offdiag.min() < 1:
+    if (total > 1 and offdiag.min() < 1) or reorder:
         lookahead[:total, :total] = 0
         np.fill_diagonal(lookahead[:total, :total], INF)
 
     sorted_idx = _sorted_indices(planet, process_regions)
+    if faults is not None and faults.crashes and not unavail:
+        # doomed processes are suspected from the start: last in every
+        # discovery order, so no quorum includes them
+        sorted_idx = reorder_doomed_last(sorted_idx, faults.crashes)
 
     # clients: clients_per_region per region, attached to the closest
     # process
@@ -185,6 +194,14 @@ def make_lane(
                 )
             cmd_budget[c] = commands_per_client
             c += 1
+
+    halted = 0
+    if faults is not None and faults.crashes:
+        # clients of a doomed process (every client under a doomed
+        # leader) are halted: no budget, excused from termination
+        mask = halted_client_mask(faults, config, client_attach[:c])
+        cmd_budget[:c][mask] = 0
+        halted = int(mask.sum())
 
     intervals = np.asarray(
         protocol.periodic_intervals(config, dims), np.int32
@@ -220,13 +237,14 @@ def make_lane(
         "key_gen_kind": key_gen_kind,
         "zipf_cum": zipf_cum,
         "rng_key": rnd.PRNGKey(seed),
-        "reorder": np.int32(0),
+        "reorder": np.int32(1 if reorder else 0),
         # distinct stream from the workload key generator
         "reorder_key": rnd.fold_in(rnd.PRNGKey(seed), 0x5EED),
         "periodic_intervals": intervals,
         "extra_time": np.int32(extra_time_ms),
     }
-    ctx.update(_fault_ctx(dims))
+    ctx.update(fault_ctx(faults, dims))
+    ctx["fault_unavail"] = np.int32(1 if unavail else 0)
     if partial:
         ctx.update(_shard_tables(planet, process_regions, n, S, N))
     ctx.update(protocol.lane_ctx(config, dims, sorted_idx))
@@ -235,6 +253,12 @@ def make_lane(
         config=config,
         region_rows=region_rows,
         process_regions=list(process_regions),
+        fault_flags=faults.flags if faults is not None else NO_FAULTS,
+        fault_meta=(
+            faults.meta(halted_clients=halted, unavail=unavail)
+            if faults is not None
+            else None
+        ),
     )
 
 

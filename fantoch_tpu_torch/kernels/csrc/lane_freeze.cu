@@ -1,12 +1,14 @@
 // K7 lane_freeze: the run loop's per-lane predicate and freeze (replaces
 // fantoch_tpu/engine/core.py _lane_running :1565 and the per-lane select
-// of the vmapped lax.while_loop in build_runner :1591).
+// of the vmapped lax.while_loop in build_runner :1591, with the fault
+// plan's horizon :1574-1577 under FLAG_HORIZON).
 //
 // One launch per step over a table of up to MAX_PLANES state planes,
 // passed by value: for each plane the step's new tensor, the old one and
 // the bytes of one lane's row. Block (l, k) evaluates lane l's predicate
 // on the state the step started from (done time, now, error word, step
-// count, extra time, max_steps); block (l, 0) writes it to running[l].
+// count, extra time, max_steps, and under FLAG_HORIZON the lane's
+// horizon); block (l, 0) writes it to running[l].
 // A running lane's blocks stop there. For a frozen lane, block (l, k)
 // copies the old row of plane k over the new one, 16 bytes a thread
 // where the row is aligned, else 4 or 1. Planes the step passed through
@@ -26,6 +28,7 @@ using namespace fantoch;
 namespace {
 
 constexpr int MAX_PLANES = 64;  // lane_freeze.py MAX_PLANES
+constexpr int FLAG_HORIZON = 8;  // engine/faults.py FLAG_HORIZON
 
 struct Planes {
   char* dst[MAX_PLANES];
@@ -42,15 +45,17 @@ __global__ void lane_freeze_kernel(const Planes pl,
                                    const int* __restrict__ err,
                                    const int* __restrict__ steps,
                                    const int* __restrict__ extra,
+                                   const int* __restrict__ horizon,
                                    bool* __restrict__ running,
-                                   int max_steps) {
+                                   int max_steps, int flags) {
   const int l = blockIdx.x, k = blockIdx.y, t = threadIdx.x;
   const int done = done_time[l], nw = now[l];
   const int end = done >= INF ? INF : done + extra[l];
   const bool finished = done < INF && nw >= end;
   const bool idle = nw >= INF;
   const bool run =
-      !(finished || idle || err[l] != 0) && steps[l] < max_steps;
+      !(finished || idle || err[l] != 0) && steps[l] < max_steps &&
+      (!(flags & FLAG_HORIZON) || nw < horizon[l]);
   if (k == 0 && t == 0) running[l] = run;
   if (run || k >= pl.K) return;
   const long long n = pl.row[k];
@@ -73,8 +78,8 @@ __global__ void lane_freeze_kernel(const Planes pl,
 extern "C" int fantoch_lane_freeze(
     const void* dst_tab, const void* src_tab, const void* row_tab,
     const void* done_time, const void* now, const void* err,
-    const void* steps, const void* extra, void* running, int L, int K,
-    int max_steps, void* stream) {
+    const void* steps, const void* extra, const void* horizon,
+    void* running, int L, int K, int max_steps, int flags, void* stream) {
   if (L == 0) return 0;
   if (K < 0 || K > MAX_PLANES) return (int)cudaErrorInvalidValue;
   Planes pl{};
@@ -87,6 +92,7 @@ extern "C" int fantoch_lane_freeze(
   const dim3 grid(L, K > 0 ? K : 1);
   lane_freeze_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       pl, (const int*)done_time, (const int*)now, (const int*)err,
-      (const int*)steps, (const int*)extra, (bool*)running, max_steps);
+      (const int*)steps, (const int*)extra, (const int*)horizon,
+      (bool*)running, max_steps, flags);
   return (int)cudaGetLastError();
 }

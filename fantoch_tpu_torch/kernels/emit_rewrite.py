@@ -3,15 +3,18 @@ outboxes to the pool rows that K2 lands, and the lane's termination
 bookkeeping.
 
 Replaces ``fantoch_tpu/engine/core.py`` ``_lane_step`` §4 (:941, the
-requeue row and ``merge_emissions`` :399), §5 (:1042, the closed-loop,
-fault-free, no-reorder branch: ``emitter_times`` :252, the TO_CLIENT →
-SUBMIT rewrite, latency metrics, channel ranks and ``pair_cnt``; with
-partial replication's parts counting and target-shard SUBMIT,
-:1177-1182, 1218-1224, 1273-1279) and §7
-(:1494-1563, with ``fold_health`` :215 and ``fold_count`` :244). CUDA
-source: ``csrc/emit_rewrite.cu`` (bound by bytes, :func:`work`).
-:func:`emit_rewrite_plain` is its plain PyTorch twin, used for tensors
-on the CPU.
+requeue row and ``merge_emissions`` :399), §5 (:1042, the closed-loop
+branch: ``emitter_times`` :252, the TO_CLIENT → SUBMIT rewrite, latency
+metrics, channel ranks and ``pair_cnt``; with partial replication's
+parts counting and target-shard SUBMIT, :1177-1182, 1218-1224,
+1273-1279), the fault plan's wire faults and the reorder draws (each
+under its flag of the step's flag word: the reorder scaling :1043-1057,
+:1305-1311, the horizon on client results :1077-1081, link windows
+:1313-1349, jitter :1417-1436, drops :1438-1453) and §7 (:1494-1563,
+with ``fold_health`` :215, ``fold_count`` :244 and ``ERR_UNAVAIL``
+under the crash flag :1516-1520). CUDA source: ``csrc/emit_rewrite.cu``
+(bound by bytes, :func:`work`). :func:`emit_rewrite_plain` is its plain
+PyTorch twin, used for tensors on the CPU.
 
 Both read the handlers' outboxes as ``valid``, ``dst``, ``mtype`` and
 ``payload`` only: a protocol handler never sets ``delay`` or ``src``
@@ -23,10 +26,17 @@ from __future__ import annotations
 
 import torch
 
+from .. import random as rnd
 from ..engine.dims import (
-    ERR_STUCK, INF, PKC, PMT, PPAY, PRQ, PSRC, REQUEUE_LIMIT, EngineDims,
+    ERR_STUCK, ERR_UNAVAIL, INF, PKC, PMT, PPAY, PRQ, PSRC, REQUEUE_LIMIT,
+    EngineDims,
+)
+from ..engine.faults import (
+    FLAG_CRASH, FLAG_DROPS, FLAG_HORIZON, FLAG_JITTER, FLAG_REORDER,
+    FLAG_WINDOWS, MAX_WINDOWS, drop_draw, jitter_draw,
 )
 from . import build, cost
+from .key_table import THREEFRY_OPS
 
 I32 = torch.int32
 
@@ -34,6 +44,11 @@ CLIENT_KEYS = ("issued", "completed", "start_time", "parts", "part_max")
 METRIC_KEYS = ("hist", "lat_sum", "lat_count", "lat_log")
 LANE_KEYS = ("requeues", "max_completion", "done_time", "err", "steps")
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
+# the fault planes K6 reads; windows: src, dst, t0, t1, mul, ovr
+WINDOW_KEYS = ("fault_win_src", "fault_win_dst", "fault_win_t0",
+               "fault_win_t1", "fault_win_mul", "fault_win_ovr")
+# the flags under which rows can be lost on the wire
+WIRE_FLAGS = FLAG_WINDOWS | FLAG_DROPS | FLAG_JITTER
 
 
 def _take(table, idx):
@@ -63,6 +78,32 @@ def _scatter_drop(flat, idx, keep, val, add: bool):
     return ext[:, :K]
 
 
+def _key_words(key):
+    """``[L, 2]`` uint32 keys → two ``[L, 1]`` int64 words."""
+    k = key.view(torch.int32).to(torch.int64) & rnd.MASK
+    return k[:, :1], k[:, 1:]
+
+
+def reorder_draws(reorder_key, steps, E: int):
+    """``[L, 3, E]`` float32: each lane's per-step reorder multipliers,
+    ``jax.random.uniform(fold_in(reorder_key, steps), (3, E),
+    maxval=10.0)``; row 0 scales the TO_CLIENT return, row 1 the next
+    SUBMIT, row 2 the process send."""
+    k0, k1 = _key_words(reorder_key)
+    k0, k1 = rnd.fold_in2(k0, k1, steps.to(torch.int64)[:, None] & rnd.MASK)
+    i = torch.arange(3 * E, dtype=torch.int64, device=steps.device)
+    bits = rnd.bits_at(k0, k1, i[None, :] + k0 * 0)
+    f = ((bits >> 9) | 0x3F800000).to(I32).view(torch.float32) - 1.0
+    u = torch.maximum(f * 10.0 + 0.0, torch.zeros_like(f))
+    return u.reshape(-1, 3, E)
+
+
+def _scale(d, u):
+    """``(d * u).astype(int32)``: int32 → float32, a float32 product,
+    truncated toward zero."""
+    return (d.to(torch.float32) * u).to(I32)
+
+
 def _merge(n: int, f2: int, *parts):
     """Flatten per-process emission blocks ``[L, N, *, ...]`` into one
     ``[L, N*F2, ...]`` wire batch, each process's rows contiguous in the
@@ -75,13 +116,16 @@ def _merge(n: int, f2: int, *parts):
 
 
 def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
-                       dims: EngineDims, submit: int):
-    """``(new_rows [L, E, W], valid [L, E], upd)``: the pool rows of the
-    step's emissions in K2's layout, which of them land, and the lane's
-    new ``clients``, ``metrics``, ``pair_cnt``, ``next_periodic`` and
-    scalars (``err`` without the pool-overflow bit, which K2 adds).
-    ``st`` is the lane state the step started from; ``perr`` the
-    handlers' new per-process error words."""
+                       dims: EngineDims, submit: int, flags: int = 0):
+    """``(new_rows [L, E, W], deliver [L, E], upd)``: the pool rows of
+    the step's emissions in K2's layout, which of them land (valid and
+    not lost on the wire), and the lane's new ``clients``, ``metrics``,
+    ``pair_cnt``, ``next_periodic``, ``fault_dropped`` and scalars
+    (``err`` without the pool-overflow bit, which K2 adds). ``st`` is the
+    lane state the step started from, with the crash-masked timers;
+    ``perr`` the handlers' new per-process error words; ``flags`` the
+    step's flag word (``faults.flag_bits``). Without a wire-fault flag
+    ``fault_dropped`` is ``st``'s own tensor."""
     N, C, F = dims.N, dims.C, dims.F
     L = rows.shape[0]
     dev = rows.device
@@ -115,15 +159,31 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     is_rq = (row_idx % F2) == F2 - 1
     valid, dst = out["valid"], out["dst"]
 
-    # §5 client rewrite: TO_CLIENT → latency record + next SUBMIT
+    # §5 client rewrite: TO_CLIENT → latency record + next SUBMIT; under
+    # reorder each hop's delay scales by its row of the step's draws
+    if flags & FLAG_REORDER:
+        u = reorder_draws(ctx["reorder_key"], st["steps"], E)
+
+        def scaled(d, hop):
+            return _scale(d, u[:, hop])
+    else:
+
+        def scaled(d, hop):
+            return d
     ep_e = ep[:, emitter.long()]
     is_client = valid & (dst >= N)
     c = torch.where(is_client, dst - N, 0)
     cc = c.clamp(0, C - 1)  # the reference's gathers clamp
-    t_arr = ep_e + _take2(ctx["client_delay"], cc, emitter)
+    t_arr = ep_e + scaled(_take2(ctx["client_delay"], cc, emitter), 0)
     cl = st["clients"]
     iota_c = torch.arange(C, dtype=I32, device=dev)
-    oh_done = is_client[..., None] & (c[..., None] == iota_c)  # [L, E, C]
+    if flags & FLAG_HORIZON:
+        # a result reaching its client at or past the horizon is never
+        # delivered: it completes and issues nothing
+        is_client_done = is_client & (t_arr < ctx["fault_horizon"][:, None])
+    else:
+        is_client_done = is_client
+    oh_done = is_client_done[..., None] & (c[..., None] == iota_c)
     arrivals = oh_done.sum(1, dtype=I32)
     parts_new = cl["parts"] + arrivals
     part_max = torch.maximum(
@@ -205,12 +265,39 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     overridden = out["delay"] >= 0
     delay = torch.where(
         issue,
-        _take2(ctx["client_delay"], cc, attach),
-        _take2(ctx["delay_pp"], emitter, dst.clamp(0, N - 1)),
+        scaled(_take2(ctx["client_delay"], cc, attach), 1),
+        scaled(_take2(ctx["delay_pp"], emitter, dst.clamp(0, N - 1)), 2),
     )
     delay = torch.where(overridden, out["delay"], delay)
+
+    # wire faults touch process → process sends only: not client hops,
+    # requeues (deferred deliveries) or self-messages
+    wired = valid & ~is_client & ~is_rq & ~overridden & (dst != emitter)
+    lost = torch.zeros_like(wired)
+    inf = torch.full_like(delay, INF)
+    if flags & FLAG_WINDOWS:
+        # link windows by the emitter's send time; an effective delay at
+        # or past INF partitions (the row keeps its channel count)
+        w = {k: ctx[k][:, None, :] for k in WINDOW_KEYS}
+        wm = (
+            (w["fault_win_src"] == emitter[:, None])
+            & (w["fault_win_dst"] == dst[..., None])
+            & (w["fault_win_t0"] <= ep_e[..., None])
+            & (ep_e[..., None] < w["fault_win_t1"])
+            & wired[..., None]
+        )                                                     # [L, E, W]
+        w_hit = wm.any(-1)
+        # windows of one pair never overlap: masked sums select
+        w_mul = torch.where(wm, w["fault_win_mul"], 0).sum(-1, dtype=I32)
+        w_ovr = torch.where(wm, w["fault_win_ovr"], 0).sum(-1, dtype=I32)
+        w_mul = w_mul.clamp(min=1)
+        # mul > INF // delay is exactly delay * mul > INF (no wraparound)
+        mul_cap = torch.div(inf, delay.clamp(min=1), rounding_mode="floor")
+        eff = torch.where(w_mul > mul_cap, inf, delay * w_mul)
+        eff = torch.where(w_ovr >= 0, w_ovr, eff)
+        lost = w_hit & (eff >= INF)
+        delay = torch.where(w_hit & ~lost, eff, delay)
     valid = valid & (~is_client | issue)
-    msg_arrival = base + delay
     prio = ~is_client & (dst == emitter) & ~overridden
 
     # sequence keys: kcnt counts emissions per (src, dst) channel; a
@@ -235,6 +322,35 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         st["pair_cnt"].reshape(L, -1), emitter * N + dst,
         counted & (dst >= 0) & (dst < N), counted.to(I32), add=True,
     ).reshape(L, N, N)
+
+    if flags & FLAG_JITTER:
+        # every wire hop's delay × a threefry draw in [1, jitter_max],
+        # keyed on (src, dst, channel emission index)
+        k0, k1 = _key_words(ctx["fault_jitter_key"])
+        jm = jitter_draw(
+            k0, k1, emitter.to(torch.int64) + k0 * 0,
+            safe_dst.to(torch.int64), kcnt.to(torch.int64),
+            ctx["fault_jitter_num"].to(torch.int64)[:, None],
+        )
+        j_cap = torch.div(inf, delay.clamp(min=1), rounding_mode="floor")
+        j_eff = torch.where(jm > j_cap, inf, delay * jm.to(I32))
+        j_lost = wired & (j_eff >= INF)
+        delay = torch.where(wired & ~j_lost, j_eff, delay)
+        lost = lost | j_lost
+    msg_arrival = base + delay
+    if flags & FLAG_DROPS:
+        # the drop verdict, keyed as jitter; a lost row keeps its count
+        k0, k1 = _key_words(ctx["fault_drop_key"])
+        draw = drop_draw(k0, k1, emitter.to(torch.int64) + k0 * 0,
+                         safe_dst.to(torch.int64), kcnt.to(torch.int64))
+        lost = lost | (wired & (draw < ctx["fault_drop_num"][:, None]))
+    if flags & WIRE_FLAGS:
+        deliver = valid & ~lost
+        fault_dropped = st["fault_dropped"] + (valid & lost).sum(
+            1, dtype=I32)
+    else:
+        deliver = valid
+        fault_dropped = st["fault_dropped"]
 
     rq_arr = torch.zeros((L, N, F2), dtype=I32, device=dev)
     rq_arr[..., F2 - 1] = rq_next
@@ -269,6 +385,9 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         | ERR_STUCK * stuck.to(I32)
         | (folded & 0xFF)  # the reference's fold keeps the 8 ERR_* bits
     )
+    if flags & FLAG_CRASH:
+        # crashes beyond what the protocol tolerates end the lane now
+        err = err | ERR_UNAVAIL * (ctx["fault_unavail"] != 0).to(I32)
     upd = {
         "next_periodic": next_periodic,
         "clients": {
@@ -285,14 +404,14 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
             "lat_log": lat_log,
         },
         "pair_cnt": pair_cnt,
+        "fault_dropped": fault_dropped,
         "requeues": st["requeues"] + requeued.sum(1, dtype=I32),
         "max_completion": max_completion,
         "done_time": done_time,
         "err": err,
         "steps": st["steps"] + 1,
     }
-    return new_rows, valid, upd
-
+    return new_rows, deliver, upd
 
 
 def _flat_upd(upd):
@@ -303,8 +422,15 @@ def _flat_upd(upd):
             + [upd[k] for k in LANE_KEYS])
 
 
+def _wired_rows(pout, hout, N: int) -> int:
+    """Valid outbox rows to another process: the wire hops."""
+    me = torch.arange(N, device=pout["dst"].device)[None, :, None]
+    return sum(int((o["valid"] & (o["dst"] >= 0) & (o["dst"] < N)
+                    & (o["dst"] != me)).sum()) for o in (pout, hout))
+
+
 def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
-         dims: EngineDims, submit: int, out):
+         dims: EngineDims, submit: int, flags: int, out):
     """``(bytes, ops)`` the region needs on these inputs (``out`` is its
     result). It reads every process's flags, time and error word, the
     outboxes' valid flags and the words of their valid rows, a requeued
@@ -313,8 +439,15 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     delay per TO_CLIENT row, one process delay per other valid row, a
     key and a delay per issued SUBMIT (and under partial replication
     each client's part count, each SUBMIT's target shard and connected
-    process), and the histogram words it increments. It writes the rows that land, every ``valid`` flag and
-    the state words that change."""
+    process), and the histogram words it increments; under the fault
+    flags the plan's words of each lane it needs (the horizon, the
+    windows, a key and a rate, the unavailability word), under reorder
+    the lane's key and step count, and the lost count's word. It writes
+    the rows that land, every ``valid`` flag and the state words that
+    change. Its operations add, per wire hop, the window compares and the
+    threefry blocks of the jitter and drop draws (3 fold-ins and a
+    randint of 4), and under reorder one block per valid row and per
+    issued SUBMIT and one per lane."""
     del submit
     new_rows, valid, upd = out
     L, E, W = new_rows.shape
@@ -349,15 +482,49 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     for a, b in zip(old, new):
         write += int((a != b).sum()) * a.element_size()
     ops = L * E * (F2 + 2 * C + dims.RR + 32)
+    wired = _wired_rows(pout, hout, N)
+    if flags & FLAG_HORIZON:
+        read += cost.nbytes(ctx["fault_horizon"])
+    if flags & FLAG_CRASH:
+        read += cost.nbytes(ctx["fault_unavail"])
+    if flags & FLAG_WINDOWS:
+        read += cost.nbytes(*(ctx[k] for k in WINDOW_KEYS))
+        ops += wired * MAX_WINDOWS * 8
+    for flag, keys in ((FLAG_JITTER, ("fault_jitter_key", "fault_jitter_num")),
+                       (FLAG_DROPS, ("fault_drop_key", "fault_drop_num"))):
+        if flags & flag:
+            read += cost.nbytes(*(ctx[k] for k in keys))
+            ops += wired * 7 * THREEFRY_OPS
+    if flags & WIRE_FLAGS:
+        read += cost.nbytes(st["fault_dropped"])
+        write += int((upd["fault_dropped"] != st["fault_dropped"]).sum()) * 4
+    if flags & FLAG_REORDER:
+        read += cost.nbytes(ctx["reorder_key"])
+        ops += (n_valid + n_issue + L) * THREEFRY_OPS
     return read + write, ops
 
 
+def smem_bytes(N: int, F: int, C: int) -> int:
+    """The shared memory one lane's block of the kernel takes: three
+    words and two flag bytes a row, five words a client, two a lane."""
+    E = N * (2 * F + 1)
+    return (3 * E + 5 * C + 2) * 4 + 2 * E
+
+
+# the most shared memory a block can opt into on Hopper
+SMEM_LIMIT = 232_448
+# the fault planes the kernel reads, in its argument order
+FAULT_KEYS = ("fault_unavail", "fault_horizon", *WINDOW_KEYS,
+              "fault_drop_num", "fault_drop_key", "fault_jitter_num",
+              "fault_jitter_key", "reorder_key")
+
+
 def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
-                 dims: EngineDims, submit: int):
+                 dims: EngineDims, submit: int, flags: int = 0):
     """K6 on CUDA tensors, :func:`emit_rewrite_plain` on CPU tensors."""
     if rows.device.type == "cpu":
         return emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout,
-                                  hout, perr, dims, submit)
+                                  hout, perr, dims, submit, flags)
     L, N, W = rows.shape
     C, F, P, R = dims.C, dims.F, dims.P, fire.shape[2]
     RR, H = dims.RR, dims.H
@@ -368,8 +535,11 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     dev = rows.device
     if N != dims.N or W != 8 + P or P < 3:
         raise ValueError(f"emit_rewrite: N={N}, W={W} do not fit {dims}")
-    if max(E, C, N * N, RR, N * R) > 1024:
-        raise ValueError(f"emit_rewrite: a lane's rows exceed one block")
+    if smem_bytes(N, F, C) > SMEM_LIMIT:
+        raise ValueError(
+            f"emit_rewrite: {E} rows and {C} clients need "
+            f"{smem_bytes(N, F, C)} bytes of shared memory > {SMEM_LIMIT}"
+        )
     chk = build.check
     for name, ob in (("pout", pout), ("hout", hout)):
         chk(f"{name}/valid", ob["valid"], torch.bool, (L, N, F), dev)
@@ -393,6 +563,7 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         "pair_cnt", "next_periodic"] + list(LANE_KEYS)
     for name, t in zip(names, old):
         chk(f"st/{name}", t, I32, shapes.get(name, (L,)), dev)
+    chk("st/fault_dropped", st["fault_dropped"], I32, (L,), dev)
     ctx_shapes = {
         "client_delay": (L, C, N), "delay_pp": (L, N, N),
         "key_table": (L, C, T), "cmd_budget": (L, C),
@@ -401,6 +572,11 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     }
     for name, shape in ctx_shapes.items():
         chk(f"ctx/{name}", ctx[name], I32, shape, dev)
+    for name in FAULT_KEYS:
+        key = name.endswith("_key")
+        chk(f"ctx/{name}", ctx[name], torch.uint32 if key else I32,
+            (L, 2) if key else ((L, MAX_WINDOWS) if name in WINDOW_KEYS
+                                else (L,)), dev)
     # partial replication's tables, or null pointers (single-shard lanes)
     S = TP = TT = 0
     partial = [None, None, None]
@@ -417,15 +593,20 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     new_rows = torch.empty((L, E, W), dtype=I32, device=dev)
     valid = torch.empty((L, E), dtype=torch.bool, device=dev)
     new = [torch.empty_like(t) for t in old]
+    # the lost count is a new plane only under a wire-fault flag
+    dropped = (torch.empty_like(st["fault_dropped"]) if flags & WIRE_FLAGS
+               else st["fault_dropped"])
     tensors = (
         [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
         + [has, rdy, rows, ep, fire, perr] + old
         + [ctx[k] for k in ctx_shapes] + partial + [new_rows, valid] + new
+        + [st["fault_dropped"]] + [ctx[k] for k in FAULT_KEYS]
+        + [dropped if flags & WIRE_FLAGS else None]
     )
-    fn = build.c_function("fantoch_emit_rewrite", len(tensors), 15)
+    fn = build.c_function("fantoch_emit_rewrite", len(tensors), 16)
     build.launch(
         fn, [0 if t is None else t.data_ptr() for t in tensors],
-        [L, N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT],
+        [L, N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT, flags],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     emit_rewrite.launches += 1
@@ -435,6 +616,7 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         "clients": {k: upd[k] for k in CLIENT_KEYS},
         "metrics": {k: upd[k] for k in METRIC_KEYS},
         "pair_cnt": upd["pair_cnt"],
+        "fault_dropped": dropped,
         **{k: upd[k] for k in LANE_KEYS},
     }
     return new_rows, valid, upd

@@ -16,6 +16,7 @@ import ctypes
 import torch
 
 from ..engine.dims import INF
+from ..engine.faults import FLAG_HORIZON
 from . import build, cost
 
 I32 = torch.int32
@@ -29,13 +30,18 @@ class TooManyPlanesError(ValueError):
     """A lane tree with more changed planes than one launch carries."""
 
 
-def lane_running(st, ctx, max_steps: int):
-    """Per-lane loop predicate ``[L]`` (reference ``_lane_running``)."""
+def lane_running(st, ctx, max_steps: int, flags: int = 0):
+    """Per-lane loop predicate ``[L]`` (reference ``_lane_running``);
+    ``flags`` is the step's flag word (``faults.flag_bits``)."""
     done = st["done_time"]
     end = torch.where(done >= INF, INF, done + ctx["extra_time"])
     finished = (done < INF) & (st["now"] >= end)
     idle = st["now"] >= INF
-    return ~(finished | idle | (st["err"] != 0)) & (st["steps"] < max_steps)
+    running = (~(finished | idle | (st["err"] != 0))
+               & (st["steps"] < max_steps))
+    if flags & FLAG_HORIZON:
+        running = running & (st["now"] < ctx["fault_horizon"])
+    return running
 
 
 def _tree_where(mask, new, old):
@@ -50,11 +56,11 @@ def _tree_where(mask, new, old):
     )
 
 
-def lane_freeze_plain(new, old, ctx, max_steps: int):
+def lane_freeze_plain(new, old, ctx, max_steps: int, flags: int = 0):
     """``(state, running)``: ``running`` is the predicate on ``old``, the
     state the step started from; ``state`` is ``new`` for running lanes
     and ``old`` for the others."""
-    running = lane_running(old, ctx, max_steps)
+    running = lane_running(old, ctx, max_steps, flags)
     if bool(running.all()):
         return new, running  # no lane is frozen: the select is ``new``
     return _tree_where(running, new, old), running
@@ -79,16 +85,18 @@ def plane_pairs(new, old):
     return pairs
 
 
-def work(new, old, ctx, max_steps: int, out):
+def work(new, old, ctx, max_steps: int, flags: int, out):
     """``(bytes, ops)`` the region needs on these inputs (``new`` as the
     step left it, ``out`` the result): the predicate reads four words of
-    each lane's old state and its extra time and writes ``running``; a
-    frozen lane's words that the step changed are read from ``old`` and
-    written back."""
+    each lane's old state, its extra time and, under the horizon flag,
+    its horizon, and writes ``running``; a frozen lane's words that the
+    step changed are read from ``old`` and written back."""
     _state, running = out
     frozen = ~running
     read = cost.nbytes(old["done_time"], old["now"], old["err"],
                        old["steps"], ctx["extra_time"])
+    if flags & FLAG_HORIZON:
+        read += cost.nbytes(ctx["fault_horizon"])
     moved = 0
     for n, o in _leaves(new, old):
         if n is o:
@@ -99,18 +107,19 @@ def work(new, old, ctx, max_steps: int, out):
     return read + 2 * moved + cost.nbytes(running), ops
 
 
-def lane_freeze(new, old, ctx, max_steps: int):
+def lane_freeze(new, old, ctx, max_steps: int, flags: int = 0):
     """K7 on CUDA tensors, :func:`lane_freeze_plain` on CPU tensors. The
     kernel writes the frozen lanes' rows of ``old`` into ``new``'s
     planes in place (they are the step's own fresh outputs) and returns
     ``(new, running)``."""
     dev = old["now"].device
     if dev.type == "cpu":
-        return lane_freeze_plain(new, old, ctx, max_steps)
+        return lane_freeze_plain(new, old, ctx, max_steps, flags)
     L = old["now"].shape[0]
     for k in ("done_time", "now", "err", "steps"):
         build.check(f"old/{k}", old[k], I32, (L,), dev)
     build.check("extra_time", ctx["extra_time"], I32, (L,), dev)
+    build.check("fault_horizon", ctx["fault_horizon"], I32, (L,), dev)
     pairs = plane_pairs(new, old)
     for i, (n, o) in enumerate(pairs):
         build.check(f"plane {i}", n, o.dtype, tuple(o.shape), dev)
@@ -122,13 +131,14 @@ def lane_freeze(new, old, ctx, max_steps: int):
         *[o[0].numel() * o.element_size() for _, o in pairs]
     )
     running = torch.empty((L,), dtype=torch.bool, device=dev)
-    fn = build.c_function("fantoch_lane_freeze", 9, 3)
+    fn = build.c_function("fantoch_lane_freeze", 10, 4)
     build.launch(
         fn,
         [ctypes.addressof(dst), ctypes.addressof(src), ctypes.addressof(row)]
         + [t.data_ptr() for t in (old["done_time"], old["now"], old["err"],
-                                  old["steps"], ctx["extra_time"], running)],
-        [L, K, max_steps],
+                                  old["steps"], ctx["extra_time"],
+                                  ctx["fault_horizon"], running)],
+        [L, K, max_steps, flags],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     lane_freeze.launches += 1

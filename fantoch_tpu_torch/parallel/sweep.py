@@ -4,8 +4,9 @@ batches on one device.
 ``make_sweep_specs`` enumerates the points — the reference simulation
 binary's nested loops — into lanes; ``run_sweep`` runs them
 ``batch_lanes`` at a time (each batch: key table, stack, run, collect).
-Segments, scan windows, checkpoints, sharding and mixed-protocol batches
-are not ported yet.
+Each point runs once per fault plan of ``faults``. Segments, scan
+windows, checkpoints, sharding and mixed-protocol batches are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ from typing import List, Optional, Sequence
 from .. import resolve_device
 from ..core.config import Config
 from ..core.planet import Planet
-from ..engine.core import build_runner
 from ..engine.dims import EngineDims
-from ..engine.driver import prepare_batch
+from ..engine.driver import batch_runner, prepare_batch
+from ..engine.faults import FaultPlan
 from ..engine.results import LaneResults, collect_results
 from ..engine.spec import LaneSpec, make_lane
 
@@ -37,14 +38,18 @@ def make_sweep_specs(
     extra_time_ms: int = 500,
     zipf=None,
     pool_size: int = 1,
+    faults: "Sequence[FaultPlan | None] | None" = None,
 ) -> List[LaneSpec]:
     """The sweep grid: one lane per (region set, f, conflict) point,
-    seeded by its index (the reference's ``make_sweep_specs``)."""
+    replicated once per entry of ``faults`` (None = fault-free); a
+    point's lanes share its workload, seeded by the point's index (the
+    reference's ``make_sweep_specs``)."""
     base = config_base or Config(n=len(region_sets[0]), f=1,
                                  gc_interval_ms=100)
+    plans: Sequence["FaultPlan | None"] = faults or [None]
     specs = []
-    for i, (regions, f, conflict) in enumerate(
-        itertools.product(region_sets, fs, conflicts)
+    for i, (regions, f, conflict, plan) in enumerate(
+        itertools.product(region_sets, fs, conflicts, plans)
     ):
         specs.append(
             make_lane(
@@ -60,7 +65,8 @@ def make_sweep_specs(
                 client_regions=list(regions),
                 dims=dims,
                 extra_time_ms=extra_time_ms,
-                seed=i,
+                seed=i // len(plans),
+                faults=plan,
             )
         )
     return specs
@@ -75,12 +81,13 @@ def run_sweep(
     device=None,
 ) -> List[LaneResults]:
     """Run every lane, ``batch_lanes`` per batch, on ``device`` (default:
-    the CUDA card). Results are in ``specs`` order."""
+    the CUDA card), each batch under its reorder flag and fault-flag
+    union. Results are in ``specs`` order."""
     dev = resolve_device(device)
-    runner = build_runner(protocol, dims, max_steps)
     out: List[LaneResults] = []
     for lo in range(0, len(specs), batch_lanes):
         chunk = specs[lo:lo + batch_lanes]
+        runner = batch_runner(protocol, dims, chunk, max_steps)
         state, ctx = prepare_batch(protocol, dims, chunk, dev)
         out.extend(collect_results(protocol, dims, runner(state, ctx), chunk))
     return out

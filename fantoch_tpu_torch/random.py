@@ -10,7 +10,9 @@ them with ``jax_threefry_partitionable`` on (its default since 0.5):
 * ``split(key)[i]``     = threefry2x32(key, (0, i));
 * 32 random bits        = y0 ^ y1 of threefry2x32(key, (0, 0));
 * ``randint``           = two sub-keys' bits folded modulo the span;
-* ``uniform`` (float32) = the top 23 bits as a mantissa in [1, 2), minus 1.
+* ``uniform`` (float32) = the top 23 bits as a mantissa in [1, 2), minus 1;
+* the bits of a shaped draw = y0 ^ y1 of threefry2x32(key, (0, i)) at
+  each flat index i.
 
 The functions below take int64 arrays holding u32 values — numpy arrays
 or torch tensors alike (only ``+ ^ & << >> %`` are used) — so the host
@@ -58,7 +60,8 @@ def bits32(k0, k1):
 
 
 def randint2(k0, k1, maxval):
-    """``jax.random.randint(key, (), 0, maxval)`` (int32 result)."""
+    """``jax.random.randint(key, (), 0, maxval)`` (int32 result);
+    ``maxval`` may be an array of per-element bounds."""
     zero = k0 * 0
     a0, a1 = threefry2x32(k0, k1, zero, zero)       # split(key)[0]
     b0, b1 = threefry2x32(k0, k1, zero, zero + 1)   # split(key)[1]
@@ -76,6 +79,24 @@ def uniform_bits(k0, k1):
     """The float32 bit pattern of ``jax.random.uniform(key, ())`` plus
     1.0: a mantissa in [1, 2). View it as float32 and subtract 1."""
     return (bits32(k0, k1) >> 9) | 0x3F800000
+
+
+def bits_at(k0, k1, i):
+    """The 32 bits at flat index ``i`` of ``jax.random.bits(key, shape)``
+    (the partitionable threefry: counter ``(0, i)``)."""
+    y0, y1 = threefry2x32(k0, k1, i * 0, i & MASK)
+    return y0 ^ y1
+
+
+def uniform(key: np.ndarray, shape, maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32, 0, maxval)`` on a ``[2]``
+    uint32 key: each mantissa in [1, 2) minus 1, times ``maxval``, no
+    less than 0, every step rounded to float32."""
+    k = np.asarray(key, np.uint32).astype(np.int64)
+    i = np.arange(int(np.prod(shape)), dtype=np.int64).reshape(shape)
+    f = (((bits_at(k[0], k[1], i) >> 9) | 0x3F800000)
+         .astype(np.uint32).view(np.float32) - np.float32(1.0))
+    return np.maximum(np.float32(0.0), f * np.float32(maxval))
 
 
 def PRNGKey(seed: int) -> np.ndarray:

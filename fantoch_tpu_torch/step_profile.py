@@ -2,13 +2,14 @@
 
     python -m fantoch_tpu_torch.step_profile
         [--protocol basic|fpaxos|tempo|atlas|epaxos|caesar|tempo_partial|
-                    atlas_partial]
+                    atlas_partial|tempo_faults]
         [--steps 128] [--warmup 300]
 
 Builds the first batch of the protocol's main-path sweep
 (``cli.MAIN_PATHS``, the grids ``chip_smoke.py`` drives);
 :func:`profile` runs ``warmup`` steps of the run loop, then times
-``steps`` more twice: once with
+``steps`` more twice, under the batch's reorder flag and fault-flag
+union: once with
 CUDA-synchronised host clocks only, once under ``torch.profiler`` (CPU
 and CUDA activities).
 Prints one JSON line: wall ms per step, device-busy ms per step (the
@@ -30,7 +31,8 @@ import torch
 
 from . import cli, resolve_device
 from .engine.core import frozen_step
-from .engine.driver import prepare_batch
+from .engine.driver import batch_reorder_flag, prepare_batch
+from .engine.faults import NO_FAULTS, batch_fault_flags
 
 
 def _busy_us(intervals) -> float:
@@ -46,7 +48,8 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int):
+def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
+            reorder: bool = False, faults=NO_FAULTS):
     """Run ``warmup`` steps of the run loop on a prepared batch, then
     time ``steps`` more twice (host clocks, then ``torch.profiler``);
     returns the measurements as a dict."""
@@ -54,7 +57,8 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int):
 
     def run(st, n):
         for _ in range(n):
-            st, _running = frozen_step(protocol, dims, st, ctx, max_steps)
+            st, _running = frozen_step(protocol, dims, st, ctx, max_steps,
+                                       reorder, faults)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         return st
@@ -119,11 +123,11 @@ def main(argv=None) -> None:
     dev = resolve_device(args.device)
     sweep = cli.parse_args(cli.MAIN_PATHS[args.protocol])
     protocol, dims, specs = cli.sweep_setup(sweep)
-    state, ctx = prepare_batch(
-        protocol, dims, specs[:sweep.batch_lanes], dev
-    )
+    batch = specs[:sweep.batch_lanes]
+    state, ctx = prepare_batch(protocol, dims, batch, dev)
     print(json.dumps(
-        profile(protocol, dims, state, ctx, dev, args.steps, args.warmup)
+        profile(protocol, dims, state, ctx, dev, args.steps, args.warmup,
+                batch_reorder_flag(batch), batch_fault_flags(batch))
     ))
 
 

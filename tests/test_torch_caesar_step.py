@@ -131,7 +131,7 @@ def trajectories():
         # each step's handler phase on its own, in both engines: the pop
         # of the step (K1's twin), then the reference's handlers and K10's
         # twin on it
-        _a, ep, _n, _act, fire, _s, has, rows = qualify_pop(
+        _a, ep, _n, _act, fire, _s, has, rows, _t = qualify_pop(
             pst["pool"], pst["next_periodic"], port_ctx["lookahead"])
         got = caesar_handle_plain(pst["ps"], has, rows, fire, port_ctx, dims)
         want = handlers(carry.to_numpy(pst["ps"]), has.numpy(), rows.numpy(),

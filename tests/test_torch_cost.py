@@ -58,9 +58,11 @@ def test_qualify_pop_work_counts_the_competing_slots():
     timers = torch.full((1, 2, 1), INF, dtype=torch.int32)
     lookahead = torch.full((1, 2, 2), INF, dtype=torch.int32)
     out = qualify_pop(pool, timers, lookahead)
-    n_bytes, n_ops = qp_work(pool, timers, lookahead, out)
+    n_bytes, n_ops = qp_work(pool, timers, lookahead, None, None, 0, out)
     read = 4 * (2 * 4 + 3 * 3 + 2 * W) + 8 + 16
-    assert n_bytes == read + cost.nbytes(*out)
+    # the ninth output is the timers passed through (no crash flag)
+    assert out[8] is timers
+    assert n_bytes == read + cost.nbytes(*out[:8])
     assert n_ops == 2 * 4 + 4 * 3 + 3 * 4
 
 
@@ -617,7 +619,7 @@ def _emit_case():
         "next_periodic": torch.full((1, N, 1), INF, dtype=torch.int32),
         "requeues": i32(1), "max_completion": i32(1),
         "done_time": torch.full((1,), INF, dtype=torch.int32),
-        "err": i32(1), "steps": i32(1),
+        "err": i32(1), "steps": i32(1), "fault_dropped": i32(1),
     }
     ctx = {
         "periodic_intervals": torch.full((1, 1), 100, dtype=torch.int32),
@@ -635,7 +637,7 @@ def _emit_case():
 def test_emit_rewrite_work_counts_a_completion():
     args, hout = _emit_case()
     out = emit_rewrite(*args)
-    n_bytes, ops = er_work(*args, out)
+    n_bytes, ops = er_work(*args, 0, out)
     # the lane's flags, times, error words, outbox flags and small state
     # and ctx planes (the histogram and latency log apart): 162 bytes;
     # the result row's words, its client delay, the issued SUBMIT's key
@@ -651,7 +653,7 @@ def test_emit_rewrite_work_counts_a_completion():
     # with no result at all only the step counter changes
     hout["valid"][:] = False
     out = emit_rewrite(*args)
-    assert er_work(*args, out)[0] == 162 + 14 + 4
+    assert er_work(*args, 0, out)[0] == 162 + 14 + 4
 
 
 def test_lane_freeze_work_counts_the_frozen_lanes_changes():
@@ -667,7 +669,66 @@ def test_lane_freeze_work_counts_the_frozen_lanes_changes():
     out = lane_freeze(new, old, ctx, 100)
     assert out[1].tolist() == [False, True]
     assert out[0]["x"].tolist() == [[1, 2, 3], [0, 0, 0]]
-    n_bytes, ops = lf_work(new, old, ctx, 100, out)
+    n_bytes, ops = lf_work(new, old, ctx, 100, 0, out)
     moved = 4 + 2 * 4 + 1       # lane 0's steps, two x words, one flag
     assert n_bytes == 5 * 2 * 4 + 2 * moved + 2
     assert ops == 8 * 2 + moved // 4
+
+
+def test_work_counts_the_fault_planes_under_their_flags():
+    """Under the fault flags each module's ``work`` adds what the fault
+    branches need: K1 the crash times, the masked timers it writes and
+    the horizon; K6 the horizon and unavailability words, the windows,
+    the wire keys and rates, the lost count and one threefry chain of 7
+    blocks per wire hop and draw; K7 the horizon."""
+    from fantoch_tpu_torch.engine import faults as fm
+    from fantoch_tpu_torch.kernels.key_table import THREEFRY_OPS
+
+    # K1: one crash time per process, the masked [1, 2, 1] timers
+    pool = torch.zeros((1, 4, W), dtype=torch.int32)
+    pool[0, :, PA] = torch.tensor([3, 3, 9, INF])
+    pool[0, :, PDST] = torch.tensor([0, 0, 1, 0])
+    timers = torch.full((1, 2, 1), INF, dtype=torch.int32)
+    lookahead = torch.full((1, 2, 2), INF, dtype=torch.int32)
+    crash, horizon = torch.full((1, 2), INF, dtype=torch.int32), \
+        torch.full((1,), INF, dtype=torch.int32)
+    base = qp_work(pool, timers, lookahead, None, None, 0,
+                   qualify_pop(pool, timers, lookahead))
+    flags = fm.FLAG_CRASH | fm.FLAG_HORIZON
+    out = qualify_pop(pool, timers, lookahead, crash, horizon, flags)
+    got = qp_work(pool, timers, lookahead, crash, horizon, flags, out)
+    assert got[0] == base[0] + 8 + 8 + 4
+    assert got[1] == base[1] + 4 + 2
+
+    # K6: a wire hop from process 0 to 1 beside the completing result
+    args, hout = _emit_case()
+    hout["valid"][0, 0, 1] = True
+    hout["dst"][0, 0, 1] = 1
+    st, ctx = args[0], args[1]
+    ctx.update({k: torch.zeros((1, 8), dtype=torch.int32) for k in
+                ("fault_win_src", "fault_win_dst", "fault_win_t0",
+                 "fault_win_t1", "fault_win_mul", "fault_win_ovr")})
+    key = torch.zeros((1, 2), dtype=torch.uint32)
+    ctx.update(fault_horizon=torch.full((1,), INF, dtype=torch.int32),
+               fault_unavail=torch.zeros((1,), dtype=torch.int32),
+               fault_drop_key=key, fault_jitter_key=key,
+               fault_drop_num=torch.zeros((1,), dtype=torch.int32),
+               fault_jitter_num=torch.ones((1,), dtype=torch.int32))
+    plain = er_work(*args, 0, emit_rewrite(*args))
+    flags = (fm.FLAG_CRASH | fm.FLAG_HORIZON | fm.FLAG_WINDOWS
+             | fm.FLAG_DROPS | fm.FLAG_JITTER)
+    got = er_work(*args, flags, emit_rewrite(*args, flags))
+    assert got[0] == plain[0] + 4 + 4 + 6 * 32 + 2 * (8 + 4) + 4
+    assert got[1] == plain[1] + 8 * 8 + 2 * 7 * THREEFRY_OPS
+
+    # K7: the horizon word of each lane
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    old = {"done_time": i32([INF]), "now": i32([3]), "err": i32([0]),
+           "steps": i32([1])}
+    new = dict(old, steps=i32([2]))
+    lctx = {"extra_time": i32([10]), "fault_horizon": i32([3])}
+    out = lane_freeze(new, old, lctx, 100, fm.FLAG_HORIZON)
+    assert out[1].tolist() == [False]  # the clock reached the horizon
+    assert lf_work(new, old, lctx, 100, fm.FLAG_HORIZON, out)[0] == (
+        lf_work(new, old, lctx, 100, 0, lane_freeze(new, old, lctx, 100))[0]
+        + 4 + 2 * 4)

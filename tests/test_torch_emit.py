@@ -149,7 +149,7 @@ def _dims():
 def _port_step(st, ctx, dims):
     """The port's step around the stub's tables, on the CPU twins."""
     ps = st["ps"]
-    arrival, ep, now, _a, fire, _s, has, rows = qualify_pop(
+    arrival, ep, now, _a, fire, _s, has, rows, _t = qualify_pop(
         st["pool"], st["next_periodic"], ctx["lookahead"]
     )
 

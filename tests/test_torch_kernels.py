@@ -11,7 +11,13 @@ full pools, out-of-range sources and dot slots that wrap.
   ``graphdep_handle``, ``caesar_handle``, ``tempo_partial_handle`` and
   ``atlas_partial_handle`` against their protocol's ``ready``/``periodic`` and ``run_handlers``
   in the step's order (core.py:873-918), Tempo's (both twins') at each
-  process's event time, Atlas/EPaxos's in both fast-path modes.
+  process's event time, Atlas/EPaxos's in both fast-path modes;
+- ``qualify_pop``, ``emit_rewrite`` and ``land_emissions`` under the
+  fault flags and the reorder switch (the crash cut-off, the horizon,
+  link windows with the overflow clamp, jitter, drops, ERR_UNAVAIL and
+  the reorder draws) against the reference's whole ``_lane_step`` with
+  the flags, around ``tests/test_torch_emit.py``'s stub protocol, and
+  ``lane_freeze`` with the horizon against ``_lane_running``.
 
 The wrappers get CPU tensors, so they run their twins; the CUDA kernels
 are held against the same twins on the card by ``chip_smoke.py``."""
@@ -1588,3 +1594,153 @@ def test_atlas_partial_handle_twin_matches_reference(seed):
     assert (((mt == X.MCOLLECTACK) | (mt == X.MCONSENSUSACK))
             & hout["valid"][..., 0]
             & (hout["mtype"][..., 0] == X.MSHARDCOMMIT)).any()
+
+
+# ----------------------------------------------------------------------
+# K1, K6 and K7 under the fault flags and the reorder switch
+# ----------------------------------------------------------------------
+
+def _random_fault_ctx(rng, lanes, n):
+    """Each lane's fault plan ctx at random, over the stub inputs' small
+    times: crash times, a horizon, link windows (the first with a
+    multiplier past INF on some lanes; overrides, partitions), drop rates
+    from 0 to certain, jitter multipliers and keys, the unavailability
+    word, the reorder key."""
+    from fantoch_tpu_torch.engine.faults import MAX_WINDOWS as MW
+
+    ri = lambda lo, hi, *s: rng.integers(lo, hi, (lanes, *s)).astype(np.int32)  # noqa: E731
+    rb = lambda p, *s: rng.random((lanes, *s)) < p  # noqa: E731
+    key = lambda: rng.integers(0, 1 << 32, (lanes, 2), dtype=np.uint32)  # noqa: E731
+    t0 = ri(0, 5, MW)
+    mul = ri(1, 7, MW)
+    mul[:, 0] = np.where(rb(0.5), 1 << 29, mul[:, 0])
+    ovr = np.where(rb(0.6, MW), -1, np.where(rb(0.5, MW), INF, ri(1, 9, MW)))
+    return {
+        "fault_crash_t": np.where(rb(0.5, n), INF, ri(0, 6, n)),
+        "fault_win_src": np.where(rb(0.2, MW), -1, ri(0, n, MW)),
+        "fault_win_dst": np.where(rb(0.2, MW), -1, ri(0, n, MW)),
+        "fault_win_t0": t0,
+        "fault_win_t1": t0 + ri(1, 6, MW),
+        "fault_win_mul": mul,
+        "fault_win_ovr": ovr.astype(np.int32),
+        "fault_drop_num": np.where(rb(0.3), 0, ri(0, 10_001)),
+        "fault_drop_key": key(),
+        "fault_jitter_num": ri(0, 9),
+        "fault_jitter_key": key(),
+        "fault_horizon": np.where(rb(0.3), INF, ri(0, 9)),
+        "fault_unavail": ri(0, 2) * rb(0.3),
+        "reorder_key": key(),
+    }
+
+
+def _fault_port_step(st, ctx, dims, flags):
+    """The port's step around the stub's tables under ``flags``: K1, K6
+    (reading the masked timers) and K2, their twins."""
+    from fantoch_tpu_torch.kernels import emit_rewrite
+
+    ps = st["ps"]
+    arrival, ep, now, _a, fire, _s, has, rows, timers = qualify_pop(
+        st["pool"], st["next_periodic"], ctx["lookahead"],
+        ctx["fault_crash_t"], ctx["fault_horizon"], flags,
+    )
+
+    def outbox(side):
+        return {"valid": ps[side + "v"], "dst": ps[side + "d"],
+                "mtype": ps[side + "m"], "payload": ps[side + "p"]}
+
+    new_rows, deliver, upd = emit_rewrite(
+        dict(st, next_periodic=timers), ctx, ep, fire, has, ps["rdy"], rows,
+        outbox("p"), outbox("h"), ps["perr"], dims, 0, flags,
+    )
+    pool, _o, peak, err = land_emissions(
+        st["pool"], arrival, deliver, new_rows, st["pool_peak"], upd["err"]
+    )
+    return {**upd, "pool": pool, "now": now, "pool_peak": peak, "err": err}
+
+
+FAULT_MODES = {
+    "faults": (True, False),
+    "reorder": (False, True),
+    "faults+reorder": (True, True),
+}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode", sorted(FAULT_MODES))
+def test_step_twins_under_fault_flags_match_reference(mode, seed):
+    """The whole step's new state (pool arrivals after the crash purge,
+    the re-armed masked timers, the delivered rows with their windowed,
+    jittered and reorder-scaled arrivals, the lost count, the error
+    word) equal to the reference's ``_lane_step(..., reorder, faults)``
+    on random inputs and random fault ctx."""
+    import test_torch_emit as emit_case
+
+    from fantoch_tpu.engine.core import _lane_step
+    from fantoch_tpu.engine.faults import FaultFlags as RFlags
+    from fantoch_tpu_torch.engine.faults import FaultFlags, flag_bits
+
+    faults_on, reorder = FAULT_MODES[mode]
+    st, ctx = emit_case._inputs(seed)
+    rng = np.random.default_rng(seed + 50)
+    ctx.update(_random_fault_ctx(rng, emit_case.L, emit_case.N))
+    rdims, dims = emit_case._dims()
+    on = (True,) * 5 if faults_on else (False,) * 5
+    want = jax.jit(jax.vmap(lambda s, c: _lane_step(
+        emit_case.Stub, rdims, s, c, reorder, RFlags(*on))))(st, ctx)
+    want = jax.tree_util.tree_map(np.asarray, want)
+    flags = flag_bits(FaultFlags(*on), reorder)
+    got = carry.to_numpy(_fault_port_step(
+        carry.to_torch(st, "cpu"), carry.to_torch(ctx, "cpu"), dims, flags))
+    for k in got:
+        for path, g, w in (
+            [(f"{k}/{j}", got[k][j], want[k][j]) for j in got[k]]
+            if isinstance(got[k], dict) else [(k, got[k], want[k])]
+        ):
+            assert g.dtype == w.dtype and g.shape == w.shape, path
+            np.testing.assert_array_equal(g, w, err_msg=path)
+    # the inputs reach the branches: messages and timers purged by a
+    # crash, rows lost on the wire, unavailable lanes
+    if faults_on:
+        assert (want["fault_dropped"] > st["fault_dropped"]).any()
+        assert (want["err"] & 128).any() and not (want["err"] & 128).all()
+        purged = (st["pool"][..., PA] < INF) & (want["pool"][..., PA] >= INF)
+        assert purged.any()
+    if reorder:
+        assert (want["pool"][..., PA] != _fault_port_step(
+            carry.to_torch(st, "cpu"), carry.to_torch(ctx, "cpu"), dims,
+            flag_bits(FaultFlags(*on), False))["pool"][..., PA].numpy()
+        ).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_lane_freeze_horizon_twin_matches_reference(seed):
+    """K7's predicate under the horizon flag: a lane whose clock reached
+    its horizon stops, as ``_lane_running(..., faults)``."""
+    import test_torch_emit as emit_case
+
+    from fantoch_tpu.engine.core import _lane_running
+    from fantoch_tpu.engine.faults import FaultFlags as RFlags
+    from fantoch_tpu_torch.engine.faults import FLAG_HORIZON
+    from fantoch_tpu_torch.kernels import lane_freeze
+
+    new, old, ctx = emit_case._freeze_inputs(seed)
+    rng = np.random.default_rng(seed + 7)
+    lanes = old["now"].shape[0]
+    ctx["fault_horizon"] = np.where(
+        rng.random(lanes) < 0.3, INF, rng.integers(0, 60, lanes)
+    ).astype(np.int32)
+    ctx["fault_horizon"][2] = old["now"][2]  # lane 2 was in its extra time
+    running = np.asarray(jax.vmap(lambda s, c: _lane_running(
+        None, s, c, 10, RFlags(horizon=True)))(old, ctx))
+    got, got_running = lane_freeze(
+        carry.to_torch(new, "cpu"), carry.to_torch(old, "cpu"),
+        carry.to_torch(ctx, "cpu"), 10, FLAG_HORIZON,
+    )
+    np.testing.assert_array_equal(got_running.numpy(), running)
+    plain = np.asarray(jax.vmap(lambda s, c: _lane_running(
+        None, s, c, 10))(old, ctx))
+    assert (plain & ~running).any()  # the horizon stopped a lane
+    got = carry.to_numpy(got)
+    np.testing.assert_array_equal(
+        got["pool"], np.where(running[:, None, None], new["pool"],
+                              old["pool"]))

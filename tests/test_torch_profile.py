@@ -3,11 +3,13 @@ card's numbers come only from a run on the card)."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
 from fantoch_tpu_torch import cli, step_profile
 from fantoch_tpu_torch.engine.driver import prepare_batch
+from fantoch_tpu_torch.engine.faults import batch_fault_flags
 
 
 @pytest.mark.parametrize(
@@ -225,4 +227,48 @@ def test_rehearsal_of_the_atlas_partial_profile_on_cpu():
     state, ctx = prepare_batch(protocol, dims, specs, dev)
     out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2)
     assert out["protocol"] == "AtlasPartialDev" and out["lanes"] == 2
+    assert out["device_activities_per_step_by_name"] == {}
+
+
+def test_tempo_faults_main_path_is_the_cut_grid():
+    """The fault path: the Tempo grid's first 64 subsets, each point
+    once per plan of the reference CLI's --faults example and the rest
+    of the fault model (2,048 lanes in four 512-lane batches, every
+    batch under the union of all five fault flags); a point's lanes
+    share its workload, and its fault-free lane is the Tempo path's
+    lane of that point."""
+    from fantoch_tpu_torch.engine.faults import FaultFlags
+
+    args = cli.parse_args(cli.MAIN_PATHS["tempo_faults"])
+    protocol, dims, specs = cli.sweep_setup(args)
+    assert len(specs) == 2048 and args.batch_lanes == 512
+    for lo in range(0, 2048, 512):
+        assert batch_fault_flags(specs[lo:lo + 512]) == FaultFlags(
+            *(True,) * 5)
+    tempo = cli.parse_args(cli.MAIN_PATHS["tempo"])
+    _p, tdims, tspecs = cli.sweep_setup(tempo)
+    assert tdims == dims
+    for i in (0, 7, 511):
+        clean = specs[4 * i]
+        assert clean.fault_meta is None
+        for k, v in tspecs[i].ctx.items():
+            np.testing.assert_array_equal(v, clean.ctx[k], err_msg=k)
+        for j in range(1, 4):
+            assert specs[4 * i + j].fault_meta is not None
+            np.testing.assert_array_equal(specs[4 * i + j].ctx["rng_key"],
+                                          clean.ctx["rng_key"])
+
+
+def test_rehearsal_of_the_tempo_faults_profile_on_cpu():
+    args = cli.parse_args([
+        "sweep", "--protocol", "tempo", "--n", "3", "--subsets", "1",
+        "--fs", "1", "--conflicts", "100", "--commands", "3",
+        "--faults", cli.TEMPO_FAULT_PLANS,
+    ])
+    protocol, dims, specs = cli.sweep_setup(args)
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev)
+    out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2,
+                               False, batch_fault_flags(specs))
+    assert out["protocol"] == "TempoDev" and out["lanes"] == 4
     assert out["device_activities_per_step_by_name"] == {}

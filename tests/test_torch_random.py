@@ -116,3 +116,45 @@ def test_lane_keys_match_reference(seed):
     for k in ("rng_key", "reorder_key", "fault_drop_key", "fault_jitter_key"):
         assert port.ctx[k].dtype == ref.ctx[k].dtype == np.uint32
         np.testing.assert_array_equal(port.ctx[k], ref.ctx[k])
+
+
+@pytest.mark.parametrize("seed, steps, shape", [
+    (0, 0, (3, 65)), (5, 17, (3, 44)), (4242, 3559, (3, 1060)),
+])
+def test_shaped_uniform_matches_jax(seed, steps, shape):
+    """The reorder draws' source: ``jax.random.uniform(fold_in(key,
+    steps), shape, maxval=10.0)``, whose bits are ``y0 ^ y1`` of
+    ``threefry2x32(key, (0, i))`` over the flat index ``i``; and the
+    twin's torch form of it (``emit_rewrite.reorder_draws``)."""
+    from fantoch_tpu_torch.kernels.emit_rewrite import reorder_draws
+
+    reorder_key = rnd.fold_in(rnd.PRNGKey(seed), 0x5EED)
+    key = rnd.fold_in(reorder_key, steps)
+    want = np.asarray(jr.uniform(jnp.asarray(key), shape, maxval=10.0))
+    got = rnd.uniform(key, shape, 10.0)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    k = key.astype(np.int64)
+    i = np.arange(int(np.prod(shape)), dtype=np.int64)
+    np.testing.assert_array_equal(
+        rnd.bits_at(k[0], k[1], i),
+        np.asarray(jr.bits(jnp.asarray(key), (i.size,))).astype(np.int64))
+    draws = reorder_draws(
+        torch.from_numpy(np.stack([reorder_key] * 2)),
+        torch.tensor([steps, steps], dtype=torch.int32), shape[1],
+    )
+    np.testing.assert_array_equal(
+        draws[1].numpy().view(np.uint32), want.view(np.uint32))
+
+
+def test_randint_with_per_element_maxval_matches_jax():
+    """``randint2`` with an array of bounds (jitter's ``max(jmax, 1)``
+    per lane), bounds below 1 included, against ``jax.random.randint``
+    with the same array."""
+    keys = np.stack([rnd.fold_in(rnd.PRNGKey(s), 0x717E) for s in range(8)])
+    maxval = np.array([1, 2, 3, 8, 0, -4, 10_000, 65_537], np.int32)
+    want = jax.vmap(lambda k, m: jr.randint(k, (), 0, m))(
+        jnp.asarray(keys), jnp.asarray(maxval))
+    k = keys.astype(np.int64)
+    got = rnd.randint2(k[:, 0], k[:, 1], maxval.astype(np.int64))
+    np.testing.assert_array_equal(got, np.asarray(want).astype(np.int64))

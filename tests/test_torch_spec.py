@@ -100,10 +100,8 @@ def test_sweep_specs_and_stack_match_reference():
 @pytest.mark.parametrize(
     "option, value, item",
     [
-        ("faults", object(), "item 9"),
         ("traffic", "diurnal", "item 11"),
         ("arrivals", "poisson", "item 11"),
-        ("reorder", True, "item 9"),
     ],
 )
 def test_out_of_slice_options_raise_by_name(option, value, item):
@@ -115,6 +113,89 @@ def test_out_of_slice_options_raise_by_name(option, value, item):
             process_regions=GCP[:3], client_regions=GCP[:3],
             **{option: value},
         )
+
+
+def _shard_plan():
+    """A crash plan on a two-shard lane: fault plans are single-shard."""
+    from fantoch_tpu.engine import FaultPlan as RFaultPlan
+    from fantoch_tpu.engine.protocols import (
+        partial_dev_protocol as r_partial,
+    )
+    from fantoch_tpu_torch.engine.faults import FaultPlan
+    from fantoch_tpu_torch.engine.protocols import partial_dev_protocol
+
+    def build(make, cfg, planet, dims_cls, partial, plan):
+        proto = partial("tempo", 3, 2)
+        dims = dims_cls.for_partial(proto, 3, 3, 6)
+        make(proto, planet, cfg(n=3, f=1, shard_count=2), dims=dims,
+             conflict_rate=100, pool_size=4, commands_per_client=2,
+             clients_per_region=1, process_regions=GCP[:3],
+             client_regions=GCP[:3], faults=plan)
+
+    return (
+        lambda: build(r_make_lane, RConfig, RPlanet.new(), RDims, r_partial,
+                      RFaultPlan(crashes={1: 100})),
+        lambda: build(make_lane, Config, Planet.new(), EngineDims,
+                      partial_dev_protocol, FaultPlan(crashes={1: 100})),
+        "single-shard",
+    )
+
+
+def _host_only_plan():
+    """An explicit per-message drop list: the reference's host oracle
+    replays it, the device engine refuses it."""
+    from fantoch_tpu.engine import FaultPlan as RFaultPlan
+    from fantoch_tpu_torch.engine.faults import FaultPlan
+
+    def build(make, cfg, planet, dims, plan):
+        make(BasicDev if make is make_lane else RBasic, planet,
+             cfg(n=3, f=1, gc_interval_ms=100), dims=dims,
+             commands_per_client=1, clients_per_region=1,
+             process_regions=GCP[:3], client_regions=GCP[:3], faults=plan)
+
+    kw = dict(drop_list=((0, 1, 1),), horizon_ms=1000)
+    return (
+        lambda: build(r_make_lane, RConfig, RPlanet.new(),
+                      RDims.for_protocol(RBasic, n=3, clients=3, payload=3),
+                      RFaultPlan(**kw)),
+        lambda: build(make_lane, Config, Planet.new(),
+                      EngineDims.for_protocol(BasicDev, n=3, clients=3,
+                                              payload=3),
+                      FaultPlan(**kw)),
+        "host oracle only",
+    )
+
+
+def _mixed_reorder_batch():
+    """A batch of one reorder lane and one FIFO lane: one step runs a
+    batch, so its lanes must agree."""
+    from fantoch_tpu.engine.driver import batch_reorder_flag as r_flag
+    from fantoch_tpu_torch.engine.driver import batch_reorder_flag
+
+    kw = dict(commands_per_client=1, clients_per_region=1,
+              process_regions=GCP[:3], client_regions=GCP[:3])
+    rd = RDims.for_protocol(RBasic, n=3, clients=3, payload=3)
+    pd = EngineDims.for_protocol(BasicDev, n=3, clients=3, payload=3)
+    ref = [r_make_lane(RBasic, RPlanet.new(), RConfig(n=3, f=1), dims=rd,
+                       reorder=r, **kw) for r in (True, False)]
+    port = [make_lane(BasicDev, Planet.new(), Config(n=3, f=1), dims=pd,
+                      reorder=r, **kw) for r in (True, False)]
+    return (lambda: r_flag(ref), lambda: batch_reorder_flag(port),
+            "cannot mix reorder and FIFO")
+
+
+@pytest.mark.parametrize(
+    "case", [_shard_plan, _host_only_plan, _mixed_reorder_batch],
+    ids=["faults-with-shards", "host-only-plan", "mixed-reorder-batch"],
+)
+def test_fault_refusals_as_the_reference(case):
+    """What the reference refuses of fault plans and reordering, the port
+    refuses by the same assertion."""
+    ref, port, match = case()
+    with pytest.raises(AssertionError, match=match):
+        ref()
+    with pytest.raises(AssertionError, match=match):
+        port()
 
 
 def test_partial_replication_and_other_protocols_raise_by_name():
