@@ -5,7 +5,7 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's twelve CUDA kernels from
+It builds the engine's thirteen CUDA kernels from
 ``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel),
 holds each kernel against its plain PyTorch twin on the card at the
 eight main paths' shapes (exact equality: all integer or bool data;
@@ -49,8 +49,23 @@ per client, and the 2,048-lane Tempo grid under four fault plans (the
 first 64 subsets, each point once per plan; its fault-free lanes equal
 the Tempo sweep's byte for byte) — through ``run_sweep``, each with
 every launch counter set to 0 just before and read just after, and
-holds sampled lanes of each to the plain twins on the host. Any failure raises;
-nothing is caught. Each phase prints its seconds. The last two lines
+holds sampled lanes of each to the plain twins on the host. Then the
+safety monitors' paths: the monitor branches of the five handler
+kernels and of ``emit_rewrite`` against their twins on every step of
+small monitored batches of all six protocols (until executions, a
+monitor-key-range, a missing-execution and, on the injected-bug point,
+an order-divergence violation were seen; the injected-bug point's
+per-lane violations, steps and digests equal
+``tests/fixtures/torch_fuzz_bug_golden.json``), the 2,048-lane Tempo
+sweep with the monitors on (equal to the unmonitored sweep outside the
+three monitor fields), this slice's main path — the ``mc --no-confirm``
+default grid, Tempo, FPaxos and Atlas × n ∈ {3, 5} × 512 schedules,
+counted, lanes 0–3 and the last of each point held to the host twins —
+and the reference bench's fuzz point (nothing flagged), with
+``mon_finalize`` against its twin on the final state of every
+monitored batch. The host twins run in worker processes started before
+the build, overlapping the card's phases. Any failure raises; nothing
+is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
 ``{"ok": true, ...}``.
 Without a CUDA card it exits non-zero and prints no result.
@@ -135,6 +150,10 @@ FAULT_PLANS = [
     {"crash": {"1": 100, "2": 400}},
 ]
 REORDER_SEEDS = [0, 1]
+# K6 is held to its twin on every one of a reorder batch's first steps
+# (cut from the whole run, 3,584 and 5,184 steps, for the time the
+# monitors' phases need)
+REORDER_STEPS = 1024
 # the fault-coverage batch: Tempo, n = 3, two clients in each of the
 # COVERAGE_CLIENTS regions, GC and detached sends every 20 ms; lane i
 # runs plan i, each plan made to show its event within a few hundred
@@ -190,6 +209,7 @@ REPLACES = {
         "fantoch_tpu/engine/protocols/tempo_partial.py:198",
     "atlas_partial_handle":
         "fantoch_tpu/engine/protocols/graphdep_partial.py:219",
+    "mon_finalize": "fantoch_tpu/engine/monitor.py:217",
 }
 HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo": "tempo_handle", "atlas": "graphdep_handle",
@@ -199,10 +219,106 @@ HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo_faults": "tempo_handle"}
 PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
          "tempo_partial", "atlas_partial", "tempo_faults")
-# the Tempo sweep's to_json lines of its first 512 lanes, which the
-# fault path's fault-free lanes must equal
+# the Tempo sweep's to_json lines: its first 512 lanes are the fault
+# path's fault-free lanes, and the monitored Tempo sweep must equal all of
+# them outside the monitor fields
 TEMPO_LINES = []
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
+
+
+class HostTwins:
+    """The host runs of the plain twins that the card's results are held
+    to, in worker processes (one torch thread each, at the lowest
+    priority) started before the build, so they overlap the card's
+    phases: a task runs sampled lanes, or a segment of one, on the CPU. Started with ``spawn`` (the parent holds a CUDA context);
+    :meth:`close` stops every worker."""
+
+    def __init__(self, workers: int = 6):
+        import concurrent.futures
+        import multiprocessing
+
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_host_worker)
+        self.futures = {}
+
+    def submit(self, key, fn, *args):
+        self.futures[key] = self.pool.submit(fn, *args)
+
+    def result(self, key):
+        return self.futures.pop(key).result()
+
+    def close(self):
+        procs = list(getattr(self.pool, "_processes", {}).values())
+        self.pool.shutdown(wait=False, cancel_futures=True)
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+        for p in procs:
+            p.join(timeout=30)
+
+
+def _host_worker() -> None:
+    """A host worker yields the CPU to the process that drives the card
+    (its host-bound step loop sets the sweeps' points/s) and runs torch
+    on one thread."""
+    import os
+
+    import torch
+
+    os.nice(19)
+    torch.set_num_threads(1)
+
+
+def _host_sweep_lanes(name, lanes):
+    """Worker task: lanes ``lanes`` of main path ``name`` on the host."""
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.engine import run_lanes
+
+    t0 = time.perf_counter()
+    protocol, dims, specs = cli.sweep_setup(
+        cli.parse_args(cli.MAIN_PATHS[name]))
+    host = run_lanes(protocol, dims, [specs[i] for i in lanes], device="cpu")
+    return ([json.dumps(h.to_json(), sort_keys=True) for h in host],
+            time.perf_counter() - t0)
+
+
+def _host_segment(spec_kw, plan, state, steps, flags, last):
+    """Worker task: one sampled mc lane on the host from the card's
+    snapshot ``state`` (numpy, one lane), ``steps`` run-loop steps of the
+    plain twins under the card batch's ``flags`` (reorder, fault flags,
+    monitor keys), stopping early once the lane no longer runs (every
+    later step is the identity). Returns the state, and for the ``last``
+    segment also the run's end (``finish_run``) as a ``to_json`` line."""
+    from fantoch_tpu_torch.carry import to_numpy, to_torch
+    from fantoch_tpu_torch.engine.core import finish_run, frozen_step
+    from fantoch_tpu_torch.engine.driver import prepare_batch
+    from fantoch_tpu_torch.engine.faults import FaultFlags
+    from fantoch_tpu_torch.engine.results import collect_results
+    from fantoch_tpu_torch.mc.fuzz import FuzzSpec, point_lanes
+
+    t0 = time.perf_counter()
+    reorder, faults, mk = flags
+    faults = FaultFlags(*faults)
+    proto, dims, specs, _plans, _mk = point_lanes(FuzzSpec(**spec_kw),
+                                                  plans=[plan])
+    _state, ctx = prepare_batch(proto, dims, specs, "cpu", mk)
+    st = to_torch(state, "cpu")
+    for _ in range(steps):
+        st, running = frozen_step(proto, dims, st, ctx, 1 << 22, reorder,
+                                  faults, mk)
+        if not bool(running.any()):
+            break
+    line = None
+    if last:
+        end = finish_run(proto, st, ctx, 1 << 22, reorder, faults, mk)
+        line = json.dumps(collect_results(proto, dims, end, specs)[0].to_json(),
+                          sort_keys=True)
+    return to_numpy(st), line, time.perf_counter() - t0
+
+
+# the host pool (main() opens it)
+HOST = None
 
 
 def _nvidia_smi() -> str:
@@ -882,12 +998,16 @@ def fault_coverage(dev) -> float:
 
 
 def reorder_coverage(dev) -> float:
-    """K6 against its twin on every step of the faults golden batch's
-    Tempo reorder lanes and of the Tempo partial reorder lane of
-    tests/test_torch_faults_reorder.py (2 shards, seed 5), run to their
-    end. Returns the max abs error."""
+    """K6 against its twin on every one of the first
+    :data:`REORDER_STEPS` steps of the faults golden batch's Tempo
+    reorder lanes and of the Tempo partial reorder lane of
+    tests/test_torch_faults_reorder.py (2 shards, seed 5); the golden
+    phase runs the Tempo lanes to their end against the fixture. Returns
+    the max abs error."""
     from fantoch_tpu_torch.core import Config, Planet
-    from fantoch_tpu_torch.engine import EngineDims, make_lane, run_lanes
+    from fantoch_tpu_torch.engine import EngineDims, make_lane
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.driver import prepare_batch
     from fantoch_tpu_torch.engine.protocols import TempoPartialDev
 
     errs, calls = [0.0], [0]
@@ -915,12 +1035,16 @@ def reorder_coverage(dev) -> float:
     with _Patched(emit_rewrite=_checked("emit_rewrite", "emit_rewrite", k6)):
         for label, (p, d, specs) in zip(("tempo", "tempo partial"), batches):
             before = calls[0]
-            res = run_lanes(p, d, specs, device=dev)
-            assert all(r.err == 0 for r in res), [r.err_cause for r in res]
+            state, ctx = prepare_batch(p, d, specs, dev)
+            for _ in range(REORDER_STEPS):
+                state, running = engine_core.frozen_step(
+                    p, d, state, ctx, 1 << 22, True)
+            assert not bool(state["err"].any()), state["err"]
             print(f"kernel emit_rewrite ({label} reorder batch): exact=True "
-                  f"on every one of {calls[0] - before} steps; lanes' steps "
-                  f"{[r.steps for r in res]}, requeues "
-                  f"{[r.requeues for r in res]}")
+                  f"on every one of the first {calls[0] - before} steps; "
+                  f"lanes' steps {state['steps'].tolist()}, requeues "
+                  f"{state['requeues'].tolist()}, running "
+                  f"{running.tolist()}")
     return errs[0]
 
 
@@ -1299,7 +1423,6 @@ def sweep(name, dev):
     import torch
 
     from fantoch_tpu_torch import cli, kernels
-    from fantoch_tpu_torch.engine import run_lanes
     from fantoch_tpu_torch.parallel import run_sweep
 
     args = cli.parse_args(cli.MAIN_PATHS[name])
@@ -1335,7 +1458,7 @@ def sweep(name, dev):
     assert all(launches[k] == 0 for k in other), launches
     if name == "tempo":
         TEMPO_LINES.extend(json.dumps(r.to_json(), sort_keys=True)
-                           for r in results[:512])
+                           for r in results)
     if name == "tempo_faults":
         fault_sweep_checks(specs, results, total, wall, launches)
     else:
@@ -1344,14 +1467,13 @@ def sweep(name, dev):
         main_path_checks(name, dims, specs, results, total)
     t0 = time.perf_counter()
     sample = SAMPLE[name]
-    host = run_lanes(protocol, dims, [specs[i] for i in sample],
-                     device="cpu")
-    for i, h in zip(sample, host):
-        assert json.dumps(h.to_json(), sort_keys=True) == json.dumps(
-            results[i].to_json(), sort_keys=True
-        ), f"{name} lane {i} differs from the host run"
+    host, secs = HOST.result(("sweep", name))
+    for i, line in zip(sample, host):
+        assert line == json.dumps(results[i].to_json(), sort_keys=True), (
+            f"{name} lane {i} differs from the host run")
     print(f"{name} lanes {sample}: card == host plain twins, byte for byte "
-          f"({time.perf_counter() - t0:.1f} s on the host)")
+          f"({secs:.1f} s on the host, waited {time.perf_counter() - t0:.1f} "
+          f"s)")
     return launches
 
 
@@ -1378,7 +1500,7 @@ def fault_sweep_checks(specs, results, total, wall, launches) -> None:
     print(f"tempo_faults: {len(results) / wall:.3f} points/s over the four "
           f"plans, batch steps {launches['qualify_pop']}")
     clean = [json.dumps(r.to_json(), sort_keys=True) for r in results[::k]]
-    assert len(TEMPO_LINES) == 512 and clean == TEMPO_LINES, (
+    assert len(TEMPO_LINES) == 2048 and clean == TEMPO_LINES[:512], (
         "fault-free lanes differ from the Tempo sweep's")
     for spec, r in zip(specs, results):
         if spec.fault_meta is None or "crash" in spec.fault_meta:
@@ -1433,6 +1555,498 @@ def main_path_checks(name, dims, specs, results, total) -> None:
               f"every lane; slow-path commits {slow}")
 
 
+# ----------------------------------------------------------------------
+# the safety monitors and the schedule-fuzz fan-out (mc)
+# ----------------------------------------------------------------------
+
+# the injected-bug point of tests/test_mc_fuzz.py:291-301 (jitter only)
+BUG_POINT = dict(protocol="tempo", n=3, f=1, schedules=8,
+                 commands_per_client=5, seed=3, inject_bug=True,
+                 crash_share=0.0, drop_share=0.0)
+# the monitor-coverage batches: per protocol a small point of jitter and
+# crash lanes plus a jitter lane whose drain tail is 1 ms (its executors
+# undrained at the end: missing-execution on Basic, Tempo, Atlas, EPaxos
+# and Caesar). No drop lanes: a lost message can stall a lane in requeues
+# up to its horizon, thousands of steps of the twins; the mc grid's drop
+# and horizon lanes go through K13's check
+MON_COVERAGE = dict(n=3, f=1, schedules=4, commands_per_client=3, seed=1,
+                    crash_share=0.5, drop_share=0.0)
+MON_PROTOCOLS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar")
+# every K13 launch of a monitored phase, held against its twin
+K13_CHECKED = {"launches": 0, "err": 0.0}
+
+
+def _k13_stand_in():
+    """K13 in ``engine.core`` with its twin compared on every launch: the
+    final state of every monitored batch (crash and horizon lanes
+    included)."""
+    def cmp(a, got, want):
+        K13_CHECKED["err"] = max(K13_CHECKED["err"], _compare(got, want))
+        K13_CHECKED["launches"] += 1
+
+    return _checked("mon_finalize", "mon_finalize", cmp)
+
+
+class _PatchedHandler:
+    """Swaps a handler kernel's module name for a stand-in while open
+    (the protocols import their kernel from its module at each call)."""
+
+    def __init__(self, kname, stand_in):
+        self.mod = importlib.import_module(
+            f"fantoch_tpu_torch.kernels.{kname}")
+        self.kname, self.new = kname, stand_in
+
+    def __enter__(self):
+        self.old = getattr(self.mod, self.kname)
+        setattr(self.mod, self.kname, self.new)
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.kname, self.old)
+
+
+def _mon_json(r, drop_monitor=False):
+    d = r.to_json()
+    if drop_monitor:
+        for k in ("violation", "violation_step", "coverage"):
+            d.pop(k)
+    return json.dumps(d, sort_keys=True)
+
+
+# the mc grid's sampled lanes of each point, and the batch steps between
+# the snapshots of them that the host replays from: a lossy lane may step
+# over 100,000 times to its horizon, some 8 ms a step on the host, so each
+# segment goes to a worker of its own
+MC_SAMPLE = (0, 1, 2, 3, -1)
+SEGMENT = 4096
+
+
+def _lane(tree, i):
+    """Lane ``i`` of a state tree on the card, as numpy with a lane axis
+    of 1."""
+    if isinstance(tree, dict):
+        return {k: _lane(v, i) for k, v in tree.items()}
+    return tree[i:i + 1].cpu().numpy()
+
+
+def _tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(a[k], b[k])
+                                            for k in a)
+    import numpy as np
+
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+class _McTaps:
+    """The mc grid's sampled lanes, tapped from the card's own run (its
+    ``frozen_step`` and K13 calls): each lane's state every
+    :data:`SEGMENT` batch steps and when its batch ends. Each segment in
+    which a lane changed goes to the host pool, which replays it from the
+    card's snapshot with the plain twins; :meth:`check` holds every
+    replayed segment's end to the card's next snapshot and the last
+    one's ``to_json`` to the card's result, byte for byte. Segments
+    where the lane stayed as it was (a finished lane: a running lane
+    counts its steps) need no replay."""
+
+    def __init__(self, specs):
+        from dataclasses import asdict
+
+        from fantoch_tpu_torch.mc.fuzz import (
+            draw_plans, point_config, point_protocol,
+        )
+
+        self.points = []
+        for spec in specs:
+            plans = draw_plans(spec, point_config(spec),
+                               point_protocol(spec))
+            lanes = [i % spec.schedules for i in MC_SAMPLE]
+            self.points.append((asdict(spec), lanes,
+                                [plans[i] for i in lanes]))
+        self.point, self.steps, self.flags = 0, 0, None
+        self.snaps = {}     # (point, lane) -> last (steps, state)
+        self.pending = []   # (point, lane, future key, want state, last)
+        self.host_s = 0.0
+
+    def _snap(self, st, last):
+        spec_kw, lanes, plans = self.points[self.point]
+        for lane, plan in zip(lanes, plans):
+            state = _lane(st, lane)
+            prev = self.snaps.get((self.point, lane))
+            self.snaps[(self.point, lane)] = (self.steps, state)
+            if prev is None:
+                continue
+            steps0, state0 = prev
+            if not last and _tree_equal(state0, state):
+                continue  # a finished lane: nothing to replay
+            key = ("mc", self.point, lane, steps0)
+            HOST.submit(key, _host_segment, spec_kw, plan, state0,
+                        self.steps - steps0, self.flags, last)
+            self.pending.append((self.point, lane, key, state, last))
+
+    def frozen_step(self, orig):
+        def run(protocol, dims, st, ctx, max_steps, reorder=False,
+                faults=None, monitor_keys=0):
+            self.flags = (reorder, tuple(faults), monitor_keys)
+            if self.steps % SEGMENT == 0:
+                self._snap(st, False)
+            self.steps += 1
+            return orig(protocol, dims, st, ctx, max_steps, reorder, faults,
+                        monitor_keys)
+        return run
+
+    def finalize(self, stand_in):
+        def run(st, ctx, flags, order):
+            self._snap(st, True)
+            self.point, self.steps = self.point + 1, 0
+            return stand_in(st, ctx, flags, order)
+        return run
+
+    def check(self, points) -> int:
+        """Wait for every replayed segment and hold it to the card;
+        returns the number of segments."""
+        for point, lane, key, want, last in self.pending:
+            got, line, secs = HOST.result(key)
+            self.host_s += secs
+            assert _tree_equal(got, want), (
+                f"mc point {point} lane {lane}: the host twins' segment "
+                f"{key[3]}+ differs from the card's state")
+            if last:
+                card = json.dumps(points[point].lane_results[lane].to_json(),
+                                  sort_keys=True)
+                assert line == card, (
+                    f"mc point {point} lane {lane}: to_json differs from "
+                    f"the host run")
+        return len(self.pending)
+
+
+def check_monitored_kernels(dev, rows) -> None:
+    """Phase 3 for the monitored paths: the first batch of the mc grid's
+    n = 5 points, stepped 300 times with the monitors on, then one
+    step's handler and K6 arguments (the monitor branches on) held
+    against their twins and timed, and K13 on that state. K13's row goes
+    to ``rows``; the handlers' and K6's monitored times go beside their
+    rows (``monitored``)."""
+    import torch
+
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.driver import (
+        batch_reorder_flag, prepare_batch,
+    )
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags, flag_bits
+    from fantoch_tpu_torch.kernels import cost
+    from fantoch_tpu_torch.mc.fuzz import point_lanes
+
+    args = cli.parse_args(cli.MAIN_PATH_MC)
+    for spec in cli.mc_specs(args):
+        if spec.n != 5:
+            continue
+        proto, dims, specs, _plans, mk = point_lanes(spec)
+        batch = specs[:512]
+        flags = (batch_reorder_flag(batch), batch_fault_flags(batch))
+        state, ctx = prepare_batch(proto, dims, batch, dev, mk)
+        for _ in range(300):
+            state, _r = engine_core.frozen_step(proto, dims, state, ctx,
+                                                1 << 22, *flags, mk)
+        handler = HANDLERS[spec.protocol]
+        captured = {}
+        er = importlib.import_module("fantoch_tpu_torch.kernels.emit_rewrite")
+        hm = importlib.import_module(f"fantoch_tpu_torch.kernels.{handler}")
+
+        def rec(mod, kname):
+            kern = getattr(mod, kname)
+
+            def wrapped(*a):
+                captured[kname] = a
+                return kern(*a)
+            wrapped.launches = 0
+            return wrapped
+
+        with _Patched(emit_rewrite=rec(er, "emit_rewrite")), \
+                _PatchedHandler(handler, rec(hm, handler)):
+            state, _r = engine_core.frozen_step(proto, dims, state, ctx,
+                                                1 << 22, *flags, mk)
+        fb = flag_bits(flags[1], flags[0])
+        k13 = importlib.import_module("fantoch_tpu_torch.kernels.mon_finalize")
+        captured["mon_finalize"] = (state, ctx, fb,
+                                    getattr(proto, "MONITOR_ORDER", True))
+        for kname, mod in ((handler, hm), ("emit_rewrite", er),
+                           ("mon_finalize", k13)):
+            a = captured[kname]
+            kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
+            got, want = kern(*a), plain(*a)
+            if kname == handler:
+                got, want = _handler_view(got), _handler_view(want)
+            torch.cuda.synchronize()
+            err = _compare(got, want)
+            ms = _device_ms(lambda a=a: kern(*a), kname, 50)
+            call_ms = _time_ms(lambda a=a: kern(*a), 50)
+            plain_ms = _time_ms(lambda a=a: plain(*a), 5)
+            n_bytes, n_ops = mod.work(*a, kern(*a))
+            bound_ms, bound_by = cost.bound(n_bytes, n_ops)
+            label = f"mc {spec.protocol} n={spec.n}"
+            print(f"kernel {kname} ({label}, monitored, {mk} keys): "
+                  f"exact=True max_abs_err={err} ms={ms:.5f} "
+                  f"call_ms={call_ms:.5f} plain_ms={plain_ms:.5f} "
+                  f"bound_us={1e3 * bound_ms:.3f} ({bound_by}: {n_bytes} "
+                  f"bytes, {n_ops} ops) L={len(batch)} N={dims.N}")
+            row = dict(path="mc", max_abs_err=err, ms=ms, call_ms=call_ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=None)
+            if kname == "mon_finalize":
+                if spec.protocol == "tempo":
+                    rows[kname] = row
+            else:
+                rows[kname].setdefault("monitored", {})[label] = row
+
+
+def mc_grid(dev):
+    """Phase 8, this slice's main path: the mc default grid (the
+    reference CLI's defaults: Tempo, FPaxos and Atlas x n in {3, 5}, 512
+    schedules a point, 3,072 lanes, seed 0) through ``run_fuzz_point``,
+    the function ``mc --no-confirm`` runs, with every launch counter at 0
+    just before and read just after; K13 against its twin on every
+    batch's final state. Lanes 0-3 and the last lane of each point
+    against the host twins. Returns the launches."""
+    import torch
+
+    from fantoch_tpu_torch import cli, kernels
+    from fantoch_tpu_torch.mc.fuzz import run_fuzz_point
+
+    from fantoch_tpu_torch.engine import core as engine_core
+
+    args = cli.parse_args(cli.MAIN_PATH_MC)
+    specs = cli.mc_specs(args)
+    assert len(specs) == 6 and args.schedules == 512
+    taps = _McTaps(specs)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Patched(mon_finalize=taps.finalize(_k13_stand_in()),
+                  frozen_step=taps.frozen_step(engine_core.frozen_step)):
+        points = [run_fuzz_point(spec, confirm=False, device=dev)
+                  for spec in specs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    total = sum(p.schedules for p in points)
+    for p in points:
+        res = p.lane_results
+        print(f"mc {p.spec.protocol} n={p.spec.n}: {p.schedules} schedules "
+              f"in {p.elapsed_s:.3f} s = {p.schedules_per_sec:.3f} "
+              f"schedules/s; flagged {p.flagged} "
+              f"{sorted({f.violation_cause for f in p.findings})}; engine "
+              f"errors {p.engine_errors}; steps max "
+              f"{max(r.steps for r in res)}; distinct digests "
+              f"{len(set(p.digests))}")
+    print(f"mc grid: {total} schedules in {wall:.3f} s = {total / wall:.3f} "
+          f"schedules/s; flagged {sum(p.flagged for p in points)}; batch "
+          f"steps {launches['qualify_pop']}; launches {launches}")
+    assert total == 3072
+    for k in ("qualify_pop", "tempo_handle", "fpaxos_handle",
+              "graphdep_handle", "emit_rewrite", "land_emissions",
+              "lane_freeze", "key_table"):
+        assert launches[k] > 0, launches
+    assert launches["mon_finalize"] == len(points), launches
+    for k in ("basic_handle", "caesar_handle", "tempo_partial_handle",
+              "atlas_partial_handle"):
+        assert launches[k] == 0, launches
+    assert all(all(r.coverage != 0 for r in p.lane_results) for p in points)
+    t0 = time.perf_counter()
+    segments = taps.check(points)
+    steps = {(p.spec.protocol, p.spec.n): [
+        p.lane_results[i % p.schedules].steps for i in MC_SAMPLE]
+        for p in points}
+    print(f"mc grid lanes 0-3 and the last of each point (steps {steps}): "
+          f"card == host plain twins, every {SEGMENT}-step segment replayed "
+          f"from the card's snapshot ({segments} segments) and to_json with "
+          f"the monitor fields byte for byte ({taps.host_s:.1f} s on the "
+          f"host, waited {time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
+def bench_point(dev) -> None:
+    """The reference bench's fuzz self-check point (bench.py
+    _fuzz_selfcheck): correct Tempo, n = 5, 256 schedules of 10 commands
+    a client, seed 0xF022, mixed plans. Nothing flagged, no engine error
+    but requeue-livelock."""
+    import torch
+
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.mc.fuzz import FuzzSpec, run_fuzz_point
+
+    spec = FuzzSpec(**cli.BENCH_FUZZ)
+    with _Patched(mon_finalize=_k13_stand_in()):
+        res = run_fuzz_point(spec, confirm=False, device=dev)
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in res.engine_errors.items()
+           if k != "requeue-livelock"}
+    print(f"bench fuzz point (tempo n=5, 256 schedules, seed 0xF022): "
+          f"{res.schedules_per_sec:.3f} schedules/s ({res.elapsed_s:.3f} s); "
+          f"flagged {res.flagged}; engine errors {res.engine_errors}; steps "
+          f"max {max(r.steps for r in res.lane_results)}")
+    assert res.flagged == 0, res.summary()
+    assert not bad, res.engine_errors
+
+
+def _checked_handler(kname, seen, errs):
+    """A stand-in for handler kernel ``kname``: kernel and twin on every
+    call, held equal; ``seen`` counts the executions the monitors
+    recorded and the guard bits raised."""
+    import torch
+
+    mod = importlib.import_module(f"fantoch_tpu_torch.kernels.{kname}")
+    kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
+
+    def run(*a):
+        want = plain(*a)
+        got = kern(*a)
+        torch.cuda.synchronize()
+        errs[kname] = max(errs.get(kname, 0.0),
+                          _compare(_handler_view(got), _handler_view(want)))
+        ps, new = a[0], want[1]
+        seen["executions"] += int((new["_mon_cnt"] - ps["_mon_cnt"]).sum())
+        seen["premature guard words"] += int(
+            ((new["_mon_flags"] & 1) != 0).sum())
+        seen["steps"] += 1
+        return got
+
+    run.launches = 0
+    return run
+
+
+def _k6_checked(errs, seen):
+    def cmp(a, got, want):
+        errs["emit_rewrite"] = max(errs.get("emit_rewrite", 0.0),
+                                   _compare(got, want))
+        seen["viol words"] += int((want[2]["viol"] != 0).sum())
+    return _checked("emit_rewrite", "emit_rewrite", cmp)
+
+
+def _monitored_run(proto, dims, specs, mk, dev, errs, seen):
+    """``run_lanes`` on the card with the monitors on and the handler
+    kernel, K6 and K13 held against their twins on every call."""
+    from fantoch_tpu_torch.engine import run_lanes
+
+    kname = HANDLERS[{"TempoDev": "tempo", "TempoStabilityBugDev": "tempo",
+                      "BasicDev": "basic", "FPaxosDev": "fpaxos",
+                      "AtlasDev": "atlas", "EPaxosDev": "epaxos",
+                      "CaesarDev": "caesar"}[
+        getattr(proto, "__name__", type(proto).__name__)]]
+    with _Patched(emit_rewrite=_k6_checked(errs, seen),
+                  mon_finalize=_k13_stand_in()), \
+            _PatchedHandler(kname, _checked_handler(kname, seen, errs)):
+        return run_lanes(proto, dims, specs, device=dev, monitor_keys=mk)
+
+
+def monitor_coverage(dev) -> dict:
+    """The monitor branches of K4, K5, K8, K9, K10 and K6, and K13,
+    against their twins on every step of small monitored batches: per
+    protocol a point of jitter and crash lanes plus a lane whose drain
+    tail is 1 ms (missing-execution); a Tempo batch at conflict 0
+    with one monitor key (monitor-key-range); the injected-bug point
+    (order-divergence), whose per-lane violations, steps and digests
+    must equal the fixture made from the reference. Returns the max abs
+    error by kernel."""
+    from dataclasses import replace
+
+    from fantoch_tpu_torch.engine.faults import FaultPlan
+    from fantoch_tpu_torch.engine.monitor import (
+        VIOL_KEYRANGE, VIOL_MISSING, VIOL_ORDER,
+    )
+    from fantoch_tpu_torch.mc.fuzz import FuzzSpec, point_lanes
+
+    errs = {}
+    raised = {VIOL_KEYRANGE: 0, VIOL_MISSING: 0, VIOL_ORDER: 0}
+    for name in MON_PROTOCOLS:
+        seen = dict.fromkeys(("executions", "premature guard words",
+                              "viol words", "steps"), 0)
+        spec = FuzzSpec(protocol=name, **MON_COVERAGE)
+        proto, dims, specs, plans, mk = point_lanes(spec)
+        short = point_lanes(replace(spec, extra_time_ms=1, schedules=1),
+                            plans=[FaultPlan(jitter_max=8, jitter_seed=1)])[2]
+        res = _monitored_run(proto, dims, specs + short, mk, dev, errs, seen)
+        for r in res:
+            for bit in raised:
+                raised[bit] += bool(r.violation & bit)
+        assert seen["executions"] > 0, (name, seen)
+        print(f"monitor coverage {name}: kernels exact on every one of "
+              f"{seen['steps']} steps; {seen} violations "
+              f"{[r.violation for r in res]} steps "
+              f"{[r.steps for r in res]}")
+    # monitor keys below the lane's keys: conflict 0 draws private keys
+    seen = dict.fromkeys(("executions", "premature guard words",
+                          "viol words", "steps"), 0)
+    spec = FuzzSpec(protocol="tempo", conflict=0, **MON_COVERAGE)
+    proto, dims, specs, _plans, _mk = point_lanes(spec)
+    res = _monitored_run(proto, dims, specs[:1], 1, dev, errs, seen)
+    assert all(r.violation & VIOL_KEYRANGE for r in res), res
+    raised[VIOL_KEYRANGE] += len(res)
+    print(f"monitor coverage tempo (1 monitor key, conflict 0): {seen}; "
+          f"violations {[r.violation for r in res]}")
+    # the injected bug: order divergence, against the fixture
+    seen = dict.fromkeys(("executions", "premature guard words",
+                          "viol words", "steps"), 0)
+    spec = FuzzSpec(**BUG_POINT)
+    proto, dims, specs, _plans, mk = point_lanes(spec)
+    res = _monitored_run(proto, dims, specs, mk, dev, errs, seen)
+    got = {"violation": [r.violation for r in res],
+           "violation_step": [r.violation_step for r in res],
+           "digests": [r.coverage for r in res],
+           "engine_errors": sorted({r.err_cause for r in res if r.err})}
+    want = json.loads((FIXTURES / "torch_fuzz_bug_golden.json").read_text())
+    assert got == want, (got, want)
+    raised[VIOL_ORDER] += sum(bool(v & VIOL_ORDER) for v in got["violation"])
+    assert all(raised.values()), raised
+    print(f"injected-bug point (tempo n=3, 8 schedules, seed 3): equals "
+          f"tests/fixtures/torch_fuzz_bug_golden.json; {seen}; lanes with "
+          f"order-divergence {sum(bool(v & VIOL_ORDER) for v in got['violation'])}"
+          f"; over the phase {raised} lanes raised keyrange/missing/order")
+    return errs
+
+
+def monitored_tempo_sweep(dev):
+    """The 2,048-lane Tempo sweep with the monitors on (monitor keys =
+    pool + clients), counted: its to_json equals the unmonitored sweep's
+    byte for byte outside the three monitor fields, its batch steps equal
+    the unmonitored sweep's, and every lane has a digest. Returns the
+    launches."""
+    import torch
+
+    from fantoch_tpu_torch import cli, kernels
+    from fantoch_tpu_torch.parallel import run_sweep
+
+    args = cli.parse_args(cli.MAIN_PATHS["tempo"])
+    protocol, dims, specs = cli.sweep_setup(args)
+    mk = args.pool_size + args.n * args.clients_per_region
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _Patched(mon_finalize=_k13_stand_in()):
+        results = run_sweep(protocol, dims, specs,
+                            batch_lanes=args.batch_lanes, device=dev,
+                            monitor_keys=mk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    lines = [_mon_json(r, drop_monitor=True) for r in results]
+    plain = [json.dumps({k: v for k, v in json.loads(line).items()
+                         if k not in ("violation", "violation_step",
+                                      "coverage")}, sort_keys=True)
+             for line in TEMPO_LINES]
+    assert len(lines) == 2048 and lines == plain, (
+        "the monitored Tempo sweep differs from the unmonitored one")
+    assert all(r.coverage != 0 for r in results)
+    print(f"sweep tempo monitored ({mk} keys): {len(results)} points in "
+          f"{wall:.3f} s = {len(results) / wall:.3f} points/s; batch steps "
+          f"{launches['qualify_pop']}; violations "
+          f"{sum(1 for r in results if r.violation)}; distinct digests "
+          f"{len({r.coverage for r in results})}; launches {launches}; "
+          f"equal to the unmonitored sweep outside the monitor fields")
+    assert launches["mon_finalize"] == 4, launches
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1440,11 +2054,24 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from fantoch_tpu_torch import kernels
-    from fantoch_tpu_torch.kernels import build
+    import fantoch_tpu_torch  # noqa: F401  (alone in a directory: fails)
 
     dev = torch.device("cuda")
     card = _nvidia_smi()
+    global HOST
+    HOST = HostTwins()
+    try:
+        return _main(dev, card)
+    finally:
+        HOST.close()
+
+
+def _main(dev, card) -> int:
+    import torch
+
+    from fantoch_tpu_torch import kernels
+    from fantoch_tpu_torch.kernels import build
+
     # 1. versions and the card
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} | {torch.cuda.get_device_name(0)}")
@@ -1456,6 +2083,11 @@ def main() -> int:
         print(f"phase {label}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    # the host runs the sampled lanes are held to, in the background (the
+    # mc grid's go in segments while it runs)
+    for name in PATHS:
+        HOST.submit(("sweep", name), _host_sweep_lanes, name, SAMPLE[name])
+
     # 2. build
     phase("2 build", build.build)
     print(f"build: nvcc+link {build.BUILD_SECONDS} s")
@@ -1464,6 +2096,8 @@ def main() -> int:
     rows = {}
     for name in PATHS:
         phase(f"3 kernels ({name} path)", check_kernels, name, dev, rows)
+    phase("3 kernels (monitored mc paths)", check_monitored_kernels, dev,
+          rows)
     assert sorted(rows) == sorted(kernels.WRAPPERS), sorted(rows)
 
     # 4-6. golden batches and fixture bytes on the card
@@ -1487,12 +2121,28 @@ def main() -> int:
         err = phase(f"6 kernels ({label})", fn, dev)
         for kname in knames:
             rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
+    # the monitor branches of the handlers and K6, and K13, against their
+    # twins on every step of small monitored batches
+    for kname, err in phase("6 kernels (monitor coverage)",
+                            monitor_coverage, dev).items():
+        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
 
     # 7. the main paths, each counted on its own
     by_path = {name: phase(f"7 sweep {name}", sweep, name, dev)
                for name in PATHS}
+    by_path["tempo_monitored"] = phase("7 sweep tempo monitored",
+                                       monitored_tempo_sweep, dev)
+    # 8. this slice's main path, the mc default grid, counted; then the
+    # bench's fuzz self-check point
+    by_path["mc"] = phase("8 mc grid", mc_grid, dev)
+    phase("8 mc bench point", bench_point, dev)
+    assert K13_CHECKED["launches"] > 0
+    rows["mon_finalize"]["max_abs_err"] = max(
+        rows["mon_finalize"]["max_abs_err"], K13_CHECKED["err"])
+    print(f"kernel mon_finalize: exact=True on the final state of every one "
+          f"of {K13_CHECKED['launches']} monitored batches")
 
-    # 8. the kernels line, then the verdict
+    # 9. the kernels line, then the verdict
     out = []
     for kname, row in rows.items():
         counts = {p: c[kname] for p, c in by_path.items()}

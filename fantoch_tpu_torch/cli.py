@@ -1,10 +1,14 @@
-"""Command line: ``python -m fantoch_tpu_torch [--device cpu] sweep ...``.
+"""Command line: ``python -m fantoch_tpu_torch [--device cpu] sweep ...``
+and ``... mc --no-confirm ...``.
 
 The ``sweep`` subcommand runs the batched engine over a (region subset
 × f × conflict) grid, each point once per fault plan of ``--faults``,
 and prints the reference CLI's summary JSON (the keys that apply to
-closed-loop, flat-traffic sweeps). It runs on the CUDA card unless
-``--device cpu`` is given.
+closed-loop, flat-traffic sweeps). The ``mc`` subcommand fuzzes a
+(protocol × n) grid of schedules with the safety monitors on
+(``mc/fuzz.py``) and prints the reference's summary JSON; it runs only
+under ``--no-confirm``, since confirmation needs the host oracle. Both
+run on the CUDA card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -92,6 +96,15 @@ TEMPO_FAULT_PLANS = (
 MAIN_PATH_TEMPO_FAULTS = [
     "64" if a == "256" else a for a in MAIN_PATH_TEMPO
 ] + ["--faults", TEMPO_FAULT_PLANS]
+# the mc subcommand's default grid: the reference CLI's own defaults
+# (Tempo, FPaxos and Atlas x n in {3, 5}, 512 schedules a point)
+MAIN_PATH_MC = ["mc", "--no-confirm"]
+# the reference bench's fuzz self-check point (bench.py _fuzz_selfcheck):
+# Tempo, n = 5, 256 schedules of 10 commands a client, mixed plans
+BENCH_FUZZ = dict(protocol="tempo", n=5, f=1, schedules=256,
+                  commands_per_client=10, seed=0xF022)
+# the engine protocols the mc grid takes (the reference's DEV_PROTOCOLS)
+ENGINE_PROTOCOLS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar")
 MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
               "tempo": MAIN_PATH_TEMPO, "atlas": MAIN_PATH_ATLAS,
               "epaxos": MAIN_PATH_EPAXOS, "caesar": MAIN_PATH_CAESAR,
@@ -243,6 +256,107 @@ def cmd_sweep(args) -> None:
     print(json.dumps(summary))
 
 
+def mc_specs(args):
+    """The ``FuzzSpec`` of every (protocol, n) point of an ``mc``
+    command line, in grid order."""
+    from .mc.fuzz import FuzzSpec
+
+    return [
+        FuzzSpec(
+            protocol=proto, n=n, f=args.f, conflict=args.conflict,
+            pool_size=args.pool_size,
+            clients_per_region=args.clients_per_region,
+            commands_per_client=args.commands, schedules=args.schedules,
+            seed=args.seed, jitter_max=args.jitter_max,
+            crash_share=args.crash_share, drop_share=args.drop_share,
+            aws=bool(args.aws), inject_bug=args.inject_bug,
+        )
+        for proto in args.protocols.split(",") for n in args.ns
+    ]
+
+
+def _mc_refuse(what: str, item: str) -> None:
+    print(f"mc refused: {what} is not ported yet (ROADMAP Queue A item "
+          f"{item})", file=sys.stderr)
+    raise SystemExit(2)
+
+
+def cmd_mc(args) -> None:
+    """Device-scale schedule fuzzing (``mc/fuzz.py``) over a (protocol ×
+    n) grid: per point one batch of perturbed schedules with the safety
+    monitors on; prints each point's summary on stderr and the grid's
+    summary JSON (the reference's keys) on stdout. Confirmation,
+    shrinking and ``--replay`` need the host oracle (item 17), the
+    coverage map and the farm the campaign drivers (item 14): each is
+    refused by name, exit 2, before any lane runs."""
+    import time
+
+    from . import resolve_device
+    from .mc.fuzz import HOST_ORACLE_ITEM, run_fuzz_point
+
+    if args.replay:
+        _mc_refuse("--replay (the host oracle)", HOST_ORACLE_ITEM)
+    for flag, value in (("--farm", args.farm),
+                        ("--coverage-dir", args.coverage_dir),
+                        ("--migrate-covmaps", args.migrate_covmaps)):
+        if value:
+            _mc_refuse(f"{flag} (the campaign drivers)", "14")
+    if not args.no_confirm:
+        _mc_refuse("host confirmation (run with --no-confirm)",
+                   HOST_ORACLE_ITEM)
+    protocols = args.protocols.split(",")
+    unknown = [p for p in protocols if p not in ENGINE_PROTOCOLS]
+    if unknown:
+        raise SystemExit(
+            f"unknown protocol(s) {unknown}; choose from "
+            f"{','.join(ENGINE_PROTOCOLS)}"
+        )
+    if args.inject_bug and protocols != ["tempo"]:
+        raise SystemExit(
+            "--inject-bug is a Tempo-specific self-check; pass "
+            "--protocols tempo"
+        )
+    device = resolve_device(args.device)
+    planet = (Planet.from_dataset("latency_aws_2021_02_13") if args.aws
+              else Planet.new())
+    points = []
+    skipped_points = 0
+    t0 = time.perf_counter()
+    for spec in mc_specs(args):
+        if args.budget_s and time.perf_counter() - t0 > args.budget_s:
+            skipped_points += 1
+            continue
+        res = run_fuzz_point(
+            spec, planet=planet, confirm=False,
+            max_confirmations=args.max_confirm,
+            strict_missing=args.strict_missing, device=device,
+        )
+        point = res.summary()
+        points.append(point)
+        print(json.dumps(point), file=sys.stderr, flush=True)
+    elapsed = time.perf_counter() - t0
+    total = sum(p["schedules"] for p in points)
+    fuzz_s = sum(p["fuzz_elapsed_s"] for p in points)
+    errors: dict = {}
+    for p in points:
+        for k, v in p["engine_errors"].items():
+            errors[k] = errors.get(k, 0) + v
+    print(json.dumps({
+        "points": len(points),
+        "skipped_points": skipped_points,
+        "schedules": total,
+        "elapsed_s": round(elapsed, 2),
+        "fuzz_elapsed_s": round(fuzz_s, 2),
+        "schedules_per_sec": round(total / max(fuzz_s, 1e-9), 2),
+        "flagged": sum(p["flagged"] for p in points),
+        "confirmed": sum(p["confirmed"] for p in points),
+        "engine_errors": errors,
+        # repro artifacts come from confirmed, shrunk lanes only
+        "artifacts": [],
+        "grid": points,
+    }))
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="fantoch_tpu_torch")
     parser.add_argument(
@@ -297,6 +411,48 @@ def parse_args(argv=None) -> argparse.Namespace:
         '"horizon": 5000}]\' (lossy plans need a horizon)',
     )
     sw.set_defaults(fn=cmd_sweep)
+
+    mc = sub.add_parser(
+        "mc",
+        help="device-scale schedule fuzzing with safety monitors "
+        "(mc/fuzz.py); runs under --no-confirm",
+    )
+    mc.add_argument("--protocols", default="tempo,fpaxos,atlas",
+                    help="comma-separated engine protocols to fuzz")
+    mc.add_argument("--ns", type=_ints, default=[3, 5],
+                    help="replica counts (one fuzz point per value)")
+    mc.add_argument("--f", type=int, default=1)
+    mc.add_argument("--conflict", type=int, default=100)
+    mc.add_argument("--pool-size", type=int, default=1)
+    mc.add_argument("--commands", type=int, default=5,
+                    help="commands per client")
+    mc.add_argument("--clients-per-region", type=int, default=1)
+    mc.add_argument("--schedules", type=int, default=512,
+                    help="perturbed schedules per (protocol, n) point")
+    mc.add_argument("--seed", type=int, default=0,
+                    help="root PRNG key (plans + workload)")
+    mc.add_argument("--jitter-max", type=int, default=8,
+                    help="per-message delay multiplier bound")
+    mc.add_argument("--crash-share", type=float, default=0.2)
+    mc.add_argument("--drop-share", type=float, default=0.15)
+    mc.add_argument("--budget-s", type=float, default=None,
+                    help="wall-clock guard: skip grid points past this")
+    mc.add_argument("--max-confirm", type=int, default=8,
+                    help="flagged lanes listed per point")
+    mc.add_argument("--strict-missing", action="store_true",
+                    help="treat missing-execution as a finding")
+    mc.add_argument("--no-confirm", action="store_true",
+                    help="skip host confirmation (device flags only); "
+                    "required: confirmation needs the host oracle")
+    mc.add_argument("--inject-bug", action="store_true",
+                    help="fuzz the deliberately broken Tempo twin "
+                    "(pipeline self-check)")
+    mc.add_argument("--aws", action="store_true")
+    for flag in ("--replay", "--coverage-dir", "--farm",
+                 "--migrate-covmaps"):
+        mc.add_argument(flag, default=None,
+                        help="refused: not ported yet")
+    mc.set_defaults(fn=cmd_mc)
     return parser.parse_args(argv)
 
 

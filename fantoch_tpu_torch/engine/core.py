@@ -26,6 +26,14 @@ they are trace-time in the reference: they reach K1, K6 and K7 as one
 integer (``faults.flag_bits``), and each fault branch runs only under
 its flag, so a fault-free batch runs exactly the fault-free step.
 
+``monitor_keys > 0`` runs the safety monitors (``engine/monitor.py``):
+the lane state gains the monitor planes, the handler kernels record
+every execution at their executor's choke point, K6 folds the guard
+bits into the lane's violation word under ``FLAG_MONITOR`` (a monitored
+step is still five launches), and the ``mon_finalize`` kernel reduces
+the planes once per batch when the run loop ends. At 0 the state tree,
+the launches and the results are an unmonitored run's.
+
 State and ctx are dicts of tensors with a leading ``[L]`` lane axis.
 :func:`build_runner` runs the step until every lane ends: as under the
 reference's vmapped ``lax.while_loop``, a lane whose predicate is false
@@ -44,7 +52,9 @@ import torch
 from ..kernels.emit_rewrite import emit_rewrite
 from ..kernels.land_emissions import land_emissions
 from ..kernels.lane_freeze import lane_freeze
+from ..kernels.mon_finalize import mon_finalize
 from ..kernels.qualify_pop import qualify_pop
+from . import monitor
 from .dims import (
     ERR_TRUNCATED, INF, PA, PDST, PKC, PKS, PMT, POOL_FIELDS, PPAY, PSRC,
     EngineDims,
@@ -131,11 +141,13 @@ def emit_broadcast(outbox, mtype, words, n, me=None, exclude_me=False,
 # ----------------------------------------------------------------------
 
 def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
-                    first_keys: np.ndarray):
+                    first_keys: np.ndarray, monitor_keys: int = 0):
     """One lane's initial state (numpy, host side): every live client's
     first SUBMIT in the pool (runner.rs:211-220) and the periodic timers
     armed at t = interval. ``first_keys`` ([C]) are the clients' first
-    command keys (column 1 of the lane's key table)."""
+    command keys (column 1 of the lane's key table). ``monitor_keys >
+    0`` adds the safety monitors' planes with that key capacity; it must
+    match the runner's."""
     N, C, M, P, R = dims.N, dims.C, dims.M, dims.P, dims.R
     pool = np.zeros((M, POOL_FIELDS + P), np.int32)
     pool[:, PA] = INF
@@ -172,7 +184,9 @@ def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
     ).astype(np.int32).copy()
     # timers run only on live process rows (every shard's rows)
     next_periodic[int(ctx_np["rows"]):, :] = INF
+    mon = monitor.mon_init(dims, monitor_keys) if monitor_keys else {}
     return {
+        **mon,
         "pool": pool,
         "ps": protocol.init_state(dims, ctx_np),
         "next_periodic": next_periodic,
@@ -208,11 +222,12 @@ def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
 # ----------------------------------------------------------------------
 
 def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
-              faults: FaultFlags = NO_FAULTS):
+              faults: FaultFlags = NO_FAULTS, monitor_keys: int = 0):
     """One engine step of every lane (closed loop) under the batch's
-    ``faults`` flags and ``reorder`` switch."""
+    ``faults`` flags and ``reorder`` switch; ``monitor_keys > 0`` on a
+    state built with the monitor planes."""
     pool = st["pool"]
-    flags = flag_bits(faults, reorder)
+    flags = flag_bits(faults, reorder, monitor=monitor_keys > 0)
 
     # 0-2. the crash cut-off, qualification, the horizon and the pop
     # (kernel K1); the crash-masked arrivals and timers are written back
@@ -222,18 +237,24 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     )
 
     # 3. readiness gate, periodic timers and handlers, each process at
-    # its event time ep (protocol kernel)
+    # its event time ep (protocol kernel); the monitor planes ride in ps
+    ps_in = monitor.merge_mon(st) if monitor_keys else st["ps"]
     rdy, ps, pout, outbox = protocol.handlers(
-        st["ps"], has, rows, fire, ep, ctx, dims
+        ps_in, has, rows, fire, ep, ctx, dims
     )
+    mon = {}
+    if monitor_keys:
+        ps, mon = monitor.strip_mon(ps)
 
-    # 4-5 and 7. the emission tail, the wire faults and the termination
-    # bookkeeping (kernel K6); fired timers re-arm from the masked ones
+    # 4-5 and 7. the emission tail, the wire faults, the termination
+    # bookkeeping and the monitors' step fold (kernel K6); fired timers
+    # re-arm from the masked ones
     st_in = st if timers is st["next_periodic"] else dict(
         st, next_periodic=timers)
     new_rows, deliver, upd = emit_rewrite(
         st_in, ctx, ep, fire, has, rdy, rows, pout, outbox,
         protocol.error(ps), dims, protocol.SUBMIT, flags,
+        *([mon["mon_flags"]] if monitor_keys else []),
     )
 
     # 6. land the delivered emissions in free pool slots (kernel K2),
@@ -241,7 +262,8 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     new_pool, _overflow, pool_peak, err = land_emissions(
         pool, arrival, deliver, new_rows, st["pool_peak"], upd["err"]
     )
-    return {
+    out = {
+        **mon,
         **upd,
         "pool": new_pool,
         "ps": ps,
@@ -251,39 +273,78 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
         "hlog_n": st["hlog_n"],
         "err": err,
     }
+    if monitor_keys:
+        # the digest is derived once, at the run's end (mon_finalize)
+        out["cov"] = st["cov"]
+    return out
 
 
 def frozen_step(protocol, dims: EngineDims, st, ctx, max_steps: int,
-                reorder: bool = False, faults: FaultFlags = NO_FAULTS):
+                reorder: bool = False, faults: FaultFlags = NO_FAULTS,
+                monitor_keys: int = 0):
     """One step of the run loop: ``(state, running)``. The lanes whose
     predicate is false on ``st`` keep their state, as under the
     reference's vmapped ``lax.while_loop`` (kernel K7)."""
     return lane_freeze(
-        lane_step(protocol, dims, st, ctx, reorder, faults), st, ctx,
-        max_steps, flag_bits(faults, reorder),
+        lane_step(protocol, dims, st, ctx, reorder, faults, monitor_keys),
+        st, ctx, max_steps, flag_bits(faults, reorder),
     )
 
 
+def check_monitorable(protocol, monitor_keys: int) -> None:
+    """Refuse monitors on a protocol without ``mon_exec`` hooks with the
+    reference's error and message (``_check_monitorable``), also under
+    ``python -O``."""
+    if monitor_keys and not getattr(protocol, "MONITORED", False):
+        name = (protocol.__name__ if isinstance(protocol, type)
+                else type(protocol).__name__)
+        raise AssertionError(
+            f"{name} has no monitor hooks (mon_exec at its executor choke "
+            "point); fuzzing it would report every lane as "
+            "missing-execution"
+        )
+
+
 def build_runner(protocol, dims: EngineDims, max_steps: int = 1 << 22,
-                 reorder: bool = False, faults: FaultFlags = NO_FAULTS
-                 ) -> Callable[[Any, Any], Any]:
+                 reorder: bool = False, faults: FaultFlags = NO_FAULTS,
+                 monitor_keys: int = 0) -> Callable[[Any, Any], Any]:
     """The batched runner: (state, ctx) → final state. Every step
     freezes the lanes whose predicate is false; once every
     :data:`CHECK_EVERY` steps the host reads whether any lane was still
     running at the last step. A lane cut by ``max_steps`` before
     finishing reports ``ERR_TRUNCATED``. ``reorder`` and ``faults`` are
     the batch's (``driver.batch_reorder_flag``,
-    ``faults.batch_fault_flags``)."""
+    ``faults.batch_fault_flags``). ``monitor_keys > 0`` runs the safety
+    monitors and reduces them once at the end (kernel
+    ``mon_finalize``)."""
+    check_monitorable(protocol, monitor_keys)
 
     def run(state, ctx):
         st = state
         while True:
             for _ in range(CHECK_EVERY):
                 st, running = frozen_step(protocol, dims, st, ctx, max_steps,
-                                          reorder, faults)
+                                          reorder, faults, monitor_keys)
             if not bool(running.any()):
                 break
-        truncated = (st["steps"] >= max_steps) & (st["done_time"] >= INF)
-        return dict(st, err=st["err"] | ERR_TRUNCATED * truncated.to(I32))
+        return finish_run(protocol, st, ctx, max_steps, reorder, faults,
+                          monitor_keys)
 
     return run
+
+
+def finish_run(protocol, st, ctx, max_steps: int, reorder: bool = False,
+               faults: FaultFlags = NO_FAULTS, monitor_keys: int = 0):
+    """A batch's state once no lane runs: a lane cut by ``max_steps``
+    before finishing gets ``ERR_TRUNCATED``, and with the monitors on
+    the ``mon_finalize`` kernel sets every lane's violation word, first
+    violating step and coverage digest."""
+    truncated = (st["steps"] >= max_steps) & (st["done_time"] >= INF)
+    st = dict(st, err=st["err"] | ERR_TRUNCATED * truncated.to(I32))
+    if monitor_keys:
+        viol, viol_step, cov = mon_finalize(
+            st, ctx, flag_bits(faults, reorder),
+            getattr(protocol, "MONITOR_ORDER", True),
+        )
+        st = dict(st, viol=viol, viol_step=viol_step, cov=cov)
+    return st

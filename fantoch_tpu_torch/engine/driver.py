@@ -59,23 +59,25 @@ def batch_reorder_flag(specs: Sequence[LaneSpec]) -> bool:
 
 
 def batch_runner(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
-                 max_steps: int = 1 << 22):
+                 max_steps: int = 1 << 22, monitor_keys: int = 0):
     """The run loop of one batch, under its reorder flag and the union
-    of its lanes' fault flags."""
+    of its lanes' fault flags; ``monitor_keys > 0`` runs the safety
+    monitors."""
     return build_runner(protocol, dims, max_steps,
                         reorder=batch_reorder_flag(specs),
-                        faults=batch_fault_flags(specs))
+                        faults=batch_fault_flags(specs),
+                        monitor_keys=monitor_keys)
 
 
 def prepare_batch(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
-                  device):
+                  device, monitor_keys: int = 0):
     """Stack the lanes' ctx onto ``device``, compute every lane's
     (client, seq) key table there (``key_table`` kernel; T = max budget
     + 2 columns, as the reference's sweep does) and build the initial
     state from its first column. Partial-replication lanes also get
     their per-command tables (:func:`partial_tables`), and their first
-    SUBMITs go to the first command's target shard. Returns ``(state,
-    ctx)`` tensor trees."""
+    SUBMITs go to the first command's target shard. ``monitor_keys > 0``
+    adds the monitor planes. Returns ``(state, ctx)`` tensor trees."""
     ctx_np = stack_lanes(specs)
     ctx = to_torch(ctx_np, device)
     lane_ctx = [s.ctx for s in specs]
@@ -87,7 +89,7 @@ def prepare_batch(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
     ctx["key_table"] = _keys(ctx, dims, T)
     first = ctx["key_table"][:, :, 1].cpu().numpy()
     state = stack_trees([
-        init_lane_state(protocol, dims, c, first[i])
+        init_lane_state(protocol, dims, c, first[i], monitor_keys)
         for i, c in enumerate(lane_ctx)
     ])
     return to_torch(state, device), ctx
@@ -99,11 +101,14 @@ def run_lanes(
     specs: Sequence[LaneSpec],
     max_steps: int = 1 << 22,
     device=None,
+    monitor_keys: int = 0,
 ) -> List[LaneResults]:
     """Run one batch of lanes to completion on ``device`` (default: the
-    CUDA card; ``"cpu"`` runs the plain twins)."""
+    CUDA card; ``"cpu"`` runs the plain twins); ``monitor_keys > 0``
+    runs the safety monitors with that key capacity."""
     dev = resolve_device(device)
-    state, ctx = prepare_batch(protocol, dims, specs, dev)
-    final = batch_runner(protocol, dims, specs, max_steps)(state, ctx)
+    runner = batch_runner(protocol, dims, specs, max_steps, monitor_keys)
+    state, ctx = prepare_batch(protocol, dims, specs, dev, monitor_keys)
+    final = runner(state, ctx)
     return collect_results(protocol, dims, final, specs)
 

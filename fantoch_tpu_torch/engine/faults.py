@@ -51,13 +51,15 @@ MAX_WINDOWS = 8
 DROP_DENOM = 10_000
 
 # the bits of the step's flag word (flag_bits): one per FaultFlags field,
-# then the reorder perturbation
+# then the reorder perturbation, then the safety monitors' step fold
+# (engine/monitor.py step_viol, in K6)
 FLAG_CRASH = 1
 FLAG_WINDOWS = 2
 FLAG_DROPS = 4
 FLAG_HORIZON = 8
 FLAG_JITTER = 16
 FLAG_REORDER = 32
+FLAG_MONITOR = 64
 
 
 class FaultFlags(NamedTuple):
@@ -77,13 +79,15 @@ class FaultFlags(NamedTuple):
 NO_FAULTS = FaultFlags()
 
 
-def flag_bits(faults: FaultFlags = NO_FAULTS, reorder: bool = False) -> int:
-    """The step's flag word: :data:`FLAG_CRASH` ... :data:`FLAG_REORDER`."""
+def flag_bits(faults: FaultFlags = NO_FAULTS, reorder: bool = False,
+              monitor: bool = False) -> int:
+    """The step's flag word: :data:`FLAG_CRASH` ... :data:`FLAG_MONITOR`."""
     bits = 0
     for bit, on in zip((FLAG_CRASH, FLAG_WINDOWS, FLAG_DROPS, FLAG_HORIZON,
                         FLAG_JITTER), faults):
         bits |= bit if on else 0
-    return bits | (FLAG_REORDER if reorder else 0)
+    return (bits | (FLAG_REORDER if reorder else 0)
+            | (FLAG_MONITOR if monitor else 0))
 
 
 @dataclass(frozen=True)

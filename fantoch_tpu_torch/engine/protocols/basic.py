@@ -33,6 +33,7 @@ from ..core import emit, emit_broadcast, empty_outbox
 from ..dims import (
     ERR_DOT, ERR_PROTO, INF, PMT, PPAY, PSRC, EngineDims, dot_slot,
 )
+from ..monitor import mon_exec
 from .identity import DevIdentity
 from .masked import put, put2, select, take
 
@@ -49,6 +50,11 @@ class BasicDev(DevIdentity):
     TO_CLIENT = 6  # any id ≥ NUM_TYPES; routing is by dst ≥ N
 
     PERIODIC_ROWS = 1  # garbage collection
+    MONITORED = True  # mon_exec hook at the commit apply
+    # Basic's executor applies commits in arrival order and guarantees
+    # no cross-process order, so only the exactly-once counters are
+    # checked (all executions share monitor key 0)
+    MONITOR_ORDER = False
 
     # -- host-side builders -------------------------------------------
 
@@ -182,6 +188,8 @@ class BasicDev(DevIdentity):
             return ob
 
         def apply_commit(st, s, seq, do, ob, ob_slot):
+            # safety monitor (engine/monitor.py): count-only, key 0
+            st = mon_exec(st, 0, s, seq, do)
             expected = take(st["committed_cnt"], s) + 1
             st = dict(
                 st,

@@ -42,10 +42,13 @@ branch asks for them. The scans look only at the dots that can act
 which gives the reference's result: no other dot is ready or
 actionable.
 
-Not here, because this slice's path does not reach them: the safety
-monitor hook (``MONITORED``/``mon_exec``, ROADMAP Queue A item 10) and
-the narrowed metric planes (``NARROW_METRICS``, item 5). Like the
-reference, recovery is not modeled.
+On a monitored step the exec scan records every execution
+(``engine/monitor.py`` ``mon_exec``, the reference's
+``caesar.py:640-646``); Caesar keeps no committed set independent of the
+status table that gates the scan, so it has no execute-before-commit
+guard, as in the reference. Not here: the narrowed metric planes
+(``NARROW_METRICS``, ROADMAP Queue A item 5). Like the reference,
+recovery is not modeled.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from ..dims import (
     SEQ_BOUND, EngineDims, dot_slot,
 )
 from ..iset import first_true, iset_add, iset_contains_gathered
+from ..monitor import mon_exec
 from .identity import DevIdentity
 from .masked import (
     bcast, compact_order, gather_cell, hit, match_take, pack_pairs, put,
@@ -92,6 +96,7 @@ class CaesarDev(DevIdentity):
     TO_CLIENT = 11
 
     PERIODIC_ROWS = 2  # [garbage collection, executed notification]
+    MONITORED = True  # mon_exec hook at the predecessors-executor scan
     # the hoisted scans fill the last four outbox slots, beyond the n + 1
     # a branch itself may fill (the GC drain's broadcast and chain)
     EXTRA_SLOTS = 4
@@ -614,6 +619,8 @@ def _exec_scan(B, ps, ob, client_slot, chain_slot, enable):
     eseq = take2(ps["pseq"], esrc, eslot)
     client = take2(ps["client_of"], esrc, eslot)
     do = enable & (num > 0)
+    # safety monitor (no execute-before-commit guard: see above)
+    ps = mon_exec(ps, take2(ps["key_of"], esrc, eslot), esrc, eseq, do)
     front, gaps, overflow = iset_add(take(ps["ex_front"], esrc),
                                      take(ps["ex_gaps"], esrc), eseq, do)
     eb_n = ps["eb_n"]

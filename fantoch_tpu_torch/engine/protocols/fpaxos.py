@@ -35,6 +35,7 @@ from ..core import emit, emit_broadcast, empty_outbox
 from ..dims import (
     ERR_DOT, ERR_PROTO, INF, PMT, PPAY, PSRC, EngineDims, dot_slot,
 )
+from ..monitor import mon_exec
 from .identity import DevIdentity
 from .masked import put, select, take
 
@@ -52,6 +53,7 @@ class FPaxosDev(DevIdentity):
     TO_CLIENT = 7
 
     PERIODIC_ROWS = 1  # garbage collection
+    MONITORED = True  # mon_exec hook at the slot executor's frontier
 
     # -- host-side builders -------------------------------------------
 
@@ -244,8 +246,12 @@ class FPaxosDev(DevIdentity):
         # process reports (executor/slot.rs:17-69). A client out of
         # range reads process 0 (oh_get)
         in_order = p0 == ps["exec_frontier"] + 1
+        # safety monitor (engine/monitor.py): FPaxos executes one total
+        # order, so every execution hashes into key 0, identified by
+        # its slot (src 0)
+        st4 = mon_exec(ps, 0, 0, p0, in_order)
         st4 = dict(
-            ps,
+            st4,
             err=ps["err"] | ERR_PROTO * (~in_order).to(I32),
             exec_frontier=ps["exec_frontier"] + in_order.to(I32),
         )

@@ -45,10 +45,12 @@ selects with masks (skipping the branches no (lane, process) takes),
 then runs the hoisted drain on every (lane, process), enabled where
 the branch asks for it.
 
-Not here, because this slice's path does not reach them: the safety
-monitor hook (``MONITORED``/``mon_exec``, ROADMAP Queue A item 10) and
-the narrowed metric planes (``NARROW_METRICS``, item 5). Like the
-reference, recovery is not modeled.
+On a monitored step the drain records every execution at its pick
+(``engine/monitor.py`` ``mon_exec``), with the execute-before-commit
+guard read from the GC committed clock, a data path independent of the
+vertex store's committed flags (the reference's ``graphdep.py:415-433``).
+Not here: the narrowed metric planes (``NARROW_METRICS``, ROADMAP Queue
+A item 5). Like the reference, recovery is not modeled.
 """
 
 from __future__ import annotations
@@ -63,7 +65,10 @@ from ..dims import (
     ERR_CAPACITY, ERR_DOT, ERR_PROTO, ERR_SEQ, INF, PMT, PPAY, PSRC,
     SEQ_BOUND, EngineDims, dot_slot,
 )
-from ..iset import first_true, iset_add, iset_contains_gathered
+from ..iset import (
+    first_true, iset_add, iset_contains, iset_contains_gathered,
+)
+from ..monitor import mon_exec
 from .identity import DevIdentity
 from .masked import bcast, put, put2, select, take
 
@@ -86,6 +91,7 @@ class _DepDev(DevIdentity):
     TO_CLIENT = 9
 
     PERIODIC_ROWS = 1  # garbage collection
+    MONITORED = True  # mon_exec hook at the graph executor's drain
     # the hoisted graph drain fills the last two outbox slots, beyond
     # what a branch itself fills
     EXTRA_SLOTS = 2
@@ -460,6 +466,13 @@ def _drain(B, ps, ob, enable):
     eseq = take(take(ps["vx_seq"], esrc), eslot)
     client = take(take(ps["vx_client"], esrc), eslot)
     do = enable & (num_ok > 0)
+    if "_mon_hash" in ps:
+        # safety monitor: the execute-before-commit guard reads the GC
+        # committed clock of the picked dot's source
+        committed = iset_contains(take(ps["comm_front"], esrc),
+                                  take(ps["comm_gaps"], esrc), eseq)
+        ps = mon_exec(ps, take(take(ps["vx_key"], esrc), eslot), esrc, eseq,
+                      do, premature=~committed)
     front, gaps, overflow = iset_add(take(ps["exec_front"], esrc),
                                      take(ps["exec_gaps"], esrc), eseq, do)
     wsrc = torch.where(do, esrc, N)

@@ -88,6 +88,9 @@ class AtlasPartialDev(AtlasDev):
     TO_CLIENT = 15
 
     PERIODIC_ROWS = 2  # [garbage collection, executor cleanup]
+    # the partial twin's handlers carry no safety-monitor hooks (fuzzing
+    # is single-shard, as in the reference): monitors are refused
+    MONITORED = False
 
     def __init__(self, keys: int, shards: int = 2, keys_per_cmd: int = 2,
                  gap_slots: int = 8, req_buffer: int = 16):

@@ -30,11 +30,13 @@ are the plain PyTorch twin of the ``tempo_handle`` CUDA kernel
 with masks (skipping the branches no (lane, process) takes); the kernel
 runs only the branch of each (lane, process).
 
-Not here, because this slice's path does not reach them: the safety
-monitor hook (``MONITORED``/``mon_exec``, ROADMAP Queue A item 10) and
-the narrowed metric planes (``NARROW_METRICS``, item 5). Like the
-reference, recovery is not modeled; ``skip_fast_ack`` is (the
-``skip_capable`` gate below).
+On a monitored step the table executor's drain records every execution
+(``engine/monitor.py`` ``mon_exec``), with the execute-before-commit
+guard read from the GC committed clock, a data path independent of the
+pending table that fed the drain (the reference's ``tempo.py:434-453``).
+Not here: the narrowed metric planes (``NARROW_METRICS``, ROADMAP Queue
+A item 5). Like the reference, recovery is not modeled;
+``skip_fast_ack`` is (the ``skip_capable`` gate below).
 """
 
 from __future__ import annotations
@@ -49,7 +51,8 @@ from ..dims import (
     ERR_CAPACITY, ERR_DOT, ERR_PROTO, ERR_SEQ, INF, PMT, PPAY, PSRC,
     SEQ_BOUND, EngineDims, dot_slot,
 )
-from ..iset import first_true, iset_add, iset_add_range
+from ..iset import first_true, iset_add, iset_add_range, iset_contains
+from ..monitor import mon_exec
 from .identity import DevIdentity
 from .masked import bcast, hit, put, put2, select, take
 
@@ -71,6 +74,7 @@ class TempoDev(DevIdentity):
     TO_CLIENT = 11
 
     PERIODIC_ROWS = 3  # [garbage collection, clock bump, send detached]
+    MONITORED = True  # mon_exec hook at the table executor's drain
 
     def __init__(
         self,
@@ -432,6 +436,14 @@ def _drain(B, ps, key):
     idx = torch.where(tie, packed, INF).argmin(-1).to(I32)
     do = num_ready > 0
     client = take(take(ps["pend_client"], key), idx)
+    if "_mon_hash" in ps:
+        # safety monitor: the execute-before-commit guard reads the GC
+        # committed clock of the executed dot's source
+        e_src = take(take(ps["pend_src"], key), idx)
+        e_seq = take(take(ps["pend_seq"], key), idx)
+        committed = iset_contains(take(ps["comm_front"], e_src),
+                                  take(ps["comm_gaps"], e_src), e_seq)
+        ps = mon_exec(ps, key, e_src, e_seq, do, premature=~committed)
     ps = dict(ps, pend_clock=put2(ps["pend_clock"], key,
                                   torch.where(do, idx, t.PK),
                                   torch.zeros_like(idx)))

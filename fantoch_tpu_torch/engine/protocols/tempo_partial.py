@@ -87,6 +87,9 @@ class TempoPartialDev(TempoDev):
     TO_CLIENT = 16
 
     PERIODIC_ROWS = 3
+    # the partial twin's handlers carry no safety-monitor hooks (fuzzing
+    # is single-shard, as in the reference): monitors are refused
+    MONITORED = False
 
     def __init__(
         self,

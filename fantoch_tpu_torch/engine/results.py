@@ -34,7 +34,7 @@ class LaneResults:
     # fault-plan metadata (None for fault-free lanes) and messages lost
     faults: "dict | None" = None
     dropped: int = 0
-    # safety-monitor outputs (monitored runs only; not ported yet)
+    # safety-monitor outputs (monitored runs only, engine/monitor.py)
     violation: int = 0
     violation_step: int = INF
     coverage: int = 0
@@ -97,7 +97,8 @@ def collect_results(
     st = to_numpy({
         k: final_state[k]
         for k in ("ps", "metrics", "steps", "err", "clients", "pool_peak",
-                  "requeues", "fault_dropped")
+                  "requeues", "fault_dropped", "viol", "viol_step", "cov")
+        if k in final_state
     })
     out: List[LaneResults] = []
     for lane, spec in enumerate(specs):
@@ -116,6 +117,10 @@ def collect_results(
                 requeues=int(st["requeues"][lane]),
                 faults=spec.fault_meta,
                 dropped=int(st["fault_dropped"][lane]),
+                violation=int(st["viol"][lane]) if "viol" in st else 0,
+                violation_step=(int(st["viol_step"][lane])
+                                if "viol_step" in st else INF),
+                coverage=int(st["cov"][lane]) if "cov" in st else 0,
             )
         )
     return out

@@ -17,6 +17,7 @@ from .graphdep_handle import graphdep_handle
 from .key_table import key_table
 from .land_emissions import land_emissions
 from .lane_freeze import lane_freeze
+from .mon_finalize import mon_finalize
 from .qualify_pop import qualify_pop
 from .tempo_handle import tempo_handle
 from .tempo_partial_handle import tempo_partial_handle
@@ -34,6 +35,7 @@ WRAPPERS = {
     "caesar_handle": caesar_handle,
     "tempo_partial_handle": tempo_partial_handle,
     "atlas_partial_handle": atlas_partial_handle,
+    "mon_finalize": mon_finalize,
 }
 
 

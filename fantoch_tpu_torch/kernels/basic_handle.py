@@ -3,7 +3,8 @@ message handler for every (lane, process).
 
 Replaces ``fantoch_tpu/engine/core.py`` ``run_handlers`` (:422) and the
 ``ready``/``periodic`` calls (:890-918) with ``BasicDev.ready/handle/
-periodic`` (``protocols/basic.py:119-320``). CUDA source:
+periodic`` (``protocols/basic.py:119-320``), with the safety monitors'
+``mon_exec`` at the commit apply (:176-180) on monitored steps. CUDA source:
 ``csrc/basic_handle.cu`` (bound by bytes, :func:`work`). :func:`basic_handle_plain` is its plain PyTorch twin
 (the batched handlers of ``engine/protocols/basic.py``), used for tensors
 on the CPU.
@@ -96,7 +97,7 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
     for k in STATE_KEYS:
         write += int((new_ps[k] != ps[k]).sum()) * ps[k].element_size()
     ops = 30 * L * N + n_gc * (2 * N * D + 3 * N * N)
-    return read + write, ops
+    return read + write + cost.monitor_bytes(ps, new_ps), ops
 
 
 def basic_handle(ps, has, rows, fire, ctx, dims: EngineDims):
@@ -136,19 +137,21 @@ def basic_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         }
 
     pout, hout = outbox(), outbox()
+    mon_ptrs, KM, mon_new = build.mon_planes(ps, L, N, dev)
     tensors = (
         [ps[k] for k in STATE_KEYS]
         + [has, rows, fire, ctx["n"], ctx["quorum"], ctx["q_size"], rdy]
         + [new_ps[k] for k in STATE_KEYS]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    fn = build.c_function("fantoch_basic_handle", len(tensors), 7)
+    fn = build.c_function("fantoch_basic_handle", len(tensors) + 6, 8)
     build.launch(
-        fn, [t.data_ptr() for t in tensors], [L, N, D, F, P, R, W],
+        fn, [t.data_ptr() for t in tensors] + mon_ptrs,
+        [L, N, D, F, P, R, W, KM],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     basic_handle.launches += 1
-    return rdy, new_ps, pout, hout
+    return rdy, {**new_ps, **mon_new}, pout, hout
 
 
 basic_handle.launches = 0

@@ -144,3 +144,27 @@ def check(name: str, t, dtype, shape, device) -> None:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+# the monitor planes a monitored step carries inside ``ps``
+# (engine/monitor.py MON_PS_KEYS)
+MON_PS_KEYS = ("_mon_hash", "_mon_cnt", "_mon_flags")
+
+
+def mon_planes(ps, L: int, N: int, device):
+    """A handler kernel's monitor arguments (``csrc/monitor.cuh``):
+    ``(pointers, KM, new)`` — the hash, count and guard planes in, then
+    out; the key capacity; the new planes for the kernel's ``ps``. When
+    ``ps`` carries no monitor planes: six null pointers, 0 and ``{}``."""
+    import torch
+
+    if MON_PS_KEYS[0] not in ps:
+        return [0] * 6, 0, {}
+    KM = ps["_mon_hash"].shape[2]
+    check("ps/_mon_hash", ps["_mon_hash"], torch.int32, (L, N, KM), device)
+    check("ps/_mon_cnt", ps["_mon_cnt"], torch.int32, (L, N, KM), device)
+    check("ps/_mon_flags", ps["_mon_flags"], torch.int32, (L, N), device)
+    new = {k: torch.empty_like(ps[k]) for k in MON_PS_KEYS}
+    ptrs = ([ps[k].data_ptr() for k in MON_PS_KEYS]
+            + [new[k].data_ptr() for k in MON_PS_KEYS])
+    return ptrs, KM, new

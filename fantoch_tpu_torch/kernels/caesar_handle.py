@@ -14,7 +14,9 @@ Replaces ``fantoch_tpu/engine/core.py`` ``run_handlers`` (:422) and the
 executor ``_exec_scan`` (:587) and wait scan ``_wait_scan`` (:498, with
 ``_blocker_verdicts`` :423), and both sides of
 ``fantoch_tpu/engine/iset.py`` (``iset_add`` :68,
-``iset_contains_gathered`` :92). CUDA source: ``csrc/caesar_handle.cu``
+``iset_contains_gathered`` :92), and on monitored steps the safety
+monitors' ``mon_exec`` in the exec scan (:640-646). CUDA source:
+``csrc/caesar_handle.cu``
 with ``csrc/iset.cuh`` (bound by bytes, :func:`work`).
 :func:`caesar_handle_plain` is its plain PyTorch twin (the batched
 handlers of ``engine/protocols/caesar.py``), used for tensors on the
@@ -183,7 +185,7 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
         + blockers * DEP * 4
         + L * N * 2 * N * D
     )
-    return read + write, ops
+    return read + write + cost.monitor_bytes(ps, new_ps), ops
 
 
 def caesar_handle(ps, has, rows, fire, ctx, dims: EngineDims):
@@ -242,16 +244,17 @@ def caesar_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         [has, rows, fire] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    fn = build.c_function("fantoch_caesar_handle", 2 + len(tensors), 14)
+    mon_ptrs, KM, mon_new = build.mon_planes(ps, L, N, dev)
+    fn = build.c_function("fantoch_caesar_handle", 8 + len(tensors), 15)
     build.launch(
         fn,
         [ctypes.addressof(ins), ctypes.addressof(outs)]
-        + [t.data_ptr() for t in tensors],
-        [L, N, D, F, P, W, C, K, S, DEP, BB, G, EB, smem],
+        + [t.data_ptr() for t in tensors] + mon_ptrs,
+        [L, N, D, F, P, W, C, K, S, DEP, BB, G, EB, smem, KM],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     caesar_handle.launches += 1
-    return rdy, new_ps, pout, hout
+    return rdy, {**new_ps, **mon_new}, pout, hout
 
 
 caesar_handle.launches = 0

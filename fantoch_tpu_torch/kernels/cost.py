@@ -31,3 +31,16 @@ def bound(n_bytes: int, n_ops: int):
     if t_bytes >= t_ops:
         return t_bytes, "bytes"
     return t_ops, "operations"
+
+
+def monitor_bytes(ps, new_ps) -> int:
+    """The monitor planes' share of a monitored handler step
+    (``csrc/monitor.cuh``): every process's guard word read, each hash
+    and count word that an execution changes read and written, each
+    changed guard word written; 0 on an unmonitored ``ps``."""
+    if "_mon_hash" not in ps:
+        return 0
+    n = nbytes(ps["_mon_flags"])
+    for k in ("_mon_hash", "_mon_cnt"):
+        n += 2 * 4 * int((new_ps[k] != ps[k]).sum())
+    return n + 4 * int((new_ps["_mon_flags"] != ps["_mon_flags"]).sum())

@@ -11,7 +11,10 @@
 // state slices to the output tensors, then updates them in place; both
 // [F] outboxes are written whole (empty rows: valid 0, dst 0, mtype 0,
 // payload 0). Every one-hot read of the reference (oh_get) reads 0 for an
-// out-of-range index and every one-hot write (oh_set) drops it.
+// out-of-range index and every one-hot write (oh_set) drops it. On a
+// monitored step (KM > 0) each commit apply records its dot on monitor key
+// 0 (protocols/basic.py:176-180; monitor.cuh), count-only: Basic checks no
+// cross-process order.
 //
 // Bound on this card: bytes. The region reads a few state words per
 // (lane, process), and the [N, D] dot slots only where a GC message is
@@ -20,6 +23,7 @@
 // (dominated by the [N, D] dot-slot and buffered-commit planes) out of
 // place, one thread per process, so it moves far more than that.
 #include "common.cuh"
+#include "monitor.cuh"
 
 using namespace fantoch;
 
@@ -75,8 +79,8 @@ __global__ void basic_handle_kernel(
     int* __restrict__ fast_o, int* __restrict__ stab_o,
     int* __restrict__ err_o, bool* __restrict__ pv, int* __restrict__ pd,
     int* __restrict__ pm, int* __restrict__ pp, bool* __restrict__ hv,
-    int* __restrict__ hd, int* __restrict__ hm, int* __restrict__ hp, int L,
-    int N, int D, int F, int P, int R, int W) {
+    int* __restrict__ hd, int* __restrict__ hm, int* __restrict__ hp,
+    const MonArgs ma, int L, int N, int D, int F, int P, int R, int W) {
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (g >= L * N) return;
   const int l = g / N, me = g % N;
@@ -98,6 +102,8 @@ __global__ void basic_handle_kernel(
     prev_o[oN + i] = prev_in[oN + i];
   }
   for (int i = 0; i < N * N; ++i) of_o[oNN + i] = of_in[oNN + i];
+  mon_copy(ma, g, 0, 1);
+  const Mon mon = mon_view(ma, g);
   int own = own_in[g], fast = fast_in[g], stab = stab_in[g], err = err_in[g];
   int* sis = sis_o + oND;
   bool* bc = bc_o + oND;
@@ -146,6 +152,7 @@ __global__ void basic_handle_kernel(
   for (int f = 0; f < F; ++f) hob.row(f, false, 0, 0, 0);
   // commit (s, seq) if `done`; the coordinator reports to its client
   auto apply_commit = [&](int s, int seq, bool done, int ob_slot) {
+    mon.exec(0, s, seq, done, false, true);
     const int cur = get_cc(s);
     if (done && seq != cur + 1) err |= ERR_PROTO;
     if (in_n(s)) cc[s] = cur + (done ? 1 : 0);
@@ -235,8 +242,9 @@ extern "C" int fantoch_basic_handle(
     void* bc_o, void* cc_o, void* acks_o, void* cof_o, void* own_o,
     void* of_o, void* seen_o, void* prev_o, void* fast_o, void* stab_o,
     void* err_o, void* pv, void* pd, void* pm, void* pp, void* hv, void* hd,
-    void* hm, void* hp, int L, int N, int D, int F, int P, int R, int W,
-    void* stream) {
+    void* hm, void* hp, const void* mh_in, const void* mc_in,
+    const void* mf_in, void* mh_o, void* mc_o, void* mf_o, int L, int N,
+    int D, int F, int P, int R, int W, int KM, void* stream) {
   const int total = L * N;
   if (total == 0) return 0;
   const int threads = 128;
@@ -251,7 +259,8 @@ extern "C" int fantoch_basic_handle(
       (bool*)rdy_out, (int*)sis_o, (bool*)bc_o, (int*)cc_o, (int*)acks_o,
       (int*)cof_o, (int*)own_o, (int*)of_o, (bool*)seen_o, (int*)prev_o,
       (int*)fast_o, (int*)stab_o, (int*)err_o, (bool*)pv, (int*)pd,
-      (int*)pm, (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp, L, N, D,
-      F, P, R, W);
+      (int*)pm, (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
+      mon_args(mh_in, mc_in, mf_in, mh_o, mc_o, mf_o, KM), L, N, D, F, P, R,
+      W);
   return (int)cudaGetLastError();
 }

@@ -37,7 +37,9 @@
 //    of min(clk_seq, INF/(N+1) - 1) * (N+1) + clk_pid over ready dots,
 //    ties to the lowest flat index as jnp.argmin. Thread 0 applies the
 //    pick (a disabled scan still absorbs at it) and stages TO_CLIENT in
-//    slot F - 4 and EXEC_DRAIN in F - 3, valid or not.
+//    slot F - 4 and EXEC_DRAIN in F - 3, valid or not. On a monitored step
+//    (KM > 0) it first records the pick on its dot's key (caesar.py
+//    :640-646; monitor.cuh), with no execute-before-commit guard.
 // 4. The wait scan runs on the whole block after it: each waiting dot
 //    (ST_PROPOSE_END with a present blocker) takes its BB blockers'
 //    verdicts, then a block argmin of src * 2^20 + pseq over actionable
@@ -71,6 +73,7 @@
 
 #include "common.cuh"
 #include "iset.cuh"
+#include "monitor.cuh"
 
 using namespace fantoch;
 
@@ -689,7 +692,8 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
     const int* __restrict__ attach, bool* __restrict__ rdy_out,
     bool* __restrict__ pv, int* __restrict__ pd, int* __restrict__ pm,
     int* __restrict__ pp, bool* __restrict__ hv, int* __restrict__ hd,
-    int* __restrict__ hm, int* __restrict__ hp, const Dims d) {
+    int* __restrict__ hm, int* __restrict__ hp, const MonArgs ma,
+    const Dims d) {
   extern __shared__ int smem[];
   const int g = blockIdx.x;  // (lane, process)
   const int t = threadIdx.x;
@@ -735,6 +739,7 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
     }
   }
   for (int v = t; v < ND; v += THREADS) freed[v] = 0;
+  mon_copy(ma, g, t, THREADS);
   __syncthreads();
 
   auto plane = [&](int i) {
@@ -872,6 +877,9 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
     const int eseq = p.pseq[idx];
     const int client = p.client_of[idx];
     const bool do_ = misc[2] && num > 0;
+    // the safety monitors: no execute-before-commit guard (caesar.py
+    // :640-646 keeps none)
+    mon_view(ma, g).exec(p.key_of[idx], esrc, eseq, do_, false, true);
     if (iset_add(p.ex_front[esrc], p.ex_gaps + (long long)esrc * G * 2, G,
                  eseq, do_))
       p.err |= ERR_CAPACITY;
@@ -980,8 +988,10 @@ extern "C" int fantoch_caesar_handle(
     const void* rows, const void* fire, const void* n_ctx, const void* fq,
     const void* wq, const void* wait, const void* attach, void* rdy_out,
     void* pv, void* pd, void* pm, void* pp, void* hv, void* hd, void* hm,
-    void* hp, int L, int N, int D, int F, int P, int W, int C, int K, int S,
-    int DEP, int BB, int G, int EB, int smem, void* stream) {
+    void* hp, const void* mh_in, const void* mc_in, const void* mf_in,
+    void* mh_o, void* mc_o, void* mf_o, int L, int N, int D, int F, int P,
+    int W, int C, int K, int S, int DEP, int BB, int G, int EB, int smem,
+    int KM, void* stream) {
   const long long blocks = (long long)L * N;
   if (blocks == 0) return 0;
   Planes in, out;
@@ -1001,6 +1011,7 @@ extern "C" int fantoch_caesar_handle(
       in, out, (const bool*)has, (const int*)rows, (const bool*)fire,
       (const int*)n_ctx, (const int*)fq, (const int*)wq, (const bool*)wait,
       (const int*)attach, (bool*)rdy_out, (bool*)pv, (int*)pd, (int*)pm,
-      (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp, d);
+      (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
+      mon_args(mh_in, mc_in, mf_in, mh_o, mc_o, mf_o, KM), d);
   return (int)cudaGetLastError();
 }

@@ -29,7 +29,11 @@
 //      (FLAG_DROPS) draws its loss verdict, and writes its arrival, key
 //      and whether it lands; pair_cnt (counted before loss), the periodic
 //      timers and the lane scalars are folded, with ERR_UNAVAIL under
-//      FLAG_CRASH and the lost count under the wire flags.
+//      FLAG_CRASH and the lost count under the wire flags; under
+//      FLAG_MONITOR the safety monitors' step fold (engine/monitor.py
+//      step_viol :199): the OR of the processes' new guard bits goes into
+//      the lane's violation word, and the first violating step, steps + 1,
+//      into its violation step.
 // Under FLAG_REORDER every hop's delay is scaled by its row of the step's
 // uniform [0, 10) draws (row 0 the TO_CLIENT return, 1 the next SUBMIT, 2
 // the process send): int -> float32, a float32 product rounded to
@@ -63,7 +67,11 @@ constexpr int MAX_WINDOWS = 8;      // engine/faults.py MAX_WINDOWS
 constexpr int DROP_DENOM = 10000;   // engine/faults.py DROP_DENOM
 // engine/faults.py flag bits
 constexpr int FLAG_CRASH = 1, FLAG_WINDOWS = 2, FLAG_DROPS = 4,
-              FLAG_HORIZON = 8, FLAG_JITTER = 16, FLAG_REORDER = 32;
+              FLAG_HORIZON = 8, FLAG_JITTER = 16, FLAG_REORDER = 32,
+              FLAG_MONITOR = 64;
+// engine/monitor.py guard bits and violation bits
+constexpr int MON_F_PREMATURE = 1, MON_F_KEYRANGE = 2;
+constexpr int VIOL_PREMATURE = 8, VIOL_KEYRANGE = 16;
 constexpr int WIRE_FLAGS = FLAG_WINDOWS | FLAG_DROPS | FLAG_JITTER;
 // phase 3's per-row flag bits, read by phase 4: counted on its channel,
 // a wire hop, lost to a window, issues the next SUBMIT, valid
@@ -104,6 +112,10 @@ struct Args {
   int *pair_cnt_o, *next_periodic_o;
   int *requeues_o, *max_completion_o, *done_time_o, *err_o, *steps_o;
   int* fault_dropped_o;
+  // the monitors' step fold (null without FLAG_MONITOR): the handlers'
+  // new guard bits [L, N], the lane's violation word and step, outputs
+  const int *mon_flags, *viol, *viol_step;
+  int *viol_o, *viol_step_o;
   int N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT, flags;
 };
 
@@ -451,6 +463,17 @@ __global__ void emit_rewrite_kernel(const Args a) {
     a.steps_o[l] = a.steps[l] + 1;
     if (flags & WIRE_FLAGS)
       a.fault_dropped_o[l] = a.fault_dropped[l] + s_lane[1];
+    if (flags & FLAG_MONITOR) {
+      int mf = 0;
+      for (int q = 0; q < N; ++q) mf |= a.mon_flags[lN + q];
+      const int viol = a.viol[l] |
+                       ((mf & MON_F_PREMATURE) ? VIOL_PREMATURE : 0) |
+                       ((mf & MON_F_KEYRANGE) ? VIOL_KEYRANGE : 0);
+      a.viol_o[l] = viol;
+      a.viol_step_o[l] = (viol != 0 && a.viol_step[l] >= INF)
+                             ? a.steps[l] + 1
+                             : a.viol_step[l];
+    }
   }
 }
 
@@ -484,7 +507,9 @@ extern "C" int fantoch_emit_rewrite(
     const void* win_dst, const void* win_t0, const void* win_t1,
     const void* win_mul, const void* win_ovr, const void* drop_num,
     const void* drop_key, const void* jitter_num, const void* jitter_key,
-    const void* reorder_key, void* fault_dropped_o, int L, int N, int F,
+    const void* reorder_key, void* fault_dropped_o, const void* mon_flags,
+    const void* viol, const void* viol_step, void* viol_o,
+    void* viol_step_o, int L, int N, int F,
     int P, int C, int R, int RR, int H, int T, int LOG, int W, int submit,
     int S, int TP, int TT, int flags, void* stream) {
   if (L == 0) return 0;
@@ -562,6 +587,11 @@ extern "C" int fantoch_emit_rewrite(
   a.err_o = (int*)err_o;
   a.steps_o = (int*)steps_o;
   a.fault_dropped_o = (int*)fault_dropped_o;
+  a.mon_flags = (const int*)mon_flags;
+  a.viol = (const int*)viol;
+  a.viol_step = (const int*)viol_step;
+  a.viol_o = (int*)viol_o;
+  a.viol_step_o = (int*)viol_step_o;
   a.N = N;
   a.F = F;
   a.P = P;

@@ -15,7 +15,10 @@
 // branch and writes both [F] outboxes whole, and for MGC the warp scans
 // the [D] acceptor window together. Every one-hot read of the reference
 // (oh_get) reads 0 for an out-of-range index and every one-hot write
-// (oh_set) drops it; dot slots use floor modulo, as jnp's %.
+// (oh_set) drops it; dot slots use floor modulo, as jnp's %. On a
+// monitored step (KM > 0) the warp copies the monitor rows with the state
+// and MChosen records its slot on monitor key 0 with source 0
+// (protocols/fpaxos.py:282-291; monitor.cuh).
 //
 // Bound on this card: bytes. The region reads a few state words per
 // (lane, process), and the [D] acceptor window only where a GC message
@@ -23,6 +26,7 @@
 // (fpaxos_handle.py work). This kernel copies each process's whole state
 // out of place, so it moves far more than that, but in coalesced rows.
 #include "common.cuh"
+#include "monitor.cuh"
 
 using namespace fantoch;
 
@@ -70,8 +74,8 @@ __global__ void fpaxos_handle_kernel(
     int* __restrict__ stab_o, int* __restrict__ err_o,
     bool* __restrict__ pv, int* __restrict__ pd, int* __restrict__ pm,
     int* __restrict__ pp, bool* __restrict__ hv, int* __restrict__ hd,
-    int* __restrict__ hm, int* __restrict__ hp, int L, int N, int D, int F,
-    int P, int R, int W, int C) {
+    int* __restrict__ hm, int* __restrict__ hp, const MonArgs ma, int L,
+    int N, int D, int F, int P, int R, int W, int C) {
   const int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (g >= L * N) return;  // whole warps: blockDim is a multiple of 32
@@ -88,6 +92,7 @@ __global__ void fpaxos_handle_kernel(
     oc_o[oN + i] = oc_in[oN + i];
     seen_o[oN + i] = seen_in[oN + i];
   }
+  mon_copy(ma, g, lane, 32);
   __syncwarp();
 
   const int* row = rows + (size_t)g * W;
@@ -190,6 +195,7 @@ __global__ void fpaxos_handle_kernel(
     case MCHOSEN: {  // execute in order; the client's process reports
       const int slot = pay[0], client = pay[1];
       const bool in_order = slot == exec + 1;
+      mon_view(ma, g).exec(0, 0, slot, in_order, false, true);
       if (!in_order) err |= ERR_PROTO;
       exec += in_order ? 1 : 0;
       const int at =
@@ -222,8 +228,10 @@ extern "C" int fantoch_fpaxos_handle(
     const void* attach, void* rdy_out, void* last_o, void* cmd_o,
     void* cnt_o, void* acc_o, void* exec_o, void* oc_o, void* seen_o,
     void* stab_o, void* err_o, void* pv, void* pd, void* pm, void* pp,
-    void* hv, void* hd, void* hm, void* hp, int L, int N, int D, int F,
-    int P, int R, int W, int C, void* stream) {
+    void* hv, void* hd, void* hm, void* hp, const void* mh_in,
+    const void* mc_in, const void* mf_in, void* mh_o, void* mc_o,
+    void* mf_o, int L, int N, int D, int F, int P, int R, int W, int C,
+    int KM, void* stream) {
   const long long warps = (long long)L * N;
   if (warps == 0) return 0;
   const int threads = 128;  // four (lane, process) warps per block
@@ -237,7 +245,8 @@ extern "C" int fantoch_fpaxos_handle(
       (const int*)q_size, (const int*)attach, (bool*)rdy_out, (int*)last_o,
       (int*)cmd_o, (int*)cnt_o, (int*)acc_o, (int*)exec_o, (int*)oc_o,
       (bool*)seen_o, (int*)stab_o, (int*)err_o, (bool*)pv, (int*)pd,
-      (int*)pm, (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp, L, N, D,
-      F, P, R, W, C);
+      (int*)pm, (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
+      mon_args(mh_in, mc_in, mf_in, mh_o, mc_o, mf_o, KM), L, N, D, F, P, R,
+      W, C);
   return (int)cudaGetLastError();
 }

@@ -46,7 +46,10 @@
 //       lowest flat index as jnp.argmin;
 //    d. thread 0 adds the pick to its source's executed set, clears the
 //       vertex when enabled, and stages TO_CLIENT in slot F - 2 and
-//       MDRAIN in slot F - 1.
+//       MDRAIN in slot F - 1; on a monitored step (KM > 0) it first
+//       records the pick on its vertex's key (protocols/graphdep.py
+//       :415-433; monitor.cuh), the execute-before-commit guard read from
+//       the GC committed set of the pick's source.
 // 4. The block stores both outboxes.
 //
 // One-hot semantics of the reference: a read at an out-of-range index
@@ -66,6 +69,7 @@
 
 #include "common.cuh"
 #include "iset.cuh"
+#include "monitor.cuh"
 
 using namespace fantoch;
 
@@ -411,7 +415,7 @@ __global__ void __launch_bounds__(THREADS) graphdep_handle_kernel(
     bool* __restrict__ rdy_out, bool* __restrict__ pv, int* __restrict__ pd,
     int* __restrict__ pm, int* __restrict__ pp, bool* __restrict__ hv,
     int* __restrict__ hd, int* __restrict__ hm, int* __restrict__ hp,
-    const Dims d) {
+    const MonArgs ma, const Dims d) {
   extern __shared__ int smem[];
   const int g = blockIdx.x;  // (lane, process)
   const int t = threadIdx.x;
@@ -451,6 +455,7 @@ __global__ void __launch_bounds__(THREADS) graphdep_handle_kernel(
                  (const int*)in.p[i] + (long long)g * w, w);
     }
   }
+  mon_copy(ma, g, t, THREADS);
   __syncthreads();
 
   auto plane = [&](int i) {
@@ -614,6 +619,12 @@ __global__ void __launch_bounds__(THREADS) graphdep_handle_kernel(
     const int eseq = p.vx_seq[idx];
     const int client = p.vx_client[idx];
     const bool do_ = (branch == MCOMMIT || branch == MDRAIN) && num_ok > 0;
+    if (ma.KM != 0)
+      mon_view(ma, g).exec(
+          p.vx_key[idx], esrc, eseq, do_,
+          !iset_contains(p.comm_front[esrc],
+                         p.comm_gaps + (long long)esrc * G * 2, G, eseq),
+          true);
     if (iset_add(p.exec_front[esrc], p.exec_gaps + (long long)esrc * G * 2,
                  G, eseq, do_))
       p.err |= ERR_CAPACITY;
@@ -655,8 +666,10 @@ extern "C" int fantoch_graphdep_handle(
     const void* fq, const void* wq, const void* expected,
     const void* fp_mode, const void* ack_self, const void* attach,
     void* rdy_out, void* pv, void* pd, void* pm, void* pp, void* hv,
-    void* hd, void* hm, void* hp, int L, int N, int D, int F, int P, int R,
-    int W, int C, int K, int Q, int G, int smem, void* stream) {
+    void* hd, void* hm, void* hp, const void* mh_in, const void* mc_in,
+    const void* mf_in, void* mh_o, void* mc_o, void* mf_o, int L, int N,
+    int D, int F, int P, int R, int W, int C, int K, int Q, int G, int smem,
+    int KM, void* stream) {
   const long long blocks = (long long)L * N;
   if (blocks == 0) return 0;
   Planes in, out;
@@ -678,6 +691,6 @@ extern "C" int fantoch_graphdep_handle(
       (const bool*)wq, (const int*)expected, (const int*)fp_mode,
       (const bool*)ack_self, (const int*)attach, (bool*)rdy_out, (bool*)pv,
       (int*)pd, (int*)pm, (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
-      d);
+      mon_args(mh_in, mc_in, mf_in, mh_o, mc_o, mf_o, KM), d);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,9 @@ using namespace fantoch;
 
 namespace {
 
-constexpr int MAX_PLANES = 64;  // lane_freeze.py MAX_PLANES
+// lane_freeze.py MAX_PLANES: the Planes table below is 24 bytes a plane,
+// 3,076 bytes in all, inside the 4 KB a kernel's parameters may take
+constexpr int MAX_PLANES = 128;
 constexpr int FLAG_HORIZON = 8;  // engine/faults.py FLAG_HORIZON
 
 struct Planes {
@@ -36,6 +38,8 @@ struct Planes {
   long long row[MAX_PLANES];
   int K;
 };
+static_assert(sizeof(Planes) + 7 * sizeof(void*) + 2 * sizeof(int) <= 4096,
+              "lane_freeze's parameters exceed the 4 KB kernel limit");
 
 }  // namespace
 

@@ -28,6 +28,11 @@
 // every thread sees the new value. The scalar planes (error word,
 // sequence, counters) live in registers and are stored once at the end.
 // Outboxes are staged per warp in shared memory and stored coalesced.
+// On a monitored step (KM > 0) the warp also copies its monitor rows, and
+// the drain records each execution (protocols/tempo.py:434-453;
+// monitor.cuh) with the execute-before-commit guard read from the GC
+// committed set of the executed dot's source (iset_contains; 0 and an
+// empty set for a source out of range, as oh_get).
 //
 // One-hot semantics of the reference: a read at an out-of-range index
 // yields 0, a write there drops; dot slots use floor modulo (seq 0 maps to
@@ -45,6 +50,7 @@
 
 #include "common.cuh"
 #include "iset.cuh"
+#include "monitor.cuh"
 
 using namespace fantoch;
 
@@ -159,6 +165,7 @@ struct Proc {
   const int* attach;                        // [C] of this lane
   // outbox staging: valid, dst, mtype [F], payload [F, P], words [P]
   int *sv, *sd, *sm, *sp, *sw;
+  Mon mon;  // the safety monitors' view (KM == 0: off)
 
   __device__ bool in(int i, int size) const { return i >= 0 && i < size; }
   __device__ int slot(int seq) const { return floor_mod(seq - 1, d.D); }
@@ -362,6 +369,15 @@ struct Proc {
     const int idx = bidx < PK ? bidx : 0;
     const bool do_ = num_ready > 0;
     const int client = kin ? pend_client[base + idx] : 0;
+    if (mon.KM != 0) {
+      const int e_src = kin ? pend_src[base + idx] : 0;
+      const int e_seq = kin ? pend_seq[base + idx] : 0;
+      const bool committed =
+          in(e_src, d.N) &&
+          iset_contains(comm_front[e_src], comm_gaps + e_src * d.G * 2, d.G,
+                        e_seq);
+      mon.exec(key, e_src, e_seq, do_, !committed, lane == 0);
+    }
     __syncwarp();
     if (lane == 0 && kin && do_) pend_clock[base + idx] = 0;
     __syncwarp();
@@ -680,7 +696,8 @@ __global__ void tempo_handle_kernel(
     const int* __restrict__ attach, bool* __restrict__ rdy_out,
     bool* __restrict__ pv, int* __restrict__ pd, int* __restrict__ pm,
     int* __restrict__ pp, bool* __restrict__ hv, int* __restrict__ hd,
-    int* __restrict__ hm, int* __restrict__ hp, const Dims d) {
+    int* __restrict__ hm, int* __restrict__ hp, const MonArgs ma,
+    const Dims d) {
   extern __shared__ int smem[];
   const int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -700,6 +717,7 @@ __global__ void tempo_handle_kernel(
                 (const int*)in.p[i] + (long long)g * w, w, lane);
     }
   }
+  mon_copy(ma, g, lane, 32);
   __syncwarp();
 
   auto plane = [&](int i) { return (int*)out.p[i] + (long long)g * plane_words(i, d); };
@@ -721,7 +739,8 @@ __global__ void tempo_handle_kernel(
          bump_mode[l], skip_ack[l],
          fq + (long long)l * d.N * d.N, wq + (long long)l * d.N * d.N,
          attach + (long long)l * d.C,
-         st, st + d.F, st + 2 * d.F, st + 3 * d.F, st + 3 * d.F + d.F * d.P};
+         st, st + d.F, st + 2 * d.F, st + 3 * d.F, st + 3 * d.F + d.F * d.P,
+         mon_view(ma, g)};
 
   const int* row = rows + (long long)g * d.W;
   const int src = row[PSRC];
@@ -790,8 +809,10 @@ extern "C" int fantoch_tempo_handle(
     const void* wq_size, const void* threshold, const void* bump_mode,
     const void* skip_ack, const void* attach, void* rdy_out, void* pv,
     void* pd, void* pm, void* pp, void* hv, void* hd, void* hm, void* hp,
-    int L, int N, int D, int F, int P, int R, int W, int C, int K, int PK,
-    int DS, int G, int skip_capable, void* stream) {
+    const void* mh_in, const void* mc_in, const void* mf_in, void* mh_o,
+    void* mc_o, void* mf_o, int L, int N, int D, int F, int P, int R, int W,
+    int C, int K, int PK, int DS, int G, int skip_capable, int KM,
+    void* stream) {
   const long long warps = (long long)L * N;
   if (warps == 0) return 0;
   Planes in, out;
@@ -811,6 +832,6 @@ extern "C" int fantoch_tempo_handle(
       (const int*)wq_size, (const int*)threshold, (const bool*)bump_mode,
       (const bool*)skip_ack, (const int*)attach, (bool*)rdy_out, (bool*)pv,
       (int*)pd, (int*)pm, (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
-      d);
+      mon_args(mh_in, mc_in, mf_in, mh_o, mc_o, mf_o, KM), d);
   return (int)cudaGetLastError();
 }

@@ -10,9 +10,11 @@ parts counting and target-shard SUBMIT, :1177-1182, 1218-1224,
 1273-1279), the fault plan's wire faults and the reorder draws (each
 under its flag of the step's flag word: the reorder scaling :1043-1057,
 :1305-1311, the horizon on client results :1077-1081, link windows
-:1313-1349, jitter :1417-1436, drops :1438-1453) and §7 (:1494-1563,
+:1313-1349, jitter :1417-1436, drops :1438-1453), §7 (:1494-1563,
 with ``fold_health`` :215, ``fold_count`` :244 and ``ERR_UNAVAIL``
-under the crash flag :1516-1520). CUDA source: ``csrc/emit_rewrite.cu``
+under the crash flag :1516-1520) and, under ``FLAG_MONITOR``, the safety
+monitors' step fold (``fantoch_tpu/engine/monitor.py`` ``step_viol``
+:199, called at ``core.py:919-921``). CUDA source: ``csrc/emit_rewrite.cu``
 (bound by bytes, :func:`work`). :func:`emit_rewrite_plain` is its plain
 PyTorch twin, used for tensors on the CPU.
 
@@ -32,9 +34,10 @@ from ..engine.dims import (
     EngineDims,
 )
 from ..engine.faults import (
-    FLAG_CRASH, FLAG_DROPS, FLAG_HORIZON, FLAG_JITTER, FLAG_REORDER,
-    FLAG_WINDOWS, MAX_WINDOWS, drop_draw, jitter_draw,
+    FLAG_CRASH, FLAG_DROPS, FLAG_HORIZON, FLAG_JITTER, FLAG_MONITOR,
+    FLAG_REORDER, FLAG_WINDOWS, MAX_WINDOWS, drop_draw, jitter_draw,
 )
+from ..engine.monitor import step_viol
 from . import build, cost
 from .key_table import THREEFRY_OPS
 
@@ -116,7 +119,8 @@ def _merge(n: int, f2: int, *parts):
 
 
 def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
-                       dims: EngineDims, submit: int, flags: int = 0):
+                       dims: EngineDims, submit: int, flags: int = 0,
+                       mon_flags=None):
     """``(new_rows [L, E, W], deliver [L, E], upd)``: the pool rows of
     the step's emissions in K2's layout, which of them land (valid and
     not lost on the wire), and the lane's new ``clients``, ``metrics``,
@@ -125,7 +129,9 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     lane state the step started from, with the crash-masked timers;
     ``perr`` the handlers' new per-process error words; ``flags`` the
     step's flag word (``faults.flag_bits``). Without a wire-fault flag
-    ``fault_dropped`` is ``st``'s own tensor."""
+    ``fault_dropped`` is ``st``'s own tensor. Under ``FLAG_MONITOR``
+    ``upd`` also holds the lane's new ``viol`` and ``viol_step``, folded
+    from the handlers' new guard bits ``mon_flags`` ``[L, N]``."""
     N, C, F = dims.N, dims.C, dims.F
     L = rows.shape[0]
     dev = rows.device
@@ -411,6 +417,8 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         "err": err,
         "steps": st["steps"] + 1,
     }
+    if flags & FLAG_MONITOR:
+        upd["viol"], upd["viol_step"] = step_viol(st, mon_flags)
     return new_rows, deliver, upd
 
 
@@ -430,9 +438,10 @@ def _wired_rows(pout, hout, N: int) -> int:
 
 
 def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
-         dims: EngineDims, submit: int, flags: int, out):
-    """``(bytes, ops)`` the region needs on these inputs (``out`` is its
-    result). It reads every process's flags, time and error word, the
+         dims: EngineDims, submit: int, flags: int, *tail):
+    """``(bytes, ops)`` the region needs on these inputs: ``tail`` is
+    ``(out,)`` or, under the monitor flag, ``(mon_flags, out)`` (the
+    wrapper's arguments, then its result). It reads every process's flags, time and error word, the
     outboxes' valid flags and the words of their valid rows, a requeued
     message's type, keys and payload, the lane's client, channel, timer
     and scalar planes, the small per-client ctx planes, one client
@@ -447,8 +456,12 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     change. Its operations add, per wire hop, the window compares and the
     threefry blocks of the jitter and drop draws (3 fold-ins and a
     randint of 4), and under reorder one block per valid row and per
-    issued SUBMIT and one per lane."""
+    issued SUBMIT and one per lane. Under the monitor flag it reads the
+    processes' guard bits and the lane's violation word and step, and
+    writes the words that change."""
     del submit
+    *rest, out = tail
+    mon_flags = rest[0] if rest else None
     new_rows, valid, upd = out
     L, E, W = new_rows.shape
     N, C, F, P = dims.N, dims.C, dims.F, dims.P
@@ -501,6 +514,11 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     if flags & FLAG_REORDER:
         read += cost.nbytes(ctx["reorder_key"])
         ops += (n_valid + n_issue + L) * THREEFRY_OPS
+    if flags & FLAG_MONITOR:
+        read += cost.nbytes(mon_flags, st["viol"], st["viol_step"])
+        for k in ("viol", "viol_step"):
+            write += int((upd[k] != st[k]).sum()) * 4
+        ops += L * (mon_flags.shape[1] + 4)
     return read + write, ops
 
 
@@ -520,11 +538,13 @@ FAULT_KEYS = ("fault_unavail", "fault_horizon", *WINDOW_KEYS,
 
 
 def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
-                 dims: EngineDims, submit: int, flags: int = 0):
+                 dims: EngineDims, submit: int, flags: int = 0,
+                 mon_flags=None):
     """K6 on CUDA tensors, :func:`emit_rewrite_plain` on CPU tensors."""
     if rows.device.type == "cpu":
         return emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout,
-                                  hout, perr, dims, submit, flags)
+                                  hout, perr, dims, submit, flags,
+                                  mon_flags)
     L, N, W = rows.shape
     C, F, P, R = dims.C, dims.F, dims.P, fire.shape[2]
     RR, H = dims.RR, dims.H
@@ -590,6 +610,16 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
             dev)
         partial = [ctx[k] for k in ("cmd_parts", "cmd_target",
                                     "client_attach_s")]
+    # the monitors' step fold: the guard bits and the lane's violation
+    # word and step, or null pointers
+    monitored = bool(flags & FLAG_MONITOR)
+    mon = [None] * 5
+    if monitored:
+        chk("mon_flags", mon_flags, I32, (L, N), dev)
+        chk("st/viol", st["viol"], I32, (L,), dev)
+        chk("st/viol_step", st["viol_step"], I32, (L,), dev)
+        mon = [mon_flags, st["viol"], st["viol_step"],
+               torch.empty_like(st["viol"]), torch.empty_like(st["viol_step"])]
     new_rows = torch.empty((L, E, W), dtype=I32, device=dev)
     valid = torch.empty((L, E), dtype=torch.bool, device=dev)
     new = [torch.empty_like(t) for t in old]
@@ -601,7 +631,7 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         + [has, rdy, rows, ep, fire, perr] + old
         + [ctx[k] for k in ctx_shapes] + partial + [new_rows, valid] + new
         + [st["fault_dropped"]] + [ctx[k] for k in FAULT_KEYS]
-        + [dropped if flags & WIRE_FLAGS else None]
+        + [dropped if flags & WIRE_FLAGS else None] + mon
     )
     fn = build.c_function("fantoch_emit_rewrite", len(tensors), 16)
     build.launch(
@@ -619,6 +649,8 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         "fault_dropped": dropped,
         **{k: upd[k] for k in LANE_KEYS},
     }
+    if monitored:
+        upd["viol"], upd["viol_step"] = mon[3], mon[4]
     return new_rows, valid, upd
 
 

@@ -4,7 +4,9 @@ message handler for every (lane, process).
 Replaces ``fantoch_tpu/engine/core.py`` ``run_handlers`` (:422) and the
 ``ready``/``periodic`` calls (:890-918) with ``FPaxosDev.ready`` (:128),
 ``.periodic`` (:160) and ``.handle`` (:143) of
-``fantoch_tpu/engine/protocols/fpaxos.py``. CUDA source:
+``fantoch_tpu/engine/protocols/fpaxos.py``, with the safety monitors'
+``mon_exec`` at the slot executor's frontier (:282-291) on monitored
+steps. CUDA source:
 ``csrc/fpaxos_handle.cu`` (bound by bytes, :func:`work`).
 :func:`fpaxos_handle_plain` is its plain PyTorch twin (the batched
 handlers of ``engine/protocols/fpaxos.py``), used for tensors on the CPU.
@@ -94,7 +96,7 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
     for k in STATE_KEYS:
         write += int((new_ps[k] != ps[k]).sum()) * ps[k].element_size()
     ops = 30 * L * N + n_gc * (2 * D + 3 * N)
-    return read + write, ops
+    return read + write + cost.monitor_bytes(ps, new_ps), ops
 
 
 def fpaxos_handle(ps, has, rows, fire, ctx, dims: EngineDims):
@@ -137,6 +139,7 @@ def fpaxos_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         }
 
     pout, hout = outbox(), outbox()
+    mon_ptrs, KM, mon_new = build.mon_planes(ps, L, N, dev)
     tensors = (
         [ps[k] for k in STATE_KEYS]
         + [has, rows, fire, ctx["n"], ctx["leader"], ctx["write_quorum"],
@@ -144,13 +147,14 @@ def fpaxos_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         + [new_ps[k] for k in STATE_KEYS]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    fn = build.c_function("fantoch_fpaxos_handle", len(tensors), 8)
+    fn = build.c_function("fantoch_fpaxos_handle", len(tensors) + 6, 9)
     build.launch(
-        fn, [t.data_ptr() for t in tensors], [L, N, D, F, P, R, W, C],
+        fn, [t.data_ptr() for t in tensors] + mon_ptrs,
+        [L, N, D, F, P, R, W, C, KM],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     fpaxos_handle.launches += 1
-    return rdy, new_ps, pout, hout
+    return rdy, {**new_ps, **mon_new}, pout, hout
 
 
 fpaxos_handle.launches = 0

@@ -9,7 +9,8 @@ Replaces ``fantoch_tpu/engine/core.py`` ``run_handlers`` (:422) and the
 (:471-728), ``_qd_add`` (:316), ``_commit_broadcast`` (:344), the hoisted
 drain ``_drain`` (:374, the greatest fixed point that replaces Tarjan),
 and both sides of ``fantoch_tpu/engine/iset.py`` (``iset_add`` :68,
-``iset_contains_gathered`` :92). CUDA source:
+``iset_contains_gathered`` :92), and on monitored steps the safety
+monitors' ``mon_exec`` at the drain's pick (:415-433). CUDA source:
 ``csrc/graphdep_handle.cu`` with ``csrc/iset.cuh`` (bound by bytes,
 :func:`work`). :func:`graphdep_handle_plain` is its plain PyTorch twin
 (the batched handlers of ``engine/protocols/graphdep.py``), used for
@@ -150,7 +151,7 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
         + int((committed * Q * (2 * G + 6)).sum())
         + int((committed * passes * Q * 3).sum())
     )
-    return read + write, ops
+    return read + write + cost.monitor_bytes(ps, new_ps), ops
 
 
 def graphdep_handle(ps, has, rows, fire, ctx, dims: EngineDims):
@@ -210,16 +211,17 @@ def graphdep_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         [has, rows, fire] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    fn = build.c_function("fantoch_graphdep_handle", 2 + len(tensors), 12)
+    mon_ptrs, KM, mon_new = build.mon_planes(ps, L, N, dev)
+    fn = build.c_function("fantoch_graphdep_handle", 8 + len(tensors), 13)
     build.launch(
         fn,
         [ctypes.addressof(ins), ctypes.addressof(outs)]
-        + [t.data_ptr() for t in tensors],
-        [L, N, D, F, P, R, W, C, K, Q, G, smem],
+        + [t.data_ptr() for t in tensors] + mon_ptrs,
+        [L, N, D, F, P, R, W, C, K, Q, G, smem, KM],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     graphdep_handle.launches += 1
-    return rdy, new_ps, pout, hout
+    return rdy, {**new_ps, **mon_new}, pout, hout
 
 
 graphdep_handle.launches = 0

@@ -22,8 +22,10 @@ from . import build, cost
 I32 = torch.int32
 
 # planes one launch can carry (csrc/lane_freeze.cu MAX_PLANES); a Tempo
-# lane tree has 52, a Caesar one 60
-MAX_PLANES = 64
+# lane tree has 52, a Caesar one 60, and the safety monitors add five
+# (mon_hash, mon_cnt, mon_flags, viol, viol_step). The table goes to the
+# kernel by value: 128 planes are 3,076 bytes of its 4 KB of parameters
+MAX_PLANES = 128
 
 
 class TooManyPlanesError(ValueError):

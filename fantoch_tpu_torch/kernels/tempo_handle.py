@@ -7,7 +7,8 @@ Replaces ``fantoch_tpu/engine/core.py`` ``run_handlers`` (:422) and the
 ``.periodic`` (:266) and ``.handle`` (:246) of
 ``fantoch_tpu/engine/protocols/tempo.py``: its ten handlers (:498-941),
 the clock, vote and drain helpers (:308-490) and the add side of
-``fantoch_tpu/engine/iset.py`` (:29, :68). CUDA source:
+``fantoch_tpu/engine/iset.py`` (:29, :68), and on monitored steps the
+safety monitors' ``mon_exec`` in the drain (:434-453). CUDA source:
 ``csrc/tempo_handle.cu`` with ``csrc/iset.cuh`` (bound by bytes,
 :func:`work`). :func:`tempo_handle_plain` is its plain PyTorch twin (the
 batched handlers of ``engine/protocols/tempo.py``), used for tensors on
@@ -149,7 +150,7 @@ def work(ps, has, rows, fire, now, ctx, dims: EngineDims,
         + count[X.DETACH_DRAIN] * 2 * K * DS
         + int(fire[..., 1].sum()) * K * DS
     )
-    return read + write, ops
+    return read + write + cost.monitor_bytes(ps, new_ps), ops
 
 
 def tempo_handle(ps, has, rows, fire, now, ctx, dims: EngineDims,
@@ -211,16 +212,17 @@ def tempo_handle(ps, has, rows, fire, now, ctx, dims: EngineDims,
         [has, rows, fire, now] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    fn = build.c_function("fantoch_tempo_handle", 2 + len(tensors), 13)
+    mon_ptrs, KM, mon_new = build.mon_planes(ps, L, N, dev)
+    fn = build.c_function("fantoch_tempo_handle", 8 + len(tensors), 14)
     build.launch(
         fn,
         [ctypes.addressof(ins), ctypes.addressof(outs)]
-        + [t.data_ptr() for t in tensors],
-        [L, N, D, F, P, R, W, C, K, PK, DS, G, int(bool(skip_capable))],
+        + [t.data_ptr() for t in tensors] + mon_ptrs,
+        [L, N, D, F, P, R, W, C, K, PK, DS, G, int(bool(skip_capable)), KM],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     tempo_handle.launches += 1
-    return rdy, new_ps, pout, hout
+    return rdy, {**new_ps, **mon_new}, pout, hout
 
 
 tempo_handle.launches = 0

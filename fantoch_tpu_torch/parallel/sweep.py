@@ -79,15 +79,18 @@ def run_sweep(
     batch_lanes: int = 512,
     max_steps: int = 1 << 22,
     device=None,
+    monitor_keys: int = 0,
 ) -> List[LaneResults]:
     """Run every lane, ``batch_lanes`` per batch, on ``device`` (default:
     the CUDA card), each batch under its reorder flag and fault-flag
-    union. Results are in ``specs`` order."""
+    union. ``monitor_keys > 0`` runs the safety monitors (per-lane
+    ``violation``, ``violation_step`` and ``coverage``). Results are in
+    ``specs`` order."""
     dev = resolve_device(device)
     out: List[LaneResults] = []
     for lo in range(0, len(specs), batch_lanes):
         chunk = specs[lo:lo + batch_lanes]
-        runner = batch_runner(protocol, dims, chunk, max_steps)
-        state, ctx = prepare_batch(protocol, dims, chunk, dev)
+        runner = batch_runner(protocol, dims, chunk, max_steps, monitor_keys)
+        state, ctx = prepare_batch(protocol, dims, chunk, dev, monitor_keys)
         out.extend(collect_results(protocol, dims, runner(state, ctx), chunk))
     return out

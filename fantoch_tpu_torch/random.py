@@ -17,12 +17,16 @@ them with ``jax_threefry_partitionable`` on (its default since 0.5):
 The functions below take int64 arrays holding u32 values — numpy arrays
 or torch tensors alike (only ``+ ^ & << >> %`` are used) — so the host
 code here and the plain twin of the key-table kernel
-(``kernels/key_table.py``) share one implementation.
+(``kernels/key_table.py``) share one implementation. On torch tensors
+that lie on the CPU the threefry block runs in numpy (the same integer
+arithmetic, with far less overhead per operation on the small arrays of
+a step); on CUDA tensors it runs in torch.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -35,6 +39,16 @@ def _rotl(x, r: int):
 
 def threefry2x32(k0, k1, x0, x1):
     """The 20-round threefry2x32 block on u32 values held in int64."""
+    args = (k0, k1, x0, x1)
+    if any(torch.is_tensor(a) for a in args) and all(
+            a.device.type == "cpu" for a in args if torch.is_tensor(a)):
+        out = _threefry(*(a.numpy() if torch.is_tensor(a) else a
+                          for a in args))
+        return tuple(torch.from_numpy(np.asarray(y, np.int64)) for y in out)
+    return _threefry(*args)
+
+
+def _threefry(k0, k1, x0, x1):
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + k0) & MASK
     x1 = (x1 + k1) & MASK

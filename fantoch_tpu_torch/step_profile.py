@@ -2,11 +2,13 @@
 
     python -m fantoch_tpu_torch.step_profile
         [--protocol basic|fpaxos|tempo|atlas|epaxos|caesar|tempo_partial|
-                    atlas_partial|tempo_faults]
+                    atlas_partial|tempo_faults|tempo_fuzz]
         [--steps 128] [--warmup 300]
 
 Builds the first batch of the protocol's main-path sweep
-(``cli.MAIN_PATHS``, the grids ``chip_smoke.py`` drives);
+(``cli.MAIN_PATHS``, the grids ``chip_smoke.py`` drives), or for
+``tempo_fuzz`` the reference bench's fuzz self-check point
+(``cli.BENCH_FUZZ``: 256 schedules, monitored);
 :func:`profile` runs ``warmup`` steps of the run loop, then times
 ``steps`` more twice, under the batch's reorder flag and fault-flag
 union: once with
@@ -49,7 +51,7 @@ def _busy_us(intervals) -> float:
 
 
 def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
-            reorder: bool = False, faults=NO_FAULTS):
+            reorder: bool = False, faults=NO_FAULTS, monitor_keys: int = 0):
     """Run ``warmup`` steps of the run loop on a prepared batch, then
     time ``steps`` more twice (host clocks, then ``torch.profiler``);
     returns the measurements as a dict."""
@@ -58,7 +60,7 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
     def run(st, n):
         for _ in range(n):
             st, _running = frozen_step(protocol, dims, st, ctx, max_steps,
-                                       reorder, faults)
+                                       reorder, faults, monitor_keys)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         return st
@@ -114,20 +116,29 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(prog="fantoch_tpu_torch.step_profile")
-    ap.add_argument("--protocol", choices=sorted(cli.MAIN_PATHS),
+    ap.add_argument("--protocol",
+                    choices=sorted(cli.MAIN_PATHS) + ["tempo_fuzz"],
                     default="basic")
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--warmup", type=int, default=300)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    sweep = cli.parse_args(cli.MAIN_PATHS[args.protocol])
-    protocol, dims, specs = cli.sweep_setup(sweep)
-    batch = specs[:sweep.batch_lanes]
-    state, ctx = prepare_batch(protocol, dims, batch, dev)
+    monitor_keys = 0
+    if args.protocol == "tempo_fuzz":
+        from .mc.fuzz import FuzzSpec, point_lanes
+
+        protocol, dims, batch, _plans, monitor_keys = point_lanes(
+            FuzzSpec(**cli.BENCH_FUZZ))
+    else:
+        sweep = cli.parse_args(cli.MAIN_PATHS[args.protocol])
+        protocol, dims, specs = cli.sweep_setup(sweep)
+        batch = specs[:sweep.batch_lanes]
+    state, ctx = prepare_batch(protocol, dims, batch, dev, monitor_keys)
     print(json.dumps(
         profile(protocol, dims, state, ctx, dev, args.steps, args.warmup,
-                batch_reorder_flag(batch), batch_fault_flags(batch))
+                batch_reorder_flag(batch), batch_fault_flags(batch),
+                monitor_keys)
     ))
 
 

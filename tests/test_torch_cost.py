@@ -732,3 +732,59 @@ def test_work_counts_the_fault_planes_under_their_flags():
     assert lf_work(new, old, lctx, 100, fm.FLAG_HORIZON, out)[0] == (
         lf_work(new, old, lctx, 100, 0, lane_freeze(new, old, lctx, 100))[0]
         + 4 + 2 * 4)
+
+
+def test_emit_rewrite_work_counts_the_monitor_fold():
+    """Under ``FLAG_MONITOR`` K6 also reads the processes' guard words and
+    the lane's violation word and step, writes the two that change (a
+    premature bit on process 0: the word and the first step), and folds
+    N words a lane."""
+    from fantoch_tpu_torch.engine import faults as fm
+
+    args, _hout = _emit_case()
+    st = args[0]
+    st.update(viol=torch.zeros(1, dtype=torch.int32),
+              viol_step=torch.full((1,), INF, dtype=torch.int32))
+    N = args[10].N
+    flags_word = torch.zeros((1, N), dtype=torch.int32)
+    flags_word[0, 0] = 1
+    plain = er_work(*args, 0, emit_rewrite(*args))
+    out = emit_rewrite(*args, fm.FLAG_MONITOR, flags_word)
+    assert out[2]["viol"].tolist() == [8]
+    assert out[2]["viol_step"].tolist() == [1]
+    got = er_work(*args, fm.FLAG_MONITOR, flags_word, out)
+    assert got[0] == plain[0] + 4 * N + 4 + 4 + 2 * 4
+    assert got[1] == plain[1] + N + 4
+
+
+def test_mon_finalize_work_counts_planes_words_and_the_order_test():
+    """K13 reads each lane's two [N, K] planes once, its completed counts,
+    its lane words and the digest's 2NK + 1 weights (under the crash and
+    horizon flags also the crash times and the horizon), and writes three
+    words a lane; its operations are a multiply-add a digest element, a
+    few a process and, under MONITOR_ORDER, N*N*K compares of three
+    operations."""
+    from fantoch_tpu_torch.engine import faults as fm
+    from fantoch_tpu_torch.kernels.mon_finalize import mon_finalize
+    from fantoch_tpu_torch.kernels.mon_finalize import work as mf_work
+
+    L, N, K, C = 2, 3, 4, 3
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)  # noqa: E731
+    st = {"mon_hash": i32(L, N, K), "mon_cnt": i32(L, N, K),
+          "clients": {"completed": i32(L, C)}, "viol": i32(L),
+          "viol_step": torch.full((L,), INF, dtype=torch.int32),
+          "steps": i32(L), "done_time": i32(L), "err": i32(L),
+          "fault_dropped": i32(L)}
+    ctx = {"rows": torch.full((L,), N, dtype=torch.int32),
+           "extra_time": i32(L), "fault_crash_t": i32(L, N),
+           "fault_horizon": i32(L)}
+    out = mon_finalize(st, ctx, 0, True)
+    n_bytes, ops = mf_work(st, ctx, 0, True, out)
+    lane_words = 4 * L * (6 + 2)   # 6 state words, extra time and rows
+    assert n_bytes == (2 * 4 * L * N * K + 4 * L * C + lane_words
+                       + 4 * (2 * N * K + 1) + 3 * 4 * L)
+    assert ops == L * (4 * N * K + 8 * N + 3 * N * N * K)
+    flags = fm.FLAG_CRASH | fm.FLAG_HORIZON
+    got = mf_work(st, ctx, flags, False, out)
+    assert got[0] == n_bytes + 4 * L * N + 4 * L
+    assert got[1] == L * (4 * N * K + 8 * N)

@@ -272,3 +272,34 @@ def test_rehearsal_of_the_tempo_faults_profile_on_cpu():
                                False, batch_fault_flags(specs))
     assert out["protocol"] == "TempoDev" and out["lanes"] == 4
     assert out["device_activities_per_step_by_name"] == {}
+
+
+def test_tempo_fuzz_path_is_the_bench_fuzz_point():
+    """The monitored path: the reference bench's fuzz self-check point
+    (Tempo, n = 5, 256 schedules of 10 commands a client, seed 0xF022,
+    mixed jitter, crash and drop plans), monitor keys = pool + clients."""
+    from fantoch_tpu_torch.engine.faults import FaultFlags
+    from fantoch_tpu_torch.mc.fuzz import FuzzSpec, point_lanes
+
+    spec = FuzzSpec(**cli.BENCH_FUZZ)
+    assert (spec.protocol, spec.n, spec.schedules, spec.commands_per_client,
+            spec.seed) == ("tempo", 5, 256, 10, 0xF022)
+    protocol, dims, specs, plans, mk = point_lanes(spec)
+    assert len(specs) == 256 and mk == 1 + 5 and dims.N == 5
+    assert batch_fault_flags(specs) == FaultFlags(True, False, True, True,
+                                                  True)
+    assert sum(1 for p in plans if p.crashes) > 0
+    assert sum(1 for p in plans if p.drop_bp) > 0
+
+
+def test_rehearsal_of_the_monitored_profile_on_cpu():
+    from fantoch_tpu_torch.mc.fuzz import FuzzSpec, point_lanes
+
+    protocol, dims, specs, _plans, mk = point_lanes(
+        FuzzSpec(protocol="tempo", n=3, schedules=3, commands_per_client=2))
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev, mk)
+    out = step_profile.profile(protocol, dims, state, ctx, dev, 3, 2,
+                               False, batch_fault_flags(specs), mk)
+    assert out["protocol"] == "TempoDev" and out["lanes"] == 3
+    assert out["device_activities_per_step_by_name"] == {}

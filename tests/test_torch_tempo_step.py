@@ -185,7 +185,7 @@ def test_tempo_tree_fits_the_freeze_plane_table(trajectories):
     more = MAX_PLANES + 1 - len(pairs)
     wide = dict(new, extra={f"p{i}": torch.zeros(2) for i in range(more)})
     wide_old = dict(old, extra={f"p{i}": torch.ones(2) for i in range(more)})
-    with pytest.raises(TooManyPlanesError, match="65 planes"):
+    with pytest.raises(TooManyPlanesError, match=f"{MAX_PLANES + 1} planes"):
         plane_pairs(wide, wide_old)
 
 
