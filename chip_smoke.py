@@ -63,8 +63,22 @@ default grid, Tempo, FPaxos and Atlas × n ∈ {3, 5} × 512 schedules,
 counted, lanes 0–3 and the last of each point held to the host twins —
 and the reference bench's fuzz point (nothing flagged), with
 ``mon_finalize`` against its twin on the final state of every
-monitored batch. The host twins run in worker processes started before
-the build, overlapping the card's phases. Any failure raises; nothing
+monitored batch. Then slice 10's paths: ``key_table``'s epoch branch
+against its twin on every lane of the Tempo traffic sweeps' batches and
+of an epoch-Zipf batch; ``emit_rewrite`` under the open-loop and think
+flags on every step of small open-loop batches (Tempo and FPaxos, with
+and without a crash and drops, Tempo also through a double-reply
+wrapper) and of a diurnal batch, until a staged SUBMIT, a window-blocked
+SUBMIT, a trigger-2 SUBMIT, a two-command completion, a think delay and
+an epoch boundary were compared; the open-loop serving lanes against
+``tests/fixtures/torch_open_loop_golden.json``; the open-loop Tempo
+offered-load ladder (loads 50, 100, 200, 400; Poisson arrivals of mean
+gap 4 ms, a window of 4; the Tempo grid's first 64 subsets, 512 lanes a
+load) and the Tempo diurnal, flash and churn sweeps on that grid, each
+counted, with ``key_table`` and ``emit_rewrite`` timed and held to their
+twins on its first batch and lane 7 held to the host twins. The host
+twins run in worker processes started before the build, overlapping the
+card's phases. Any failure raises; nothing
 is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
 ``{"ok": true, ...}``.
@@ -190,8 +204,24 @@ COVERAGE_CLIENTS = ["asia-east1", "asia-east2", "asia-southeast1"]
 # and the drop plan of point 7, whose lane overflows a Tempo table
 SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
           "tempo": [7, 2047], "atlas": [7, 2047], "epaxos": [7, 2047],
-          "caesar": [7, 2047], "tempo_partial": [7], "atlas_partial": [7],
+          "caesar": [7, 511], "tempo_partial": [7], "atlas_partial": [7],
           "tempo_faults": [0, 1, 2, 3, 31]}
+
+# earlier paths run at a smaller depth here than their cli.MAIN_PATHS
+# grids, for the time slice 10's paths take: the first N region subsets
+CUT_SUBSETS = {"caesar": 64, "tempo_partial": 16}
+
+
+def path_argv(name):
+    """Main path ``name``'s sweep command line as this script runs it
+    (cut to :data:`CUT_SUBSETS` where it names the path)."""
+    from fantoch_tpu_torch import cli
+
+    argv = list(cli.MAIN_PATHS[name])
+    if name in CUT_SUBSETS:
+        argv[argv.index("--subsets") + 1] = str(CUT_SUBSETS[name])
+    return argv
+
 
 # the reference region each kernel replaces
 REPLACES = {
@@ -270,14 +300,15 @@ def _host_worker() -> None:
     torch.set_num_threads(1)
 
 
-def _host_sweep_lanes(name, lanes):
-    """Worker task: lanes ``lanes`` of main path ``name`` on the host."""
+def _host_sweep_lanes(name, lanes, argv=None):
+    """Worker task: lanes ``lanes`` of main path ``name`` (or of the sweep
+    of command line ``argv``) on the host."""
     from fantoch_tpu_torch import cli
     from fantoch_tpu_torch.engine import run_lanes
 
     t0 = time.perf_counter()
     protocol, dims, specs = cli.sweep_setup(
-        cli.parse_args(cli.MAIN_PATHS[name]))
+        cli.parse_args(argv or path_argv(name)))
     host = run_lanes(protocol, dims, [specs[i] for i in lanes], device="cpu")
     return ([json.dumps(h.to_json(), sort_keys=True) for h in host],
             time.perf_counter() - t0)
@@ -456,7 +487,7 @@ def check_kernels(name, dev, rows):
     from fantoch_tpu_torch.engine.spec import stack_lanes
     from fantoch_tpu_torch.kernels import cost
 
-    argv = cli.MAIN_PATHS[name]
+    argv = path_argv(name)
     sweep = cli.parse_args(argv)
     protocol, dims, specs = cli.sweep_setup(sweep)
     max_steps = 1 << 22
@@ -504,6 +535,7 @@ def check_kernels(name, dev, rows):
     captured["key_table"] = (
         ctx["rng_key"], ctx["conflict_rate"], ctx["pool_size"],
         ctx["key_gen_kind"], ctx["zipf_cum"], dims.C, T,
+        mods["key_table"].traffic_tables(ctx),
     )
     L, M, W = captured["qualify_pop"][0].shape
     shapes = (f"L={L} N={dims.N} M={M} W={W} D={dims.D} F={dims.F} "
@@ -1425,7 +1457,7 @@ def sweep(name, dev):
     from fantoch_tpu_torch import cli, kernels
     from fantoch_tpu_torch.parallel import run_sweep
 
-    args = cli.parse_args(cli.MAIN_PATHS[name])
+    args = cli.parse_args(path_argv(name))
     protocol, dims, specs = cli.sweep_setup(args)
     kernels.reset_counts()
     torch.cuda.synchronize()
@@ -1463,7 +1495,10 @@ def sweep(name, dev):
         fault_sweep_checks(specs, results, total, wall, launches)
     else:
         grid = args.subsets * len(args.fs) * len(args.conflicts)
-        assert len(results) == grid and grid in (512, 2048) and errors == 0
+        assert len(results) == grid and errors == 0
+        assert grid == (2048 if name in ("basic", "fpaxos", "tempo", "atlas",
+                                         "epaxos", "caesar") else 512) or (
+            name in CUT_SUBSETS)
         main_path_checks(name, dims, specs, results, total)
     t0 = time.perf_counter()
     sample = SAMPLE[name]
@@ -2047,6 +2082,515 @@ def monitored_tempo_sweep(dev):
     return launches
 
 
+# ----------------------------------------------------------------------
+# time-varying traffic and open-loop arrivals
+# ----------------------------------------------------------------------
+
+# the serving lanes of tests/test_torch_serving.py, in lane order (the
+# fixture's): (protocol, commands, arrivals, load, window, seed, plan)
+SERVING_LANES = [
+    ("fpaxos", 8, "ramp", 150, 4, 4, {"drop_bp": 400, "seed": 5,
+                                      "horizon": 250}),
+    ("fpaxos", 8, "burst", 100, 3, 1, {
+        "crash": {"2": 300},
+        "windows": [{"src": 1, "dst": 0, "t0": 0, "t1": 150, "mult": 2}]}),
+    ("tempo", 8, "poisson", 200, 2, 2, {"drop_bp": 500, "seed": 9,
+                                        "horizon": 5000}),
+    ("tempo", 8, "burst", 100, 3, 0, {
+        "crash": {"2": 260},
+        "windows": [{"src": 0, "dst": 1, "t0": 40, "t1": 220, "mult": 3}]}),
+]
+# the open-loop coverage batches' plans: fault-free, and a crash with
+# drops under a horizon
+OPEN_PLANS = [None, None, {"crash": {"2": 150}, "drop_bp": 300, "seed": 3,
+                           "horizon": 2000}]
+# steps of each coverage batch held to the twin (each batch's events
+# come within its first hundred steps; a drop lane requeues to its
+# horizon)
+OPEN_STEPS = 400
+# the epoch-Zipf schedule of K3's check: the coefficient moves per epoch
+ZIPF_SCHEDULE = {"name": "zipf", "cycle": True, "phases": [
+    {"commands": 10, "conflict_rate": 50, "zipf_coef": 0.5},
+    {"commands": 15, "conflict_rate": 50},
+    {"commands": 10, "conflict_rate": 50, "zipf_coef": 2.0},
+]}
+# sampled lanes of the slice's sweeps held to the host twins: lane 0
+# (subset 0, f = 1, conflict 0) completes on every sweep; lane 7 (f = 2,
+# conflict 100) ends in ERR_CAPACITY on the ladder, as the reference's
+# engine does (the tables are sized for the closed loop)
+NEW_SAMPLE = [0, 7]
+
+
+def new_paths():
+    """``{name: argv}``: the open-loop Tempo offered-load ladder, one
+    sweep a load, and the Tempo traffic sweeps, one a preset."""
+    from fantoch_tpu_torch import cli
+
+    out = {}
+    for load in cli.OPEN_LOADS:
+        argv = list(cli.MAIN_PATH_TEMPO_OPEN)
+        argv[argv.index("--offered-load") + 1] = str(load)
+        out[f"tempo_open_{load}"] = argv
+    for preset in cli.TRAFFIC_PATHS:
+        argv = list(cli.MAIN_PATH_TEMPO_TRAFFIC)
+        argv[argv.index("--traffic") + 1] = preset
+        out[f"tempo_traffic_{preset}"] = argv
+    return out
+
+
+def traffic_keys(dev) -> float:
+    """K3's epoch branch against its twin: every lane of the Tempo
+    traffic sweeps' batches (diurnal, flash, churn) and of a batch of
+    Basic lanes under an epoch-Zipf schedule (Zipf over 1,000 keys, the
+    first 64 subsets); on churn each conflicting key lies in its epoch's
+    rotated pool. Returns the max abs error."""
+    import torch
+
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.carry import to_torch
+    from fantoch_tpu_torch.core import Planet
+    from fantoch_tpu_torch.engine.protocols import BasicDev
+    from fantoch_tpu_torch.engine.spec import stack_lanes
+    from fantoch_tpu_torch.parallel import make_sweep_specs
+    from fantoch_tpu_torch.traffic import TrafficSchedule
+
+    kt = importlib.import_module("fantoch_tpu_torch.kernels.key_table")
+
+    batches = {}
+    for name, argv in new_paths().items():
+        if name.startswith("tempo_traffic"):
+            args = cli.parse_args(argv)
+            _p, dims, specs = cli.sweep_setup(args)
+            batches[name] = (specs[:args.batch_lanes], args.commands)
+    _p, dims, specs = cli.sweep_setup(cli.parse_args(
+        [a if a != "256" else "64" for a in cli.MAIN_PATH]))
+    regions = sorted({tuple(s.process_regions) for s in specs})
+    zspecs = make_sweep_specs(
+        BasicDev, Planet.new(), region_sets=[list(r) for r in regions],
+        fs=[1, 2], conflicts=[0, 10, 50, 100], commands_per_client=50,
+        clients_per_region=1, dims=dims, zipf=(1.0, 1000),
+        traffic=TrafficSchedule.from_json(ZIPF_SCHEDULE))
+    batches["epoch zipf"] = (zspecs, 50)
+    err = 0.0
+    for label, (lanes, commands) in batches.items():
+        ctx = to_torch(stack_lanes(lanes), dev)
+        T = commands + 2
+        a = (ctx["rng_key"], ctx["conflict_rate"], ctx["pool_size"],
+             ctx["key_gen_kind"], ctx["zipf_cum"], dims.C, T,
+             kt.traffic_tables(ctx))
+        got = kt.key_table(*a)
+        want = kt.key_table_plain(*a)
+        torch.cuda.synchronize()
+        err = max(err, _compare(got, want))
+        note = ""
+        if label.endswith("churn"):
+            e = ctx["traffic_seq_epoch"].long()
+            base = torch.gather(ctx["traffic_pool_base"].long(), 1, e)
+            size = torch.gather(ctx["traffic_pool_size"].long(), 1, e)
+            span = ctx["traffic_pool_span"].long()[:, None, None]
+            pooled = got < span
+            inside = (got >= base[:, None]) & (got < base[:, None]
+                                                  + size[:, None])
+            assert bool((inside | ~pooled).all())
+            note = (f"; {int(pooled.sum())} pool keys, each in its epoch's "
+                    f"pool (bases {sorted(set(base[0].tolist()))})")
+        print(f"kernel key_table ({label}, {len(lanes)} lanes, "
+              f"{ctx['traffic_seq_epoch'].shape[1]} seqs, "
+              f"{ctx['traffic_conflict'].shape[1]} epochs): exact=True "
+              f"max_abs_err={err} distinct keys "
+              f"{int(torch.unique(got).numel())}{note}")
+    return err
+
+
+class _DoubleReply:
+    """A protocol's handlers with each result row also copied into the
+    handler outbox's last slot when that is free, so that a client
+    completes two commands in one step (no protocol's handler emits two
+    results a call): the open-loop client's count-based attribution for
+    that case, on the card."""
+
+    def __init__(self, base):
+        self._base = base
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+    def handlers(self, ps, has, rows, fire, ep, ctx, dims):
+        import torch
+
+        rdy, ps, pout, ob = self._base.handlers(ps, has, rows, fire, ep,
+                                                ctx, dims)
+        is_tc = ob["valid"] & (ob["dst"] >= dims.N)
+        i = is_tc.to(torch.int32).argmax(-1)
+        j = ob["valid"].shape[-1] - 1
+        dup = is_tc.any(-1) & ~ob["valid"][..., j] & (i != j)
+        lanes = torch.arange(i.shape[0], device=i.device)[:, None]
+        procs = torch.arange(i.shape[1], device=i.device)[None, :]
+        out = {}
+        for k, v in ob.items():
+            v = v.clone()
+            m = dup.reshape(dup.shape + (1,) * (v.dim() - 3))
+            v[:, :, j] = torch.where(m, v[lanes, procs, i], v[:, :, j])
+            out[k] = v
+        return rdy, ps, pout, out
+
+
+def _open_protocol(name, clients, commands, traffic=None):
+    """``(protocol, dims)`` at n = 3 for ``clients`` clients of
+    ``commands`` commands, the key table sized for ``traffic``."""
+    from fantoch_tpu_torch.engine import EngineDims
+    from fantoch_tpu_torch.engine.protocols import dev_protocol
+    from fantoch_tpu_torch.traffic import traffic_key_capacity
+
+    keys = traffic_key_capacity([traffic], conflict=100, pool_size=1,
+                                commands=commands, clients=clients)
+    proto = dev_protocol(name, clients, keys=keys)
+    total = commands * clients
+    return proto, EngineDims.for_protocol(
+        proto, n=3, clients=clients, payload=proto.payload_width(3),
+        total_commands=total, dot_slots=total + 1, regions=3)
+
+
+def _open_lanes(name, plans, commands=6, cpr=2, arrivals="poisson",
+                load=400, window=2, traffic=None):
+    """``(protocol, dims, specs)``: n = 3 lanes on the first three GCP
+    regions, one per plan, conflict 100 and 0 in turn, GC and detached
+    sends every 20 ms."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import make_lane
+    from fantoch_tpu_torch.engine.faults import FaultPlan
+    from fantoch_tpu_torch.engine.protocols import dev_config_kwargs
+
+    proto, dims = _open_protocol(name, 3 * cpr, commands, traffic)
+    regions = Planet.new().regions()[:3]
+    kw = dev_config_kwargs(name, 3, 1, gc_interval_ms=20)
+    if name == "tempo":
+        kw["tempo_detached_send_interval_ms"] = 20
+    specs = [
+        make_lane(proto, Planet.new(), Config(**kw),
+                  conflict_rate=100 if i % 2 == 0 else 0, pool_size=1,
+                  commands_per_client=commands, clients_per_region=cpr,
+                  process_regions=regions, client_regions=regions,
+                  dims=dims, seed=i,
+                  faults=FaultPlan.from_json(plan) if plan else None,
+                  arrivals=arrivals, arrival_load=load, open_window=window,
+                  traffic=traffic)
+        for i, plan in enumerate(plans)
+    ]
+    return proto, dims, specs
+
+
+def _k6_events(a, want, seen) -> None:
+    """Counts in ``seen`` what one K6 step compared: a staged SUBMIT
+    (trigger 1), a window-blocked SUBMIT pop, a trigger-2 SUBMIT, a
+    client completing two commands, and under the think flag an issued
+    SUBMIT with a think delay and one whose epoch differs from the
+    previous command's."""
+    import torch
+
+    from fantoch_tpu_torch.engine import faults as fm
+    from fantoch_tpu_torch.engine.dims import PMT, PPAY, PSRC
+
+    st, ctx, _ep, _fire, has, rdy, rows = a[:7]
+    dims, submit, flags = a[10], a[11], a[12]
+    new_rows, valid, upd = want
+    N, F = dims.N, dims.F
+    cl, new = st["clients"], upd["clients"]
+    if flags & fm.FLAG_OPEN_LOOP:
+        F2 = 2 * F + 2
+        j = torch.arange(new_rows.shape[1], device=valid.device) % F2
+        client = valid & (new_rows[..., PSRC] >= N)
+        seen["trigger 1"] += int((client & (j == F2 - 2)).sum())
+        seen["trigger 2"] += int((client & (j < F2 - 2)).sum())
+        seen["multi-completion"] += int(
+            ((new["completed"] - cl["completed"]) >= 2).sum())
+        src = rows[..., PSRC]
+        sc = (src - N).clamp(0, dims.C - 1).long()
+        seq = rows[..., PPAY + 1]
+
+        def take(x):
+            return torch.gather(x, 1, sc)
+
+        W = cl["ol_comp_t"].shape[2]
+        blocked = (has & rdy & (rows[..., PMT] == submit) & (src >= N)
+                   & (seq == take(cl["issued"]))
+                   & (seq + 1 <= take(ctx["cmd_budget"]))
+                   & (take(cl["completed"]) + W < seq + 1))
+        seen["window-blocked SUBMIT"] += int(blocked.sum())
+    if flags & fm.FLAG_THINK:
+        issued = (new["issued"] - cl["issued"]) > 0
+        nxt = cl["issued"].long() + 1
+        tbl = ctx["traffic_seq_epoch"].long()
+        top = tbl.shape[1] - 1
+        e_new = torch.gather(tbl, 1, nxt.clamp(max=top))
+        e_old = torch.gather(tbl, 1, (nxt - 1).clamp(min=0, max=top))
+        think = torch.gather(ctx["traffic_think"].long(), 1, e_new)
+        seen["think delay"] += int((issued & (think > 0)).sum())
+        seen["epoch boundary"] += int((issued & (e_new != e_old)).sum())
+
+
+def open_coverage(dev) -> float:
+    """K6 against its twin on every step (up to :data:`OPEN_STEPS`) of
+    the open-loop coverage batches — Tempo and FPaxos at load 400 and a
+    window of 2, conflict 100 and 0, with and without a crash and drops,
+    Tempo also through the double-reply wrapper — and of a Tempo diurnal
+    batch (closed loop, think delays), until a staged SUBMIT, a
+    window-blocked SUBMIT, a trigger-2 SUBMIT, a two-command completion,
+    a think delay and an epoch boundary were compared. Returns the max
+    abs error."""
+    import torch
+
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.driver import prepare_batch
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags
+
+    seen = dict.fromkeys(("trigger 1", "window-blocked SUBMIT",
+                          "trigger 2", "multi-completion", "think delay",
+                          "epoch boundary"), 0)
+    errs, calls = [0.0], [0]
+
+    def k6(a, got, want):
+        errs[0] = max(errs[0], _compare(got, want))
+        calls[0] += 1
+        _k6_events(a, want, seen)
+
+    batches = {
+        "tempo open": _open_lanes("tempo", OPEN_PLANS),
+        "fpaxos open": _open_lanes("fpaxos", OPEN_PLANS),
+        "tempo diurnal": _open_lanes("tempo", [None, None], commands=12,
+                                     arrivals=None, traffic="diurnal"),
+    }
+    proto, dims, specs = _open_lanes("tempo", OPEN_PLANS[:2])
+    batches["tempo double reply"] = (_DoubleReply(proto), dims, specs)
+    with _Patched(emit_rewrite=_checked("emit_rewrite", "emit_rewrite", k6)):
+        for label, (p, d, lanes) in batches.items():
+            before = calls[0]
+            flags = batch_fault_flags(lanes)
+            state, ctx = prepare_batch(p, d, lanes, dev)
+            for _ in range(OPEN_STEPS):
+                state, running = engine_core.frozen_step(
+                    p, d, state, ctx, 1 << 22, False, flags)
+                if not bool(running.any()):
+                    break
+            torch.cuda.synchronize()
+            print(f"kernel emit_rewrite ({label} batch): exact=True on "
+                  f"every one of {calls[0] - before} steps; lanes' steps "
+                  f"{state['steps'].tolist()}, completed "
+                  f"{state['clients']['completed'].sum(1).tolist()}, err "
+                  f"{state['err'].tolist()}, dropped "
+                  f"{state['fault_dropped'].tolist()}")
+    assert all(seen.values()), f"open-loop coverage incomplete: {seen}"
+    print("kernel emit_rewrite (open-loop and think coverage): seen "
+          + "; ".join(f"{k} {v}" for k, v in seen.items())
+          + f"; max_abs_err={errs[0]}")
+    return errs[0]
+
+
+def open_freeze(dev) -> float:
+    """K7 (and K6) against their twins on the widest tree K7 carries,
+    monitored open-loop Caesar (64 changed planes on the card, where
+    every kernel writes fresh outputs), on every one of 50
+    steps of a two-lane batch whose lane 0 is frozen from the start.
+    Returns the max abs error."""
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.driver import prepare_batch
+    from fantoch_tpu_torch.kernels.lane_freeze import MAX_PLANES, plane_pairs
+
+    errs, planes = [0.0], [0]
+
+    def k7(a, got, want):
+        errs[0] = max(errs[0], _compare(got, want))
+        planes[0] = max(planes[0], len(plane_pairs(a[0], a[1])))
+
+    def k6(a, got, want):
+        errs[0] = max(errs[0], _compare(got, want))
+
+    proto, dims, lanes = _open_lanes("caesar", [None, None], commands=3,
+                                     cpr=1)
+    state, ctx = prepare_batch(proto, dims, lanes, dev, 4)
+    state["err"][0] = 64
+    with _Patched(
+        lane_freeze=_checked("lane_freeze", "lane_freeze", k7, True),
+        emit_rewrite=_checked("emit_rewrite", "emit_rewrite", k6),
+    ):
+        for _ in range(50):
+            state, running = engine_core.frozen_step(
+                proto, dims, state, ctx, 1 << 22, monitor_keys=4)
+    assert planes[0] <= MAX_PLANES and running.tolist() == [False, True], (
+        planes, running)
+    print(f"kernel lane_freeze (monitored open-loop Caesar, lane 0 frozen): "
+          f"exact=True on every one of 50 steps at {planes[0]} planes; "
+          f"max_abs_err={errs[0]}")
+    return errs[0]
+
+
+def golden_open_loop(dev) -> None:
+    """The serving lanes of tests/test_torch_serving.py (open-loop Tempo
+    and FPaxos under crashes, windows and drops) against their
+    fixture."""
+    from fantoch_tpu_torch.core import Config, Planet
+    from fantoch_tpu_torch.engine import make_lane, run_lanes
+    from fantoch_tpu_torch.engine.faults import FaultPlan
+    from fantoch_tpu_torch.engine.protocols import dev_config_kwargs
+
+    regions = Planet.new().regions()[:3]
+    text = ""
+    for name, commands, arrivals, load, window, seed, plan in SERVING_LANES:
+        proto, dims = _open_protocol(name, 3, commands)
+        spec = make_lane(
+            proto, Planet.new(), Config(**dev_config_kwargs(name, 3, 1)),
+            conflict_rate=100, pool_size=1, commands_per_client=commands,
+            clients_per_region=1, process_regions=regions,
+            client_regions=regions, dims=dims, seed=seed,
+            faults=FaultPlan.from_json(plan), arrivals=arrivals,
+            arrival_load=load, open_window=window)
+        (res,) = run_lanes(proto, dims, [spec], device=dev)
+        print(f"golden open loop on {dev}: {name} {arrivals}@{load} window "
+              f"{window} {res.faults}: steps {res.steps} completed "
+              f"{res.completed} dropped {res.dropped} err {res.err}")
+        text += json.dumps([res.to_json()], sort_keys=True) + "\n"
+    path = FIXTURES / "torch_open_loop_golden.json"
+    assert text == path.read_text(), "to_json differs from the fixture"
+    print(f"fixture {path.relative_to(ROOT)}: byte-identical "
+          f"({len(text)} bytes)")
+
+
+def _k3_k6_times(name, argv, dev, warmup: int = 300):
+    """K3 and K6 on one step's arguments of a sweep's first batch after
+    ``warmup`` steps: exact against the twin, device ms, call ms, plain
+    ms and the bound. Returns ``{kernel: (err, ms, call_ms, plain_ms,
+    bound_ms, bound_by)}``."""
+    import torch
+
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.driver import prepare_batch
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags
+    from fantoch_tpu_torch.kernels import cost
+
+    er = importlib.import_module("fantoch_tpu_torch.kernels.emit_rewrite")
+    kt = importlib.import_module("fantoch_tpu_torch.kernels.key_table")
+    args = cli.parse_args(argv)
+    protocol, dims, specs = cli.sweep_setup(args)
+    batch = specs[:args.batch_lanes]
+    flags = batch_fault_flags(batch)
+    state, ctx = prepare_batch(protocol, dims, batch, dev)
+    for _ in range(warmup):
+        state, _r = engine_core.frozen_step(protocol, dims, state, ctx,
+                                            1 << 22, False, flags)
+    box = {}
+
+    def record(*a):
+        box["a"] = a
+        return er.emit_rewrite(*a)
+
+    record.launches = 0
+    with _Patched(emit_rewrite=record):
+        engine_core.frozen_step(protocol, dims, state, ctx, 1 << 22, False,
+                                flags)
+    T = ctx["key_table"].shape[2]
+    cases = {
+        "key_table": (kt, (ctx["rng_key"], ctx["conflict_rate"],
+                           ctx["pool_size"], ctx["key_gen_kind"],
+                           ctx["zipf_cum"], dims.C, T,
+                           kt.traffic_tables(ctx))),
+        "emit_rewrite": (er, box["a"]),
+    }
+    out = {}
+    for kname, (mod, a) in cases.items():
+        kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
+        got, want = kern(*a), plain(*a)
+        torch.cuda.synchronize()
+        err = _compare(got, want)
+        ms = _device_ms(lambda a=a: kern(*a), kname, 50)
+        call_ms = _time_ms(lambda a=a: kern(*a), 50)
+        plain_ms = _time_ms(lambda a=a: plain(*a), 5)
+        n_bytes, n_ops = mod.work(*a, got)
+        bound_ms, bound_by = cost.bound(n_bytes, n_ops)
+        out[kname] = (err, ms, call_ms, plain_ms, bound_ms, bound_by)
+        print(f"kernel {kname} ({name}, step {warmup + 1} of the first "
+              f"batch): exact=True max_abs_err={err} ms={ms:.5f} "
+              f"call_ms={call_ms:.5f} plain_ms={plain_ms:.5f} bound_us="
+              f"{1e3 * bound_ms:.3f} ({bound_by}: {n_bytes} bytes, {n_ops} "
+              f"ops) x bound {ms / bound_ms:.1f}")
+    return out
+
+
+def new_sweep(name, argv, dev, rows):
+    """One sweep of the slice's paths, counted: points/s, batch steps,
+    steps per lane, errors, each lane's mean latency averaged over the
+    sweep, the launches; K3 and K6 timed on its first batch (their
+    errors folded into ``rows``); the sampled lanes against the host
+    twins. Returns its launches."""
+    import torch
+
+    from fantoch_tpu_torch import cli, kernels
+    from fantoch_tpu_torch.parallel import run_sweep
+
+    args = cli.parse_args(argv)
+    protocol, dims, specs = cli.sweep_setup(args)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_sweep(protocol, dims, specs, batch_lanes=args.batch_lanes,
+                        device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.counts()
+    errors = sum(1 for r in results if r.err)
+    steps = [r.steps for r in results]
+    total = args.commands * dims.C
+    means = [int(r.lat_sum.sum()) / int(r.lat_count.sum())
+             for r in results if int(r.lat_count.sum())]
+    clean = [int(r.lat_sum.sum()) / total for r in results if not r.err]
+    print(f"sweep {name} (N={dims.N} M={dims.M} D={dims.D} F={dims.F}): "
+          f"{len(results)} points in {wall:.3f} s = "
+          f"{len(results) / wall:.3f} points/s; errors {errors} "
+          f"{sorted({r.err_cause for r in results if r.err})}; batch steps "
+          f"{launches['qualify_pop']}; steps per lane max {max(steps)} mean "
+          f"{sum(steps) / len(steps):.1f}; lanes complete "
+          f"{sum(1 for r in results if r.completed == total)}; mean latency "
+          f"(mean of the lanes' means) {sum(means) / len(means):.3f} ms, of "
+          f"the {len(clean)} lanes without error {sum(clean) / len(clean):.3f}"
+          f" ms; "
+          f"pool_peak max {max(r.pool_peak for r in results)}; launches "
+          f"{launches}")
+    path_kernels = ["qualify_pop", "tempo_handle", "emit_rewrite",
+                    "land_emissions", "lane_freeze", "key_table"]
+    assert all(launches[k] > 0 for k in path_kernels), launches
+    other = set(HANDLERS.values()) - {"tempo_handle"}
+    assert all(launches[k] == 0 for k in other), launches
+    assert len(results) == 512
+    if args.arrivals:
+        # the reference's engine ends the same lanes in capacity
+        # overflows (its tables are sized for the closed loop)
+        assert all(r.err_cause == "capacity-overflow"
+                   for r in results if r.err)
+        assert all(r.completed == total for r in results if not r.err)
+        by_conflict = {}
+        for spec, r in zip(specs, results):
+            if r.err:
+                cf = int(spec.ctx["conflict_rate"])
+                by_conflict[cf] = by_conflict.get(cf, 0) + 1
+        print(f"{name}: erring lanes by conflict rate "
+              f"{dict(sorted(by_conflict.items()))}")
+    else:
+        assert errors == 0
+        assert all(r.completed == total == int(r.lat_count.sum())
+                   for r in results)
+    for kname, (err, *_t) in _k3_k6_times(name, argv, dev).items():
+        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
+    t0 = time.perf_counter()
+    host, secs = HOST.result(("sweep", name))
+    for i, line in zip(NEW_SAMPLE, host):
+        assert line == json.dumps(results[i].to_json(), sort_keys=True), (
+            f"{name} lane {i} differs from the host run")
+    print(f"{name} lanes {NEW_SAMPLE}: card == host plain twins, byte for "
+          f"byte ({secs:.1f} s on the host, waited "
+          f"{time.perf_counter() - t0:.1f} s)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2087,6 +2631,9 @@ def _main(dev, card) -> int:
     # mc grid's go in segments while it runs)
     for name in PATHS:
         HOST.submit(("sweep", name), _host_sweep_lanes, name, SAMPLE[name])
+    for name, argv in new_paths().items():
+        HOST.submit(("sweep", name), _host_sweep_lanes, name, NEW_SAMPLE,
+                    argv)
 
     # 2. build
     phase("2 build", build.build)
@@ -2109,6 +2656,7 @@ def _main(dev, card) -> int:
     phase("6 golden tempo partial", golden_tempo_partial, dev)
     phase("6 golden atlas partial", golden_atlas_partial, dev)
     phase("6 golden faults", golden_faults, dev)
+    phase("6 golden open loop", golden_open_loop, dev)
 
     # the fault branches of K1, K6 and K7, and K6's reorder draws and wide
     # lanes, each against its twin
@@ -2117,6 +2665,9 @@ def _main(dev, card) -> int:
          ("qualify_pop", "emit_rewrite", "lane_freeze")),
         ("reorder", reorder_coverage, ("emit_rewrite",)),
         ("wide emit", wide_emit, ("emit_rewrite",)),
+        ("traffic keys", traffic_keys, ("key_table",)),
+        ("open-loop coverage", open_coverage, ("emit_rewrite",)),
+        ("open-loop freeze", open_freeze, ("lane_freeze", "emit_rewrite")),
     ):
         err = phase(f"6 kernels ({label})", fn, dev)
         for kname in knames:
@@ -2132,6 +2683,11 @@ def _main(dev, card) -> int:
                for name in PATHS}
     by_path["tempo_monitored"] = phase("7 sweep tempo monitored",
                                        monitored_tempo_sweep, dev)
+    # the open-loop offered-load ladder and the traffic sweeps, each
+    # counted on its own
+    for name, argv in new_paths().items():
+        by_path[name] = phase(f"7 sweep {name}", new_sweep, name, argv, dev,
+                              rows)
     # 8. this slice's main path, the mc default grid, counted; then the
     # bench's fuzz self-check point
     by_path["mc"] = phase("8 mc grid", mc_grid, dev)

@@ -3,8 +3,10 @@ and ``... mc --no-confirm ...``.
 
 The ``sweep`` subcommand runs the batched engine over a (region subset
 × f × conflict) grid, each point once per fault plan of ``--faults``,
-and prints the reference CLI's summary JSON (the keys that apply to
-closed-loop, flat-traffic sweeps). The ``mc`` subcommand fuzzes a
+under an optional traffic schedule (``--traffic``) or open-loop arrival
+process (``--arrivals``, ``--offered-load``, ``--open-window``,
+``--arrival-gap-ms``), and prints the reference CLI's summary JSON. The
+``mc`` subcommand fuzzes a
 (protocol × n) grid of schedules with the safety monitors on
 (``mc/fuzz.py``) and prints the reference's summary JSON; it runs only
 under ``--no-confirm``, since confirmation needs the host oracle. Both
@@ -96,6 +98,20 @@ TEMPO_FAULT_PLANS = (
 MAIN_PATH_TEMPO_FAULTS = [
     "64" if a == "256" else a for a in MAIN_PATH_TEMPO
 ] + ["--faults", TEMPO_FAULT_PLANS]
+# the open-loop Tempo offered-load ladder: the knee sweep's device work
+# (the reference's serving/knee.py DEFAULT_LOADS, Poisson arrivals of
+# mean gap 4 ms, a window of 4) over the Tempo grid cut to its first 64
+# subsets, 512 lanes a load; MAIN_PATH_TEMPO_OPEN is its load-100 rung
+OPEN_LOADS = (50, 100, 200, 400)
+MAIN_PATH_TEMPO_OPEN = [
+    "64" if a == "256" else a for a in MAIN_PATH_TEMPO
+] + ["--arrivals", "poisson", "--offered-load", "100", "--open-window", "4",
+     "--arrival-gap-ms", "4"]
+# Tempo under the time-varying traffic presets, the same 512-lane grid
+TRAFFIC_PATHS = ("diurnal", "flash", "churn")
+MAIN_PATH_TEMPO_TRAFFIC = [
+    "64" if a == "256" else a for a in MAIN_PATH_TEMPO
+] + ["--traffic", "churn"]
 # the mc subcommand's default grid: the reference CLI's own defaults
 # (Tempo, FPaxos and Atlas x n in {3, 5}, 512 schedules a point)
 MAIN_PATH_MC = ["mc", "--no-confirm"]
@@ -110,7 +126,9 @@ MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
               "epaxos": MAIN_PATH_EPAXOS, "caesar": MAIN_PATH_CAESAR,
               "tempo_partial": MAIN_PATH_TEMPO_PARTIAL,
               "atlas_partial": MAIN_PATH_ATLAS_PARTIAL,
-              "tempo_faults": MAIN_PATH_TEMPO_FAULTS}
+              "tempo_faults": MAIN_PATH_TEMPO_FAULTS,
+              "tempo_open": MAIN_PATH_TEMPO_OPEN,
+              "tempo_traffic": MAIN_PATH_TEMPO_TRAFFIC}
 
 
 def _ints(s: str) -> List[int]:
@@ -132,6 +150,7 @@ def sweep_setup(args):
         fault_plans = parse_fault_specs(args.faults)
         if args.shards > 1:
             raise SystemExit("--faults is single-shard for now")
+    traffic, traffic_keys = _traffic_setup(args)
 
     planet = (
         Planet.from_dataset("latency_aws_2021_02_13") if args.aws
@@ -158,7 +177,7 @@ def sweep_setup(args):
                 pool_size=args.pool_size,
             )
         else:
-            dev = dev_protocol(args.protocol, clients)
+            dev = dev_protocol(args.protocol, clients, keys=traffic_keys)
     except (NotImplementedError, ValueError) as e:
         raise SystemExit(str(e))
     if args.shards > 1:
@@ -208,8 +227,65 @@ def sweep_setup(args):
         ),
         pool_size=args.pool_size,
         faults=fault_plans,
+        traffic=traffic,
+        arrivals=args.arrivals,
+        arrival_load=args.offered_load,
+        arrival_gap_ms=args.arrival_gap_ms,
+        open_window=args.open_window,
     )
     return dev, dims, specs
+
+
+def _traffic_setup(args):
+    """``(traffic, keys)``: the sweep's traffic preset (None for flat)
+    and the protocol's key capacity it needs (None: the default), after
+    the reference CLI's refusals of ``--traffic`` and ``--arrivals``."""
+    from .traffic import (
+        ARRIVAL_PRESETS, TRAFFIC_PRESETS, traffic_key_capacity,
+    )
+
+    traffic = args.traffic if args.traffic not in (None, "flat") else None
+    traffic_keys = None
+    if traffic is not None:
+        if traffic not in TRAFFIC_PRESETS:
+            raise SystemExit(
+                f"unknown traffic preset {traffic!r}; choose from "
+                f"{','.join(TRAFFIC_PRESETS)}"
+            )
+        if args.shards > 1:
+            raise SystemExit("--traffic is single-shard for now")
+        if args.zipf:
+            raise SystemExit(
+                "--traffic drives the ConflictPool generator; drop "
+                "--zipf"
+            )
+        traffic_keys = traffic_key_capacity(
+            [traffic],
+            conflict=args.conflict if args.conflict is not None else 100,
+            pool_size=args.pool_size,
+            commands=args.commands,
+            clients=args.n * args.clients_per_region,
+        )
+    if args.arrivals is not None:
+        if args.arrivals not in ARRIVAL_PRESETS or args.arrivals == "closed":
+            open_presets = [a for a in ARRIVAL_PRESETS if a != "closed"]
+            raise SystemExit(
+                f"unknown arrival preset {args.arrivals!r}; choose "
+                f"from {','.join(open_presets)}"
+            )
+        if args.shards > 1:
+            raise SystemExit("--arrivals is single-shard for now")
+        if traffic in ("diurnal", "flash"):
+            raise SystemExit(
+                f"--traffic {traffic} carries think delays, which "
+                "open-loop arrivals replace; combine --arrivals with "
+                "flat or churn traffic"
+            )
+        if args.offered_load < 1 or args.open_window < 1:
+            raise SystemExit(
+                "--offered-load and --open-window must be >= 1"
+            )
+    return traffic, traffic_keys
 
 
 def _config_overrides(args) -> dict:
@@ -238,8 +314,9 @@ def cmd_sweep(args) -> None:
     errs = sum(1 for r in results if r.err)
     summary = {
         "protocol": args.protocol,
-        "traffic": "flat",
-        "arrivals": "closed",
+        "traffic": args.traffic if args.traffic not in (None, "flat")
+        else "flat",
+        "arrivals": args.arrivals or "closed",
         "points": len(specs),
         "errors": errs,
         "error_causes": sorted({r.err_cause for r in results if r.err}),
@@ -409,6 +486,34 @@ def parse_args(argv=None) -> argparse.Namespace:
         '\'[{}, {"crash": {"1": 200}}, {"windows": [{"src": 0, '
         '"dst": 1, "t0": 0, "t1": 500, "delay": "inf"}], '
         '"horizon": 5000}]\' (lossy plans need a horizon)',
+    )
+    sw.add_argument(
+        "--traffic", default=None,
+        help="time-varying traffic preset applied to every sweep point "
+        "(flat,diurnal,flash,churn); presets compose with each point's "
+        "conflict rate; flat/omitted = the static workload",
+    )
+    sw.add_argument(
+        "--arrivals", default=None,
+        help="open-loop arrival preset applied to every sweep point "
+        "(poisson,burst,ramp): commands are timestamped by seeded "
+        "arrival draws independent of completion, a bounded in-flight "
+        "window queues the rest, and queue delay counts into latency; "
+        "omitted = closed loop",
+    )
+    sw.add_argument(
+        "--offered-load", type=int, default=100,
+        help="open-loop offered load as a percent of the preset's base "
+        "arrival rate (100 = as authored; 200 = halved gaps)",
+    )
+    sw.add_argument(
+        "--open-window", type=int, default=4,
+        help="open-loop in-flight cap per client; arrivals beyond it "
+        "wait in the arrival queue (their wait lands in latency)",
+    )
+    sw.add_argument(
+        "--arrival-gap-ms", type=int, default=4,
+        help="open-loop base mean inter-arrival gap in ms at 100%% load",
     )
     sw.set_defaults(fn=cmd_sweep)
 

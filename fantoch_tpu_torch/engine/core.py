@@ -14,7 +14,9 @@ A conservative-lookahead parallel DES, step for step the reference's
      ``basic_handle``, ``fpaxos_handle``, ``tempo_handle`` or
      ``graphdep_handle`` kernel);
   4. emissions are flattened; TO_CLIENT messages are rewritten into the
-     client's next SUBMIT (closed loop), latency is recorded, channel
+     client's next SUBMIT (closed loop, after a traffic schedule's think
+     delay; open-loop clients also stage a SUBMIT when one pops and the
+     window admits the next), latency is recorded, channel
      counters advance, and the fault plan's wire faults (link windows,
      jitter, drops) and the reorder draws apply; with the termination
      bookkeeping this is the ``emit_rewrite`` kernel;
@@ -162,11 +164,21 @@ def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
         attach = ctx_np["client_attach"]
     live = budget > 0
     assert live.sum() <= M, "pool must hold the initial submit wave"
+    # a traffic schedule's first SUBMIT leaves after the first command's
+    # epoch think delay; an open-loop client's at its first arrival
+    if "traffic_think" in ctx_np:
+        think0 = int(
+            ctx_np["traffic_think"][int(ctx_np["traffic_seq_epoch"][1])]
+        )
+    else:
+        think0 = 0
+    open_loop = "ol_arrival" in ctx_np
     slot = 0
     for c in range(C):
         if not live[c]:
             continue
-        pool[slot, PA] = ctx_np["client_delay"][c, attach[c]]
+        release0 = int(ctx_np["ol_arrival"][c, 1]) if open_loop else think0
+        pool[slot, PA] = ctx_np["client_delay"][c, attach[c]] + release0
         # each client's first SUBMIT is emission #1 on its channel
         pool[slot, PKS] = N + c
         pool[slot, PKC] = 1
@@ -185,18 +197,27 @@ def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
     # timers run only on live process rows (every shard's rows)
     next_periodic[int(ctx_np["rows"]):, :] = INF
     mon = monitor.mon_init(dims, monitor_keys) if monitor_keys else {}
+    clients = {
+        "issued": live.astype(np.int32),
+        "completed": np.zeros((C,), np.int32),
+        "start_time": np.zeros((C,), np.int32),
+        "parts": np.zeros((C,), np.int32),
+        "part_max": np.zeros((C,), np.int32),
+    }
+    if open_loop:
+        # the ring of the last W completion times (completion #k at slot
+        # (k - 1) mod W) and the monotone release clamp, seeded at the
+        # first arrival
+        clients["ol_comp_t"] = np.zeros(
+            (C, int(ctx_np["ol_window"])), np.int32
+        )
+        clients["ol_last_rel"] = ctx_np["ol_arrival"][:, 1].astype(np.int32)
     return {
         **mon,
         "pool": pool,
         "ps": protocol.init_state(dims, ctx_np),
         "next_periodic": next_periodic,
-        "clients": {
-            "issued": live.astype(np.int32),
-            "completed": np.zeros((C,), np.int32),
-            "start_time": np.zeros((C,), np.int32),
-            "parts": np.zeros((C,), np.int32),
-            "part_max": np.zeros((C,), np.int32),
-        },
+        "clients": clients,
         "metrics": {
             "hist": np.zeros((dims.RR, dims.H), np.int32),
             "lat_sum": np.zeros((dims.RR,), np.int32),
@@ -223,11 +244,14 @@ def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
 
 def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
               faults: FaultFlags = NO_FAULTS, monitor_keys: int = 0):
-    """One engine step of every lane (closed loop) under the batch's
-    ``faults`` flags and ``reorder`` switch; ``monitor_keys > 0`` on a
-    state built with the monitor planes."""
+    """One engine step of every lane under the batch's ``faults`` flags
+    and ``reorder`` switch; ``monitor_keys > 0`` on a state built with the
+    monitor planes. Open-loop lanes (ctx ``ol_arrival``) and traffic
+    schedules (ctx ``traffic_think``) set their flag bits."""
     pool = st["pool"]
-    flags = flag_bits(faults, reorder, monitor=monitor_keys > 0)
+    flags = flag_bits(faults, reorder, monitor=monitor_keys > 0,
+                      open_loop="ol_arrival" in ctx,
+                      think="traffic_think" in ctx)
 
     # 0-2. the crash cut-off, qualification, the horizon and the pop
     # (kernel K1); the crash-masked arrivals and timers are written back

@@ -6,7 +6,7 @@ from typing import List, Sequence
 
 from .. import resolve_device
 from ..carry import stack_trees, to_torch
-from ..kernels.key_table import key_table
+from ..kernels.key_table import key_table, traffic_tables
 from .core import build_runner, init_lane_state
 from .dims import EngineDims
 from .faults import batch_fault_flags
@@ -21,10 +21,12 @@ KEY_CTX = ("rng_key", "conflict_rate", "pool_size", "key_gen_kind",
 
 def _keys(ctx, dims: EngineDims, T: int):
     """Every lane's (client, draw) key stream ``[L, C, T]`` (the
-    ``key_table`` kernel on the ctx's device)."""
+    ``key_table`` kernel on the ctx's device), under the lanes' traffic
+    schedule when they carry one."""
     return key_table(
         ctx["rng_key"], ctx["conflict_rate"], ctx["pool_size"],
         ctx["key_gen_kind"], ctx["zipf_cum"], dims.C, T,
+        traffic_tables(ctx),
     )
 
 

@@ -51,8 +51,9 @@ MAX_WINDOWS = 8
 DROP_DENOM = 10_000
 
 # the bits of the step's flag word (flag_bits): one per FaultFlags field,
-# then the reorder perturbation, then the safety monitors' step fold
-# (engine/monitor.py step_viol, in K6)
+# then the reorder perturbation, the safety monitors' step fold
+# (engine/monitor.py step_viol, in K6), the open-loop client and the
+# traffic schedule's think delay (both in K6)
 FLAG_CRASH = 1
 FLAG_WINDOWS = 2
 FLAG_DROPS = 4
@@ -60,6 +61,8 @@ FLAG_HORIZON = 8
 FLAG_JITTER = 16
 FLAG_REORDER = 32
 FLAG_MONITOR = 64
+FLAG_OPEN_LOOP = 128
+FLAG_THINK = 256
 
 
 class FaultFlags(NamedTuple):
@@ -80,14 +83,19 @@ NO_FAULTS = FaultFlags()
 
 
 def flag_bits(faults: FaultFlags = NO_FAULTS, reorder: bool = False,
-              monitor: bool = False) -> int:
-    """The step's flag word: :data:`FLAG_CRASH` ... :data:`FLAG_MONITOR`."""
+              monitor: bool = False, open_loop: bool = False,
+              think: bool = False) -> int:
+    """The step's flag word: :data:`FLAG_CRASH` ... :data:`FLAG_THINK`.
+    ``open_loop`` and ``think`` follow the batch's structure (its ctx
+    holds ``ol_arrival``, or a traffic schedule's ``traffic_think``)."""
     bits = 0
     for bit, on in zip((FLAG_CRASH, FLAG_WINDOWS, FLAG_DROPS, FLAG_HORIZON,
                         FLAG_JITTER), faults):
         bits |= bit if on else 0
     return (bits | (FLAG_REORDER if reorder else 0)
-            | (FLAG_MONITOR if monitor else 0))
+            | (FLAG_MONITOR if monitor else 0)
+            | (FLAG_OPEN_LOOP if open_loop else 0)
+            | (FLAG_THINK if think else 0))
 
 
 @dataclass(frozen=True)

@@ -8,13 +8,12 @@ process (util.rs:188-230), and message delay is half the ping latency
 *lane context* — equal key for key and dtype for dtype to the JAX
 reference's, ready to be stacked into a batch and moved to the device.
 
-This port builds closed-loop lanes with the static key generator,
-single-shard or partially replicated (one process row per (shard,
-region), per-shard client attachment and per-command shard/key tables:
-:func:`command_tables`, filled in by ``driver.prepare_batch`` from the
-batch's key stream), with an optional fault plan (single-shard,
-``engine/faults.py``) and the reorder perturbation; the other lane kinds
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+Lanes are single-shard or partially replicated (one process row per
+(shard, region), per-shard client attachment and per-command shard/key
+tables: :func:`command_tables`, filled in by ``driver.prepare_batch``
+from the batch's key stream), with an optional fault plan (single-shard,
+``engine/faults.py``), the reorder perturbation, a time-varying traffic
+schedule and open-loop arrivals (single-shard, ``traffic/``).
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from ..core.config import Config
 from ..core.planet import Planet
 from ..core.util import key_hash
 from .dims import INF, EngineDims
+from ..traffic.schedule import resolve_arrivals, resolve_traffic
 from .faults import (
     NO_FAULTS, FaultFlags, FaultPlan, fault_ctx, halted_client_mask,
     min_link_delays, reorder_doomed_last, unavailable,
@@ -48,6 +48,11 @@ class LaneSpec:
     # NO_FAULTS / None for fault-free lanes
     fault_flags: FaultFlags = NO_FAULTS
     fault_meta: "dict | None" = None
+    # traffic-schedule metadata; None for static lanes and for flat
+    # schedules (which collapse onto the static path)
+    traffic_meta: "dict | None" = None
+    # open-loop arrival-schedule metadata; None for closed-loop lanes
+    arrival_meta: "dict | None" = None
 
 
 def _sorted_indices(planet: Planet, process_regions: Sequence[str]) -> np.ndarray:
@@ -60,12 +65,6 @@ def _sorted_indices(planet: Planet, process_regions: Sequence[str]) -> np.ndarra
         ranked = sorted(range(n), key=lambda q: (order[process_regions[q]], q))
         out[p] = ranked
     return out
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue A item {item})"
-    )
 
 
 def make_lane(
@@ -87,6 +86,9 @@ def make_lane(
     faults: "FaultPlan | None" = None,
     traffic=None,
     arrivals=None,
+    arrival_load: int = 100,
+    arrival_gap_ms: int = 4,
+    open_window: int = 4,
 ) -> LaneSpec:
     """``zipf=(coefficient, total_keys)`` switches the workload from the
     ConflictPool generator to Zipf sampling over ``total_keys`` keys
@@ -96,11 +98,24 @@ def make_lane(
     ``reorder`` scales every message delay by a uniform [0, 10) draw per
     step (runner.rs:520-524); such lanes run serialized (lookahead 0).
     ``faults`` attaches a single-shard :class:`FaultPlan`; lanes with and
-    without plans share a batch, run under the batch's flag union."""
-    if traffic not in (None, "flat"):
-        raise _not_ported("a non-flat traffic= schedule", "11")
-    if arrivals not in (None, "closed"):
-        raise _not_ported("open-loop arrivals=", "11")
+    without plans share a batch, run under the batch's flag union.
+
+    ``traffic`` attaches a time-varying schedule (``traffic/``): a
+    :class:`TrafficSchedule`, a preset name of ``TRAFFIC_PRESETS``
+    (resolved against this lane's conflict rate, pool size and budget),
+    a JSON schedule dict, or None. A flat schedule collapses onto the
+    static path here (the same ctx keys and bytes); a non-flat one adds
+    the ``traffic_*`` epoch tables.
+
+    ``arrivals`` makes the lane's clients open-loop: an
+    :class:`ArrivalSchedule`, a preset name of ``ARRIVAL_PRESETS``
+    (resolved against ``arrival_gap_ms`` and the budget, scaled by
+    ``arrival_load`` percent), a JSON dict, or None/"closed" (the closed
+    loop). Every command is timestamped by a seeded arrival draw, at most
+    ``open_window`` commands are in flight per client, and the queue
+    delay counts into latency. Open-loop lanes are single-shard,
+    single-key, never reorder and think-free. Lanes with and without
+    tables never share a batch (``stack_lanes``)."""
     n = config.n
     S = config.shard_count
     partial = S > 1 or getattr(protocol, "KPC", 1) > 1
@@ -112,6 +127,47 @@ def make_lane(
     assert S * n <= dims.N
     N, C = dims.N, dims.C
     total = S * n  # live process rows; row = shard * n + region index
+
+    traffic = resolve_traffic(
+        traffic, conflict=conflict_rate, pool_size=pool_size,
+        commands=commands_per_client,
+    )
+    if traffic is not None and traffic.is_flat():
+        # flat collapse: the single effective phase becomes the lane's
+        # scalar knobs and no tables are emitted
+        phase0 = traffic.phases[0]
+        conflict_rate, pool_size = phase0.conflict_rate, phase0.pool_size
+        traffic = None
+    traffic_meta = None
+    if traffic is not None:
+        assert S == 1 and getattr(protocol, "KPC", 1) == 1, (
+            "traffic schedules are single-shard/single-key for now"
+        )
+        traffic_meta = traffic.meta()
+
+    arrivals = resolve_arrivals(
+        arrivals, mean_gap_ms=arrival_gap_ms,
+        commands=commands_per_client, load_pct=arrival_load,
+    )
+    arrival_meta = None
+    if arrivals is not None:
+        assert S == 1 and getattr(protocol, "KPC", 1) == 1, (
+            "open-loop arrivals are single-shard/single-key for now"
+        )
+        assert not reorder, (
+            "open-loop arrivals need the deterministic delay matrix "
+            "(count-based completion attribution); reorder lanes are "
+            "closed-loop only"
+        )
+        assert traffic is None or all(
+            p.think_ms == 0 for p in traffic.phases
+        ), (
+            "think delays model a closed loop's idle time between "
+            "commands; an open-loop lane's issue times come from the "
+            "arrival schedule instead"
+        )
+        assert open_window >= 1, open_window
+        arrival_meta = dict(arrivals.meta(), window=int(open_window))
 
     if faults is not None and faults.is_noop():
         faults = None
@@ -243,6 +299,28 @@ def make_lane(
         "periodic_intervals": intervals,
         "extra_time": np.int32(extra_time_ms),
     }
+    if traffic is not None:
+        # private keys sit at pool_span + client: the lane's top key
+        # must fit the protocol's key capacity
+        key_cap = getattr(protocol, "K", None)
+        span = traffic.pool_span()
+        assert key_cap is None or span + c <= key_cap, (
+            f"traffic schedule {traffic.name!r} needs keys up to "
+            f"{span + c - 1} but protocol key capacity is {key_cap}; "
+            "out-of-range keys would be silently dropped"
+        )
+        ctx.update(traffic.compile(commands_per_client))
+        if zipf is not None:
+            # one cumulative Zipf row per epoch (coefficient 0.0 = the
+            # lane's base coefficient)
+            ctx.update(traffic.zipf_tables(zipf[0], int(zipf[1])))
+    if arrivals is not None:
+        # the whole [C, T] arrival-time table, drawn on the host; the
+        # ring of completion times is [C, open_window]
+        ctx["ol_arrival"] = arrivals.arrival_table(
+            seed=seed, clients=C, commands=commands_per_client,
+        )
+        ctx["ol_window"] = np.int32(open_window)
     ctx.update(fault_ctx(faults, dims))
     ctx["fault_unavail"] = np.int32(1 if unavail else 0)
     if partial:
@@ -259,6 +337,8 @@ def make_lane(
             if faults is not None
             else None
         ),
+        traffic_meta=traffic_meta,
+        arrival_meta=arrival_meta,
     )
 
 
@@ -346,11 +426,15 @@ def command_tables(draws: np.ndarray, S: int, KPC: int, T: int,
 
 def stack_lanes(specs: Sequence[LaneSpec]) -> Dict[str, np.ndarray]:
     """Stack per-lane ctx dicts into one batched ctx (leading lane axis).
-    Every lane must carry the same ctx fields."""
+    Every lane must carry the same ctx fields: lanes with and without the
+    traffic or arrival tables (or other structure-gated ctx) run
+    different steps and cannot share a batch."""
     keys = specs[0].ctx.keys()
     for i, s in enumerate(specs[1:], start=1):
         assert s.ctx.keys() == keys, (
             f"lane {i} ctx fields differ from lane 0 "
-            f"({sorted(set(s.ctx) ^ set(keys))})"
+            f"({sorted(set(s.ctx) ^ set(keys))}); lanes with and "
+            "without traffic tables (or other structure-gated ctx) "
+            "cannot share a batch"
         )
     return {k: np.stack([s.ctx[k] for s in specs]) for k in keys}

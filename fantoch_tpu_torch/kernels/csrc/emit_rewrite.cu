@@ -5,10 +5,11 @@
 // and the termination bookkeeping of section 7 :1494-1563 with
 // fold_health :215 and fold_count :244).
 //
-// One block per lane. The lane's E = N * (2F + 1) emission rows of the
-// merged wire batch [periodic F | handler F | requeue 1] per process are
-// walked in block-stride loops, so E is bounded by shared memory only. In
-// four phases separated by block barriers:
+// One block per lane. The lane's E = N * F2 emission rows of the merged
+// wire batch [periodic F | handler F | requeue 1] per process (F2 = 2F + 1;
+// on open-loop lanes [periodic F | handler F | stage 1 | requeue 1], F2 =
+// 2F + 2) are walked in block-stride loops, so E is bounded by shared
+// memory only. In four phases separated by block barriers:
 //   1. each row reads its outbox slot (a handler's delay and src are -1;
 //      the requeue row's are 1 and the popped sender) and, for a
 //      TO_CLIENT row, its client and the result's arrival time (under
@@ -38,6 +39,20 @@
 // uniform [0, 10) draws (row 0 the TO_CLIENT return, 1 the next SUBMIT, 2
 // the process send): int -> float32, a float32 product rounded to
 // nearest, truncated toward zero, never contracted into a multiply-add.
+// Under FLAG_OPEN_LOOP the clients are open-loop (core.py:954-1041,
+// :1084-1175, :1232-1256, :1291-1297, :1376-1409): each process's stage
+// row carries trigger 1 (a popped SUBMIT of command s whose window admits
+// q = s + 1 stages q's SUBMIT, released at max(A(q), F(q), R(s)) by a
+// delay override; its key is the command's submit number and it is never
+// channel counted); phase 2 attributes completions by count (several of
+// one client can land in a step), fills the ring of completion times,
+// decides trigger 2 (this step's completions admit the window-blocked
+// command, whose SUBMIT leaves at max(A(pend), t_c, R(pend - 1))) and
+// folds trigger 1 per client into issued and the monotone release clamp;
+// phase 3 records one latency per delivered result row, from the arrival
+// of the command its rank among the client's rows of the step closes.
+// Under FLAG_THINK (closed loop) the next SUBMIT leaves after its
+// command's epoch think delay (core.py:1298-1302).
 // Without a flag the kernel runs the fault-free code. Per-row state that
 // a later phase reads lives in shared memory (two flag bytes and three
 // words a row); phase 3 parks a row's send time and delay in its pool
@@ -68,7 +83,7 @@ constexpr int DROP_DENOM = 10000;   // engine/faults.py DROP_DENOM
 // engine/faults.py flag bits
 constexpr int FLAG_CRASH = 1, FLAG_WINDOWS = 2, FLAG_DROPS = 4,
               FLAG_HORIZON = 8, FLAG_JITTER = 16, FLAG_REORDER = 32,
-              FLAG_MONITOR = 64;
+              FLAG_MONITOR = 64, FLAG_OPEN_LOOP = 128, FLAG_THINK = 256;
 // engine/monitor.py guard bits and violation bits
 constexpr int MON_F_PREMATURE = 1, MON_F_KEYRANGE = 2;
 constexpr int VIOL_PREMATURE = 8, VIOL_KEYRANGE = 16;
@@ -116,30 +131,96 @@ struct Args {
   // new guard bits [L, N], the lane's violation word and step, outputs
   const int *mon_flags, *viol, *viol_step;
   int *viol_o, *viol_step_o;
-  int N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT, flags;
+  // the open-loop client (null without FLAG_OPEN_LOOP): the arrival
+  // table [C, TA], the ring of completion times [C, WD] and the release
+  // clamp [C], in and out
+  const int *ol_arrival, *ol_comp_t, *ol_last_rel;
+  int *ol_comp_t_o, *ol_last_rel_o;
+  // the traffic schedule's think delay (null without FLAG_THINK): the
+  // seq → epoch index [TE] and the think delay of each epoch [EP]
+  const int *seq_epoch, *think;
+  int N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT, flags, TA, WD, TE,
+      EP;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
 
-// one merged emission row as the outboxes and the requeue give it
-struct Row {
-  int p, j;
-  bool is_rq, v;
-  int dst, mt, dly, srco;
-  const int* pay;
+// a process's rows of the merged wire batch
+__host__ __device__ __forceinline__ int rows_per_process(int F, int flags) {
+  return 2 * F + ((flags & FLAG_OPEN_LOOP) ? 2 : 1);
+}
+
+// open-loop trigger 1 of process p: whether it stages the SUBMIT of the
+// next command q of client sc (its popped SUBMIT is command q - 1 and the
+// window admits q), q's release time, key, connected process and submit
+// delay; read from the lane state the step started from
+struct Stage {
+  bool on;
+  int sc, q, rel, key, attach, dsub;
 };
 
+__device__ __forceinline__ Stage ol_stage(const Args& a, size_t lN,
+                                          size_t lC, int p) {
+  const size_t g = lN + p;
+  const int* popped = a.rows + g * a.W;
+  const int src = popped[PSRC], sseq = popped[PPAY + 1];
+  Stage s;
+  s.sc = clampi(src - a.N, 0, a.C - 1);
+  s.q = (int)((unsigned)sseq + 1u);
+  const size_t kc = lC + s.sc;
+  s.on = a.has[g] && a.rdy[g] && popped[PMT] == a.submit && src >= a.N &&
+         sseq == a.issued[kc] && s.q <= a.cmd_budget[kc] &&
+         a.completed[kc] + a.WD >= s.q;
+  // the window gate: completion #(q - W) of the ring
+  const int gate =
+      s.q > a.WD ? a.ol_comp_t[kc * a.WD + (s.q - a.WD - 1) % a.WD] : 0;
+  s.rel = max(max(a.ol_arrival[kc * a.TA + clampi(s.q, 0, a.TA - 1)], gate),
+              a.ol_last_rel[kc]);
+  s.attach = a.client_attach[kc];
+  s.dsub = a.client_delay[kc * a.N + clampi(s.attach, 0, a.N - 1)];
+  s.key = a.key_table[kc * a.T + clampi(s.q, 0, a.T - 1)];
+  return s;
+}
+
+// one merged emission row as the outboxes, the stage and the requeue give
+// it (a stage row's payload is its words[0..2], zeros after)
+struct Row {
+  int p, j;
+  bool is_rq, is_stage, v;
+  int dst, mt, dly, srco;
+  const int* pay;
+  int words[3];
+};
+
+__device__ __forceinline__ int row_word(const Row& r, int w) {
+  return r.pay ? r.pay[w] : (w < 3 ? r.words[w] : 0);
+}
+
 __device__ __forceinline__ Row load_row(const Args& a, size_t lN, int e) {
-  const int F = a.F, F2 = 2 * F + 1;
+  const int F = a.F, F2 = rows_per_process(F, a.flags);
   Row r;
   r.p = e / F2;
   r.j = e % F2;
   r.is_rq = r.j == F2 - 1;
+  r.is_stage = (a.flags & FLAG_OPEN_LOOP) && r.j == F2 - 2;
   const size_t g = lN + r.p;
   const int* popped = a.rows + g * a.W;
-  if (r.is_rq) {
+  if (r.is_stage) {
+    const Stage s = ol_stage(a, lN, (lN / a.N) * a.C, r.p);
+    r.v = s.on;
+    r.dst = s.attach;
+    r.mt = a.submit;
+    // the override puts its arrival at the release time plus the
+    // client's submit delay
+    r.dly = s.on ? s.rel + s.dsub - a.ep[g] : 0;
+    r.srco = a.N + s.sc;
+    r.pay = nullptr;
+    r.words[0] = s.sc;
+    r.words[1] = s.q;
+    r.words[2] = s.key;
+  } else if (r.is_rq) {
     r.v = a.has[g] && !a.rdy[g];
     r.dst = r.p;
     r.mt = r.v ? popped[PMT] : 0;
@@ -182,17 +263,22 @@ __device__ __forceinline__ void wire_key(const unsigned* key, int src,
 
 }  // namespace
 
-__global__ void emit_rewrite_kernel(const Args a) {
+// up to 1,024 threads a block (one per row of wide lanes): the bound keeps
+// the kernel within the registers such a block may hold
+__global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
   extern __shared__ int smem[];
   const int N = a.N, F = a.F, P = a.P, C = a.C, W = a.W;
-  const int F2 = 2 * F + 1, E = N * F2;
-  const int l = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
   const int flags = a.flags;
+  const int F2 = rows_per_process(F, flags), E = N * F2;
+  const int l = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
+  const bool open = flags & FLAG_OPEN_LOOP;
   // per row: raw client, arrival at the client, final destination
   int* s_c = smem;
   int* s_tarr = s_c + E;
   int* s_dst = s_tarr + E;
-  // per client: last row, complete flag, done time, latency, completed
+  // per client: last row, complete flag (open loop: bit 0 a result
+  // arrived, bit 1 trigger 2), done time, latency (open loop: trigger 2's
+  // release time), completed
   int* s_last = s_dst + E;
   int* s_cmp = s_last + C;
   int* s_done = s_cmp + C;
@@ -259,6 +345,47 @@ __global__ void emit_rewrite_kernel(const Args a) {
         last = e;
       }
     const size_t k = lC + k0;
+    if (open) {
+      // count-based completions at one instant t_c = pmx, their times in
+      // the ring's slots (k0 .. k0 + arrivals - 1) mod W
+      const int kc0 = a.completed[k], ncomp = kc0 + arrivals;
+      for (int w = 0; w < a.WD; ++w) {
+        const int slot = ((w - kc0) % a.WD + a.WD) % a.WD;
+        a.ol_comp_t_o[k * a.WD + w] =
+            slot < arrivals ? pmx : a.ol_comp_t[k * a.WD + w];
+      }
+      // trigger 2: the completions admit the window-blocked command
+      const int pend = a.issued[k] + 1;
+      const bool trig2 = arrivals > 0 && a.issued[k] < a.cmd_budget[k] &&
+                         ncomp + a.WD >= pend && !(kc0 + a.WD >= pend);
+      const int rel2 =
+          max(max(a.ol_arrival[k * a.TA + clampi(pend, 0, a.TA - 1)], pmx),
+              a.ol_last_rel[k]);
+      // trigger 1 folded per client: at most one SUBMIT of a client pops
+      bool staged = false;
+      int rel1 = 0;
+      for (int q = 0; q < N; ++q) {
+        const Stage st = ol_stage(a, lN, lC, q);
+        if (st.on && st.sc == k0) {
+          staged = true;
+          rel1 += st.rel;
+        }
+      }
+      const int old_rel = a.ol_last_rel[k];
+      a.ol_last_rel_o[k] =
+          max(old_rel, staged ? rel1 : (trig2 ? rel2 : old_rel));
+      a.issued_o[k] = a.issued[k] + (trig2 ? 1 : 0) + (staged ? 1 : 0);
+      a.completed_o[k] = ncomp;
+      a.parts_o[k] = a.parts[k];
+      a.part_max_o[k] = a.part_max[k];
+      a.start_o[k] = a.start_time[k];
+      s_last[k0] = last;
+      s_cmp[k0] = (arrivals > 0 ? 1 : 0) | (trig2 ? 2 : 0);
+      s_done[k0] = pmx;
+      s_latc[k0] = rel2;
+      s_ncomp[k0] = ncomp;
+      continue;
+    }
     const int part_max = max(a.part_max[k], pmx);
     const int parts_new = a.parts[k] + arrivals;
     // a command completes when all its key parts arrived
@@ -290,8 +417,9 @@ __global__ void emit_rewrite_kernel(const Args a) {
     const int c = isc ? r.dst - N : 0;
     const int cc = clampi(c, 0, C - 1);
     const size_t kc = lC + cc;
-    const bool compl_ = isc && e == s_last[cc] && s_cmp[cc];
-    const bool issue = compl_ && a.issued[kc] < a.cmd_budget[kc];
+    const bool compl_ = isc && e == s_last[cc] && (s_cmp[cc] & 1);
+    const bool issue = compl_ && (open ? (s_cmp[cc] & 2) != 0
+                                       : a.issued[kc] < a.cmd_budget[kc]);
     const int next_seq = a.issued[kc] + 1;
     const int key = a.key_table[kc * a.T + min(next_seq, a.T - 1)];
     // the next SUBMIT goes to the connected process of the command's
@@ -305,7 +433,20 @@ __global__ void emit_rewrite_kernel(const Args a) {
     const int mt2 = issue ? a.submit : r.mt;
     const int src2 = r.srco >= 0 ? r.srco : (isc ? N + c : r.p);
     const int ep_e = a.ep[g];
-    const int base = issue ? s_done[cc] : ep_e;
+    // the next SUBMIT leaves at the completion (open loop: its staged
+    // release time; under a schedule after its epoch's think delay)
+    int base = ep_e;
+    if (issue) {
+      if (open) {
+        base = s_latc[cc];
+      } else {
+        base = s_done[cc];
+        if (flags & FLAG_THINK)
+          base += a.think[(size_t)l * a.EP +
+                          a.seq_epoch[(size_t)l * a.TE +
+                                      clampi(next_seq, 0, a.TE - 1)]];
+      }
+    }
     const bool overridden = r.dly >= 0;
     int delay;
     if (issue) {
@@ -344,12 +485,25 @@ __global__ void emit_rewrite_kernel(const Args a) {
     const bool v2 = r.v && (!isc || issue);
     const bool prio = !isc && dst2 == r.p && !overridden;
     s_dst[e] = dst2;
-    s_flag[e] = (v2 && !isc && !r.is_rq ? COUNTED : 0) |
+    s_flag[e] = (v2 && !isc && !r.is_rq && !r.is_stage ? COUNTED : 0) |
                 (wired ? WIRED : 0) | (lost ? LOST : 0) |
                 (issue ? ISSUE : 0) | (v2 ? VALID : 0);
-    if (compl_) {
-      atomicMax(&s_lane[0], s_done[cc]);
-      const int latency = s_latc[cc];
+    if (compl_) atomicMax(&s_lane[0], s_done[cc]);
+    // a latency record: on the completing row (closed loop), or on every
+    // delivered result row, from the arrival of the command its rank
+    // among the client's rows of the step closes (open loop)
+    bool rec = compl_;
+    int latency = s_latc[cc], log_src = a.completed[kc];
+    if (open) {
+      rec = s_isc[e];
+      int rank = 0;
+      for (int e2 = 0; e2 <= e; ++e2)
+        if (s_isc[e2] && s_c[e2] == c) ++rank;
+      const int k_i = a.completed[kc] + rank;
+      latency = s_tarr[e] - a.ol_arrival[kc * a.TA + clampi(k_i, 0, a.TA - 1)];
+      log_src = k_i - 1;
+    }
+    if (rec) {
       const int row = a.client_region_row[kc];
       if (row >= 0 && row < a.RR) {
         atomicAdd(&a.hist_o[(lRR + row) * a.H +
@@ -358,9 +512,9 @@ __global__ void emit_rewrite_kernel(const Args a) {
         atomicAdd(&a.lat_sum_o[lRR + row], latency);
         atomicAdd(&a.lat_count_o[lRR + row], 1);
       }
-      const int log_src = a.completed[kc];
       const int li = c * a.LOG + log_src;
-      if (c < C && log_src < a.LOG && li >= 0 && li < C * a.LOG)
+      if (c < C && log_src >= 0 && log_src < a.LOG && li >= 0 &&
+          li < C * a.LOG)
         a.lat_log_o[(size_t)l * C * a.LOG + li] = latency;
     }
     int* out = a.new_rows + ((size_t)l * E + e) * W;
@@ -375,7 +529,7 @@ __global__ void emit_rewrite_kernel(const Args a) {
     for (int w = 0; w < P; ++w)
       out[PPAY + w] = issue ? (w == 0 ? c : (w == 1 ? next_seq
                                                     : (w == 2 ? key : 0)))
-                            : r.pay[w];
+                            : row_word(r, w);
   }
   __syncthreads();
 
@@ -389,6 +543,8 @@ __global__ void emit_rewrite_kernel(const Args a) {
     int kcnt;
     if (j == F2 - 1) {
       kcnt = a.rows[g * W + PKC];  // a requeue keeps its original key
+    } else if (open && j == F2 - 2) {
+      kcnt = out[PPAY + 1];  // a staged SUBMIT: the submit number
     } else if (fl & ISSUE) {
       kcnt = out[PPAY + 1];  // a rewritten SUBMIT: the submit number
     } else {
@@ -478,8 +634,8 @@ __global__ void emit_rewrite_kernel(const Args a) {
 }
 
 // The shared memory one lane's block needs (emit_rewrite.py smem_bytes).
-static size_t smem_bytes(int N, int F, int C) {
-  const size_t E = (size_t)N * (2 * F + 1);
+static size_t smem_bytes(int N, int F, int C, int flags) {
+  const size_t E = (size_t)N * (2 * F + ((flags & FLAG_OPEN_LOOP) ? 2 : 1));
   return (3 * E + 5 * C + 2) * sizeof(int) + 2 * E;
 }
 
@@ -509,9 +665,12 @@ extern "C" int fantoch_emit_rewrite(
     const void* drop_key, const void* jitter_num, const void* jitter_key,
     const void* reorder_key, void* fault_dropped_o, const void* mon_flags,
     const void* viol, const void* viol_step, void* viol_o,
-    void* viol_step_o, int L, int N, int F,
-    int P, int C, int R, int RR, int H, int T, int LOG, int W, int submit,
-    int S, int TP, int TT, int flags, void* stream) {
+    void* viol_step_o, const void* ol_arrival, const void* ol_comp_t,
+    const void* ol_last_rel, void* ol_comp_t_o, void* ol_last_rel_o,
+    const void* seq_epoch, const void* think, int L, int N, int F, int P,
+    int C, int R, int RR, int H, int T, int LOG, int W, int submit, int S,
+    int TP, int TT, int flags, int TA, int WD, int TE, int EP,
+    void* stream) {
   if (L == 0) return 0;
   Args a;
   a.pv = (const bool*)pv;
@@ -592,6 +751,13 @@ extern "C" int fantoch_emit_rewrite(
   a.viol_step = (const int*)viol_step;
   a.viol_o = (int*)viol_o;
   a.viol_step_o = (int*)viol_step_o;
+  a.ol_arrival = (const int*)ol_arrival;
+  a.ol_comp_t = (const int*)ol_comp_t;
+  a.ol_last_rel = (const int*)ol_last_rel;
+  a.ol_comp_t_o = (int*)ol_comp_t_o;
+  a.ol_last_rel_o = (int*)ol_last_rel_o;
+  a.seq_epoch = (const int*)seq_epoch;
+  a.think = (const int*)think;
   a.N = N;
   a.F = F;
   a.P = P;
@@ -607,10 +773,14 @@ extern "C" int fantoch_emit_rewrite(
   a.TP = TP;
   a.TT = TT;
   a.flags = flags;
-  const int E = N * (2 * F + 1);
+  a.TA = TA;
+  a.WD = WD;
+  a.TE = TE;
+  a.EP = EP;
+  const int E = N * rows_per_process(F, flags);
   const int need = std::min(1024, std::max({E, C, N * N, RR, N * R, 32}));
   const int threads = (need + 31) / 32 * 32;
-  const size_t shm = smem_bytes(N, F, C);
+  const size_t shm = smem_bytes(N, F, C, flags);
   if (shm > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
         emit_rewrite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -10,7 +10,13 @@ parts counting and target-shard SUBMIT, :1177-1182, 1218-1224,
 1273-1279), the fault plan's wire faults and the reorder draws (each
 under its flag of the step's flag word: the reorder scaling :1043-1057,
 :1305-1311, the horizon on client results :1077-1081, link windows
-:1313-1349, jitter :1417-1436, drops :1438-1453), §7 (:1494-1563,
+:1313-1349, jitter :1417-1436, drops :1438-1453), under
+``FLAG_OPEN_LOOP`` the open-loop client (:954-1041 the stage row of
+trigger 1, :1084-1175 the count-based completions, the ring of
+completion times, trigger 2 and the release clamp, :1232-1256 the
+latency from arrival, :1291-1297 the release-time base, :1376-1409 the
+stage row kept out of channel counting), under ``FLAG_THINK`` the
+traffic schedule's think delay on the next SUBMIT (:1298-1302), §7 (:1494-1563,
 with ``fold_health`` :215, ``fold_count`` :244 and ``ERR_UNAVAIL``
 under the crash flag :1516-1520) and, under ``FLAG_MONITOR``, the safety
 monitors' step fold (``fantoch_tpu/engine/monitor.py`` ``step_viol``
@@ -35,7 +41,8 @@ from ..engine.dims import (
 )
 from ..engine.faults import (
     FLAG_CRASH, FLAG_DROPS, FLAG_HORIZON, FLAG_JITTER, FLAG_MONITOR,
-    FLAG_REORDER, FLAG_WINDOWS, MAX_WINDOWS, drop_draw, jitter_draw,
+    FLAG_OPEN_LOOP, FLAG_REORDER, FLAG_THINK, FLAG_WINDOWS, MAX_WINDOWS,
+    drop_draw, jitter_draw,
 )
 from ..engine.monitor import step_viol
 from . import build, cost
@@ -44,6 +51,9 @@ from .key_table import THREEFRY_OPS
 I32 = torch.int32
 
 CLIENT_KEYS = ("issued", "completed", "start_time", "parts", "part_max")
+# the open-loop client's planes: the ring of completion times [L, C, W]
+# and the release clamp [L, C]
+OPEN_LOOP_KEYS = ("ol_comp_t", "ol_last_rel")
 METRIC_KEYS = ("hist", "lat_sum", "lat_count", "lat_log")
 LANE_KEYS = ("requeues", "max_completion", "done_time", "err", "steps")
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
@@ -107,6 +117,65 @@ def _scale(d, u):
     return (d.to(torch.float32) * u).to(I32)
 
 
+def rows_per_process(F: int, flags: int = 0) -> int:
+    """F2, a process's rows of the merged wire batch: its periodic and
+    handler outboxes and the requeue row, and on open-loop lanes the
+    stage row before the requeue row."""
+    return 2 * F + (2 if flags & FLAG_OPEN_LOOP else 1)
+
+
+def _open_stage(st, ctx, rdy, has, rows, ep, dims: EngineDims, submit: int):
+    """Open-loop trigger 1, per process: when it pops client ``sc``'s
+    SUBMIT of command s and the window admits q = s + 1, the SUBMIT of q
+    is staged at once, released at R(q) = max(A(q), F(q), R(s)) (the
+    arrival, the window gate's completion time, the clamp). Returns the
+    stage row ``[L, N, 1]`` (a delay override puts its arrival at R(q)
+    plus the client's submit delay), and ``stage1``, ``sc``, ``q``,
+    ``rel1`` ``[L, N]`` for the client fold."""
+    N, C = dims.N, dims.C
+    cl = st["clients"]
+    A = ctx["ol_arrival"]
+    TA = A.shape[2]
+    Wd = cl["ol_comp_t"].shape[2]
+    src = rows[..., PSRC]
+    sc = (src - N).clamp(0, C - 1)
+    s_seq = rows[..., PPAY + 1]
+    q = s_seq + 1
+    stage1 = (
+        has & rdy & (rows[..., PMT] == submit) & (src >= N)
+        & (s_seq == _take(cl["issued"], sc))
+        & (q <= _take(ctx["cmd_budget"], sc))
+        & (_take(cl["completed"], sc) + Wd >= q)
+    )
+    f_gate = torch.where(
+        q > Wd,
+        _take2(cl["ol_comp_t"], sc, torch.remainder(q - Wd - 1, Wd)),
+        0,
+    )
+    rel1 = torch.maximum(
+        torch.maximum(_take2(A, sc, q.clamp(0, TA - 1)), f_gate),
+        _take(cl["ol_last_rel"], sc),
+    )
+    attach1 = _take(ctx["client_attach"], sc)
+    d_sub1 = _take2(ctx["client_delay"], sc, attach1)
+    t_keys = ctx["key_table"].shape[2]
+    key1 = _take2(ctx["key_table"], sc, q.clamp(0, t_keys - 1))
+    payload = torch.zeros(rows.shape[:2] + (dims.P,), dtype=I32,
+                          device=rows.device)
+    payload[..., 0] = sc
+    payload[..., 1] = q
+    payload[..., 2] = key1
+    stage = {
+        "valid": stage1[..., None],
+        "dst": attach1[..., None],
+        "mtype": torch.full_like(attach1, submit)[..., None],
+        "payload": payload[:, :, None, :],
+        "delay": torch.where(stage1, rel1 + d_sub1 - ep, 0)[..., None],
+        "src": (N + sc)[..., None],
+    }
+    return stage, stage1, sc, q, rel1
+
+
 def _merge(n: int, f2: int, *parts):
     """Flatten per-process emission blocks ``[L, N, *, ...]`` into one
     ``[L, N*F2, ...]`` wire batch, each process's rows contiguous in the
@@ -131,7 +200,11 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     step's flag word (``faults.flag_bits``). Without a wire-fault flag
     ``fault_dropped`` is ``st``'s own tensor. Under ``FLAG_MONITOR``
     ``upd`` also holds the lane's new ``viol`` and ``viol_step``, folded
-    from the handlers' new guard bits ``mon_flags`` ``[L, N]``."""
+    from the handlers' new guard bits ``mon_flags`` ``[L, N]``. Under
+    ``FLAG_OPEN_LOOP`` the clients are open-loop (each process's rows gain
+    the stage row, the clients' new ``ol_comp_t`` and ``ol_last_rel`` are
+    in ``upd``); under ``FLAG_THINK`` the next SUBMIT leaves after its
+    command's epoch think delay."""
     N, C, F = dims.N, dims.C, dims.F
     L = rows.shape[0]
     dev = rows.device
@@ -157,12 +230,20 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         "delay": torch.ones((L, N, 1), dtype=I32, device=dev),
         "src": rows[..., PSRC, None],
     }
-    F2 = 2 * F + 1
-    out = _merge(N, F2, *ob, rq)
+    open_loop = bool(flags & FLAG_OPEN_LOOP)
+    F2 = rows_per_process(F, flags)
+    if open_loop:
+        stage, stage1, sc, q_next, rel1 = _open_stage(
+            st, ctx, rdy, has, rows, ep, dims, submit)
+        out = _merge(N, F2, *ob, stage, rq)
+    else:
+        out = _merge(N, F2, *ob, rq)
     E = N * F2
     emitter = procs.repeat_interleave(F2)                     # [E]
     row_idx = torch.arange(E, dtype=I32, device=dev)
     is_rq = (row_idx % F2) == F2 - 1
+    # the stage row sits just before the requeue row
+    is_stage = ((row_idx % F2) == F2 - 2) & open_loop
     valid, dst = out["valid"], out["dst"]
 
     # §5 client rewrite: TO_CLIENT → latency record + next SUBMIT; under
@@ -191,38 +272,90 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         is_client_done = is_client
     oh_done = is_client_done[..., None] & (c[..., None] == iota_c)
     arrivals = oh_done.sum(1, dtype=I32)
-    parts_new = cl["parts"] + arrivals
-    part_max = torch.maximum(
-        cl["part_max"], torch.where(oh_done, t_arr[..., None], 0).amax(1)
-    )
-    if "cmd_parts" in ctx:
-        # partial replication: a command completes when all its key
-        # parts arrived (the table's column clamped to its last)
-        t_parts = ctx["cmd_parts"].shape[2]
-        need = _take2(ctx["cmd_parts"], iota_c[None, :],
-                      cl["issued"].clamp(max=t_parts - 1))
-    else:
-        need = 1
-    complete_c = (arrivals > 0) & (parts_new >= need)
-    completed = cl["completed"] + complete_c.to(I32)
-    parts = torch.where(complete_c, 0, parts_new)
-    done_t = part_max
-    latency_c = done_t - cl["start_time"]
-    part_max = torch.where(complete_c, 0, part_max)
     last_row = torch.where(oh_done, row_idx[:, None], -1).amax(1)  # [L, C]
-    is_completing = (
-        is_client & (row_idx == _take(last_row, cc))
-        & _take(complete_c, cc)
-    )
-    more = _take(cl["issued"], cc) < _take(ctx["cmd_budget"], cc)
-    issue = is_completing & more
-    oh_issue = (
-        oh_done & (row_idx[:, None] == last_row[:, None, :])
-        & complete_c[:, None, :] & more[..., None]
-    )
-    issued = cl["issued"] + oh_issue.sum(1, dtype=I32)
-    st_new = torch.where(oh_issue.any(1), done_t, -1)
-    start_time = torch.where(st_new >= 0, st_new, cl["start_time"])
+    ol_upd = {}
+    if open_loop:
+        # every TO_CLIENT completes one command, several of one client
+        # can land in a step (all at one t_c), attributed by count; the
+        # ring takes their completion times at slots (k0 .. k0 +
+        # arrivals - 1) mod W
+        k0 = cl["completed"]
+        Wd = cl["ol_comp_t"].shape[2]
+        completed = k0 + arrivals
+        t_c = torch.where(oh_done, t_arr[..., None], 0).amax(1)
+        w_iota = torch.arange(Wd, dtype=I32, device=dev)
+        in_ring = (torch.remainder(w_iota - k0[..., None], Wd)
+                   < arrivals[..., None])                     # [L, C, W]
+        ol_comp_t = torch.where(in_ring, t_c[..., None], cl["ol_comp_t"])
+        parts, part_max = cl["parts"], cl["part_max"]
+        start_time = cl["start_time"]
+        done_t = t_c
+        is_completing = (
+            is_client & (row_idx == _take(last_row, cc))
+            & (_take(arrivals, cc) > 0)
+        )
+        # trigger 2: this step's completions admit the window-blocked
+        # command pend = issued + 1; the last completing row becomes its
+        # SUBMIT, released at max(A(pend), t_c, R(pend - 1))
+        pend = cl["issued"] + 1
+        more_c = cl["issued"] < ctx["cmd_budget"]
+        trigger2 = ((arrivals > 0) & more_c & (completed + Wd >= pend)
+                    & ~(k0 + Wd >= pend))
+        issue = is_completing & _take(trigger2, cc)
+        oh_issue = (oh_done & (row_idx[:, None] == last_row[:, None, :])
+                    & trigger2[:, None, :])
+        A = ctx["ol_arrival"]
+        rel2 = torch.maximum(
+            torch.maximum(
+                _take2(A, iota_c[None, :], pend.clamp(0, A.shape[2] - 1)),
+                t_c),
+            cl["ol_last_rel"],
+        )
+        # trigger 1 folded per client (at most one SUBMIT of a client
+        # pops per step)
+        oh_t1 = stage1[..., None] & (sc[..., None] == iota_c)  # [L, N, C]
+        staged1 = oh_t1.any(1)
+        rel1_c = torch.where(oh_t1, rel1[..., None], 0).sum(1, dtype=I32)
+        issued = (cl["issued"] + oh_issue.sum(1, dtype=I32)
+                  + staged1.to(I32))
+        ol_last_rel = torch.maximum(
+            cl["ol_last_rel"],
+            torch.where(staged1, rel1_c,
+                        torch.where(trigger2, rel2, cl["ol_last_rel"])),
+        )
+        ol_upd = {"ol_comp_t": ol_comp_t, "ol_last_rel": ol_last_rel}
+    else:
+        parts_new = cl["parts"] + arrivals
+        part_max = torch.maximum(
+            cl["part_max"], torch.where(oh_done, t_arr[..., None], 0).amax(1)
+        )
+        if "cmd_parts" in ctx:
+            # partial replication: a command completes when all its key
+            # parts arrived (the table's column clamped to its last)
+            t_parts = ctx["cmd_parts"].shape[2]
+            need = _take2(ctx["cmd_parts"], iota_c[None, :],
+                          cl["issued"].clamp(max=t_parts - 1))
+        else:
+            need = 1
+        complete_c = (arrivals > 0) & (parts_new >= need)
+        completed = cl["completed"] + complete_c.to(I32)
+        parts = torch.where(complete_c, 0, parts_new)
+        done_t = part_max
+        latency_c = done_t - cl["start_time"]
+        part_max = torch.where(complete_c, 0, part_max)
+        is_completing = (
+            is_client & (row_idx == _take(last_row, cc))
+            & _take(complete_c, cc)
+        )
+        more = _take(cl["issued"], cc) < _take(ctx["cmd_budget"], cc)
+        issue = is_completing & more
+        oh_issue = (
+            oh_done & (row_idx[:, None] == last_row[:, None, :])
+            & complete_c[:, None, :] & more[..., None]
+        )
+        issued = cl["issued"] + oh_issue.sum(1, dtype=I32)
+        st_new = torch.where(oh_issue.any(1), done_t, -1)
+        start_time = torch.where(st_new >= 0, st_new, cl["start_time"])
     next_seq = _take(cl["issued"], cc) + 1
     t_keys = ctx["key_table"].shape[2]
     key = _take2(ctx["key_table"], cc, next_seq.clamp(max=t_keys - 1))
@@ -231,9 +364,23 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     sub_payload[..., 1] = next_seq
     sub_payload[..., 2] = key
 
-    # metrics on completion only
-    latency = _take(latency_c, cc)
-    rec = is_completing
+    if open_loop:
+        # latency from arrival, one record per delivered TO_CLIENT row:
+        # completion #(k0 + the row's rank among its client's rows this
+        # step) closes arrival #k
+        same_cd = (c[:, :, None] == c[:, None, :]) & is_client_done[:, None, :]
+        rank_e = (same_cd & (row_idx[None, :] <= row_idx[:, None])).sum(
+            -1, dtype=I32)
+        k_i = _take(cl["completed"], cc) + rank_e
+        A = ctx["ol_arrival"]
+        latency = t_arr - _take2(A, cc, k_i.clamp(0, A.shape[2] - 1))
+        rec = is_client_done
+        log_src = k_i - 1
+    else:
+        # metrics on completion only
+        latency = _take(latency_c, cc)
+        rec = is_completing
+        log_src = _take(cl["completed"], cc)
     row = torch.where(rec, _take(ctx["client_region_row"], cc), dims.RR)
     bucket = latency.clamp(0, dims.H - 1)
     m = st["metrics"]
@@ -247,10 +394,10 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     ).sum(1, dtype=I32)
     lat_count = m["lat_count"] + oh_row.sum(1, dtype=I32)
     log_depth = m["lat_log"].shape[2]
-    log_src = _take(cl["completed"], cc)
     lat_log = _scatter_drop(
         m["lat_log"].reshape(L, -1), c * log_depth + log_src,
-        rec & (c < C) & (log_src < log_depth), latency, add=False,
+        rec & (c < C) & (log_src >= 0) & (log_src < log_depth), latency,
+        add=False,
     ).reshape(m["lat_log"].shape)
 
     # rewrite entries in place; under partial replication the next
@@ -267,7 +414,17 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     payload = torch.where(issue[..., None], sub_payload, out["payload"])
     src = torch.where(is_client, N + c, emitter)
     src = torch.where(out["src"] >= 0, out["src"], src)
-    base = torch.where(issue, _take(done_t, cc), ep_e)
+    if open_loop:
+        # a trigger-2 SUBMIT leaves at its staged release time
+        base = torch.where(issue, _take(rel2, cc), ep_e)
+    elif flags & FLAG_THINK:
+        # the next command's epoch think delay
+        tbl = ctx["traffic_seq_epoch"]
+        e_next = _take(tbl, next_seq.clamp(0, tbl.shape[1] - 1))
+        think = _take(ctx["traffic_think"], e_next)
+        base = torch.where(issue, _take(done_t, cc) + think, ep_e)
+    else:
+        base = torch.where(issue, _take(done_t, cc), ep_e)
     overridden = out["delay"] >= 0
     delay = torch.where(
         issue,
@@ -307,9 +464,9 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     prio = ~is_client & (dst == emitter) & ~overridden
 
     # sequence keys: kcnt counts emissions per (src, dst) channel; a
-    # requeue row keeps its original key, a rewritten SUBMIT carries the
-    # client's submit number
-    counted = valid & ~is_client & ~is_rq
+    # requeue row keeps its original key, a rewritten or staged SUBMIT
+    # carries the client's submit number
+    counted = valid & ~is_client & ~is_rq & ~is_stage
     dst_b = dst.reshape(L, N, F2)
     same = (dst_b[:, :, None, :] == dst_b[:, :, :, None]) & counted.reshape(
         L, N, 1, F2
@@ -324,6 +481,10 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         issue, next_seq, _take2(st["pair_cnt"], emitter, safe_dst) + rank_b + 1
     )
     kcnt = torch.where(is_rq, orig_kcnt.reshape(L, E), kcnt)
+    if open_loop:
+        stage_seq = torch.zeros((L, N, F2), dtype=I32, device=dev)
+        stage_seq[..., F2 - 2] = q_next
+        kcnt = torch.where(is_stage, stage_seq.reshape(L, E), kcnt)
     pair_cnt = _scatter_drop(
         st["pair_cnt"].reshape(L, -1), emitter * N + dst,
         counted & (dst >= 0) & (dst < N), counted.to(I32), add=True,
@@ -402,6 +563,7 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
             "start_time": start_time,
             "parts": parts,
             "part_max": part_max,
+            **ol_upd,
         },
         "metrics": {
             "hist": hist,
@@ -423,11 +585,14 @@ def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
 
 
 def _flat_upd(upd):
-    """The new state planes of ``upd`` in the kernel's argument order."""
+    """The new state planes of ``upd`` in the kernel's argument order
+    (the open-loop planes last, when the clients have them)."""
     return ([upd["clients"][k] for k in CLIENT_KEYS]
             + [upd["metrics"][k] for k in METRIC_KEYS]
             + [upd["pair_cnt"], upd["next_periodic"]]
-            + [upd[k] for k in LANE_KEYS])
+            + [upd[k] for k in LANE_KEYS]
+            + [upd["clients"][k] for k in OPEN_LOOP_KEYS
+               if k in upd["clients"]])
 
 
 def _wired_rows(pout, hout, N: int) -> int:
@@ -458,14 +623,19 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     randint of 4), and under reorder one block per valid row and per
     issued SUBMIT and one per lane. Under the monitor flag it reads the
     processes' guard bits and the lane's violation word and step, and
-    writes the words that change."""
+    writes the words that change. Under the open-loop flag it also reads
+    each process's popped type, sender and seq, a staged SUBMIT's
+    arrival, gate slot, key, connected process and delay, each delivered
+    result's arrival and each trigger-2 SUBMIT's arrival, and compares
+    each result row with the rows before it (its rank); under the think
+    flag each issued SUBMIT's epoch and think delay."""
     del submit
     *rest, out = tail
     mon_flags = rest[0] if rest else None
     new_rows, valid, upd = out
     L, E, W = new_rows.shape
     N, C, F, P = dims.N, dims.C, dims.F, dims.P
-    F2 = 2 * F + 1
+    F2 = rows_per_process(F, flags)
     old, new = _flat_upd(st), _flat_upd(upd)
     requeued = has & ~rdy
     ob_valid = [o["valid"] for o in (pout, hout)]
@@ -473,9 +643,12 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
                     for o in (pout, hout))
     n_valid = sum(int(v.sum()) for v in ob_valid)
     # a rewritten SUBMIT is the one landing row from a client that is
-    # not a requeue row
-    not_rq = (torch.arange(E, device=valid.device) % F2) != F2 - 1
-    n_issue = int((valid & not_rq & (new_rows[..., PSRC] >= N)).sum())
+    # not a requeue row (nor a stage row)
+    j = torch.arange(E, device=valid.device) % F2
+    stage = (j == F2 - 2) if flags & FLAG_OPEN_LOOP else j < 0
+    client_src = valid & (new_rows[..., PSRC] >= N)
+    n_issue = int((client_src & (j != F2 - 1) & ~stage).sum())
+    n_stage = int((client_src & stage).sum())
     hist_changed = int((upd["metrics"]["hist"]
                         != st["metrics"]["hist"]).sum())
     read = (
@@ -514,6 +687,11 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     if flags & FLAG_REORDER:
         read += cost.nbytes(ctx["reorder_key"])
         ops += (n_valid + n_issue + L) * THREEFRY_OPS
+    if flags & FLAG_OPEN_LOOP:
+        read += 12 * L * N + 20 * n_stage + 4 * to_client + 4 * n_issue
+        ops += to_client * E + L * C * st["clients"]["ol_comp_t"].shape[2]
+    if flags & FLAG_THINK:
+        read += 8 * n_issue
     if flags & FLAG_MONITOR:
         read += cost.nbytes(mon_flags, st["viol"], st["viol_step"])
         for k in ("viol", "viol_step"):
@@ -522,10 +700,10 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     return read + write, ops
 
 
-def smem_bytes(N: int, F: int, C: int) -> int:
+def smem_bytes(N: int, F: int, C: int, flags: int = 0) -> int:
     """The shared memory one lane's block of the kernel takes: three
     words and two flag bytes a row, five words a client, two a lane."""
-    E = N * (2 * F + 1)
+    E = N * rows_per_process(F, flags)
     return (3 * E + 5 * C + 2) * 4 + 2 * E
 
 
@@ -550,15 +728,15 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     RR, H = dims.RR, dims.H
     T = ctx["key_table"].shape[2]
     LOG = st["metrics"]["lat_log"].shape[2]
-    F2 = 2 * F + 1
-    E = N * F2
+    E = N * rows_per_process(F, flags)
     dev = rows.device
     if N != dims.N or W != 8 + P or P < 3:
         raise ValueError(f"emit_rewrite: N={N}, W={W} do not fit {dims}")
-    if smem_bytes(N, F, C) > SMEM_LIMIT:
+    smem = smem_bytes(N, F, C, flags)
+    if smem > SMEM_LIMIT:
         raise ValueError(
             f"emit_rewrite: {E} rows and {C} clients need "
-            f"{smem_bytes(N, F, C)} bytes of shared memory > {SMEM_LIMIT}"
+            f"{smem} bytes of shared memory > {SMEM_LIMIT}"
         )
     chk = build.check
     for name, ob in (("pout", pout), ("hout", hout)):
@@ -577,10 +755,24 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         "parts": (L, C), "part_max": (L, C), "hist": (L, RR, H),
         "lat_sum": (L, RR), "lat_count": (L, RR), "lat_log": (L, C, LOG),
         "pair_cnt": (L, N, N), "next_periodic": (L, N, R),
+        "ol_last_rel": (L, C),
     }
+    open_loop = bool(flags & FLAG_OPEN_LOOP)
+    if open_loop != ("ol_comp_t" in st["clients"]):
+        raise ValueError("emit_rewrite: FLAG_OPEN_LOOP and the open-loop "
+                         "client planes go together")
     old = _flat_upd(st)
     names = list(CLIENT_KEYS) + list(METRIC_KEYS) + [
         "pair_cnt", "next_periodic"] + list(LANE_KEYS)
+    # the open-loop arrival table and client planes in and out, or null
+    # pointers; the traffic schedule's seq → epoch index and think delays
+    # under FLAG_THINK
+    TA = WD = TE = EP = 0
+    if open_loop:
+        names += list(OPEN_LOOP_KEYS)
+        TA, WD = ctx["ol_arrival"].shape[2], st["clients"]["ol_comp_t"].shape[2]
+        shapes["ol_comp_t"] = (L, C, WD)
+        chk("ctx/ol_arrival", ctx["ol_arrival"], I32, (L, C, TA), dev)
     for name, t in zip(names, old):
         chk(f"st/{name}", t, I32, shapes.get(name, (L,)), dev)
     chk("st/fault_dropped", st["fault_dropped"], I32, (L,), dev)
@@ -620,30 +812,43 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         chk("st/viol_step", st["viol_step"], I32, (L,), dev)
         mon = [mon_flags, st["viol"], st["viol_step"],
                torch.empty_like(st["viol"]), torch.empty_like(st["viol_step"])]
+    think = [None, None]
+    if flags & FLAG_THINK:
+        TE = ctx["traffic_seq_epoch"].shape[1]
+        EP = ctx["traffic_think"].shape[1]
+        chk("ctx/traffic_seq_epoch", ctx["traffic_seq_epoch"], I32, (L, TE),
+            dev)
+        chk("ctx/traffic_think", ctx["traffic_think"], I32, (L, EP), dev)
+        think = [ctx["traffic_seq_epoch"], ctx["traffic_think"]]
     new_rows = torch.empty((L, E, W), dtype=I32, device=dev)
     valid = torch.empty((L, E), dtype=torch.bool, device=dev)
     new = [torch.empty_like(t) for t in old]
+    base = len(old) - (len(OPEN_LOOP_KEYS) if open_loop else 0)
+    ol = ([ctx["ol_arrival"]] + old[base:] + new[base:] if open_loop
+          else [None] * (1 + 2 * len(OPEN_LOOP_KEYS)))
     # the lost count is a new plane only under a wire-fault flag
     dropped = (torch.empty_like(st["fault_dropped"]) if flags & WIRE_FLAGS
                else st["fault_dropped"])
     tensors = (
         [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
-        + [has, rdy, rows, ep, fire, perr] + old
-        + [ctx[k] for k in ctx_shapes] + partial + [new_rows, valid] + new
-        + [st["fault_dropped"]] + [ctx[k] for k in FAULT_KEYS]
-        + [dropped if flags & WIRE_FLAGS else None] + mon
+        + [has, rdy, rows, ep, fire, perr] + old[:base]
+        + [ctx[k] for k in ctx_shapes] + partial + [new_rows, valid]
+        + new[:base] + [st["fault_dropped"]] + [ctx[k] for k in FAULT_KEYS]
+        + [dropped if flags & WIRE_FLAGS else None] + mon + ol + think
     )
-    fn = build.c_function("fantoch_emit_rewrite", len(tensors), 16)
+    fn = build.c_function("fantoch_emit_rewrite", len(tensors), 20)
     build.launch(
         fn, [0 if t is None else t.data_ptr() for t in tensors],
-        [L, N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT, flags],
+        [L, N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT, flags, TA,
+         WD, TE, EP],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     emit_rewrite.launches += 1
     upd = dict(zip(names, new))
     upd = {
         "next_periodic": upd["next_periodic"],
-        "clients": {k: upd[k] for k in CLIENT_KEYS},
+        "clients": {k: upd[k] for k in CLIENT_KEYS + (
+            OPEN_LOOP_KEYS if open_loop else ())},
         "metrics": {k: upd[k] for k in METRIC_KEYS},
         "pair_cnt": upd["pair_cnt"],
         "fault_dropped": dropped,

@@ -4,7 +4,8 @@ batches on one device.
 ``make_sweep_specs`` enumerates the points — the reference simulation
 binary's nested loops — into lanes; ``run_sweep`` runs them
 ``batch_lanes`` at a time (each batch: key table, stack, run, collect).
-Each point runs once per fault plan of ``faults``. Segments, scan
+Each point runs once per fault plan of ``faults``, every point under one
+traffic schedule or open-loop arrival process when given. Segments, scan
 windows, checkpoints, sharding and mixed-protocol batches are not ported
 yet.
 """
@@ -39,11 +40,20 @@ def make_sweep_specs(
     zipf=None,
     pool_size: int = 1,
     faults: "Sequence[FaultPlan | None] | None" = None,
+    traffic=None,
+    arrivals=None,
+    arrival_load: int = 100,
+    arrival_gap_ms: int = 4,
+    open_window: int = 4,
 ) -> List[LaneSpec]:
     """The sweep grid: one lane per (region set, f, conflict) point,
     replicated once per entry of ``faults`` (None = fault-free); a
     point's lanes share its workload, seeded by the point's index (the
-    reference's ``make_sweep_specs``)."""
+    reference's ``make_sweep_specs``). ``traffic`` (a preset name,
+    resolved against each point's own conflict rate, or a schedule) and
+    ``arrivals`` (a preset resolved against ``arrival_gap_ms`` and scaled
+    by ``arrival_load`` percent, with at most ``open_window`` commands in
+    flight per client) apply to every point (``make_lane``)."""
     base = config_base or Config(n=len(region_sets[0]), f=1,
                                  gc_interval_ms=100)
     plans: Sequence["FaultPlan | None"] = faults or [None]
@@ -67,6 +77,11 @@ def make_sweep_specs(
                 extra_time_ms=extra_time_ms,
                 seed=i // len(plans),
                 faults=plan,
+                traffic=traffic,
+                arrivals=arrivals,
+                arrival_load=arrival_load,
+                arrival_gap_ms=arrival_gap_ms,
+                open_window=open_window,
             )
         )
     return specs

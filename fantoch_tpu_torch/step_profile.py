@@ -2,11 +2,14 @@
 
     python -m fantoch_tpu_torch.step_profile
         [--protocol basic|fpaxos|tempo|atlas|epaxos|caesar|tempo_partial|
-                    atlas_partial|tempo_faults|tempo_fuzz]
+                    atlas_partial|tempo_faults|tempo_open|tempo_traffic|
+                    tempo_fuzz]
         [--steps 128] [--warmup 300]
 
 Builds the first batch of the protocol's main-path sweep
-(``cli.MAIN_PATHS``, the grids ``chip_smoke.py`` drives), or for
+(``cli.MAIN_PATHS``, the grids ``chip_smoke.py`` drives: ``tempo_open``
+is the open-loop ladder's load-100 sweep, ``tempo_traffic`` the churn
+sweep), or for
 ``tempo_fuzz`` the reference bench's fuzz self-check point
 (``cli.BENCH_FUZZ``: 256 schedules, monitored);
 :func:`profile` runs ``warmup`` steps of the run loop, then times

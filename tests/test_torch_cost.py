@@ -137,6 +137,30 @@ def test_key_table_work_counts_pool_draws_on_hits_and_zipf_searches():
     assert n_bytes == 2 * 8 + 3 * 2 * 4 + 4 * K + 4 * 2 * C * T
 
 
+def test_key_table_work_counts_the_epoch_branch():
+    """Under a schedule each key's draws follow its epoch: seqs 0-1 in
+    epoch 0 (conflict 0: the private key span + c, no draw), seqs 2-3 in
+    epoch 1 (conflict 50 over the pool [2, 5): the conflict draw and the
+    seq fold, and the pool draw on a hit, a key below the span); bytes
+    add the seq → epoch row, the three knob tables and the span."""
+    C, T = 2, 4
+    a = _kt_inputs([100], [1], [0])
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32)  # noqa: E731
+    traffic = {"traffic_seq_epoch": i32([0, 0, 1, 1]),
+               "traffic_conflict": i32([0, 50]),
+               "traffic_pool_base": i32([0, 2]),
+               "traffic_pool_size": i32([1, 3]),
+               "traffic_pool_span": torch.tensor([5], dtype=torch.int32)}
+    out = key_table(*a, C, T, traffic)
+    assert out[0, :, :2].tolist() == [[5, 5], [6, 6]]
+    late = out[0, :, 2:]
+    hits = int((late < 5).sum())
+    assert ((late >= 2) & (late < 5) | (late >= 5)).all()
+    n_bytes, n_ops = kt_work(*a, C, T, traffic, out)
+    assert n_ops == THREEFRY_OPS * (5 * C * 2 + 5 * hits + C)
+    assert n_bytes == 8 + 3 * 4 + 4 * C * T + 4 * 4 + 3 * 2 * 4 + 4
+
+
 def _basic_idle(L=2):
     dims = EngineDims.for_protocol(BasicDev, n=3, clients=3, payload=P,
                                    dot_slots=4)
@@ -654,6 +678,73 @@ def test_emit_rewrite_work_counts_a_completion():
     hout["valid"][:] = False
     out = emit_rewrite(*args)
     assert er_work(*args, 0, out)[0] == 162 + 14 + 4
+
+
+def _open_case(window=2):
+    """``_emit_case`` with open-loop clients: the arrival table (client
+    0's first command arrived at 2 ms), an empty ring of ``window``
+    completion times and the release clamps."""
+    args, hout = _emit_case()
+    st, ctx = args[0], args[1]
+    C = args[10].C
+    st["clients"].update(
+        ol_comp_t=torch.zeros((1, C, window), dtype=torch.int32),
+        ol_last_rel=torch.full((1, C), 2, dtype=torch.int32))
+    ctx["ol_arrival"] = torch.tensor([[[2, 2, 6, 9], [1, 1, 4, 8]]],
+                                     dtype=torch.int32)
+    return args, hout
+
+
+def test_emit_rewrite_work_counts_the_open_loop_client():
+    """Under ``FLAG_OPEN_LOOP`` each process gains its stage row (16 rows,
+    not 14) and the result completes client 0's command without an issue
+    (its budget is spent): the latency runs from the arrival (8 - 2 = 6
+    ms), the ring takes the completion time. Reads add the old ring and
+    clamps, each process's popped type, sender and seq and the result's
+    arrival; writes the ring word; operations the result's rank and the
+    ring."""
+    from fantoch_tpu_torch.engine import faults as fm
+
+    args, _hout = _open_case()
+    out = emit_rewrite(*args, fm.FLAG_OPEN_LOOP)
+    new_rows, valid, upd = out
+    assert new_rows.shape[1] == 16 and valid.sum() == 0
+    assert upd["clients"]["completed"].tolist() == [[1, 0]]
+    assert upd["clients"]["issued"].tolist() == [[0, 0]]
+    assert upd["clients"]["ol_comp_t"].tolist() == [[[8, 0], [0, 0]]]
+    assert upd["metrics"]["lat_sum"].tolist() == [[6, 0]]
+    assert upd["metrics"]["lat_log"][0, 0, 0] == 6
+    n_bytes, ops = er_work(*args, fm.FLAG_OPEN_LOOP, out)
+    # the closed case's 162 bytes of planes and flags, the ring and
+    # clamps (2 x 2 + 2 words), the result's words, client delay and
+    # histogram word; per process its popped type, sender and seq, the
+    # result's arrival
+    read = 162 + 4 * 6 + 4 * (2 + P) + 4 + 4 + 12 * 2 + 4
+    # 16 valid flags; completed, the histogram word, lat_sum, lat_count,
+    # lat_log, the ring word, max_completion, done time and steps
+    write = 16 + 9 * 4
+    assert n_bytes == read + write
+    assert ops == 16 * (8 + 2 * 2 + 2 + 32) + 16 + 2 * 2
+
+
+def test_emit_rewrite_work_counts_the_think_delay():
+    """Under ``FLAG_THINK`` the issued SUBMIT leaves its epoch's think
+    delay later and K6 reads its epoch and delay (8 bytes)."""
+    from fantoch_tpu_torch.engine import faults as fm
+
+    args, _hout = _emit_case()
+    ctx = args[1]
+    ctx["cmd_budget"] = torch.tensor([[2, 0]], dtype=torch.int32)
+    plain = emit_rewrite(*args)
+    ctx.update(traffic_seq_epoch=torch.tensor([[0, 0, 1, 1]],
+                                              dtype=torch.int32),
+               traffic_think=torch.tensor([[4, 7]], dtype=torch.int32))
+    out = emit_rewrite(*args, fm.FLAG_THINK)
+    row = out[1][0].nonzero()[0, 0]
+    # the SUBMIT of seq 1 is in epoch 0: 4 ms later
+    assert out[0][0, row, PA] == plain[0][0, row, PA] + 4
+    assert er_work(*args, fm.FLAG_THINK, out)[0] == (
+        er_work(*args, 0, plain)[0] + 8)
 
 
 def test_lane_freeze_work_counts_the_frozen_lanes_changes():

@@ -303,3 +303,24 @@ def test_rehearsal_of_the_monitored_profile_on_cpu():
                                False, batch_fault_flags(specs), mk)
     assert out["protocol"] == "TempoDev" and out["lanes"] == 3
     assert out["device_activities_per_step_by_name"] == {}
+
+
+def test_open_loop_and_traffic_main_paths():
+    """``step_profile --protocol tempo_open`` and ``tempo_traffic``: the
+    Tempo grid's first 64 subsets (512 lanes), open-loop Poisson arrivals
+    of mean gap 4 ms at load 100 with a window of 4, and the churn
+    schedule (its key table sized for the rotated pool)."""
+    from fantoch_tpu_torch.engine.protocols import TempoDev
+
+    args = cli.parse_args(cli.MAIN_PATHS["tempo_open"])
+    protocol, dims, specs = cli.sweep_setup(args)
+    assert isinstance(protocol, TempoDev) and len(specs) == 512
+    assert {s.arrival_meta["window"] for s in specs} == {4}
+    assert {s.arrival_meta["name"] for s in specs} == {"poisson"}
+    assert specs[0].ctx["ol_arrival"].shape == (dims.C, 52)
+    assert cli.OPEN_LOADS == (50, 100, 200, 400)
+    args = cli.parse_args(cli.MAIN_PATHS["tempo_traffic"])
+    protocol, dims, specs = cli.sweep_setup(args)
+    assert len(specs) == 512 and protocol.K == 4 + 5
+    assert {s.traffic_meta["name"] for s in specs} == {"churn"}
+    assert cli.TRAFFIC_PATHS == ("diurnal", "flash", "churn")

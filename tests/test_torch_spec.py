@@ -1,6 +1,7 @@
 """The port's lane construction equals the reference's ctx key for key,
-dtype for dtype, value for value; lane kinds outside this slice raise
-by name."""
+dtype for dtype, value for value; what the reference refuses (fault,
+traffic and arrival options, mixed batches) the port refuses by the same
+error and message."""
 
 import itertools
 
@@ -97,22 +98,98 @@ def test_sweep_specs_and_stack_match_reference():
     _assert_ctx_equal(r_stack_lanes(ref), stack_lanes(port))
 
 
-@pytest.mark.parametrize(
-    "option, value, item",
-    [
-        ("traffic", "diurnal", "item 11"),
-        ("arrivals", "poisson", "item 11"),
-    ],
-)
-def test_out_of_slice_options_raise_by_name(option, value, item):
+def _lane_refusal(kw, shards=1):
+    """A make_lane call the reference refuses, on both sides: Tempo at
+    n = 3 (under ``shards`` > 1 its partial twin) with ``kw``."""
+    from fantoch_tpu.engine.protocols import dev_protocol as r_dev
+    from fantoch_tpu.engine.protocols import (
+        partial_dev_protocol as r_partial,
+    )
+    from fantoch_tpu_torch.engine.protocols import partial_dev_protocol
+
+    def build(make, cfg, planet, dims_cls, dev, partial):
+        if shards > 1:
+            proto = partial("tempo", 3, shards)
+            dims = dims_cls.for_partial(proto, 3, 3, 6)
+        else:
+            proto = dev("tempo", 3)
+            dims = dims_cls.for_protocol(proto, n=3, clients=3,
+                                         payload=proto.payload_width(3))
+        make(proto, planet, cfg(n=3, f=1, shard_count=shards), dims=dims,
+             conflict_rate=100, pool_size=4 if shards > 1 else 1,
+             commands_per_client=4, clients_per_region=1,
+             process_regions=GCP[:3], client_regions=GCP[:3], **kw)
+
+    return (
+        lambda: build(r_make_lane, RConfig, RPlanet.new(), RDims, r_dev,
+                      r_partial),
+        lambda: build(make_lane, Config, Planet.new(), EngineDims,
+                      dev_protocol, partial_dev_protocol),
+    )
+
+
+def _mixed_batch():
+    """A static lane and a churn lane in one batch: their ctx fields
+    differ, so ``stack_lanes`` refuses."""
+    kw = dict(commands_per_client=4, clients_per_region=1,
+              process_regions=GCP[:3], client_regions=GCP[:3])
+    rd = RDims.for_protocol(RBasic, n=3, clients=3, payload=3)
     pd = EngineDims.for_protocol(BasicDev, n=3, clients=3, payload=3)
-    with pytest.raises(NotImplementedError, match=item):
-        make_lane(
-            BasicDev, Planet.new(), Config(n=3, f=1), dims=pd,
-            commands_per_client=1, clients_per_region=1,
-            process_regions=GCP[:3], client_regions=GCP[:3],
-            **{option: value},
-        )
+    ref = [r_make_lane(RBasic, RPlanet.new(), RConfig(n=3, f=1), dims=rd,
+                       traffic=t, **kw) for t in (None, "churn")]
+    port = [make_lane(BasicDev, Planet.new(), Config(n=3, f=1), dims=pd,
+                      traffic=t, **kw) for t in (None, "churn")]
+    return lambda: r_stack_lanes(ref), lambda: stack_lanes(port)
+
+
+def _cli(extra):
+    """A ``sweep`` command line the reference CLI refuses."""
+    from fantoch_tpu.cli import main as r_main
+    from fantoch_tpu_torch.cli import main
+
+    grid = ["sweep", "--protocol", "tempo", "--n", "3", "--subsets", "1",
+            "--commands", "2", "--conflicts", "100", *extra]
+    return (lambda: r_main(["--platform", "cpu", *grid]),
+            lambda: main(["--device", "cpu", *grid]))
+
+
+@pytest.mark.parametrize(
+    "case, error, match",
+    [
+        (lambda: _lane_refusal(dict(traffic="churn"), shards=2),
+         AssertionError, "traffic schedules are single-shard"),
+        (lambda: _lane_refusal(dict(arrivals="poisson"), shards=2),
+         AssertionError, "open-loop arrivals are single-shard"),
+        (lambda: _lane_refusal(dict(arrivals="poisson", reorder=True)),
+         AssertionError, "reorder lanes are closed-loop only"),
+        (lambda: _lane_refusal(dict(arrivals="poisson", traffic="diurnal")),
+         AssertionError, "think delays model"),
+        (lambda: _lane_refusal(dict(arrivals="burst", open_window=0)),
+         AssertionError, "0"),
+        (_mixed_batch, AssertionError, "cannot share a batch"),
+        (lambda: _cli(["--arrivals", "poisson", "--offered-load", "0"]),
+         SystemExit, "--offered-load and --open-window must be >= 1"),
+        (lambda: _cli(["--arrivals", "poisson", "--traffic", "flash"]),
+         SystemExit, "--traffic flash carries think delays"),
+        (lambda: _cli(["--arrivals", "closed"]),
+         SystemExit, "unknown arrival preset 'closed'"),
+        (lambda: _cli(["--traffic", "rush"]),
+         SystemExit, "unknown traffic preset 'rush'"),
+    ],
+    ids=["traffic-with-shards", "arrivals-with-shards",
+         "arrivals-with-reorder", "diurnal-with-arrivals", "window-0",
+         "mixed-batch", "cli-offered-load-0", "cli-flash-with-arrivals",
+         "cli-closed-arrivals", "cli-unknown-traffic"],
+)
+def test_out_of_slice_options_raise_by_name(case, error, match):
+    """The traffic and arrival options (ported in slice 10) are refused
+    where the reference refuses them, by the same error and message."""
+    ref, port = case()
+    with pytest.raises(error, match=match) as want:
+        ref()
+    with pytest.raises(error, match=match) as got:
+        port()
+    assert str(got.value) == str(want.value)
 
 
 def _shard_plan():
