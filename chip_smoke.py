@@ -58,7 +58,7 @@ an order-divergence violation were seen; the injected-bug point's
 per-lane violations, steps and digests equal
 ``tests/fixtures/torch_fuzz_bug_golden.json``), the 2,048-lane Tempo
 sweep with the monitors on (equal to the unmonitored sweep outside the
-three monitor fields), this slice's main path — the ``mc --no-confirm``
+three monitor fields), slice 9's main path — the ``mc --no-confirm``
 default grid, Tempo, FPaxos and Atlas × n ∈ {3, 5} × 512 schedules,
 counted, lanes 0–3 and the last of each point held to the host twins —
 and the reference bench's fuzz point (nothing flagged), with
@@ -74,9 +74,12 @@ an epoch boundary were compared; the open-loop serving lanes against
 ``tests/fixtures/torch_open_loop_golden.json``; the open-loop Tempo
 offered-load ladder (loads 50, 100, 200, 400; Poisson arrivals of mean
 gap 4 ms, a window of 4; the Tempo grid's first 64 subsets, 512 lanes a
-load) and the Tempo diurnal, flash and churn sweeps on that grid, each
-counted, with ``key_table`` and ``emit_rewrite`` timed and held to their
-twins on its first batch and lane 7 held to the host twins. The host
+load; slice 10's main path) and the Tempo diurnal, flash and churn
+sweeps on that grid, each counted, every kernel of its step held to its
+twin and timed at step 301 of its first batch (phase 3), lanes 0 and 7
+(and on the ladder a conflict-10 lane that ends in ERR_CAPACITY) held to
+the host twins. Caesar's and Tempo partial's sweeps run cut to their
+first 64 and 16 subsets (``CUT_SUBSETS``), for the script's time. The host
 twins run in worker processes started before the build, overlapping the
 card's phases. Any failure raises; nothing
 is caught. Each phase prints its seconds. The last two lines
@@ -201,25 +204,59 @@ COVERAGE_CLIENTS = ["asia-east1", "asia-east2", "asia-southeast1"]
 # f = 2 at conflict 100; a partial lane takes some 11,700 serialized
 # steps, so one (subset 0, f = 2, conflict 100); so for Atlas partial;
 # under faults the four plans of point 0 (subset 0, f = 1, conflict 0)
-# and the drop plan of point 7, whose lane overflows a Tempo table
+# and the drop plan of point 7, whose lane overflows a Tempo table; on
+# the ladder's rungs and the traffic sweeps lane 0 and lane 7, which
+# ends in ERR_CAPACITY on the ladder, as on the reference's engine (its
+# tables are sized for the closed loop), and on the ladder lane
+# LADDER_ERR as well (subset 39, f = 2, conflict 10), one of the four
+# conflict-10 lanes that end so at load 100 (its reference bytes:
+# tests/test_torch_open_ladder.py::test_ladder_capacity_lane_matches_reference)
+LADDER_ERR = 317
 SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
           "tempo": [7, 2047], "atlas": [7, 2047], "epaxos": [7, 2047],
           "caesar": [7, 511], "tempo_partial": [7], "atlas_partial": [7],
-          "tempo_faults": [0, 1, 2, 3, 31]}
+          "tempo_faults": [0, 1, 2, 3, 31],
+          "tempo_open": [0, 7, LADDER_ERR], "tempo_traffic": [0, 7]}
 
 # earlier paths run at a smaller depth here than their cli.MAIN_PATHS
-# grids, for the time slice 10's paths take: the first N region subsets
+# grids: the script must end within 1,200 s on the card, half of that is
+# the aim, and the whole grids would take it from about 890 s of phases
+# to about 1,030 s (PERF.md section 4): the first N region subsets
 CUT_SUBSETS = {"caesar": 64, "tempo_partial": 16}
 
 
-def path_argv(name):
-    """Main path ``name``'s sweep command line as this script runs it
-    (cut to :data:`CUT_SUBSETS` where it names the path)."""
+def base_path(name):
+    """The ``cli.MAIN_PATHS`` key of path ``name``: a ladder rung
+    ``tempo_open_<load>`` or a traffic sweep ``tempo_traffic_<preset>``
+    is a setting of ``tempo_open`` or ``tempo_traffic``."""
+    for base in ("tempo_open", "tempo_traffic"):
+        if name.startswith(base + "_"):
+            return base
+    return name
+
+
+def new_paths():
+    """The slice 10 paths: the Tempo traffic sweeps, one a preset, and
+    the open-loop Tempo offered-load ladder, one sweep a load."""
     from fantoch_tpu_torch import cli
 
-    argv = list(cli.MAIN_PATHS[name])
+    return ([f"tempo_traffic_{p}" for p in cli.TRAFFIC_PATHS]
+            + [f"tempo_open_{load}" for load in cli.OPEN_LOADS])
+
+
+def path_argv(name):
+    """Path ``name``'s sweep command line as this script runs it (cut to
+    :data:`CUT_SUBSETS` where it names the path; a ladder rung at its
+    load, a traffic sweep under its preset)."""
+    from fantoch_tpu_torch import cli
+
+    base = base_path(name)
+    argv = list(cli.MAIN_PATHS[base])
     if name in CUT_SUBSETS:
         argv[argv.index("--subsets") + 1] = str(CUT_SUBSETS[name])
+    flag = {"tempo_open": "--offered-load", "tempo_traffic": "--traffic"}
+    if base in flag:
+        argv[argv.index(flag[base]) + 1] = name[len(base) + 1:]
     return argv
 
 
@@ -246,7 +283,8 @@ HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "epaxos": "graphdep_handle", "caesar": "caesar_handle",
             "tempo_partial": "tempo_partial_handle",
             "atlas_partial": "atlas_partial_handle",
-            "tempo_faults": "tempo_handle"}
+            "tempo_faults": "tempo_handle", "tempo_open": "tempo_handle",
+            "tempo_traffic": "tempo_handle"}
 PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
          "tempo_partial", "atlas_partial", "tempo_faults")
 # the Tempo sweep's to_json lines: its first 512 lanes are the fault
@@ -300,15 +338,14 @@ def _host_worker() -> None:
     torch.set_num_threads(1)
 
 
-def _host_sweep_lanes(name, lanes, argv=None):
-    """Worker task: lanes ``lanes`` of main path ``name`` (or of the sweep
-    of command line ``argv``) on the host."""
+def _host_sweep_lanes(name, lanes):
+    """Worker task: lanes ``lanes`` of path ``name`` on the host."""
     from fantoch_tpu_torch import cli
     from fantoch_tpu_torch.engine import run_lanes
 
     t0 = time.perf_counter()
     protocol, dims, specs = cli.sweep_setup(
-        cli.parse_args(argv or path_argv(name)))
+        cli.parse_args(path_argv(name)))
     host = run_lanes(protocol, dims, [specs[i] for i in lanes], device="cpu")
     return ([json.dumps(h.to_json(), sort_keys=True) for h in host],
             time.perf_counter() - t0)
@@ -498,7 +535,7 @@ def check_kernels(name, dev, rows):
     for _ in range(300):
         state, _running = engine_core.frozen_step(protocol, dims, state,
                                                   ctx, max_steps, *flags)
-    handler = HANDLERS[name]
+    handler = HANDLERS[base_path(name)]
     mods = {k: importlib.import_module(f"fantoch_tpu_torch.kernels.{k}")
             for k in ("qualify_pop", "land_emissions", "emit_rewrite",
                       "lane_freeze", handler, "key_table")}
@@ -577,7 +614,7 @@ def check_kernels(name, dev, rows):
               f"bytes, {n_ops} ops) library_ms={library_ms} "
               f"launches={kern.launches - before} shapes {shapes}")
 
-    if handler in COVERAGE and name != "tempo_faults":
+    if handler in COVERAGE and name in PATHS and name != "tempo_faults":
         rows[handler]["max_abs_err"] = max(
             rows[handler]["max_abs_err"],
             coverage(name, handler, protocol, dims, state, ctx, max_steps,
@@ -1450,8 +1487,10 @@ def _match_fixture(results, name) -> None:
 
 
 def sweep(name, dev):
-    """Phase 7: one main path's sweep, counted; sampled
-    lanes against the plain twins on the host. Returns its launches."""
+    """Phase 7: one main path's sweep, counted: points/s, batch steps,
+    steps per lane, errors, each lane's mean latency averaged over the
+    sweep, the launches; sampled lanes against the plain twins on the
+    host. Returns its launches."""
     import torch
 
     from fantoch_tpu_torch import cli, kernels
@@ -1473,26 +1512,49 @@ def sweep(name, dev):
     steps_run = launches["qualify_pop"]
     stable = sorted({int(r.protocol_metrics["stable"].sum())
                      for r in results})
-    print(f"sweep {name} n=5 (N={dims.N} M={dims.M} D={dims.D}): "
+    means = [int(r.lat_sum.sum()) / int(r.lat_count.sum())
+             for r in results if int(r.lat_count.sum())]
+    clean = [int(r.lat_sum.sum()) / total for r in results if not r.err]
+    print(f"sweep {name} n=5 (N={dims.N} M={dims.M} D={dims.D} F={dims.F}): "
           f"{len(results)} points "
           f"in {wall:.3f} s = {len(results) / wall:.3f} points/s; errors "
           f"{errors} {sorted({r.err_cause for r in results if r.err})}; "
           f"steps per lane max {max(steps)} mean {sum(steps) / len(steps):.1f}"
-          f"; batch steps {steps_run}; pool_peak max "
+          f"; batch steps {steps_run}; lanes complete "
+          f"{sum(1 for r in results if r.completed == total)}; mean latency "
+          f"(mean of the lanes' means) {sum(means) / len(means):.3f} ms, of "
+          f"the {len(clean)} lanes without error "
+          f"{sum(clean) / max(len(clean), 1):.3f} ms; pool_peak max "
           f"{max(r.pool_peak for r in results)}; requeues "
           f"{sum(r.requeues for r in results)}; stable totals {stable}; "
           f"launches {launches}; launches per batch step "
           f"{ {k: v / steps_run for k, v in launches.items()} }")
-    path_kernels = ["qualify_pop", HANDLERS[name], "emit_rewrite",
+    handler = HANDLERS[base_path(name)]
+    path_kernels = ["qualify_pop", handler, "emit_rewrite",
                     "land_emissions", "lane_freeze", "key_table"]
     assert all(launches[k] > 0 for k in path_kernels), launches
-    other = set(HANDLERS.values()) - {HANDLERS[name]}
+    other = set(HANDLERS.values()) - {handler}
     assert all(launches[k] == 0 for k in other), launches
     if name == "tempo":
         TEMPO_LINES.extend(json.dumps(r.to_json(), sort_keys=True)
                            for r in results)
     if name == "tempo_faults":
         fault_sweep_checks(specs, results, total, wall, launches)
+    elif args.arrivals:
+        # the reference's engine ends the same lanes in capacity
+        # overflows (its tables are sized for the closed loop)
+        assert len(results) == 512
+        assert all(r.err_cause == "capacity-overflow"
+                   for r in results if r.err)
+        assert all(r.completed == total for r in results if not r.err)
+        by_conflict = {}
+        for i, (spec, r) in enumerate(zip(specs, results)):
+            if r.err:
+                cf = int(spec.ctx["conflict_rate"])
+                by_conflict.setdefault(cf, []).append(i)
+        print(f"{name}: erring lanes by conflict rate "
+              f"{ {cf: len(v) for cf, v in sorted(by_conflict.items())} }, "
+              f"at conflict 10 lanes {by_conflict.get(10, [])}")
     else:
         grid = args.subsets * len(args.fs) * len(args.conflicts)
         assert len(results) == grid and errors == 0
@@ -1501,7 +1563,7 @@ def sweep(name, dev):
             name in CUT_SUBSETS)
         main_path_checks(name, dims, specs, results, total)
     t0 = time.perf_counter()
-    sample = SAMPLE[name]
+    sample = SAMPLE[base_path(name)]
     host, secs = HOST.result(("sweep", name))
     for i, line in zip(sample, host):
         assert line == json.dumps(results[i].to_json(), sort_keys=True), (
@@ -1836,7 +1898,7 @@ def check_monitored_kernels(dev, rows) -> None:
 
 
 def mc_grid(dev):
-    """Phase 8, this slice's main path: the mc default grid (the
+    """Phase 8, slice 9's main path: the mc default grid (the
     reference CLI's defaults: Tempo, FPaxos and Atlas x n in {3, 5}, 512
     schedules a point, 3,072 lanes, seed 0) through ``run_fuzz_point``,
     the function ``mc --no-confirm`` runs, with every launch counter at 0
@@ -2114,30 +2176,6 @@ ZIPF_SCHEDULE = {"name": "zipf", "cycle": True, "phases": [
     {"commands": 15, "conflict_rate": 50},
     {"commands": 10, "conflict_rate": 50, "zipf_coef": 2.0},
 ]}
-# sampled lanes of the slice's sweeps held to the host twins: lane 0
-# (subset 0, f = 1, conflict 0) completes on every sweep; lane 7 (f = 2,
-# conflict 100) ends in ERR_CAPACITY on the ladder, as the reference's
-# engine does (the tables are sized for the closed loop)
-NEW_SAMPLE = [0, 7]
-
-
-def new_paths():
-    """``{name: argv}``: the open-loop Tempo offered-load ladder, one
-    sweep a load, and the Tempo traffic sweeps, one a preset."""
-    from fantoch_tpu_torch import cli
-
-    out = {}
-    for load in cli.OPEN_LOADS:
-        argv = list(cli.MAIN_PATH_TEMPO_OPEN)
-        argv[argv.index("--offered-load") + 1] = str(load)
-        out[f"tempo_open_{load}"] = argv
-    for preset in cli.TRAFFIC_PATHS:
-        argv = list(cli.MAIN_PATH_TEMPO_TRAFFIC)
-        argv[argv.index("--traffic") + 1] = preset
-        out[f"tempo_traffic_{preset}"] = argv
-    return out
-
-
 def traffic_keys(dev) -> float:
     """K3's epoch branch against its twin: every lane of the Tempo
     traffic sweeps' batches (diurnal, flash, churn) and of a batch of
@@ -2157,9 +2195,9 @@ def traffic_keys(dev) -> float:
     kt = importlib.import_module("fantoch_tpu_torch.kernels.key_table")
 
     batches = {}
-    for name, argv in new_paths().items():
-        if name.startswith("tempo_traffic"):
-            args = cli.parse_args(argv)
+    for name in new_paths():
+        if base_path(name) == "tempo_traffic":
+            args = cli.parse_args(path_argv(name))
             _p, dims, specs = cli.sweep_setup(args)
             batches[name] = (specs[:args.batch_lanes], args.commands)
     _p, dims, specs = cli.sweep_setup(cli.parse_args(
@@ -2200,39 +2238,6 @@ def traffic_keys(dev) -> float:
               f"max_abs_err={err} distinct keys "
               f"{int(torch.unique(got).numel())}{note}")
     return err
-
-
-class _DoubleReply:
-    """A protocol's handlers with each result row also copied into the
-    handler outbox's last slot when that is free, so that a client
-    completes two commands in one step (no protocol's handler emits two
-    results a call): the open-loop client's count-based attribution for
-    that case, on the card."""
-
-    def __init__(self, base):
-        self._base = base
-
-    def __getattr__(self, name):
-        return getattr(self._base, name)
-
-    def handlers(self, ps, has, rows, fire, ep, ctx, dims):
-        import torch
-
-        rdy, ps, pout, ob = self._base.handlers(ps, has, rows, fire, ep,
-                                                ctx, dims)
-        is_tc = ob["valid"] & (ob["dst"] >= dims.N)
-        i = is_tc.to(torch.int32).argmax(-1)
-        j = ob["valid"].shape[-1] - 1
-        dup = is_tc.any(-1) & ~ob["valid"][..., j] & (i != j)
-        lanes = torch.arange(i.shape[0], device=i.device)[:, None]
-        procs = torch.arange(i.shape[1], device=i.device)[None, :]
-        out = {}
-        for k, v in ob.items():
-            v = v.clone()
-            m = dup.reshape(dup.shape + (1,) * (v.dim() - 3))
-            v[:, :, j] = torch.where(m, v[lanes, procs, i], v[:, :, j])
-            out[k] = v
-        return rdy, ps, pout, out
 
 
 def _open_protocol(name, clients, commands, traffic=None):
@@ -2361,7 +2366,10 @@ def open_coverage(dev) -> float:
                                      arrivals=None, traffic="diurnal"),
     }
     proto, dims, specs = _open_lanes("tempo", OPEN_PLANS[:2])
-    batches["tempo double reply"] = (_DoubleReply(proto), dims, specs)
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_open_loop import PortDoubleReply
+
+    batches["tempo double reply"] = (PortDoubleReply(proto), dims, specs)
     with _Patched(emit_rewrite=_checked("emit_rewrite", "emit_rewrite", k6)):
         for label, (p, d, lanes) in batches.items():
             before = calls[0]
@@ -2455,142 +2463,6 @@ def golden_open_loop(dev) -> None:
           f"({len(text)} bytes)")
 
 
-def _k3_k6_times(name, argv, dev, warmup: int = 300):
-    """K3 and K6 on one step's arguments of a sweep's first batch after
-    ``warmup`` steps: exact against the twin, device ms, call ms, plain
-    ms and the bound. Returns ``{kernel: (err, ms, call_ms, plain_ms,
-    bound_ms, bound_by)}``."""
-    import torch
-
-    from fantoch_tpu_torch import cli
-    from fantoch_tpu_torch.engine import core as engine_core
-    from fantoch_tpu_torch.engine.driver import prepare_batch
-    from fantoch_tpu_torch.engine.faults import batch_fault_flags
-    from fantoch_tpu_torch.kernels import cost
-
-    er = importlib.import_module("fantoch_tpu_torch.kernels.emit_rewrite")
-    kt = importlib.import_module("fantoch_tpu_torch.kernels.key_table")
-    args = cli.parse_args(argv)
-    protocol, dims, specs = cli.sweep_setup(args)
-    batch = specs[:args.batch_lanes]
-    flags = batch_fault_flags(batch)
-    state, ctx = prepare_batch(protocol, dims, batch, dev)
-    for _ in range(warmup):
-        state, _r = engine_core.frozen_step(protocol, dims, state, ctx,
-                                            1 << 22, False, flags)
-    box = {}
-
-    def record(*a):
-        box["a"] = a
-        return er.emit_rewrite(*a)
-
-    record.launches = 0
-    with _Patched(emit_rewrite=record):
-        engine_core.frozen_step(protocol, dims, state, ctx, 1 << 22, False,
-                                flags)
-    T = ctx["key_table"].shape[2]
-    cases = {
-        "key_table": (kt, (ctx["rng_key"], ctx["conflict_rate"],
-                           ctx["pool_size"], ctx["key_gen_kind"],
-                           ctx["zipf_cum"], dims.C, T,
-                           kt.traffic_tables(ctx))),
-        "emit_rewrite": (er, box["a"]),
-    }
-    out = {}
-    for kname, (mod, a) in cases.items():
-        kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
-        got, want = kern(*a), plain(*a)
-        torch.cuda.synchronize()
-        err = _compare(got, want)
-        ms = _device_ms(lambda a=a: kern(*a), kname, 50)
-        call_ms = _time_ms(lambda a=a: kern(*a), 50)
-        plain_ms = _time_ms(lambda a=a: plain(*a), 5)
-        n_bytes, n_ops = mod.work(*a, got)
-        bound_ms, bound_by = cost.bound(n_bytes, n_ops)
-        out[kname] = (err, ms, call_ms, plain_ms, bound_ms, bound_by)
-        print(f"kernel {kname} ({name}, step {warmup + 1} of the first "
-              f"batch): exact=True max_abs_err={err} ms={ms:.5f} "
-              f"call_ms={call_ms:.5f} plain_ms={plain_ms:.5f} bound_us="
-              f"{1e3 * bound_ms:.3f} ({bound_by}: {n_bytes} bytes, {n_ops} "
-              f"ops) x bound {ms / bound_ms:.1f}")
-    return out
-
-
-def new_sweep(name, argv, dev, rows):
-    """One sweep of the slice's paths, counted: points/s, batch steps,
-    steps per lane, errors, each lane's mean latency averaged over the
-    sweep, the launches; K3 and K6 timed on its first batch (their
-    errors folded into ``rows``); the sampled lanes against the host
-    twins. Returns its launches."""
-    import torch
-
-    from fantoch_tpu_torch import cli, kernels
-    from fantoch_tpu_torch.parallel import run_sweep
-
-    args = cli.parse_args(argv)
-    protocol, dims, specs = cli.sweep_setup(args)
-    kernels.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    results = run_sweep(protocol, dims, specs, batch_lanes=args.batch_lanes,
-                        device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.counts()
-    errors = sum(1 for r in results if r.err)
-    steps = [r.steps for r in results]
-    total = args.commands * dims.C
-    means = [int(r.lat_sum.sum()) / int(r.lat_count.sum())
-             for r in results if int(r.lat_count.sum())]
-    clean = [int(r.lat_sum.sum()) / total for r in results if not r.err]
-    print(f"sweep {name} (N={dims.N} M={dims.M} D={dims.D} F={dims.F}): "
-          f"{len(results)} points in {wall:.3f} s = "
-          f"{len(results) / wall:.3f} points/s; errors {errors} "
-          f"{sorted({r.err_cause for r in results if r.err})}; batch steps "
-          f"{launches['qualify_pop']}; steps per lane max {max(steps)} mean "
-          f"{sum(steps) / len(steps):.1f}; lanes complete "
-          f"{sum(1 for r in results if r.completed == total)}; mean latency "
-          f"(mean of the lanes' means) {sum(means) / len(means):.3f} ms, of "
-          f"the {len(clean)} lanes without error {sum(clean) / len(clean):.3f}"
-          f" ms; "
-          f"pool_peak max {max(r.pool_peak for r in results)}; launches "
-          f"{launches}")
-    path_kernels = ["qualify_pop", "tempo_handle", "emit_rewrite",
-                    "land_emissions", "lane_freeze", "key_table"]
-    assert all(launches[k] > 0 for k in path_kernels), launches
-    other = set(HANDLERS.values()) - {"tempo_handle"}
-    assert all(launches[k] == 0 for k in other), launches
-    assert len(results) == 512
-    if args.arrivals:
-        # the reference's engine ends the same lanes in capacity
-        # overflows (its tables are sized for the closed loop)
-        assert all(r.err_cause == "capacity-overflow"
-                   for r in results if r.err)
-        assert all(r.completed == total for r in results if not r.err)
-        by_conflict = {}
-        for spec, r in zip(specs, results):
-            if r.err:
-                cf = int(spec.ctx["conflict_rate"])
-                by_conflict[cf] = by_conflict.get(cf, 0) + 1
-        print(f"{name}: erring lanes by conflict rate "
-              f"{dict(sorted(by_conflict.items()))}")
-    else:
-        assert errors == 0
-        assert all(r.completed == total == int(r.lat_count.sum())
-                   for r in results)
-    for kname, (err, *_t) in _k3_k6_times(name, argv, dev).items():
-        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
-    t0 = time.perf_counter()
-    host, secs = HOST.result(("sweep", name))
-    for i, line in zip(NEW_SAMPLE, host):
-        assert line == json.dumps(results[i].to_json(), sort_keys=True), (
-            f"{name} lane {i} differs from the host run")
-    print(f"{name} lanes {NEW_SAMPLE}: card == host plain twins, byte for "
-          f"byte ({secs:.1f} s on the host, waited "
-          f"{time.perf_counter() - t0:.1f} s)")
-    return launches
-
-
 def main() -> int:
     import torch
 
@@ -2629,11 +2501,9 @@ def _main(dev, card) -> int:
 
     # the host runs the sampled lanes are held to, in the background (the
     # mc grid's go in segments while it runs)
-    for name in PATHS:
-        HOST.submit(("sweep", name), _host_sweep_lanes, name, SAMPLE[name])
-    for name, argv in new_paths().items():
-        HOST.submit(("sweep", name), _host_sweep_lanes, name, NEW_SAMPLE,
-                    argv)
+    for name in PATHS + tuple(new_paths()):
+        HOST.submit(("sweep", name), _host_sweep_lanes, name,
+                    SAMPLE[base_path(name)])
 
     # 2. build
     phase("2 build", build.build)
@@ -2641,7 +2511,9 @@ def _main(dev, card) -> int:
 
     # 3. every kernel against its plain twin at the main paths' shapes
     rows = {}
-    for name in PATHS:
+    # (the ladder's rungs last: their rows are those of slice 10's main
+    # path)
+    for name in PATHS + tuple(new_paths()):
         phase(f"3 kernels ({name} path)", check_kernels, name, dev, rows)
     phase("3 kernels (monitored mc paths)", check_monitored_kernels, dev,
           rows)
@@ -2683,12 +2555,11 @@ def _main(dev, card) -> int:
                for name in PATHS}
     by_path["tempo_monitored"] = phase("7 sweep tempo monitored",
                                        monitored_tempo_sweep, dev)
-    # the open-loop offered-load ladder and the traffic sweeps, each
-    # counted on its own
-    for name, argv in new_paths().items():
-        by_path[name] = phase(f"7 sweep {name}", new_sweep, name, argv, dev,
-                              rows)
-    # 8. this slice's main path, the mc default grid, counted; then the
+    # the traffic sweeps and the open-loop offered-load ladder (slice
+    # 10's main path), each counted on its own
+    for name in new_paths():
+        by_path[name] = phase(f"7 sweep {name}", sweep, name, dev)
+    # 8. slice 9's main path, the mc default grid, counted; then the
     # bench's fuzz self-check point
     by_path["mc"] = phase("8 mc grid", mc_grid, dev)
     phase("8 mc bench point", bench_point, dev)

@@ -37,6 +37,7 @@ from fantoch_tpu.engine.protocols import TempoDev as RTempo
 from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.core import lane_step
 from fantoch_tpu_torch.engine.protocols import TempoDev
+from torch_open_loop import PortDoubleReply
 from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 64
@@ -65,33 +66,6 @@ class _RefDoubleReply:
                     for k, v in ob.items()}
 
 
-class _PortDoubleReply:
-    """The port's Tempo under the same copy, on ``[L, N, F]`` outboxes."""
-
-    def __init__(self, base):
-        self._base = base
-
-    def __getattr__(self, name):
-        return getattr(self._base, name)
-
-    def handlers(self, ps, has, rows, fire, ep, ctx, dims):
-        rdy, ps, pout, ob = self._base.handlers(ps, has, rows, fire, ep,
-                                                ctx, dims)
-        is_tc = ob["valid"] & (ob["dst"] >= dims.N)
-        i = is_tc.to(torch.int32).argmax(-1)
-        j = ob["valid"].shape[-1] - 1
-        dup = is_tc.any(-1) & ~ob["valid"][..., j] & (i != j)
-        lanes = torch.arange(i.shape[0])[:, None]
-        procs = torch.arange(i.shape[1])[None, :]
-        out = {}
-        for k, v in ob.items():
-            v = v.clone()
-            m = dup.reshape(dup.shape + (1,) * (v.dim() - 3))
-            v[:, :, j] = torch.where(m, v[lanes, procs, i], v[:, :, j])
-            out[k] = v
-        return rdy, ps, pout, out
-
-
 def _batch(double: bool = False):
     """A reference batch: dims, ctx with the key table, initial state."""
     n, cpr = 3, 2
@@ -100,7 +74,7 @@ def _batch(double: bool = False):
               gap_slots=6)
     ref, port = RTempo(**kw), TempoDev(**kw)
     if double:
-        ref, port = _RefDoubleReply(ref), _PortDoubleReply(port)
+        ref, port = _RefDoubleReply(ref), PortDoubleReply(port)
     dims = EngineDims.for_protocol(ref, n=n, clients=clients,
                                    payload=ref.payload_width(n), regions=n)
     specs = [
