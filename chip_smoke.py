@@ -5,12 +5,14 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's thirteen CUDA kernels from
-``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in parallel),
-holds each kernel against its plain PyTorch twin on the card at the
-eight main paths' shapes (exact equality: all integer or bool data;
+It builds the engine's fourteen CUDA kernels and the device loop's graph
+code from ``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in
+parallel), holds each kernel against its plain PyTorch twin on the card
+at the main paths' shapes (exact equality: all integer or bool data;
 ``key_table`` also on a batch of Zipf lanes; ``lane_freeze`` also with
-frozen lanes; ``tempo_handle`` over further steps until every Tempo
+frozen lanes and with its step cap a device word that stops some lanes
+and not others; ``loop_ctl`` (K14) before the loop and in a body on
+ladders it has to walk; ``tempo_handle`` over further steps until every Tempo
 message type and the GC and detached-send timers have been handled;
 ``graphdep_handle``, on the Atlas and on the EPaxos path, until every
 message type, the GC timer and a drain chain have been;
@@ -78,8 +80,20 @@ load; slice 10's main path) and the Tempo diurnal, flash and churn
 sweeps on that grid, each counted, every kernel of its step held to its
 twin and timed at step 301 of its first batch (phase 3), lanes 0 and 7
 (and on the ladder a conflict-10 lane that ends in ERR_CAPACITY) held to
-the host twins. Caesar's and Tempo partial's sweeps run cut to their
-first 64 and 16 subsets (``CUT_SUBSETS``), for the script's time. The host
+the host twins. Slice 11: every sweep, mc and ladder phase runs its step loop on the card, in
+the device loop's graph (``kernels/step_loop.py``: a captured body of
+64 steps under a conditional while node, K14 deciding the early exit),
+one host dispatch a window; each checks that no step kernel was
+launched through its wrapper and prints the loop's stats (capture and
+instantiate seconds, device calls, windows, bodies, overshoot steps).
+The segments phase holds the device loop's final state to the eager
+loop's (``build_eager_runner``), whole state, byte for byte, on the
+first 512-lane batch of Tempo and Basic at four (segment steps, scan
+window, pipeline depth, max steps) settings and of Caesar at one, and
+times the B6-loop row (one window of one body). The phases that hold
+each call of a kernel to its twin drive the eager runner by name; the
+mc grid's taps read the segment runner's output after every 4,096-step
+segment. The host
 twins run in worker processes started before the build, overlapping the
 card's phases. Any failure raises; nothing
 is caught. Each phase prints its seconds. The last two lines
@@ -218,11 +232,12 @@ SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
           "tempo_faults": [0, 1, 2, 3, 31],
           "tempo_open": [0, 7, LADDER_ERR], "tempo_traffic": [0, 7]}
 
-# earlier paths run at a smaller depth here than their cli.MAIN_PATHS
-# grids: the script must end within 1,200 s on the card, half of that is
-# the aim, and the whole grids would take it from about 890 s of phases
-# to about 1,030 s (PERF.md section 4): the first N region subsets
-CUT_SUBSETS = {"caesar": 64, "tempo_partial": 16}
+# paths run at a smaller depth here than their cli.MAIN_PATHS grids (the
+# first N region subsets), for the script's time: it must end within
+# 1,200 s on the card, half of that is the aim (PERF.md section 4). None
+# since the step loop runs on the card: the Caesar and Tempo partial
+# grids are whole again
+CUT_SUBSETS = {}
 
 
 def base_path(name):
@@ -260,6 +275,10 @@ def path_argv(name):
     return argv
 
 
+# each main path's kernels' bounds (ms) from phase 3: the device loop's
+# bound is its body's
+BOUNDS = {}
+
 # the reference region each kernel replaces
 REPLACES = {
     "qualify_pop": "fantoch_tpu/engine/core.py:811",
@@ -277,6 +296,8 @@ REPLACES = {
     "atlas_partial_handle":
         "fantoch_tpu/engine/protocols/graphdep_partial.py:219",
     "mon_finalize": "fantoch_tpu/engine/monitor.py:217",
+    "loop_ctl": "fantoch_tpu/engine/core.py:1565",
+    "step_loop": "fantoch_tpu/engine/core.py:1591",
 }
 HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo": "tempo_handle", "atlas": "graphdep_handle",
@@ -646,6 +667,29 @@ def check_kernels(name, dev, rows):
     print(f"kernel lane_freeze ({name} path, {frozen} of {L} lanes "
           f"frozen): exact=True max_abs_err={err} ms={ms:.5f} bound_us="
           f"{1e3 * cost.bound(n_bytes, n_ops)[0]:.3f} ({n_bytes} bytes)")
+    BOUNDS[name] = {k: (r["bound_ms"], r["bound_by"])
+                    for k, r in rows.items() if r["path"] == name}
+
+    # K7 with its step cap a device word, as the device loop passes it:
+    # every other lane one step behind, so the cap stops the running
+    # lanes at it and lets the others step
+    new, old, fctx, _cap, lflags = captured["lane_freeze"]
+    old = dict(old, steps=old["steps"].clone())
+    old["steps"][::2] -= 1
+    top = int(old["steps"].max())
+    word = torch.tensor([top], dtype=torch.int32, device=dev)
+    got = lf.lane_freeze(_clone(new), old, fctx, word, lflags)
+    err = _compare(got, lf.lane_freeze_plain(new, old, fctx, top, lflags))
+    live = lf.lane_live(old, fctx, lflags)
+    stopped = int((live & (old["steps"] >= top)).sum())
+    stepping = int(got[1].sum())
+    assert stopped > 0 and stepping > 0, (stopped, stepping)
+    rows["lane_freeze"]["max_abs_err"] = max(
+        rows["lane_freeze"]["max_abs_err"], err)
+    print(f"kernel lane_freeze ({name} path, cap {top} a device word: "
+          f"{stopped} lanes stopped at it, {stepping} stepping): exact=True "
+          f"max_abs_err={err}")
+    check_loop_ctl(name, old, fctx, lflags, rows)
 
     if name == "basic":
         # K3's Zipf branch, which the main path's ConflictPool lanes do
@@ -669,6 +713,55 @@ def check_kernels(name, dev, rows):
               f"L={got.shape[0]} C={dims.C} T={T} "
               f"K={zctx['zipf_cum'].shape[1]} distinct keys "
               f"{int(torch.unique(got).numel())}")
+
+
+def check_loop_ctl(name, st, ctx, flags, rows) -> None:
+    """K14 against its twin on a main path's state (its lanes at two
+    step counts, ``top`` − 1 and ``top``): before the loop and in a
+    body, on ladders whose first rungs no lane is active under, so the
+    kernel walks them; every control word and the body counter equal.
+    Timed in a body; adds its row to ``rows``."""
+    import torch
+
+    from fantoch_tpu_torch.kernels import cost
+
+    k14 = importlib.import_module("fantoch_tpu_torch.kernels.loop_ctl")
+    dev = st["now"].device
+    top = int(st["steps"].max())
+    err = 0.0
+    for ladder in ([top - 5, top, top + 50], [top - 5, top - 1, top + 50],
+                   [top + 64], [0, 0]):
+        lad = torch.tensor(ladder, dtype=torch.int32, device=dev)
+        ctl, iters, _ = k14.new_ctl(dev)
+        ctl[k14.CTL_W], ctl[k14.CTL_MAXS] = len(ladder), 1 << 22
+        for in_body in (False, True):
+            kc, ki = ctl.clone(), iters.clone()
+            k14.loop_ctl(st, ctx, lad, kc, ki, flags, in_body)
+            tc, ti = ctl.clone(), iters.clone()
+            k14.loop_ctl_plain(st, ctx, lad, tc, ti, flags, in_body)
+            torch.cuda.synchronize()
+            err = max(err, _compare((kc, ki), (tc, ti)))
+            ctl, iters = kc, ki
+        print(f"kernel loop_ctl ({name} path, ladder {ladder}): exact=True; "
+              f"lim {int(ctl[k14.CTL_LIM])} rung {int(ctl[k14.CTL_RUNG])} "
+              f"alive {int(ctl[k14.CTL_ALIVE])} cond "
+              f"{int(ctl[k14.CTL_COND])}")
+    a = (st, ctx, lad, ctl, iters, flags, True)
+    ms = _device_ms(lambda: k14.loop_ctl(*a), "loop_ctl", 50)
+    call_ms = _time_ms(lambda: k14.loop_ctl(*a), 50)
+    plain_ms = _time_ms(lambda: k14.loop_ctl_plain(*a), 5)
+    n_bytes, n_ops = k14.work(st, ctx, ctl, flags, True)
+    bound_ms, bound_by = cost.bound(n_bytes, n_ops)
+    rows["loop_ctl"] = dict(
+        path=name, max_abs_err=err, ms=ms, call_ms=call_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None,
+    )
+    BOUNDS[name]["loop_ctl"] = (bound_ms, bound_by)
+    print(f"kernel loop_ctl ({name} path): exact=True max_abs_err={err} "
+          f"ms={ms:.5f} call_ms={call_ms:.5f} plain_ms={plain_ms:.5f} "
+          f"bound_us={1e3 * bound_ms:.3f} ({bound_by}: {n_bytes} bytes, "
+          f"{n_ops} ops) L={int(st['now'].shape[0])}")
 
 
 # the message types each handler's coverage phase waits for, in type
@@ -1505,7 +1598,7 @@ def sweep(name, dev):
                         batch_lanes=args.batch_lanes, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.counts()
+    launches = graph_only_counts(name)
     errors = sum(1 for r in results if r.err)
     steps = [r.steps for r in results]
     total = args.commands * dims.C
@@ -1572,6 +1665,197 @@ def sweep(name, dev):
           f"({secs:.1f} s on the host, waited {time.perf_counter() - t0:.1f} "
           f"s)")
     return launches
+
+
+# the segments phase: (segment_steps, scan_window or None for the
+# default, pipeline_depth, max_steps); at 1,500 steps the longer lanes
+# end in ERR_TRUNCATED
+SEGMENT_CASES = [(8192, None, 2, 1 << 22), (1000, 3, 2, 1 << 22),
+                 (100, 1, 1, 1 << 22), (8192, None, 2, 1500)]
+SEGMENT_PATHS = {"tempo": SEGMENT_CASES, "basic": SEGMENT_CASES,
+                 "caesar": SEGMENT_CASES[1:2]}
+
+
+def _tree_exact(got, want) -> float:
+    """Exact equality of two state trees, leaf by leaf; 0.0 or raises."""
+    import torch
+
+    a, b = _flatten(got), _flatten(want)
+    assert len(a) == len(b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert x.shape == y.shape and x.dtype == y.dtype, (i, x.shape)
+        if not torch.equal(x, y):
+            raise AssertionError(f"state leaf {i} differs")
+    return 0.0
+
+
+def segments(dev, rows) -> None:
+    """The device loop against the eager loop on the card: on the
+    first 512-lane batch of the Tempo and Basic main paths (Caesar at
+    one setting), the batch through the segment loop of ``run_sweep``
+    (``parallel/sweep.py run_windows``) at each of
+    :data:`SEGMENT_CASES`, then ``finish_run``; its whole final state
+    equals the eager loop's (``build_eager_runner``, every launch
+    through its wrapper) at the same ``max_steps``, byte for byte. Then
+    the B6-loop row: one window of one body on Tempo's batch, beside
+    the eager loop over the same steps and a replay of the captured
+    body alone."""
+    import torch
+
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.dims import ERR_TRUNCATED
+    from fantoch_tpu_torch.engine.driver import (
+        batch_reorder_flag, prepare_batch,
+    )
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags
+    from fantoch_tpu_torch.parallel import sweep as psweep
+
+    for name, cases in SEGMENT_PATHS.items():
+        protocol, dims, specs = cli.sweep_setup(
+            cli.parse_args(path_argv(name)))
+        batch = specs[:512]
+        flags = (batch_reorder_flag(batch), batch_fault_flags(batch))
+        eager = {}
+        for seg, win, depth, max_steps in cases:
+            if max_steps not in eager:
+                state, ctx = prepare_batch(protocol, dims, batch, dev)
+                t0 = time.perf_counter()
+                eager[max_steps] = engine_core.build_eager_runner(
+                    protocol, dims, max_steps, *flags)(state, ctx)
+                torch.cuda.synchronize()
+                print(f"segments {name}: eager loop to max_steps={max_steps}"
+                      f" in {time.perf_counter() - t0:.3f} s")
+            W = psweep.default_scan_window(seg) if win is None else win
+            runner, _alive = engine_core.build_window_runner(
+                protocol, dims, max_steps, *flags)
+            state, ctx = prepare_batch(protocol, dims, batch, dev)
+            stats = dict(device_calls=0, segments_covered=0, windows=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = psweep.run_windows(runner, state, ctx, seg, W, depth,
+                                    max_steps, stats)
+            final = engine_core.finish_run(protocol, st, ctx, max_steps,
+                                           *flags)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            _tree_exact(final, eager[max_steps])
+            bodies = runner.bodies()
+            steps_max = int(final["steps"].max())
+            cut = int(((final["err"] & ERR_TRUNCATED) != 0).sum())
+            assert cut > 0 if max_steps == 1500 else cut == 0, cut
+            print(f"segments {name} (segment_steps={seg}, scan_window={W}, "
+                  f"pipeline_depth={depth}, max_steps={max_steps}): whole "
+                  f"state == the eager loop's, byte for byte; {secs:.3f} s "
+                  f"(capture + instantiate {runner.capture_s:.3f} s); "
+                  f"stats {stats}; bodies {bodies} of {runner.loop.G} steps"
+                  f" = {bodies * runner.loop.G} batch steps, longest lane "
+                  f"{steps_max}, overshoot "
+                  f"{bodies * runner.loop.G - steps_max}; truncated lanes "
+                  f"{cut}")
+        del eager
+    rows["step_loop"] = step_loop_row(dev)
+
+
+def step_loop_row(dev) -> dict:
+    """The B6-loop's row, on the Tempo main path's first batch after 320
+    steps: ``ms`` one window that runs one body (``STEPS_PER_BODY``
+    steps; CUDA events around the call, host included), ``plain_ms``
+    the eager loop over as many steps, ``library_ms`` a
+    ``CUDAGraph.replay()`` of the captured body alone (no while node,
+    no K14), ``bound_ms`` the body's kernels' bounds (phase 3's, per
+    step) times its steps plus K14's."""
+    import torch
+
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine.driver import (
+        batch_reorder_flag, prepare_batch,
+    )
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags
+
+    name = "tempo"
+    protocol, dims, specs = cli.sweep_setup(cli.parse_args(path_argv(name)))
+    batch = specs[:512]
+    flags = (batch_reorder_flag(batch), batch_fault_flags(batch))
+    runner, _alive = engine_core.build_window_runner(protocol, dims,
+                                                     1 << 22, *flags)
+    state, ctx = prepare_batch(protocol, dims, batch, dev)
+    box = {"until": 320}
+    box["st"] = runner(state, ctx, [box["until"]])[0]
+    loop = runner.loop
+    G = loop.G
+
+    def one_body():
+        box["until"] += G
+        box["st"] = runner(box["st"], ctx, [box["until"]])[0]
+
+    torch.cuda.synchronize()
+    it0 = loop.iterations()
+    ms = _time_ms(one_body, 10)
+    bodies = loop.iterations() - it0
+    assert bodies == 11, bodies  # one body a window
+    eager = {"st": engine_core.clone_tree(box["st"])}
+
+    def eager_body():
+        st = eager["st"]
+        for _ in range(G):
+            st, _r = engine_core.frozen_step(protocol, dims, st, ctx,
+                                             1 << 22, *flags)
+        eager["st"] = st
+
+    plain_ms = _time_ms(eager_body, 3)
+    library_ms = _time_ms(loop.graph.replay, 10)
+    step = ("qualify_pop", HANDLERS[name], "emit_rewrite", "land_emissions",
+            "lane_freeze")
+    parts = [(G * BOUNDS[name][k][0], BOUNDS[name][k][1]) for k in step]
+    parts.append(BOUNDS[name]["loop_ctl"])
+    bound_ms = sum(ms_ for ms_, _by in parts)
+    bound_by = max(parts)[1]  # the largest part's
+    print(f"kernel step_loop ({name} path, L={len(batch)}): one window of "
+          f"one body ({G} steps) ms={ms:.5f} ({ms / G:.5f} a step); the "
+          f"eager loop over {G} steps plain_ms={plain_ms:.5f}; "
+          f"CUDAGraph.replay of the body library_ms={library_ms:.5f}; "
+          f"bound_ms={bound_ms:.5f} (the body's kernels' bounds x {G} "
+          f"+ K14's)")
+    return dict(path=name, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def graph_only_counts(label, single=True) -> dict:
+    """The launch counts of a main path's run, after checking that its
+    step loop ran only inside the device loop's graph: no step kernel
+    was launched through its wrapper, every one by a replayed body
+    (counted from K14's body counter). For a ``single`` ``run_sweep``
+    call, prints its stats and holds its batch steps to K1's count."""
+    from fantoch_tpu_torch import kernels
+    from fantoch_tpu_torch.parallel import sweep as psweep
+
+    step = ("qualify_pop", "emit_rewrite", "land_emissions", "lane_freeze",
+            *sorted(set(HANDLERS.values())))
+    direct = {k: kernels.WRAPPERS[k].launches for k in step}
+    assert not any(direct.values()), direct
+    launches = kernels.counts()
+    assert launches["step_loop"] > 0 and launches["loop_ctl"] > 0, launches
+    if not single:
+        return launches
+    st = psweep.LAST_STATS
+    print(f"{label} device loop: {loop_stats(st)}; graph launches "
+          f"{launches['step_loop']}, K14 launches {launches['loop_ctl']}")
+    assert launches["qualify_pop"] == st["batch_steps"], (
+        launches["qualify_pop"], st["batch_steps"])
+    return launches
+
+
+def loop_stats(st) -> str:
+    """``run_sweep``'s stats as a line."""
+    return (f"{st['batches']} batches, device_calls "
+            f"{st['device_calls']}, windows {st['windows']}, segments "
+            f"covered {st['segments_covered']} (scan_window "
+            f"{st['scan_window']}, segment_steps {st['segment_steps']}), "
+            f"body iterations {st['body_iterations']}, batch steps "
+            f"{st['batch_steps']}, overshoot steps {st['overshoot_steps']}, "
+            f"capture + instantiate {st['capture_s']:.3f} s")
 
 
 def fault_sweep_checks(specs, results, total, wall, launches) -> None:
@@ -1684,6 +1968,20 @@ def _k13_stand_in():
     return _checked("mon_finalize", "mon_finalize", cmp)
 
 
+class _PatchedAttr:
+    """Sets ``mod.name`` to ``value`` while open."""
+
+    def __init__(self, mod, name, value):
+        self.mod, self.name, self.new = mod, name, value
+
+    def __enter__(self):
+        self.old = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, self.new)
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.old)
+
+
 class _PatchedHandler:
     """Swaps a handler kernel's module name for a stand-in while open
     (the protocols import their kernel from its module at each call)."""
@@ -1735,15 +2033,16 @@ def _tree_equal(a, b) -> bool:
 
 
 class _McTaps:
-    """The mc grid's sampled lanes, tapped from the card's own run (its
-    ``frozen_step`` and K13 calls): each lane's state every
-    :data:`SEGMENT` batch steps and when its batch ends. Each segment in
-    which a lane changed goes to the host pool, which replays it from the
-    card's snapshot with the plain twins; :meth:`check` holds every
-    replayed segment's end to the card's next snapshot and the last
-    one's ``to_json`` to the card's result, byte for byte. Segments
-    where the lane stayed as it was (a finished lane: a running lane
-    counts its steps) need no replay."""
+    """The mc grid's sampled lanes, tapped from the card's own run: each
+    lane's state before its batch's first window, after every window (a
+    window is one :data:`SEGMENT`-step segment here: ``run_sweep`` at
+    ``segment_steps=SEGMENT, scan_window=1``) and when its batch ends
+    (the K13 call). Each segment in which a lane changed goes to the
+    host pool, which replays it from the card's snapshot with the plain
+    twins; :meth:`check` holds every replayed segment's end to the
+    card's next snapshot and the last one's ``to_json`` to the card's
+    result, byte for byte. Segments where the lane stayed as it was (a
+    finished lane: a running lane counts its steps) need no replay."""
 
     def __init__(self, specs):
         from dataclasses import asdict
@@ -1780,16 +2079,32 @@ class _McTaps:
                         self.steps - steps0, self.flags, last)
             self.pending.append((self.point, lane, key, state, last))
 
-    def frozen_step(self, orig):
-        def run(protocol, dims, st, ctx, max_steps, reorder=False,
-                faults=None, monitor_keys=0):
+    def window_runner(self, orig):
+        """A stand-in for ``engine.core.build_window_runner`` whose
+        runner snapshots the sampled lanes around its windows."""
+        taps = self
+
+        class Tapped:
+            def __init__(self, runner):
+                self.runner = runner
+
+            def __getattr__(self, k):
+                return getattr(self.runner, k)
+
+            def __call__(self, state, ctx, untils):
+                if taps.steps == 0:
+                    taps._snap(state, False)
+                out = self.runner(state, ctx, untils)
+                taps.steps = int(untils[-1])
+                taps._snap(out[0], False)
+                return out
+
+        def build(protocol, dims, max_steps, reorder, faults, monitor_keys):
             self.flags = (reorder, tuple(faults), monitor_keys)
-            if self.steps % SEGMENT == 0:
-                self._snap(st, False)
-            self.steps += 1
-            return orig(protocol, dims, st, ctx, max_steps, reorder, faults,
-                        monitor_keys)
-        return run
+            runner, alive = orig(protocol, dims, max_steps, reorder, faults,
+                                 monitor_keys)
+            return Tapped(runner), alive
+        return build
 
     def finalize(self, stand_in):
         def run(st, ctx, flags, order):
@@ -1904,13 +2219,17 @@ def mc_grid(dev):
     the function ``mc --no-confirm`` runs, with every launch counter at 0
     just before and read just after; K13 against its twin on every
     batch's final state. Lanes 0-3 and the last lane of each point
-    against the host twins. Returns the launches."""
+    against the host twins: their segments replay on the host while the
+    later phases run. Returns the launches and the function that waits
+    for the replays and holds them to the card."""
+    import functools
+
     import torch
 
     from fantoch_tpu_torch import cli, kernels
-    from fantoch_tpu_torch.mc.fuzz import run_fuzz_point
-
     from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.mc import fuzz
+    from fantoch_tpu_torch.parallel import sweep as psweep
 
     args = cli.parse_args(cli.MAIN_PATH_MC)
     specs = cli.mc_specs(args)
@@ -1919,13 +2238,22 @@ def mc_grid(dev):
     kernels.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    points = []
+    # the taps read one snapshot a window: one SEGMENT-step segment each
+    segmented = functools.partial(psweep.run_sweep, segment_steps=SEGMENT,
+                                  scan_window=1)
     with _Patched(mon_finalize=taps.finalize(_k13_stand_in()),
-                  frozen_step=taps.frozen_step(engine_core.frozen_step)):
-        points = [run_fuzz_point(spec, confirm=False, device=dev)
-                  for spec in specs]
+                  build_window_runner=taps.window_runner(
+                      engine_core.build_window_runner)), \
+            _PatchedAttr(fuzz, "run_sweep", segmented):
+        for spec in specs:
+            points.append(fuzz.run_fuzz_point(spec, confirm=False,
+                                              device=dev))
+            print(f"mc {spec.protocol} n={spec.n} device loop: "
+                  f"{loop_stats(psweep.LAST_STATS)}")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.counts()
+    launches = graph_only_counts("mc grid", single=False)
     total = sum(p.schedules for p in points)
     for p in points:
         res = p.lane_results
@@ -1949,17 +2277,21 @@ def mc_grid(dev):
               "atlas_partial_handle"):
         assert launches[k] == 0, launches
     assert all(all(r.coverage != 0 for r in p.lane_results) for p in points)
-    t0 = time.perf_counter()
-    segments = taps.check(points)
-    steps = {(p.spec.protocol, p.spec.n): [
-        p.lane_results[i % p.schedules].steps for i in MC_SAMPLE]
-        for p in points}
-    print(f"mc grid lanes 0-3 and the last of each point (steps {steps}): "
-          f"card == host plain twins, every {SEGMENT}-step segment replayed "
-          f"from the card's snapshot ({segments} segments) and to_json with "
-          f"the monitor fields byte for byte ({taps.host_s:.1f} s on the "
-          f"host, waited {time.perf_counter() - t0:.1f} s)")
-    return launches
+
+    def check_host() -> None:
+        t0 = time.perf_counter()
+        segments = taps.check(points)
+        steps = {(p.spec.protocol, p.spec.n): [
+            p.lane_results[i % p.schedules].steps for i in MC_SAMPLE]
+            for p in points}
+        print(f"mc grid lanes 0-3 and the last of each point (steps "
+              f"{steps}): card == host plain twins, every {SEGMENT}-step "
+              f"segment replayed from the card's snapshot ({segments} "
+              f"segments) and to_json with the monitor fields byte for byte "
+              f"({taps.host_s:.1f} s on the host, waited "
+              f"{time.perf_counter() - t0:.1f} s)")
+
+    return launches, check_host
 
 
 def bench_point(dev) -> None:
@@ -1969,13 +2301,15 @@ def bench_point(dev) -> None:
     but requeue-livelock."""
     import torch
 
-    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch import cli, kernels
     from fantoch_tpu_torch.mc.fuzz import FuzzSpec, run_fuzz_point
 
     spec = FuzzSpec(**cli.BENCH_FUZZ)
+    kernels.reset_counts()
     with _Patched(mon_finalize=_k13_stand_in()):
         res = run_fuzz_point(spec, confirm=False, device=dev)
     torch.cuda.synchronize()
+    graph_only_counts("bench fuzz point")
     bad = {k: v for k, v in res.engine_errors.items()
            if k != "requeue-livelock"}
     print(f"bench fuzz point (tempo n=5, 256 schedules, seed 0xF022): "
@@ -2021,9 +2355,16 @@ def _k6_checked(errs, seen):
 
 
 def _monitored_run(proto, dims, specs, mk, dev, errs, seen):
-    """``run_lanes`` on the card with the monitors on and the handler
-    kernel, K6 and K13 held against their twins on every call."""
-    from fantoch_tpu_torch.engine import run_lanes
+    """The eager runner on the card (every launch through its wrapper,
+    so through the stand-ins; a graph replay passes none) with the
+    monitors on and the handler kernel, K6 and K13 held against their
+    twins on every call."""
+    from fantoch_tpu_torch.engine.core import build_eager_runner
+    from fantoch_tpu_torch.engine.driver import (
+        batch_reorder_flag, prepare_batch,
+    )
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags
+    from fantoch_tpu_torch.engine.results import collect_results
 
     kname = HANDLERS[{"TempoDev": "tempo", "TempoStabilityBugDev": "tempo",
                       "BasicDev": "basic", "FPaxosDev": "fpaxos",
@@ -2033,7 +2374,11 @@ def _monitored_run(proto, dims, specs, mk, dev, errs, seen):
     with _Patched(emit_rewrite=_k6_checked(errs, seen),
                   mon_finalize=_k13_stand_in()), \
             _PatchedHandler(kname, _checked_handler(kname, seen, errs)):
-        return run_lanes(proto, dims, specs, device=dev, monitor_keys=mk)
+        state, ctx = prepare_batch(proto, dims, specs, dev, mk)
+        run = build_eager_runner(proto, dims, 1 << 22,
+                                 batch_reorder_flag(specs),
+                                 batch_fault_flags(specs), mk)
+        return collect_results(proto, dims, run(state, ctx), specs)
 
 
 def monitor_coverage(dev) -> dict:
@@ -2125,7 +2470,7 @@ def monitored_tempo_sweep(dev):
                             monitor_keys=mk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.counts()
+    launches = graph_only_counts("sweep tempo monitored")
     lines = [_mon_json(r, drop_monitor=True) for r in results]
     plain = [json.dumps({k: v for k, v in json.loads(line).items()
                          if k not in ("violation", "violation_step",
@@ -2517,7 +2862,8 @@ def _main(dev, card) -> int:
         phase(f"3 kernels ({name} path)", check_kernels, name, dev, rows)
     phase("3 kernels (monitored mc paths)", check_monitored_kernels, dev,
           rows)
-    assert sorted(rows) == sorted(kernels.WRAPPERS), sorted(rows)
+    assert sorted(rows) == sorted(set(kernels.WRAPPERS) - {"step_loop"}), (
+        sorted(rows))
 
     # 4-6. golden batches and fixture bytes on the card
     phase("4 golden basic", golden_basic, dev)
@@ -2549,6 +2895,13 @@ def _main(dev, card) -> int:
     for kname, err in phase("6 kernels (monitor coverage)",
                             monitor_coverage, dev).items():
         rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
+    # the device loop against the eager loop, whole state, and its row
+    phase("6 segments", segments, dev, rows)
+    assert sorted(rows) == sorted(kernels.WRAPPERS), sorted(rows)
+
+    # 8. slice 9's main path, the mc default grid, counted, before the
+    # sweeps: the host replays its sampled lanes' segments meanwhile
+    mc_launches, mc_check = phase("8 mc grid", mc_grid, dev)
 
     # 7. the main paths, each counted on its own
     by_path = {name: phase(f"7 sweep {name}", sweep, name, dev)
@@ -2559,10 +2912,11 @@ def _main(dev, card) -> int:
     # 10's main path), each counted on its own
     for name in new_paths():
         by_path[name] = phase(f"7 sweep {name}", sweep, name, dev)
-    # 8. slice 9's main path, the mc default grid, counted; then the
-    # bench's fuzz self-check point
-    by_path["mc"] = phase("8 mc grid", mc_grid, dev)
+    by_path["mc"] = mc_launches
+    # 8. the bench's fuzz self-check point, then the mc grid's lanes
+    # against the host replays
     phase("8 mc bench point", bench_point, dev)
+    phase("8 mc grid host replays", mc_check)
     assert K13_CHECKED["launches"] > 0
     rows["mon_finalize"]["max_abs_err"] = max(
         rows["mon_finalize"]["max_abs_err"], K13_CHECKED["err"])

@@ -5,7 +5,9 @@ The ``sweep`` subcommand runs the batched engine over a (region subset
 × f × conflict) grid, each point once per fault plan of ``--faults``,
 under an optional traffic schedule (``--traffic``) or open-loop arrival
 process (``--arrivals``, ``--offered-load``, ``--open-window``,
-``--arrival-gap-ms``), and prints the reference CLI's summary JSON. The
+``--arrival-gap-ms``), each batch in segments of the device loop
+(``--scan-window`` segments a device call, ``--pipeline-depth`` calls
+in flight), and prints the reference CLI's summary JSON. The
 ``mc`` subcommand fuzzes a
 (protocol × n) grid of schedules with the safety monitors on
 (``mc/fuzz.py``) and prints the reference's summary JSON; it runs only
@@ -309,7 +311,8 @@ def cmd_sweep(args) -> None:
     device = resolve_device(args.device)
     dev, dims, specs = sweep_setup(args)
     results = run_sweep(
-        dev, dims, specs, batch_lanes=args.batch_lanes, device=device
+        dev, dims, specs, batch_lanes=args.batch_lanes, device=device,
+        pipeline_depth=args.pipeline_depth, scan_window=args.scan_window,
     )
     errs = sum(1 for r in results if r.err)
     summary = {
@@ -479,6 +482,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="keys per command when --shards > 1")
     sw.add_argument("--batch-lanes", type=int, default=512,
                     help="lanes per device batch")
+    sw.add_argument(
+        "--pipeline-depth",
+        type=int,
+        default=2,
+        help="segments kept in flight by the sweep driver "
+        "(parallel/pipeline.py): dispatch overlaps device execution; "
+        "1 = the serial reference loop (byte-identical results)",
+    )
+    sw.add_argument(
+        "--scan-window",
+        type=int,
+        default=None,
+        help="segments scan-fused into ONE device call "
+        "(parallel/sweep.py): host round-trips drop from per-segment "
+        "to per-window, byte-identical results; default derives from "
+        "segment_steps, 1 = the serial segment loop",
+    )
     sw.add_argument(
         "--faults", default=None,
         help="fault-plan spec: JSON object/list or @file; each sweep "

@@ -37,11 +37,18 @@ the planes once per batch when the run loop ends. At 0 the state tree,
 the launches and the results are an unmonitored run's.
 
 State and ctx are dicts of tensors with a leading ``[L]`` lane axis.
-:func:`build_runner` runs the step until every lane ends: as under the
-reference's vmapped ``lax.while_loop``, a lane whose predicate is false
-is frozen (its new state is discarded; the ``lane_freeze`` kernel), so
-a finished lane is a fixed point and the host checks liveness only every
-:data:`CHECK_EVERY` steps.
+As under the reference's vmapped ``lax.while_loop``, a lane whose
+predicate is false (or whose step count reached the segment's limit) is
+frozen (its new state is discarded; the ``lane_freeze`` kernel), so a
+finished lane is a fixed point. The runners (the reference's
+``build_runner``, ``build_segment_runner``, ``build_window_runner`` and
+``finish_segmented``) run the loop on the device: on the card one window
+of W segments is one launch of a CUDA graph whose while node repeats a
+captured body of :data:`STEPS_PER_BODY` steps until the ``loop_ctl``
+kernel finds no lane active (``kernels/step_loop.py``); on the CPU its
+twin runs the same control on the host. :func:`build_eager_runner` is
+the host loop of wrapper calls, named, for callers that hold each call
+of a kernel against its twin.
 """
 
 from __future__ import annotations
@@ -54,8 +61,13 @@ import torch
 from ..kernels.emit_rewrite import emit_rewrite
 from ..kernels.land_emissions import land_emissions
 from ..kernels.lane_freeze import lane_freeze
+from ..kernels.loop_ctl import CTL_ALIVE, CTL_MAXS, CTL_W, loop_ctl, new_ctl
 from ..kernels.mon_finalize import mon_finalize
 from ..kernels.qualify_pop import qualify_pop
+from ..kernels.step_loop import (
+    STEPS_PER_BODY, DeviceLoop, HostLoop, clone_tree, device_loop,
+    tree_signature,
+)
 from . import monitor
 from .dims import (
     ERR_TRUNCATED, INF, PA, PDST, PKC, PKS, PMT, POOL_FIELDS, PPAY, PSRC,
@@ -67,9 +79,6 @@ I32 = torch.int32
 
 # per-client latency-log depth (debugging aid for differential tests)
 LAT_LOG = 64
-
-# steps between the run loop's host reads of lane liveness
-CHECK_EVERY = 64
 
 # handled-message log depth of the reference (always off here: its state
 # plane keeps the reference's [N, 1, 6] shape)
@@ -303,15 +312,17 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     return out
 
 
-def frozen_step(protocol, dims: EngineDims, st, ctx, max_steps: int,
+def frozen_step(protocol, dims: EngineDims, st, ctx, lim,
                 reorder: bool = False, faults: FaultFlags = NO_FAULTS,
                 monitor_keys: int = 0):
     """One step of the run loop: ``(state, running)``. The lanes whose
-    predicate is false on ``st`` keep their state, as under the
-    reference's vmapped ``lax.while_loop`` (kernel K7)."""
+    predicate is false on ``st``, or whose step count reached ``lim``
+    (an int, or on the card the device loop's limit word), keep their
+    state, as under the reference's vmapped ``lax.while_loop`` (kernel
+    K7)."""
     return lane_freeze(
         lane_step(protocol, dims, st, ctx, reorder, faults, monitor_keys),
-        st, ctx, max_steps, flag_bits(faults, reorder),
+        st, ctx, lim, flag_bits(faults, reorder),
     )
 
 
@@ -329,24 +340,151 @@ def check_monitorable(protocol, monitor_keys: int) -> None:
         )
 
 
+class WindowRunner:
+    """``runner(state, ctx, untils) -> (state, any_alive)``: the batch
+    through one window, the ladder ``untils`` of segment ends (ints, at
+    least one; values past ``max_steps`` clamp to it), as the
+    reference's ``build_window_runner`` runner. ``any_alive`` is the
+    window's liveness word (int32 ``[1]`` on the state's device): the
+    last segment's any(running). On the card the state returned is the
+    device loop's resident buffers, which the next window overwrites (as
+    a donated state is consumed); passing them back skips the copy in.
+    ``loop`` is the loop of the last call and ``made`` whether that call
+    captured it; ``it_start`` the loop's body counter before this
+    runner's first call and ``capture_s`` the seconds its captures took
+    (capture, warm-up and instantiate)."""
+
+    def __init__(self, protocol, dims, max_steps, reorder, faults,
+                 monitor_keys, steps_per_body):
+        self.key = (protocol, dims, reorder, faults, monitor_keys)
+        self.max_steps, self.steps_per_body = max_steps, steps_per_body
+        self.flags = flag_bits(faults, reorder)
+        self.loop, self.made, self._host = None, False, None
+        self.it_start, self.capture_s = None, 0.0
+
+        def step(st, ctx, lim):
+            return frozen_step(protocol, dims, st, ctx, lim, reorder,
+                               faults, monitor_keys)[0]
+
+        self.step = step
+
+    def __call__(self, state, ctx, untils):
+        untils = [int(u) for u in np.asarray(untils).reshape(-1)]
+        if state["now"].device.type == "cpu":
+            if self._host is None:
+                self._host = HostLoop(self.step, self.steps_per_body or 1,
+                                      self.flags)
+            self.loop, self.made = self._host, False
+            if self.it_start is None:
+                self.it_start = self.loop.iterations()
+            return self._host.run(state, ctx, untils, self.max_steps)
+        G = self.steps_per_body or STEPS_PER_BODY
+        key = self.key + (G, tree_signature(state), tree_signature(ctx))
+        self.loop, self.made = device_loop(
+            key, lambda: DeviceLoop(self.step, state, ctx, G, self.flags))
+        if self.made:
+            self.capture_s += self.loop.capture_s
+        if self.it_start is None:
+            self.it_start = 0 if self.made else self.loop.iterations()
+        alive = self.loop.run(state, ctx, untils, self.max_steps)
+        return self.loop.state, alive
+
+    def bodies(self) -> int:
+        """Bodies this runner's loop ran since its first call (reads the
+        device)."""
+        return self.loop.iterations() - self.it_start
+
+    def alive(self, state, ctx):
+        """``any(running)`` of a (resumed) state under ``max_steps``, as
+        the liveness word ``[1]`` (K14 on a one-rung ladder)."""
+        ctl, iters, ladder = new_ctl(state["now"].device)
+        ctl[CTL_W], ctl[CTL_MAXS] = 1, self.max_steps
+        ladder[0] = self.max_steps
+        loop_ctl(state, ctx, ladder, ctl, iters, self.flags)
+        return ctl[CTL_ALIVE:CTL_ALIVE + 1]
+
+
+def build_window_runner(protocol, dims: EngineDims, max_steps: int = 1 << 22,
+                        reorder: bool = False, faults: FaultFlags = NO_FAULTS,
+                        monitor_keys: int = 0,
+                        steps_per_body: "int | None" = None):
+    """``(runner, alive)``, the reference's contract: ``runner(state,
+    ctx, untils) -> (state, any_alive)`` advances the batch through the
+    ``[W]`` ladder of segment ends in one host dispatch
+    (:class:`WindowRunner`); ``alive(state, ctx)`` is any lane's
+    liveness. On the card the loop runs as a CUDA graph whose body is
+    ``steps_per_body`` steps (default :data:`STEPS_PER_BODY`); on the
+    CPU its twin runs the same control on the host, a body of
+    ``steps_per_body`` steps (default 1: a body costs nothing to
+    dispatch there). The body length changes no result, only how many
+    frozen steps a batch runs past a segment's end. ``reorder`` and
+    ``faults`` are the batch's (``driver.batch_reorder_flag``,
+    ``faults.batch_fault_flags``); ``monitor_keys > 0`` runs the safety
+    monitors (their end-of-run reduction is :func:`finish_run`'s)."""
+    check_monitorable(protocol, monitor_keys)
+    runner = WindowRunner(protocol, dims, max_steps, reorder, faults,
+                          monitor_keys, steps_per_body)
+    return runner, runner.alive
+
+
+def build_segment_runner(protocol, dims: EngineDims,
+                         max_steps: int = 1 << 22, reorder: bool = False,
+                         faults: FaultFlags = NO_FAULTS,
+                         monitor_keys: int = 0,
+                         steps_per_body: "int | None" = None):
+    """``(runner, alive)``, the reference's contract: ``runner(state,
+    ctx, until) -> (state, any_alive)`` advances every running lane to
+    at most ``until`` steps (a window of one segment,
+    :func:`build_window_runner`)."""
+    window, alive = build_window_runner(protocol, dims, max_steps, reorder,
+                                        faults, monitor_keys, steps_per_body)
+
+    def runner(state, ctx, until):
+        return window(state, ctx, [until])
+
+    runner.window = window
+    return runner, alive
+
+
 def build_runner(protocol, dims: EngineDims, max_steps: int = 1 << 22,
                  reorder: bool = False, faults: FaultFlags = NO_FAULTS,
                  monitor_keys: int = 0) -> Callable[[Any, Any], Any]:
-    """The batched runner: (state, ctx) → final state. Every step
-    freezes the lanes whose predicate is false; once every
-    :data:`CHECK_EVERY` steps the host reads whether any lane was still
-    running at the last step. A lane cut by ``max_steps`` before
-    finishing reports ``ERR_TRUNCATED``. ``reorder`` and ``faults`` are
-    the batch's (``driver.batch_reorder_flag``,
-    ``faults.batch_fault_flags``). ``monitor_keys > 0`` runs the safety
-    monitors and reduces them once at the end (kernel
-    ``mon_finalize``)."""
+    """The batched runner: (state, ctx) → final state, one window whose
+    ladder ends at ``max_steps`` (one host dispatch on the card). A lane
+    cut by ``max_steps`` before finishing reports ``ERR_TRUNCATED``.
+    ``reorder`` and ``faults`` are the batch's
+    (``driver.batch_reorder_flag``, ``faults.batch_fault_flags``).
+    ``monitor_keys > 0`` runs the safety monitors and reduces them once
+    at the end (kernel ``mon_finalize``). The final state is the
+    batch's own (on the card a copy of the resident buffers)."""
+    window, _alive = build_window_runner(protocol, dims, max_steps, reorder,
+                                         faults, monitor_keys)
+
+    def run(state, ctx):
+        st, _any = window(state, ctx, [max_steps])
+        if st is getattr(window.loop, "state", None):
+            st = clone_tree(st)
+        return finish_run(protocol, st, ctx, max_steps, reorder, faults,
+                          monitor_keys)
+
+    return run
+
+
+def build_eager_runner(protocol, dims: EngineDims, max_steps: int = 1 << 22,
+                       reorder: bool = False,
+                       faults: FaultFlags = NO_FAULTS,
+                       monitor_keys: int = 0) -> Callable[[Any, Any], Any]:
+    """The eager runner: (state, ctx) → final state through the host
+    loop of :func:`frozen_step` calls, each kernel launched by its
+    wrapper, liveness read every :data:`STEPS_PER_BODY` steps. Results
+    equal :func:`build_runner`'s; callers that hold each launch against
+    its twin (each call passes through the wrappers) drive it by name."""
     check_monitorable(protocol, monitor_keys)
 
     def run(state, ctx):
         st = state
         while True:
-            for _ in range(CHECK_EVERY):
+            for _ in range(STEPS_PER_BODY):
                 st, running = frozen_step(protocol, dims, st, ctx, max_steps,
                                           reorder, faults, monitor_keys)
             if not bool(running.any()):
@@ -357,14 +495,22 @@ def build_runner(protocol, dims: EngineDims, max_steps: int = 1 << 22,
     return run
 
 
+def finish_segmented(state, max_steps: int):
+    """Apply the truncation error bit after a segmented run: a lane cut
+    by ``max_steps`` before finishing reports ``ERR_TRUNCATED``."""
+    truncated = (state["steps"] >= max_steps) & (state["done_time"] >= INF)
+    return dict(state, err=state["err"] | ERR_TRUNCATED * truncated.to(I32))
+
+
 def finish_run(protocol, st, ctx, max_steps: int, reorder: bool = False,
                faults: FaultFlags = NO_FAULTS, monitor_keys: int = 0):
-    """A batch's state once no lane runs: a lane cut by ``max_steps``
-    before finishing gets ``ERR_TRUNCATED``, and with the monitors on
-    the ``mon_finalize`` kernel sets every lane's violation word, first
-    violating step and coverage digest."""
-    truncated = (st["steps"] >= max_steps) & (st["done_time"] >= INF)
-    st = dict(st, err=st["err"] | ERR_TRUNCATED * truncated.to(I32))
+    """A batch's state once no lane runs: :func:`finish_segmented`, and
+    with the monitors on the ``mon_finalize`` kernel sets every lane's
+    violation word, first violating step and coverage digest (once per
+    batch: the reference re-runs it at every segment end, where it
+    leaves a running lane's words as they are and re-derives a finished
+    lane's, so its last run is the only one the results read)."""
+    st = finish_segmented(st, max_steps)
     if monitor_keys:
         viol, viol_step, cov = mon_finalize(
             st, ctx, flag_bits(faults, reorder),

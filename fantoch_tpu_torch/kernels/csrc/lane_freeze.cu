@@ -7,8 +7,13 @@
 // passed by value: for each plane the step's new tensor, the old one and
 // the bytes of one lane's row. Block (l, k) evaluates lane l's predicate
 // on the state the step started from (done time, now, error word, step
-// count, extra time, max_steps, and under FLAG_HORIZON the lane's
-// horizon); block (l, 0) writes it to running[l].
+// count, extra time, the step limit, and under FLAG_HORIZON the lane's
+// horizon); block (l, 0) writes it to running[l]. The step limit is a
+// device word, lim = min(until, max_steps): the segment cut of the
+// reference's segment_lane_fn (core.py:1757-1773). The device loop
+// (step_loop.py) moves it up the window's ladder between graph bodies
+// (loop_ctl.cu), so a captured step reads it where a launch would have
+// baked it in.
 // A running lane's blocks stop there. For a frozen lane, block (l, k)
 // copies the old row of plane k over the new one, 16 bytes a thread
 // where the row is aligned, else 4 or 1. Planes the step passed through
@@ -38,7 +43,7 @@ struct Planes {
   long long row[MAX_PLANES];
   int K;
 };
-static_assert(sizeof(Planes) + 7 * sizeof(void*) + 2 * sizeof(int) <= 4096,
+static_assert(sizeof(Planes) + 8 * sizeof(void*) + sizeof(int) <= 4096,
               "lane_freeze's parameters exceed the 4 KB kernel limit");
 
 }  // namespace
@@ -50,15 +55,16 @@ __global__ void lane_freeze_kernel(const Planes pl,
                                    const int* __restrict__ steps,
                                    const int* __restrict__ extra,
                                    const int* __restrict__ horizon,
-                                   bool* __restrict__ running,
-                                   int max_steps, int flags) {
+                                   const int* __restrict__ lim,
+                                   bool* __restrict__ running, int flags) {
   const int l = blockIdx.x, k = blockIdx.y, t = threadIdx.x;
+  const int cap = *lim;
   const int done = done_time[l], nw = now[l];
   const int end = done >= INF ? INF : done + extra[l];
   const bool finished = done < INF && nw >= end;
   const bool idle = nw >= INF;
   const bool run =
-      !(finished || idle || err[l] != 0) && steps[l] < max_steps &&
+      !(finished || idle || err[l] != 0) && steps[l] < cap &&
       (!(flags & FLAG_HORIZON) || nw < horizon[l]);
   if (k == 0 && t == 0) running[l] = run;
   if (run || k >= pl.K) return;
@@ -83,7 +89,7 @@ extern "C" int fantoch_lane_freeze(
     const void* dst_tab, const void* src_tab, const void* row_tab,
     const void* done_time, const void* now, const void* err,
     const void* steps, const void* extra, const void* horizon,
-    void* running, int L, int K, int max_steps, int flags, void* stream) {
+    const void* lim, void* running, int L, int K, int flags, void* stream) {
   if (L == 0) return 0;
   if (K < 0 || K > MAX_PLANES) return (int)cudaErrorInvalidValue;
   Planes pl{};
@@ -97,6 +103,6 @@ extern "C" int fantoch_lane_freeze(
   lane_freeze_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       pl, (const int*)done_time, (const int*)now, (const int*)err,
       (const int*)steps, (const int*)extra, (const int*)horizon,
-      (bool*)running, max_steps, flags);
+      (const int*)lim, (bool*)running, flags);
   return (int)cudaGetLastError();
 }

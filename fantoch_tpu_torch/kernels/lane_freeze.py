@@ -3,8 +3,11 @@
 Replaces ``fantoch_tpu/engine/core.py`` ``_lane_running`` (:1565) and the
 per-lane select of the vmapped ``lax.while_loop`` in ``build_runner``
 (:1591): a lane whose predicate is false on the state a step started
-from keeps that state, so a finished lane is a fixed point. CUDA
-source: ``csrc/lane_freeze.cu`` (bound by bytes, :func:`work`).
+from keeps that state, so a finished lane is a fixed point. The step cap
+is ``lim = min(until, max_steps)``, the segment cut of the reference's
+``segment_lane_fn`` (:1757-1773): an int, or on the card an int32 device
+word that the device loop moves between graph bodies (``loop_ctl``).
+CUDA source: ``csrc/lane_freeze.cu`` (bound by bytes, :func:`work`).
 :func:`lane_freeze_plain` is its plain PyTorch twin, used for tensors on
 the CPU.
 """
@@ -32,18 +35,31 @@ class TooManyPlanesError(ValueError):
     """A lane tree with more changed planes than one launch carries."""
 
 
-def lane_running(st, ctx, max_steps: int, flags: int = 0):
-    """Per-lane loop predicate ``[L]`` (reference ``_lane_running``);
-    ``flags`` is the step's flag word (``faults.flag_bits``)."""
+def limit(lim) -> int:
+    """The step cap as an int (``lim`` an int, or a one-word tensor on
+    the CPU)."""
+    return int(lim.reshape(-1)[0]) if torch.is_tensor(lim) else int(lim)
+
+
+def lane_live(st, ctx, flags: int = 0):
+    """Per-lane ``[L]``: the reference's ``_lane_running`` without its
+    step cap (not finished, not idle, no error, and under the horizon
+    flag before the horizon)."""
     done = st["done_time"]
     end = torch.where(done >= INF, INF, done + ctx["extra_time"])
     finished = (done < INF) & (st["now"] >= end)
     idle = st["now"] >= INF
-    running = (~(finished | idle | (st["err"] != 0))
-               & (st["steps"] < max_steps))
+    live = ~(finished | idle | (st["err"] != 0))
     if flags & FLAG_HORIZON:
-        running = running & (st["now"] < ctx["fault_horizon"])
-    return running
+        live = live & (st["now"] < ctx["fault_horizon"])
+    return live
+
+
+def lane_running(st, ctx, lim, flags: int = 0):
+    """Per-lane loop predicate ``[L]`` (reference ``_lane_running``, cut
+    at ``lim``); ``flags`` is the step's flag word
+    (``faults.flag_bits``)."""
+    return lane_live(st, ctx, flags) & (st["steps"] < limit(lim))
 
 
 def _tree_where(mask, new, old):
@@ -58,11 +74,11 @@ def _tree_where(mask, new, old):
     )
 
 
-def lane_freeze_plain(new, old, ctx, max_steps: int, flags: int = 0):
+def lane_freeze_plain(new, old, ctx, lim, flags: int = 0):
     """``(state, running)``: ``running`` is the predicate on ``old``, the
-    state the step started from; ``state`` is ``new`` for running lanes
-    and ``old`` for the others."""
-    running = lane_running(old, ctx, max_steps, flags)
+    state the step started from, cut at ``lim``; ``state`` is ``new``
+    for running lanes and ``old`` for the others."""
+    running = lane_running(old, ctx, lim, flags)
     if bool(running.all()):
         return new, running  # no lane is frozen: the select is ``new``
     return _tree_where(running, new, old), running
@@ -87,16 +103,16 @@ def plane_pairs(new, old):
     return pairs
 
 
-def work(new, old, ctx, max_steps: int, flags: int, out):
+def work(new, old, ctx, lim, flags: int, out):
     """``(bytes, ops)`` the region needs on these inputs (``new`` as the
     step left it, ``out`` the result): the predicate reads four words of
     each lane's old state, its extra time and, under the horizon flag,
-    its horizon, and writes ``running``; a frozen lane's words that the
+    its horizon, and the step cap's word, and writes ``running``; a frozen lane's words that the
     step changed are read from ``old`` and written back."""
     _state, running = out
     frozen = ~running
     read = cost.nbytes(old["done_time"], old["now"], old["err"],
-                       old["steps"], ctx["extra_time"])
+                       old["steps"], ctx["extra_time"]) + 4
     if flags & FLAG_HORIZON:
         read += cost.nbytes(ctx["fault_horizon"])
     moved = 0
@@ -109,14 +125,33 @@ def work(new, old, ctx, max_steps: int, flags: int, out):
     return read + 2 * moved + cost.nbytes(running), ops
 
 
-def lane_freeze(new, old, ctx, max_steps: int, flags: int = 0):
-    """K7 on CUDA tensors, :func:`lane_freeze_plain` on CPU tensors. The
-    kernel writes the frozen lanes' rows of ``old`` into ``new``'s
-    planes in place (they are the step's own fresh outputs) and returns
-    ``(new, running)``."""
+# constant limit words on the card, one per (device, value): the eager
+# loop's max_steps, made once
+_LIM_WORDS: dict = {}
+
+
+def lim_word(lim, dev):
+    """K7's step cap on ``dev`` as an int32 device word: ``lim`` itself
+    when it is one (the device loop's control word), else a constant
+    word holding the int, made once per value."""
+    if torch.is_tensor(lim):
+        build.check("lim", lim, I32, (1,), dev)
+        return lim
+    key = (dev, int(lim))
+    if key not in _LIM_WORDS:
+        _LIM_WORDS[key] = torch.tensor([int(lim)], dtype=I32, device=dev)
+    return _LIM_WORDS[key]
+
+
+def lane_freeze(new, old, ctx, lim, flags: int = 0):
+    """K7 on CUDA tensors, :func:`lane_freeze_plain` on CPU tensors.
+    ``lim`` is the step cap: an int, or on the card an int32 word ``[1]``
+    read when the kernel runs. The kernel writes the frozen lanes' rows
+    of ``old`` into ``new``'s planes in place (they are the step's own
+    fresh outputs) and returns ``(new, running)``."""
     dev = old["now"].device
     if dev.type == "cpu":
-        return lane_freeze_plain(new, old, ctx, max_steps, flags)
+        return lane_freeze_plain(new, old, ctx, lim, flags)
     L = old["now"].shape[0]
     for k in ("done_time", "now", "err", "steps"):
         build.check(f"old/{k}", old[k], I32, (L,), dev)
@@ -132,15 +167,16 @@ def lane_freeze(new, old, ctx, max_steps: int, flags: int = 0):
     row = (ctypes.c_longlong * MAX_PLANES)(
         *[o[0].numel() * o.element_size() for _, o in pairs]
     )
+    word = lim_word(lim, dev)
     running = torch.empty((L,), dtype=torch.bool, device=dev)
-    fn = build.c_function("fantoch_lane_freeze", 10, 4)
+    fn = build.c_function("fantoch_lane_freeze", 11, 3)
     build.launch(
         fn,
         [ctypes.addressof(dst), ctypes.addressof(src), ctypes.addressof(row)]
         + [t.data_ptr() for t in (old["done_time"], old["now"], old["err"],
                                   old["steps"], ctx["extra_time"],
-                                  ctx["fault_horizon"], running)],
-        [L, K, max_steps, flags],
+                                  ctx["fault_horizon"], word, running)],
+        [L, K, flags],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     lane_freeze.launches += 1

@@ -5,9 +5,12 @@ batches on one device.
 binary's nested loops — into lanes; ``run_sweep`` runs them
 ``batch_lanes`` at a time (each batch: key table, stack, run, collect).
 Each point runs once per fault plan of ``faults``, every point under one
-traffic schedule or open-loop arrival process when given. Segments, scan
-windows, checkpoints, sharding and mixed-protocol batches are not ported
-yet.
+traffic schedule or open-loop arrival process when given. A batch runs
+in segments of ``segment_steps`` steps, ``scan_window`` segments a
+device call (one launch of the device loop's graph) and up to
+``pipeline_depth`` calls in flight, as the reference's ``run_sweep``
+(:355) does. Checkpoints, sharding and mixed-protocol batches are not
+ported yet (ROADMAP items 12, 15 and 13).
 """
 
 from __future__ import annotations
@@ -15,14 +18,61 @@ from __future__ import annotations
 import itertools
 from typing import List, Optional, Sequence
 
+import numpy as np
+
 from .. import resolve_device
 from ..core.config import Config
 from ..core.planet import Planet
+from ..engine import core as engine_core
 from ..engine.dims import EngineDims
-from ..engine.driver import batch_runner, prepare_batch
-from ..engine.faults import FaultPlan
+from ..engine.driver import batch_reorder_flag, prepare_batch
+from ..engine.faults import FaultPlan, batch_fault_flags
 from ..engine.results import LaneResults, collect_results
 from ..engine.spec import LaneSpec, make_lane
+from .pipeline import SegmentWindow
+
+# scan-fused windows: how many segments one device call covers when the
+# caller does not pin ``scan_window`` (the reference's rule,
+# sweep.py:142-172): segments packed into a window of about
+# SCAN_WINDOW_TARGET_STEPS steps (at the default 8,192-step segment, 4 a
+# window), at most SCAN_WINDOW_MAX, so a window stays a bounded device
+# execution and a finished batch's overshoot stays at most that many
+# no-op segments
+SCAN_WINDOW_TARGET_STEPS = 1 << 15
+SCAN_WINDOW_MAX = 8
+
+
+def default_scan_window(segment_steps: int, skeleton: bool = False) -> int:
+    """The ``scan_window=None`` resolution rule: segments a window of
+    about :data:`SCAN_WINDOW_TARGET_STEPS` steps, 1 to
+    :data:`SCAN_WINDOW_MAX` (half that for ``skeleton`` lanes, as the
+    reference's rule)."""
+    cap = SCAN_WINDOW_MAX // 2 if skeleton else SCAN_WINDOW_MAX
+    return max(1, min(max(1, cap),
+                      SCAN_WINDOW_TARGET_STEPS // max(1, int(segment_steps))))
+
+
+def _window_untils(base: int, segment_steps: int, window: int,
+                   max_steps: int) -> np.ndarray:
+    """One window's ``[W]`` i32 ladder of segment ends after ``base``;
+    values past ``max_steps`` clamp to it (a repeated end is a no-op
+    segment)."""
+    return np.minimum(
+        base + segment_steps * np.arange(1, window + 1, dtype=np.int64),
+        max_steps,
+    ).astype(np.int32)
+
+
+#: observational stats of the most recent ``run_sweep`` call in this
+#: process, summed over its batches, counted as the reference counts
+#: them: lane count, the resolved ``scan_window``, ``device_calls`` (host
+#: dispatches, one a window), ``segments_covered``, ``windows`` (windows
+#: whose liveness came home), and the port's own: ``batches``,
+#: ``body_iterations`` (device-loop bodies run), ``batch_steps`` (steps
+#: run, frozen ones included: bodies × steps a body), ``overshoot_steps``
+#: (those past each batch's longest lane) and ``capture_s`` (capture
+#: plus instantiate). Not part of any result.
+LAST_STATS: dict = {}
 
 
 def make_sweep_specs(
@@ -87,6 +137,32 @@ def make_sweep_specs(
     return specs
 
 
+def run_windows(runner, state, ctx, segment_steps: int, scan_window: int,
+                pipeline_depth: int, max_steps: int, stats=None):
+    """One batch through the segment loop: windows of ``scan_window``
+    segments (``runner``, an ``engine.core.WindowRunner``) dispatched
+    until a resolved liveness flag says no lane is alive or the ladder
+    reaches ``max_steps``, up to ``pipeline_depth`` in flight. Returns
+    the batch's state after its last window (before
+    ``finish_run``); counts ``device_calls``, ``segments_covered`` and
+    ``windows`` into ``stats`` (default :data:`LAST_STATS`)."""
+    stats = LAST_STATS if stats is None else stats
+    window = SegmentWindow(pipeline_depth)
+    until = 0
+    while window.running and until < max_steps:
+        untils = _window_untils(until, segment_steps, scan_window, max_steps)
+        until = int(untils[-1])
+        state, any_alive = runner(state, ctx, untils)
+        window.push(any_alive)
+        stats["device_calls"] = stats.get("device_calls", 0) + 1
+        stats["segments_covered"] = (stats.get("segments_covered", 0)
+                                     + scan_window)
+        window.poll()
+    window.drain()
+    stats["windows"] = stats.get("windows", 0) + window.resolved
+    return state
+
+
 def run_sweep(
     protocol,
     dims: EngineDims,
@@ -95,17 +171,52 @@ def run_sweep(
     max_steps: int = 1 << 22,
     device=None,
     monitor_keys: int = 0,
+    segment_steps: int = 8192,
+    pipeline_depth: int = 2,
+    scan_window: "int | None" = None,
 ) -> List[LaneResults]:
     """Run every lane, ``batch_lanes`` per batch, on ``device`` (default:
     the CUDA card), each batch under its reorder flag and fault-flag
     union. ``monitor_keys > 0`` runs the safety monitors (per-lane
     ``violation``, ``violation_step`` and ``coverage``). Results are in
-    ``specs`` order."""
+    ``specs`` order and do not depend on the loop settings below.
+
+    Each batch runs in segments of ``segment_steps`` steps; one device
+    call (a window, ``engine.core.build_window_runner``) covers
+    ``scan_window`` consecutive segments (``None``:
+    :func:`default_scan_window`), with the early exit decided on the
+    device and liveness home once per window. ``pipeline_depth`` windows
+    ride in flight (:class:`~.pipeline.SegmentWindow`): window i+1 is
+    dispatched before window i's flag is read, and a window past the
+    batch's end is a no-op."""
     dev = resolve_device(device)
+    win = (default_scan_window(segment_steps) if scan_window is None
+           else max(1, int(scan_window)))
+    LAST_STATS.clear()
+    LAST_STATS.update(
+        lanes=len(specs), scan_window=win, device_calls=0,
+        segments_covered=0, segment_steps=int(segment_steps), windows=0,
+        batches=0, body_iterations=0, batch_steps=0, overshoot_steps=0,
+        capture_s=0.0,
+    )
     out: List[LaneResults] = []
     for lo in range(0, len(specs), batch_lanes):
         chunk = specs[lo:lo + batch_lanes]
-        runner = batch_runner(protocol, dims, chunk, max_steps, monitor_keys)
+        reorder, faults = batch_reorder_flag(chunk), batch_fault_flags(chunk)
+        runner, _alive = engine_core.build_window_runner(
+            protocol, dims, max_steps, reorder, faults, monitor_keys)
         state, ctx = prepare_batch(protocol, dims, chunk, dev, monitor_keys)
-        out.extend(collect_results(protocol, dims, runner(state, ctx), chunk))
+        state = run_windows(runner, state, ctx, segment_steps, win,
+                            pipeline_depth, max_steps)
+        final = engine_core.finish_run(protocol, state, ctx, max_steps,
+                                       reorder, faults, monitor_keys)
+        results = collect_results(protocol, dims, final, chunk)
+        bodies = runner.bodies()
+        LAST_STATS["batches"] += 1
+        LAST_STATS["capture_s"] += runner.capture_s
+        LAST_STATS["body_iterations"] += bodies
+        LAST_STATS["batch_steps"] += runner.loop.G * bodies
+        LAST_STATS["overshoot_steps"] += runner.loop.G * bodies - max(
+            r.steps for r in results)
+        out.extend(results)
     return out

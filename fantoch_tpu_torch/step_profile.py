@@ -4,7 +4,7 @@
         [--protocol basic|fpaxos|tempo|atlas|epaxos|caesar|tempo_partial|
                     atlas_partial|tempo_faults|tempo_open|tempo_traffic|
                     tempo_fuzz]
-        [--steps 128] [--warmup 300]
+        [--steps 128] [--warmup 300] [--loop device|eager|both]
 
 Builds the first batch of the protocol's main-path sweep
 (``cli.MAIN_PATHS``, the grids ``chip_smoke.py`` drives: ``tempo_open``
@@ -16,12 +16,17 @@ sweep), or for
 ``steps`` more twice, under the batch's reorder flag and fault-flag
 union: once with
 CUDA-synchronised host clocks only, once under ``torch.profiler`` (CPU
-and CUDA activities).
-Prints one JSON line: wall ms per step, device-busy ms per step (the
-union of the device activities' intervals), the device's idle share
-(1 − busy / unprofiled wall), device activities per step, and device
-time and activities per step by kernel name. Runs on the card unless
-``--device cpu`` (no device activities are recorded there).
+and CUDA activities). ``--loop device`` (the default) runs the device
+loop the sweeps run (``engine.core.build_segment_runner``, a graph of
+``STEPS_PER_BODY``-step bodies), a window of one body at a time; its
+steps are the batch steps the bodies ran (bodies × steps a body, frozen
+ones included). ``--loop eager`` runs the host loop of wrapper calls
+(``frozen_step``); ``both`` prints one line for each.
+Prints one JSON line a loop: wall ms per step, device-busy ms per step
+(the union of the device activities' intervals), the device's idle
+share (1 − busy / unprofiled wall), device activities per step, and
+device time and activities per step by kernel name. Runs on the card
+unless ``--device cpu`` (no device activities are recorded there).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from collections import defaultdict
 import torch
 
 from . import cli, resolve_device
-from .engine.core import frozen_step
+from .engine.core import build_segment_runner, frozen_step
 from .engine.driver import batch_reorder_flag, prepare_batch
 from .engine.faults import NO_FAULTS, batch_fault_flags
 
@@ -53,24 +58,21 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
-            reorder: bool = False, faults=NO_FAULTS, monitor_keys: int = 0):
-    """Run ``warmup`` steps of the run loop on a prepared batch, then
-    time ``steps`` more twice (host clocks, then ``torch.profiler``);
-    returns the measurements as a dict."""
-    max_steps = 1 << 22
+def _card(dev) -> str:
+    if dev.type == "cpu":
+        return "cpu"
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
-    def run(st, n):
-        for _ in range(n):
-            st, _running = frozen_step(protocol, dims, st, ctx, max_steps,
-                                       reorder, faults, monitor_keys)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        return st
 
-    state = run(state, warmup)
+def _measure(run, dev):
+    """``run()`` → batch steps it ran, timed twice: host clocks, then
+    under ``torch.profiler``. Returns the measurements as a dict."""
     t0 = time.perf_counter()
-    run(state, steps)
+    steps = run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -78,8 +80,8 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     t0 = time.perf_counter()
     with torch.profiler.profile(activities=acts) as prof:
-        run(state, steps)
-    prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        steps2 = run()
+    prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps2
 
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -90,30 +92,92 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
         count[e.name] += 1
     busy_ms = _busy_us(
         (e.time_range.start, e.time_range.end) for e in device
-    ) / 1e3 / steps
+    ) / 1e3 / steps2
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    card = "cpu" if dev.type == "cpu" else subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     return {
-        "card": card,
-        "protocol": getattr(protocol, "__name__", type(protocol).__name__),
-        "lanes": int(state["pool"].shape[0]),
         "steps": steps,
-        "after_steps": warmup,
         "wall_ms_per_step": wall_ms,
         "profiled_wall_ms_per_step": prof_wall_ms,
         "device_busy_ms_per_step": busy_ms if device else None,
         "device_idle_share": 1 - busy_ms / wall_ms if device else None,
-        "device_activities_per_step": len(device) / steps,
+        "device_activities_per_step": len(device) / steps2,
         "device_ms_per_step_by_name": {
-            name: us / 1e3 / steps for name, us in top
+            name: us / 1e3 / steps2 for name, us in top
         },
         "device_activities_per_step_by_name": {
-            name: n / steps for name, n in sorted(count.items())
+            name: n / steps2 for name, n in sorted(count.items())
         },
+    }
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
+            reorder: bool = False, faults=NO_FAULTS, monitor_keys: int = 0):
+    """The eager loop: ``warmup`` steps of :func:`frozen_step`, then
+    ``steps`` more timed twice (host clocks, then ``torch.profiler``);
+    returns the measurements as a dict."""
+    max_steps = 1 << 22
+
+    def run(st, n):
+        for _ in range(n):
+            st, _running = frozen_step(protocol, dims, st, ctx, max_steps,
+                                       reorder, faults, monitor_keys)
+        _sync(dev)
+        return st
+
+    state = run(state, warmup)
+
+    def timed():
+        run(state, steps)
+        return steps
+
+    return {
+        "card": _card(dev),
+        "loop": "eager",
+        "protocol": getattr(protocol, "__name__", type(protocol).__name__),
+        "lanes": int(state["pool"].shape[0]),
+        "after_steps": warmup,
+        **_measure(timed, dev),
+    }
+
+
+def profile_device(protocol, dims, state, ctx, dev, steps: int,
+                   warmup: int, reorder: bool = False, faults=NO_FAULTS,
+                   monitor_keys: int = 0):
+    """The device loop: a segment to ``warmup`` steps (the capture
+    included), then ``steps`` more twice, timed (host clocks, then
+    ``torch.profiler``), as windows of one body each: the profiler
+    records each node of a graph once per launch, so a window of
+    several bodies would show the first body's activities only. The
+    steps counted are the bodies run × steps a body. Returns the
+    measurements as a dict."""
+    runner, _alive = build_segment_runner(protocol, dims, 1 << 22, reorder,
+                                          faults, monitor_keys)
+    box = {"st": runner(state, ctx, warmup)[0], "until": warmup}
+    _sync(dev)
+    loop = runner.window.loop
+
+    def run():
+        before = loop.iterations()
+        for _ in range(max(1, steps // loop.G)):
+            box["until"] += loop.G
+            box["st"], _any = runner(box["st"], ctx, box["until"])
+        _sync(dev)
+        return (loop.iterations() - before) * loop.G
+
+    return {
+        "card": _card(dev),
+        "loop": "device",
+        "protocol": getattr(protocol, "__name__", type(protocol).__name__),
+        "lanes": int(state["pool"].shape[0]),
+        "after_steps": warmup,
+        "steps_per_body": loop.G,
+        "capture_s": loop.capture_s,
+        **_measure(run, dev),
     }
 
 
@@ -125,6 +189,8 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=128)
     ap.add_argument("--warmup", type=int, default=300)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--loop", choices=["device", "eager", "both"],
+                    default="device")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     monitor_keys = 0
@@ -137,12 +203,13 @@ def main(argv=None) -> None:
         sweep = cli.parse_args(cli.MAIN_PATHS[args.protocol])
         protocol, dims, specs = cli.sweep_setup(sweep)
         batch = specs[:sweep.batch_lanes]
-    state, ctx = prepare_batch(protocol, dims, batch, dev, monitor_keys)
-    print(json.dumps(
-        profile(protocol, dims, state, ctx, dev, args.steps, args.warmup,
-                batch_reorder_flag(batch), batch_fault_flags(batch),
-                monitor_keys)
-    ))
+    flags = (batch_reorder_flag(batch), batch_fault_flags(batch))
+    modes = ["device", "eager"] if args.loop == "both" else [args.loop]
+    for mode in modes:
+        state, ctx = prepare_batch(protocol, dims, batch, dev, monitor_keys)
+        fn = profile_device if mode == "device" else profile
+        print(json.dumps(fn(protocol, dims, state, ctx, dev, args.steps,
+                            args.warmup, *flags, monitor_keys)), flush=True)
 
 
 if __name__ == "__main__":

@@ -762,7 +762,9 @@ def test_lane_freeze_work_counts_the_frozen_lanes_changes():
     assert out[0]["x"].tolist() == [[1, 2, 3], [0, 0, 0]]
     n_bytes, ops = lf_work(new, old, ctx, 100, 0, out)
     moved = 4 + 2 * 4 + 1       # lane 0's steps, two x words, one flag
-    assert n_bytes == 5 * 2 * 4 + 2 * moved + 2
+    # the predicate's four words and the extra time of each lane, the
+    # step cap's word, the moved words read and written, ``running``
+    assert n_bytes == 5 * 2 * 4 + 4 + 2 * moved + 2
     assert ops == 8 * 2 + moved // 4
 
 

@@ -27,7 +27,9 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "fantoch_tpu_torch.kernels.qualify_pop" in mods
+    for name in ("kernels.qualify_pop", "kernels.loop_ctl",
+                 "kernels.step_loop", "parallel.pipeline"):
+        assert f"fantoch_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

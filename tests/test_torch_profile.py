@@ -50,6 +50,24 @@ def test_rehearsal_on_cpu_records_no_device_time():
     assert out["device_activities_per_step"] == 0
 
 
+def test_device_loop_rehearsal_on_cpu():
+    """The device-loop mode on the host twin: its steps are the bodies
+    it ran times a body's steps (one on the CPU), two windows of
+    ``steps`` each after the warm-up segment."""
+    args = cli.parse_args([
+        "sweep", "--protocol", "basic", "--n", "3", "--subsets", "1",
+        "--fs", "1", "--conflicts", "0,100", "--commands", "3",
+    ])
+    protocol, dims, specs = cli.sweep_setup(args)
+    dev = torch.device("cpu")
+    state, ctx = prepare_batch(protocol, dims, specs, dev)
+    out = step_profile.profile_device(protocol, dims, state, ctx, dev, 3, 2)
+    json.dumps(out)
+    assert out["loop"] == "device" and out["steps_per_body"] == 1
+    assert out["steps"] == 3 and out["capture_s"] == 0.0
+    assert out["device_busy_ms_per_step"] is None
+
+
 def test_fpaxos_main_path_is_the_bench_grid_with_leader_1():
     from fantoch_tpu_torch.engine.protocols import FPaxosDev
 
