@@ -41,11 +41,12 @@ included) — checks the Basic golden numbers and the committed
 ``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep,caesar,tempo_partial,
 atlas_partial,faults}_golden.json`` bytes on the card, then drives the nine
 main paths — the
-2,048-lane Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar sweeps (n = 5,
+2,048-lane Basic, FPaxos, Tempo, Atlas and EPaxos sweeps (n = 5,
 256 five-region subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50
-commands per client, one client per region) and the 512-lane sweep of
+commands per client, one client per region), the Caesar sweep over its
+first 128 subsets (1,024 lanes) and the 256-lane sweep of
 Tempo under partial replication (2 shards of 5 rows, 2 keys per command
-from a pool of 4, the first 64 subsets, conflict 1 in place of 0) and
+from a pool of 4, the first 32 subsets, conflict 1 in place of 0) and
 the same 512-lane grid of Atlas under partial replication at 9 commands
 per client, and the 2,048-lane Tempo grid under four fault plans (the
 first 64 subsets, each point once per plan; its fault-free lanes equal
@@ -93,7 +94,19 @@ window, pipeline depth, max steps) settings and of Caesar at one, and
 times the B6-loop row (one window of one body). The phases that hold
 each call of a kernel to its twin drive the eager runner by name; the
 mc grid's taps read the segment runner's output after every 4,096-step
-segment. The host
+segment. Slice 12, mixed-protocol batches (``run_sweep(...,
+hetero=True)``: each protocol's lanes a group, each group's own kernels
+in one graph a window): every group's kernels of a six-protocol mixed
+batch (the main grid's first 8 subsets, 384 lanes) against their twins
+at step 301 through the eager per-call path, that batch's device loop
+against its eager loop (whole state, byte for byte, at (1000, 3, 2)),
+then the mixed sweeps, counted: the reference bench's four mixed
+protocols (Basic, FPaxos, Tempo, Atlas) over the main grid, interleaved
+point by point, 8,192 lanes in 512-lane batches, and all six over the
+first 8 subsets; every lane equals its protocol's phase-7 line byte for
+byte, and K1, K6, K2 and K7 launch once a group a step and each handler
+only for its own protocol's groups; the mixed step's row (one window of
+one body, the eager mixed step, the sum of the groups' bounds). The host
 twins run in worker processes started before the build, overlapping the
 card's phases. Any failure raises; nothing
 is caught. Each phase prints its seconds. The last two lines
@@ -234,10 +247,11 @@ SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
 
 # paths run at a smaller depth here than their cli.MAIN_PATHS grids (the
 # first N region subsets), for the script's time: it must end within
-# 1,200 s on the card, half of that is the aim (PERF.md section 4). None
-# since the step loop runs on the card: the Caesar and Tempo partial
-# grids are whole again
-CUT_SUBSETS = {}
+# 1,200 s on the card, half of that is the aim (PERF.md section 4). With
+# the mixed sweeps of slice 12 (about 130 s) a whole run took 1,092 s
+# on an H100, so the two device-bound paths whose step costs most run
+# half their grids (every f and conflict rate kept)
+CUT_SUBSETS = {"caesar": 128, "tempo_partial": 32}
 
 
 def base_path(name):
@@ -308,10 +322,12 @@ HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo_traffic": "tempo_handle"}
 PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
          "tempo_partial", "atlas_partial", "tempo_faults")
-# the Tempo sweep's to_json lines: its first 512 lanes are the fault
-# path's fault-free lanes, and the monitored Tempo sweep must equal all of
-# them outside the monitor fields
-TEMPO_LINES = []
+# each protocol sweep's to_json lines and wall seconds: the Tempo sweep's
+# first 512 lanes are the fault path's fault-free lanes, the monitored
+# Tempo sweep must equal all of them outside the monitor fields, and every
+# lane of the mixed sweeps must equal its protocol's line
+LINES = {}
+WALLS = {}
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
@@ -1628,9 +1644,10 @@ def sweep(name, dev):
     assert all(launches[k] > 0 for k in path_kernels), launches
     other = set(HANDLERS.values()) - {handler}
     assert all(launches[k] == 0 for k in other), launches
-    if name == "tempo":
-        TEMPO_LINES.extend(json.dumps(r.to_json(), sort_keys=True)
-                           for r in results)
+    if name in cli.ENGINE_PROTOCOLS:
+        LINES[name] = [json.dumps(r.to_json(), sort_keys=True)
+                       for r in results]
+        WALLS[name] = wall
     if name == "tempo_faults":
         fault_sweep_checks(specs, results, total, wall, launches)
     elif args.arrivals:
@@ -1822,12 +1839,14 @@ def step_loop_row(dev) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
-def graph_only_counts(label, single=True) -> dict:
+def graph_only_counts(label, single=True, groups=1) -> dict:
     """The launch counts of a main path's run, after checking that its
     step loop ran only inside the device loop's graph: no step kernel
     was launched through its wrapper, every one by a replayed body
     (counted from K14's body counter). For a ``single`` ``run_sweep``
-    call, prints its stats and holds its batch steps to K1's count."""
+    call, prints its stats and holds its batch steps times ``groups``
+    (a mixed batch's protocols: K1 launches once a group a step) to K1's
+    count."""
     from fantoch_tpu_torch import kernels
     from fantoch_tpu_torch.parallel import sweep as psweep
 
@@ -1842,8 +1861,8 @@ def graph_only_counts(label, single=True) -> dict:
     st = psweep.LAST_STATS
     print(f"{label} device loop: {loop_stats(st)}; graph launches "
           f"{launches['step_loop']}, K14 launches {launches['loop_ctl']}")
-    assert launches["qualify_pop"] == st["batch_steps"], (
-        launches["qualify_pop"], st["batch_steps"])
+    assert launches["qualify_pop"] == groups * st["batch_steps"], (
+        launches["qualify_pop"], groups, st["batch_steps"])
     return launches
 
 
@@ -1855,7 +1874,8 @@ def loop_stats(st) -> str:
             f"{st['scan_window']}, segment_steps {st['segment_steps']}), "
             f"body iterations {st['body_iterations']}, batch steps "
             f"{st['batch_steps']}, overshoot steps {st['overshoot_steps']}, "
-            f"capture + instantiate {st['capture_s']:.3f} s")
+            f"captures {st['captures']}, capture + instantiate "
+            f"{st['capture_s']:.3f} s")
 
 
 def fault_sweep_checks(specs, results, total, wall, launches) -> None:
@@ -1881,7 +1901,7 @@ def fault_sweep_checks(specs, results, total, wall, launches) -> None:
     print(f"tempo_faults: {len(results) / wall:.3f} points/s over the four "
           f"plans, batch steps {launches['qualify_pop']}")
     clean = [json.dumps(r.to_json(), sort_keys=True) for r in results[::k]]
-    assert len(TEMPO_LINES) == 2048 and clean == TEMPO_LINES[:512], (
+    assert len(LINES["tempo"]) == 2048 and clean == LINES["tempo"][:512], (
         "fault-free lanes differ from the Tempo sweep's")
     for spec, r in zip(specs, results):
         if spec.fault_meta is None or "crash" in spec.fault_meta:
@@ -1934,6 +1954,281 @@ def main_path_checks(name, dims, specs, results, total) -> None:
         print(f"{name}: {total} <= fast + slow <= {2 * total} (from "
               f"{commits[0]} to {commits[-1]}) and stable == 5 x {total} on "
               f"every lane; slow-path commits {slow}")
+
+
+# ----------------------------------------------------------------------
+# mixed-protocol batches (slice 12, B14)
+# ----------------------------------------------------------------------
+
+# the six-protocol mixed path: the main grid's first 8 region subsets
+# (64 points of each protocol, lanes 0-63 of each phase-7 grid), 384
+# lanes in one batch
+HETERO_SIX_SUBSETS = 8
+STEP_KERNELS = ("qualify_pop", "emit_rewrite", "land_emissions",
+                "lane_freeze")
+
+
+def mixed_setup(name):
+    """``(args, protocols, dims, mixed)`` of mixed path ``name``:
+    ``hetero`` the bench's four mixed protocols over the main grid
+    (``cli.MAIN_PATHS["hetero"]``), ``hetero_six`` all six over its first
+    :data:`HETERO_SIX_SUBSETS` subsets; lanes interleaved point by
+    point."""
+    from fantoch_tpu_torch import cli
+
+    argv = list(cli.MAIN_PATHS["hetero"])
+    if name == "hetero_six":
+        argv[argv.index("--protocol") + 1] = ",".join(cli.ENGINE_PROTOCOLS)
+        argv[argv.index("--subsets") + 1] = str(HETERO_SIX_SUBSETS)
+    args = cli.parse_args(argv)
+    protocols, dims, mixed = cli.hetero_setup(args)
+    return args, protocols, dims, mixed
+
+
+def _mixed_batch(name, dev):
+    """The first batch of mixed path ``name`` on the card: ``(hb,
+    state, ctx, flags)``."""
+    from fantoch_tpu_torch.engine import hetero
+    from fantoch_tpu_torch.engine.driver import batch_reorder_flag
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags
+
+    args, protocols, dims, mixed = mixed_setup(name)
+    batch = mixed[:args.batch_lanes]
+    bare = [spec for _n, spec in batch]
+    hb, state, ctx, _lanes = hetero.prepare_batch(protocols, dims, batch,
+                                                  dev)
+    return hb, state, ctx, (batch_reorder_flag(bare),
+                            batch_fault_flags(bare))
+
+
+def check_mixed_kernels(name, dev, rows, warmup=300):
+    """Every group's kernels of a mixed batch against their twins: the
+    first batch of mixed path ``name`` stepped ``warmup`` times through
+    the eager per-call path (``hetero_frozen_step``), then one step's
+    calls recorded, group by group (K1, the group's handler, K6, K2,
+    K7), and each launch of the kernel held to its twin on them; each
+    group's key table (K3) too. Returns the state after the step and
+    the step's bound: the sum of the groups' bounds (each kernel's
+    ``work`` on the recorded arguments)."""
+    import torch
+
+    from fantoch_tpu_torch.engine import core as engine_core
+    from fantoch_tpu_torch.engine import hetero
+    from fantoch_tpu_torch.kernels import cost
+
+    hb, state, ctx, flags = _mixed_batch(name, dev)
+    for _ in range(warmup):
+        state, _running = hetero.hetero_frozen_step(hb, state, ctx, 1 << 22,
+                                                    *flags)
+    groups = list(state)
+    handlers = sorted({HANDLERS[a] for a in groups})
+    mods = {k: importlib.import_module(f"fantoch_tpu_torch.kernels.{k}")
+            for k in STEP_KERNELS + tuple(handlers) + ("key_table",)}
+    patched = {k: engine_core for k in STEP_KERNELS}
+    patched.update({h: mods[h] for h in handlers})
+    calls = []
+
+    def recorder(kname, fn):
+        def wrapped(*args):
+            calls.append((kname, (_clone(args[0]),) + args[1:]
+                          if kname == "lane_freeze" else args))
+            return fn(*args)
+        wrapped.launches = 0
+        return wrapped
+
+    saved = {k: getattr(m, k) for k, m in patched.items()}
+    for k, m in patched.items():
+        setattr(m, k, recorder(k, saved[k]))
+    state, _running = hetero.hetero_frozen_step(hb, state, ctx, 1 << 22,
+                                                *flags)
+    for k, m in patched.items():
+        setattr(m, k, saved[k])
+    order = ("qualify_pop", "handler", "emit_rewrite", "land_emissions",
+             "lane_freeze")
+    assert [("handler" if k in handlers else k) for k, _a in calls] == (
+        list(order) * len(groups)), [k for k, _a in calls]
+    bound_ms, by_group = 0.0, {}
+    for i, (kname, a) in enumerate(calls):
+        group = groups[i // len(order)]
+        assert kname in STEP_KERNELS or kname == HANDLERS[group]
+        mod = mods[kname]
+        kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
+        if kname == "lane_freeze":
+            got, want = kern(_clone(a[0]), *a[1:]), plain(*a)
+        else:
+            got, want = kern(*a), plain(*a)
+        if kname in handlers:
+            got, want = _handler_view(got), _handler_view(want)
+        torch.cuda.synchronize()
+        err = _compare(got, want)
+        rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
+        n_bytes, n_ops = mod.work(*a, got)
+        ms, _by = cost.bound(n_bytes, n_ops)
+        bound_ms += ms
+        by_group[group] = by_group.get(group, 0.0) + ms
+        lanes = int(state[group]["now"].shape[0])
+        print(f"kernel {kname} ({name} batch, group {group}, {lanes} "
+              f"lanes): exact=True max_abs_err={err} bound_us="
+              f"{1e3 * ms:.3f}")
+    kt = mods["key_table"]
+    for group in groups:
+        c = ctx[group]
+        T = c["key_table"].shape[2]
+        a = (c["rng_key"], c["conflict_rate"], c["pool_size"],
+             c["key_gen_kind"], c["zipf_cum"], hb.dims[group].C, T,
+             kt.traffic_tables(c))
+        got, want = kt.key_table(*a), kt.key_table_plain(*a)
+        torch.cuda.synchronize()
+        err = _compare(got, want)
+        assert torch.equal(got, c["key_table"])
+        rows["key_table"]["max_abs_err"] = max(
+            rows["key_table"]["max_abs_err"], err)
+    print(f"mixed {name} batch ({list(groups)}): every group's kernels "
+          f"== their twins after {warmup} steps, and each group's key "
+          f"table; the step's bound {1e3 * bound_ms:.3f} us, by group "
+          f"{ {g: round(1e3 * v, 3) for g, v in by_group.items()} }")
+    return state, ctx, hb, flags, bound_ms
+
+
+def hetero_segments(dev) -> None:
+    """The mixed device loop against its eager loop on the card: the
+    six-protocol batch through ``run_sweep``'s segment loop at (1000, 3,
+    2) (one graph a window, every group's kernels in its body, K14 over
+    the whole batch), then ``finish_hetero``; its whole final state
+    equals the eager loop's (``build_hetero_eager_runner``, every launch
+    through its wrapper), byte for byte."""
+    import torch
+
+    from fantoch_tpu_torch.engine import hetero
+    from fantoch_tpu_torch.parallel import sweep as psweep
+
+    max_steps = 1 << 22
+    hb, state, ctx, flags = _mixed_batch("hetero_six", dev)
+    t0 = time.perf_counter()
+    eager = hetero.build_hetero_eager_runner(hb, max_steps, *flags)(state,
+                                                                   ctx)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    hb, state, ctx, flags = _mixed_batch("hetero_six", dev)
+    runner, _alive = hetero.build_hetero_window_runner(hb, max_steps,
+                                                       *flags)
+    stats = dict(device_calls=0, segments_covered=0, windows=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = psweep.run_windows(runner, state, ctx, 1000, 3, 2, max_steps, stats)
+    final = hetero.finish_hetero(st, max_steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    _tree_exact(final, eager)
+    bodies = runner.bodies()
+    steps_max = max(int(t["steps"].max()) for t in final.values())
+    print(f"segments hetero six ({sum(len(t['now']) for t in final.values())}"
+          f" lanes, groups {list(final)}; segment_steps=1000, scan_window=3,"
+          f" pipeline_depth=2): whole state == the eager loop's, byte for "
+          f"byte; {secs:.3f} s (capture + instantiate "
+          f"{runner.capture_s:.3f} s; the eager loop {eager_s:.3f} s); "
+          f"stats {stats}; bodies {bodies} of {runner.loop.G} steps, "
+          f"longest lane {steps_max}; per body "
+          f"{getattr(runner.loop, 'per_body', None)}")
+
+
+def hetero_sweep(name, dev):
+    """Phase 7 for a mixed path: its sweep through ``run_sweep(...,
+    hetero=True)``, counted; every lane equals its protocol's phase-7
+    line byte for byte; K1, K6, K2 and K7 launch once a group a batch
+    step and each handler once for each group of its protocols (no
+    handler runs on another protocol's lanes). Returns the launches."""
+    from collections import Counter
+
+    import torch
+
+    from fantoch_tpu_torch import kernels
+    from fantoch_tpu_torch.parallel import run_sweep
+    from fantoch_tpu_torch.parallel import sweep as psweep
+
+    args, protocols, dims, mixed = mixed_setup(name)
+    names = list(protocols)
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_sweep(protocols, dims, mixed, batch_lanes=args.batch_lanes,
+                        device=dev, hetero=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = graph_only_counts(f"sweep {name}", groups=len(names))
+    steps = psweep.LAST_STATS["batch_steps"]
+    for k in STEP_KERNELS:
+        assert launches[k] == len(names) * steps, (k, launches)
+    per_handler = Counter(HANDLERS[n] for n in names)
+    for h in set(HANDLERS.values()):
+        assert launches[h] == per_handler.get(h, 0) * steps, (h, launches)
+    assert launches["key_table"] == len(names) * psweep.LAST_STATS["batches"]
+    for i, r in enumerate(results):
+        proto, point = names[i % len(names)], i // len(names)
+        got = json.dumps(r.to_json(), sort_keys=True)
+        assert got == LINES[proto][point], (
+            f"{name} lane {i} ({proto} point {point}) differs from its "
+            f"homogeneous sweep")
+    rate = len(results) / wall
+    line = (f"sweep {name} ({len(results)} lanes, {names}, "
+            f"{psweep.LAST_STATS['batches']} mixed batches of "
+            f"{args.batch_lanes}): {wall:.3f} s = {rate:.3f} points/s; every "
+            f"lane == its protocol's phase-7 line, byte for byte; batch "
+            f"steps {steps}; launches per batch step "
+            f"{ {k: v / steps for k, v in launches.items() if v} }")
+    if name == "hetero":
+        homo = sum(len(LINES[n]) for n in names) / sum(WALLS[n]
+                                                       for n in names)
+        line += (f"; the four homogeneous sweeps together "
+                 f"{sum(len(LINES[n]) for n in names)} points in "
+                 f"{sum(WALLS[n] for n in names):.3f} s = {homo:.3f} "
+                 f"points/s (mixed / homogeneous {rate / homo:.3f})")
+    print(line)
+    return launches
+
+
+def hetero_step_row(dev, rows) -> None:
+    """B14's numbers, on the four-protocol path's first mixed batch
+    (128 lanes a protocol) after 320 steps: its kernels against their
+    twins (the step's bound the sum of its groups'), ``ms`` one window
+    of one body (CUDA events, host included) over its steps, the eager
+    mixed step (``plain_ms``) and a replay of the captured body alone
+    (``library_ms``), each per step."""
+    from fantoch_tpu_torch.engine import hetero
+    from fantoch_tpu_torch.kernels.step_loop import clone_tree
+
+    state, ctx, hb, flags, bound_ms = check_mixed_kernels(
+        "hetero", dev, rows, warmup=319)
+    runner, _alive = hetero.build_hetero_window_runner(hb, 1 << 22, *flags)
+    box = {"until": 320}
+    box["st"] = runner(state, ctx, [box["until"]])[0]
+    loop = runner.loop
+    G = loop.G
+
+    def one_body():
+        box["until"] += G
+        box["st"] = runner(box["st"], ctx, [box["until"]])[0]
+
+    it0 = loop.iterations()
+    ms = _time_ms(one_body, 10) / G
+    assert loop.iterations() - it0 == 11
+    eager = {"st": clone_tree(box["st"])}
+
+    def eager_body():
+        st = eager["st"]
+        for _ in range(G):
+            st, _r = hetero.hetero_frozen_step(hb, st, ctx, 1 << 22, *flags)
+        eager["st"] = st
+
+    plain_ms = _time_ms(eager_body, 3) / G
+    library_ms = _time_ms(loop.graph.replay, 10) / G
+    print(f"B14 hetero step ({len(state)} groups {list(state)}, "
+          f"{sum(len(t['now']) for t in state.values())} lanes): one window "
+          f"of one body {ms:.5f} ms a step; the eager mixed step "
+          f"{plain_ms:.5f} ms; CUDAGraph.replay of the body {library_ms:.5f} "
+          f"ms a step; bound {bound_ms:.6f} ms a step (the sum of the "
+          f"groups' kernels' bounds; {ms / bound_ms:.1f}x); per body "
+          f"{loop.per_body}")
 
 
 # ----------------------------------------------------------------------
@@ -2475,7 +2770,7 @@ def monitored_tempo_sweep(dev):
     plain = [json.dumps({k: v for k, v in json.loads(line).items()
                          if k not in ("violation", "violation_step",
                                       "coverage")}, sort_keys=True)
-             for line in TEMPO_LINES]
+             for line in LINES["tempo"]]
     assert len(lines) == 2048 and lines == plain, (
         "the monitored Tempo sweep differs from the unmonitored one")
     assert all(r.coverage != 0 for r in results)
@@ -2862,6 +3157,8 @@ def _main(dev, card) -> int:
         phase(f"3 kernels ({name} path)", check_kernels, name, dev, rows)
     phase("3 kernels (monitored mc paths)", check_monitored_kernels, dev,
           rows)
+    phase("3 kernels (hetero six batch)", check_mixed_kernels, "hetero_six",
+          dev, rows)
     assert sorted(rows) == sorted(set(kernels.WRAPPERS) - {"step_loop"}), (
         sorted(rows))
 
@@ -2897,6 +3194,7 @@ def _main(dev, card) -> int:
         rows[kname]["max_abs_err"] = max(rows[kname]["max_abs_err"], err)
     # the device loop against the eager loop, whole state, and its row
     phase("6 segments", segments, dev, rows)
+    phase("6 segments hetero", hetero_segments, dev)
     assert sorted(rows) == sorted(kernels.WRAPPERS), sorted(rows)
 
     # 8. slice 9's main path, the mc default grid, counted, before the
@@ -2908,6 +3206,12 @@ def _main(dev, card) -> int:
                for name in PATHS}
     by_path["tempo_monitored"] = phase("7 sweep tempo monitored",
                                        monitored_tempo_sweep, dev)
+    # slice 12: mixed-protocol batches, each lane held to its protocol's
+    # sweep above
+    by_path["hetero"] = phase("7 sweep hetero", hetero_sweep, "hetero", dev)
+    by_path["hetero_six"] = phase("7 sweep hetero six", hetero_sweep,
+                                  "hetero_six", dev)
+    phase("7 hetero step", hetero_step_row, dev, rows)
     # the traffic sweeps and the open-loop offered-load ladder (slice
     # 10's main path), each counted on its own
     for name in new_paths():

@@ -123,6 +123,15 @@ BENCH_FUZZ = dict(protocol="tempo", n=5, f=1, schedules=256,
                   commands_per_client=10, seed=0xF022)
 # the engine protocols the mc grid takes (the reference's DEV_PROTOCOLS)
 ENGINE_PROTOCOLS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar")
+# the mixed path: the reference bench's mixed protocols (bench.py
+# HETERO_PROTOCOLS) over the main grid, every point of each, interleaved
+# lane by lane (bench.py _hetero_rate) in 512-lane mixed batches, 8,192
+# lanes; a library path (run_sweep(hetero=True), hetero_setup): the
+# sweep command takes one protocol
+HETERO_PROTOCOLS = ("basic", "fpaxos", "tempo", "atlas")
+MAIN_PATH_HETERO = [
+    ",".join(HETERO_PROTOCOLS) if a == "basic" else a for a in MAIN_PATH
+]
 MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
               "tempo": MAIN_PATH_TEMPO, "atlas": MAIN_PATH_ATLAS,
               "epaxos": MAIN_PATH_EPAXOS, "caesar": MAIN_PATH_CAESAR,
@@ -130,7 +139,26 @@ MAIN_PATHS = {"basic": MAIN_PATH, "fpaxos": MAIN_PATH_FPAXOS,
               "atlas_partial": MAIN_PATH_ATLAS_PARTIAL,
               "tempo_faults": MAIN_PATH_TEMPO_FAULTS,
               "tempo_open": MAIN_PATH_TEMPO_OPEN,
-              "tempo_traffic": MAIN_PATH_TEMPO_TRAFFIC}
+              "tempo_traffic": MAIN_PATH_TEMPO_TRAFFIC,
+              "hetero": MAIN_PATH_HETERO}
+
+
+def hetero_setup(args):
+    """``(protocols, dims, mixed)`` of a sweep command line whose
+    ``--protocol`` is a comma list: each protocol's grid as
+    :func:`sweep_setup` builds it, ``protocols`` and ``dims`` by name,
+    and ``mixed`` the ``(name, LaneSpec)`` pairs interleaved point by
+    point (point 0 of each protocol, then point 1, ...), for
+    ``run_sweep(..., hetero=True)``."""
+    names = args.protocol.split(",")
+    protocols, dims, specs = {}, {}, {}
+    for name in names:
+        one = argparse.Namespace(**vars(args))
+        one.protocol = name
+        protocols[name], dims[name], specs[name] = sweep_setup(one)
+    mixed = [(name, spec) for point in zip(*(specs[n] for n in names))
+             for name, spec in zip(names, point)]
+    return protocols, dims, mixed
 
 
 def _ints(s: str) -> List[int]:

@@ -65,8 +65,8 @@ from ..kernels.loop_ctl import CTL_ALIVE, CTL_MAXS, CTL_W, loop_ctl, new_ctl
 from ..kernels.mon_finalize import mon_finalize
 from ..kernels.qualify_pop import qualify_pop
 from ..kernels.step_loop import (
-    STEPS_PER_BODY, DeviceLoop, HostLoop, clone_tree, device_loop,
-    tree_signature,
+    STEPS_PER_BODY, DeviceLoop, HostLoop, clone_tree, device_loop, link,
+    live_planes, tree_device, tree_signature,
 )
 from . import monitor
 from .dims import (
@@ -351,26 +351,23 @@ class WindowRunner:
     a donated state is consumed); passing them back skips the copy in.
     ``loop`` is the loop of the last call and ``made`` whether that call
     captured it; ``it_start`` the loop's body counter before this
-    runner's first call and ``capture_s`` the seconds its captures took
-    (capture, warm-up and instantiate)."""
+    runner's first call, ``captures`` how many loops its calls captured
+    and ``capture_s`` the seconds those took (capture, warm-up and
+    instantiate).
 
-    def __init__(self, protocol, dims, max_steps, reorder, faults,
-                 monitor_keys, steps_per_body):
-        self.key = (protocol, dims, reorder, faults, monitor_keys)
+    ``step(st, ctx, lim) -> st`` is one step of the run loop under the
+    flag word ``flags``; ``key`` names it among the cached device loops
+    (with the body length and the trees' layouts)."""
+
+    def __init__(self, key, step, flags: int, max_steps, steps_per_body):
+        self.key, self.step, self.flags = key, step, int(flags)
         self.max_steps, self.steps_per_body = max_steps, steps_per_body
-        self.flags = flag_bits(faults, reorder)
         self.loop, self.made, self._host = None, False, None
-        self.it_start, self.capture_s = None, 0.0
-
-        def step(st, ctx, lim):
-            return frozen_step(protocol, dims, st, ctx, lim, reorder,
-                               faults, monitor_keys)[0]
-
-        self.step = step
+        self.it_start, self.captures, self.capture_s = None, 0, 0.0
 
     def __call__(self, state, ctx, untils):
         untils = [int(u) for u in np.asarray(untils).reshape(-1)]
-        if state["now"].device.type == "cpu":
+        if tree_device(state).type == "cpu":
             if self._host is None:
                 self._host = HostLoop(self.step, self.steps_per_body or 1,
                                       self.flags)
@@ -383,6 +380,7 @@ class WindowRunner:
         self.loop, self.made = device_loop(
             key, lambda: DeviceLoop(self.step, state, ctx, G, self.flags))
         if self.made:
+            self.captures += 1
             self.capture_s += self.loop.capture_s
         if self.it_start is None:
             self.it_start = 0 if self.made else self.loop.iterations()
@@ -397,10 +395,11 @@ class WindowRunner:
     def alive(self, state, ctx):
         """``any(running)`` of a (resumed) state under ``max_steps``, as
         the liveness word ``[1]`` (K14 on a one-rung ladder)."""
-        ctl, iters, ladder = new_ctl(state["now"].device)
+        st, cx = live_planes(link(state), link(ctx))
+        ctl, iters, ladder = new_ctl(st["now"].device)
         ctl[CTL_W], ctl[CTL_MAXS] = 1, self.max_steps
         ladder[0] = self.max_steps
-        loop_ctl(state, ctx, ladder, ctl, iters, self.flags)
+        loop_ctl(st, cx, ladder, ctl, iters, self.flags)
         return ctl[CTL_ALIVE:CTL_ALIVE + 1]
 
 
@@ -422,8 +421,14 @@ def build_window_runner(protocol, dims: EngineDims, max_steps: int = 1 << 22,
     ``faults.batch_fault_flags``); ``monitor_keys > 0`` runs the safety
     monitors (their end-of-run reduction is :func:`finish_run`'s)."""
     check_monitorable(protocol, monitor_keys)
-    runner = WindowRunner(protocol, dims, max_steps, reorder, faults,
-                          monitor_keys, steps_per_body)
+
+    def step(st, ctx, lim):
+        return frozen_step(protocol, dims, st, ctx, lim, reorder, faults,
+                           monitor_keys)[0]
+
+    runner = WindowRunner((protocol, dims, reorder, faults, monitor_keys),
+                          step, flag_bits(faults, reorder), max_steps,
+                          steps_per_body)
     return runner, runner.alive
 
 

@@ -72,10 +72,11 @@ def batch_runner(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
 
 
 def prepare_batch(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
-                  device, monitor_keys: int = 0):
+                  device, monitor_keys: int = 0, T: "int | None" = None):
     """Stack the lanes' ctx onto ``device``, compute every lane's
     (client, seq) key table there (``key_table`` kernel; T = max budget
-    + 2 columns, as the reference's sweep does) and build the initial
+    + 2 columns, as the reference's sweep does, unless ``T`` is given:
+    a key does not depend on T) and build the initial
     state from its first column. Partial-replication lanes also get
     their per-command tables (:func:`partial_tables`), and their first
     SUBMITs go to the first command's target shard. ``monitor_keys > 0``
@@ -87,7 +88,8 @@ def prepare_batch(protocol, dims: EngineDims, specs: Sequence[LaneSpec],
         tables = partial_tables(protocol, dims, specs, ctx)
         lane_ctx = [dict(c, **t) for c, t in zip(lane_ctx, tables)]
         ctx.update(to_torch(stack_trees(tables), device))
-    T = int(max(2, ctx_np["cmd_budget"].max() + 2))
+    if T is None:
+        T = int(max(2, ctx_np["cmd_budget"].max() + 2))
     ctx["key_table"] = _keys(ctx, dims, T)
     first = ctx["key_table"][:, :, 1].cpu().numpy()
     state = stack_trees([

@@ -26,6 +26,13 @@ launches are counted from the body counter K14 keeps on the device, G ×
 bodies × each kernel's launches in the captured body
 (:func:`replayed_counts`, read by ``kernels.counts()``).
 
+A mixed-protocol batch (``engine/hetero.py``) is a **grouped** tree,
+``{group: native tree}``, its groups' lanes one after the other. K14
+reads the batch's liveness planes (:data:`LIVE`) as ``[L]`` buffers:
+:func:`link` makes each group's liveness plane a view of its lanes'
+span of one such buffer, so the body's write-back into a group's plane
+lands in it, and :func:`live_planes` hands K14 the buffers.
+
 :class:`HostLoop` is the plain twin: the same control on the host (K14's
 twin between bodies), each body G steps through the wrappers; it runs
 for tensors on the CPU.
@@ -63,13 +70,93 @@ def _leaves(tree, prefix=""):
     return [(prefix, tree)]
 
 
+def tree_device(tree) -> torch.device:
+    """The device of a tree's (first) plane."""
+    return _leaves(tree)[0][1].device
+
+
 def tree_signature(tree) -> tuple:
     """Every leaf's path, shape and dtype: the layout a loop is
     captured over."""
     return tuple((p, tuple(t.shape), t.dtype) for p, t in _leaves(tree))
 
 
+# the planes K14 reads, each ``[L]``: of the state, then of the ctx
+LIVE_STATE = ("done_time", "now", "err", "steps")
+LIVE_CTX = ("extra_time", "fault_horizon")
+LIVE = LIVE_STATE + LIVE_CTX
+
+
+def grouped(tree) -> bool:
+    """Whether ``tree`` is a grouped tree (``{group: native tree}``): a
+    native state or ctx has planes at its top."""
+    return (isinstance(tree, dict) and bool(tree)
+            and all(isinstance(v, dict) for v in tree.values()))
+
+
+def link(tree):
+    """A grouped tree's liveness planes as views of ``[L]`` buffers, one
+    a plane, each group's lanes a span in group order (a copy of those
+    planes; the other planes are the tree's own). A native tree is
+    returned as it is."""
+    if not grouped(tree):
+        return tree
+    groups = {g: dict(t) for g, t in tree.items()}
+    for name in LIVE:
+        planes = [t[name] for t in groups.values() if name in t]
+        if not planes:
+            continue
+        if len(planes) != len(groups):
+            raise ValueError(f"liveness plane {name} is missing from a group")
+        first = planes[0]
+        buf = torch.empty((sum(p.shape[0] for p in planes),),
+                          dtype=first.dtype, device=first.device)
+        off = 0
+        for t in groups.values():
+            n = t[name].shape[0]
+            view = buf[off:off + n]
+            view.copy_(t[name])
+            t[name] = view
+            off += n
+    return groups
+
+
+def live_planes(state, ctx):
+    """``(state planes, ctx planes)`` with K14's planes as ``[L]``
+    tensors: a native tree's own; a grouped tree's buffers (linked by
+    :func:`link`), or on the CPU the groups' planes concatenated. On a
+    card an unlinked grouped tree is refused: a copy would not be the
+    planes the loop writes."""
+    if not grouped(state):
+        return state, ctx
+    out = []
+    for tree, names in ((state, LIVE_STATE), (ctx, LIVE_CTX)):
+        planes = {}
+        for name in names:
+            parts = [t[name] for t in tree.values()]
+            base = parts[0]._base
+            off = 0
+            for p in parts:
+                if (base is None or p._base is not base
+                        or p.storage_offset() != base.storage_offset() + off):
+                    base = None
+                    break
+                off += p.shape[0]
+            if base is not None and base.shape[0] == off:
+                planes[name] = base
+            elif parts[0].device.type == "cpu":
+                planes[name] = torch.cat(parts)
+            else:
+                raise RuntimeError(
+                    f"grouped tree's {name} planes are not linked (link)")
+        out.append(planes)
+    return out[0], out[1]
+
+
 def clone_tree(tree):
+    """A copy of ``tree``; a grouped tree's copy is linked again."""
+    if grouped(tree):
+        return link({g: clone_tree(t) for g, t in tree.items()})
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
     return tree.clone()
@@ -139,10 +226,11 @@ class DeviceLoop:
         from . import WRAPPERS
 
         t0 = time.perf_counter()
-        dev = state["now"].device
-        self.G, self.flags = int(steps_per_body), int(flags)
-        self.L = int(state["now"].shape[0])
         self.state, self.ctx = clone_tree(state), clone_tree(ctx)
+        live, _ = live_planes(self.state, self.ctx)
+        self.dev = dev = live["now"].device
+        self.G, self.flags = int(steps_per_body), int(flags)
+        self.L = int(live["now"].shape[0])
         self._ctx_in = ctx
         self.ctl, self.iters, _ = new_ctl(dev)
         self.ladder = torch.zeros((8,), dtype=I32, device=dev)
@@ -172,7 +260,7 @@ class DeviceLoop:
         self.capture_s = time.perf_counter() - t0
 
     def _build(self) -> None:
-        st, ctx = self.state, self.ctx
+        st, ctx = live_planes(self.state, self.ctx)
         ptrs = (ctypes.c_void_p * 9)(*[t.data_ptr() for t in (
             st["done_time"], st["now"], st["err"], st["steps"],
             ctx["extra_time"], ctx["fault_horizon"], self.ladder, self.ctl,
@@ -199,7 +287,7 @@ class DeviceLoop:
         """Free the outer graph, then (with the last reference) the
         captured body's memory pool and the resident buffers."""
         if self.handle is not None:
-            torch.cuda.synchronize(self.state["now"].device)
+            torch.cuda.synchronize(self.dev)
             self._destroy()
 
     def __del__(self):
@@ -213,7 +301,7 @@ class DeviceLoop:
         (skipped for the buffers themselves), the header and the ladder
         ``untils`` into the control block, one graph launch. Returns
         the window's liveness word (a copy, stream-ordered)."""
-        dev = self.state["now"].device
+        dev = self.dev
         if state is not self.state:
             _copy_into(self.state, state)
         if ctx is not self._ctx_in:
@@ -267,12 +355,13 @@ class HostLoop:
         self.ctl[CTL_W], self.ctl[CTL_MAXS] = len(untils), int(max_steps)
         lim = self.ctl[CTL_LIM:CTL_LIM + 1]
         st = state
-        cond = loop_ctl(st, ctx, ladder, self.ctl, self.iters, self.flags)
+        cond = loop_ctl(*live_planes(st, ctx), ladder, self.ctl, self.iters,
+                        self.flags)
         while cond:
             for _ in range(self.G):
                 st = self.step(st, ctx, lim)
-            cond = loop_ctl(st, ctx, ladder, self.ctl, self.iters,
-                            self.flags, in_body=True)
+            cond = loop_ctl(*live_planes(st, ctx), ladder, self.ctl,
+                            self.iters, self.flags, in_body=True)
         return st, self.ctl[CTL_ALIVE:CTL_ALIVE + 1].clone()
 
     def iterations(self) -> int:

@@ -9,8 +9,9 @@ traffic schedule or open-loop arrival process when given. A batch runs
 in segments of ``segment_steps`` steps, ``scan_window`` segments a
 device call (one launch of the device loop's graph) and up to
 ``pipeline_depth`` calls in flight, as the reference's ``run_sweep``
-(:355) does. Checkpoints, sharding and mixed-protocol batches are not
-ported yet (ROADMAP items 12, 15 and 13).
+(:355) does. ``hetero=True`` runs mixed-protocol batches
+(``engine/hetero.py``). Checkpoints, sharding and storage narrowing are
+not ported yet (ROADMAP items 12, 15 and 5).
 """
 
 from __future__ import annotations
@@ -25,8 +26,10 @@ from ..core.config import Config
 from ..core.planet import Planet
 from ..engine import core as engine_core
 from ..engine.dims import EngineDims
+from ..engine import hetero as engine_hetero
 from ..engine.driver import batch_reorder_flag, prepare_batch
 from ..engine.faults import FaultPlan, batch_fault_flags
+from ..engine.skeleton import Skeleton
 from ..engine.results import LaneResults, collect_results
 from ..engine.spec import LaneSpec, make_lane
 from .pipeline import SegmentWindow
@@ -70,8 +73,9 @@ def _window_untils(base: int, segment_steps: int, window: int,
 #: whose liveness came home), and the port's own: ``batches``,
 #: ``body_iterations`` (device-loop bodies run), ``batch_steps`` (steps
 #: run, frozen ones included: bodies × steps a body), ``overshoot_steps``
-#: (those past each batch's longest lane) and ``capture_s`` (capture
-#: plus instantiate). Not part of any result.
+#: (those past each batch's longest lane), ``captures`` (device loops
+#: captured; a batch of a layout already cached captures none) and
+#: ``capture_s`` (capture plus instantiate). Not part of any result.
 LAST_STATS: dict = {}
 
 
@@ -174,6 +178,8 @@ def run_sweep(
     segment_steps: int = 8192,
     pipeline_depth: int = 2,
     scan_window: "int | None" = None,
+    hetero: bool = False,
+    skeleton: "Skeleton | None" = None,
 ) -> List[LaneResults]:
     """Run every lane, ``batch_lanes`` per batch, on ``device`` (default:
     the CUDA card), each batch under its reorder flag and fault-flag
@@ -188,31 +194,69 @@ def run_sweep(
     device and liveness home once per window. ``pipeline_depth`` windows
     ride in flight (:class:`~.pipeline.SegmentWindow`): window i+1 is
     dispatched before window i's flag is read, and a window past the
-    batch's end is a no-op."""
+    batch's end is a no-op.
+
+    ``hetero=True`` runs mixed-protocol batches (``engine/hetero.py``):
+    ``specs`` is an ordered list of ``(group, LaneSpec)`` pairs whose
+    groups may name different protocols, ``protocol`` and ``dims`` map
+    each group to its device protocol and dims, and each chunk of
+    ``batch_lanes`` pairs (the caller's order) is one batch in which
+    every lane runs its own protocol's kernels only. ``skeleton`` (a
+    :class:`~..engine.skeleton.Skeleton`, e.g. a grid's
+    ``build_grid_skeleton``) fixes every batch's skeleton; ``None``
+    derives each batch's own. Each lane's result equals its homogeneous
+    run's. Monitored mixed batches are refused."""
     dev = resolve_device(device)
-    win = (default_scan_window(segment_steps) if scan_window is None
-           else max(1, int(scan_window)))
+    if hetero:
+        if skeleton is not None and not isinstance(skeleton, Skeleton):
+            raise ValueError(
+                "hetero=True lays lanes out through the skeleton itself; "
+                "pass the Skeleton object (or None to derive one from "
+                "each batch), not a bare fingerprint string"
+            )
+    elif skeleton is not None:
+        raise ValueError("a skeleton describes mixed batches: pass "
+                         "hetero=True with it")
+    win = (default_scan_window(segment_steps, skeleton=hetero)
+           if scan_window is None else max(1, int(scan_window)))
     LAST_STATS.clear()
     LAST_STATS.update(
         lanes=len(specs), scan_window=win, device_calls=0,
         segments_covered=0, segment_steps=int(segment_steps), windows=0,
         batches=0, body_iterations=0, batch_steps=0, overshoot_steps=0,
-        capture_s=0.0,
+        captures=0, capture_s=0.0,
     )
     out: List[LaneResults] = []
     for lo in range(0, len(specs), batch_lanes):
         chunk = specs[lo:lo + batch_lanes]
-        reorder, faults = batch_reorder_flag(chunk), batch_fault_flags(chunk)
-        runner, _alive = engine_core.build_window_runner(
-            protocol, dims, max_steps, reorder, faults, monitor_keys)
-        state, ctx = prepare_batch(protocol, dims, chunk, dev, monitor_keys)
-        state = run_windows(runner, state, ctx, segment_steps, win,
-                            pipeline_depth, max_steps)
-        final = engine_core.finish_run(protocol, state, ctx, max_steps,
-                                       reorder, faults, monitor_keys)
-        results = collect_results(protocol, dims, final, chunk)
+        if hetero:
+            hb, state, ctx, _lanes = engine_hetero.prepare_batch(
+                protocol, dims, chunk, dev, monitor_keys=monitor_keys,
+                skeleton=skeleton)
+            bare = [spec for _group, spec in chunk]
+            reorder, faults = batch_reorder_flag(bare), batch_fault_flags(bare)
+            runner, _alive = engine_hetero.build_hetero_window_runner(
+                hb, max_steps, reorder, faults)
+            state = run_windows(runner, state, ctx, segment_steps, win,
+                                pipeline_depth, max_steps)
+            results = engine_hetero.collect_hetero_results(
+                hb, chunk, engine_hetero.result_fetch_tree(hb, state),
+                max_steps)
+        else:
+            reorder = batch_reorder_flag(chunk)
+            faults = batch_fault_flags(chunk)
+            runner, _alive = engine_core.build_window_runner(
+                protocol, dims, max_steps, reorder, faults, monitor_keys)
+            state, ctx = prepare_batch(protocol, dims, chunk, dev,
+                                       monitor_keys)
+            state = run_windows(runner, state, ctx, segment_steps, win,
+                                pipeline_depth, max_steps)
+            final = engine_core.finish_run(protocol, state, ctx, max_steps,
+                                           reorder, faults, monitor_keys)
+            results = collect_results(protocol, dims, final, chunk)
         bodies = runner.bodies()
         LAST_STATS["batches"] += 1
+        LAST_STATS["captures"] += runner.captures
         LAST_STATS["capture_s"] += runner.capture_s
         LAST_STATS["body_iterations"] += bodies
         LAST_STATS["batch_steps"] += runner.loop.G * bodies

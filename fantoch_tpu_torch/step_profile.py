@@ -3,15 +3,19 @@
     python -m fantoch_tpu_torch.step_profile
         [--protocol basic|fpaxos|tempo|atlas|epaxos|caesar|tempo_partial|
                     atlas_partial|tempo_faults|tempo_open|tempo_traffic|
-                    tempo_fuzz]
+                    hetero|tempo_fuzz]
         [--steps 128] [--warmup 300] [--loop device|eager|both]
+        [--lanes L]
 
 Builds the first batch of the protocol's main-path sweep
 (``cli.MAIN_PATHS``, the grids ``chip_smoke.py`` drives: ``tempo_open``
 is the open-loop ladder's load-100 sweep, ``tempo_traffic`` the churn
-sweep), or for
+sweep, ``hetero`` the mixed batch of Basic, FPaxos, Tempo and Atlas
+lanes, 128 each, every group's kernels a step), or for
 ``tempo_fuzz`` the reference bench's fuzz self-check point
-(``cli.BENCH_FUZZ``: 256 schedules, monitored);
+(``cli.BENCH_FUZZ``: 256 schedules, monitored); ``--lanes`` cuts the
+batch to its first L lanes (``--protocol basic --lanes 128`` is the
+Basic group of the ``hetero`` batch on its own);
 :func:`profile` runs ``warmup`` steps of the run loop, then times
 ``steps`` more twice, under the batch's reorder flag and fault-flag
 union: once with
@@ -40,9 +44,11 @@ from collections import defaultdict
 import torch
 
 from . import cli, resolve_device
+from .engine import hetero
 from .engine.core import build_segment_runner, frozen_step
 from .engine.driver import batch_reorder_flag, prepare_batch
 from .engine.faults import NO_FAULTS, batch_fault_flags
+from .kernels.step_loop import grouped
 
 
 def _busy_us(intervals) -> float:
@@ -115,17 +121,34 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def _name(protocol) -> str:
+    if isinstance(protocol, hetero.HeteroBatch):
+        return "hetero[" + "+".join(protocol.audits) + "]"
+    return getattr(protocol, "__name__", type(protocol).__name__)
+
+
+def _lanes(state) -> int:
+    trees = state.values() if grouped(state) else [state]
+    return sum(int(t["now"].shape[0]) for t in trees)
+
+
 def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
             reorder: bool = False, faults=NO_FAULTS, monitor_keys: int = 0):
-    """The eager loop: ``warmup`` steps of :func:`frozen_step`, then
-    ``steps`` more timed twice (host clocks, then ``torch.profiler``);
-    returns the measurements as a dict."""
+    """The eager loop: ``warmup`` steps of :func:`frozen_step` (of
+    ``hetero_frozen_step`` when ``protocol`` is a mixed batch's
+    ``HeteroBatch``), then ``steps`` more timed twice (host clocks, then
+    ``torch.profiler``); returns the measurements as a dict."""
     max_steps = 1 << 22
 
     def run(st, n):
         for _ in range(n):
-            st, _running = frozen_step(protocol, dims, st, ctx, max_steps,
-                                       reorder, faults, monitor_keys)
+            if isinstance(protocol, hetero.HeteroBatch):
+                st, _running = hetero.hetero_frozen_step(
+                    protocol, st, ctx, max_steps, reorder, faults)
+            else:
+                st, _running = frozen_step(protocol, dims, st, ctx,
+                                           max_steps, reorder, faults,
+                                           monitor_keys)
         _sync(dev)
         return st
 
@@ -138,8 +161,8 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
     return {
         "card": _card(dev),
         "loop": "eager",
-        "protocol": getattr(protocol, "__name__", type(protocol).__name__),
-        "lanes": int(state["pool"].shape[0]),
+        "protocol": _name(protocol),
+        "lanes": _lanes(state),
         "after_steps": warmup,
         **_measure(timed, dev),
     }
@@ -154,9 +177,14 @@ def profile_device(protocol, dims, state, ctx, dev, steps: int,
     records each node of a graph once per launch, so a window of
     several bodies would show the first body's activities only. The
     steps counted are the bodies run × steps a body. Returns the
-    measurements as a dict."""
-    runner, _alive = build_segment_runner(protocol, dims, 1 << 22, reorder,
-                                          faults, monitor_keys)
+    measurements as a dict (a mixed batch's ``HeteroBatch`` as
+    ``protocol``: its segment runner)."""
+    if isinstance(protocol, hetero.HeteroBatch):
+        runner, _alive = hetero.build_hetero_segment_runner(
+            protocol, 1 << 22, reorder, faults)
+    else:
+        runner, _alive = build_segment_runner(protocol, dims, 1 << 22,
+                                              reorder, faults, monitor_keys)
     box = {"st": runner(state, ctx, warmup)[0], "until": warmup}
     _sync(dev)
     loop = runner.window.loop
@@ -172,8 +200,8 @@ def profile_device(protocol, dims, state, ctx, dev, steps: int,
     return {
         "card": _card(dev),
         "loop": "device",
-        "protocol": getattr(protocol, "__name__", type(protocol).__name__),
-        "lanes": int(state["pool"].shape[0]),
+        "protocol": _name(protocol),
+        "lanes": _lanes(state),
         "after_steps": warmup,
         "steps_per_body": loop.G,
         "capture_s": loop.capture_s,
@@ -191,22 +219,34 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--loop", choices=["device", "eager", "both"],
                     default="device")
+    ap.add_argument("--lanes", type=int, default=None)
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     monitor_keys = 0
+    mixed = None
     if args.protocol == "tempo_fuzz":
         from .mc.fuzz import FuzzSpec, point_lanes
 
         protocol, dims, batch, _plans, monitor_keys = point_lanes(
             FuzzSpec(**cli.BENCH_FUZZ))
+    elif args.protocol == "hetero":
+        sweep = cli.parse_args(cli.MAIN_PATHS[args.protocol])
+        protocols, dims, mixed = cli.hetero_setup(sweep)
+        mixed = mixed[:args.lanes or sweep.batch_lanes]
+        batch = [s for _name_, s in mixed]
     else:
         sweep = cli.parse_args(cli.MAIN_PATHS[args.protocol])
         protocol, dims, specs = cli.sweep_setup(sweep)
-        batch = specs[:sweep.batch_lanes]
+        batch = specs[:args.lanes or sweep.batch_lanes]
     flags = (batch_reorder_flag(batch), batch_fault_flags(batch))
     modes = ["device", "eager"] if args.loop == "both" else [args.loop]
     for mode in modes:
-        state, ctx = prepare_batch(protocol, dims, batch, dev, monitor_keys)
+        if mixed is None:
+            state, ctx = prepare_batch(protocol, dims, batch, dev,
+                                       monitor_keys)
+        else:
+            protocol, state, ctx, _lanes_ = hetero.prepare_batch(
+                protocols, dims, mixed, dev)
         fn = profile_device if mode == "device" else profile
         print(json.dumps(fn(protocol, dims, state, ctx, dev, args.steps,
                             args.warmup, *flags, monitor_keys)), flush=True)

@@ -28,7 +28,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for name in ("kernels.qualify_pop", "kernels.loop_ctl",
-                 "kernels.step_loop", "parallel.pipeline"):
+                 "kernels.step_loop", "parallel.pipeline", "engine.hetero",
+                 "engine.skeleton"):
         assert f"fantoch_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
