@@ -41,10 +41,9 @@ included) — checks the Basic golden numbers and the committed
 ``tests/fixtures/torch_{basic,fpaxos,tempo,graphdep,caesar,tempo_partial,
 atlas_partial,faults}_golden.json`` bytes on the card, then drives the nine
 main paths — the
-2,048-lane Basic, FPaxos, Tempo, Atlas and EPaxos sweeps (n = 5,
-256 five-region subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100}, 50
-commands per client, one client per region), the Caesar sweep over its
-first 128 subsets (1,024 lanes) and the 256-lane sweep of
+2,048-lane Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar sweeps (n =
+5, 256 five-region subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100},
+50 commands per client, one client per region) and the 256-lane sweep of
 Tempo under partial replication (2 shards of 5 rows, 2 keys per command
 from a pool of 4, the first 32 subsets, conflict 1 in place of 0) and
 the same 512-lane grid of Atlas under partial replication at 9 commands
@@ -108,7 +107,16 @@ byte, and K1, K6, K2 and K7 launch once a group a step and each handler
 only for its own protocol's groups; the mixed step's row (one window of
 one body, the eager mixed step, the sum of the groups' bounds). The host
 twins run in worker processes started before the build, overlapping the
-card's phases. Any failure raises; nothing
+card's phases. Slice 13: K2 and K10 update the pool and Caesar's process
+state in place, on running lanes only, so every check hands each call
+of them a fresh copy (``_fresh``; the copy is in ``call_ms``, not in
+``ms``), keeps the in-place planes shared when it copies a step's new
+tree for K7 (``_clone_new``), and phase 3 holds both, with every third
+lane failed and beside K7's frozen-lane check, to their twins: running
+lanes as the twin computes them, frozen lanes' rows byte for byte as
+before, the planes returned the ones given (``frozen_check``; the
+frozen-lane ms are printed before the kernels line). Any failure
+raises; nothing
 is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
 ``{"ok": true, ...}``.
@@ -249,9 +257,10 @@ SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
 # first N region subsets), for the script's time: it must end within
 # 1,200 s on the card, half of that is the aim (PERF.md section 4). With
 # the mixed sweeps of slice 12 (about 130 s) a whole run took 1,092 s
-# on an H100, so the two device-bound paths whose step costs most run
-# half their grids (every f and conflict rate kept)
-CUT_SUBSETS = {"caesar": 128, "tempo_partial": 32}
+# on an H100, so the device-bound path whose step costs most runs half
+# its grid (every f and conflict rate kept); Caesar's step no longer
+# copies its state (slice 13), and its grid is whole again
+CUT_SUBSETS = {"tempo_partial": 32}
 
 
 def base_path(name):
@@ -328,6 +337,9 @@ PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
 # lane of the mixed sweeps must equal its protocol's line
 LINES = {}
 WALLS = {}
+# the in-place kernels' ms with every third lane frozen, by kernel and
+# path (phase 3's frozen-lane checks)
+FROZEN = {}
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
@@ -447,6 +459,39 @@ def _clone(x):
     if isinstance(x, dict):
         return {k: _clone(v) for k, v in x.items()}
     return x.clone()
+
+
+# the kernels that update an argument in place (its position): K2 the
+# pool, K10 Caesar's process state. A call consumes it, so every check
+# hands each call a fresh copy (a step consumes its input state)
+IN_PLACE = {"land_emissions": 0, "caesar_handle": 0}
+
+
+def _fresh(kname, a):
+    """Kernel ``kname``'s arguments ``a`` with its in-place argument
+    copied (the others as they are)."""
+    i = IN_PLACE.get(kname)
+    if i is None:
+        return a
+    return a[:i] + (_clone(a[i]),) + a[i + 1:]
+
+
+def _clone_new(new, old):
+    """A copy of a step's new tree for K7, which writes into it: the
+    planes the step updated in place (``new is old``) stay the same
+    objects, as K7 takes them (it leaves them out of its table)."""
+    if isinstance(new, dict):
+        return {k: _clone_new(v, old[k]) for k, v in new.items()}
+    return new if new is old else new.clone()
+
+
+def _snapshot(kname, args):
+    """What a recorder keeps of a call's arguments, before the call:
+    K7's new tree copied (it writes into it), an in-place argument
+    copied (the call consumes it)."""
+    if kname == "lane_freeze":
+        return (_clone_new(args[0], args[1]),) + args[1:]
+    return _fresh(kname, args)
 
 
 def _compare(got, want) -> float:
@@ -587,11 +632,9 @@ def check_kernels(name, dev, rows):
 
     def recorder(kname, fn):
         def wrapped(*args):
-            # lane_freeze writes into the step's new planes: keep a copy
-            captured[kname] = (
-                (_clone(args[0]),) + args[1:] if kname == "lane_freeze"
-                else args
-            )
+            # lane_freeze writes into the step's new planes, K2 and K10
+            # into their state: keep copies from before the call
+            captured[kname] = _snapshot(kname, args)
             return fn(*args)
         # the wrapper counts through its module-global name, which is
         # this recorder while it stands in
@@ -619,18 +662,21 @@ def check_kernels(name, dev, rows):
         kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
         before = kern.launches
         if kname == "lane_freeze":
-            got, want = kern(_clone(a[0]), *a[1:]), plain(*a)
-            run_kernel = (lambda a=a, new=_clone(a[0]): kern(new, *a[1:]))
+            got, want = kern(_clone_new(a[0], a[1]), *a[1:]), plain(*a)
+            run_kernel = (lambda a=a, new=_clone_new(a[0], a[1]):
+                          kern(new, *a[1:]))
         else:
-            got, want = kern(*a), plain(*a)
-            run_kernel = (lambda a=a: kern(*a))
+            # an in-place kernel gets a fresh copy each call: the copy's
+            # time is in call_ms, not in ms (the kernel's own, by name)
+            got, want = kern(*_fresh(kname, a)), plain(*_fresh(kname, a))
+            run_kernel = (lambda a=a: kern(*_fresh(kname, a)))
         if kname == handler:
             got, want = _handler_view(got), _handler_view(want)
         torch.cuda.synchronize()
         err = _compare(got, want)
         ms = _device_ms(run_kernel, kname, 50)
         call_ms = _time_ms(run_kernel, 50)
-        plain_ms = _time_ms(lambda a=a: plain(*a), 5)
+        plain_ms = _time_ms(lambda a=a: plain(*_fresh(kname, a)), 5)
         # the least bytes and operations the region needs on these inputs
         n_bytes, n_ops = mod.work(*a, got)
         bound_ms, bound_by = cost.bound(n_bytes, n_ops)
@@ -667,22 +713,37 @@ def check_kernels(name, dev, rows):
             request_coverage(dev, mods[handler]),
         )
 
-    # K7 with frozen lanes (every third lane failed), which it copies
+    # K7 with frozen lanes (every third lane failed), whose rows of the
+    # planes the step wrote out of place it copies
     new, old, fctx, ms_, lflags = captured["lane_freeze"]
     old = dict(old, err=old["err"].clone())
     old["err"][::3] = 64
     lf = mods["lane_freeze"]
-    got = lf.lane_freeze(_clone(new), old, fctx, ms_, lflags)
+    got = lf.lane_freeze(_clone_new(new, old), old, fctx, ms_, lflags)
     err = _compare(got, lf.lane_freeze_plain(new, old, fctx, ms_, lflags))
     frozen = int((~got[1]).sum())
     ms = _device_ms(
-        lambda n=_clone(new): lf.lane_freeze(n, old, fctx, ms_, lflags),
+        lambda n=_clone_new(new, old): lf.lane_freeze(n, old, fctx, ms_,
+                                                      lflags),
         "lane_freeze", 50,
     )
     n_bytes, n_ops = lf.work(new, old, fctx, ms_, lflags, got)
+    planes = len(lf.plane_pairs(new, old))
+    FROZEN.setdefault("lane_freeze", {})[name] = dict(
+        frozen=frozen, lanes=L, ms=ms, planes=planes)
     print(f"kernel lane_freeze ({name} path, {frozen} of {L} lanes "
           f"frozen): exact=True max_abs_err={err} ms={ms:.5f} bound_us="
-          f"{1e3 * cost.bound(n_bytes, n_ops)[0]:.3f} ({n_bytes} bytes)")
+          f"{1e3 * cost.bound(n_bytes, n_ops)[0]:.3f} ({n_bytes} bytes); "
+          f"{planes} planes in its table")
+    # K2 and the in-place handler with the same lanes frozen: running
+    # lanes equal the twin, frozen lanes' in-place planes are untouched
+    cap = lf.Cap(old, fctx, ms_, lflags)
+    for kname in [k for k in (handler, "land_emissions") if k in IN_PLACE]:
+        a = captured[kname]
+        a = a[:-1] + (cap,)
+        rows[kname]["max_abs_err"] = max(
+            rows[kname]["max_abs_err"],
+            frozen_check(name, kname, mods[kname], a, ~got[1]))
     BOUNDS[name] = {k: (r["bound_ms"], r["bound_by"])
                     for k, r in rows.items() if r["path"] == name}
 
@@ -694,7 +755,7 @@ def check_kernels(name, dev, rows):
     old["steps"][::2] -= 1
     top = int(old["steps"].max())
     word = torch.tensor([top], dtype=torch.int32, device=dev)
-    got = lf.lane_freeze(_clone(new), old, fctx, word, lflags)
+    got = lf.lane_freeze(_clone_new(new, old), old, fctx, word, lflags)
     err = _compare(got, lf.lane_freeze_plain(new, old, fctx, top, lflags))
     live = lf.lane_live(old, fctx, lflags)
     stopped = int((live & (old["steps"] >= top)).sum())
@@ -729,6 +790,46 @@ def check_kernels(name, dev, rows):
               f"L={got.shape[0]} C={dims.C} T={T} "
               f"K={zctx['zipf_cum'].shape[1]} distinct keys "
               f"{int(torch.unique(got).numel())}")
+
+
+def frozen_check(name, kname, mod, a, frozen) -> float:
+    """In-place kernel ``kname`` on arguments ``a`` whose cap freezes the
+    lanes ``frozen``: kernel and twin, each on a fresh copy, are equal
+    (running lanes as the twin computes them, a frozen lane's other
+    outputs their defined values); the in-place planes returned are the
+    tensors given; frozen lanes' rows of them are as before the call, byte
+    for byte, and some running lane's changed. Prints the kernel's ms
+    (device time, by name; the copy is not in it) and records it in
+    :data:`FROZEN`. Returns the max abs error."""
+    import torch
+
+    kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
+    i = IN_PLACE[kname]
+    fa = _fresh(kname, a)
+    got = kern(*fa)
+    want = plain(*_fresh(kname, a))
+    torch.cuda.synchronize()
+    ours = got[0] if kname == "land_emissions" else got[1]
+    pairs = ([(ours, fa[i], a[i])] if torch.is_tensor(ours)
+             else [(ours[k], fa[i][k], a[i][k]) for k in a[i]])
+    moved = torch.zeros_like(frozen)
+    for out, given, before in pairs:
+        assert out is given, f"{kname}: an in-place plane is a new tensor"
+        assert torch.equal(out[frozen], before[frozen]), (
+            f"{kname}: a frozen lane's row changed")
+        moved |= (out != before).reshape(out.shape[0], -1).any(1)
+    assert bool((moved & ~frozen).any()), f"{kname}: no running lane moved"
+    if kname in HANDLERS.values():
+        got, want = _handler_view(got), _handler_view(want)
+    err = _compare(got, want)
+    ms = _device_ms(lambda: kern(*_fresh(kname, a)), kname, 50)
+    print(f"kernel {kname} ({name} path, {int(frozen.sum())} of "
+          f"{frozen.numel()} lanes frozen): exact=True max_abs_err={err} "
+          f"ms={ms:.5f}; frozen lanes' in-place rows as before, byte for "
+          f"byte; {int((moved & ~frozen).sum())} running lanes moved")
+    FROZEN.setdefault(kname, {})[name] = dict(frozen=int(frozen.sum()),
+                                              lanes=frozen.numel(), ms=ms)
+    return err
 
 
 def check_loop_ctl(name, st, ctx, flags, rows) -> None:
@@ -883,8 +984,8 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
     seen = dict.fromkeys(extras, 0)
     err, args, captures = 0.0, first, 0
     while True:
-        got = kern(*args)
-        want = plain(*args)
+        got = kern(*_fresh(kname, args))
+        want = plain(*_fresh(kname, args))
         torch.cuda.synchronize()
         err = max(err, _compare(_handler_view(got), _handler_view(want)))
         has, rows, fire = args[1], args[2], args[3]
@@ -909,7 +1010,7 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
         box = {}
 
         def record(*a):
-            box["args"] = a
+            box["args"] = _snapshot(kname, a)
             return kern(*a)
 
         # the wrapper counts through its module-global name
@@ -940,7 +1041,7 @@ def _batch_coverage(label, kname, proto, dims, specs, dev, mod, **kw):
     box = {}
 
     def record(*a):
-        box["args"] = a
+        box["args"] = _snapshot(kname, a)
         return kern(*a)
 
     record.launches = 0
@@ -1031,8 +1132,8 @@ def _checked(mod_name, kname, compare, clone_first=False):
 
     def run(*a):
         if clone_first:  # lane_freeze writes into the step's new planes
-            want = plain(_clone(a[0]), *a[1:])
-            got = kern(_clone(a[0]), *a[1:])
+            want = plain(_clone_new(a[0], a[1]), *a[1:])
+            got = kern(_clone_new(a[0], a[1]), *a[1:])
         else:
             want = plain(*a)
             got = kern(*a)
@@ -2030,8 +2131,7 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
 
     def recorder(kname, fn):
         def wrapped(*args):
-            calls.append((kname, (_clone(args[0]),) + args[1:]
-                          if kname == "lane_freeze" else args))
+            calls.append((kname, _snapshot(kname, args)))
             return fn(*args)
         wrapped.launches = 0
         return wrapped
@@ -2054,9 +2154,9 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
         mod = mods[kname]
         kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
         if kname == "lane_freeze":
-            got, want = kern(_clone(a[0]), *a[1:]), plain(*a)
+            got, want = kern(_clone_new(a[0], a[1]), *a[1:]), plain(*a)
         else:
-            got, want = kern(*a), plain(*a)
+            got, want = kern(*_fresh(kname, a)), plain(*_fresh(kname, a))
         if kname in handlers:
             got, want = _handler_view(got), _handler_view(want)
         torch.cuda.synchronize()
@@ -2464,7 +2564,7 @@ def check_monitored_kernels(dev, rows) -> None:
             kern = getattr(mod, kname)
 
             def wrapped(*a):
-                captured[kname] = a
+                captured[kname] = _snapshot(kname, a)
                 return kern(*a)
             wrapped.launches = 0
             return wrapped
@@ -2481,15 +2581,21 @@ def check_monitored_kernels(dev, rows) -> None:
                            ("mon_finalize", k13)):
             a = captured[kname]
             kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
-            got, want = kern(*a), plain(*a)
+            got = kern(*_fresh(kname, a))
+            want = plain(*_fresh(kname, a))
             if kname == handler:
                 got, want = _handler_view(got), _handler_view(want)
             torch.cuda.synchronize()
             err = _compare(got, want)
-            ms = _device_ms(lambda a=a: kern(*a), kname, 50)
-            call_ms = _time_ms(lambda a=a: kern(*a), 50)
-            plain_ms = _time_ms(lambda a=a: plain(*a), 5)
-            n_bytes, n_ops = mod.work(*a, kern(*a))
+
+            def call(a=a, kname=kname, kern=kern):
+                return kern(*_fresh(kname, a))
+            ms = _device_ms(call, kname, 50)
+            call_ms = _time_ms(call, 50)
+            plain_ms = _time_ms(
+                lambda a=a, kname=kname, plain=plain:
+                plain(*_fresh(kname, a)), 5)
+            n_bytes, n_ops = mod.work(*a, call())
             bound_ms, bound_by = cost.bound(n_bytes, n_ops)
             label = f"mc {spec.protocol} n={spec.n}"
             print(f"kernel {kname} ({label}, monitored, {mk} keys): "
@@ -2625,13 +2731,13 @@ def _checked_handler(kname, seen, errs):
     kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
 
     def run(*a):
-        want = plain(*a)
+        want = plain(*_fresh(kname, a))
+        ps, new = a[0], want[1]
+        seen["executions"] += int((new["_mon_cnt"] - ps["_mon_cnt"]).sum())
         got = kern(*a)
         torch.cuda.synchronize()
         errs[kname] = max(errs.get(kname, 0.0),
                           _compare(_handler_view(got), _handler_view(want)))
-        ps, new = a[0], want[1]
-        seen["executions"] += int((new["_mon_cnt"] - ps["_mon_cnt"]).sum())
         seen["premature guard words"] += int(
             ((new["_mon_flags"] & 1) != 0).sum())
         seen["steps"] += 1
@@ -3226,6 +3332,9 @@ def _main(dev, card) -> int:
         rows["mon_finalize"]["max_abs_err"], K13_CHECKED["err"])
     print(f"kernel mon_finalize: exact=True on the final state of every one "
           f"of {K13_CHECKED['launches']} monitored batches")
+
+    print("frozen-lane checks, every third lane failed (ms by kernel and "
+          f"path): {json.dumps(FROZEN, sort_keys=True)}")
 
     # 9. the kernels line, then the verdict
     out = []

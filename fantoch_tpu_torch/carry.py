@@ -38,10 +38,12 @@ def to_torch(tree, device):
 
 
 def to_numpy(tree):
-    """tensor tree → numpy tree on the host, dtype for dtype."""
+    """tensor tree → numpy tree on the host, dtype for dtype: a copy,
+    which a later step (they update the pool and Caesar's process state
+    in place) leaves as it is."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    return tree.detach().cpu().numpy().copy()
 
 
 def stack_trees(trees):

@@ -40,7 +40,15 @@ State and ctx are dicts of tensors with a leading ``[L]`` lane axis.
 As under the reference's vmapped ``lax.while_loop``, a lane whose
 predicate is false (or whose step count reached the segment's limit) is
 frozen (its new state is discarded; the ``lane_freeze`` kernel), so a
-finished lane is a fixed point. The runners (the reference's
+finished lane is a fixed point.
+
+A step consumes its input state, like a donated buffer in JAX: the
+``land_emissions`` kernel writes the pool, and Caesar's handler its
+process state (with the monitor planes), in place, on the lanes whose
+predicate holds at the step's start (:func:`frozen_step` hands them its
+``Cap``; without one every lane), and returns the very tensors, so K7
+copies none of them. No runner consumes its caller's state: each clones
+it once, at entry. The runners (the reference's
 ``build_runner``, ``build_segment_runner``, ``build_window_runner`` and
 ``finish_segmented``) run the loop on the device: on the card one window
 of W segments is one launch of a CUDA graph whose while node repeats a
@@ -60,7 +68,7 @@ import torch
 
 from ..kernels.emit_rewrite import emit_rewrite
 from ..kernels.land_emissions import land_emissions
-from ..kernels.lane_freeze import lane_freeze
+from ..kernels.lane_freeze import Cap, lane_freeze
 from ..kernels.loop_ctl import CTL_ALIVE, CTL_MAXS, CTL_W, loop_ctl, new_ctl
 from ..kernels.mon_finalize import mon_finalize
 from ..kernels.qualify_pop import qualify_pop
@@ -252,11 +260,14 @@ def init_lane_state(protocol, dims: EngineDims, ctx_np: Dict[str, np.ndarray],
 # ----------------------------------------------------------------------
 
 def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
-              faults: FaultFlags = NO_FAULTS, monitor_keys: int = 0):
+              faults: FaultFlags = NO_FAULTS, monitor_keys: int = 0,
+              cap: "Cap | None" = None):
     """One engine step of every lane under the batch's ``faults`` flags
     and ``reorder`` switch; ``monitor_keys > 0`` on a state built with the
     monitor planes. Open-loop lanes (ctx ``ol_arrival``) and traffic
-    schedules (ctx ``traffic_think``) set their flag bits."""
+    schedules (ctx ``traffic_think``) set their flag bits. The step
+    consumes ``st``: the pool (and Caesar's process state) is updated in
+    place, on the lanes ``cap`` lets run (every lane without one)."""
     pool = st["pool"]
     flags = flag_bits(faults, reorder, monitor=monitor_keys > 0,
                       open_loop="ol_arrival" in ctx,
@@ -264,7 +275,7 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
 
     # 0-2. the crash cut-off, qualification, the horizon and the pop
     # (kernel K1); the crash-masked arrivals and timers are written back
-    arrival, ep, now, _active, fire, _slot, has, rows, timers = qualify_pop(
+    arrival, ep, now, _active, fire, slot, has, rows, timers = qualify_pop(
         pool, st["next_periodic"], ctx["lookahead"], ctx["fault_crash_t"],
         ctx["fault_horizon"], flags,
     )
@@ -273,7 +284,7 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     # its event time ep (protocol kernel); the monitor planes ride in ps
     ps_in = monitor.merge_mon(st) if monitor_keys else st["ps"]
     rdy, ps, pout, outbox = protocol.handlers(
-        ps_in, has, rows, fire, ep, ctx, dims
+        ps_in, has, rows, fire, ep, ctx, dims, cap
     )
     mon = {}
     if monitor_keys:
@@ -290,10 +301,11 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
         *([mon["mon_flags"]] if monitor_keys else []),
     )
 
-    # 6. land the delivered emissions in free pool slots (kernel K2),
-    # which also raises ERR_POOL on overflow
+    # 6. land the delivered emissions in free pool slots, in place
+    # (kernel K2), which also raises ERR_POOL on overflow
     new_pool, _overflow, pool_peak, err = land_emissions(
-        pool, arrival, deliver, new_rows, st["pool_peak"], upd["err"]
+        pool, arrival, deliver, new_rows, st["pool_peak"], upd["err"], slot,
+        has, flags, cap
     )
     out = {
         **mon,
@@ -318,11 +330,16 @@ def frozen_step(protocol, dims: EngineDims, st, ctx, lim,
     """One step of the run loop: ``(state, running)``. The lanes whose
     predicate is false on ``st``, or whose step count reached ``lim``
     (an int, or on the card the device loop's limit word), keep their
-    state, as under the reference's vmapped ``lax.while_loop`` (kernel
-    K7)."""
+    state, as under the reference's vmapped ``lax.while_loop``: the
+    in-place kernels (K2, K10) write only running lanes, and K7 restores
+    frozen lanes' rows of the planes the step wrote out of place. The
+    step consumes ``st``."""
+    flags = flag_bits(faults, reorder)
+    cap = Cap(st, ctx, lim, flags)
     return lane_freeze(
-        lane_step(protocol, dims, st, ctx, reorder, faults, monitor_keys),
-        st, ctx, lim, flag_bits(faults, reorder),
+        lane_step(protocol, dims, st, ctx, reorder, faults, monitor_keys,
+                  cap),
+        st, ctx, lim, flags,
     )
 
 
@@ -483,11 +500,13 @@ def build_eager_runner(protocol, dims: EngineDims, max_steps: int = 1 << 22,
     loop of :func:`frozen_step` calls, each kernel launched by its
     wrapper, liveness read every :data:`STEPS_PER_BODY` steps. Results
     equal :func:`build_runner`'s; callers that hold each launch against
-    its twin (each call passes through the wrappers) drive it by name."""
+    its twin (each call passes through the wrappers) drive it by name.
+    The caller's state is cloned once, at entry (the steps consume
+    theirs)."""
     check_monitorable(protocol, monitor_keys)
 
     def run(state, ctx):
-        st = state
+        st = clone_tree(state)
         while True:
             for _ in range(STEPS_PER_BODY):
                 st, running = frozen_step(protocol, dims, st, ctx, max_steps,

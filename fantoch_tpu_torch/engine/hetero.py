@@ -44,7 +44,7 @@ from typing import Any, Dict, List, Mapping, Sequence, Tuple
 import torch
 
 from .. import resolve_device
-from ..kernels.step_loop import link, tree_device
+from ..kernels.step_loop import clone_tree, link, tree_device
 from .core import (
     STEPS_PER_BODY, WindowRunner, finish_segmented, frozen_step, lane_step,
 )
@@ -149,11 +149,14 @@ def hetero_frozen_step(hb: HeteroBatch, st, ctx, lim, reorder: bool = False,
                        faults: FaultFlags = NO_FAULTS, streams=None):
     """One step of the run loop on a mixed batch: ``(state, running)``,
     ``running`` by group; each group's ``frozen_step`` (K1, its handler,
-    K6, K2, K7) in skeleton audit order. With ``streams`` (a dict, on the
-    card) each group steps on a CUDA stream of its own, kept there by
-    group, forked from and joined to the current stream: the groups
-    share no plane, so a group whose kernels leave the card idle (few
-    lanes, or little parallel work) overlaps the others."""
+    K6, K2, K7) in skeleton audit order, its K2 and handler handed the
+    group's views of the linked liveness planes and the cap (they update
+    the group's pool, and Caesar's process state, in place). With
+    ``streams`` (a dict, on the card) each group steps on a CUDA stream
+    of its own, kept there by group, forked from and joined to the
+    current stream: the groups share no plane, so a group whose kernels
+    leave the card idle (few lanes, or little parallel work) overlaps
+    the others."""
     main = None if streams is None else torch.cuda.current_stream()
     out, running = {}, {}
     for a in hb.audits:
@@ -250,11 +253,12 @@ def build_hetero_eager_runner(
     :func:`hetero_frozen_step` calls, each kernel launched by its
     wrapper, liveness read every ``STEPS_PER_BODY`` steps, then
     :func:`finish_hetero`; for callers that hold each launch against its
-    twin."""
+    twin. The caller's state is cloned once, at entry (the steps
+    consume theirs)."""
     _check_unmonitored(monitor_keys)
 
     def run(state, ctx):
-        st = state
+        st = clone_tree(state)
         while True:
             for _ in range(STEPS_PER_BODY):
                 st, running = hetero_frozen_step(hb, st, ctx, max_steps,

@@ -117,11 +117,14 @@ class BasicDev(DevIdentity):
     # -- the handler step ----------------------------------------------
 
     @staticmethod
-    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims):
+    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims,
+                 cap=None):
         """Readiness gate, periodic timer and message handler of every
         (lane, process): ``(rdy, ps, periodic outbox, handler outbox)``
         (the event times ``ep`` are not read).
-        Runs the ``basic_handle`` kernel on CUDA tensors."""
+        Runs the ``basic_handle`` kernel on CUDA tensors.
+        The run cap ``cap`` is not read: this handler writes out of
+        place, and K7 freezes its lanes."""
         from ...kernels.basic_handle import basic_handle
 
         return basic_handle(ps, has, rows, fire, ctx, dims)

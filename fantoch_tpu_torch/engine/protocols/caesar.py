@@ -58,6 +58,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ...kernels.lane_freeze import cap_running
 from ..core import emit, emit_broadcast, empty_outbox
 from ..dims import (
     ERR_CAPACITY, ERR_DOT, ERR_PROTO, ERR_SEQ, INF, PMT, PPAY, PSRC,
@@ -211,28 +212,50 @@ class CaesarDev(DevIdentity):
     # -- the handler step ----------------------------------------------
 
     @staticmethod
-    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims):
+    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims,
+                 cap=None):
         """Readiness gate, periodic timers, message handler and the two
         hoisted scans of every (lane, process): ``(rdy, ps, periodic
         outbox, handler outbox)`` (the event times ``ep`` are not read).
-        Runs the ``caesar_handle`` kernel on CUDA tensors."""
+        ``ps`` is updated in place on the lanes ``cap`` lets run (every
+        lane without one) and returned as the same tensors. Runs the
+        ``caesar_handle`` kernel on CUDA tensors."""
         from ...kernels.caesar_handle import caesar_handle
 
-        return caesar_handle(ps, has, rows, fire, ctx, dims)
+        return caesar_handle(ps, has, rows, fire, ctx, dims, cap)
 
     @staticmethod
-    def step_plain(ps, has, rows, fire, ctx, dims: EngineDims):
+    def step_plain(ps, has, rows, fire, ctx, dims: EngineDims, cap=None):
         """The plain twin of the kernel, in the reference's order
         (core.py:890-918): ``ready`` on the incoming state, ``periodic``,
-        then ``handle`` (the branch, the exec scan, the wait scan)."""
+        then ``handle`` (the branch, the exec scan, the wait scan), out of
+        place; then the running lanes' rows (of ``cap``; every lane
+        without one) are copied into ``ps``, in place, as the kernel
+        writes them. A frozen lane's ``rdy`` is false and its outboxes
+        empty (valid false, zero words)."""
         X = CaesarDev
         none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
         mtype0 = torch.where(has, rows[..., PMT], none)
         rdy = X.ready_plain(ps, rows, mtype0, dims)
         mtype = torch.where(has & rdy, mtype0, none)
-        ps, pout = X.periodic_plain(ps, fire, ctx, dims)
-        ps, hout = X.handle_plain(ps, mtype, rows, ctx, dims)
-        return rdy, ps, pout, hout
+        new, pout = X.periodic_plain(ps, fire, ctx, dims)
+        new, hout = X.handle_plain(new, mtype, rows, ctx, dims)
+        running = cap_running(cap)
+        for k, v in new.items():
+            if v is ps[k]:
+                continue
+            if running is None:
+                ps[k].copy_(v)
+            else:
+                ps[k][running] = v[running]
+        if running is None:
+            return rdy, ps, pout, hout
+        empty = empty_outbox(dims, rows.shape[:2], rows.device)
+        pout, hout = (
+            {k: torch.where(bcast(running[:, None], v), v, empty[k])
+             for k, v in ob.items()}
+            for ob in (pout, hout))
+        return rdy & running[:, None], ps, pout, hout
 
     @staticmethod
     def ready_plain(ps, rows, mtype, dims: EngineDims):

@@ -115,11 +115,14 @@ class FPaxosDev(DevIdentity):
     # -- the handler step ----------------------------------------------
 
     @staticmethod
-    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims):
+    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims,
+                 cap=None):
         """Readiness gate, periodic timer and message handler of every
         (lane, process): ``(rdy, ps, periodic outbox, handler outbox)``
         (the event times ``ep`` are not read).
-        Runs the ``fpaxos_handle`` kernel on CUDA tensors."""
+        Runs the ``fpaxos_handle`` kernel on CUDA tensors.
+        The run cap ``cap`` is not read: this handler writes out of
+        place, and K7 freezes its lanes."""
         from ...kernels.fpaxos_handle import fpaxos_handle
 
         return fpaxos_handle(ps, has, rows, fire, ctx, dims)

@@ -201,11 +201,14 @@ class _DepDev(DevIdentity):
     # -- the handler step ----------------------------------------------
 
     @staticmethod
-    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims):
+    def handlers(ps, has, rows, fire, ep, ctx, dims: EngineDims,
+                 cap=None):
         """Readiness gate, periodic timer, message handler and graph
         drain of every (lane, process): ``(rdy, ps, periodic outbox,
         handler outbox)`` (the event times ``ep`` are not read). Runs
-        the ``graphdep_handle`` kernel on CUDA tensors."""
+        the ``graphdep_handle`` kernel on CUDA tensors.
+        The run cap ``cap`` is not read: this handler writes out of
+        place, and K7 freezes its lanes."""
         from ...kernels.graphdep_handle import graphdep_handle
 
         return graphdep_handle(ps, has, rows, fire, ctx, dims)

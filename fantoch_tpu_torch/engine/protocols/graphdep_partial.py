@@ -200,12 +200,15 @@ class AtlasPartialDev(AtlasDev):
 
     # -- the handler step ----------------------------------------------
 
-    def handlers(self, ps, has, rows, fire, ep, ctx, dims: EngineDims):
+    def handlers(self, ps, has, rows, fire, ep, ctx, dims: EngineDims,
+                 cap=None):
         """Readiness gate, both timers and the message handler (with the
         graph drain where the branch calls it) of every (lane, process):
         ``(rdy, ps, periodic outbox, handler outbox)`` (the event times
         ``ep`` are not read). Runs the ``atlas_partial_handle`` kernel on
-        CUDA tensors."""
+        CUDA tensors.
+        The run cap ``cap`` is not read: this handler writes out of
+        place, and K7 freezes its lanes."""
         from ...kernels.atlas_partial_handle import atlas_partial_handle
 
         return atlas_partial_handle(ps, has, rows, fire, ctx, dims)

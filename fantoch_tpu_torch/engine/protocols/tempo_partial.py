@@ -192,11 +192,14 @@ class TempoPartialDev(TempoDev):
 
     # -- the handler step ----------------------------------------------
 
-    def handlers(self, ps, has, rows, fire, ep, ctx, dims: EngineDims):
+    def handlers(self, ps, has, rows, fire, ep, ctx, dims: EngineDims,
+                 cap=None):
         """Readiness gate, periodic timers (at each process's event time
         ``ep``) and message handler of every (lane, process): ``(rdy, ps,
         periodic outbox, handler outbox)``. Runs the
-        ``tempo_partial_handle`` kernel on CUDA tensors."""
+        ``tempo_partial_handle`` kernel on CUDA tensors.
+        The run cap ``cap`` is not read: this handler writes out of
+        place, and K7 freezes its lanes."""
         from ...kernels.tempo_partial_handle import tempo_partial_handle
 
         return tempo_partial_handle(ps, has, rows, fire, ep, ctx, dims)

@@ -151,19 +151,23 @@ def check(name: str, t, dtype, shape, device) -> None:
 MON_PS_KEYS = ("_mon_hash", "_mon_cnt", "_mon_flags")
 
 
-def mon_planes(ps, L: int, N: int, device):
+def mon_planes(ps, L: int, N: int, device, in_place: bool = False):
     """A handler kernel's monitor arguments (``csrc/monitor.cuh``):
     ``(pointers, KM, new)`` — the hash, count and guard planes in, then
     out; the key capacity; the new planes for the kernel's ``ps``. When
-    ``ps`` carries no monitor planes: six null pointers, 0 and ``{}``."""
+    ``ps`` carries no monitor planes: six null pointers, 0 and ``{}``.
+    ``in_place`` (K10, which updates the planes it is given): the three
+    planes once, and ``new`` is ``{}``."""
     import torch
 
     if MON_PS_KEYS[0] not in ps:
-        return [0] * 6, 0, {}
+        return [0] * (3 if in_place else 6), 0, {}
     KM = ps["_mon_hash"].shape[2]
     check("ps/_mon_hash", ps["_mon_hash"], torch.int32, (L, N, KM), device)
     check("ps/_mon_cnt", ps["_mon_cnt"], torch.int32, (L, N, KM), device)
     check("ps/_mon_flags", ps["_mon_flags"], torch.int32, (L, N), device)
+    if in_place:
+        return [ps[k].data_ptr() for k in MON_PS_KEYS], KM, {}
     new = {k: torch.empty_like(ps[k]) for k in MON_PS_KEYS}
     ptrs = ([ps[k].data_ptr() for k in MON_PS_KEYS]
             + [new[k].data_ptr() for k in MON_PS_KEYS])

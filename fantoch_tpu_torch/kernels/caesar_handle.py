@@ -21,6 +21,13 @@ with ``csrc/iset.cuh`` (bound by bytes, :func:`work`).
 :func:`caesar_handle_plain` is its plain PyTorch twin (the batched
 handlers of ``engine/protocols/caesar.py``), used for tensors on the
 CPU.
+
+The process state (with the monitor planes) is updated in place, on
+the lanes whose run predicate holds at the step's start (``cap``,
+:class:`lane_freeze.Cap`; every lane without one), and returned as the
+very tensors given: the step consumes its input, K7 copies none of
+these planes, and the device loop's write-back skips them. A frozen
+lane's ``rdy`` is false and its outboxes are empty.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 
 from ..engine.dims import PMT, PPAY, EngineDims
 from . import build, cost
+from .lane_freeze import cap_args
 
 I32 = torch.int32
 
@@ -45,6 +53,8 @@ STATE_KEYS = (
     "gb_gc", "gc_cnt", "m_fast", "m_slow", "m_stable", "err",
 )
 BOOL_KEYS = ("qa_ok", "qa_done")
+# the [N, D] planes the scans stage in shared memory
+STAGED_KEYS = ("status", "pseq", "clk_seq", "clk_pid")
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 CTX_KEYS = ("n", "fq_size", "wq_size", "wait_condition", "client_attach")
 THREADS = 256
@@ -52,11 +62,13 @@ THREADS = 256
 SMEM_MAX = 227 * 1024
 
 
-def caesar_handle_plain(ps, has, rows, fire, ctx, dims: EngineDims):
-    """``(rdy, ps, periodic outbox, handler outbox)``."""
+def caesar_handle_plain(ps, has, rows, fire, ctx, dims: EngineDims,
+                        cap=None):
+    """``(rdy, ps, periodic outbox, handler outbox)``, ``ps`` updated in
+    place on the lanes ``cap`` lets run."""
     from ..engine.protocols.caesar import CaesarDev
 
-    return CaesarDev.step_plain(ps, has, rows, fire, ctx, dims)
+    return CaesarDev.step_plain(ps, has, rows, fire, ctx, dims, cap)
 
 
 def sizes(ps):
@@ -95,19 +107,23 @@ def _state_shapes(L, dims: EngineDims, K, S, DEP, BB, G, EB):
 
 def smem_bytes(dims: EngineDims, G: int, EB: int) -> int:
     """Dynamic shared memory of one block (csrc/caesar_handle.cu): the
-    two staged outboxes, a payload row, the GC drain's shift buffer, the
-    executed sets, the argmin scratch and a few counters (int32), then
-    three byte flags per ``[N, D]`` dot (freed, exec-ready, wait
-    verdict)."""
+    four staged ``[N, D]`` planes of the scans (each from its first
+    word's 16-byte quad, padded to whole quads), the two staged
+    outboxes, a payload row, the GC drain's shift buffer, the executed
+    sets, the argmin scratch and a few counters (int32), then three byte
+    flags per ``[N, D]`` dot (freed, exec-ready, wait verdict)."""
     N, D, F, P = dims.N, dims.D, dims.F, dims.P
-    ints = (2 * (3 * F + F * P) + P + 2 * EB + N * (1 + 2 * G)
-            + 2 * THREADS + 8)
+    stage = (N * D + 9) // 4 * 4
+    ints = (4 * stage + 2 * (3 * F + F * P) + P + 2 * EB
+            + N * (1 + 2 * G) + 2 * THREADS + 8)
     return 4 * ints + 3 * N * D
 
 
-def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
-    """``(bytes, ops)`` the region needs on these inputs (``out`` is its
-    result). Every (lane, process) reads its ``has`` and timer flags, a
+def work(ps, has, rows, fire, ctx, dims: EngineDims, *rest):
+    """``(bytes, ops)`` the region needs on these inputs (``ps`` a
+    snapshot taken before the call, which updates it in place; the last
+    argument is the call's result, one before it may be the cap).
+    Every (lane, process) reads its ``has`` and timer flags, a
     popped message's type, source and payload, and the state words its
     branch reads: the gated types their dot words (MPropose and MCommit/
     MRetry one, MGC one per advertised dot); SUBMIT its sequence and
@@ -131,7 +147,7 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
         ST_COMMIT, ST_PROPOSE_END, CaesarDev as X,
     )
 
-    rdy, new_ps, pout, hout = out
+    rdy, new_ps, pout, hout = rest[-1]
     L, N, W = rows.shape
     P, D, F = dims.P, dims.D, dims.F
     K, S, DEP, BB, G, EB = sizes(ps)
@@ -188,13 +204,14 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
     return read + write + cost.monitor_bytes(ps, new_ps), ops
 
 
-def caesar_handle(ps, has, rows, fire, ctx, dims: EngineDims):
+def caesar_handle(ps, has, rows, fire, ctx, dims: EngineDims, cap=None):
     """K10 on CUDA tensors, :func:`caesar_handle_plain` on CPU tensors.
-    The kernel's outboxes carry the planes ``valid``, ``dst``,
-    ``mtype`` and ``payload``; a protocol handler's ``delay``/``src``
-    are always -1, which ``emit_rewrite`` assumes."""
+    ``ps`` is updated in place on the lanes ``cap`` lets run and
+    returned (the same tensors). The kernel's outboxes carry the planes
+    ``valid``, ``dst``, ``mtype`` and ``payload``; a protocol handler's
+    ``delay``/``src`` are always -1, which ``emit_rewrite`` assumes."""
     if rows.device.type == "cpu":
-        return caesar_handle_plain(ps, has, rows, fire, ctx, dims)
+        return caesar_handle_plain(ps, has, rows, fire, ctx, dims, cap)
     L, N, W = rows.shape
     R = fire.shape[2]
     F, P, D = dims.F, dims.P, dims.D
@@ -212,6 +229,9 @@ def caesar_handle(ps, has, rows, fire, ctx, dims: EngineDims):
     shapes = _state_shapes(L, dims, K, S, DEP, BB, G, EB)
     for k in STATE_KEYS:
         build.check(f"ps/{k}", ps[k], shapes[k][1], shapes[k][0], dev)
+    if any(ps[k].data_ptr() % 16 for k in STAGED_KEYS):
+        raise ValueError(f"caesar_handle: {STAGED_KEYS} must be 16-byte "
+                         "aligned (the scans stage them with cp.async)")
     build.check("has", has, torch.bool, (L, N), dev)
     build.check("rows", rows, I32, (L, N, W), dev)
     build.check("fire", fire, torch.bool, (L, N, R), dev)
@@ -221,10 +241,6 @@ def caesar_handle(ps, has, rows, fire, ctx, dims: EngineDims):
                 dev)
     build.check("client_attach", ctx["client_attach"], I32, (L, C), dev)
     rdy = torch.empty((L, N), dtype=torch.bool, device=dev)
-    new_ps = {
-        k: torch.empty(shapes[k][0], dtype=shapes[k][1], device=dev)
-        for k in STATE_KEYS
-    }
 
     def outbox():
         return {
@@ -235,26 +251,24 @@ def caesar_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         }
 
     pout, hout = outbox(), outbox()
-    n_planes = len(STATE_KEYS)
-    ins = (ctypes.c_void_p * n_planes)(*[ps[k].data_ptr()
-                                         for k in STATE_KEYS])
-    outs = (ctypes.c_void_p * n_planes)(*[new_ps[k].data_ptr()
-                                          for k in STATE_KEYS])
+    planes = (ctypes.c_void_p * len(STATE_KEYS))(
+        *[ps[k].data_ptr() for k in STATE_KEYS])
+    tab, cap_flags = cap_args(cap, L, dev)
     tensors = (
         [has, rows, fire] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    mon_ptrs, KM, mon_new = build.mon_planes(ps, L, N, dev)
-    fn = build.c_function("fantoch_caesar_handle", 8 + len(tensors), 15)
+    mon_ptrs, KM, _mon = build.mon_planes(ps, L, N, dev, in_place=True)
+    fn = build.c_function("fantoch_caesar_handle", 5 + len(tensors), 16)
     build.launch(
         fn,
-        [ctypes.addressof(ins), ctypes.addressof(outs)]
+        [ctypes.addressof(planes), ctypes.addressof(tab)]
         + [t.data_ptr() for t in tensors] + mon_ptrs,
-        [L, N, D, F, P, W, C, K, S, DEP, BB, G, EB, smem, KM],
+        [L, N, D, F, P, W, C, K, S, DEP, BB, G, EB, smem, KM, cap_flags],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     caesar_handle.launches += 1
-    return rdy, {**new_ps, **mon_new}, pout, hout
+    return rdy, ps, pout, hout
 
 
 caesar_handle.launches = 0

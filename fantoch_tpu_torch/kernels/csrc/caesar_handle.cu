@@ -15,11 +15,16 @@
 // on the state `periodic` returned (the branch, then the exec scan, then
 // the wait scan, each on the previous one's state).
 //
-// 1. The whole block copies the process's 29 non-scalar state planes
-//    (976.9 KB at the main path's shapes) to the output tensors in 16-byte
-//    coalesced rows, then works on the outputs in place. The nine scalar
-//    planes (clock counter, sequence, buffer counts, metrics, error word)
-//    live in thread 0's registers and are stored once at the end.
+// 1. In place: the block updates its process's rows of the step's own
+//    state planes (and monitor planes), and only on lanes whose run
+//    predicate holds at the step's start (common.cuh RunCap; every lane
+//    without a cap), as the reference's vmapped while_loop keeps a frozen
+//    lane's state. A frozen lane's blocks write rdy false and empty
+//    outboxes (valid false, zero words) and exit. Block (l, p) reads and
+//    writes only process p's rows of lane l, so no block sees another's
+//    writes. The nine scalar planes (clock counter, sequence, buffer
+//    counts, metrics, error word) live in thread 0's registers and are
+//    stored once at the end.
 // 2. Thread 0 runs the gate, the timers and the branch, serially and in
 //    the reference's order: the notification drain's and MGC's loops of
 //    _gc_count (each with its _kc_remove over a key row) mark freed dots
@@ -29,7 +34,11 @@
 //    originally free slot, and checking it against the updated table is
 //    exact, because an entry equal to an earlier entry of the message is
 //    a duplicate either way.
-// 3. The exec scan (B11's executor) runs on the whole block, on EVERY
+// 3. Before the scans the block stages the [N, D] planes every scan
+//    thread reads (status, pseq, clk_seq, clk_pid: 20 KB at N 5, D 251) in
+//    shared memory, with 16-byte cp.async copies; thread 0's picks write
+//    both copies.
+//    The exec scan (B11's executor) runs on the whole block, on EVERY
 //    process, as the reference's does: each committed dot's DEP dep cells
 //    (live: the cell still holds the dep's sequence, and its status says
 //    committed/executed; dead: the executed set, iset_contains_gathered,
@@ -66,8 +75,9 @@
 // Bound on this card: bytes. The region reads a few state words per (lane,
 // process), the rows its branch touches and the scans' committed and
 // waiting dots, and writes the words that change and two [F, P] outboxes
-// (caesar_handle.py work). This kernel copies each process's whole state
-// out of place, so it moves far more than that, but in coalesced rows.
+// (caesar_handle.py work). In place, this kernel moves about that, plus
+// the four staged [N, D] planes; what is left is thread 0's serial branch
+// and the scans' latency. Tensor cores play no part.
 #include <climits>
 #include <cstdint>
 
@@ -126,29 +136,39 @@ __device__ long long plane_words(int i, const Dims& d) {
   }
 }
 
-__device__ bool is_scalar(int i) {
-  return i == CLK_COUNTER || i == OWN_SEQ || i == EB_N || i == GB_N ||
-         i == GB_GC || i == M_FAST || i == M_SLOW || i == M_STABLE ||
-         i == ERR;
+// cp.async copies into shared memory (16 bytes, or 4)
+__device__ __forceinline__ void cp_async16(void* sh, const void* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(sh);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(a),
+               "l"(g));
+}
+__device__ __forceinline__ void cp_async4(void* sh, const void* g) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(sh);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(a),
+               "l"(g));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
-__device__ bool is_bool(int i) { return i == QA_OK || i == QA_DONE; }
-
-// Copy n words with the whole block. Source and destination sit at the
-// same offset from their planes' (aligned) bases, so after a short head
-// both are 16-byte aligned together.
-__device__ void block_copy(int* dst, const int* src, long long n) {
-  const int t = threadIdx.x;
-  long long head = ((16 - ((uintptr_t)dst & 15)) & 15) >> 2;
-  if ((((uintptr_t)dst ^ (uintptr_t)src) & 15) != 0) head = n;  // scalar
-  head = head < n ? head : n;
-  for (long long i = t; i < head; i += THREADS) dst[i] = src[i];
-  const long long n4 = (n - head) >> 2;
-  const int4* s4 = reinterpret_cast<const int4*>(src + head);
-  int4* d4 = reinterpret_cast<int4*>(dst + head);
-  for (long long i = t; i < n4; i += THREADS) d4[i] = s4[i];
-  for (long long i = head + (n4 << 2) + t; i < n; i += THREADS)
-    dst[i] = src[i];
+// Issue the copy of words [g n, (g + 1) n) of a 16-byte aligned plane into
+// sh, which holds the words from the first one's quad on (sh[i] = word
+// (g n & ~3) + i): the quads whole inside the row in one 16-byte copy
+// each, the edge words one by one. Returns the row's first word in sh.
+__device__ int* stage_row(int* sh, const int* src, long long g, int n) {
+  const long long w0 = g * n, w1 = w0 + n, a0 = w0 & ~3LL;
+  for (long long q = (a0 >> 2) + threadIdx.x; q < (w1 + 3) >> 2;
+       q += THREADS) {
+    const long long w = q << 2;
+    int* d = sh + (w - a0);
+    if (w >= w0 && w + 4 <= w1) {
+      cp_async16(d, src + w);
+    } else {
+      for (int k = 0; k < 4; ++k)
+        if (w + k >= w0 && w + k < w1) cp_async4(d + k, src + w + k);
+    }
+  }
+  return sh + (w0 - a0);
 }
 
 // Block argmin of (val, idx) pairs, ties to the lower idx; every thread
@@ -685,7 +705,7 @@ struct Proc {
 }  // namespace
 
 __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
-    const Planes in, const Planes out, const bool* __restrict__ has,
+    const Planes st, const RunCap cap, const bool* __restrict__ has,
     const int* __restrict__ rows, const bool* __restrict__ fire,
     const int* __restrict__ n_ctx, const int* __restrict__ fq_ctx,
     const int* __restrict__ wq_ctx, const bool* __restrict__ wait_ctx,
@@ -694,16 +714,36 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
     int* __restrict__ pp, bool* __restrict__ hv, int* __restrict__ hd,
     int* __restrict__ hm, int* __restrict__ hp, const MonArgs ma,
     const Dims d) {
-  extern __shared__ int smem[];
+  extern __shared__ int4 smem4[];  // 16-byte aligned for cp.async
+  int* const smem = reinterpret_cast<int*>(smem4);
   const int g = blockIdx.x;  // (lane, process)
   const int t = threadIdx.x;
   const int l = g / d.N, me = g % d.N;
   const int N = d.N, D = d.D, F = d.F, P = d.P, G = d.G, DEP = d.DEP,
             BB = d.BB;
   const int ND = N * D;
+  const long long base = (long long)g * F;
 
-  // shared memory (caesar_handle.py smem_bytes)
+  if (!cap.runs(l)) {  // frozen: the state stays, the outboxes are empty
+    if (t == 0) rdy_out[g] = false;
+    for (int i = t; i < F * P; i += THREADS)
+      pp[base * P + i] = hp[base * P + i] = 0;
+    for (int i = t; i < F; i += THREADS) {
+      pv[base + i] = hv[base + i] = false;
+      pd[base + i] = pm[base + i] = hd[base + i] = hm[base + i] = 0;
+    }
+    return;
+  }
+
+  // shared memory (caesar_handle.py smem_bytes): first the four staged
+  // [N, D] planes, each SW words from a 16-byte boundary
+  const int SW = (ND + 9) / 4 * 4;
   int* sp = smem;
+  int* s_status = sp;
+  int* s_pseq = sp + SW;
+  int* s_cseq = sp + 2 * SW;
+  int* s_cpid = sp + 3 * SW;
+  sp += 4 * SW;
   const Outbox pob{sp, sp + F, sp + 2 * F, sp + 3 * F};
   sp += 3 * F + F * P;
   const Outbox hob{sp, sp + F, sp + 2 * F, sp + 3 * F};
@@ -724,28 +764,15 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
   unsigned char* ready = freed + ND;    // exec scan: ready dots
   unsigned char* verdict = ready + ND;  // wait scan: 1 accept, 2 reject
 
-  // 1. copy this process's state planes (the scalar ones go through
-  // thread 0's registers)
-  for (int i = 0; i < NPLANES; ++i) {
-    if (is_scalar(i)) continue;
-    const long long w = plane_words(i, d);
-    if (is_bool(i)) {
-      const bool* s = (const bool*)in.p[i] + (long long)g * w;
-      bool* o = (bool*)out.p[i] + (long long)g * w;
-      for (long long j = t; j < w; j += THREADS) o[j] = s[j];
-    } else {
-      block_copy((int*)out.p[i] + (long long)g * w,
-                 (const int*)in.p[i] + (long long)g * w, w);
-    }
-  }
+  // 1. in place: this process's rows of the state planes (the scalar
+  // ones go through thread 0's registers) and of the monitor planes
   for (int v = t; v < ND; v += THREADS) freed[v] = 0;
-  mon_copy(ma, g, t, THREADS);
   __syncthreads();
 
   auto plane = [&](int i) {
-    return (int*)out.p[i] + (long long)g * plane_words(i, d);
+    return (int*)st.p[i] + (long long)g * plane_words(i, d);
   };
-  auto scalar = [&](int i) { return ((const int*)in.p[i])[g]; };
+  auto scalar = [&](int i) { return ((const int*)st.p[i])[g]; };
   Proc p{d, me,
          plane(KC_SRC), plane(KC_SEQ), plane(KC_CSEQ), plane(KC_CPID),
          plane(PSEQ), plane(STATUS), plane(KEY_OF), plane(CLIENT_OF),
@@ -754,8 +781,8 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
          plane(QA_CPID), plane(AG_SRC), plane(AG_SEQ), plane(QR_CNT),
          plane(EX_FRONT), plane(EX_GAPS), plane(EB_SRC), plane(EB_SEQ),
          plane(GB_SRC), plane(GB_SEQ), plane(GC_CNT),
-         (bool*)out.p[QA_OK] + (long long)g * D,
-         (bool*)out.p[QA_DONE] + (long long)g * D,
+         (bool*)st.p[QA_OK] + (long long)g * D,
+         (bool*)st.p[QA_DONE] + (long long)g * D,
          scalar(CLK_COUNTER), scalar(OWN_SEQ), scalar(EB_N), scalar(GB_N),
          scalar(GB_GC), scalar(M_FAST), scalar(M_SLOW), scalar(M_STABLE),
          scalar(ERR),
@@ -833,29 +860,39 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
   }
   __syncthreads();
   apply_freed();  // MGC's frees
+  __syncthreads();
+  // 3. stage what every scan thread reads: the executed sets and the
+  // [N, D] planes the scans gather from
   for (int i = t; i < N * (1 + 2 * G); i += THREADS)
     ef[i] = i < N ? p.ex_front[i] : p.ex_gaps[i - N];
+  int* const status = stage_row(s_status, (const int*)st.p[STATUS], g, ND);
+  const int* const pseq = stage_row(s_pseq, (const int*)st.p[PSEQ], g, ND);
+  const int* const clk_seq =
+      stage_row(s_cseq, (const int*)st.p[CLK_SEQ], g, ND);
+  const int* const clk_pid =
+      stage_row(s_cpid, (const int*)st.p[CLK_PID], g, ND);
+  cp_async_wait_all();
   __syncthreads();
 
   // 3. the exec scan: each committed dot's readiness, then the pick
   const int cmax = INF / (N + 1) - 1;
   int n_ready = 0, best = INT_MAX, bidx = INT_MAX;
   for (int v = t; v < ND; v += THREADS) {
-    bool ok = p.status[v] == ST_COMMIT;
-    const int my_cseq = p.clk_seq[v], my_cpid = p.clk_pid[v];
+    bool ok = status[v] == ST_COMMIT;
+    const int my_cseq = clk_seq[v], my_cpid = clk_pid[v];
     for (int j = 0; j < DEP && ok; ++j) {
       const long long c = (long long)v * DEP + j;
       const int ds = p.dep_seq[c];
       if (ds == 0) continue;
       const int s = p.dep_src[c];
       const int cell = clamp_index(s, N) * D + floor_mod(ds - 1, D);
-      const bool live = p.pseq[cell] == ds;
-      const int st = p.status[cell];
+      const bool live = pseq[cell] == ds;
+      const int cst = status[cell];
       const bool dead = iset_contains_gathered(ef, eg, N, G, s, ds);
-      const bool committed = live ? st >= ST_COMMIT : dead;
-      const bool executed = live ? st == ST_EXECUTED : dead;
+      const bool committed = live ? cst >= ST_COMMIT : dead;
+      const bool executed = live ? cst == ST_EXECUTED : dead;
       const bool lower =
-          clk_lt(p.clk_seq[cell], p.clk_pid[cell], my_cseq, my_cpid);
+          clk_lt(clk_seq[cell], clk_pid[cell], my_cseq, my_cpid);
       ok = committed && (executed || !lower);
     }
     ready[v] = ok;
@@ -893,7 +930,7 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
         }
         ++p.eb_n;
       }
-      p.status[idx] = ST_EXECUTED;
+      p.status[idx] = status[idx] = ST_EXECUTED;
     }
     const int at = p.in(client, d.C) ? p.attach[client] : 0;
     p.emit_zero(hob, F - 4, do_ && at == me, N + client, TO_CLIENT);
@@ -909,7 +946,7 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
   for (int v = t; v < ND; v += THREADS) {
     unsigned char vd = 0;
     bool waiting = false;
-    if (p.status[v] == ST_PROPOSE_END)
+    if (status[v] == ST_PROPOSE_END)
       for (int b = 0; b < BB && !waiting; ++b)
         waiting = p.bb_seq[(long long)v * BB + b] > 0;
     if (waiting) {
@@ -919,8 +956,8 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
         if (bseq <= 0) continue;  // absent: resolved
         const int bc = clamp_index(p.bb_src[(long long)v * BB + b], N) * D +
                        floor_mod(bseq - 1, D);
-        if (p.pseq[bc] != bseq) continue;  // freed: resolved
-        if (p.status[bc] < ST_ACCEPT) {
+        if (pseq[bc] != bseq) continue;  // freed: resolved
+        if (status[bc] < ST_ACCEPT) {
           resolved = false;  // not safe yet
           continue;
         }
@@ -930,7 +967,7 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
           const int ds = p.dep_seq[c], s = p.dep_src[c];
           member = ds > 0 && s >= -N && s < N &&
                    (s < 0 ? s + N : s) * D + floor_mod(ds - 1, D) == v &&
-                   p.pseq[v] == ds;
+                   pseq[v] == ds;
         }
         if (!member) rej = true;
       }
@@ -939,7 +976,7 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
     verdict[v] = vd;
     n_act += vd != 0;
     const int packed =
-        (int)((unsigned)(v / D) * (unsigned)SEQ_BOUND + (unsigned)p.pseq[v]);
+        (int)((unsigned)(v / D) * (unsigned)SEQ_BOUND + (unsigned)pseq[v]);
     const int val = vd ? packed : INF;
     if (val < best || (val == best && v < bidx)) {
       best = val;
@@ -955,20 +992,19 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
     p.propose_reply(hob, F - 2, idx / D, idx % D, p.pseq[idx],
                     verdict[idx] != 2, do_);
     p.emit_zero(hob, F - 1, do_ && num > 1, me, WAIT_DRAIN);
-    ((int*)out.p[CLK_COUNTER])[g] = p.clk_counter;
-    ((int*)out.p[OWN_SEQ])[g] = p.own_seq;
-    ((int*)out.p[EB_N])[g] = p.eb_n;
-    ((int*)out.p[GB_N])[g] = p.gb_n;
-    ((int*)out.p[GB_GC])[g] = p.gb_gc;
-    ((int*)out.p[M_FAST])[g] = p.m_fast;
-    ((int*)out.p[M_SLOW])[g] = p.m_slow;
-    ((int*)out.p[M_STABLE])[g] = p.m_stable;
-    ((int*)out.p[ERR])[g] = p.err;
+    ((int*)st.p[CLK_COUNTER])[g] = p.clk_counter;
+    ((int*)st.p[OWN_SEQ])[g] = p.own_seq;
+    ((int*)st.p[EB_N])[g] = p.eb_n;
+    ((int*)st.p[GB_N])[g] = p.gb_n;
+    ((int*)st.p[GB_GC])[g] = p.gb_gc;
+    ((int*)st.p[M_FAST])[g] = p.m_fast;
+    ((int*)st.p[M_SLOW])[g] = p.m_slow;
+    ((int*)st.p[M_STABLE])[g] = p.m_stable;
+    ((int*)st.p[ERR])[g] = p.err;
   }
   __syncthreads();
 
   // 5. store both outboxes
-  const long long base = (long long)g * F;
   for (int i = t; i < F * P; i += THREADS) {
     pp[base * P + i] = pob.pay[i];
     hp[base * P + i] = hob.pay[i];
@@ -984,21 +1020,18 @@ __global__ void __launch_bounds__(THREADS) caesar_handle_kernel(
 }
 
 extern "C" int fantoch_caesar_handle(
-    const void* in_table, const void* out_table, const void* has,
+    const void* state_table, const void* cap_tab, const void* has,
     const void* rows, const void* fire, const void* n_ctx, const void* fq,
     const void* wq, const void* wait, const void* attach, void* rdy_out,
     void* pv, void* pd, void* pm, void* pp, void* hv, void* hd, void* hm,
-    void* hp, const void* mh_in, const void* mc_in, const void* mf_in,
-    void* mh_o, void* mc_o, void* mf_o, int L, int N, int D, int F, int P,
-    int W, int C, int K, int S, int DEP, int BB, int G, int EB, int smem,
-    int KM, void* stream) {
+    void* hp, void* mon_hash, void* mon_cnt, void* mon_flags, int L, int N,
+    int D, int F, int P, int W, int C, int K, int S, int DEP, int BB, int G,
+    int EB, int smem, int KM, int flags, void* stream) {
   const long long blocks = (long long)L * N;
   if (blocks == 0) return 0;
-  Planes in, out;
-  for (int i = 0; i < NPLANES; ++i) {
-    in.p[i] = ((void* const*)in_table)[i];
-    out.p[i] = ((void* const*)out_table)[i];
-  }
+  Planes st;
+  for (int i = 0; i < NPLANES; ++i)
+    st.p[i] = ((void* const*)state_table)[i];
   const Dims d{L, N, D, F, P, W, C, K, S, DEP, BB, G, EB};
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1008,10 +1041,13 @@ extern "C" int fantoch_caesar_handle(
   }
   caesar_handle_kernel<<<(unsigned)blocks, THREADS, (size_t)smem,
                          (cudaStream_t)stream>>>(
-      in, out, (const bool*)has, (const int*)rows, (const bool*)fire,
+      st, run_cap((const void* const*)cap_tab, flags), (const bool*)has,
+      (const int*)rows, (const bool*)fire,
       (const int*)n_ctx, (const int*)fq, (const int*)wq, (const bool*)wait,
       (const int*)attach, (bool*)rdy_out, (bool*)pv, (int*)pd, (int*)pm,
       (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
-      mon_args(mh_in, mc_in, mf_in, mh_o, mc_o, mf_o, KM), d);
+      mon_args(mon_hash, mon_cnt, mon_flags, mon_hash, mon_cnt, mon_flags,
+               KM),
+      d);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,39 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int PA = 0, PKS = 1, PKC = 2, PSRC = 3, PDST = 4, PMT = 5,
               PRQ = 6, PPR = 7, PPAY = 8;
 
+// The run loop's per-lane predicate (fantoch_tpu/engine/core.py
+// _lane_running :1565, with the fault plan's horizon :1574-1577), read on
+// the planes a step started from: not finished (done time + extra time
+// reached), not idle, no error, fewer steps than the cap *lim, and under
+// the horizon flag before the horizon. K7 decides the freeze with it; K2
+// and K10 update in place only the lanes it holds for. A null lim is no
+// cap at all: every lane runs (a step outside the run loop). The planes
+// are never written in place by a step, so every kernel of the step reads
+// the same predicate.
+struct RunCap {
+  static constexpr int CRASH = 1, HORIZON = 8;  // engine/faults.py FLAG_*
+  const int *done_time, *now, *err, *steps, *extra, *horizon, *lim;
+  int flags;
+
+  __device__ __forceinline__ bool runs(int l) const {
+    if (lim == nullptr) return true;
+    const int done = done_time[l], nw = now[l];
+    const int end = done >= INF ? INF : done + extra[l];
+    const bool finished = done < INF && nw >= end;
+    const bool idle = nw >= INF;
+    return !(finished || idle || err[l] != 0) && steps[l] < *lim &&
+           (!(flags & HORIZON) || nw < horizon[l]);
+  }
+};
+
+// A kernel entry's cap arguments: the six planes and the cap word (all
+// null for no cap) and the step's flag word.
+inline RunCap run_cap(const void* const* cap, int flags) {
+  return RunCap{(const int*)cap[0], (const int*)cap[1], (const int*)cap[2],
+                (const int*)cap[3], (const int*)cap[4], (const int*)cap[5],
+                (const int*)cap[6], flags};
+}
+
 __device__ __forceinline__ int warp_min(int v) {
   for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
   return v;
@@ -23,43 +56,6 @@ __device__ __forceinline__ int warp_min(int v) {
 __device__ __forceinline__ int floor_mod(int a, int b) {
   int r = a % b;
   return r < 0 ? r + b : r;
-}
-
-// Exclusive prefix count of flag(i) over i in [0, n), in index order:
-// calls visit(i, rank) for every flagged i and returns the total. Each
-// thread owns one contiguous chunk; the per-chunk counts are scanned with
-// warp shuffles and one shared row of warp totals (s_warp[32]). Needs
-// blockDim.x a multiple of 32 and at most 1024; every thread must call.
-template <class Flag, class Visit>
-__device__ int block_scan_visit(int n, Flag flag, Visit visit, int* s_warp) {
-  const int t = threadIdx.x, nt = blockDim.x;
-  const int lane = t & 31, w = t >> 5, nw = nt >> 5;
-  const int chunk = (n + nt - 1) / nt;
-  const int lo = min(t * chunk, n), hi = min(lo + chunk, n);
-  int cnt = 0;
-  for (int i = lo; i < hi; ++i) cnt += flag(i) ? 1 : 0;
-  int x = cnt;  // inclusive scan inside the warp
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) s_warp[w] = x;
-  __syncthreads();
-  if (w == 0) {
-    int v = lane < nw ? s_warp[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(FULL, v, o);
-      if (lane >= o) v += y;
-    }
-    s_warp[lane] = v;
-  }
-  __syncthreads();
-  int r = (w > 0 ? s_warp[w - 1] : 0) + x - cnt;
-  const int total = s_warp[nw - 1];
-  __syncthreads();  // s_warp may be reused by the caller
-  for (int i = lo; i < hi; ++i)
-    if (flag(i)) visit(i, r++);
-  return total;
 }
 
 }  // namespace fantoch

@@ -6,11 +6,12 @@
 // One launch per step over a table of up to MAX_PLANES state planes,
 // passed by value: for each plane the step's new tensor, the old one and
 // the bytes of one lane's row. Block (l, k) evaluates lane l's predicate
-// on the state the step started from (done time, now, error word, step
-// count, extra time, the step limit, and under FLAG_HORIZON the lane's
-// horizon); block (l, 0) writes it to running[l]. The step limit is a
-// device word, lim = min(until, max_steps): the segment cut of the
-// reference's segment_lane_fn (core.py:1757-1773). The device loop
+// on the state the step started from (common.cuh RunCap: done time, now,
+// error word, step count, extra time, the step limit, and under
+// FLAG_HORIZON the lane's horizon); block (l, 0) writes it to
+// running[l]. The step limit is a device word, lim = min(until,
+// max_steps): the segment cut of the reference's segment_lane_fn
+// (core.py:1757-1773). The device loop
 // (step_loop.py) moves it up the window's ladder between graph bodies
 // (loop_ctl.cu), so a captured step reads it where a launch would have
 // baked it in.
@@ -18,12 +19,14 @@
 // copies the old row of plane k over the new one, 16 bytes a thread
 // where the row is aligned, else 4 or 1. Planes the step passed through
 // unchanged are not in the table, so the step's outputs of running lanes
-// are never touched.
+// are never touched; nor are the planes K2 and K10 update in place (the
+// pool, Caesar's process state), which the step returns as the very
+// tensors it took: their kernels wrote only running lanes' rows.
 //
 // Bound on this card: bytes. The region needs the predicate's words and
 // the words of frozen lanes that the step changed (lane_freeze.py work);
-// this kernel copies frozen lanes' whole rows, which on the main path
-// is dominated by the [M, 8+P] pool row of each frozen lane.
+// this kernel copies frozen lanes' whole rows of the planes the step
+// wrote out of place (the handlers' other than K10's, K6's).
 #include <cstdint>
 
 #include "common.cuh"
@@ -35,7 +38,6 @@ namespace {
 // lane_freeze.py MAX_PLANES: the Planes table below is 24 bytes a plane,
 // 3,076 bytes in all, inside the 4 KB a kernel's parameters may take
 constexpr int MAX_PLANES = 128;
-constexpr int FLAG_HORIZON = 8;  // engine/faults.py FLAG_HORIZON
 
 struct Planes {
   char* dst[MAX_PLANES];
@@ -43,29 +45,15 @@ struct Planes {
   long long row[MAX_PLANES];
   int K;
 };
-static_assert(sizeof(Planes) + 8 * sizeof(void*) + sizeof(int) <= 4096,
+static_assert(sizeof(Planes) + sizeof(RunCap) + sizeof(void*) <= 4096,
               "lane_freeze's parameters exceed the 4 KB kernel limit");
 
 }  // namespace
 
-__global__ void lane_freeze_kernel(const Planes pl,
-                                   const int* __restrict__ done_time,
-                                   const int* __restrict__ now,
-                                   const int* __restrict__ err,
-                                   const int* __restrict__ steps,
-                                   const int* __restrict__ extra,
-                                   const int* __restrict__ horizon,
-                                   const int* __restrict__ lim,
-                                   bool* __restrict__ running, int flags) {
+__global__ void lane_freeze_kernel(const Planes pl, const RunCap cap,
+                                   bool* __restrict__ running) {
   const int l = blockIdx.x, k = blockIdx.y, t = threadIdx.x;
-  const int cap = *lim;
-  const int done = done_time[l], nw = now[l];
-  const int end = done >= INF ? INF : done + extra[l];
-  const bool finished = done < INF && nw >= end;
-  const bool idle = nw >= INF;
-  const bool run =
-      !(finished || idle || err[l] != 0) && steps[l] < cap &&
-      (!(flags & FLAG_HORIZON) || nw < horizon[l]);
+  const bool run = cap.runs(l);
   if (k == 0 && t == 0) running[l] = run;
   if (run || k >= pl.K) return;
   const long long n = pl.row[k];
@@ -100,9 +88,8 @@ extern "C" int fantoch_lane_freeze(
   }
   pl.K = K;
   const dim3 grid(L, K > 0 ? K : 1);
+  const void* cap[7] = {done_time, now, err, steps, extra, horizon, lim};
   lane_freeze_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      pl, (const int*)done_time, (const int*)now, (const int*)err,
-      (const int*)steps, (const int*)extra, (const int*)horizon,
-      (const int*)lim, (bool*)running, flags);
+      pl, run_cap(cap, flags), (bool*)running);
   return (int)cudaGetLastError();
 }

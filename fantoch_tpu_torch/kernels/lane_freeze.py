@@ -10,11 +10,19 @@ word that the device loop moves between graph bodies (``loop_ctl``).
 CUDA source: ``csrc/lane_freeze.cu`` (bound by bytes, :func:`work`).
 :func:`lane_freeze_plain` is its plain PyTorch twin, used for tensors on
 the CPU.
+
+The same predicate (``csrc/common.cuh RunCap``; :func:`lane_running`
+here) tells K2 and K10 which lanes to update: they write the pool and
+Caesar's process state in place, on running lanes only, and return the
+very tensors they took, so K7 leaves those planes out of its table
+(:func:`plane_pairs` selects by identity). A step hands them its
+:class:`Cap`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Any, NamedTuple
 
 import torch
 
@@ -60,6 +68,46 @@ def lane_running(st, ctx, lim, flags: int = 0):
     at ``lim``); ``flags`` is the step's flag word
     (``faults.flag_bits``)."""
     return lane_live(st, ctx, flags) & (st["steps"] < limit(lim))
+
+
+class Cap(NamedTuple):
+    """The run predicate's inputs at a step's start: the state ``st``
+    (its ``done_time``, ``now``, ``err`` and ``steps`` planes), the ctx
+    (``extra_time``, ``fault_horizon``), the step cap ``lim`` (an int,
+    or on the card the device loop's limit word) and the batch's flag
+    word (``faults.flag_bits``; only the horizon bit is read). A step
+    never writes these planes in place, so every kernel of the step
+    reads one predicate."""
+
+    st: Any
+    ctx: Any
+    lim: Any
+    flags: int = 0
+
+    def running(self):
+        return lane_running(self.st, self.ctx, self.lim, self.flags)
+
+
+def cap_running(cap):
+    """The lanes a step updates: ``None`` (every lane) without a cap,
+    else :meth:`Cap.running`."""
+    return None if cap is None else cap.running()
+
+
+def cap_args(cap, L: int, dev):
+    """A kernel's cap arguments (``csrc/common.cuh run_cap``): a ctypes
+    table of the six planes' and the limit word's addresses (all null
+    without a cap; every lane runs) and the flag word. Keep the table
+    alive until the launch."""
+    if cap is None:
+        return (ctypes.c_void_p * 7)(), 0
+    planes = [cap.st[k] for k in ("done_time", "now", "err", "steps")]
+    planes += [cap.ctx["extra_time"], cap.ctx["fault_horizon"]]
+    for i, t in enumerate(planes):
+        build.check(f"cap plane {i}", t, I32, (L,), dev)
+    word = lim_word(cap.lim, dev)
+    tab = (ctypes.c_void_p * 7)(*[t.data_ptr() for t in planes + [word]])
+    return tab, int(cap.flags)
 
 
 def _tree_where(mask, new, old):
@@ -148,7 +196,8 @@ def lane_freeze(new, old, ctx, lim, flags: int = 0):
     ``lim`` is the step cap: an int, or on the card an int32 word ``[1]``
     read when the kernel runs. The kernel writes the frozen lanes' rows
     of ``old`` into ``new``'s planes in place (they are the step's own
-    fresh outputs) and returns ``(new, running)``."""
+    fresh outputs; a plane the step updated in place is ``old``'s own
+    and not in the table) and returns ``(new, running)``."""
     dev = old["now"].device
     if dev.type == "cpu":
         return lane_freeze_plain(new, old, ctx, lim, flags)

@@ -9,8 +9,10 @@ the ``lax.scan`` of W segments a call in ``window_batch_fn`` (:1860).
 steps with ``torch.cuda.CUDAGraph(keep_graph=True)`` over **resident**
 state and ctx buffers (each step K1, the handler kernel, K6, K2 and K7,
 K7 cut at the control block's step limit), ending with the final state
-written back into the resident buffers (a plane the body passes through
-is not copied). ``csrc/step_loop.cu`` builds the outer graph around it,
+written back into the resident buffers (a plane the body passes through,
+or updates in place as K2 does the pool and K10 Caesar's process state,
+is not copied: it stays resident across the body's steps).
+``csrc/step_loop.cu`` builds the outer graph around it,
 
     K14 → while (cond) { body → K14 }
 
@@ -350,11 +352,14 @@ class HostLoop:
         self.capture_s = 0.0
 
     def run(self, state, ctx, untils, max_steps: int):
-        """One window; returns ``(state, liveness word)``."""
+        """One window; returns ``(state, liveness word)``. The steps
+        consume their input, so the window runs on a copy of ``state``
+        (made once, here), as the device loop runs on its resident
+        buffers."""
         ladder = torch.as_tensor(np.asarray(untils, np.int32))
         self.ctl[CTL_W], self.ctl[CTL_MAXS] = len(untils), int(max_steps)
         lim = self.ctl[CTL_LIM:CTL_LIM + 1]
-        st = state
+        st = clone_tree(state)
         cond = loop_ctl(*live_planes(st, ctx), ladder, self.ctl, self.iters,
                         self.flags)
         while cond:

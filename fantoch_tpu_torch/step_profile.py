@@ -48,7 +48,7 @@ from .engine import hetero
 from .engine.core import build_segment_runner, frozen_step
 from .engine.driver import batch_reorder_flag, prepare_batch
 from .engine.faults import NO_FAULTS, batch_fault_flags
-from .kernels.step_loop import grouped
+from .kernels.step_loop import clone_tree, grouped
 
 
 def _busy_us(intervals) -> float:
@@ -153,9 +153,12 @@ def profile(protocol, dims, state, ctx, dev, steps: int, warmup: int,
         return st
 
     state = run(state, warmup)
+    # a step consumes its input state: each timed run gets its own copy,
+    # made here, outside the clocks
+    copies = [clone_tree(state) for _ in range(2)]
 
     def timed():
-        run(state, steps)
+        run(copies.pop(), steps)
         return steps
 
     return {

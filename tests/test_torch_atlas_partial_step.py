@@ -90,8 +90,8 @@ class _Recording(AtlasPartialDev):
         super().__init__(*a, **kw)
         self.calls = []
 
-    def handlers(self, ps, has, rows, fire, ep, ctx, dims):
-        out = super().handlers(ps, has, rows, fire, ep, ctx, dims)
+    def handlers(self, ps, has, rows, fire, ep, ctx, dims, cap=None):
+        out = super().handlers(ps, has, rows, fire, ep, ctx, dims, cap)
         self.calls.append(carry.to_numpy(
             {"in": {"ps": ps, "has": has, "rows": rows, "fire": fire},
              "out": dict(zip(("rdy", "ps", "pout", "hout"), out))}))

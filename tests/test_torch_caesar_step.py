@@ -133,7 +133,10 @@ def trajectories():
         # twin on it
         _a, ep, _n, _act, fire, _s, has, rows, _t = qualify_pop(
             pst["pool"], pst["next_periodic"], port_ctx["lookahead"])
-        got = caesar_handle_plain(pst["ps"], has, rows, fire, port_ctx, dims)
+        # on a copy: the twin updates the state it is given in place
+        got = caesar_handle_plain(
+            {k: v.clone() for k, v in pst["ps"].items()}, has, rows, fire,
+            port_ctx, dims)
         want = handlers(carry.to_numpy(pst["ps"]), has.numpy(), rows.numpy(),
                         fire.numpy(), ep.numpy(), jctx)
         outboxes.append(([carry.to_numpy(x) for x in got],

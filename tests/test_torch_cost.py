@@ -84,7 +84,8 @@ def test_land_emissions_work_counts_the_rows_that_land(deliver, n_land,
     rows = torch.ones((1, 3, W), dtype=torch.int32)
     peak = torch.zeros((1,), dtype=torch.int32)
     err = torch.tensor([8], dtype=torch.int32)
-    out = land_emissions(pool, arrival, dl, rows, peak, err)
+    # the call updates the pool in place; work reads the one before it
+    out = land_emissions(pool.clone(), arrival, dl, rows, peak, err)
     assert out[3].tolist() == [9 if sum(deliver) > 2 else 8]
     n_bytes, n_ops = le_work(pool, arrival, dl, rows, peak, err, out)
     read = 16 + 3 + 4 + 4 + 4 * W * n_land
@@ -569,10 +570,16 @@ def _caesar_idle(L=2):
     return t, dims, ps, has, rows, fire, ctx
 
 
+def _caesar_call(ps, *rest):
+    """K10 on a copy of ``ps`` (it updates its state in place; work reads
+    the state before the call)."""
+    return caesar_handle({k: v.clone() for k, v in ps.items()}, *rest)
+
+
 def test_caesar_handle_work_idle_submit_and_gc():
     t, dims, ps, has, rows, fire, ctx = _caesar_idle()
     args = (ps, has, rows, fire, ctx, dims)
-    out = caesar_handle(*args)
+    out = _caesar_call(*args)
     idle, idle_ops = ch_work(*args, out)
     L, N = has.shape
     P, D, S, DEP, G = dims.P, dims.D, t.S, t.DEP, t.G
@@ -586,7 +593,7 @@ def test_caesar_handle_work_idle_submit_and_gc():
     # clock; writes both (the quorum bookkeeping of slot 0 is unchanged)
     has[0, 0] = True
     rows[0, 0, PMT] = CaesarDev.SUBMIT
-    out = caesar_handle(*args)
+    out = _caesar_call(*args)
     n_bytes, _ = ch_work(*args, out)
     assert n_bytes == idle + 4 * (2 + P) + 4 * 2 + 4 * 2
     # an MGC at process 2 of lane 1 with one sighting of dot (0, 1),
@@ -596,7 +603,7 @@ def test_caesar_handle_work_idle_submit_and_gc():
     has[1, 2] = True
     rows[1, 2, PMT] = CaesarDev.MGC
     rows[1, 2, PPAY:PPAY + 3] = torch.tensor([1, 0, 1])
-    out = caesar_handle(*args)
+    out = _caesar_call(*args)
     with_gc, ops = ch_work(*args, out)
     assert bool(out[0][1, 2]) and int(out[1]["gc_cnt"][1, 2, 0, 0]) == 1
     assert with_gc == n_bytes + 4 * (2 + P) + 4 * (5 + 2 * S) + 4
@@ -606,13 +613,13 @@ def test_caesar_handle_work_idle_submit_and_gc():
     # checks its DEP deps
     ps["status"][0, 1, 2, 0] = 5                         # ST_COMMIT
     ps["pseq"][0, 1, 2, 0] = 1
-    out = caesar_handle(*args)
+    out = _caesar_call(*args)
     with_dot, dops = ch_work(*args, out)
     assert with_dot == with_gc + 4 * (2 + 6 * DEP)
     assert dops == ops + DEP * (2 * G + 8)
     # a firing notification timer reads the (empty) executed buffer
     fire[0, 1, 1] = True
-    out = caesar_handle(*args)
+    out = _caesar_call(*args)
     with_timer, _ = ch_work(*args, out)
     assert with_timer == with_dot + 4
 

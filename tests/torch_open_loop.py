@@ -18,9 +18,9 @@ class PortDoubleReply:
     def __getattr__(self, name):
         return getattr(self._base, name)
 
-    def handlers(self, ps, has, rows, fire, ep, ctx, dims):
+    def handlers(self, ps, has, rows, fire, ep, ctx, dims, cap=None):
         rdy, ps, pout, ob = self._base.handlers(ps, has, rows, fire, ep,
-                                                ctx, dims)
+                                                ctx, dims, cap)
         is_tc = ob["valid"] & (ob["dst"] >= dims.N)
         i = is_tc.to(torch.int32).argmax(-1)
         j = ob["valid"].shape[-1] - 1
