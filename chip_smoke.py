@@ -43,9 +43,9 @@ atlas_partial,faults}_golden.json`` bytes on the card, then drives the nine
 main paths — the
 2,048-lane Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar sweeps (n =
 5, 256 five-region subsets × f ∈ {1, 2} × conflict ∈ {0, 10, 50, 100},
-50 commands per client, one client per region) and the 256-lane sweep of
+50 commands per client, one client per region) and the 512-lane sweep of
 Tempo under partial replication (2 shards of 5 rows, 2 keys per command
-from a pool of 4, the first 32 subsets, conflict 1 in place of 0) and
+from a pool of 4, the first 64 subsets, conflict 1 in place of 0) and
 the same 512-lane grid of Atlas under partial replication at 9 commands
 per client, and the 2,048-lane Tempo grid under four fault plans (the
 first 64 subsets, each point once per plan; its fault-free lanes equal
@@ -115,7 +115,12 @@ tree for K7 (``_clone_new``), and phase 3 holds both, with every third
 lane failed and beside K7's frozen-lane check, to their twins: running
 lanes as the twin computes them, frozen lanes' rows byte for byte as
 before, the planes returned the ones given (``frozen_check``; the
-frozen-lane ms are printed before the kernels line). Any failure
+frozen-lane ms are printed before the kernels line). Slice 14: K4
+(Basic) and K11 (Tempo partial) update their process state in place
+too, so both are in ``IN_PLACE`` and get the same fresh copies and
+frozen-lane checks, K7's table on their paths no longer holds their
+planes, and the Tempo partial path runs its whole grid again (slice
+12's cuts of the Tempo partial and Caesar grids are gone). Any failure
 raises; nothing
 is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
@@ -253,15 +258,6 @@ SAMPLE = {"basic": [0, 7, 1000, 2047], "fpaxos": [0, 7, 1000, 2047],
           "tempo_faults": [0, 1, 2, 3, 31],
           "tempo_open": [0, 7, LADDER_ERR], "tempo_traffic": [0, 7]}
 
-# paths run at a smaller depth here than their cli.MAIN_PATHS grids (the
-# first N region subsets), for the script's time: it must end within
-# 1,200 s on the card, half of that is the aim (PERF.md section 4). With
-# the mixed sweeps of slice 12 (about 130 s) a whole run took 1,092 s
-# on an H100, so the device-bound path whose step costs most runs half
-# its grid (every f and conflict rate kept); Caesar's step no longer
-# copies its state (slice 13), and its grid is whole again
-CUT_SUBSETS = {"tempo_partial": 32}
-
 
 def base_path(name):
     """The ``cli.MAIN_PATHS`` key of path ``name``: a ladder rung
@@ -283,15 +279,12 @@ def new_paths():
 
 
 def path_argv(name):
-    """Path ``name``'s sweep command line as this script runs it (cut to
-    :data:`CUT_SUBSETS` where it names the path; a ladder rung at its
-    load, a traffic sweep under its preset)."""
+    """Path ``name``'s sweep command line as this script runs it (a
+    ladder rung at its load, a traffic sweep under its preset)."""
     from fantoch_tpu_torch import cli
 
     base = base_path(name)
     argv = list(cli.MAIN_PATHS[base])
-    if name in CUT_SUBSETS:
-        argv[argv.index("--subsets") + 1] = str(CUT_SUBSETS[name])
     flag = {"tempo_open": "--offered-load", "tempo_traffic": "--traffic"}
     if base in flag:
         argv[argv.index(flag[base]) + 1] = name[len(base) + 1:]
@@ -462,9 +455,11 @@ def _clone(x):
 
 
 # the kernels that update an argument in place (its position): K2 the
-# pool, K10 Caesar's process state. A call consumes it, so every check
-# hands each call a fresh copy (a step consumes its input state)
-IN_PLACE = {"land_emissions": 0, "caesar_handle": 0}
+# pool, K4, K10 and K11 their process state (Basic's, Caesar's, Tempo
+# partial's). A call consumes it, so every check hands each call a fresh
+# copy (a step consumes its input state)
+IN_PLACE = {"land_emissions": 0, "basic_handle": 0, "caesar_handle": 0,
+            "tempo_partial_handle": 0}
 
 
 def _fresh(kname, a):
@@ -1770,8 +1765,7 @@ def sweep(name, dev):
         grid = args.subsets * len(args.fs) * len(args.conflicts)
         assert len(results) == grid and errors == 0
         assert grid == (2048 if name in ("basic", "fpaxos", "tempo", "atlas",
-                                         "epaxos", "caesar") else 512) or (
-            name in CUT_SUBSETS)
+                                         "epaxos", "caesar") else 512)
         main_path_checks(name, dims, specs, results, total)
     t0 = time.perf_counter()
     sample = SAMPLE[base_path(name)]

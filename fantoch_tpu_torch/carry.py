@@ -39,8 +39,8 @@ def to_torch(tree, device):
 
 def to_numpy(tree):
     """tensor tree → numpy tree on the host, dtype for dtype: a copy,
-    which a later step (they update the pool and Caesar's process state
-    in place) leaves as it is."""
+    which a later step (it updates the pool and some handlers' process
+    state in place) leaves as it is."""
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
     return tree.detach().cpu().numpy().copy()

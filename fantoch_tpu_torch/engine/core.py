@@ -43,11 +43,11 @@ frozen (its new state is discarded; the ``lane_freeze`` kernel), so a
 finished lane is a fixed point.
 
 A step consumes its input state, like a donated buffer in JAX: the
-``land_emissions`` kernel writes the pool, and Caesar's handler its
-process state (with the monitor planes), in place, on the lanes whose
-predicate holds at the step's start (:func:`frozen_step` hands them its
-``Cap``; without one every lane), and returns the very tensors, so K7
-copies none of them. No runner consumes its caller's state: each clones
+``land_emissions`` kernel writes the pool, and the Basic, Caesar and
+Tempo partial handlers their process state (with the monitor planes),
+in place, on the lanes whose predicate holds at the step's start
+(:func:`frozen_step` hands them its ``Cap``; without one every lane),
+and returns the very tensors, so K7 copies none of them. No runner consumes its caller's state: each clones
 it once, at entry. The runners (the reference's
 ``build_runner``, ``build_segment_runner``, ``build_window_runner`` and
 ``finish_segmented``) run the loop on the device: on the card one window
@@ -111,6 +111,36 @@ def empty_outbox(dims: EngineDims, lead, device, slots: int | None = None):
         # -1 = the emitting process; >= 0 preserves an original sender
         "src": torch.full(shape, -1, dtype=I32, device=device),
     }
+
+
+def write_running(ps, step, cap, dims: EngineDims):
+    """The in-place contract of a handler twin (K4, K10, K11) from its
+    out-of-place step ``step = (rdy, new state, periodic outbox, handler
+    outbox)``: the running lanes' rows (of ``cap``; every lane without
+    one) of the new state are copied into ``ps``, in place, as the
+    kernel writes them; returns ``(rdy, ps, pout, hout)`` with a frozen
+    lane's ``rdy`` false and its outboxes empty (valid false, zero
+    words)."""
+    from ..kernels.lane_freeze import cap_running
+
+    rdy, new, pout, hout = step
+    running = cap_running(cap)
+    for k, v in new.items():
+        if v is ps[k]:
+            continue
+        if running is None:
+            ps[k].copy_(v)
+        else:
+            ps[k][running] = v[running]
+    if running is None:
+        return rdy, ps, pout, hout
+    empty = empty_outbox(dims, rdy.shape, rdy.device)
+    pout, hout = (
+        {k: torch.where(
+            running.reshape((-1,) + (1,) * (v.dim() - 1)), v, empty[k])
+         for k, v in ob.items()}
+        for ob in (pout, hout))
+    return rdy & running[:, None], ps, pout, hout
 
 
 def emit(outbox, i: int, dst, mtype, words, valid):
@@ -266,8 +296,9 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     and ``reorder`` switch; ``monitor_keys > 0`` on a state built with the
     monitor planes. Open-loop lanes (ctx ``ol_arrival``) and traffic
     schedules (ctx ``traffic_think``) set their flag bits. The step
-    consumes ``st``: the pool (and Caesar's process state) is updated in
-    place, on the lanes ``cap`` lets run (every lane without one)."""
+    consumes ``st``: the pool (and the process state of Basic, Caesar
+    and Tempo partial) is updated in place, on the lanes ``cap`` lets
+    run (every lane without one)."""
     pool = st["pool"]
     flags = flag_bits(faults, reorder, monitor=monitor_keys > 0,
                       open_loop="ol_arrival" in ctx,
@@ -331,9 +362,9 @@ def frozen_step(protocol, dims: EngineDims, st, ctx, lim,
     predicate is false on ``st``, or whose step count reached ``lim``
     (an int, or on the card the device loop's limit word), keep their
     state, as under the reference's vmapped ``lax.while_loop``: the
-    in-place kernels (K2, K10) write only running lanes, and K7 restores
-    frozen lanes' rows of the planes the step wrote out of place. The
-    step consumes ``st``."""
+    in-place kernels (K2, K4, K10, K11) write only running lanes, and K7
+    restores frozen lanes' rows of the planes the step wrote out of
+    place. The step consumes ``st``."""
     flags = flag_bits(faults, reorder)
     cap = Cap(st, ctx, lim, flags)
     return lane_freeze(

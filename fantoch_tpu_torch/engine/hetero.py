@@ -151,12 +151,12 @@ def hetero_frozen_step(hb: HeteroBatch, st, ctx, lim, reorder: bool = False,
     ``running`` by group; each group's ``frozen_step`` (K1, its handler,
     K6, K2, K7) in skeleton audit order, its K2 and handler handed the
     group's views of the linked liveness planes and the cap (they update
-    the group's pool, and Caesar's process state, in place). With
-    ``streams`` (a dict, on the card) each group steps on a CUDA stream
-    of its own, kept there by group, forked from and joined to the
-    current stream: the groups share no plane, so a group whose kernels
-    leave the card idle (few lanes, or little parallel work) overlaps
-    the others."""
+    the group's pool, and the process state of Basic, Caesar and Tempo
+    partial, in place). With ``streams`` (a dict, on the card) each
+    group steps on a CUDA stream of its own, kept there by group, forked
+    from and joined to the current stream: the groups share no plane, so
+    a group whose kernels leave the card idle (few lanes, or little
+    parallel work) overlaps the others."""
     main = None if streams is None else torch.cuda.current_stream()
     out, running = {}, {}
     for a in hb.audits:

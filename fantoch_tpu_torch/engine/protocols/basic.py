@@ -29,7 +29,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core import emit, emit_broadcast, empty_outbox
+from ..core import emit, emit_broadcast, empty_outbox, write_running
 from ..dims import (
     ERR_DOT, ERR_PROTO, INF, PMT, PPAY, PSRC, EngineDims, dot_slot,
 )
@@ -121,19 +121,23 @@ class BasicDev(DevIdentity):
                  cap=None):
         """Readiness gate, periodic timer and message handler of every
         (lane, process): ``(rdy, ps, periodic outbox, handler outbox)``
-        (the event times ``ep`` are not read).
-        Runs the ``basic_handle`` kernel on CUDA tensors.
-        The run cap ``cap`` is not read: this handler writes out of
-        place, and K7 freezes its lanes."""
+        (the event times ``ep`` are not read). ``ps`` is updated in
+        place on the lanes ``cap`` lets run (every lane without one) and
+        returned as the same tensors. Runs the ``basic_handle`` kernel
+        on CUDA tensors."""
         from ...kernels.basic_handle import basic_handle
 
-        return basic_handle(ps, has, rows, fire, ctx, dims)
+        return basic_handle(ps, has, rows, fire, ctx, dims, cap)
 
     @staticmethod
-    def step_plain(ps, has, rows, fire, n, quorum, q_size, dims):
+    def step_plain(ps, has, rows, fire, n, quorum, q_size, dims,
+                   cap=None):
         """The plain twin of the kernel, in the reference's order
         (core.py:890-918): ``ready`` on the incoming state, ``periodic``,
-        then ``handle`` on the state ``periodic`` returned."""
+        then ``handle`` on the state ``periodic`` returned, out of place;
+        then the running lanes' rows (of ``cap``; every lane without
+        one) are copied into ``ps``, in place, as the kernel writes them
+        (``core.write_running``)."""
         mtype0 = torch.where(
             has, rows[..., PMT], torch.full_like(has, BasicDev.NUM_TYPES, dtype=I32)
         )
@@ -143,10 +147,10 @@ class BasicDev(DevIdentity):
             valid, mtype0, torch.full_like(mtype0, BasicDev.NUM_TYPES)
         )
         pout = BasicDev.periodic_plain(ps, fire, n, dims)
-        ps, hout = BasicDev.handle_plain(
+        new, hout = BasicDev.handle_plain(
             ps, valid, mtype, rows, n, quorum, q_size, dims
         )
-        return rdy, ps, pout, hout
+        return write_running(ps, (rdy, new, pout, hout), cap, dims)
 
     @staticmethod
     def ready_plain(ps, rows, mtype, dims: EngineDims):

@@ -58,8 +58,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ...kernels.lane_freeze import cap_running
-from ..core import emit, emit_broadcast, empty_outbox
+from ..core import emit, emit_broadcast, empty_outbox, write_running
 from ..dims import (
     ERR_CAPACITY, ERR_DOT, ERR_PROTO, ERR_SEQ, INF, PMT, PPAY, PSRC,
     SEQ_BOUND, EngineDims, dot_slot,
@@ -240,22 +239,7 @@ class CaesarDev(DevIdentity):
         mtype = torch.where(has & rdy, mtype0, none)
         new, pout = X.periodic_plain(ps, fire, ctx, dims)
         new, hout = X.handle_plain(new, mtype, rows, ctx, dims)
-        running = cap_running(cap)
-        for k, v in new.items():
-            if v is ps[k]:
-                continue
-            if running is None:
-                ps[k].copy_(v)
-            else:
-                ps[k][running] = v[running]
-        if running is None:
-            return rdy, ps, pout, hout
-        empty = empty_outbox(dims, rows.shape[:2], rows.device)
-        pout, hout = (
-            {k: torch.where(bcast(running[:, None], v), v, empty[k])
-             for k, v in ob.items()}
-            for ob in (pout, hout))
-        return rdy & running[:, None], ps, pout, hout
+        return write_running(ps, (rdy, new, pout, hout), cap, dims)
 
     @staticmethod
     def ready_plain(ps, rows, mtype, dims: EngineDims):

@@ -49,7 +49,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core import emit, emit_broadcast, empty_outbox
+from ..core import emit, emit_broadcast, empty_outbox, write_running
 from ..dims import (
     ERR_CAPACITY, ERR_DOT, ERR_PROTO, ERR_SEQ, INF, PMT, PPAY, PSRC,
     SEQ_BOUND, EngineDims, dot_slot,
@@ -196,26 +196,31 @@ class TempoPartialDev(TempoDev):
                  cap=None):
         """Readiness gate, periodic timers (at each process's event time
         ``ep``) and message handler of every (lane, process): ``(rdy, ps,
-        periodic outbox, handler outbox)``. Runs the
-        ``tempo_partial_handle`` kernel on CUDA tensors.
-        The run cap ``cap`` is not read: this handler writes out of
-        place, and K7 freezes its lanes."""
+        periodic outbox, handler outbox)``. ``ps`` is updated in place
+        on the lanes ``cap`` lets run (every lane without one) and
+        returned as the same tensors. Runs the ``tempo_partial_handle``
+        kernel on CUDA tensors."""
         from ...kernels.tempo_partial_handle import tempo_partial_handle
 
-        return tempo_partial_handle(ps, has, rows, fire, ep, ctx, dims)
+        return tempo_partial_handle(ps, has, rows, fire, ep, ctx, dims,
+                                    cap)
 
-    def step_plain(self, ps, has, rows, fire, now, ctx, dims: EngineDims):
+    def step_plain(self, ps, has, rows, fire, now, ctx, dims: EngineDims,
+                   cap=None):
         """The plain twin of the kernel, in the reference's order:
         ``ready`` on the incoming state, ``periodic`` at ``now``, then
-        ``handle`` on the state ``periodic`` returned."""
+        ``handle`` on the state ``periodic`` returned, out of place; then
+        the running lanes' rows (of ``cap``; every lane without one) are
+        copied into ``ps``, in place, as the kernel writes them
+        (``core.write_running``)."""
         X = TempoPartialDev
         none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
         mtype0 = torch.where(has, rows[..., PMT], none)
         rdy = X.ready_plain(ps, rows, mtype0, dims)
         mtype = torch.where(has & rdy, mtype0, none)
-        ps, pout = self.periodic_plain(ps, fire, now, ctx, dims)
-        ps, hout = self.handle_plain(ps, mtype, rows, ctx, dims)
-        return rdy, ps, pout, hout
+        new, pout = self.periodic_plain(ps, fire, now, ctx, dims)
+        new, hout = self.handle_plain(new, mtype, rows, ctx, dims)
+        return write_running(ps, (rdy, new, pout, hout), cap, dims)
 
     @staticmethod
     def ready_plain(ps, rows, mtype, dims: EngineDims):

@@ -18,11 +18,11 @@ constexpr int PA = 0, PKS = 1, PKC = 2, PSRC = 3, PDST = 4, PMT = 5,
 // _lane_running :1565, with the fault plan's horizon :1574-1577), read on
 // the planes a step started from: not finished (done time + extra time
 // reached), not idle, no error, fewer steps than the cap *lim, and under
-// the horizon flag before the horizon. K7 decides the freeze with it; K2
-// and K10 update in place only the lanes it holds for. A null lim is no
-// cap at all: every lane runs (a step outside the run loop). The planes
-// are never written in place by a step, so every kernel of the step reads
-// the same predicate.
+// the horizon flag before the horizon. K7 decides the freeze with it; K2,
+// K4, K10 and K11 update in place only the lanes it holds for. A null lim
+// is no cap at all: every lane runs (a step outside the run loop). The
+// planes are never written in place by a step, so every kernel of the step
+// reads the same predicate.
 struct RunCap {
   static constexpr int CRASH = 1, HORIZON = 8;  // engine/faults.py FLAG_*
   const int *done_time, *now, *err, *steps, *extra, *horizon, *lim;

@@ -9,19 +9,25 @@
 // :820 and _vote_add_p :808, the StableAtShard buffering _p_stableat
 // :1211, and the add side of fantoch_tpu/engine/iset.py, in iset.cuh).
 //
-// One block of 256 threads per (lane, process). The reference runs the
+// One block of one warp (THREADS = 32) per (lane, process): thread 0's
+// serial branch sets the kernel's time, and thread 0's registers are
+// allotted to every thread of its block, so the smallest block fits the
+// most (lane, process) blocks on an SM at once. The reference runs the
 // handler as a lax.switch under vmap, which evaluates all sixteen branches
 // and selects one; here the block runs only its own branch, in the
 // reference's order: `ready` on the incoming state, `periodic` at the
 // process's event time (its clock bump can change the state), then
 // `handle` on the state `periodic` returned.
 //
-// 1. The whole block copies the process's 35 non-scalar state planes
-//    (614 KB per process at the main path's shapes, two thirds of it the
-//    [N, D, KPC, N] vote ranges) to the output tensors in 16-byte
-//    coalesced rows, then works on the outputs in place. The six scalar
-//    planes (max commit clock, sequence, metrics, error word) live in
-//    thread 0's registers and are stored once at the end.
+// 1. In place: the block updates its process's rows of the step's own
+//    state planes, and only on lanes whose run predicate holds at the
+//    step's start (common.cuh RunCap; every lane without a cap), as the
+//    reference's vmapped while_loop keeps a frozen lane's state. A frozen
+//    lane's blocks write rdy false and empty outboxes (valid false, zero
+//    words) and exit. Block (l, p) reads and writes only process p's rows
+//    of lane l, so no block sees another's writes. The six scalar planes
+//    (max commit clock, sequence, metrics, error word) live in thread 0's
+//    registers and are stored once at the end.
 // 2. Thread 0 runs the gate, the three timers and the branch, serially
 //    and in the reference's order, staging both outboxes in shared memory
 //    exactly as the twin's emits leave them (a shard broadcast fills all
@@ -41,11 +47,9 @@
 //
 // Bound on this card: bytes. The region reads a few state words per (lane,
 // process) and the rows its branch touches, and writes the words that
-// change and two [F, P] outboxes (tempo_partial_handle.py work). This
-// kernel copies each process's whole state out of place, so it moves far
-// more than that, but in coalesced rows.
-#include <cstdint>
-
+// change and two [F, P] outboxes (tempo_partial_handle.py work). In place,
+// this kernel moves about that; what is left is thread 0's serial branch
+// (the drains and the executor walk their tables one word at a time).
 #include "common.cuh"
 #include "iset.cuh"
 
@@ -53,7 +57,7 @@ using namespace fantoch;
 
 namespace {
 
-constexpr int THREADS = 256;  // tempo_partial_handle.py THREADS
+constexpr int THREADS = 32;  // tempo_partial_handle.py THREADS
 // tempo_partial_handle.py MAX_SHARDS, MAX_KEYS_PER_CMD
 constexpr int MAXS = 8, MAXKPC = 8;
 constexpr int SUBMIT = 0, MCOLLECT = 1, MCOLLECTACK = 2, MCOMMIT = 3,
@@ -108,35 +112,13 @@ __device__ long long plane_words(int i, const Dims& d) {
   }
 }
 
-__device__ bool is_scalar(int i) {
-  return i == MCC || i == OWN_SEQ || i == M_FAST || i == M_SLOW ||
-         i == M_STABLE || i == ERR;
-}
-
-// Copy n words with the whole block. Source and destination sit at the
-// same offset from their planes' (aligned) bases, so after a short head
-// both are 16-byte aligned together.
-__device__ void block_copy(int* dst, const int* src, long long n) {
-  const int t = threadIdx.x;
-  long long head = ((16 - ((uintptr_t)dst & 15)) & 15) >> 2;
-  if ((((uintptr_t)dst ^ (uintptr_t)src) & 15) != 0) head = n;  // scalar
-  head = head < n ? head : n;
-  for (long long i = t; i < head; i += THREADS) dst[i] = src[i];
-  const long long n4 = (n - head) >> 2;
-  const int4* s4 = reinterpret_cast<const int4*>(src + head);
-  int4* d4 = reinterpret_cast<int4*>(dst + head);
-  for (long long i = t; i < n4; i += THREADS) d4[i] = s4[i];
-  for (long long i = head + (n4 << 2) + t; i < n; i += THREADS)
-    dst[i] = src[i];
-}
-
 // A staged outbox in shared memory: valid, dst, mtype [F], payload [F, P].
 struct Outbox {
   int *v, *dst, *mt, *pay;
 };
 
-// One (lane, process): its output planes (the state being updated), its
-// scalar planes, the lane ctx and the staged outboxes. Its member
+// One (lane, process): its rows of the state planes (updated in place),
+// its scalar planes, the lane ctx and the staged outboxes. Its member
 // functions run on thread 0 only.
 struct Proc {
   Dims d;
@@ -829,7 +811,7 @@ struct Proc {
 }  // namespace
 
 __global__ void __launch_bounds__(THREADS) tempo_partial_handle_kernel(
-    const Planes in, const Planes out, const bool* __restrict__ has,
+    const Planes st, const RunCap cap, const bool* __restrict__ has,
     const int* __restrict__ rows, const bool* __restrict__ fire,
     const int* __restrict__ now_in, const int* __restrict__ n_ctx,
     const int* __restrict__ f_ctx, const bool* __restrict__ fq,
@@ -847,6 +829,18 @@ __global__ void __launch_bounds__(THREADS) tempo_partial_handle_kernel(
   const int t = threadIdx.x;
   const int l = g / d.N, me = g % d.N;
   const int N = d.N, D = d.D, F = d.F, P = d.P;
+  const long long base = (long long)g * F;
+
+  if (!cap.runs(l)) {  // frozen: the state stays, the outboxes are empty
+    if (t == 0) rdy_out[g] = false;
+    for (int i = t; i < F * P; i += THREADS)
+      pp[base * P + i] = hp[base * P + i] = 0;
+    for (int i = t; i < F; i += THREADS) {
+      pv[base + i] = hv[base + i] = false;
+      pd[base + i] = pm[base + i] = hd[base + i] = hm[base + i] = 0;
+    }
+    return;
+  }
 
   // shared memory: both staged outboxes, a payload, a flag word
   int* sp = smem;
@@ -858,26 +852,10 @@ __global__ void __launch_bounds__(THREADS) tempo_partial_handle_kernel(
   sp += P;
   int* misc = sp;  // [0] MGC's free scan on
 
-  // 1. copy this process's state planes (the scalar ones go through
-  // thread 0's registers)
-  for (int i = 0; i < NPLANES; ++i) {
-    if (is_scalar(i)) continue;
-    const long long w = plane_words(i, d);
-    if (i == SEEN) {
-      const bool* s = (const bool*)in.p[i] + (long long)g * w;
-      bool* o = (bool*)out.p[i] + (long long)g * w;
-      for (long long j = t; j < w; j += THREADS) o[j] = s[j];
-    } else {
-      block_copy((int*)out.p[i] + (long long)g * w,
-                 (const int*)in.p[i] + (long long)g * w, w);
-    }
-  }
-  __syncthreads();
-
   auto plane = [&](int i) {
-    return (int*)out.p[i] + (long long)g * plane_words(i, d);
+    return (int*)st.p[i] + (long long)g * plane_words(i, d);
   };
-  auto scalar = [&](int i) { return ((const int*)in.p[i])[g]; };
+  auto scalar = [&](int i) { return ((const int*)st.p[i])[g]; };
   const long long lN = (long long)l * N;
 
   // 2. gate, timers and the branch (thread 0)
@@ -894,7 +872,7 @@ __global__ void __launch_bounds__(THREADS) tempo_partial_handle_kernel(
            plane(PEND_MISSING), plane(PEND_PHASE), plane(STABLE_CNT),
            plane(STABLE_CNT_SEQ), plane(BUF_CNT), plane(BUF_SEQ),
            plane(COMM_FRONT), plane(COMM_GAPS), plane(OTHERS),
-           plane(PREV_STABLE), (bool*)out.p[SEEN] + (long long)g * N,
+           plane(PREV_STABLE), (bool*)st.p[SEEN] + (long long)g * N,
            scalar(MCC), scalar(OWN_SEQ), scalar(M_FAST), scalar(M_SLOW),
            scalar(M_STABLE), scalar(ERR),
            n_ctx[l], f_ctx[l], fq_size[l], wq_size[l], threshold[l],
@@ -982,12 +960,12 @@ __global__ void __launch_bounds__(THREADS) tempo_partial_handle_kernel(
       default: break;  // the noop
     }
     misc[0] = branch == MGC;
-    ((int*)out.p[MCC])[g] = p.mcc;
-    ((int*)out.p[OWN_SEQ])[g] = p.own_seq;
-    ((int*)out.p[M_FAST])[g] = p.m_fast;
-    ((int*)out.p[M_SLOW])[g] = p.m_slow;
-    ((int*)out.p[M_STABLE])[g] = p.m_stable;
-    ((int*)out.p[ERR])[g] = p.err;
+    ((int*)st.p[MCC])[g] = p.mcc;
+    ((int*)st.p[OWN_SEQ])[g] = p.own_seq;
+    ((int*)st.p[M_FAST])[g] = p.m_fast;
+    ((int*)st.p[M_SLOW])[g] = p.m_slow;
+    ((int*)st.p[M_STABLE])[g] = p.m_stable;
+    ((int*)st.p[ERR])[g] = p.err;
   }
   __syncthreads();
 
@@ -1002,7 +980,6 @@ __global__ void __launch_bounds__(THREADS) tempo_partial_handle_kernel(
   }
 
   // 4. store both outboxes
-  const long long base = (long long)g * F;
   for (int i = t; i < F * P; i += THREADS) {
     pp[base * P + i] = pob.pay[i];
     hp[base * P + i] = hob.pay[i];
@@ -1018,7 +995,7 @@ __global__ void __launch_bounds__(THREADS) tempo_partial_handle_kernel(
 }
 
 extern "C" int fantoch_tempo_partial_handle(
-    const void* in_table, const void* out_table, const void* has,
+    const void* state_table, const void* cap_tab, const void* has,
     const void* rows, const void* fire, const void* now, const void* n_ctx,
     const void* f_ctx, const void* fq, const void* wq, const void* fq_size,
     const void* wq_size, const void* threshold, const void* bump_mode,
@@ -1026,16 +1003,14 @@ extern "C" int fantoch_tempo_partial_handle(
     const void* cmd_kmask, const void* cmd_skey, void* rdy_out, void* pv,
     void* pd, void* pm, void* pp, void* hv, void* hd, void* hm, void* hp,
     int L, int N, int D, int F, int P, int W, int C, int K, int PK, int DS,
-    int G, int KPC, int S, int T1, void* stream) {
+    int G, int KPC, int S, int T1, int flags, void* stream) {
   const long long blocks = (long long)L * N;
   if (blocks == 0) return 0;
   if (S > MAXS || KPC > MAXKPC || 3 + 2 * KPC > P)
     return (int)cudaErrorInvalidValue;
-  Planes in, out;
-  for (int i = 0; i < NPLANES; ++i) {
-    in.p[i] = ((void* const*)in_table)[i];
-    out.p[i] = ((void* const*)out_table)[i];
-  }
+  Planes st;
+  for (int i = 0; i < NPLANES; ++i)
+    st.p[i] = ((void* const*)state_table)[i];
   const Dims d{L, N, D, F, P, W, C, K, PK, DS, G, KPC, S, T1};
   const size_t smem = (size_t)(2 * (3 * F + F * P) + P + 4) * sizeof(int);
   if (smem > 48 * 1024) {
@@ -1046,7 +1021,8 @@ extern "C" int fantoch_tempo_partial_handle(
   }
   tempo_partial_handle_kernel<<<(unsigned)blocks, THREADS, smem,
                                 (cudaStream_t)stream>>>(
-      in, out, (const bool*)has, (const int*)rows, (const bool*)fire,
+      st, run_cap((const void* const*)cap_tab, flags), (const bool*)has,
+      (const int*)rows, (const bool*)fire,
       (const int*)now, (const int*)n_ctx, (const int*)f_ctx, (const bool*)fq,
       (const bool*)wq, (const int*)fq_size, (const int*)wq_size,
       (const int*)threshold, (const bool*)bump_mode, (const int*)shard_of,

@@ -13,6 +13,13 @@ Replaces ``fantoch_tpu/engine/core.py`` ``run_handlers`` (:422) and the
 ``csrc/tempo_partial_handle.cu`` with ``csrc/iset.cuh`` (bound by bytes,
 :func:`work`). :func:`tempo_partial_handle_plain` is its plain PyTorch
 twin (``TempoPartialDev.step_plain``), used for tensors on the CPU.
+
+The process state is updated in place, on the lanes whose run predicate
+holds at the step's start (``cap``, :class:`lane_freeze.Cap`; every
+lane without one), and returned as the very tensors given: the step
+consumes its input, K7 copies none of these planes, and the device
+loop's write-back skips them. A frozen lane's ``rdy`` is false and its
+outboxes are empty.
 """
 
 from __future__ import annotations
@@ -23,9 +30,10 @@ import torch
 
 from ..engine.dims import PMT, EngineDims
 from . import build, cost
+from .lane_freeze import cap_args
 
 I32 = torch.int32
-THREADS = 256  # csrc/tempo_partial_handle.cu THREADS
+THREADS = 32  # csrc/tempo_partial_handle.cu THREADS: a warp a process
 # shards and keys per command thread 0 holds in registers
 # (csrc/tempo_partial_handle.cu MAXS, MAXKPC)
 MAX_SHARDS = MAX_KEYS_PER_CMD = 8
@@ -63,10 +71,11 @@ def _protocol(ps, ctx):
 
 
 def tempo_partial_handle_plain(ps, has, rows, fire, now, ctx,
-                               dims: EngineDims):
-    """``(rdy, ps, periodic outbox, handler outbox)``."""
+                               dims: EngineDims, cap=None):
+    """``(rdy, ps, periodic outbox, handler outbox)``, ``ps`` updated in
+    place on the lanes ``cap`` lets run."""
     return _protocol(ps, ctx).step_plain(ps, has, rows, fire, now, ctx,
-                                         dims)
+                                         dims, cap)
 
 
 def _state_shapes(L, dims: EngineDims, K, PK, DS, G, KPC):
@@ -95,24 +104,25 @@ def _state_shapes(L, dims: EngineDims, K, PK, DS, G, KPC):
             for k in STATE_KEYS}
 
 
-def work(ps, has, rows, fire, now, ctx, dims: EngineDims, out):
-    """``(bytes, ops)`` the region needs on these inputs (``out`` is its
-    result). Every (lane, process) reads its ``has`` flag, timer flags
-    and event time, a popped message's type, source and payload, and the
-    state and ctx words its branch reads: a dot's cell and counters, the
-    command's table row (mask and keys), the local keys' clocks and
-    detached rows, and for the branches that reach them the dot's votes
-    (MCollectAck, MConsensusAck and MShardAgg read the ``[KPC, N]``
-    rows), the voters' frontiers and gap sets of the local keys and a
-    pending table per key (MCommit), a key's pending table and
-    frontiers (the drains), the frontier table and the ``[N, D]`` dot
-    words (MGC), the detached table (DETACH_DRAIN). A firing GC timer
-    reads the committed clock; a clock bump the keys' clocks and
-    detached table; a detached kick-off the detached table. It writes
-    ``rdy``, both outboxes and the state words that change."""
+def work(ps, has, rows, fire, now, ctx, dims: EngineDims, *rest):
+    """``(bytes, ops)`` the region needs on these inputs (``ps`` a snapshot
+    taken before the call, which updates it in place; the last argument is
+    the call's result, one before it may be the cap). Every (lane, process)
+    reads its ``has`` flag, timer flags and event time, a popped message's
+    type, source and payload, and the state and ctx words its branch reads:
+    a dot's cell and counters, the command's table row (mask and keys), the
+    local keys' clocks and detached rows, and for the branches that reach
+    them the dot's votes (MCollectAck, MConsensusAck and MShardAgg read the
+    ``[KPC, N]`` rows), the voters' frontiers and gap sets of the local keys
+    and a pending table per key (MCommit), a key's pending table and
+    frontiers (the drains), the frontier table and the ``[N, D]`` dot words
+    (MGC), the detached table (DETACH_DRAIN). A firing GC timer reads the
+    committed clock; a clock bump the keys' clocks and detached table; a
+    detached kick-off the detached table. It writes ``rdy``, both outboxes
+    and the state words that change."""
     from ..engine.protocols.tempo_partial import TempoPartialDev as X
 
-    rdy, new_ps, pout, hout = out
+    rdy, new_ps, pout, hout = rest[-1]
     L, N, W = rows.shape
     P, D = dims.P, dims.D
     K, DS = ps["det"].shape[2:4]
@@ -174,15 +184,17 @@ def work(ps, has, rows, fire, now, ctx, dims: EngineDims, out):
     return read + write, ops
 
 
-def tempo_partial_handle(ps, has, rows, fire, now, ctx, dims: EngineDims):
+def tempo_partial_handle(ps, has, rows, fire, now, ctx, dims: EngineDims,
+                         cap=None):
     """K11 on CUDA tensors, :func:`tempo_partial_handle_plain` on CPU
     tensors. ``now`` ``[L, N]`` is each process's event time (the clock
-    bump reads it). The kernel's outboxes carry the planes ``valid``,
+    bump reads it). ``ps`` is updated in place on the lanes ``cap`` lets
+    run and returned (the same tensors). The kernel's outboxes carry the planes ``valid``,
     ``dst``, ``mtype`` and ``payload``; a protocol handler's
     ``delay``/``src`` are always -1, which ``emit_rewrite`` assumes."""
     if rows.device.type == "cpu":
         return tempo_partial_handle_plain(ps, has, rows, fire, now, ctx,
-                                          dims)
+                                          dims, cap)
     L, N, W = rows.shape
     R = fire.shape[2]
     F, P, D, C = dims.F, dims.P, dims.D, dims.C
@@ -218,10 +230,6 @@ def tempo_partial_handle(ps, has, rows, fire, now, ctx, dims: EngineDims):
     build.check("cmd_kmask", ctx["cmd_kmask"], I32, (L, C, T1), dev)
     build.check("cmd_skey", ctx["cmd_skey"], I32, (L, C, T1, S, KPC), dev)
     rdy = torch.empty((L, N), dtype=torch.bool, device=dev)
-    new_ps = {
-        k: torch.empty(shapes[k][0], dtype=shapes[k][1], device=dev)
-        for k in STATE_KEYS
-    }
 
     def outbox():
         return {
@@ -232,26 +240,24 @@ def tempo_partial_handle(ps, has, rows, fire, now, ctx, dims: EngineDims):
         }
 
     pout, hout = outbox(), outbox()
-    n_planes = len(STATE_KEYS)
-    ins = (ctypes.c_void_p * n_planes)(*[ps[k].data_ptr()
-                                         for k in STATE_KEYS])
-    outs = (ctypes.c_void_p * n_planes)(*[new_ps[k].data_ptr()
-                                          for k in STATE_KEYS])
+    planes = (ctypes.c_void_p * len(STATE_KEYS))(
+        *[ps[k].data_ptr() for k in STATE_KEYS])
+    tab, cap_flags = cap_args(cap, L, dev)
     tensors = (
         [has, rows, fire, now] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
     fn = build.c_function("fantoch_tempo_partial_handle", 2 + len(tensors),
-                          14)
+                          15)
     build.launch(
         fn,
-        [ctypes.addressof(ins), ctypes.addressof(outs)]
+        [ctypes.addressof(planes), ctypes.addressof(tab)]
         + [t.data_ptr() for t in tensors],
-        [L, N, D, F, P, W, C, K, PK, DS, G, KPC, S, T1],
+        [L, N, D, F, P, W, C, K, PK, DS, G, KPC, S, T1, cap_flags],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     tempo_partial_handle.launches += 1
-    return rdy, new_ps, pout, hout
+    return rdy, ps, pout, hout
 
 
 tempo_partial_handle.launches = 0

@@ -184,9 +184,16 @@ def _outboxes_bytes(out):
                          for k in OUTBOX_KEYS))
 
 
+def _on_a_copy(kernel, ps, *rest):
+    """An in-place handler kernel (K4, K10, K11) on a copy of ``ps``:
+    the call updates its state in place; work reads the state before
+    it."""
+    return kernel({k: v.clone() for k, v in ps.items()}, *rest)
+
+
 def test_basic_handle_work_idle_submit_and_gc():
     dims, ps, has, rows, fire, ctx = _basic_idle()
-    out = basic_handle(ps, has, rows, fire, ctx, dims)
+    out = _on_a_copy(basic_handle, ps, has, rows, fire, ctx, dims)
     idle, _ = bh_work(ps, has, rows, fire, ctx, dims, out)
     L, N = has.shape
     flags = cost.nbytes(has, fire, ctx["n"], ctx["q_size"])
@@ -196,7 +203,7 @@ def test_basic_handle_work_idle_submit_and_gc():
     has[0, 1] = True
     rows[0, 1, PMT] = BasicDev.SUBMIT
     rows[0, 1, PPAY] = 2
-    out = basic_handle(ps, has, rows, fire, ctx, dims)
+    out = _on_a_copy(basic_handle, ps, has, rows, fire, ctx, dims)
     n_bytes, _ = bh_work(ps, has, rows, fire, ctx, dims, out)
     assert n_bytes == idle + 4 * (2 + P) + 4 + 4 + 4
     # one GC message from process 0 (an all-zero frontier): reads the
@@ -204,7 +211,7 @@ def test_basic_handle_work_idle_submit_and_gc():
     # changes one seen flag
     has[1, 2] = True
     rows[1, 2, PMT] = BasicDev.MGC
-    out = basic_handle(ps, has, rows, fire, ctx, dims)
+    out = _on_a_copy(basic_handle, ps, has, rows, fire, ctx, dims)
     with_gc, _ = bh_work(ps, has, rows, fire, ctx, dims, out)
     D = dims.D
     gc_read = 4 * N * N + N + 8 * N + 4 + 4 * N * D
@@ -349,7 +356,7 @@ def _tempo_partial_idle(L=2):
 def test_tempo_partial_handle_work_idle_submit_and_gc():
     t, dims, ps, has, rows, fire, now, ctx = _tempo_partial_idle()
     args = (ps, has, rows, fire, now, ctx, dims)
-    out = tempo_partial_handle(*args)
+    out = _on_a_copy(tempo_partial_handle, *args)
     idle, idle_ops = tp_work(*args, out)
     L, N = has.shape
     P, D, S, KPC = dims.P, dims.D, t.S, t.KPC
@@ -365,7 +372,7 @@ def test_tempo_partial_handle_work_idle_submit_and_gc():
     has[0, 0] = True
     rows[0, 0, PMT] = TempoPartialDev.SUBMIT
     rows[0, 0, PPAY + 1] = 1
-    out = tempo_partial_handle(*args)
+    out = _on_a_copy(tempo_partial_handle, *args)
     n_bytes, _ = tp_work(*args, out)
     cmd = 4 * (1 + S * KPC)
     keys = KPC * 4 * (1 + 2 * t.R)
@@ -377,7 +384,7 @@ def test_tempo_partial_handle_work_idle_submit_and_gc():
     has[1, 2] = True
     rows[1, 2, PMT] = TempoPartialDev.MGC
     rows[1, 2, PSRC] = 3
-    out = tempo_partial_handle(*args)
+    out = _on_a_copy(tempo_partial_handle, *args)
     with_gc, ops = tp_work(*args, out)
     gc_read = 4 * N * N + N + 4 * 2 * N + 4 * N * D
     assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
@@ -386,7 +393,7 @@ def test_tempo_partial_handle_work_idle_submit_and_gc():
     # the detached table
     fire[0, 1, 0] = True
     fire[0, 1, 2] = True
-    out = tempo_partial_handle(*args)
+    out = _on_a_copy(tempo_partial_handle, *args)
     with_timers, _ = tp_work(*args, out)
     assert with_timers == with_gc + 4 * N + 4 * t.K * t.R
 
@@ -571,9 +578,8 @@ def _caesar_idle(L=2):
 
 
 def _caesar_call(ps, *rest):
-    """K10 on a copy of ``ps`` (it updates its state in place; work reads
-    the state before the call)."""
-    return caesar_handle({k: v.clone() for k, v in ps.items()}, *rest)
+    """K10 on a copy of ``ps`` (:func:`_on_a_copy`)."""
+    return _on_a_copy(caesar_handle, ps, *rest)
 
 
 def test_caesar_handle_work_idle_submit_and_gc():

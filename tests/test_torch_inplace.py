@@ -1,30 +1,36 @@
-"""The in-place contract of K2 (``land_emissions``) and K10
-(``caesar_handle``) on the CPU, through their plain twins.
+"""The in-place contract of K2 (``land_emissions``), K4
+(``basic_handle``), K10 (``caesar_handle``) and K11
+(``tempo_partial_handle``) on the CPU, through their plain twins.
 
-A step consumes its input state: K2 writes the pool, and Caesar's
-handler its process state, in place, on the lanes whose run predicate
-holds at the step's start (``kernels/lane_freeze.py Cap``), and returns
-the very tensors it was given. No runner consumes its caller's state.
-All comparisons are exact. The batches are the reference's tier-1
-sweep shapes (n = 3, 4 region subsets x conflict 0 and 100, f = 1, one
-client a region) at 40 commands a client, so every lane still runs at
-step 300:
+A step consumes its input state: K2 writes the pool, and the Basic,
+Caesar and Tempo partial handlers their process state, in place, on the
+lanes whose run predicate holds at the step's start
+(``kernels/lane_freeze.py Cap``), and return the very tensors they were
+given. No runner consumes its caller's state. All comparisons are
+exact. The batches are the reference's tier-1 sweep shapes (n = 3, 4
+region subsets x conflict 0 and 100, f = 1, one client a region) at 40
+commands a client, and for Tempo under partial replication the partial
+golden batch's shapes (tests/test_torch_tempo_partial.py: 2 shards, a
+pool of 4, 2 keys a command) over the same subsets at conflict 10 and
+100, so every lane still runs at step 300:
 
 - (a) each twin on the arguments of step 301, with every third lane's
   error word set and a step cap that stops half the lanes: running
-  lanes equal PR 12's out-of-place arithmetic recomputed here from a
-  copy, frozen lanes' in-place planes are bit for bit as before, and
-  the planes returned are the ones given;
+  lanes equal the out-of-place arithmetic the twins computed before
+  the in-place contract, recomputed here from a copy, frozen lanes'
+  in-place planes are bit for bit as before, the planes returned are
+  the ones given, and a frozen lane's ``rdy`` is false and its outboxes
+  empty;
 - (b) 64 ``frozen_step``s with those lanes frozen against the
   reference's vmapped run loop (its ``build_segment_runner``), whole
-  state, for Basic, Tempo and Caesar;
+  state, for Basic, Tempo, Caesar and Tempo partial;
 - (c) a mixed batch of all six protocols with lanes frozen the same way
   equals its homogeneous runs, whole state;
 - (d) the runners (eager, window, ``run_sweep``, the mixed eager
   runner) run twice on one prepared batch give equal results and leave
   the batch as it was;
-- (e) ``work`` on a snapshot taken before the call equals PR 12's
-  values (the out-of-place call's)."""
+- (e) ``work`` on a snapshot taken before the call equals its value on
+  the out-of-place arithmetic's result."""
 
 import functools
 import importlib
@@ -38,6 +44,7 @@ import torch
 from fantoch_tpu.core import Config as RConfig
 from fantoch_tpu.core import Planet as RPlanet
 from fantoch_tpu.engine import EngineDims as RDims
+from fantoch_tpu.engine import make_lane as r_make_lane
 from fantoch_tpu.engine import protocols as rprotocols
 from fantoch_tpu.engine.core import build_segment_runner as r_segment_runner
 from fantoch_tpu.engine.core import key_table_fn
@@ -46,7 +53,7 @@ from fantoch_tpu.engine.spec import stack_lanes as r_stack_lanes
 from fantoch_tpu.parallel import sweep as rsweep
 from fantoch_tpu_torch import carry, cli
 from fantoch_tpu_torch.core import Config, Planet
-from fantoch_tpu_torch.engine import EngineDims, hetero
+from fantoch_tpu_torch.engine import EngineDims, hetero, make_lane
 from fantoch_tpu_torch.engine import core as engine_core
 from fantoch_tpu_torch.engine import protocols as pprotocols
 from fantoch_tpu_torch.engine.core import (
@@ -54,7 +61,7 @@ from fantoch_tpu_torch.engine.core import (
 )
 from fantoch_tpu_torch.engine.dims import ERR_POOL, ERR_STUCK, INF, PA, PMT
 from fantoch_tpu_torch.engine.driver import prepare_batch
-from fantoch_tpu_torch.engine.protocols import CaesarDev
+from fantoch_tpu_torch.engine.protocols import BasicDev, CaesarDev
 from fantoch_tpu_torch.kernels.lane_freeze import Cap
 from fantoch_tpu_torch.kernels.step_loop import clone_tree
 from fantoch_tpu_torch.parallel import sweep
@@ -62,19 +69,49 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 COMMANDS = 40
 WARMUP = 300
-REF = (RConfig, RPlanet, RDims, rprotocols, rsweep)
-PORT = (Config, Planet, EngineDims, pprotocols, sweep)
+REF = (RConfig, RPlanet, RDims, rprotocols, rsweep, r_make_lane)
+PORT = (Config, Planet, EngineDims, pprotocols, sweep, make_lane)
 MAX_STEPS = 1 << 22
 # the kernel modules (the package exports each wrapper under its name)
 k2 = importlib.import_module("fantoch_tpu_torch.kernels.land_emissions")
 k10 = importlib.import_module("fantoch_tpu_torch.kernels.caesar_handle")
+k4 = importlib.import_module("fantoch_tpu_torch.kernels.basic_handle")
+k11 = importlib.import_module(
+    "fantoch_tpu_torch.kernels.tempo_partial_handle")
+# the in-place handler kernels by name, with their modules
+HANDLERS = {"caesar_handle": k10, "basic_handle": k4,
+            "tempo_partial_handle": k11}
+
+
+def _partial_specs(pkg, commands=COMMANDS):
+    """Tempo under partial replication at the partial golden batch's
+    shapes (tests/test_torch_tempo_partial.py ``golden_batches``: n = 3,
+    2 shards, a pool of 4, 2 keys a command, K = pool + n + 1): 4 region
+    subsets x conflict 10 and 100, f = 1, one client a region."""
+    cfg, planet_cls, dims_cls, protos, _sweep, make = pkg
+    planet = planet_cls.new()
+    regions = planet.regions()
+    dev = protos.TempoPartialDev(keys=4 + 3 + 1, shards=2, keys_per_cmd=2)
+    dims = dims_cls.for_partial(dev, 3, 3, commands * 3, regions=3)
+    config = cfg(n=3, f=1, shard_count=2, gc_interval_ms=100,
+                 executor_executed_notification_interval_ms=100,
+                 executor_cleanup_interval_ms=100,
+                 tempo_detached_send_interval_ms=100)
+    specs = [make(dev, planet, config, conflict_rate=conflict, pool_size=4,
+                  commands_per_client=commands, clients_per_region=1,
+                  process_regions=regions[i:i + 3],
+                  client_regions=regions[i:i + 3], dims=dims)
+             for i in range(4) for conflict in (10, 100)]
+    return dev, dims, specs
 
 
 def _specs(pkg, name, commands=COMMANDS):
     """The reference's tier-1 sweep shapes (test_scan_window.py
     ``_specs``): 4 region subsets x conflict 0 and 100, f = 1, n = 3,
-    one client a region."""
-    cfg, planet_cls, dims_cls, protos, sweep_mod = pkg
+    one client a region; :func:`_partial_specs` for Tempo partial."""
+    if name == "tempo_partial":
+        return _partial_specs(pkg, commands)
+    cfg, planet_cls, dims_cls, protos, sweep_mod, _make = pkg
     planet = planet_cls.new()
     regions = planet.regions()
     clients, total = 3, commands * 3
@@ -157,21 +194,25 @@ def _step_301(name):
         wrapped.launches = 0
         return wrapped
 
-    saved = (engine_core.land_emissions, k10.caesar_handle)
-    engine_core.land_emissions = recorder(saved[0], "land_emissions", 0)
-    k10.caesar_handle = recorder(saved[1], "caesar_handle", 0)
+    saved = {k: getattr(m, k) for k, m in HANDLERS.items()}
+    saved_k2 = engine_core.land_emissions
+    engine_core.land_emissions = recorder(saved_k2, "land_emissions", 0)
+    for k, m in HANDLERS.items():
+        setattr(m, k, recorder(saved[k], k, 0))
     try:
         frozen_step(pdev, pdims, st, pctx, MAX_STEPS)
     finally:
-        engine_core.land_emissions, k10.caesar_handle = saved
+        engine_core.land_emissions = saved_k2
+        for k, m in HANDLERS.items():
+            setattr(m, k, saved[k])
     return st300, pctx, calls
 
 
 # ----------------------------------------------------------------------
-# PR 12's out-of-place arithmetic
+# the twins' out-of-place arithmetic, before the in-place contract
 # ----------------------------------------------------------------------
 
-def _pr12_land(pool, arrival, deliver, new_rows, pool_peak, err):
+def _land_out_of_place(pool, arrival, deliver, new_rows, pool_peak, err):
     """K2's twin as PR 12 computed it: a new pool."""
     L, M, W = pool.shape
     rank = torch.cumsum(deliver, dim=1, dtype=torch.int32)
@@ -189,7 +230,7 @@ def _pr12_land(pool, arrival, deliver, new_rows, pool_peak, err):
             err | ERR_POOL * overflow.to(torch.int32))
 
 
-def _pr12_caesar(ps, has, rows, fire, ctx, dims):
+def _caesar_out_of_place(ps, has, rows, fire, ctx, dims):
     """K10's twin as PR 12 computed it: a new state tree."""
     X = CaesarDev
     none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
@@ -201,12 +242,46 @@ def _pr12_caesar(ps, has, rows, fire, ctx, dims):
     return rdy, new, pout, hout
 
 
+def _basic_out_of_place(ps, has, rows, fire, ctx, dims):
+    """K4's twin out of place: a new state tree."""
+    X = BasicDev
+    none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
+    mtype0 = torch.where(has, rows[..., PMT], none)
+    rdy = X.ready_plain(ps, rows, mtype0, dims)
+    valid = has & rdy
+    mtype = torch.where(valid, mtype0, none)
+    pout = X.periodic_plain(ps, fire, ctx["n"], dims)
+    new, hout = X.handle_plain(ps, valid, mtype, rows, ctx["n"],
+                               ctx["quorum"], ctx["q_size"], dims)
+    return rdy, new, pout, hout
+
+
+def _tempo_partial_out_of_place(ps, has, rows, fire, now, ctx, dims):
+    """K11's twin out of place: a new state tree."""
+    X = k11._protocol(ps, ctx)
+    none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
+    mtype0 = torch.where(has, rows[..., PMT], none)
+    rdy = X.ready_plain(ps, rows, mtype0, dims)
+    mtype = torch.where(has & rdy, mtype0, none)
+    new, pout = X.periodic_plain(ps, fire, now, ctx, dims)
+    new, hout = X.handle_plain(new, mtype, rows, ctx, dims)
+    return rdy, new, pout, hout
+
+
+# each in-place handler's out-of-place arithmetic
+OUT_OF_PLACE = {"caesar_handle": _caesar_out_of_place,
+                "basic_handle": _basic_out_of_place,
+                "tempo_partial_handle": _tempo_partial_out_of_place}
+
+
 # ----------------------------------------------------------------------
 # (a) the twins with frozen lanes
 # ----------------------------------------------------------------------
 
 CASES = [("basic", "land_emissions"), ("tempo", "land_emissions"),
-         ("caesar", "land_emissions"), ("caesar", "caesar_handle")]
+         ("caesar", "land_emissions"), ("caesar", "caesar_handle"),
+         ("basic", "basic_handle"),
+         ("tempo_partial", "tempo_partial_handle")]
 
 
 @pytest.mark.parametrize("name,kname", CASES)
@@ -222,19 +297,20 @@ def test_twin_updates_running_lanes_in_place(name, kname):
     given = clone_tree(a[0])
     if kname == "land_emissions":
         got = k2.land_emissions_plain(given, *a[1:-1], cap)
-        want = _pr12_land(clone_tree(a[0]), *a[1:6])
+        want = _land_out_of_place(clone_tree(a[0]), *a[1:6])
         ours, new = {"pool": got[0]}, {"pool": want[0]}
         assert got[0] is given
         befores, givens = {"pool": before}, {"pool": given}
         outs = [(got[i], want[i], dflt) for i, dflt in
                 ((1, torch.zeros_like(want[1])), (2, a[4]), (3, a[5]))]
     else:
-        got = k10.caesar_handle_plain(given, *a[1:-1], cap)
-        want = _pr12_caesar(clone_tree(a[0]), *a[1:6])
+        twin = getattr(HANDLERS[kname], kname + "_plain")
+        got = twin(given, *a[1:-1], cap)
+        want = OUT_OF_PLACE[kname](clone_tree(a[0]), *a[1:-1])
         ours, new, befores, givens = got[1], want[1], before, given
         assert all(got[1][k] is given[k] for k in given)
         outs = [(got[0], want[0], torch.zeros_like(want[0]))]
-        empty = engine_core.empty_outbox(a[5], a[2].shape[:2], "cpu")
+        empty = engine_core.empty_outbox(a[-2], a[2].shape[:2], "cpu")
         for g, w in zip(got[2:], want[2:]):
             outs += [(g[k], w[k], empty[k]) for k in w]
     for k in befores:
@@ -252,7 +328,8 @@ def test_twin_updates_running_lanes_in_place(name, kname):
 # (b) 64 frozen steps against the reference's run loop
 # ----------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["basic", "tempo", "caesar"])
+@pytest.mark.parametrize("name", ["basic", "tempo", "caesar",
+                                  "tempo_partial"])
 def test_frozen_steps_match_the_reference_run_loop(name):
     """From the port's state after 300 steps, every third lane failed and
     every other lane one step behind the cap at 363: 64 ``frozen_step``s
@@ -376,7 +453,7 @@ def test_land_emissions_work_on_a_snapshot_equals_pr12(name):
     (the out-of-place call's)."""
     _st300, _pctx, calls = _step_301(name)
     a = calls["land_emissions"]
-    want = k2.work(*a[:6], _pr12_land(*a[:6]))
+    want = k2.work(*a[:6], _land_out_of_place(*a[:6]))
     pool = clone_tree(a[0])
     out = k2.land_emissions(pool, *a[1:])
     assert out[0] is pool
@@ -388,8 +465,24 @@ def test_caesar_handle_work_on_a_snapshot_equals_pr12():
     12's (the out-of-place call's)."""
     _st300, _pctx, calls = _step_301("caesar")
     a = calls["caesar_handle"]
-    want = k10.work(*a[:6], _pr12_caesar(*a[:6]))
+    want = k10.work(*a[:6], _caesar_out_of_place(*a[:6]))
     ps = clone_tree(a[0])
     out = k10.caesar_handle(ps, *a[1:])
     assert all(out[1][k] is ps[k] for k in ps)
     assert k10.work(*a, out) == want
+
+
+@pytest.mark.parametrize("name,kname", [("basic", "basic_handle"),
+                                        ("tempo_partial",
+                                         "tempo_partial_handle")])
+def test_handler_work_on_a_snapshot_equals_out_of_place(name, kname):
+    """K4's and K11's ``work`` on the state copied before the call equals
+    its value on the out-of-place arithmetic's result."""
+    _st300, _pctx, calls = _step_301(name)
+    a = calls[kname]
+    mod = HANDLERS[kname]
+    want = mod.work(*a[:-1], OUT_OF_PLACE[kname](*a[:-1]))
+    ps = clone_tree(a[0])
+    out = getattr(mod, kname)(ps, *a[1:])
+    assert all(out[1][k] is ps[k] for k in ps)
+    assert mod.work(*a, out) == want
