@@ -120,7 +120,22 @@ frozen-lane ms are printed before the kernels line). Slice 14: K4
 too, so both are in ``IN_PLACE`` and get the same fresh copies and
 frozen-lane checks, K7's table on their paths no longer holds their
 planes, and the Tempo partial path runs its whole grid again (slice
-12's cuts of the Tempo partial and Caesar grids are gone). Any failure
+12's cuts of the Tempo partial and Caesar grids are gone). Slice 15: K8
+(Tempo) updates its process state in place too and is in ``IN_PLACE``;
+K1 takes the step's cap and reads nothing of a frozen lane, and phase 3
+holds it, with every third lane failed, to its twin and on running
+lanes to an uncapped call, frozen lanes to the defined values
+(``qualify_frozen_check``), and on a pool of 60,000 slots, past what a
+block stages in shared memory (``qualify_large_pool``); the monitored
+mc phase captures and times K1, K2 and K7 on the mc grid's n = 5
+batches too; the mc grid prints each point's share of running
+lane-steps and runs again with eight steps in every 1,024 of each
+batch stepped through the wrappers under the profiler
+(``mc_grid_profile``: each kernel's device ms a launch over the sampled
+steps, from the first steps to the frozen tail); an eager mixed body is
+profiled by kernel too, and the kernels are ranked by launches x
+(device ms - bound) before the kernels line (``bottlenecks``). Any
+failure
 raises; nothing
 is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
@@ -294,6 +309,12 @@ def path_argv(name):
 # each main path's kernels' bounds (ms) from phase 3: the device loop's
 # bound is its body's
 BOUNDS = {}
+# each main path's kernels' device ms a launch from phase 3 (step 301)
+PHASE3_MS = {}
+# device ms by kernel over the profiled device-loop windows: "mc" the mc
+# grid's re-run (totals, with the records read), "hetero" the mixed
+# body's windows (a step) with the step's bound by kernel
+PROFILED = {}
 
 # the reference region each kernel replaces
 REPLACES = {
@@ -455,11 +476,11 @@ def _clone(x):
 
 
 # the kernels that update an argument in place (its position): K2 the
-# pool, K4, K10 and K11 their process state (Basic's, Caesar's, Tempo
-# partial's). A call consumes it, so every check hands each call a fresh
-# copy (a step consumes its input state)
-IN_PLACE = {"land_emissions": 0, "basic_handle": 0, "caesar_handle": 0,
-            "tempo_partial_handle": 0}
+# pool, K4, K8, K10 and K11 their process state (Basic's, Tempo's,
+# Caesar's, Tempo partial's). A call consumes it, so every check hands
+# each call a fresh copy (a step consumes its input state)
+IN_PLACE = {"land_emissions": 0, "basic_handle": 0, "tempo_handle": 0,
+            "caesar_handle": 0, "tempo_partial_handle": 0}
 
 
 def _fresh(kname, a):
@@ -560,28 +581,50 @@ def _device_ms(fn, kernel: str, iters: int) -> float:
     launches it recorded, and the line says how many that was. Where it
     recorded none (seen for K3's launches of a few microseconds), the
     time comes from :func:`_event_ms`, and the line says so."""
-    import torch
+    def calls():
+        for _ in range(iters):  # each call's outputs freed before the next
+            fn()
 
     fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and e.name.startswith(kernel + "_kernel")]
-    if not us:
+    ms, n = _kernel_ms(calls).get(kernel, (0.0, 0))
+    if not n:
         print(f"profiler: no {kernel} launch of {iters} recorded; ms is "
               f"from CUDA events around each launch instead")
         return _event_ms(fn, iters)
-    assert len(us) <= iters, (kernel, len(us))
-    if len(us) < iters:
-        print(f"profiler: {len(us)} of {iters} {kernel} launches recorded; "
+    assert n <= iters, (kernel, n)
+    if n < iters:
+        print(f"profiler: {n} of {iters} {kernel} launches recorded; "
               f"ms is their mean")
-    return sum(us) / len(us) / 1e3
+    return ms / n
+
+
+def _kernel_ms(fn) -> dict:
+    """``{kernel: (device ms, records)}`` of one call of ``fn`` under
+    ``torch.profiler`` (CPU and CUDA activities), by kernel name. Read
+    for launches through the wrappers: the profiler can misname the
+    nodes of a replayed graph (seen in a long process), so graphs are
+    not profiled here."""
+    import torch
+
+    from fantoch_tpu_torch import kernels
+
+    names = sorted(kernels.WRAPPERS, key=len, reverse=True)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        k = next((k for k in names if e.name.startswith(k + "_kernel")),
+                 None)
+        if k is not None:
+            ms, n = out.get(k, (0.0, 0))
+            out[k] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return out
 
 
 def check_kernels(name, dev, rows):
@@ -739,8 +782,16 @@ def check_kernels(name, dev, rows):
         rows[kname]["max_abs_err"] = max(
             rows[kname]["max_abs_err"],
             frozen_check(name, kname, mods[kname], a, ~got[1]))
+    # K1 with the same lanes frozen: it reads nothing of them
+    rows["qualify_pop"]["max_abs_err"] = max(
+        rows["qualify_pop"]["max_abs_err"],
+        qualify_frozen_check(name, mods["qualify_pop"],
+                             captured["qualify_pop"][:-1] + (cap,),
+                             ~got[1]))
     BOUNDS[name] = {k: (r["bound_ms"], r["bound_by"])
                     for k, r in rows.items() if r["path"] == name}
+    PHASE3_MS[name] = {k: r["ms"] for k, r in rows.items()
+                       if r["path"] == name}
 
     # K7 with its step cap a device word, as the device loop passes it:
     # every other lane one step behind, so the cap stops the running
@@ -824,6 +875,46 @@ def frozen_check(name, kname, mod, a, frozen) -> float:
           f"byte; {int((moved & ~frozen).sum())} running lanes moved")
     FROZEN.setdefault(kname, {})[name] = dict(frozen=int(frozen.sum()),
                                               lanes=frozen.numel(), ms=ms)
+    return err
+
+
+def qualify_frozen_check(name, mod, a, frozen) -> float:
+    """K1 on arguments ``a`` whose cap freezes the lanes ``frozen``:
+    kernel and twin are equal; running lanes equal an uncapped call's
+    outputs; frozen lanes hold the defined values (ep INF, active, fire
+    and has false, slot 0, rows zero, now the lane's now plane, arrival
+    INF, under the crash flag timers INF). Prints the kernel's ms with
+    those lanes frozen (device time, by name) and records it in
+    :data:`FROZEN`. Returns the max abs error."""
+    import torch
+
+    from fantoch_tpu_torch.engine.faults import FLAG_CRASH
+
+    kern, plain = mod.qualify_pop, mod.qualify_pop_plain
+    got, want = kern(*a), plain(*a)
+    free = kern(*a[:-1], None)
+    torch.cuda.synchronize()
+    err = _compare(got, want)
+    run = ~frozen
+    inf = 1 << 30
+    for i, (g, u) in enumerate(zip(got, free)):
+        assert torch.equal(g[run], u[run]), f"qualify_pop: output {i} of a " \
+            "running lane differs from the uncapped call's"
+    arrival, ep, now, active, fire, slot, has, rows_, timers = got
+    assert bool((arrival[frozen] == inf).all() & (ep[frozen] == inf).all())
+    assert not bool(active[frozen].any() | fire[frozen].any()
+                    | has[frozen].any())
+    assert not bool(slot[frozen].any() | rows_[frozen].any())
+    assert torch.equal(now[frozen], a[-1].st["now"][frozen])
+    if a[5] & FLAG_CRASH:
+        assert bool((timers[frozen] == inf).all())
+    ms = _device_ms(lambda: kern(*a), "qualify_pop", 50)
+    print(f"kernel qualify_pop ({name} path, {int(frozen.sum())} of "
+          f"{frozen.numel()} lanes frozen): exact=True max_abs_err={err} "
+          f"ms={ms:.5f}; running lanes == the uncapped call's, frozen lanes "
+          f"the defined values")
+    FROZEN.setdefault("qualify_pop", {})[name] = dict(
+        frozen=int(frozen.sum()), lanes=frozen.numel(), ms=ms)
     return err
 
 
@@ -1222,7 +1313,9 @@ def fault_coverage(dev) -> float:
 
     def k1(a, got, want):
         errs[0] = max(errs[0], _compare(got, want))
-        off = qp.qualify_pop_plain(*a[:5], a[5] & ~fm.FLAG_CRASH)
+        if not bool(a[6].running()[0]):
+            return  # lane 0 frozen: its outputs are the defined ones
+        off = qp.qualify_pop_plain(*a[:5], a[5] & ~fm.FLAG_CRASH, a[6])
         purged = (want[0] >= (1 << 30)) & (off[0] < (1 << 30))
         dead = (want[8] >= (1 << 30)) & (a[1] < (1 << 30))
         seen[labels[0]] += int(purged[0].sum()) + int(dead[0].sum())
@@ -1269,6 +1362,62 @@ def fault_coverage(dev) -> float:
           + "; ".join(f"{k} {v}" for k, v in seen.items())
           + f"; halted clients {halted}; max_abs_err={errs[0]}")
     return errs[0]
+
+
+def qualify_large_pool(dev) -> float:
+    """K1 against its twin on a pool larger than a block stages in
+    shared memory: 16 lanes of 60,000 slots of 29 words at N = 5 (an
+    H100's 227 KB hold about 46,000 slots beside the per-process words),
+    fault-free and under the crash and horizon flags, with the
+    messages of every other lane all past slot 50,000, so that pops
+    take slots that the pop and free passes re-read from the pool. Each
+    output equals the twin's; some pop takes a slot past 50,000 under
+    each flag word. Returns the max abs error."""
+    import numpy as np
+    import torch
+
+    from fantoch_tpu_torch.engine.dims import INF, PA, PDST, PKC, PKS, PPR
+    from fantoch_tpu_torch.engine.faults import FLAG_CRASH, FLAG_HORIZON
+
+    qp = importlib.import_module("fantoch_tpu_torch.kernels.qualify_pop")
+    L, M, N, R, W = 16, 60_000, 5, 2, 29
+    rng = np.random.default_rng(15)
+    pool = rng.integers(0, 9, (L, M, W)).astype(np.int32)
+    pool[..., PA] = INF
+    for lane in range(L):
+        lo = 50_000 if lane % 2 else 0
+        hot = lo + rng.choice(M - lo, 400, replace=False)
+        pool[lane, hot, PA] = rng.integers(0, 6, hot.size)
+    pool[..., PDST] = rng.integers(-1, N + 1, (L, M))
+    pool[..., PKS] = rng.integers(0, 4, (L, M))
+    pool[..., PKC] = rng.integers(0, 3, (L, M))
+    pool[..., PPR] = rng.random((L, M)) < 0.2
+
+    def inf_or(shape, hi, p_inf):
+        v = rng.integers(0, hi, shape).astype(np.int32)
+        return np.where(rng.random(shape) < p_inf, INF, v).astype(np.int32)
+
+    timers = inf_or((L, N, R), 8, 0.5)
+    lookahead = inf_or((L, N, N), 4, 0.2)
+    lookahead[:, np.arange(N), np.arange(N)] = INF
+    crash_t = inf_or((L, N), 8, 0.5)
+    horizon = rng.integers(3, 9, (L,)).astype(np.int32)
+    a = [torch.from_numpy(x).to(dev)
+         for x in (pool, timers, lookahead, crash_t, horizon)]
+    err = 0.0
+    for flags in (0, FLAG_CRASH | FLAG_HORIZON):
+        got = qp.qualify_pop(*a, flags)
+        want = qp.qualify_pop_plain(*a, flags)
+        torch.cuda.synchronize()
+        err = max(err, _compare(got, want))
+        slot, has = want[5], want[6]
+        far = int((has & (slot >= 50_000)).sum())
+        assert far > 0, "no pop past slot 50,000"
+        ms = _device_ms(lambda: qp.qualify_pop(*a, flags), "qualify_pop", 20)
+        print(f"kernel qualify_pop (L={L} M={M} W={W} N={N}, flags {flags}):"
+              f" exact=True max_abs_err={err} ms={ms:.5f}; {far} of "
+              f"{int(has.sum())} pops past slot 50,000")
+    return err
 
 
 def reorder_coverage(dev) -> float:
@@ -1869,13 +2018,24 @@ def segments(dev, rows) -> None:
     rows["step_loop"] = step_loop_row(dev)
 
 
+def _replay_ms(loop, until: int) -> float:
+    """ms of one ``CUDAGraph.replay()`` of the device loop's captured body
+    alone, its lanes stepping: at a window's end every running lane sits
+    at the step cap ``until``, where the kernels skip it, so the cap word
+    is first raised past the replays (a warm-up and ten timed)."""
+    from fantoch_tpu_torch.kernels.loop_ctl import CTL_LIM
+
+    loop.ctl[CTL_LIM] = until + 11 * loop.G
+    return _time_ms(loop.graph.replay, 10)
+
+
 def step_loop_row(dev) -> dict:
     """The B6-loop's row, on the Tempo main path's first batch after 320
     steps: ``ms`` one window that runs one body (``STEPS_PER_BODY``
     steps; CUDA events around the call, host included), ``plain_ms``
     the eager loop over as many steps, ``library_ms`` a
     ``CUDAGraph.replay()`` of the captured body alone (no while node,
-    no K14), ``bound_ms`` the body's kernels' bounds (phase 3's, per
+    no K14; :func:`_replay_ms`), ``bound_ms`` the body's kernels' bounds (phase 3's, per
     step) times its steps plus K14's."""
     import torch
 
@@ -1917,7 +2077,7 @@ def step_loop_row(dev) -> dict:
         eager["st"] = st
 
     plain_ms = _time_ms(eager_body, 3)
-    library_ms = _time_ms(loop.graph.replay, 10)
+    library_ms = _replay_ms(loop, box["until"])
     step = ("qualify_pop", HANDLERS[name], "emit_rewrite", "land_emissions",
             "lane_freeze")
     parts = [(G * BOUNDS[name][k][0], BOUNDS[name][k][1]) for k in step]
@@ -2102,9 +2262,9 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
     the eager per-call path (``hetero_frozen_step``), then one step's
     calls recorded, group by group (K1, the group's handler, K6, K2,
     K7), and each launch of the kernel held to its twin on them; each
-    group's key table (K3) too. Returns the state after the step and
-    the step's bound: the sum of the groups' bounds (each kernel's
-    ``work`` on the recorded arguments)."""
+    group's key table (K3) too. Returns the state after the step, the
+    step's bound (the sum of the groups' bounds, each kernel's ``work``
+    on the recorded arguments) and that bound by kernel."""
     import torch
 
     from fantoch_tpu_torch.engine import core as engine_core
@@ -2141,7 +2301,7 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
              "lane_freeze")
     assert [("handler" if k in handlers else k) for k, _a in calls] == (
         list(order) * len(groups)), [k for k, _a in calls]
-    bound_ms, by_group = 0.0, {}
+    bound_ms, by_group, by_kernel = 0.0, {}, {}
     for i, (kname, a) in enumerate(calls):
         group = groups[i // len(order)]
         assert kname in STEP_KERNELS or kname == HANDLERS[group]
@@ -2160,6 +2320,7 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
         ms, _by = cost.bound(n_bytes, n_ops)
         bound_ms += ms
         by_group[group] = by_group.get(group, 0.0) + ms
+        by_kernel[kname] = by_kernel.get(kname, 0.0) + ms
         lanes = int(state[group]["now"].shape[0])
         print(f"kernel {kname} ({name} batch, group {group}, {lanes} "
               f"lanes): exact=True max_abs_err={err} bound_us="
@@ -2181,7 +2342,7 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
           f"== their twins after {warmup} steps, and each group's key "
           f"table; the step's bound {1e3 * bound_ms:.3f} us, by group "
           f"{ {g: round(1e3 * v, 3) for g, v in by_group.items()} }")
-    return state, ctx, hb, flags, bound_ms
+    return state, ctx, hb, flags, bound_ms, by_kernel
 
 
 def hetero_segments(dev) -> None:
@@ -2287,11 +2448,13 @@ def hetero_step_row(dev, rows) -> None:
     twins (the step's bound the sum of its groups'), ``ms`` one window
     of one body (CUDA events, host included) over its steps, the eager
     mixed step (``plain_ms``) and a replay of the captured body alone
-    (``library_ms``), each per step."""
+    (``library_ms``), each per step; then one more eager body profiled,
+    the device ms a step by kernel (each kernel's time summed over its
+    groups) into :data:`PROFILED`."""
     from fantoch_tpu_torch.engine import hetero
     from fantoch_tpu_torch.kernels.step_loop import clone_tree
 
-    state, ctx, hb, flags, bound_ms = check_mixed_kernels(
+    state, ctx, hb, flags, bound_ms, bound_by = check_mixed_kernels(
         "hetero", dev, rows, warmup=319)
     runner, _alive = hetero.build_hetero_window_runner(hb, 1 << 22, *flags)
     box = {"until": 320}
@@ -2315,7 +2478,13 @@ def hetero_step_row(dev, rows) -> None:
         eager["st"] = st
 
     plain_ms = _time_ms(eager_body, 3) / G
-    library_ms = _time_ms(loop.graph.replay, 10) / G
+    prof = _kernel_ms(eager_body)
+    assert set(prof) <= set(loop.per_body), (prof, loop.per_body)
+    per_step = {k: ms / G for k, (ms, _n) in prof.items()}
+    PROFILED["hetero"] = dict(ms=per_step, bound=bound_by, groups=len(state))
+    print(f"B14 hetero step, one eager body profiled: device ms a step by "
+          f"kernel { {k: round(v, 5) for k, v in sorted(per_step.items())} }")
+    library_ms = _replay_ms(loop, box["until"]) / G
     print(f"B14 hetero step ({len(state)} groups {list(state)}, "
           f"{sum(len(t['now']) for t in state.values())} lanes): one window "
           f"of one body {ms:.5f} ms a step; the eager mixed step "
@@ -2523,10 +2692,11 @@ class _McTaps:
 def check_monitored_kernels(dev, rows) -> None:
     """Phase 3 for the monitored paths: the first batch of the mc grid's
     n = 5 points, stepped 300 times with the monitors on, then one
-    step's handler and K6 arguments (the monitor branches on) held
-    against their twins and timed, and K13 on that state. K13's row goes
-    to ``rows``; the handlers' and K6's monitored times go beside their
-    rows (``monitored``)."""
+    step's K1, handler, K6, K2 and K7 arguments (the monitor branches
+    on) held against their twins and timed, and K13 on that state. K13's
+    row goes to ``rows``; the other kernels' mc times go beside their
+    rows (``monitored``); their time over the whole grid is
+    :func:`mc_grid_profile`'s."""
     import torch
 
     from fantoch_tpu_torch import cli
@@ -2551,8 +2721,9 @@ def check_monitored_kernels(dev, rows) -> None:
                                                 1 << 22, *flags, mk)
         handler = HANDLERS[spec.protocol]
         captured = {}
-        er = importlib.import_module("fantoch_tpu_torch.kernels.emit_rewrite")
-        hm = importlib.import_module(f"fantoch_tpu_torch.kernels.{handler}")
+        mods = {k: importlib.import_module(f"fantoch_tpu_torch.kernels.{k}")
+                for k in ("qualify_pop", handler, "emit_rewrite",
+                          "land_emissions", "lane_freeze", "mon_finalize")}
 
         def rec(mod, kname):
             kern = getattr(mod, kname)
@@ -2563,27 +2734,31 @@ def check_monitored_kernels(dev, rows) -> None:
             wrapped.launches = 0
             return wrapped
 
-        with _Patched(emit_rewrite=rec(er, "emit_rewrite")), \
-                _PatchedHandler(handler, rec(hm, handler)):
+        step_kernels = ("qualify_pop", "emit_rewrite", "land_emissions",
+                        "lane_freeze")
+        with _Patched(**{k: rec(engine_core, k) for k in step_kernels}), \
+                _PatchedHandler(handler, rec(mods[handler], handler)):
             state, _r = engine_core.frozen_step(proto, dims, state, ctx,
                                                 1 << 22, *flags, mk)
         fb = flag_bits(flags[1], flags[0])
-        k13 = importlib.import_module("fantoch_tpu_torch.kernels.mon_finalize")
         captured["mon_finalize"] = (state, ctx, fb,
                                     getattr(proto, "MONITOR_ORDER", True))
-        for kname, mod in ((handler, hm), ("emit_rewrite", er),
-                           ("mon_finalize", k13)):
-            a = captured[kname]
+        label = f"mc {spec.protocol} n={spec.n}"
+        for kname in ("qualify_pop", handler, "emit_rewrite",
+                      "land_emissions", "lane_freeze", "mon_finalize"):
+            a, mod = captured[kname], mods[kname]
             kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
-            got = kern(*_fresh(kname, a))
+
+            def call(a=a, kname=kname, kern=kern):
+                if kname == "lane_freeze":
+                    return kern(_clone_new(a[0], a[1]), *a[1:])
+                return kern(*_fresh(kname, a))
+            got = call()
             want = plain(*_fresh(kname, a))
             if kname == handler:
                 got, want = _handler_view(got), _handler_view(want)
             torch.cuda.synchronize()
             err = _compare(got, want)
-
-            def call(a=a, kname=kname, kern=kern):
-                return kern(*_fresh(kname, a))
             ms = _device_ms(call, kname, 50)
             call_ms = _time_ms(call, 50)
             plain_ms = _time_ms(
@@ -2591,7 +2766,6 @@ def check_monitored_kernels(dev, rows) -> None:
                 plain(*_fresh(kname, a)), 5)
             n_bytes, n_ops = mod.work(*a, call())
             bound_ms, bound_by = cost.bound(n_bytes, n_ops)
-            label = f"mc {spec.protocol} n={spec.n}"
             print(f"kernel {kname} ({label}, monitored, {mk} keys): "
                   f"exact=True max_abs_err={err} ms={ms:.5f} "
                   f"call_ms={call_ms:.5f} plain_ms={plain_ms:.5f} "
@@ -2644,8 +2818,12 @@ def mc_grid(dev):
         for spec in specs:
             points.append(fuzz.run_fuzz_point(spec, confirm=False,
                                               device=dev))
+            st = psweep.LAST_STATS
+            lane_steps = sum(r.steps for r in points[-1].lane_results)
+            slots = st["batch_steps"] * points[-1].schedules / st["batches"]
             print(f"mc {spec.protocol} n={spec.n} device loop: "
-                  f"{loop_stats(psweep.LAST_STATS)}")
+                  f"{loop_stats(st)}; running lane-steps {lane_steps} of "
+                  f"{slots:.0f} (share {lane_steps / slots:.4f})")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = graph_only_counts("mc grid", single=False)
@@ -2687,6 +2865,108 @@ def mc_grid(dev):
               f"{time.perf_counter() - t0:.1f} s)")
 
     return launches, check_host
+
+
+def mc_grid_profile(dev, launches) -> None:
+    """The mc grid again, as phase 8 runs it (its windows of one
+    ``SEGMENT``-step segment), each window cut at every 16th body of its
+    batch: there eight steps run through the wrappers on a copy of the
+    batch's state under the profiler (:func:`_kernel_ms`), from the
+    first steps to the tail where most lanes are frozen, and the window
+    goes on from the uncopied state (a lane stops at a window's end as
+    at a segment's, so the results are the sweep's). Each kernel's mean
+    device ms a launch over the sampled steps goes to :data:`PROFILED`;
+    a kernel the grid does not launch (``launches``) has no record. Not
+    timed: phase 8's wall is the grid's."""
+    import functools
+
+    import torch
+
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.engine.core import STEPS_PER_BODY, WindowRunner
+    from fantoch_tpu_torch.kernels.step_loop import clone_tree
+    from fantoch_tpu_torch.mc import fuzz
+    from fantoch_tpu_torch.parallel import sweep as psweep
+
+    specs = cli.mc_specs(cli.parse_args(cli.MAIN_PATH_MC))
+    segmented = functools.partial(psweep.run_sweep, segment_steps=SEGMENT,
+                                  scan_window=1)
+    prof, sampled = {}, [0]
+    orig = WindowRunner.__call__
+
+    def sample(runner, until):
+        loop = runner.loop
+        st = [clone_tree(loop.state)]
+        lim = torch.full((1,), until, dtype=torch.int32, device=dev)
+
+        def body():
+            for _ in range(8):
+                st[0] = runner.step(st[0], loop.ctx, lim)
+        for k, (ms, n) in _kernel_ms(body).items():
+            ms0, n0 = prof.get(k, (0.0, 0))
+            prof[k] = (ms0 + ms, n0 + n)
+        sampled[0] += 8
+
+    def call(runner, state, ctx, untils):
+        (until,) = untils
+        G = runner.steps_per_body or STEPS_PER_BODY
+        pos = int(state["steps"].max())
+        while (pos // (16 * G) + 1) * 16 * G + G <= until:
+            pos = (pos // (16 * G) + 1) * 16 * G
+            state = orig(runner, state, ctx, [pos])[0]
+            sample(runner, pos + 8)
+        return orig(runner, state, ctx, untils)
+
+    with _PatchedAttr(WindowRunner, "__call__", call), \
+            _PatchedAttr(fuzz, "run_sweep", segmented):
+        for spec in specs:
+            fuzz.run_fuzz_point(spec, confirm=False, device=dev)
+    assert sampled[0] > 0 and prof["qualify_pop"][1] > 0, (sampled, prof)
+    assert all(launches[k] for k in prof), (prof, launches)
+    PROFILED["mc"] = prof
+    print(f"mc grid profiled: {sampled[0]} of {launches['qualify_pop']} "
+          f"batch steps sampled (8 steps every {16 * STEPS_PER_BODY}, "
+          f"through the wrappers); "
+          f"device ms a launch by kernel (records) "
+          f"{ {k: (round(ms / n, 5), n) for k, (ms, n) in sorted(prof.items())} }")
+
+
+def bottlenecks(rows, by_path) -> None:
+    """Prints the kernels in order of launches x (device ms - bound ms),
+    in seconds, summed over the paths with a device time: on the
+    512-lane main paths phase 3's ms and bound at step 301; on the mc
+    grid the profiled re-run's mean device ms a launch over its
+    sampled bodies times the grid's launches, against the monitored
+    n = 5 rows' bound at step 301 a launch; on the mixed sweep the
+    profiled eager body's ms a step (steps 1,280-1,343 of its first
+    batch) against the step's bound by kernel, times the sweep's batch
+    steps. Each line gives the
+    kernel's five largest paths."""
+    gap = {}
+    for path, counts in by_path.items():
+        for k, n in counts.items():
+            if n and k in PHASE3_MS.get(path, {}):
+                t = n * (PHASE3_MS[path][k] - BOUNDS[path][k][0]) / 1e3
+                gap.setdefault(k, {})[path] = t
+    for k, (ms, rec) in PROFILED.get("mc", {}).items():
+        n = by_path["mc"].get(k, 0)
+        mon = rows.get(k, {}).get("monitored", {})
+        if n and mon:
+            bound = sum(r["bound_ms"] for r in mon.values()) / len(mon)
+            gap.setdefault(k, {})["mc"] = n * (ms / rec - bound) / 1e3
+    mixed = PROFILED.get("hetero")
+    if mixed and "hetero" in by_path:
+        steps = by_path["hetero"]["qualify_pop"] / mixed["groups"]
+        for k, ms in mixed["ms"].items():
+            if k in mixed["bound"]:
+                gap.setdefault(k, {})["hetero"] = (
+                    steps * (ms - mixed["bound"][k]) / 1e3)
+    print("bottlenecks: launches x (device ms - bound ms), s, by kernel "
+          "and path")
+    for k, d in sorted(gap.items(), key=lambda kv: -sum(kv[1].values())):
+        top = sorted(d.items(), key=lambda kv: -kv[1])[:5]
+        print(f"bottleneck {k}: {sum(d.values()):.2f} s; "
+              + ", ".join(f"{p} {v:.2f}" for p, v in top))
 
 
 def bench_point(dev) -> None:
@@ -3273,11 +3553,13 @@ def _main(dev, card) -> int:
     phase("6 golden faults", golden_faults, dev)
     phase("6 golden open loop", golden_open_loop, dev)
 
-    # the fault branches of K1, K6 and K7, and K6's reorder draws and wide
-    # lanes, each against its twin
+    # the fault branches of K1, K6 and K7, K1 on a pool past its shared
+    # staging, and K6's reorder draws and wide lanes, each against its
+    # twin
     for label, fn, knames in (
         ("fault coverage", fault_coverage,
          ("qualify_pop", "emit_rewrite", "lane_freeze")),
+        ("large pool", qualify_large_pool, ("qualify_pop",)),
         ("reorder", reorder_coverage, ("emit_rewrite",)),
         ("wide emit", wide_emit, ("emit_rewrite",)),
         ("traffic keys", traffic_keys, ("key_table",)),
@@ -3300,6 +3582,7 @@ def _main(dev, card) -> int:
     # 8. slice 9's main path, the mc default grid, counted, before the
     # sweeps: the host replays its sampled lanes' segments meanwhile
     mc_launches, mc_check = phase("8 mc grid", mc_grid, dev)
+    phase("8 mc grid profiled", mc_grid_profile, dev, mc_launches)
 
     # 7. the main paths, each counted on its own
     by_path = {name: phase(f"7 sweep {name}", sweep, name, dev)
@@ -3329,6 +3612,7 @@ def _main(dev, card) -> int:
 
     print("frozen-lane checks, every third lane failed (ms by kernel and "
           f"path): {json.dumps(FROZEN, sort_keys=True)}")
+    bottlenecks(rows, by_path)
 
     # 9. the kernels line, then the verdict
     out = []

@@ -43,11 +43,13 @@ frozen (its new state is discarded; the ``lane_freeze`` kernel), so a
 finished lane is a fixed point.
 
 A step consumes its input state, like a donated buffer in JAX: the
-``land_emissions`` kernel writes the pool, and the Basic, Caesar and
-Tempo partial handlers their process state (with the monitor planes),
-in place, on the lanes whose predicate holds at the step's start
-(:func:`frozen_step` hands them its ``Cap``; without one every lane),
-and returns the very tensors, so K7 copies none of them. No runner consumes its caller's state: each clones
+``land_emissions`` kernel writes the pool, and the Basic, Tempo, Caesar
+and Tempo partial handlers their process state (with the monitor
+planes), in place, on the lanes whose predicate holds at the step's
+start (:func:`frozen_step` hands them its ``Cap``; without one every
+lane), and returns the very tensors, so K7 copies none of them; the
+``qualify_pop`` kernel reads nothing of a frozen lane and gives it
+defined outputs. No runner consumes its caller's state: each clones
 it once, at entry. The runners (the reference's
 ``build_runner``, ``build_segment_runner``, ``build_window_runner`` and
 ``finish_segmented``) run the loop on the device: on the card one window
@@ -296,9 +298,10 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     and ``reorder`` switch; ``monitor_keys > 0`` on a state built with the
     monitor planes. Open-loop lanes (ctx ``ol_arrival``) and traffic
     schedules (ctx ``traffic_think``) set their flag bits. The step
-    consumes ``st``: the pool (and the process state of Basic, Caesar
-    and Tempo partial) is updated in place, on the lanes ``cap`` lets
-    run (every lane without one)."""
+    consumes ``st``: the pool (and the process state of Basic, Tempo,
+    Caesar and Tempo partial) is updated in place, on the lanes ``cap``
+    lets run (every lane without one); K1 reads nothing of a lane
+    ``cap`` freezes and gives it defined outputs, which K7 discards."""
     pool = st["pool"]
     flags = flag_bits(faults, reorder, monitor=monitor_keys > 0,
                       open_loop="ol_arrival" in ctx,
@@ -308,7 +311,7 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     # (kernel K1); the crash-masked arrivals and timers are written back
     arrival, ep, now, _active, fire, slot, has, rows, timers = qualify_pop(
         pool, st["next_periodic"], ctx["lookahead"], ctx["fault_crash_t"],
-        ctx["fault_horizon"], flags,
+        ctx["fault_horizon"], flags, cap,
     )
 
     # 3. readiness gate, periodic timers and handlers, each process at
@@ -361,10 +364,10 @@ def frozen_step(protocol, dims: EngineDims, st, ctx, lim,
     """One step of the run loop: ``(state, running)``. The lanes whose
     predicate is false on ``st``, or whose step count reached ``lim``
     (an int, or on the card the device loop's limit word), keep their
-    state, as under the reference's vmapped ``lax.while_loop``: the
-    in-place kernels (K2, K4, K10, K11) write only running lanes, and K7
-    restores frozen lanes' rows of the planes the step wrote out of
-    place. The step consumes ``st``."""
+    state, as under the reference's vmapped ``lax.while_loop``: K1
+    skips frozen lanes, the in-place kernels (K2, K4, K8, K10, K11)
+    write only running lanes, and K7 restores frozen lanes' rows of the
+    planes the step wrote out of place. The step consumes ``st``."""
     flags = flag_bits(faults, reorder)
     cap = Cap(st, ctx, lim, flags)
     return lane_freeze(

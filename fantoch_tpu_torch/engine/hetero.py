@@ -149,10 +149,11 @@ def hetero_frozen_step(hb: HeteroBatch, st, ctx, lim, reorder: bool = False,
                        faults: FaultFlags = NO_FAULTS, streams=None):
     """One step of the run loop on a mixed batch: ``(state, running)``,
     ``running`` by group; each group's ``frozen_step`` (K1, its handler,
-    K6, K2, K7) in skeleton audit order, its K2 and handler handed the
-    group's views of the linked liveness planes and the cap (they update
-    the group's pool, and the process state of Basic, Caesar and Tempo
-    partial, in place). With ``streams`` (a dict, on the card) each
+    K6, K2, K7) in skeleton audit order, its K1, K2 and handler handed
+    the group's views of the linked liveness planes and the cap (K1
+    skips the group's frozen lanes; K2 and the handler update the
+    group's pool, and the process state of Basic, Tempo, Caesar and
+    Tempo partial, in place). With ``streams`` (a dict, on the card) each
     group steps on a CUDA stream of its own, kept there by group, forked
     from and joined to the current stream: the groups share no plane, so
     a group whose kernels leave the card idle (few lanes, or little

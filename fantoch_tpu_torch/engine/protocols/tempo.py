@@ -46,7 +46,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core import emit, emit_broadcast, empty_outbox
+from ..core import emit, emit_broadcast, empty_outbox, write_running
 from ..dims import (
     ERR_CAPACITY, ERR_DOT, ERR_PROTO, ERR_SEQ, INF, PMT, PPAY, PSRC,
     SEQ_BOUND, EngineDims, dot_slot,
@@ -209,27 +209,31 @@ class TempoDev(DevIdentity):
                  cap=None):
         """Readiness gate, periodic timers (at each process's event time
         ``ep``) and message handler of every (lane, process): ``(rdy, ps,
-        periodic outbox, handler outbox)``. Runs the ``tempo_handle``
-        kernel on CUDA tensors.
-        The run cap ``cap`` is not read: this handler writes out of
-        place, and K7 freezes its lanes."""
+        periodic outbox, handler outbox)``. ``ps`` is updated in place
+        on the lanes ``cap`` lets run (every lane without one) and
+        returned as the same tensors. Runs the ``tempo_handle`` kernel
+        on CUDA tensors."""
         from ...kernels.tempo_handle import tempo_handle
 
         return tempo_handle(ps, has, rows, fire, ep, ctx, dims,
-                            self.skip_capable)
+                            self.skip_capable, cap)
 
-    def step_plain(self, ps, has, rows, fire, now, ctx, dims: EngineDims):
+    def step_plain(self, ps, has, rows, fire, now, ctx, dims: EngineDims,
+                   cap=None):
         """The plain twin of the kernel, in the reference's order
         (core.py:890-918): ``ready`` on the incoming state, ``periodic``
-        at ``now``, then ``handle`` on the state ``periodic`` returned."""
+        at ``now``, then ``handle`` on the state ``periodic`` returned,
+        out of place; then the running lanes' rows (of ``cap``; every
+        lane without one) are copied into ``ps``, in place, as the
+        kernel writes them (``core.write_running``)."""
         none = torch.full_like(rows[..., PMT], TempoDev.NUM_TYPES)
         mtype0 = torch.where(has, rows[..., PMT], none)
         rdy = TempoDev.ready_plain(ps, rows, mtype0, dims)
         valid = has & rdy
         mtype = torch.where(valid, mtype0, none)
-        ps, pout = self.periodic_plain(ps, fire, now, ctx, dims)
-        ps, hout = self.handle_plain(ps, mtype, rows, ctx, dims)
-        return rdy, ps, pout, hout
+        new, pout = self.periodic_plain(ps, fire, now, ctx, dims)
+        new, hout = self.handle_plain(new, mtype, rows, ctx, dims)
+        return write_running(ps, (rdy, new, pout, hout), cap, dims)
 
     @staticmethod
     def ready_plain(ps, rows, mtype, dims: EngineDims):

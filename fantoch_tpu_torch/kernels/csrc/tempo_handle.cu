@@ -6,15 +6,22 @@
 // their clock, vote and drain helpers :308-490, and the add side of
 // fantoch_tpu/engine/iset.py, in iset.cuh).
 //
-// One warp per (lane, process). The reference runs the handler as a
+// One block of one warp (THREADS = 32) per (lane, process). The
+// reference runs the handler as a
 // lax.switch under vmap, which evaluates all eleven branches and selects
 // one; here each warp runs only its own branch, in the reference's order:
 // `ready` on the incoming state, `periodic` at the process's event time
 // (its clock bump can change the state), then `handle` on that state.
 //
-// The warp first copies its process's 30 state planes to the output
-// tensors (coalesced rows, 16 bytes a thread where aligned), then works
-// on the outputs in place. Control flow is warp-uniform: every thread
+// In place: the warp updates its process's rows of the step's own state
+// planes (and, on a monitored step, of the monitor planes), and only on
+// lanes whose run predicate holds at the step's start (common.cuh RunCap;
+// every lane without a cap), as the reference's vmapped while_loop keeps
+// a frozen lane's state. A frozen lane's warps write rdy false and empty
+// outboxes (valid false, zero words) and return. Every plane is indexed
+// by g = l * N + me, so warp (l, me) reads and writes only process me's
+// rows of lane l, as the reference's vmap over processes does, and no
+// warp sees another's writes. Control flow is warp-uniform: every thread
 // computes the same scalars, and the wide parts are shared: the GC free
 // scan over the [N, D] dot slots, the key loop of the clock bump, the
 // per-voter interval-set unions of MCommit (one voter per thread), the
@@ -28,9 +35,9 @@
 // every thread sees the new value. The scalar planes (error word,
 // sequence, counters) live in registers and are stored once at the end.
 // Outboxes are staged per warp in shared memory and stored coalesced.
-// On a monitored step (KM > 0) the warp also copies its monitor rows, and
-// the drain records each execution (protocols/tempo.py:434-453;
-// monitor.cuh) with the execute-before-commit guard read from the GC
+// On a monitored step (KM > 0) the drain records each execution
+// (protocols/tempo.py:434-453; monitor.cuh) into the monitor rows in
+// place, with the execute-before-commit guard read from the GC
 // committed set of the executed dot's source (iset_contains; 0 and an
 // empty set for a source out of range, as oh_get).
 //
@@ -43,11 +50,9 @@
 //
 // Bound on this card: bytes. The region reads a few state words per
 // (lane, process) and the rows its branch touches, and writes the words
-// that change and two [F, P] outboxes (tempo_handle.py work). This kernel
-// copies each process's whole state (43 KB at the main path's shapes) out
-// of place, so it moves far more than that, but in coalesced rows.
-#include <cstdint>
-
+// that change and two [F, P] outboxes (tempo_handle.py work). In place,
+// this kernel moves about that; what is left is the branch's serial parts
+// on thread 0 and the warp's latency on dependent reads.
 #include "common.cuh"
 #include "iset.cuh"
 #include "monitor.cuh"
@@ -61,6 +66,7 @@ constexpr int SUBMIT = 0, MCOLLECT = 1, MCOLLECTACK = 2, MCOMMIT = 3,
               MDRAIN = 8, DETACH_DRAIN = 9, NUM_TYPES = 10, TO_CLIENT = 11;
 constexpr int ERR_SEQ = 4, ERR_DOT = 8, ERR_CAPACITY = 16, ERR_PROTO = 32;
 constexpr int SEQ_BOUND = 1 << 20;
+constexpr int THREADS = 32;  // a warp a (lane, process)
 
 // state planes, in tempo_handle.py STATE_KEYS order
 enum Plane {
@@ -102,23 +108,6 @@ __device__ long long plane_words(int i, const Dims& d) {
   }
 }
 
-// planes of one word per process, kept in registers while the warp works
-__device__ bool is_scalar(int i) {
-  return i == MCC || i == OWN_SEQ || i == M_FAST || i == M_SLOW ||
-         i == M_STABLE || i == ERR;
-}
-
-__device__ void warp_copy(int* dst, const int* src, long long n, int lane) {
-  if ((((uintptr_t)dst | (uintptr_t)src) & 15) == 0) {
-    const long long n4 = n >> 2;
-    for (long long i = lane; i < n4; i += 32)
-      reinterpret_cast<int4*>(dst)[i] = reinterpret_cast<const int4*>(src)[i];
-    for (long long i = (n4 << 2) + lane; i < n; i += 32) dst[i] = src[i];
-  } else {
-    for (long long i = lane; i < n; i += 32) dst[i] = src[i];
-  }
-}
-
 // first i in [0, n) with pred(i), or -1; every thread of the warp calls
 template <class Pred>
 __device__ int warp_first(int n, int lane, Pred pred) {
@@ -146,8 +135,8 @@ __device__ int warp_sum(int v) {
   return v;
 }
 
-// One (lane, process): its output planes (the state being updated), the
-// popped message, the lane ctx and the warp's outbox staging area.
+// One (lane, process): its rows of the state planes (updated in place),
+// the popped message, the lane ctx and the warp's outbox staging area.
 struct Proc {
   Dims d;
   int l, me, lane;
@@ -685,8 +674,8 @@ struct Proc {
 
 }  // namespace
 
-__global__ void tempo_handle_kernel(
-    const Planes in, const Planes out, const bool* __restrict__ has,
+__global__ void __launch_bounds__(THREADS) tempo_handle_kernel(
+    const Planes st, const RunCap cap, const bool* __restrict__ has,
     const int* __restrict__ rows, const bool* __restrict__ fire,
     const int* __restrict__ now_in, const int* __restrict__ n_ctx,
     const int* __restrict__ f_ctx, const bool* __restrict__ fq,
@@ -699,31 +688,29 @@ __global__ void tempo_handle_kernel(
     int* __restrict__ hm, int* __restrict__ hp, const MonArgs ma,
     const Dims d) {
   extern __shared__ int smem[];
-  const int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (g >= d.L * d.N) return;  // whole warps: blockDim is a multiple of 32
+  const int g = blockIdx.x;
+  const int lane = threadIdx.x;
   const int l = g / d.N, me = g % d.N;
 
-  // copy this process's state planes (the scalar ones go through
-  // registers and are written at the end)
-  for (int i = 0; i < NPLANES; ++i) {
-    const long long w = plane_words(i, d);
-    if (i == SEEN) {
-      const bool* s = (const bool*)in.p[i] + (long long)g * w;
-      bool* t = (bool*)out.p[i] + (long long)g * w;
-      for (long long j = lane; j < w; j += 32) t[j] = s[j];
-    } else if (!is_scalar(i)) {
-      warp_copy((int*)out.p[i] + (long long)g * w,
-                (const int*)in.p[i] + (long long)g * w, w, lane);
+  if (!cap.runs(l)) {  // frozen: the state stays, the outboxes are empty
+    const long long fb = (long long)g * d.F;
+    if (lane == 0) rdy_out[g] = false;
+    for (long long i = lane; i < (long long)d.F * d.P; i += 32)
+      pp[fb * d.P + i] = hp[fb * d.P + i] = 0;
+    for (int i = lane; i < d.F; i += 32) {
+      pv[fb + i] = hv[fb + i] = false;
+      pd[fb + i] = pm[fb + i] = hd[fb + i] = hm[fb + i] = 0;
     }
+    return;
   }
-  mon_copy(ma, g, lane, 32);
-  __syncwarp();
 
-  auto plane = [&](int i) { return (int*)out.p[i] + (long long)g * plane_words(i, d); };
-  auto scalar = [&](int i) { return ((const int*)in.p[i])[g]; };
-  const int stage = 3 * d.F + d.F * d.P + d.P;
-  int* st = smem + (threadIdx.x >> 5) * stage;
+  // this process's rows of the state planes, updated in place (the
+  // scalar ones go through registers and are written at the end)
+  auto plane = [&](int i) {
+    return (int*)st.p[i] + (long long)g * plane_words(i, d);
+  };
+  auto scalar = [&](int i) { return ((const int*)st.p[i])[g]; };
+  int* stg = smem;
   Proc p{d, l, me, lane,
          plane(CLOCKS), plane(DET), plane(SIS), plane(KEY_OF),
          plane(CLIENT_OF), plane(ACK_CNT), plane(MAX_CLOCK), plane(MAX_CNT),
@@ -732,14 +719,15 @@ __global__ void tempo_handle_kernel(
          plane(PEND_CLOCK), plane(PEND_SRC), plane(PEND_SEQ),
          plane(PEND_CLIENT), plane(COMM_FRONT), plane(COMM_GAPS),
          plane(OTHERS), plane(PREV_STABLE),
-         (bool*)out.p[SEEN] + (long long)g * d.N,
+         (bool*)st.p[SEEN] + (long long)g * d.N,
          scalar(MCC), scalar(OWN_SEQ), scalar(M_FAST), scalar(M_SLOW),
          scalar(M_STABLE), scalar(ERR),
          n_ctx[l], f_ctx[l], fq_size[l], wq_size[l], threshold[l],
          bump_mode[l], skip_ack[l],
          fq + (long long)l * d.N * d.N, wq + (long long)l * d.N * d.N,
          attach + (long long)l * d.C,
-         st, st + d.F, st + 2 * d.F, st + 3 * d.F, st + 3 * d.F + d.F * d.P,
+         stg, stg + d.F, stg + 2 * d.F, stg + 3 * d.F,
+         stg + 3 * d.F + d.F * d.P,
          mon_view(ma, g)};
 
   const int* row = rows + (long long)g * d.W;
@@ -793,45 +781,43 @@ __global__ void tempo_handle_kernel(
 
   if (lane == 0) {
     rdy_out[g] = rdy;
-    ((int*)out.p[MCC])[g] = p.mcc;
-    ((int*)out.p[OWN_SEQ])[g] = p.own_seq;
-    ((int*)out.p[M_FAST])[g] = p.m_fast;
-    ((int*)out.p[M_SLOW])[g] = p.m_slow;
-    ((int*)out.p[M_STABLE])[g] = p.m_stable;
-    ((int*)out.p[ERR])[g] = p.err;
+    ((int*)st.p[MCC])[g] = p.mcc;
+    ((int*)st.p[OWN_SEQ])[g] = p.own_seq;
+    ((int*)st.p[M_FAST])[g] = p.m_fast;
+    ((int*)st.p[M_SLOW])[g] = p.m_slow;
+    ((int*)st.p[M_STABLE])[g] = p.m_stable;
+    ((int*)st.p[ERR])[g] = p.err;
   }
 }
 
 extern "C" int fantoch_tempo_handle(
-    const void* in_table, const void* out_table, const void* has,
+    const void* state_table, const void* cap_tab, const void* has,
     const void* rows, const void* fire, const void* now, const void* n_ctx,
     const void* f_ctx, const void* fq, const void* wq, const void* fq_size,
     const void* wq_size, const void* threshold, const void* bump_mode,
     const void* skip_ack, const void* attach, void* rdy_out, void* pv,
     void* pd, void* pm, void* pp, void* hv, void* hd, void* hm, void* hp,
-    const void* mh_in, const void* mc_in, const void* mf_in, void* mh_o,
-    void* mc_o, void* mf_o, int L, int N, int D, int F, int P, int R, int W,
-    int C, int K, int PK, int DS, int G, int skip_capable, int KM,
-    void* stream) {
+    void* mon_hash, void* mon_cnt, void* mon_flags, int L, int N, int D,
+    int F, int P, int R, int W, int C, int K, int PK, int DS, int G,
+    int skip_capable, int KM, int flags, void* stream) {
   const long long warps = (long long)L * N;
   if (warps == 0) return 0;
-  Planes in, out;
-  for (int i = 0; i < NPLANES; ++i) {
-    in.p[i] = ((void* const*)in_table)[i];
-    out.p[i] = ((void* const*)out_table)[i];
-  }
+  Planes st;
+  for (int i = 0; i < NPLANES; ++i)
+    st.p[i] = ((void* const*)state_table)[i];
   const Dims d{L, N, D, F, P, R, W, C, K, PK, DS, G, skip_capable != 0};
-  const int threads = 128;  // four (lane, process) warps per block
-  const int blocks = (int)((warps * 32 + threads - 1) / threads);
-  const size_t smem =
-      (size_t)(threads / 32) * (3 * F + F * P + P) * sizeof(int);
-  tempo_handle_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      in, out, (const bool*)has, (const int*)rows, (const bool*)fire,
-      (const int*)now, (const int*)n_ctx, (const int*)f_ctx,
-      (const bool*)fq, (const bool*)wq, (const int*)fq_size,
-      (const int*)wq_size, (const int*)threshold, (const bool*)bump_mode,
-      (const bool*)skip_ack, (const int*)attach, (bool*)rdy_out, (bool*)pv,
-      (int*)pd, (int*)pm, (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
-      mon_args(mh_in, mc_in, mf_in, mh_o, mc_o, mf_o, KM), d);
+  const size_t smem = (size_t)(3 * F + F * P + P) * sizeof(int);
+  tempo_handle_kernel<<<(unsigned)warps, THREADS, smem,
+                        (cudaStream_t)stream>>>(
+      st, run_cap((const void* const*)cap_tab, flags), (const bool*)has,
+      (const int*)rows, (const bool*)fire, (const int*)now,
+      (const int*)n_ctx, (const int*)f_ctx, (const bool*)fq, (const bool*)wq,
+      (const int*)fq_size, (const int*)wq_size, (const int*)threshold,
+      (const bool*)bump_mode, (const bool*)skip_ack, (const int*)attach,
+      (bool*)rdy_out, (bool*)pv, (int*)pd, (int*)pm, (int*)pp, (bool*)hv,
+      (int*)hd, (int*)hm, (int*)hp,
+      mon_args(mon_hash, mon_cnt, mon_flags, mon_hash, mon_cnt, mon_flags,
+               KM),
+      d);
   return (int)cudaGetLastError();
 }

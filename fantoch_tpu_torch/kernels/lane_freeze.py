@@ -12,11 +12,13 @@ CUDA source: ``csrc/lane_freeze.cu`` (bound by bytes, :func:`work`).
 the CPU.
 
 The same predicate (``csrc/common.cuh RunCap``; :func:`lane_running`
-here) tells K2, K4, K10 and K11 which lanes to update: they write the
-pool and the process state of Basic, Caesar and Tempo partial in place,
-on running lanes only, and return the very tensors they took, so K7
-leaves those planes out of its table (:func:`plane_pairs` selects by
-identity). A step hands them its :class:`Cap`.
+here) tells K2, K4, K8, K10 and K11 which lanes to update: they write
+the pool and the process state of Basic, Tempo, Caesar and Tempo
+partial in place, on running lanes only, and return the very tensors
+they took, so K7 leaves those planes out of its table
+(:func:`plane_pairs` selects by identity). K1 reads it too: it reads
+nothing of a frozen lane and gives it defined outputs, which K7
+discards. A step hands them its :class:`Cap`.
 """
 
 from __future__ import annotations

@@ -7,21 +7,58 @@ under their flags.
 CUDA source: ``csrc/qualify_pop.cu`` (bound by bytes, :func:`work`).
 :func:`qualify_pop_plain` is its plain PyTorch twin, used for tensors on
 the CPU.
+
+A lane whose run predicate is false at the step's start (``cap``,
+:class:`lane_freeze.Cap`; every lane runs without one) is not read: its
+outputs are the defined "nothing happens" values of :func:`frozen_out`
+(K2 writes no frozen lane, and K7 restores every out-of-place plane of
+one).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..engine.dims import INF, PA, PDST, PKC, PKS, PPR
 from ..engine.faults import FLAG_CRASH, FLAG_HORIZON
 from . import build, cost
+from .lane_freeze import cap_args, cap_running
 
 I32 = torch.int32
 
 
+def block_threads(L: int, M: int) -> int:
+    """Threads a block for ``L`` lanes of ``M`` pool slots: 1,024 for a
+    small batch (a mixed batch's 128-lane group) or a large pool (Tempo
+    partial's 10,064 slots), else 256, the fastest of 128-1,024 on the
+    512-lane batches of 2,069 slots when they were compared on the
+    card."""
+    return 1024 if L < 256 or M > 4096 else 256
+
+
+def frozen_out(out, running, now0, flags: int):
+    """``out`` with the lanes not ``running`` set to the defined values
+    of a frozen lane: ep INF, active, fire and has false, slot 0, rows
+    zero, now ``now0`` (the lane's ``now`` plane), arrival INF and,
+    under :data:`FLAG_CRASH`, timers INF (else the input timers, as
+    they are)."""
+    arrival, ep, now, active, fire, slot, has, rows, timers = out
+
+    def sel(t, v):
+        return torch.where(
+            running.reshape(running.shape + (1,) * (t.dim() - 1)), t, v)
+
+    if flags & FLAG_CRASH:
+        timers = sel(timers, INF)
+    return (sel(arrival, INF), sel(ep, INF), torch.where(running, now, now0),
+            sel(active, False), sel(fire, False), sel(slot, 0),
+            sel(has, False), sel(rows, 0), timers)
+
+
 def qualify_pop_plain(pool, next_periodic, lookahead, crash_t=None,
-                      horizon=None, flags: int = 0):
+                      horizon=None, flags: int = 0, cap=None):
     """``(arrival, ep, now, active, fire, slot, has, rows, timers)`` for
     a batch: pool ``[L, M, W]``, timers ``[L, N, R]``, lookahead
     ``[L, N, N]``, the fault plan's crash times ``[L, N]`` and horizon
@@ -32,7 +69,8 @@ def qualify_pop_plain(pool, next_periodic, lookahead, crash_t=None,
     input itself); under :data:`FLAG_HORIZON` no event at or past the
     horizon is active. Each slot is reduced into its destination's row
     (a slot whose destination is out of range takes part in no pop), so
-    the work is ``[L, M]`` per reduction."""
+    the work is ``[L, M]`` per reduction. The lanes ``cap`` freezes
+    give :func:`frozen_out`'s values."""
     L, M, W = pool.shape
     N = next_periodic.shape[1]
     dev = pool.device
@@ -92,16 +130,23 @@ def qualify_pop_plain(pool, next_periodic, lookahead, crash_t=None,
     popped.scatter_(1, torch.where(has, slot, M).long(),
                     torch.ones_like(has))
     arrival = torch.where(popped[:, :M], inf, arrival)
-    return arrival, ep, now, active, fire, slot, has, rows, next_periodic
+    out = (arrival, ep, now, active, fire, slot, has, rows, next_periodic)
+    running = cap_running(cap)
+    if running is None:
+        return out
+    return frozen_out(out, running, cap.st["now"], flags)
 
 
-def work(pool, next_periodic, lookahead, crash_t, horizon, flags: int, out):
-    """``(bytes, ops)`` the region needs on these inputs (``out`` is its
-    result): every slot's arrival and destination words, the prio, ksrc
-    and kcnt words of the slots that compete in a pop, the timers and
-    lookahead, the popped rows, the crash times and the horizon under
-    their flags, and every output written once (the masked timers only
-    under the crash flag)."""
+def work(pool, next_periodic, lookahead, crash_t, horizon, flags: int,
+         *rest):
+    """``(bytes, ops)`` the region needs on these inputs (the last
+    argument is its result, one before it may be the cap): every slot's
+    arrival and destination words, the prio, ksrc and kcnt words of the
+    slots that compete in a pop, the timers and lookahead, the popped
+    rows, the crash times and the horizon under their flags, and every
+    output written once (the masked timers only under the crash
+    flag)."""
+    out = rest[-1]
     L, M, W = pool.shape
     N = next_periodic.shape[1]
     _arrival, ep, _now, active, fire, _slot, _has, _rows, timers = out
@@ -129,11 +174,13 @@ def work(pool, next_periodic, lookahead, crash_t, horizon, flags: int, out):
 
 
 def qualify_pop(pool, next_periodic, lookahead, crash_t=None, horizon=None,
-                flags: int = 0):
-    """K1 on CUDA tensors, :func:`qualify_pop_plain` on CPU tensors."""
+                flags: int = 0, cap=None):
+    """K1 on CUDA tensors, :func:`qualify_pop_plain` on CPU tensors; the
+    lanes ``cap`` freezes are not read and give :func:`frozen_out`'s
+    values."""
     if pool.device.type == "cpu":
         return qualify_pop_plain(pool, next_periodic, lookahead, crash_t,
-                                 horizon, flags)
+                                 horizon, flags, cap)
     L, M, W = pool.shape
     _, N, R = next_periodic.shape
     dev = pool.device
@@ -156,13 +203,16 @@ def qualify_pop(pool, next_periodic, lookahead, crash_t=None, horizon=None,
     slot = torch.empty((L, N), dtype=I32, device=dev)
     has = torch.empty((L, N), dtype=torch.bool, device=dev)
     rows = torch.empty((L, N, W), dtype=I32, device=dev)
-    fn = build.c_function("fantoch_qualify_pop", 14, 6)
+    tab, cap_flags = cap_args(cap, L, dev)
+    fn = build.c_function("fantoch_qualify_pop", 15, 8)
     build.launch(
         fn,
         [0 if t is None else t.data_ptr()
-         for t in (pool, next_periodic, lookahead, crash_t, horizon, arrival,
-                   ep, now, active, fire, slot, has, rows, timers)],
-        [L, M, W, N, R, flags],
+         for t in (pool, next_periodic, lookahead, crash_t, horizon)]
+        + [ctypes.addressof(tab)]
+        + [t.data_ptr() for t in (arrival, ep, now, active, fire, slot, has,
+                                  rows, timers)],
+        [L, M, W, N, R, flags, cap_flags, block_threads(L, M)],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     qualify_pop.launches += 1

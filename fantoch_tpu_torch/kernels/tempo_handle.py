@@ -13,6 +13,13 @@ safety monitors' ``mon_exec`` in the drain (:434-453). CUDA source:
 :func:`work`). :func:`tempo_handle_plain` is its plain PyTorch twin (the
 batched handlers of ``engine/protocols/tempo.py``), used for tensors on
 the CPU.
+
+The process state (with the monitor planes) is updated in place, on
+the lanes whose run predicate holds at the step's start (``cap``,
+:class:`lane_freeze.Cap`; every lane without one), and returned as the
+very tensors given: the step consumes its input, K7 copies none of
+these planes, and the device loop's write-back skips them. A frozen
+lane's ``rdy`` is false and its outboxes are empty.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch
 
 from ..engine.dims import PMT, EngineDims
 from . import build, cost
+from .lane_freeze import cap_args
 
 I32 = torch.int32
 
@@ -52,10 +60,11 @@ def _protocol(ps, skip_capable: bool):
 
 
 def tempo_handle_plain(ps, has, rows, fire, now, ctx, dims: EngineDims,
-                       skip_capable: bool):
-    """``(rdy, ps, periodic outbox, handler outbox)``."""
+                       skip_capable: bool, cap=None):
+    """``(rdy, ps, periodic outbox, handler outbox)``, ``ps`` updated in
+    place on the lanes ``cap`` lets run."""
     return _protocol(ps, skip_capable).step_plain(ps, has, rows, fire, now,
-                                                  ctx, dims)
+                                                  ctx, dims, cap)
 
 
 def _state_shapes(L, dims: EngineDims, K, PK, DS, G):
@@ -82,9 +91,11 @@ def _state_shapes(L, dims: EngineDims, K, PK, DS, G):
 
 
 def work(ps, has, rows, fire, now, ctx, dims: EngineDims,
-         skip_capable: bool, out):
-    """``(bytes, ops)`` the region needs on these inputs (``out`` is its
-    result). Every (lane, process) reads its ``has`` flag, timer flags
+         skip_capable: bool, *rest):
+    """``(bytes, ops)`` the region needs on these inputs (``ps`` a
+    snapshot taken before the call, which updates it in place; the last
+    argument is the call's result, one before it may be the cap). Every
+    (lane, process) reads its ``has`` flag, timer flags
     and event time, a popped message's type, source and payload, and the
     state words its branch reads: the gated types one dot word; SUBMIT
     its sequence and the key's clock; MCollect the dot word, the clock
@@ -104,7 +115,7 @@ def work(ps, has, rows, fire, now, ctx, dims: EngineDims,
     change."""
     from ..engine.protocols.tempo import TempoDev as X
 
-    rdy, new_ps, pout, hout = out
+    rdy, new_ps, pout, hout = rest[-1]
     L, N, W = rows.shape
     P, D = dims.P, dims.D
     K, DS = ps["det"].shape[2:4]
@@ -154,17 +165,18 @@ def work(ps, has, rows, fire, now, ctx, dims: EngineDims,
 
 
 def tempo_handle(ps, has, rows, fire, now, ctx, dims: EngineDims,
-                 skip_capable: bool):
+                 skip_capable: bool, cap=None):
     """K8 on CUDA tensors, :func:`tempo_handle_plain` on CPU tensors.
     ``now`` ``[L, N]`` is each process's event time (the clock bump
     reads it); ``skip_capable`` gates the skip_fast_ack paths, which then
-    run on the lanes whose ``ctx["skip_fast_ack"]`` holds. The kernel's
-    outboxes carry the planes ``valid``, ``dst``, ``mtype`` and
-    ``payload``; a protocol handler's ``delay``/``src`` are always -1,
-    which ``emit_rewrite`` assumes."""
+    run on the lanes whose ``ctx["skip_fast_ack"]`` holds. ``ps`` is
+    updated in place on the lanes ``cap`` lets run and returned (the
+    same tensors). The kernel's outboxes carry the planes ``valid``,
+    ``dst``, ``mtype`` and ``payload``; a protocol handler's
+    ``delay``/``src`` are always -1, which ``emit_rewrite`` assumes."""
     if rows.device.type == "cpu":
         return tempo_handle_plain(ps, has, rows, fire, now, ctx, dims,
-                                  skip_capable)
+                                  skip_capable, cap)
     L, N, W = rows.shape
     R = fire.shape[2]
     F, P, D = dims.F, dims.P, dims.D
@@ -189,10 +201,6 @@ def tempo_handle(ps, has, rows, fire, now, ctx, dims: EngineDims,
         build.check(k, ctx[k], torch.bool, (L, N, N), dev)
     build.check("client_attach", ctx["client_attach"], I32, (L, C), dev)
     rdy = torch.empty((L, N), dtype=torch.bool, device=dev)
-    new_ps = {
-        k: torch.empty(shapes[k][0], dtype=shapes[k][1], device=dev)
-        for k in STATE_KEYS
-    }
 
     def outbox():
         return {
@@ -203,26 +211,25 @@ def tempo_handle(ps, has, rows, fire, now, ctx, dims: EngineDims,
         }
 
     pout, hout = outbox(), outbox()
-    n_planes = len(STATE_KEYS)
-    ins = (ctypes.c_void_p * n_planes)(*[ps[k].data_ptr()
-                                         for k in STATE_KEYS])
-    outs = (ctypes.c_void_p * n_planes)(*[new_ps[k].data_ptr()
-                                          for k in STATE_KEYS])
+    planes = (ctypes.c_void_p * len(STATE_KEYS))(
+        *[ps[k].data_ptr() for k in STATE_KEYS])
+    tab, cap_flags = cap_args(cap, L, dev)
     tensors = (
         [has, rows, fire, now] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    mon_ptrs, KM, mon_new = build.mon_planes(ps, L, N, dev)
-    fn = build.c_function("fantoch_tempo_handle", 8 + len(tensors), 14)
+    mon_ptrs, KM, _mon = build.mon_planes(ps, L, N, dev, in_place=True)
+    fn = build.c_function("fantoch_tempo_handle", 5 + len(tensors), 15)
     build.launch(
         fn,
-        [ctypes.addressof(ins), ctypes.addressof(outs)]
+        [ctypes.addressof(planes), ctypes.addressof(tab)]
         + [t.data_ptr() for t in tensors] + mon_ptrs,
-        [L, N, D, F, P, R, W, C, K, PK, DS, G, int(bool(skip_capable)), KM],
+        [L, N, D, F, P, R, W, C, K, PK, DS, G, int(bool(skip_capable)), KM,
+         cap_flags],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     tempo_handle.launches += 1
-    return rdy, {**new_ps, **mon_new}, pout, hout
+    return rdy, ps, pout, hout
 
 
 tempo_handle.launches = 0

@@ -185,7 +185,7 @@ def _outboxes_bytes(out):
 
 
 def _on_a_copy(kernel, ps, *rest):
-    """An in-place handler kernel (K4, K10, K11) on a copy of ``ps``:
+    """An in-place handler kernel (K4, K8, K10, K11) on a copy of ``ps``:
     the call updates its state in place; work reads the state before
     it."""
     return kernel({k: v.clone() for k, v in ps.items()}, *rest)
@@ -286,7 +286,7 @@ def _tempo_idle(L=2):
 def test_tempo_handle_work_idle_submit_and_gc():
     t, dims, ps, has, rows, fire, now, ctx = _tempo_idle()
     args = (ps, has, rows, fire, now, ctx, dims, False)
-    out = tempo_handle(*args)
+    out = _on_a_copy(tempo_handle, *args)
     idle, idle_ops = th_work(*args, out)
     L, N = has.shape
     P = dims.P
@@ -299,7 +299,7 @@ def test_tempo_handle_work_idle_submit_and_gc():
     # counters do not change)
     has[0, 0] = True
     rows[0, 0, PMT] = TempoDev.SUBMIT
-    out = tempo_handle(*args)
+    out = _on_a_copy(tempo_handle, *args)
     n_bytes, _ = th_work(*args, out)
     assert n_bytes == idle + 4 * (2 + P) + 4 * 2 + 4 * 5
     # a GC message from process 0 at process 2 (an all-zero frontier):
@@ -308,7 +308,7 @@ def test_tempo_handle_work_idle_submit_and_gc():
     # has not been seen, so nothing is stable yet)
     has[1, 2] = True
     rows[1, 2, PMT] = TempoDev.MGC
-    out = tempo_handle(*args)
+    out = _on_a_copy(tempo_handle, *args)
     with_gc, ops = th_work(*args, out)
     D = dims.D
     gc_read = 4 * N * N + N + 4 * 2 * N + 4 * N * D
@@ -318,7 +318,7 @@ def test_tempo_handle_work_idle_submit_and_gc():
     # the detached table
     fire[0, 1, 0] = True
     fire[0, 1, 2] = True
-    out = tempo_handle(*args)
+    out = _on_a_copy(tempo_handle, *args)
     with_timers, _ = th_work(*args, out)
     assert with_timers == with_gc + 4 * N + 4 * t.K * t.R
 
