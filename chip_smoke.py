@@ -134,7 +134,15 @@ batch stepped through the wrappers under the profiler
 (``mc_grid_profile``: each kernel's device ms a launch over the sampled
 steps, from the first steps to the frozen tail); an eager mixed body is
 profiled by kernel too, and the kernels are ranked by launches x
-(device ms - bound) before the kernels line (``bottlenecks``). Any
+(device ms - bound) before the kernels line (``bottlenecks``). Slice
+16: K6 (the lane state's clients, metrics, channel counts and timers)
+and K9 (Atlas's and EPaxos's process state) update in place too and are
+in ``IN_PLACE`` (K6's fresh copy is of those planes only, ``_fresh``);
+K6 takes the step's cap; the frozen-lane checks hold both on every path
+that runs them, and on the mixed batch's groups and the monitored mc
+batches; K7's frozen-lane ms and plane count are printed by path, and
+each sweep's host seconds outside the step loop (``prepare_batch``,
+``finish_run`` + ``collect_results``) beside its points/s. Any
 failure
 raises; nothing
 is caught. Each phase prints its seconds. The last two lines
@@ -476,20 +484,48 @@ def _clone(x):
 
 
 # the kernels that update an argument in place (its position): K2 the
-# pool, K4, K8, K10 and K11 their process state (Basic's, Tempo's,
-# Caesar's, Tempo partial's). A call consumes it, so every check hands
-# each call a fresh copy (a step consumes its input state)
+# pool, K4, K8, K9, K10 and K11 their process state (Basic's, Tempo's,
+# Atlas's and EPaxos's, Caesar's, Tempo partial's), K6 the lane state's
+# K6_PLANES. A call consumes it, so every check hands each call a fresh
+# copy (a step consumes its input state)
 IN_PLACE = {"land_emissions": 0, "basic_handle": 0, "tempo_handle": 0,
-            "caesar_handle": 0, "tempo_partial_handle": 0}
+            "caesar_handle": 0, "tempo_partial_handle": 0,
+            "graphdep_handle": 0, "emit_rewrite": 0}
+# the planes of the lane state K6 updates in place (the rest of the tree
+# it takes is read only)
+K6_PLANES = ("clients", "metrics", "pair_cnt", "next_periodic")
 
 
 def _fresh(kname, a):
     """Kernel ``kname``'s arguments ``a`` with its in-place argument
-    copied (the others as they are)."""
+    copied (the others as they are; of K6's lane state only the planes
+    it writes)."""
     i = IN_PLACE.get(kname)
     if i is None:
         return a
-    return a[:i] + (_clone(a[i]),) + a[i + 1:]
+    if kname == "emit_rewrite":
+        x = dict(a[i], **{k: _clone(a[i][k]) for k in K6_PLANES})
+    else:
+        x = _clone(a[i])
+    return a[:i] + (x,) + a[i + 1:]
+
+
+def _in_place_planes(kname, got, given, before):
+    """``(returned, given, before)`` plane triples of in-place kernel
+    ``kname``'s call: its result ``got`` on the argument ``given``, and
+    ``before``, a copy of that argument from before the call."""
+    if kname == "land_emissions":
+        return [(got[0], given, before)]
+    if kname == "emit_rewrite":
+        out = []
+        for k in K6_PLANES:
+            if isinstance(given[k], dict):
+                out += [(got[2][k][j], given[k][j], before[k][j])
+                        for j in given[k]]
+            else:
+                out.append((got[2][k], given[k], before[k]))
+        return out
+    return [(got[1][k], given[k], before[k]) for k in given]
 
 
 def _clone_new(new, old):
@@ -773,10 +809,11 @@ def check_kernels(name, dev, rows):
           f"frozen): exact=True max_abs_err={err} ms={ms:.5f} bound_us="
           f"{1e3 * cost.bound(n_bytes, n_ops)[0]:.3f} ({n_bytes} bytes); "
           f"{planes} planes in its table")
-    # K2 and the in-place handler with the same lanes frozen: running
+    # K2, K6 and the in-place handler with the same lanes frozen: running
     # lanes equal the twin, frozen lanes' in-place planes are untouched
     cap = lf.Cap(old, fctx, ms_, lflags)
-    for kname in [k for k in (handler, "land_emissions") if k in IN_PLACE]:
+    for kname in [k for k in (handler, "emit_rewrite", "land_emissions")
+                  if k in IN_PLACE]:
         a = captured[kname]
         a = a[:-1] + (cap,)
         rows[kname]["max_abs_err"] = max(
@@ -855,16 +892,16 @@ def frozen_check(name, kname, mod, a, frozen) -> float:
     got = kern(*fa)
     want = plain(*_fresh(kname, a))
     torch.cuda.synchronize()
-    ours = got[0] if kname == "land_emissions" else got[1]
-    pairs = ([(ours, fa[i], a[i])] if torch.is_tensor(ours)
-             else [(ours[k], fa[i][k], a[i][k]) for k in a[i]])
     moved = torch.zeros_like(frozen)
-    for out, given, before in pairs:
+    for out, given, before in _in_place_planes(kname, got, fa[i], a[i]):
         assert out is given, f"{kname}: an in-place plane is a new tensor"
         assert torch.equal(out[frozen], before[frozen]), (
             f"{kname}: a frozen lane's row changed")
         moved |= (out != before).reshape(out.shape[0], -1).any(1)
     assert bool((moved & ~frozen).any()), f"{kname}: no running lane moved"
+    if kname == "emit_rewrite":
+        # a frozen lane's rows are zero and none lands
+        assert not bool(got[0][frozen].any() | got[1][frozen].any())
     if kname in HANDLERS.values():
         got, want = _handler_view(got), _handler_view(want)
     err = _compare(got, want)
@@ -876,6 +913,18 @@ def frozen_check(name, kname, mod, a, frozen) -> float:
     FROZEN.setdefault(kname, {})[name] = dict(frozen=int(frozen.sum()),
                                               lanes=frozen.numel(), ms=ms)
     return err
+
+
+def _third_frozen(lf_args):
+    """The cap of a step whose K7 took ``lf_args``, with every third
+    lane failed, and the lanes it freezes."""
+    from fantoch_tpu_torch.kernels.lane_freeze import Cap
+
+    _new, old, ctx, lim, flags = lf_args
+    old = dict(old, err=old["err"].clone())
+    old["err"][::3] = 64
+    cap = Cap(old, ctx, lim, flags)
+    return cap, ~cap.running()
 
 
 def qualify_frozen_check(name, mod, a, frozen) -> float:
@@ -1210,8 +1259,9 @@ def request_coverage(dev, mod) -> float:
 
 def _checked(mod_name, kname, compare, clone_first=False):
     """A stand-in for kernel ``kname`` in ``engine.core``: each call runs
-    the kernel and its twin on the same arguments, ``compare(args,
-    got, want)`` holds them equal, and the kernel's result goes on. The
+    the kernel and its twin on the same arguments (an in-place kernel's
+    twin on a copy), ``compare(args, got, want)`` holds them equal (the
+    arguments as before the call), and the kernel's result goes on. The
     stand-in counts nothing (the kernel's own counter does)."""
     mod = importlib.import_module(f"fantoch_tpu_torch.kernels.{mod_name}")
     kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
@@ -1220,6 +1270,13 @@ def _checked(mod_name, kname, compare, clone_first=False):
         if clone_first:  # lane_freeze writes into the step's new planes
             want = plain(_clone_new(a[0], a[1]), *a[1:])
             got = kern(_clone_new(a[0], a[1]), *a[1:])
+        elif kname in IN_PLACE:
+            # the twin on a copy, the kernel on the step's own state;
+            # compare sees the arguments as they were before the call
+            before = _fresh(kname, a)
+            want = plain(*_fresh(kname, a))
+            got = kern(*a)
+            a = before
         else:
             want = plain(*a)
             got = kern(*a)
@@ -1327,11 +1384,13 @@ def fault_coverage(dev) -> float:
             seen[labels[i]] += lost[i]
         for i, bit in ((1, fm.FLAG_WINDOWS), (2, fm.FLAG_WINDOWS),
                        (5, fm.FLAG_JITTER)):
-            off = er.emit_rewrite_plain(*a[:12], a[12] & ~bit)
+            off = er.emit_rewrite_plain(*_fresh("emit_rewrite", a)[:12],
+                                        a[12] & ~bit)
             moved = (off[0][i, :, 0] != want[0][i, :, 0]) & want[1][i]
             seen[labels[i]] += int(moved.sum())
         seen[labels[7]] += int(want[2]["err"][7] & 128 != 0)
-        off = er.emit_rewrite_plain(*a[:12], a[12] & ~fm.FLAG_HORIZON)
+        off = er.emit_rewrite_plain(*_fresh("emit_rewrite", a)[:12],
+                                    a[12] & ~fm.FLAG_HORIZON)
         done = [x[2]["clients"]["completed"][8:] for x in (off, want)]
         seen[labels[8]] += int((done[0] != done[1]).sum())
 
@@ -1506,7 +1565,7 @@ def wide_emit(dev) -> float:
         box = {}
 
         def record(*a):
-            box["args"] = a
+            box["args"] = _fresh("emit_rewrite", a)
             return er.emit_rewrite_plain(*a)
 
         record.launches = 0
@@ -1515,9 +1574,9 @@ def wide_emit(dev) -> float:
                 state, _running = engine_core.frozen_step(
                     proto, dims, state, ctx, 1 << 22)
         a = box["args"]
-        args = (*(to_torch_tree(x, dev) for x in a[:10]), *a[10:])
-        got = er.emit_rewrite(*args)
-        want = er.emit_rewrite_plain(*args)
+        args = (*(to_torch_tree(x, dev) for x in a[:10]), *a[10:13])
+        got = er.emit_rewrite(*_fresh("emit_rewrite", args))
+        want = er.emit_rewrite_plain(*_fresh("emit_rewrite", args))
         torch.cuda.synchronize()
         err = max(err, _compare(got, want))
         E = got[0].shape[1]
@@ -1849,6 +1908,7 @@ def sweep(name, dev):
 
     from fantoch_tpu_torch import cli, kernels
     from fantoch_tpu_torch.parallel import run_sweep
+    from fantoch_tpu_torch.parallel import sweep as psweep
 
     args = cli.parse_args(path_argv(name))
     protocol, dims, specs = cli.sweep_setup(args)
@@ -1871,7 +1931,8 @@ def sweep(name, dev):
     clean = [int(r.lat_sum.sum()) / total for r in results if not r.err]
     print(f"sweep {name} n=5 (N={dims.N} M={dims.M} D={dims.D} F={dims.F}): "
           f"{len(results)} points "
-          f"in {wall:.3f} s = {len(results) / wall:.3f} points/s; errors "
+          f"in {wall:.3f} s = {len(results) / wall:.3f} points/s "
+          f"({stage_secs(psweep.LAST_STATS)}); errors "
           f"{errors} {sorted({r.err_cause for r in results if r.err})}; "
           f"steps per lane max {max(steps)} mean {sum(steps) / len(steps):.1f}"
           f"; batch steps {steps_run}; lanes complete "
@@ -2130,7 +2191,16 @@ def loop_stats(st) -> str:
             f"body iterations {st['body_iterations']}, batch steps "
             f"{st['batch_steps']}, overshoot steps {st['overshoot_steps']}, "
             f"captures {st['captures']}, capture + instantiate "
-            f"{st['capture_s']:.3f} s")
+            f"{st['capture_s']:.3f} s; {stage_secs(st)}")
+
+
+def stage_secs(st) -> str:
+    """A sweep's host seconds by stage, summed over its batches
+    (``run_sweep``'s ``LAST_STATS``): the time outside the step loop
+    beside the loop's."""
+    return (f"outside the loop: prepare_batch {st['prepare_s']:.3f} s, "
+            f"finish_run + collect_results {st['collect_s']:.3f} s; "
+            f"run_windows {st['windows_s']:.3f} s")
 
 
 def fault_sweep_checks(specs, results, total, wall, launches) -> None:
@@ -2342,6 +2412,18 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
           f"== their twins after {warmup} steps, and each group's key "
           f"table; the step's bound {1e3 * bound_ms:.3f} us, by group "
           f"{ {g: round(1e3 * v, 3) for g, v in by_group.items()} }")
+    # K6 and K9 in each group that runs them, with every third lane
+    # failed
+    for i, (kname, a) in enumerate(calls):
+        group = groups[i // len(order)]
+        if kname == "lane_freeze":
+            cap, frozen = _third_frozen(a)
+            for k2, a2 in calls[i - len(order) + 1:i]:
+                if k2 in ("emit_rewrite", "graphdep_handle"):
+                    rows[k2]["max_abs_err"] = max(
+                        rows[k2]["max_abs_err"],
+                        frozen_check(f"{name} {group}", k2, mods[k2],
+                                     a2[:-1] + (cap,), frozen))
     return state, ctx, hb, flags, bound_ms, by_kernel
 
 
@@ -2427,7 +2509,8 @@ def hetero_sweep(name, dev):
     rate = len(results) / wall
     line = (f"sweep {name} ({len(results)} lanes, {names}, "
             f"{psweep.LAST_STATS['batches']} mixed batches of "
-            f"{args.batch_lanes}): {wall:.3f} s = {rate:.3f} points/s; every "
+            f"{args.batch_lanes}): {wall:.3f} s = {rate:.3f} points/s "
+            f"({stage_secs(psweep.LAST_STATS)}); every "
             f"lane == its protocol's phase-7 line, byte for byte; batch "
             f"steps {steps}; launches per batch step "
             f"{ {k: v / steps for k, v in launches.items() if v} }")
@@ -2779,6 +2862,14 @@ def check_monitored_kernels(dev, rows) -> None:
                     rows[kname] = row
             else:
                 rows[kname].setdefault("monitored", {})[label] = row
+        # K6 and the in-place handler with every third lane failed
+        cap, frozen = _third_frozen(captured["lane_freeze"])
+        for kname in (handler, "emit_rewrite"):
+            if kname in IN_PLACE:
+                rows[kname]["max_abs_err"] = max(
+                    rows[kname]["max_abs_err"],
+                    frozen_check(label, kname, mods[kname],
+                                 captured[kname][:-1] + (cap,), frozen))
 
 
 def mc_grid(dev):
@@ -3415,11 +3506,10 @@ def open_coverage(dev) -> float:
 
 
 def open_freeze(dev) -> float:
-    """K7 (and K6) against their twins on the widest tree K7 carries,
-    monitored open-loop Caesar (64 changed planes on the card, where
-    every kernel writes fresh outputs), on every one of 50
-    steps of a two-lane batch whose lane 0 is frozen from the start.
-    Returns the max abs error."""
+    """K7 (and K6) against their twins on monitored open-loop Caesar,
+    the widest lane tree (its planes a step writes out of place are
+    K7's table), on every one of 50 steps of a two-lane batch whose lane
+    0 is frozen from the start. Returns the max abs error."""
     from fantoch_tpu_torch.engine import core as engine_core
     from fantoch_tpu_torch.engine.driver import prepare_batch
     from fantoch_tpu_torch.kernels.lane_freeze import MAX_PLANES, plane_pairs
@@ -3612,6 +3702,9 @@ def _main(dev, card) -> int:
 
     print("frozen-lane checks, every third lane failed (ms by kernel and "
           f"path): {json.dumps(FROZEN, sort_keys=True)}")
+    print("lane_freeze with every third lane failed, by path: "
+          + "; ".join(f"{p} {v['ms']:.5f} ms, {v['planes']} planes"
+                      for p, v in FROZEN["lane_freeze"].items()))
     bottlenecks(rows, by_path)
 
     # 9. the kernels line, then the verdict

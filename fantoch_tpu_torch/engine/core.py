@@ -43,12 +43,14 @@ frozen (its new state is discarded; the ``lane_freeze`` kernel), so a
 finished lane is a fixed point.
 
 A step consumes its input state, like a donated buffer in JAX: the
-``land_emissions`` kernel writes the pool, and the Basic, Tempo, Caesar
-and Tempo partial handlers their process state (with the monitor
-planes), in place, on the lanes whose predicate holds at the step's
-start (:func:`frozen_step` hands them its ``Cap``; without one every
-lane), and returns the very tensors, so K7 copies none of them; the
-``qualify_pop`` kernel reads nothing of a frozen lane and gives it
+``land_emissions`` kernel writes the pool, the Basic, Tempo,
+Atlas/EPaxos, Caesar and Tempo partial handlers their process state
+(with the monitor planes), and the ``emit_rewrite`` kernel the
+clients, metrics, channel counts and timers, in place, on the lanes
+whose predicate holds at the step's start (:func:`frozen_step` hands
+them its ``Cap``; without one every lane), and return the very
+tensors, so K7 copies none of them; the ``qualify_pop`` and
+``emit_rewrite`` kernels read nothing of a frozen lane and give it
 defined outputs. No runner consumes its caller's state: each clones
 it once, at entry. The runners (the reference's
 ``build_runner``, ``build_segment_runner``, ``build_window_runner`` and
@@ -132,8 +134,9 @@ def write_running(ps, step, cap, dims: EngineDims):
             continue
         if running is None:
             ps[k].copy_(v)
-        else:
-            ps[k][running] = v[running]
+        else:  # a select, not a masked index: no sync with the card
+            lead = running.reshape((-1,) + (1,) * (v.dim() - 1))
+            ps[k].copy_(torch.where(lead, v, ps[k]))
     if running is None:
         return rdy, ps, pout, hout
     empty = empty_outbox(dims, rdy.shape, rdy.device)
@@ -298,10 +301,12 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     and ``reorder`` switch; ``monitor_keys > 0`` on a state built with the
     monitor planes. Open-loop lanes (ctx ``ol_arrival``) and traffic
     schedules (ctx ``traffic_think``) set their flag bits. The step
-    consumes ``st``: the pool (and the process state of Basic, Tempo,
-    Caesar and Tempo partial) is updated in place, on the lanes ``cap``
-    lets run (every lane without one); K1 reads nothing of a lane
-    ``cap`` freezes and gives it defined outputs, which K7 discards."""
+    consumes ``st``: the pool (K2), the process state of Basic, Tempo,
+    Atlas/EPaxos, Caesar and Tempo partial (K4, K8, K9, K10, K11) and
+    the clients, metrics, channel counts and timers (K6) are updated in
+    place, on the lanes ``cap`` lets run (every lane without one); K1
+    and K6 read nothing of a lane ``cap`` freezes and give it defined
+    outputs, which K7 discards."""
     pool = st["pool"]
     flags = flag_bits(faults, reorder, monitor=monitor_keys > 0,
                       open_loop="ol_arrival" in ctx,
@@ -325,14 +330,16 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
         ps, mon = monitor.strip_mon(ps)
 
     # 4-5 and 7. the emission tail, the wire faults, the termination
-    # bookkeeping and the monitors' step fold (kernel K6); fired timers
-    # re-arm from the masked ones
+    # bookkeeping and the monitors' step fold (kernel K6), the clients,
+    # metrics, channel counts and timers in place; fired timers re-arm
+    # from the masked ones (under the crash flag K1's copy, which K7
+    # restores on frozen lanes)
     st_in = st if timers is st["next_periodic"] else dict(
         st, next_periodic=timers)
     new_rows, deliver, upd = emit_rewrite(
         st_in, ctx, ep, fire, has, rdy, rows, pout, outbox,
         protocol.error(ps), dims, protocol.SUBMIT, flags,
-        *([mon["mon_flags"]] if monitor_keys else []),
+        mon.get("mon_flags"), cap,
     )
 
     # 6. land the delivered emissions in free pool slots, in place
@@ -364,10 +371,10 @@ def frozen_step(protocol, dims: EngineDims, st, ctx, lim,
     """One step of the run loop: ``(state, running)``. The lanes whose
     predicate is false on ``st``, or whose step count reached ``lim``
     (an int, or on the card the device loop's limit word), keep their
-    state, as under the reference's vmapped ``lax.while_loop``: K1
-    skips frozen lanes, the in-place kernels (K2, K4, K8, K10, K11)
-    write only running lanes, and K7 restores frozen lanes' rows of the
-    planes the step wrote out of place. The step consumes ``st``."""
+    state, as under the reference's vmapped ``lax.while_loop``: K1 and
+    K6 skip frozen lanes, the in-place kernels (K2, K4, K6, K8, K9, K10,
+    K11) write only running lanes, and K7 restores frozen lanes' rows of
+    the planes the step wrote out of place. The step consumes ``st``."""
     flags = flag_bits(faults, reorder)
     cap = Cap(st, ctx, lim, flags)
     return lane_freeze(

@@ -60,7 +60,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core import emit, emit_broadcast, empty_outbox
+from ..core import emit, emit_broadcast, empty_outbox, write_running
 from ..dims import (
     ERR_CAPACITY, ERR_DOT, ERR_PROTO, ERR_SEQ, INF, PMT, PPAY, PSRC,
     SEQ_BOUND, EngineDims, dot_slot,
@@ -205,27 +205,31 @@ class _DepDev(DevIdentity):
                  cap=None):
         """Readiness gate, periodic timer, message handler and graph
         drain of every (lane, process): ``(rdy, ps, periodic outbox,
-        handler outbox)`` (the event times ``ep`` are not read). Runs
-        the ``graphdep_handle`` kernel on CUDA tensors.
-        The run cap ``cap`` is not read: this handler writes out of
-        place, and K7 freezes its lanes."""
+        handler outbox)`` (the event times ``ep`` are not read). ``ps``
+        is updated in place on the lanes ``cap`` lets run (every lane
+        without one) and returned as the same tensors. Runs the
+        ``graphdep_handle`` kernel on CUDA tensors."""
         from ...kernels.graphdep_handle import graphdep_handle
 
-        return graphdep_handle(ps, has, rows, fire, ctx, dims)
+        return graphdep_handle(ps, has, rows, fire, ctx, dims, cap)
 
     @staticmethod
-    def step_plain(ps, has, rows, fire, ctx, dims: EngineDims):
+    def step_plain(ps, has, rows, fire, ctx, dims: EngineDims, cap=None):
         """The plain twin of the kernel, in the reference's order
         (core.py:890-918): ``ready`` on the incoming state, ``periodic``,
-        then ``handle`` (the branch, then the drain)."""
+        then ``handle`` (the branch, then the drain), out of place; then
+        the running lanes' rows (of ``cap``; every lane without one) are
+        copied into ``ps``, in place, as the kernel writes them
+        (``core.write_running``). A frozen lane's ``rdy`` is false and
+        its outboxes empty."""
         X = _DepDev
         none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
         mtype0 = torch.where(has, rows[..., PMT], none)
         rdy = X.ready_plain(ps, rows, mtype0, dims)
         mtype = torch.where(has & rdy, mtype0, none)
-        ps, pout = X.periodic_plain(ps, fire, ctx, dims)
-        ps, hout = X.handle_plain(ps, mtype, rows, ctx, dims)
-        return rdy, ps, pout, hout
+        new, pout = X.periodic_plain(ps, fire, ctx, dims)
+        new, hout = X.handle_plain(new, mtype, rows, ctx, dims)
+        return write_running(ps, (rdy, new, pout, hout), cap, dims)
 
     @staticmethod
     def ready_plain(ps, rows, mtype, dims: EngineDims):

@@ -156,7 +156,7 @@ def mon_planes(ps, L: int, N: int, device, in_place: bool = False):
     ``(pointers, KM, new)`` — the hash, count and guard planes in, then
     out; the key capacity; the new planes for the kernel's ``ps``. When
     ``ps`` carries no monitor planes: six null pointers, 0 and ``{}``.
-    ``in_place`` (K4, K8 and K10, which update the planes they are
+    ``in_place`` (K4, K8, K9 and K10, which update the planes they are
     given):
     the three planes once, and ``new`` is ``{}``."""
     import torch

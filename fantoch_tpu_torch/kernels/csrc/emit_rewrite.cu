@@ -9,32 +9,51 @@
 // wire batch [periodic F | handler F | requeue 1] per process (F2 = 2F + 1;
 // on open-loop lanes [periodic F | handler F | stage 1 | requeue 1], F2 =
 // 2F + 2) are walked in block-stride loops, so E is bounded by shared
-// memory only. In four phases separated by block barriers:
+// memory only. The block updates the lane's client planes, its histogram,
+// latency sums and log, its channel counts and its timers in place, on the
+// lanes whose run predicate holds at the step's start (common.cuh RunCap);
+// a frozen lane's block reads none of its state, writes its rows zero and
+// not valid, and its [L] lane words as they were. The lane words (steps,
+// error, done time, ...) stay out of place: the run cap of every kernel of
+// the step reads them. In five phases separated by block barriers:
+//   0. the start-of-step client words that later phases read (issued,
+//      completed) and, on open-loop lanes, each process's stage (trigger 1,
+//      read from the start-of-step clients) go to shared memory, so no
+//      phase reads a word that another thread has already updated;
 //   1. each row reads its outbox slot (a handler's delay and src are -1;
 //      the requeue row's are 1 and the popped sender) and, for a
 //      TO_CLIENT row, its client and the result's arrival time (under
-//      FLAG_HORIZON only a result before the horizon is delivered);
-//   2. each client folds its rows: arrivals, the latest arrival, the last
-//      row, completion (all of the command's key parts under partial
-//      replication, core.py:1177-1182), the next issue, start time;
+//      FLAG_HORIZON only a result before the horizon is delivered), and
+//      folds a delivered result into its client's shared counters:
+//      arrivals, the latest arrival and the last row (the largest index),
+//      by shared atomics;
+//   2. each client finishes its fold: completion (all of the command's
+//      key parts under partial replication, core.py:1177-1182), the next
+//      issue, start time, written in place;
 //   3. each row decides whether it completes its client and issues the
 //      next SUBMIT (the key table gives its key; partial replication sends
 //      it to the target shard's connected process, core.py:1273-1279),
 //      rewrites destination, type, sender, delay (FLAG_WINDOWS: the link
 //      window by send time, a partition loses the row) and priority,
-//      records the latency (histogram, latency log, lat_sum/lat_count by
-//      atomics) and writes its pool row but for the arrival and the key;
+//      records the latency (histogram, lat_sum/lat_count by atomics, the
+//      latency log) and keeps its pool row's eight header words in shared
+//      memory (the send time and delay in the arrival and key words);
 //   4. each row counts the earlier counted rows of its emitter to the same
 //      destination (the channel rank) and takes its channel key, then
 //      (FLAG_JITTER) multiplies a wire row's delay by its threefry draw,
-//      (FLAG_DROPS) draws its loss verdict, and writes its arrival, key
-//      and whether it lands; pair_cnt (counted before loss), the periodic
-//      timers and the lane scalars are folded, with ERR_UNAVAIL under
-//      FLAG_CRASH and the lost count under the wire flags; under
-//      FLAG_MONITOR the safety monitors' step fold (engine/monitor.py
-//      step_viol :199): the OR of the processes' new guard bits goes into
-//      the lane's violation word, and the first violating step, steps + 1,
-//      into its violation step.
+//      (FLAG_DROPS) draws its loss verdict, writes whether it lands and
+//      notes where its payload comes from (the outbox slot, the popped
+//      row, or the rewritten or staged SUBMIT's three words); fired
+//      timers re-arm;
+//   5. pair_cnt (counted before loss) grows by the step's counted rows;
+//      the rows go out as the lane's E * W words in order over the whole
+//      block, consecutive threads on consecutive words, each thread with
+//      CHUNKS loads in flight (with one, the move was latency bound);
+//      the lane scalars are folded by block reductions, with ERR_UNAVAIL under FLAG_CRASH and the lost count
+//      under the wire flags; under FLAG_MONITOR the safety monitors' step
+//      fold (engine/monitor.py step_viol :199): the OR of the processes'
+//      new guard bits goes into the lane's violation word, and the first
+//      violating step, steps + 1, into its violation step.
 // Under FLAG_REORDER every hop's delay is scaled by its row of the step's
 // uniform [0, 10) draws (row 0 the TO_CLIENT return, 1 the next SUBMIT, 2
 // the process send): int -> float32, a float32 product rounded to
@@ -53,20 +72,16 @@
 // of the command its rank among the client's rows of the step closes.
 // Under FLAG_THINK (closed loop) the next SUBMIT leaves after its
 // command's epoch think delay (core.py:1298-1302).
-// Without a flag the kernel runs the fault-free code. Per-row state that
-// a later phase reads lives in shared memory (two flag bytes and three
-// words a row); phase 3 parks a row's send time and delay in its pool
-// row's arrival and key words for phase 4.
+// Without a flag the kernel runs the fault-free code.
 //
 // Clients are clamped for every table read (the reference's gathers
-// clamp), while the one-hot client masks use the raw index. The
-// histogram, latency log and latency sums are copied first, then updated.
+// clamp), while the one-hot client masks use the raw index.
 //
 // Bound on this card: bytes. The region reads the outboxes' valid rows
 // and a few hundred bytes of per-lane planes, and writes the rows that
 // land and the words that change (emit_rewrite.py work). This kernel
-// copies the [RR, H] histogram and the latency log out of place and
-// writes every row, so it moves several times that.
+// writes every row of the merged batch, landing or not (their words are
+// part of its result), so it moves more than that.
 #include <algorithm>
 
 #include "threefry.cuh"
@@ -88,10 +103,17 @@ constexpr int FLAG_CRASH = 1, FLAG_WINDOWS = 2, FLAG_DROPS = 4,
 constexpr int MON_F_PREMATURE = 1, MON_F_KEYRANGE = 2;
 constexpr int VIOL_PREMATURE = 8, VIOL_KEYRANGE = 16;
 constexpr int WIRE_FLAGS = FLAG_WINDOWS | FLAG_DROPS | FLAG_JITTER;
-// phase 3's per-row flag bits, read by phase 4: counted on its channel,
-// a wire hop, lost to a window, issues the next SUBMIT, valid
+// phase 3's per-row flag bits, read by phases 4 and 5: counted on its
+// channel, a wire hop, lost to a window, issues the next SUBMIT, valid
 constexpr unsigned char COUNTED = 1, WIRED = 2, LOST = 4, ISSUE = 8,
                         VALID = 16;
+// phase 4's note of where a row's payload comes from: the periodic or
+// handler outbox, the popped row, or the SUBMIT's words
+constexpr unsigned char SRC_PER = 0, SRC_HND = 1, SRC_POP = 2, SRC_SYN = 3;
+// a pool row's header words (common.cuh PA .. PPR)
+constexpr int HDR = PPAY;
+// the words of the rows a thread of phase 5 has in flight
+constexpr int CHUNKS = 4;
 
 struct Args {
   // outboxes (periodic, handler)
@@ -100,10 +122,12 @@ struct Args {
   // the step so far
   const bool *has, *rdy, *fire;
   const int *rows, *ep, *perr;
-  // the lane state the step started from (crash-masked timers)
-  const int *issued, *completed, *start_time, *parts, *part_max;
-  const int *hist, *lat_sum, *lat_count, *lat_log;
-  const int *pair_cnt, *next_periodic;
+  // the lane's client, metric, channel and timer planes (the timers
+  // crash-masked under FLAG_CRASH), updated in place on running lanes
+  int *issued, *completed, *start_time, *parts, *part_max;
+  int *hist, *lat_sum, *lat_count, *lat_log;
+  int *pair_cnt, *next_periodic;
+  // the lane words the step started from
   const int *requeues, *max_completion, *done_time, *err, *steps;
   const int* fault_dropped;
   // lane ctx
@@ -119,12 +143,9 @@ struct Args {
   const int *win_src, *win_dst, *win_t0, *win_t1, *win_mul, *win_ovr;
   const int *drop_num, *jitter_num;
   const unsigned *drop_key, *jitter_key, *reorder_key;
-  // outputs
+  // outputs: the rows, whether each lands, the new lane words
   int* new_rows;
   bool* valid;
-  int *issued_o, *completed_o, *start_o, *parts_o, *part_max_o;
-  int *hist_o, *lat_sum_o, *lat_count_o, *lat_log_o;
-  int *pair_cnt_o, *next_periodic_o;
   int *requeues_o, *max_completion_o, *done_time_o, *err_o, *steps_o;
   int* fault_dropped_o;
   // the monitors' step fold (null without FLAG_MONITOR): the handlers'
@@ -132,13 +153,14 @@ struct Args {
   const int *mon_flags, *viol, *viol_step;
   int *viol_o, *viol_step_o;
   // the open-loop client (null without FLAG_OPEN_LOOP): the arrival
-  // table [C, TA], the ring of completion times [C, WD] and the release
-  // clamp [C], in and out
-  const int *ol_arrival, *ol_comp_t, *ol_last_rel;
-  int *ol_comp_t_o, *ol_last_rel_o;
+  // table [C, TA]; the ring of completion times [C, WD] and the release
+  // clamp [C], updated in place
+  const int* ol_arrival;
+  int *ol_comp_t, *ol_last_rel;
   // the traffic schedule's think delay (null without FLAG_THINK): the
   // seq → epoch index [TE] and the think delay of each epoch [EP]
   const int *seq_epoch, *think;
+  RunCap cap;
   int N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT, flags, TA, WD, TE,
       EP;
 };
@@ -152,81 +174,72 @@ __host__ __device__ __forceinline__ int rows_per_process(int F, int flags) {
   return 2 * F + ((flags & FLAG_OPEN_LOOP) ? 2 : 1);
 }
 
-// open-loop trigger 1 of process p: whether it stages the SUBMIT of the
-// next command q of client sc (its popped SUBMIT is command q - 1 and the
-// window admits q), q's release time, key, connected process and submit
-// delay; read from the lane state the step started from
-struct Stage {
-  bool on;
-  int sc, q, rel, key, attach, dsub;
+// open-loop trigger 1 of process p, per process in shared memory: whether
+// it stages the SUBMIT of the next command q of client sc (its popped
+// SUBMIT is command q - 1 and the window admits q), q's release time, key,
+// connected process and submit delay; read from the lane state the step
+// started from, before phase 2 updates it
+struct Stages {
+  int *on, *sc, *q, *rel, *key, *attach, *dsub;
 };
 
-__device__ __forceinline__ Stage ol_stage(const Args& a, size_t lN,
-                                          size_t lC, int p) {
+__device__ __forceinline__ void ol_stage(const Args& a, const Stages& s,
+                                         size_t lN, size_t lC, int p) {
   const size_t g = lN + p;
   const int* popped = a.rows + g * a.W;
   const int src = popped[PSRC], sseq = popped[PPAY + 1];
-  Stage s;
-  s.sc = clampi(src - a.N, 0, a.C - 1);
-  s.q = (int)((unsigned)sseq + 1u);
-  const size_t kc = lC + s.sc;
-  s.on = a.has[g] && a.rdy[g] && popped[PMT] == a.submit && src >= a.N &&
-         sseq == a.issued[kc] && s.q <= a.cmd_budget[kc] &&
-         a.completed[kc] + a.WD >= s.q;
+  const int sc = clampi(src - a.N, 0, a.C - 1);
+  const int q = (int)((unsigned)sseq + 1u);
+  const size_t kc = lC + sc;
+  s.sc[p] = sc;
+  s.q[p] = q;
+  s.on[p] = a.has[g] && a.rdy[g] && popped[PMT] == a.submit && src >= a.N &&
+            sseq == a.issued[kc] && q <= a.cmd_budget[kc] &&
+            a.completed[kc] + a.WD >= q;
   // the window gate: completion #(q - W) of the ring
   const int gate =
-      s.q > a.WD ? a.ol_comp_t[kc * a.WD + (s.q - a.WD - 1) % a.WD] : 0;
-  s.rel = max(max(a.ol_arrival[kc * a.TA + clampi(s.q, 0, a.TA - 1)], gate),
-              a.ol_last_rel[kc]);
-  s.attach = a.client_attach[kc];
-  s.dsub = a.client_delay[kc * a.N + clampi(s.attach, 0, a.N - 1)];
-  s.key = a.key_table[kc * a.T + clampi(s.q, 0, a.T - 1)];
-  return s;
+      q > a.WD ? a.ol_comp_t[kc * a.WD + (q - a.WD - 1) % a.WD] : 0;
+  s.rel[p] = max(max(a.ol_arrival[kc * a.TA + clampi(q, 0, a.TA - 1)], gate),
+                 a.ol_last_rel[kc]);
+  const int attach = a.client_attach[kc];
+  s.attach[p] = attach;
+  s.dsub[p] = a.client_delay[kc * a.N + clampi(attach, 0, a.N - 1)];
+  s.key[p] = a.key_table[kc * a.T + clampi(q, 0, a.T - 1)];
 }
 
-// one merged emission row as the outboxes, the stage and the requeue give
-// it (a stage row's payload is its words[0..2], zeros after)
+// one merged emission row's routing as the outboxes, the stage and the
+// requeue give it (its payload is moved in phase 5)
 struct Row {
   int p, j;
   bool is_rq, is_stage, v;
   int dst, mt, dly, srco;
-  const int* pay;
-  int words[3];
 };
 
-__device__ __forceinline__ int row_word(const Row& r, int w) {
-  return r.pay ? r.pay[w] : (w < 3 ? r.words[w] : 0);
-}
-
-__device__ __forceinline__ Row load_row(const Args& a, size_t lN, int e) {
+__device__ __forceinline__ Row load_row(const Args& a, const Stages& st,
+                                        size_t lN, int e) {
   const int F = a.F, F2 = rows_per_process(F, a.flags);
   Row r;
   r.p = e / F2;
-  r.j = e % F2;
+  r.j = e - r.p * F2;
   r.is_rq = r.j == F2 - 1;
   r.is_stage = (a.flags & FLAG_OPEN_LOOP) && r.j == F2 - 2;
   const size_t g = lN + r.p;
-  const int* popped = a.rows + g * a.W;
   if (r.is_stage) {
-    const Stage s = ol_stage(a, lN, (lN / a.N) * a.C, r.p);
-    r.v = s.on;
-    r.dst = s.attach;
+    const bool on = st.on[r.p];
+    r.v = on;
+    r.dst = st.attach[r.p];
     r.mt = a.submit;
     // the override puts its arrival at the release time plus the
     // client's submit delay
-    r.dly = s.on ? s.rel + s.dsub - a.ep[g] : 0;
-    r.srco = a.N + s.sc;
-    r.pay = nullptr;
-    r.words[0] = s.sc;
-    r.words[1] = s.q;
-    r.words[2] = s.key;
+    r.dly = on ? st.rel[r.p] + st.dsub[r.p] - a.ep[g] : 0;
+    r.srco = a.N + st.sc[r.p];
   } else if (r.is_rq) {
+    const int* popped = a.rows + g * a.W;
     r.v = a.has[g] && !a.rdy[g];
     r.dst = r.p;
     r.mt = r.v ? popped[PMT] : 0;
     r.dly = 1;
     r.srco = popped[PSRC];
-    r.pay = popped + PPAY;
   } else {
     const bool per = r.j < F;
     const size_t k = g * F + (per ? r.j : r.j - F);
@@ -235,7 +248,6 @@ __device__ __forceinline__ Row load_row(const Args& a, size_t lN, int e) {
     r.mt = per ? a.pm[k] : a.hm[k];
     r.dly = -1;
     r.srco = -1;
-    r.pay = (per ? a.pp : a.hp) + k * a.P;
   }
   return r;
 }
@@ -267,48 +279,82 @@ __device__ __forceinline__ void wire_key(const unsigned* key, int src,
 // the kernel within the registers such a block may hold
 __global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
   extern __shared__ int smem[];
-  const int N = a.N, F = a.F, P = a.P, C = a.C, W = a.W;
+  const int N = a.N, F = a.F, C = a.C, W = a.W;
   const int flags = a.flags;
   const int F2 = rows_per_process(F, flags), E = N * F2;
   const int l = blockIdx.x, t = threadIdx.x, nt = blockDim.x;
   const bool open = flags & FLAG_OPEN_LOOP;
-  // per row: raw client, arrival at the client, final destination
-  int* s_c = smem;
+
+  if (!a.cap.runs(l)) {
+    // frozen: zero rows, none lands, the lane words as they were
+    int* out = a.new_rows + (size_t)l * E * W;
+    for (size_t i = t; i < (size_t)E * W; i += nt) out[i] = 0;
+    for (int e = t; e < E; e += nt) a.valid[(size_t)l * E + e] = false;
+    if (t == 0) {
+      a.requeues_o[l] = a.requeues[l];
+      a.max_completion_o[l] = a.max_completion[l];
+      a.done_time_o[l] = a.done_time[l];
+      a.err_o[l] = a.err[l];
+      a.steps_o[l] = a.steps[l];
+      if (flags & WIRE_FLAGS) a.fault_dropped_o[l] = a.fault_dropped[l];
+      if (flags & FLAG_MONITOR) {
+        a.viol_o[l] = a.viol[l];
+        a.viol_step_o[l] = a.viol_step[l];
+      }
+    }
+    return;
+  }
+
+  // per row: the pool row's header words, raw client, arrival at the
+  // client
+  int* s_hdr = smem;
+  int* s_c = s_hdr + HDR * E;
   int* s_tarr = s_c + E;
-  int* s_dst = s_tarr + E;
-  // per client: last row, complete flag (open loop: bit 0 a result
-  // arrived, bit 1 trigger 2), done time, latency (open loop: trigger 2's
-  // release time), completed
-  int* s_last = s_dst + E;
+  // per row: where its payload comes from (phase 4)
+  int* s_src = s_tarr + E;
+  // per client: the start-of-step issued and completed counts; phase 1's
+  // fold (arrivals, latest arrival, last row); last row, complete flag
+  // (open loop: bit 0 a result arrived, bit 1 trigger 2), done time,
+  // latency (open loop: trigger 2's release time), completed
+  int* s_iss0 = s_src + E;
+  int* s_cmp0 = s_iss0 + C;
+  int* s_arr = s_cmp0 + C;
+  int* s_pmx = s_arr + C;
+  int* s_last = s_pmx + C;
   int* s_cmp = s_last + C;
   int* s_done = s_cmp + C;
   int* s_latc = s_done + C;
   int* s_ncomp = s_latc + C;
-  // lane folds: max completion, lost rows
-  int* s_lane = s_ncomp + C;
-  // per row: delivered TO_CLIENT flag (phase 1), phase 3's flags
-  unsigned char* s_isc = reinterpret_cast<unsigned char*>(s_lane + 2);
+  // per process: the open-loop stage
+  int* s_stage = s_ncomp + C;
+  const Stages stg{s_stage,         s_stage + N,     s_stage + 2 * N,
+                   s_stage + 3 * N, s_stage + 4 * N, s_stage + 5 * N,
+                   s_stage + 6 * N};
+  // lane folds: max completion, lost rows, error bits, guard bits
+  int* s_lane = s_stage + 7 * N;
+  // per row: delivered TO_CLIENT flag (phase 1), phase 3's flags, the
+  // payload's source (phase 4)
+  unsigned char* s_isc = reinterpret_cast<unsigned char*>(s_lane + 4);
   unsigned char* s_flag = s_isc + E;
+  unsigned char* s_kind = s_flag + E;
 
   const size_t lN = (size_t)l * N, lC = (size_t)l * C;
   const size_t lRR = (size_t)l * a.RR;
 
-  // copy the histogram, the latency log and sums, updated in phase 3
-  {
-    const size_t nh = (size_t)a.RR * a.H, nl = (size_t)C * a.LOG;
-    for (size_t i = t; i < nh; i += nt)
-      a.hist_o[l * nh + i] = a.hist[l * nh + i];
-    for (size_t i = t; i < nl; i += nt)
-      a.lat_log_o[l * nl + i] = a.lat_log[l * nl + i];
-    for (int i = t; i < a.RR; i += nt) {
-      a.lat_sum_o[lRR + i] = a.lat_sum[lRR + i];
-      a.lat_count_o[lRR + i] = a.lat_count[lRR + i];
-    }
+  // phase 0: the start-of-step client words and stages
+  for (int k = t; k < C; k += nt) {
+    s_iss0[k] = a.issued[lC + k];
+    s_cmp0[k] = a.completed[lC + k];
+    s_arr[k] = 0;
+    s_pmx[k] = 0;
+    s_last[k] = -1;
   }
+  if (open)
+    for (int p = t; p < N; p += nt) ol_stage(a, stg, lN, lC, p);
   if (t == 0) {
     // a requeue row never completes, so 0 is always among the maxima
     s_lane[0] = max(a.max_completion[l], 0);
-    s_lane[1] = 0;
+    s_lane[1] = s_lane[2] = s_lane[3] = 0;
   }
   // the step's reorder key: fold_in(reorder_key, steps)
   unsigned rk0 = 0, rk1 = 0;
@@ -318,10 +364,12 @@ __global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
     rk1 = a.reorder_key[2 * l + 1];
     fold_in(rk0, rk1, (unsigned)a.steps[l]);
   }
+  __syncthreads();
 
-  // phase 1: the merged rows and their results' arrival at the client
+  // phase 1: the merged rows, their results' arrival at the client, and
+  // each client's fold of its delivered results
   for (int e = t; e < E; e += nt) {
-    const Row r = load_row(a, lN, e);
+    const Row r = load_row(a, stg, lN, e);
     const int ep_e = a.ep[lN + r.p];
     const bool isc = r.v && r.dst >= N;
     const int c = isc ? r.dst - N : 0;
@@ -329,56 +377,51 @@ __global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
     int d_back = a.client_delay[(lC + cc) * N + r.p];
     if (reorder) d_back = scaled(d_back, rk0, rk1, 0, E, e);
     const int t_arr = ep_e + d_back;
-    s_isc[e] = isc && (!(flags & FLAG_HORIZON) || t_arr < a.horizon[l]);
+    const bool done = isc && (!(flags & FLAG_HORIZON) || t_arr < a.horizon[l]);
+    s_isc[e] = done;
     s_c[e] = c;
     s_tarr[e] = t_arr;
+    if (done && c < C) {
+      atomicAdd(&s_arr[c], 1);
+      atomicMax(&s_pmx[c], t_arr);
+      atomicMax(&s_last[c], e);
+    }
   }
   __syncthreads();
 
-  // phase 2: per client
+  // phase 2: per client, in place
   for (int k0 = t; k0 < C; k0 += nt) {
-    int arrivals = 0, pmx = 0, last = -1;
-    for (int e = 0; e < E; ++e)
-      if (s_isc[e] && s_c[e] == k0) {
-        ++arrivals;
-        pmx = max(pmx, s_tarr[e]);
-        last = e;
-      }
+    const int arrivals = s_arr[k0], pmx = s_pmx[k0], last = s_last[k0];
+    const int iss0 = s_iss0[k0], kc0 = s_cmp0[k0];
     const size_t k = lC + k0;
     if (open) {
       // count-based completions at one instant t_c = pmx, their times in
-      // the ring's slots (k0 .. k0 + arrivals - 1) mod W
-      const int kc0 = a.completed[k], ncomp = kc0 + arrivals;
+      // the ring's slots (kc0 .. kc0 + arrivals - 1) mod W
+      const int ncomp = kc0 + arrivals;
       for (int w = 0; w < a.WD; ++w) {
         const int slot = ((w - kc0) % a.WD + a.WD) % a.WD;
-        a.ol_comp_t_o[k * a.WD + w] =
-            slot < arrivals ? pmx : a.ol_comp_t[k * a.WD + w];
+        if (slot < arrivals) a.ol_comp_t[k * a.WD + w] = pmx;
       }
       // trigger 2: the completions admit the window-blocked command
-      const int pend = a.issued[k] + 1;
-      const bool trig2 = arrivals > 0 && a.issued[k] < a.cmd_budget[k] &&
+      const int pend = iss0 + 1;
+      const bool trig2 = arrivals > 0 && iss0 < a.cmd_budget[k] &&
                          ncomp + a.WD >= pend && !(kc0 + a.WD >= pend);
+      const int old_rel = a.ol_last_rel[k];
       const int rel2 =
           max(max(a.ol_arrival[k * a.TA + clampi(pend, 0, a.TA - 1)], pmx),
-              a.ol_last_rel[k]);
+              old_rel);
       // trigger 1 folded per client: at most one SUBMIT of a client pops
       bool staged = false;
       int rel1 = 0;
-      for (int q = 0; q < N; ++q) {
-        const Stage st = ol_stage(a, lN, lC, q);
-        if (st.on && st.sc == k0) {
+      for (int q = 0; q < N; ++q)
+        if (stg.on[q] && stg.sc[q] == k0) {
           staged = true;
-          rel1 += st.rel;
+          rel1 += stg.rel[q];
         }
-      }
-      const int old_rel = a.ol_last_rel[k];
-      a.ol_last_rel_o[k] =
+      a.ol_last_rel[k] =
           max(old_rel, staged ? rel1 : (trig2 ? rel2 : old_rel));
-      a.issued_o[k] = a.issued[k] + (trig2 ? 1 : 0) + (staged ? 1 : 0);
-      a.completed_o[k] = ncomp;
-      a.parts_o[k] = a.parts[k];
-      a.part_max_o[k] = a.part_max[k];
-      a.start_o[k] = a.start_time[k];
+      a.issued[k] = iss0 + (trig2 ? 1 : 0) + (staged ? 1 : 0);
+      a.completed[k] = ncomp;
       s_last[k0] = last;
       s_cmp[k0] = (arrivals > 0 ? 1 : 0) | (trig2 ? 2 : 0);
       s_done[k0] = pmx;
@@ -386,42 +429,43 @@ __global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
       s_ncomp[k0] = ncomp;
       continue;
     }
+    const int start = a.start_time[k];
     const int part_max = max(a.part_max[k], pmx);
     const int parts_new = a.parts[k] + arrivals;
     // a command completes when all its key parts arrived
     const int need = a.cmd_parts
-        ? a.cmd_parts[k * a.TP + min(a.issued[k], a.TP - 1)] : 1;
+        ? a.cmd_parts[k * a.TP + min(iss0, a.TP - 1)] : 1;
     const bool complete = arrivals > 0 && parts_new >= need;
-    const int ncomp = a.completed[k] + (complete ? 1 : 0);
-    const bool more = a.issued[k] < a.cmd_budget[k];
+    const int ncomp = kc0 + (complete ? 1 : 0);
+    const bool more = iss0 < a.cmd_budget[k];
     const bool issue = last >= 0 && complete && more;
-    a.completed_o[k] = ncomp;
-    a.parts_o[k] = complete ? 0 : parts_new;
-    a.part_max_o[k] = complete ? 0 : part_max;
-    a.issued_o[k] = a.issued[k] + (issue ? 1 : 0);
-    a.start_o[k] = (issue && part_max >= 0) ? part_max : a.start_time[k];
+    a.completed[k] = ncomp;
+    a.parts[k] = complete ? 0 : parts_new;
+    a.part_max[k] = complete ? 0 : part_max;
+    a.issued[k] = iss0 + (issue ? 1 : 0);
+    if (issue && part_max >= 0) a.start_time[k] = part_max;
     s_last[k0] = last;
     s_cmp[k0] = complete;
     s_done[k0] = part_max;
-    s_latc[k0] = part_max - a.start_time[k];
+    s_latc[k0] = part_max - start;
     s_ncomp[k0] = ncomp;
   }
   __syncthreads();
 
   // phase 3: completion, the next SUBMIT, the rewrite, the link windows,
-  // latency records; the pool row but for its arrival and key
+  // latency records; the pool row's header in shared memory
   for (int e = t; e < E; e += nt) {
-    const Row r = load_row(a, lN, e);
+    const Row r = load_row(a, stg, lN, e);
     const size_t g = lN + r.p;
     const bool isc = r.v && r.dst >= N;
     const int c = isc ? r.dst - N : 0;
     const int cc = clampi(c, 0, C - 1);
     const size_t kc = lC + cc;
+    const int iss0 = s_iss0[cc];
     const bool compl_ = isc && e == s_last[cc] && (s_cmp[cc] & 1);
     const bool issue = compl_ && (open ? (s_cmp[cc] & 2) != 0
-                                       : a.issued[kc] < a.cmd_budget[kc]);
-    const int next_seq = a.issued[kc] + 1;
-    const int key = a.key_table[kc * a.T + min(next_seq, a.T - 1)];
+                                       : iss0 < a.cmd_budget[kc]);
+    const int next_seq = iss0 + 1;
     // the next SUBMIT goes to the connected process of the command's
     // target shard under partial replication
     const int attach = a.cmd_target
@@ -484,7 +528,6 @@ __global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
     }
     const bool v2 = r.v && (!isc || issue);
     const bool prio = !isc && dst2 == r.p && !overridden;
-    s_dst[e] = dst2;
     s_flag[e] = (v2 && !isc && !r.is_rq && !r.is_stage ? COUNTED : 0) |
                 (wired ? WIRED : 0) | (lost ? LOST : 0) |
                 (issue ? ISSUE : 0) | (v2 ? VALID : 0);
@@ -493,69 +536,68 @@ __global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
     // delivered result row, from the arrival of the command its rank
     // among the client's rows of the step closes (open loop)
     bool rec = compl_;
-    int latency = s_latc[cc], log_src = a.completed[kc];
+    int latency = s_latc[cc], log_src = s_cmp0[cc];
     if (open) {
       rec = s_isc[e];
-      int rank = 0;
-      for (int e2 = 0; e2 <= e; ++e2)
-        if (s_isc[e2] && s_c[e2] == c) ++rank;
-      const int k_i = a.completed[kc] + rank;
-      latency = s_tarr[e] - a.ol_arrival[kc * a.TA + clampi(k_i, 0, a.TA - 1)];
-      log_src = k_i - 1;
+      if (rec) {
+        int rank = 0;
+        for (int e2 = 0; e2 <= e; ++e2)
+          if (s_isc[e2] && s_c[e2] == c) ++rank;
+        const int k_i = s_cmp0[cc] + rank;
+        latency =
+            s_tarr[e] - a.ol_arrival[kc * a.TA + clampi(k_i, 0, a.TA - 1)];
+        log_src = k_i - 1;
+      }
     }
     if (rec) {
       const int row = a.client_region_row[kc];
       if (row >= 0 && row < a.RR) {
-        atomicAdd(&a.hist_o[(lRR + row) * a.H +
-                            clampi(latency, 0, a.H - 1)],
+        atomicAdd(&a.hist[(lRR + row) * a.H + clampi(latency, 0, a.H - 1)],
                   1);
-        atomicAdd(&a.lat_sum_o[lRR + row], latency);
-        atomicAdd(&a.lat_count_o[lRR + row], 1);
+        atomicAdd(&a.lat_sum[lRR + row], latency);
+        atomicAdd(&a.lat_count[lRR + row], 1);
       }
       const int li = c * a.LOG + log_src;
       if (c < C && log_src >= 0 && log_src < a.LOG && li >= 0 &&
           li < C * a.LOG)
-        a.lat_log_o[(size_t)l * C * a.LOG + li] = latency;
+        a.lat_log[(size_t)l * C * a.LOG + li] = latency;
     }
-    int* out = a.new_rows + ((size_t)l * E + e) * W;
-    out[PA] = base;    // phase 4 adds the delay
-    out[PKC] = delay;  // phase 4 writes the key
-    out[PKS] = src2;
-    out[PSRC] = src2;
-    out[PDST] = dst2;
-    out[PMT] = mt2;
-    out[PRQ] = (r.is_rq && r.v) ? a.rows[g * W + PRQ] + 1 : 0;
-    out[PPR] = prio ? 1 : 0;
-    for (int w = 0; w < P; ++w)
-      out[PPAY + w] = issue ? (w == 0 ? c : (w == 1 ? next_seq
-                                                    : (w == 2 ? key : 0)))
-                            : row_word(r, w);
+    int* hdr = s_hdr + HDR * e;
+    hdr[PA] = base;    // phase 4 adds the delay
+    hdr[PKC] = delay;  // phase 4 writes the key
+    hdr[PKS] = src2;
+    hdr[PSRC] = src2;
+    hdr[PDST] = dst2;
+    hdr[PMT] = mt2;
+    hdr[PRQ] = (r.is_rq && r.v) ? a.rows[g * W + PRQ] + 1 : 0;
+    hdr[PPR] = prio ? 1 : 0;
   }
   __syncthreads();
 
   // phase 4: channel ranks and keys, jitter and drops, the arrivals
   for (int e = t; e < E; e += nt) {
-    const int p = e / F2, j = e % F2;
+    const int p = e / F2, j = e - p * F2;
     const size_t g = lN + p;
-    const int dst2 = s_dst[e], sd = clampi(dst2, 0, N - 1);
+    int* hdr = s_hdr + HDR * e;
+    const int dst2 = hdr[PDST], sd = clampi(dst2, 0, N - 1);
     const unsigned char fl = s_flag[e];
-    int* out = a.new_rows + ((size_t)l * E + e) * W;
     int kcnt;
     if (j == F2 - 1) {
       kcnt = a.rows[g * W + PKC];  // a requeue keeps its original key
     } else if (open && j == F2 - 2) {
-      kcnt = out[PPAY + 1];  // a staged SUBMIT: the submit number
+      kcnt = stg.q[p];  // a staged SUBMIT: the submit number
     } else if (fl & ISSUE) {
-      kcnt = out[PPAY + 1];  // a rewritten SUBMIT: the submit number
+      // a rewritten SUBMIT: the submit number
+      kcnt = s_iss0[clampi(s_c[e], 0, C - 1)] + 1;
     } else {
       int rank = 0;
       for (int j2 = 0; j2 < j; ++j2) {
         const int e2 = p * F2 + j2;
-        if ((s_flag[e2] & COUNTED) && s_dst[e2] == dst2) ++rank;
+        if ((s_flag[e2] & COUNTED) && s_hdr[HDR * e2 + PDST] == dst2) ++rank;
       }
       kcnt = a.pair_cnt[g * N + sd] + rank + 1;
     }
-    int delay = out[PKC];
+    int delay = hdr[PKC];
     bool lost = fl & LOST;
     unsigned k0, k1;
     if ((flags & FLAG_JITTER) && (fl & WIRED)) {
@@ -574,44 +616,109 @@ __global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
     }
     const bool v2 = fl & VALID;
     if (v2 && lost) atomicAdd(&s_lane[1], 1);
-    out[PA] += delay;
-    out[PKC] = kcnt;
+    hdr[PA] += delay;
+    hdr[PKC] = kcnt;
     a.valid[(size_t)l * E + e] = v2 && !lost;
+    // where phase 5 reads the payload: a rewritten or staged SUBMIT's
+    // three words (in s_c, s_tarr and s_src, which no later phase reads
+    // for this row), else the offset of its outbox slot or popped row
+    unsigned char src;
+    if (fl & ISSUE) {
+      const int c = s_c[e], cc = clampi(c, 0, C - 1);
+      const int next_seq = s_iss0[cc] + 1;
+      src = SRC_SYN;
+      s_tarr[e] = next_seq;
+      s_src[e] = a.key_table[(lC + cc) * a.T + min(next_seq, a.T - 1)];
+    } else if (open && j == F2 - 2) {
+      src = SRC_SYN;
+      s_c[e] = stg.sc[p];
+      s_tarr[e] = stg.q[p];
+      s_src[e] = stg.key[p];
+    } else if (j == F2 - 1) {
+      src = SRC_POP;
+      s_src[e] = p * W + PPAY;
+    } else {
+      src = j < F ? SRC_PER : SRC_HND;
+      s_src[e] = (p * F + (j < F ? j : j - F)) * a.P;
+    }
+    s_kind[e] = src;
   }
-  for (int i = t; i < N * N; i += nt) {  // pair_cnt[p, d] += counted rows
-    const int pp = i / N, d = i % N;
+  for (int i = t; i < N * a.R; i += nt) {  // fired timers re-arm
+    const size_t k = lN * a.R + i;
+    if (a.fire[k])
+      a.next_periodic[k] =
+          a.ep[lN + i / a.R] + a.intervals[(size_t)l * a.R + i % a.R];
+  }
+  __syncthreads();
+
+  // phase 5: pair_cnt[p, d] += the counted rows (phase 4 read it)
+  for (int i = t; i < N * N; i += nt) {
+    const int pp = i / N, d = i - pp * N;
     int n = 0;
     for (int j2 = 0; j2 < F2; ++j2) {
       const int e2 = pp * F2 + j2;
-      if ((s_flag[e2] & COUNTED) && s_dst[e2] == d) ++n;
+      if ((s_flag[e2] & COUNTED) && s_hdr[HDR * e2 + PDST] == d) ++n;
     }
-    a.pair_cnt_o[lN * N + i] = a.pair_cnt[lN * N + i] + n;
+    if (n) a.pair_cnt[lN * N + i] += n;
   }
-  for (int i = t; i < N * a.R; i += nt) {  // fired timers re-arm
-    const int pp = i / a.R, r = i % a.R;
-    const size_t k = lN * a.R + i;
-    a.next_periodic_o[k] = a.fire[k]
-        ? a.ep[lN + pp] + a.intervals[(size_t)l * a.R + r]
-        : a.next_periodic[k];
+  // the rows: the lane's E * W words in order over the whole block, each
+  // thread CHUNKS words in flight (the loads first, then the stores): a
+  // word of the header from shared memory, of the payload from where
+  // phase 4 noted it
+  {
+    const int* per = a.pp + lN * F * a.P;
+    const int* hnd = a.hp + lN * F * a.P;
+    const int* pop = a.rows + lN * W;
+    int* out = a.new_rows + (size_t)l * E * W;
+    const int n = E * W, de = nt / W, dw = nt - de * W;
+    int e = t / W, w = t - e * W;
+    for (int i = t; i < n; i += CHUNKS * nt) {
+      int v[CHUNKS];
+#pragma unroll
+      for (int u = 0; u < CHUNKS; ++u) {
+        if (i + u * nt < n) {
+          const int x = w - PPAY, src = s_kind[e];
+          v[u] = w < PPAY       ? s_hdr[HDR * e + w]
+               : src == SRC_SYN ? (x == 0 ? s_c[e]
+                                  : x == 1 ? s_tarr[e]
+                                  : x == 2 ? s_src[e] : 0)
+                                : (src == SRC_PER ? per
+                                   : src == SRC_HND ? hnd : pop)[s_src[e] + x];
+        }
+        e += de;
+        w += dw;
+        if (w >= W) {
+          w -= W;
+          ++e;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < CHUNKS; ++u)
+        if (i + u * nt < n) out[i + u * nt] = v[u];
+    }
   }
-  __syncthreads();
+  // the lane folds: every live client done, requeues, stuck rows, the
+  // processes' error and guard bits
+  bool done_part = true;
+  for (int k = t; k < C; k += nt)
+    if (a.cmd_budget[lC + k] > 0 && s_ncomp[k] < a.cmd_budget[lC + k])
+      done_part = false;
+  bool rq = false, stuck = false;
+  if (t < N) {
+    rq = a.has[lN + t] && !a.rdy[lN + t];
+    stuck = rq && a.rows[(lN + t) * W + PRQ] + 1 > REQUEUE_LIMIT;
+    atomicOr(&s_lane[2], a.perr[lN + t]);
+    if (flags & FLAG_MONITOR) atomicOr(&s_lane[3], a.mon_flags[lN + t]);
+  }
+  const bool all_done = __syncthreads_and(done_part);
+  const int nrq = __syncthreads_count(rq);
+  const bool any_stuck = __syncthreads_or(stuck);
   if (t == 0) {
-    bool stuck = false, all_done = true;
-    int nrq = 0, perr = 0;
-    for (int q = 0; q < N; ++q) {
-      const bool rq = a.has[lN + q] && !a.rdy[lN + q];
-      nrq += rq ? 1 : 0;
-      if (rq && a.rows[(lN + q) * W + PRQ] + 1 > REQUEUE_LIMIT) stuck = true;
-      perr |= a.perr[lN + q];
-    }
-    for (int k = 0; k < C; ++k)
-      if (a.cmd_budget[lC + k] > 0 && s_ncomp[k] < a.cmd_budget[lC + k])
-        all_done = false;
     const int maxc = s_lane[0];
     const int done = a.done_time[l];
     a.max_completion_o[l] = maxc;
     a.done_time_o[l] = (done == INF && all_done) ? maxc : done;
-    int err = a.err[l] | (stuck ? ERR_STUCK : 0) | (perr & 0xFF);
+    int err = a.err[l] | (any_stuck ? ERR_STUCK : 0) | (s_lane[2] & 0xFF);
     // crashes beyond what the protocol tolerates end the lane now
     if ((flags & FLAG_CRASH) && a.unavail[l] != 0) err |= ERR_UNAVAIL;
     a.err_o[l] = err;
@@ -620,8 +727,7 @@ __global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
     if (flags & WIRE_FLAGS)
       a.fault_dropped_o[l] = a.fault_dropped[l] + s_lane[1];
     if (flags & FLAG_MONITOR) {
-      int mf = 0;
-      for (int q = 0; q < N; ++q) mf |= a.mon_flags[lN + q];
+      const int mf = s_lane[3];
       const int viol = a.viol[l] |
                        ((mf & MON_F_PREMATURE) ? VIOL_PREMATURE : 0) |
                        ((mf & MON_F_KEYRANGE) ? VIOL_KEYRANGE : 0);
@@ -635,42 +741,43 @@ __global__ void __launch_bounds__(1024) emit_rewrite_kernel(const Args a) {
 
 // The shared memory one lane's block needs (emit_rewrite.py smem_bytes).
 static size_t smem_bytes(int N, int F, int C, int flags) {
-  const size_t E = (size_t)N * (2 * F + ((flags & FLAG_OPEN_LOOP) ? 2 : 1));
-  return (3 * E + 5 * C + 2) * sizeof(int) + 2 * E;
+  const size_t E = (size_t)N * rows_per_process(F, flags);
+  return ((HDR + 3) * E + 9 * (size_t)C + 7 * (size_t)N + 4) * sizeof(int) +
+         3 * E;
 }
 
+// Pointer arguments in this order: the outboxes (8), the step so far (6),
+// the in-place planes (11), the lane words in (6), the lane ctx (7), the
+// partial tables (3), the fault planes (13), the rows and valid flags (2),
+// the lane words out (6), the monitor planes (5), the open-loop planes
+// (3), the think tables (2), the cap table (1).
 extern "C" int fantoch_emit_rewrite(
     const void* pv, const void* pd, const void* pm, const void* pp,
     const void* hv, const void* hd, const void* hm, const void* hp,
     const void* has, const void* rdy, const void* rows, const void* ep,
-    const void* fire, const void* perr, const void* issued,
-    const void* completed, const void* start_time, const void* parts,
-    const void* part_max, const void* hist, const void* lat_sum,
-    const void* lat_count, const void* lat_log, const void* pair_cnt,
-    const void* next_periodic, const void* requeues,
-    const void* max_completion, const void* done_time, const void* err,
-    const void* steps, const void* client_delay, const void* delay_pp,
-    const void* key_table, const void* cmd_budget, const void* client_attach,
-    const void* client_region_row, const void* intervals,
-    const void* cmd_parts, const void* cmd_target, const void* attach_s,
-    void* new_rows,
-    void* valid, void* issued_o, void* completed_o, void* start_o,
-    void* parts_o, void* part_max_o, void* hist_o, void* lat_sum_o,
-    void* lat_count_o, void* lat_log_o, void* pair_cnt_o,
-    void* next_periodic_o, void* requeues_o, void* max_completion_o,
-    void* done_time_o, void* err_o, void* steps_o, const void* fault_dropped,
-    const void* unavail, const void* horizon, const void* win_src,
-    const void* win_dst, const void* win_t0, const void* win_t1,
-    const void* win_mul, const void* win_ovr, const void* drop_num,
-    const void* drop_key, const void* jitter_num, const void* jitter_key,
-    const void* reorder_key, void* fault_dropped_o, const void* mon_flags,
-    const void* viol, const void* viol_step, void* viol_o,
-    void* viol_step_o, const void* ol_arrival, const void* ol_comp_t,
-    const void* ol_last_rel, void* ol_comp_t_o, void* ol_last_rel_o,
-    const void* seq_epoch, const void* think, int L, int N, int F, int P,
+    const void* fire, const void* perr, void* issued, void* completed,
+    void* start_time, void* parts, void* part_max, void* hist,
+    void* lat_sum, void* lat_count, void* lat_log, void* pair_cnt,
+    void* next_periodic, const void* requeues, const void* max_completion,
+    const void* done_time, const void* err, const void* steps,
+    const void* fault_dropped, const void* client_delay,
+    const void* delay_pp, const void* key_table, const void* cmd_budget,
+    const void* client_attach, const void* client_region_row,
+    const void* intervals, const void* cmd_parts, const void* cmd_target,
+    const void* attach_s, const void* unavail, const void* horizon,
+    const void* win_src, const void* win_dst, const void* win_t0,
+    const void* win_t1, const void* win_mul, const void* win_ovr,
+    const void* drop_num, const void* drop_key, const void* jitter_num,
+    const void* jitter_key, const void* reorder_key, void* new_rows,
+    void* valid, void* requeues_o, void* max_completion_o,
+    void* done_time_o, void* err_o, void* steps_o, void* fault_dropped_o,
+    const void* mon_flags, const void* viol, const void* viol_step,
+    void* viol_o, void* viol_step_o, const void* ol_arrival,
+    void* ol_comp_t, void* ol_last_rel, const void* seq_epoch,
+    const void* think, const void* cap_tab, int L, int N, int F, int P,
     int C, int R, int RR, int H, int T, int LOG, int W, int submit, int S,
     int TP, int TT, int flags, int TA, int WD, int TE, int EP,
-    void* stream) {
+    int cap_flags, void* stream) {
   if (L == 0) return 0;
   Args a;
   a.pv = (const bool*)pv;
@@ -687,17 +794,17 @@ extern "C" int fantoch_emit_rewrite(
   a.ep = (const int*)ep;
   a.fire = (const bool*)fire;
   a.perr = (const int*)perr;
-  a.issued = (const int*)issued;
-  a.completed = (const int*)completed;
-  a.start_time = (const int*)start_time;
-  a.parts = (const int*)parts;
-  a.part_max = (const int*)part_max;
-  a.hist = (const int*)hist;
-  a.lat_sum = (const int*)lat_sum;
-  a.lat_count = (const int*)lat_count;
-  a.lat_log = (const int*)lat_log;
-  a.pair_cnt = (const int*)pair_cnt;
-  a.next_periodic = (const int*)next_periodic;
+  a.issued = (int*)issued;
+  a.completed = (int*)completed;
+  a.start_time = (int*)start_time;
+  a.parts = (int*)parts;
+  a.part_max = (int*)part_max;
+  a.hist = (int*)hist;
+  a.lat_sum = (int*)lat_sum;
+  a.lat_count = (int*)lat_count;
+  a.lat_log = (int*)lat_log;
+  a.pair_cnt = (int*)pair_cnt;
+  a.next_periodic = (int*)next_periodic;
   a.requeues = (const int*)requeues;
   a.max_completion = (const int*)max_completion;
   a.done_time = (const int*)done_time;
@@ -723,23 +830,12 @@ extern "C" int fantoch_emit_rewrite(
   a.win_mul = (const int*)win_mul;
   a.win_ovr = (const int*)win_ovr;
   a.drop_num = (const int*)drop_num;
-  a.jitter_num = (const int*)jitter_num;
   a.drop_key = (const unsigned*)drop_key;
+  a.jitter_num = (const int*)jitter_num;
   a.jitter_key = (const unsigned*)jitter_key;
   a.reorder_key = (const unsigned*)reorder_key;
   a.new_rows = (int*)new_rows;
   a.valid = (bool*)valid;
-  a.issued_o = (int*)issued_o;
-  a.completed_o = (int*)completed_o;
-  a.start_o = (int*)start_o;
-  a.parts_o = (int*)parts_o;
-  a.part_max_o = (int*)part_max_o;
-  a.hist_o = (int*)hist_o;
-  a.lat_sum_o = (int*)lat_sum_o;
-  a.lat_count_o = (int*)lat_count_o;
-  a.lat_log_o = (int*)lat_log_o;
-  a.pair_cnt_o = (int*)pair_cnt_o;
-  a.next_periodic_o = (int*)next_periodic_o;
   a.requeues_o = (int*)requeues_o;
   a.max_completion_o = (int*)max_completion_o;
   a.done_time_o = (int*)done_time_o;
@@ -752,12 +848,11 @@ extern "C" int fantoch_emit_rewrite(
   a.viol_o = (int*)viol_o;
   a.viol_step_o = (int*)viol_step_o;
   a.ol_arrival = (const int*)ol_arrival;
-  a.ol_comp_t = (const int*)ol_comp_t;
-  a.ol_last_rel = (const int*)ol_last_rel;
-  a.ol_comp_t_o = (int*)ol_comp_t_o;
-  a.ol_last_rel_o = (int*)ol_last_rel_o;
+  a.ol_comp_t = (int*)ol_comp_t;
+  a.ol_last_rel = (int*)ol_last_rel;
   a.seq_epoch = (const int*)seq_epoch;
   a.think = (const int*)think;
+  a.cap = run_cap((const void* const*)cap_tab, cap_flags);
   a.N = N;
   a.F = F;
   a.P = P;
@@ -778,7 +873,7 @@ extern "C" int fantoch_emit_rewrite(
   a.TE = TE;
   a.EP = EP;
   const int E = N * rows_per_process(F, flags);
-  const int need = std::min(1024, std::max({E, C, N * N, RR, N * R, 32}));
+  const int need = std::min(1024, std::max({E, C, N * N, N * R, 32}));
   const int threads = (need + 31) / 32 * 32;
   const size_t shm = smem_bytes(N, F, C, flags);
   if (shm > 48 * 1024) {

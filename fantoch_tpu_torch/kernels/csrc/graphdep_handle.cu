@@ -16,11 +16,14 @@
 // on the state `periodic` returned, then the hoisted drain on the
 // branch's outputs.
 //
-// 1. The whole block copies the process's 24 non-scalar state planes
-//    (117.6 KB at the main path's shapes) to the output tensors in
-//    16-byte coalesced rows, then works on the outputs in place. The
-//    scalar planes (sequence, counters, error word) live in thread 0's
-//    registers and are stored once at the end.
+// 1. The block works on its process's rows of the state planes in place,
+//    on the lanes whose run predicate holds at the step's start
+//    (common.cuh RunCap). A frozen lane's blocks write rdy false and empty
+//    outboxes and touch none of its state. Each block touches only its
+//    own (lane, process) rows, and the gate, the GC timer and the branch
+//    read the planes before anything writes them, so no copy is needed.
+//    The scalar planes (sequence, counters, error word) live in thread
+//    0's registers and are stored once at the end.
 // 2. Thread 0 runs the gate, the GC timer and the branch: a few dozen
 //    words each, staged outboxes in shared memory. MGC's free scan over
 //    the [N, D] dot words runs on the whole block after a barrier.
@@ -61,9 +64,8 @@
 // Bound on this card: bytes. The region reads a few state words per
 // (lane, process), the rows its branch touches and the drain's committed
 // vertices, and writes the words that change and two [F, P] outboxes
-// (graphdep_handle.py work). This kernel copies each process's whole
-// state out of place, so it moves far more than that, but in coalesced
-// rows.
+// (graphdep_handle.py work). The drain's flag pass reads every process's
+// [N, D] committed flags, which is most of what this kernel moves.
 #include <climits>
 #include <cstdint>
 
@@ -116,37 +118,13 @@ __device__ long long plane_words(int i, const Dims& d) {
   }
 }
 
-__device__ bool is_scalar(int i) {
-  return i == OWN_SEQ || i == M_FAST || i == M_SLOW || i == M_STABLE ||
-         i == ERR;
-}
-
-__device__ bool is_bool(int i) { return i == VX_COMMITTED || i == SEEN; }
-
-// Copy n words with the whole block. Source and destination sit at the
-// same offset from their planes' (aligned) bases, so after a short head
-// both are 16-byte aligned together.
-__device__ void block_copy(int* dst, const int* src, long long n) {
-  const int t = threadIdx.x;
-  long long head = ((16 - ((uintptr_t)dst & 15)) & 15) >> 2;
-  if ((((uintptr_t)dst ^ (uintptr_t)src) & 15) != 0) head = n;  // scalar
-  head = head < n ? head : n;
-  for (long long i = t; i < head; i += THREADS) dst[i] = src[i];
-  const long long n4 = (n - head) >> 2;
-  const int4* s4 = reinterpret_cast<const int4*>(src + head);
-  int4* d4 = reinterpret_cast<int4*>(dst + head);
-  for (long long i = t; i < n4; i += THREADS) d4[i] = s4[i];
-  for (long long i = head + (n4 << 2) + t; i < n; i += THREADS)
-    dst[i] = src[i];
-}
-
 // A staged outbox in shared memory: valid, dst, mtype [F], payload [F, P].
 struct Outbox {
   int *v, *dst, *mt, *pay;
 };
 
-// One (lane, process): its output planes (the state being updated), its
-// scalar planes, the lane ctx and the staged outboxes. Its member
+// One (lane, process): its rows of the state planes (updated in place),
+// its scalar planes, the lane ctx and the staged outboxes. Its member
 // functions run on thread 0 only.
 struct Proc {
   Dims d;
@@ -406,7 +384,7 @@ constexpr unsigned char OK = 1, STATIC = 2;
 }  // namespace
 
 __global__ void __launch_bounds__(THREADS) graphdep_handle_kernel(
-    const Planes in, const Planes out, const bool* __restrict__ has,
+    const Planes st, const RunCap cap, const bool* __restrict__ has,
     const int* __restrict__ rows, const bool* __restrict__ fire,
     const int* __restrict__ n_ctx, const int* __restrict__ f_ctx,
     const bool* __restrict__ fq, const bool* __restrict__ wq,
@@ -422,6 +400,18 @@ __global__ void __launch_bounds__(THREADS) graphdep_handle_kernel(
   const int l = g / d.N, me = g % d.N;
   const int N = d.N, D = d.D, F = d.F, P = d.P, Q = d.Q, G = d.G;
   const int ND = N * D;
+
+  if (!cap.runs(l)) {  // frozen: the state stays, the outboxes are empty
+    const long long fb = (long long)g * F;
+    if (t == 0) rdy_out[g] = false;
+    for (long long i = t; i < (long long)F * P; i += THREADS)
+      pp[fb * P + i] = hp[fb * P + i] = 0;
+    for (int i = t; i < F; i += THREADS) {
+      pv[fb + i] = hv[fb + i] = false;
+      pd[fb + i] = pm[fb + i] = hd[fb + i] = hm[fb + i] = 0;
+    }
+    return;
+  }
 
   // shared memory (graphdep_handle.py smem_bytes)
   int* sp = smem;
@@ -441,27 +431,13 @@ __global__ void __launch_bounds__(THREADS) graphdep_handle_kernel(
   sp += 8;
   unsigned char* flags = reinterpret_cast<unsigned char*>(sp);
 
-  // 1. copy this process's state planes (the scalar ones go through
-  // thread 0's registers)
-  for (int i = 0; i < NPLANES; ++i) {
-    if (is_scalar(i)) continue;
-    const long long w = plane_words(i, d);
-    if (is_bool(i)) {
-      const bool* s = (const bool*)in.p[i] + (long long)g * w;
-      bool* o = (bool*)out.p[i] + (long long)g * w;
-      for (long long j = t; j < w; j += THREADS) o[j] = s[j];
-    } else {
-      block_copy((int*)out.p[i] + (long long)g * w,
-                 (const int*)in.p[i] + (long long)g * w, w);
-    }
-  }
-  mon_copy(ma, g, t, THREADS);
-  __syncthreads();
-
+  // this process's rows of the state planes, updated in place (the
+  // scalar ones go through thread 0's registers and are stored at the
+  // end, after every thread has read them here)
   auto plane = [&](int i) {
-    return (int*)out.p[i] + (long long)g * plane_words(i, d);
+    return (int*)st.p[i] + (long long)g * plane_words(i, d);
   };
-  auto scalar = [&](int i) { return ((const int*)in.p[i])[g]; };
+  auto scalar = [&](int i) { return ((const int*)st.p[i])[g]; };
   Proc p{d, me,
          plane(LATEST_SRC), plane(LATEST_SEQ), plane(SIS), plane(KEY_OF),
          plane(CLIENT_OF), plane(ACK_CNT), plane(QD_SRC), plane(QD_SEQ),
@@ -469,8 +445,8 @@ __global__ void __launch_bounds__(THREADS) graphdep_handle_kernel(
          plane(VX_CLIENT), plane(VX_ND), plane(VX_DEP_SRC), plane(VX_DEP_SEQ),
          plane(EXEC_FRONT), plane(EXEC_GAPS), plane(COMM_FRONT),
          plane(COMM_GAPS), plane(OTHERS), plane(PREV_STABLE),
-         (bool*)out.p[VX_COMMITTED] + (long long)g * ND,
-         (bool*)out.p[SEEN] + (long long)g * N,
+         (bool*)st.p[VX_COMMITTED] + (long long)g * ND,
+         (bool*)st.p[SEEN] + (long long)g * N,
          scalar(OWN_SEQ), scalar(M_FAST), scalar(M_SLOW), scalar(M_STABLE),
          scalar(ERR),
          n_ctx[l], f_ctx[l], expected[l], fp_mode[l], ack_self[l],
@@ -636,11 +612,11 @@ __global__ void __launch_bounds__(THREADS) graphdep_handle_kernel(
     const int at = p.in(client, d.C) ? p.attach[client] : 0;
     p.emit(hob, F - 2, do_ && at == me, N + client, TO_CLIENT, zero, 1);
     p.emit(hob, F - 1, do_ && num_ok > 1, me, MDRAIN, zero, 1);
-    ((int*)out.p[OWN_SEQ])[g] = p.own_seq;
-    ((int*)out.p[M_FAST])[g] = p.m_fast;
-    ((int*)out.p[M_SLOW])[g] = p.m_slow;
-    ((int*)out.p[M_STABLE])[g] = p.m_stable;
-    ((int*)out.p[ERR])[g] = p.err;
+    ((int*)st.p[OWN_SEQ])[g] = p.own_seq;
+    ((int*)st.p[M_FAST])[g] = p.m_fast;
+    ((int*)st.p[M_SLOW])[g] = p.m_slow;
+    ((int*)st.p[M_STABLE])[g] = p.m_stable;
+    ((int*)st.p[ERR])[g] = p.err;
   }
   __syncthreads();
 
@@ -661,22 +637,19 @@ __global__ void __launch_bounds__(THREADS) graphdep_handle_kernel(
 }
 
 extern "C" int fantoch_graphdep_handle(
-    const void* in_table, const void* out_table, const void* has,
+    const void* state_table, const void* cap_tab, const void* has,
     const void* rows, const void* fire, const void* n_ctx, const void* f_ctx,
     const void* fq, const void* wq, const void* expected,
     const void* fp_mode, const void* ack_self, const void* attach,
     void* rdy_out, void* pv, void* pd, void* pm, void* pp, void* hv,
-    void* hd, void* hm, void* hp, const void* mh_in, const void* mc_in,
-    const void* mf_in, void* mh_o, void* mc_o, void* mf_o, int L, int N,
-    int D, int F, int P, int R, int W, int C, int K, int Q, int G, int smem,
-    int KM, void* stream) {
+    void* hd, void* hm, void* hp, void* mon_hash, void* mon_cnt,
+    void* mon_flags, int L, int N, int D, int F, int P, int R, int W, int C,
+    int K, int Q, int G, int smem, int KM, int flags, void* stream) {
   const long long blocks = (long long)L * N;
   if (blocks == 0) return 0;
-  Planes in, out;
-  for (int i = 0; i < NPLANES; ++i) {
-    in.p[i] = ((void* const*)in_table)[i];
-    out.p[i] = ((void* const*)out_table)[i];
-  }
+  Planes st;
+  for (int i = 0; i < NPLANES; ++i)
+    st.p[i] = ((void* const*)state_table)[i];
   const Dims d{L, N, D, F, P, R, W, C, K, Q, G};
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -686,11 +659,14 @@ extern "C" int fantoch_graphdep_handle(
   }
   graphdep_handle_kernel<<<(unsigned)blocks, THREADS, (size_t)smem,
                            (cudaStream_t)stream>>>(
-      in, out, (const bool*)has, (const int*)rows, (const bool*)fire,
-      (const int*)n_ctx, (const int*)f_ctx, (const bool*)fq,
-      (const bool*)wq, (const int*)expected, (const int*)fp_mode,
-      (const bool*)ack_self, (const int*)attach, (bool*)rdy_out, (bool*)pv,
-      (int*)pd, (int*)pm, (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
-      mon_args(mh_in, mc_in, mf_in, mh_o, mc_o, mf_o, KM), d);
+      st, run_cap((const void* const*)cap_tab, flags), (const bool*)has,
+      (const int*)rows, (const bool*)fire, (const int*)n_ctx,
+      (const int*)f_ctx, (const bool*)fq, (const bool*)wq,
+      (const int*)expected, (const int*)fp_mode, (const bool*)ack_self,
+      (const int*)attach, (bool*)rdy_out, (bool*)pv, (int*)pd, (int*)pm,
+      (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
+      mon_args(mon_hash, mon_cnt, mon_flags, mon_hash, mon_cnt, mon_flags,
+               KM),
+      d);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,7 @@
 // null planes: no copy, no branch, nothing written. The kernel copies its
 // process's rows and guard word with mon_copy at its start, and records
 // each execution through mon_view(...).exec at its executor's choke point.
-// K4, K8 and K10 update the planes in place: their out planes are their
+// K4, K8, K9 and K10 update the planes in place: their out planes are their
 // in planes, and they skip mon_copy.
 // The hash is h * HASH_MUL + (src * 2^20 + seq + 1) in uint32_t, which
 // wraps exactly as the reference's int32 arithmetic.

@@ -28,9 +28,18 @@ Both read the handlers' outboxes as ``valid``, ``dst``, ``mtype`` and
 ``payload`` only: a protocol handler never sets ``delay`` or ``src``
 (the reference's ``empty_outbox``/``emit`` defaults, -1), so they are
 taken as -1; the requeue row alone overrides both.
+
+Both update the lane's ``clients``, ``metrics``, ``pair_cnt`` and
+``next_periodic`` planes in place, on the lanes the step's run cap lets
+run (``lane_freeze.Cap``), and return those very tensors; the ``[L]``
+lane words stay out of place, since every kernel of the step reads its
+run predicate from them. A frozen lane gets zero rows, none of which
+lands, and its lane words as they were.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -47,10 +56,14 @@ from ..engine.faults import (
 from ..engine.monitor import step_viol
 from . import build, cost
 from .key_table import THREEFRY_OPS
+from .lane_freeze import cap_args, cap_running
 
 I32 = torch.int32
 
 CLIENT_KEYS = ("issued", "completed", "start_time", "parts", "part_max")
+# the lane-state planes besides clients and metrics that K6 updates in
+# place
+IN_PLACE_KEYS = ("pair_cnt", "next_periodic")
 # the open-loop client's planes: the ring of completion times [L, C, W]
 # and the release clamp [L, C]
 OPEN_LOOP_KEYS = ("ol_comp_t", "ol_last_rel")
@@ -189,7 +202,42 @@ def _merge(n: int, f2: int, *parts):
 
 def emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
                        dims: EngineDims, submit: int, flags: int = 0,
-                       mon_flags=None):
+                       mon_flags=None, cap=None):
+    """:func:`emit_out_of_place`, then the in-place contract: its new
+    ``clients``, ``metrics``, ``pair_cnt`` and ``next_periodic`` planes
+    are copied into ``st``'s on the lanes ``cap`` lets run (every lane
+    without one), as the kernel writes them, and ``upd`` holds ``st``'s
+    tensors; a frozen lane's rows are zero, none lands, and its lane
+    words are ``st``'s."""
+    new_rows, deliver, upd = emit_out_of_place(
+        st, ctx, ep, fire, has, rdy, rows, pout, hout, perr, dims, submit,
+        flags, mon_flags)
+    running = cap_running(cap)
+
+    def put(old, new):
+        if new is not old:
+            if running is not None:  # a select: no sync with the card
+                lead = running.reshape((-1,) + (1,) * (new.dim() - 1))
+                new = torch.where(lead, new, old)
+            old.copy_(new)
+        return old
+
+    for group in ("clients", "metrics"):
+        upd[group] = {k: put(st[group][k], v) for k, v in upd[group].items()}
+    for k in IN_PLACE_KEYS:
+        upd[k] = put(st[k], upd[k])
+    if running is None:
+        return new_rows, deliver, upd
+    for k in LANE_KEYS + ("fault_dropped", "viol", "viol_step"):
+        if k in upd and upd[k] is not st[k]:
+            upd[k] = torch.where(running, upd[k], st[k])
+    new_rows = torch.where(running[:, None, None], new_rows, 0)
+    return new_rows, deliver & running[:, None], upd
+
+
+def emit_out_of_place(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
+                      dims: EngineDims, submit: int, flags: int = 0,
+                      mon_flags=None):
     """``(new_rows [L, E, W], deliver [L, E], upd)``: the pool rows of
     the step's emissions in K2's layout, which of them land (valid and
     not lost on the wire), and the lane's new ``clients``, ``metrics``,
@@ -605,8 +653,10 @@ def _wired_rows(pout, hout, N: int) -> int:
 def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
          dims: EngineDims, submit: int, flags: int, *tail):
     """``(bytes, ops)`` the region needs on these inputs: ``tail`` is
-    ``(out,)`` or, under the monitor flag, ``(mon_flags, out)`` (the
-    wrapper's arguments, then its result). It reads every process's flags, time and error word, the
+    ``(out,)``, ``(mon_flags, out)`` or ``(mon_flags, cap, out)`` (the
+    wrapper's arguments, then its result); ``st`` is the state before
+    the call (a snapshot: the call updates it in place). It reads every
+    process's flags, time and error word, the
     outboxes' valid flags and the words of their valid rows, a requeued
     message's type, keys and payload, the lane's client, channel, timer
     and scalar planes, the small per-client ctx planes, one client
@@ -701,10 +751,13 @@ def work(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
 
 
 def smem_bytes(N: int, F: int, C: int, flags: int = 0) -> int:
-    """The shared memory one lane's block of the kernel takes: three
-    words and two flag bytes a row, five words a client, two a lane."""
+    """The shared memory one lane's block of the kernel takes: eleven
+    words (a pool row's eight header words, the client, the arrival, the
+    payload's offset) and three bytes (two flags, the payload's source) a
+    row, nine words a client, seven a process (the open-loop stage), four
+    a lane."""
     E = N * rows_per_process(F, flags)
-    return (3 * E + 5 * C + 2) * 4 + 2 * E
+    return (11 * E + 9 * C + 7 * N + 4) * 4 + 3 * E
 
 
 # the most shared memory a block can opt into on Hopper
@@ -717,12 +770,16 @@ FAULT_KEYS = ("fault_unavail", "fault_horizon", *WINDOW_KEYS,
 
 def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
                  dims: EngineDims, submit: int, flags: int = 0,
-                 mon_flags=None):
-    """K6 on CUDA tensors, :func:`emit_rewrite_plain` on CPU tensors."""
+                 mon_flags=None, cap=None):
+    """K6 on CUDA tensors, :func:`emit_rewrite_plain` on CPU tensors.
+    ``st``'s ``clients``, ``metrics``, ``pair_cnt`` and
+    ``next_periodic`` are updated in place on the lanes ``cap`` lets run
+    (every lane without one) and returned in ``upd`` (the same
+    tensors)."""
     if rows.device.type == "cpu":
         return emit_rewrite_plain(st, ctx, ep, fire, has, rdy, rows, pout,
                                   hout, perr, dims, submit, flags,
-                                  mon_flags)
+                                  mon_flags, cap)
     L, N, W = rows.shape
     C, F, P, R = dims.C, dims.F, dims.P, fire.shape[2]
     RR, H = dims.RR, dims.H
@@ -761,19 +818,19 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
     if open_loop != ("ol_comp_t" in st["clients"]):
         raise ValueError("emit_rewrite: FLAG_OPEN_LOOP and the open-loop "
                          "client planes go together")
-    old = _flat_upd(st)
-    names = list(CLIENT_KEYS) + list(METRIC_KEYS) + [
-        "pair_cnt", "next_periodic"] + list(LANE_KEYS)
-    # the open-loop arrival table and client planes in and out, or null
-    # pointers; the traffic schedule's seq → epoch index and think delays
-    # under FLAG_THINK
+    planes = _flat_upd(st)
+    names = (list(CLIENT_KEYS) + list(METRIC_KEYS) + list(IN_PLACE_KEYS)
+             + list(LANE_KEYS))
+    # the open-loop arrival table and client planes, or null pointers; the
+    # traffic schedule's seq → epoch index and think delays under
+    # FLAG_THINK
     TA = WD = TE = EP = 0
     if open_loop:
         names += list(OPEN_LOOP_KEYS)
         TA, WD = ctx["ol_arrival"].shape[2], st["clients"]["ol_comp_t"].shape[2]
         shapes["ol_comp_t"] = (L, C, WD)
         chk("ctx/ol_arrival", ctx["ol_arrival"], I32, (L, C, TA), dev)
-    for name, t in zip(names, old):
+    for name, t in zip(names, planes):
         chk(f"st/{name}", t, I32, shapes.get(name, (L,)), dev)
     chk("st/fault_dropped", st["fault_dropped"], I32, (L,), dev)
     ctx_shapes = {
@@ -822,37 +879,38 @@ def emit_rewrite(st, ctx, ep, fire, has, rdy, rows, pout, hout, perr,
         think = [ctx["traffic_seq_epoch"], ctx["traffic_think"]]
     new_rows = torch.empty((L, E, W), dtype=I32, device=dev)
     valid = torch.empty((L, E), dtype=torch.bool, device=dev)
-    new = [torch.empty_like(t) for t in old]
-    base = len(old) - (len(OPEN_LOOP_KEYS) if open_loop else 0)
-    ol = ([ctx["ol_arrival"]] + old[base:] + new[base:] if open_loop
-          else [None] * (1 + 2 * len(OPEN_LOOP_KEYS)))
+    n_in = len(CLIENT_KEYS) + len(METRIC_KEYS) + len(IN_PLACE_KEYS)
+    lanes = planes[n_in:n_in + len(LANE_KEYS)]
+    lanes_o = [torch.empty_like(t) for t in lanes]
+    ol = ([ctx["ol_arrival"]] + planes[n_in + len(LANE_KEYS):] if open_loop
+          else [None] * (1 + len(OPEN_LOOP_KEYS)))
     # the lost count is a new plane only under a wire-fault flag
     dropped = (torch.empty_like(st["fault_dropped"]) if flags & WIRE_FLAGS
                else st["fault_dropped"])
+    tab, cap_flags = cap_args(cap, L, dev)
     tensors = (
         [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
-        + [has, rdy, rows, ep, fire, perr] + old[:base]
-        + [ctx[k] for k in ctx_shapes] + partial + [new_rows, valid]
-        + new[:base] + [st["fault_dropped"]] + [ctx[k] for k in FAULT_KEYS]
+        + [has, rdy, rows, ep, fire, perr] + planes[:n_in] + lanes
+        + [st["fault_dropped"]] + [ctx[k] for k in ctx_shapes] + partial
+        + [ctx[k] for k in FAULT_KEYS] + [new_rows, valid] + lanes_o
         + [dropped if flags & WIRE_FLAGS else None] + mon + ol + think
     )
-    fn = build.c_function("fantoch_emit_rewrite", len(tensors), 20)
+    fn = build.c_function("fantoch_emit_rewrite", len(tensors) + 1, 21)
     build.launch(
-        fn, [0 if t is None else t.data_ptr() for t in tensors],
+        fn, [0 if t is None else t.data_ptr() for t in tensors]
+        + [ctypes.addressof(tab)],
         [L, N, F, P, C, R, RR, H, T, LOG, W, submit, S, TP, TT, flags, TA,
-         WD, TE, EP],
+         WD, TE, EP, cap_flags],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     emit_rewrite.launches += 1
-    upd = dict(zip(names, new))
     upd = {
-        "next_periodic": upd["next_periodic"],
-        "clients": {k: upd[k] for k in CLIENT_KEYS + (
-            OPEN_LOOP_KEYS if open_loop else ())},
-        "metrics": {k: upd[k] for k in METRIC_KEYS},
-        "pair_cnt": upd["pair_cnt"],
+        "next_periodic": st["next_periodic"],
+        "clients": dict(st["clients"]),
+        "metrics": dict(st["metrics"]),
+        "pair_cnt": st["pair_cnt"],
         "fault_dropped": dropped,
-        **{k: upd[k] for k in LANE_KEYS},
+        **dict(zip(LANE_KEYS, lanes_o)),
     }
     if monitored:
         upd["viol"], upd["viol_step"] = mon[3], mon[4]

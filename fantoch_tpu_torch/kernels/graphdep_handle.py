@@ -15,7 +15,9 @@ monitors' ``mon_exec`` at the drain's pick (:415-433). CUDA source:
 :func:`work`). :func:`graphdep_handle_plain` is its plain PyTorch twin
 (the batched handlers of ``engine/protocols/graphdep.py``), used for
 tensors on the CPU. One kernel serves both protocols: the lane ctx
-carries what differs.
+carries what differs. Both update the process state (with the monitor
+planes) in place, on the lanes the step's run cap lets run
+(``lane_freeze.Cap``), and return the very tensors they were given.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from ..engine.dims import PMT, EngineDims
 from . import build, cost
+from .lane_freeze import cap_args
 
 I32 = torch.int32
 
@@ -48,11 +51,13 @@ THREADS = 128
 SMEM_MAX = 227 * 1024
 
 
-def graphdep_handle_plain(ps, has, rows, fire, ctx, dims: EngineDims):
-    """``(rdy, ps, periodic outbox, handler outbox)``."""
+def graphdep_handle_plain(ps, has, rows, fire, ctx, dims: EngineDims,
+                          cap=None):
+    """``(rdy, ps, periodic outbox, handler outbox)``, ``ps`` updated in
+    place on the lanes ``cap`` lets run."""
     from ..engine.protocols.graphdep import _DepDev
 
-    return _DepDev.step_plain(ps, has, rows, fire, ctx, dims)
+    return _DepDev.step_plain(ps, has, rows, fire, ctx, dims, cap)
 
 
 def _state_shapes(L, dims: EngineDims, K, Q, G):
@@ -89,9 +94,11 @@ def smem_bytes(dims: EngineDims, G: int) -> int:
     return 4 * ints + N * D
 
 
-def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
-    """``(bytes, ops)`` the region needs on these inputs (``out`` is its
-    result). Every (lane, process) reads its ``has`` and timer flags, a
+def work(ps, has, rows, fire, ctx, dims: EngineDims, *rest):
+    """``(bytes, ops)`` the region needs on these inputs (``ps`` a
+    snapshot taken before the call, which updates it in place; the last
+    argument is the call's result, one before it may be the cap).
+    Every (lane, process) reads its ``has`` and timer flags, a
     popped message's type, source and payload, and the state words its
     branch reads: the gated types their dot words (MCollect two, MCommit
     one); SUBMIT its sequence and the key's latest dot; MCollect the
@@ -110,7 +117,7 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
     from ..engine.protocols.graphdep import _DepDev as X
     from ..engine.protocols.graphdep import _relax
 
-    rdy, new_ps, pout, hout = out
+    rdy, new_ps, pout, hout = rest[-1]
     L, N, W = rows.shape
     P, D = dims.P, dims.D
     Q, G = ps["qd_src"].shape[3], ps["exec_gaps"].shape[3]
@@ -154,13 +161,14 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
     return read + write + cost.monitor_bytes(ps, new_ps), ops
 
 
-def graphdep_handle(ps, has, rows, fire, ctx, dims: EngineDims):
+def graphdep_handle(ps, has, rows, fire, ctx, dims: EngineDims, cap=None):
     """K9 on CUDA tensors, :func:`graphdep_handle_plain` on CPU tensors.
-    The kernel's outboxes carry the planes ``valid``, ``dst``,
-    ``mtype`` and ``payload``; a protocol handler's ``delay``/``src``
-    are always -1, which ``emit_rewrite`` assumes."""
+    ``ps`` is updated in place on the lanes ``cap`` lets run and
+    returned (the same tensors). The kernel's outboxes carry the planes
+    ``valid``, ``dst``, ``mtype`` and ``payload``; a protocol handler's
+    ``delay``/``src`` are always -1, which ``emit_rewrite`` assumes."""
     if rows.device.type == "cpu":
-        return graphdep_handle_plain(ps, has, rows, fire, ctx, dims)
+        return graphdep_handle_plain(ps, has, rows, fire, ctx, dims, cap)
     L, N, W = rows.shape
     R = fire.shape[2]
     F, P, D = dims.F, dims.P, dims.D
@@ -188,10 +196,6 @@ def graphdep_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         build.check(k, ctx[k], torch.bool, (L, N, N), dev)
     build.check("client_attach", ctx["client_attach"], I32, (L, C), dev)
     rdy = torch.empty((L, N), dtype=torch.bool, device=dev)
-    new_ps = {
-        k: torch.empty(shapes[k][0], dtype=shapes[k][1], device=dev)
-        for k in STATE_KEYS
-    }
 
     def outbox():
         return {
@@ -202,26 +206,24 @@ def graphdep_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         }
 
     pout, hout = outbox(), outbox()
-    n_planes = len(STATE_KEYS)
-    ins = (ctypes.c_void_p * n_planes)(*[ps[k].data_ptr()
-                                         for k in STATE_KEYS])
-    outs = (ctypes.c_void_p * n_planes)(*[new_ps[k].data_ptr()
-                                          for k in STATE_KEYS])
+    planes = (ctypes.c_void_p * len(STATE_KEYS))(
+        *[ps[k].data_ptr() for k in STATE_KEYS])
+    tab, cap_flags = cap_args(cap, L, dev)
     tensors = (
         [has, rows, fire] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    mon_ptrs, KM, mon_new = build.mon_planes(ps, L, N, dev)
-    fn = build.c_function("fantoch_graphdep_handle", 8 + len(tensors), 13)
+    mon_ptrs, KM, _mon = build.mon_planes(ps, L, N, dev, in_place=True)
+    fn = build.c_function("fantoch_graphdep_handle", 5 + len(tensors), 14)
     build.launch(
         fn,
-        [ctypes.addressof(ins), ctypes.addressof(outs)]
+        [ctypes.addressof(planes), ctypes.addressof(tab)]
         + [t.data_ptr() for t in tensors] + mon_ptrs,
-        [L, N, D, F, P, R, W, C, K, Q, G, smem, KM],
+        [L, N, D, F, P, R, W, C, K, Q, G, smem, KM, cap_flags],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     graphdep_handle.launches += 1
-    return rdy, {**new_ps, **mon_new}, pout, hout
+    return rdy, ps, pout, hout
 
 
 graphdep_handle.launches = 0

@@ -17,6 +17,7 @@ not ported yet (ROADMAP items 12, 15 and 5).
 from __future__ import annotations
 
 import itertools
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -74,8 +75,13 @@ def _window_untils(base: int, segment_steps: int, window: int,
 #: ``body_iterations`` (device-loop bodies run), ``batch_steps`` (steps
 #: run, frozen ones included: bodies × steps a body), ``overshoot_steps``
 #: (those past each batch's longest lane), ``captures`` (device loops
-#: captured; a batch of a layout already cached captures none) and
-#: ``capture_s`` (capture plus instantiate). Not part of any result.
+#: captured; a batch of a layout already cached captures none),
+#: ``capture_s`` (capture plus instantiate), and the host seconds of each
+#: batch's stages, summed: ``prepare_s`` (``prepare_batch``),
+#: ``windows_s`` (``run_windows``, the capture included) and
+#: ``collect_s`` (``finish_run`` and ``collect_results``), each read on
+#: the host clock with no device sync of its own. Not part of any
+#: result.
 LAST_STATS: dict = {}
 
 
@@ -224,11 +230,13 @@ def run_sweep(
         lanes=len(specs), scan_window=win, device_calls=0,
         segments_covered=0, segment_steps=int(segment_steps), windows=0,
         batches=0, body_iterations=0, batch_steps=0, overshoot_steps=0,
-        captures=0, capture_s=0.0,
+        captures=0, capture_s=0.0, prepare_s=0.0, windows_s=0.0,
+        collect_s=0.0,
     )
     out: List[LaneResults] = []
     for lo in range(0, len(specs), batch_lanes):
         chunk = specs[lo:lo + batch_lanes]
+        t0 = time.perf_counter()
         if hetero:
             hb, state, ctx, _lanes = engine_hetero.prepare_batch(
                 protocol, dims, chunk, dev, monitor_keys=monitor_keys,
@@ -237,8 +245,10 @@ def run_sweep(
             reorder, faults = batch_reorder_flag(bare), batch_fault_flags(bare)
             runner, _alive = engine_hetero.build_hetero_window_runner(
                 hb, max_steps, reorder, faults)
+            t1 = time.perf_counter()
             state = run_windows(runner, state, ctx, segment_steps, win,
                                 pipeline_depth, max_steps)
+            t2 = time.perf_counter()
             results = engine_hetero.collect_hetero_results(
                 hb, chunk, engine_hetero.result_fetch_tree(hb, state),
                 max_steps)
@@ -249,11 +259,17 @@ def run_sweep(
                 protocol, dims, max_steps, reorder, faults, monitor_keys)
             state, ctx = prepare_batch(protocol, dims, chunk, dev,
                                        monitor_keys)
+            t1 = time.perf_counter()
             state = run_windows(runner, state, ctx, segment_steps, win,
                                 pipeline_depth, max_steps)
+            t2 = time.perf_counter()
             final = engine_core.finish_run(protocol, state, ctx, max_steps,
                                            reorder, faults, monitor_keys)
             results = collect_results(protocol, dims, final, chunk)
+        t3 = time.perf_counter()
+        LAST_STATS["prepare_s"] += t1 - t0
+        LAST_STATS["windows_s"] += t2 - t1
+        LAST_STATS["collect_s"] += t3 - t2
         bodies = runner.bodies()
         LAST_STATS["batches"] += 1
         LAST_STATS["captures"] += runner.captures

@@ -33,6 +33,7 @@ from fantoch_tpu_torch.kernels.key_table import work as kt_work
 from fantoch_tpu_torch.kernels.land_emissions import work as le_work
 from fantoch_tpu_torch.kernels.lane_freeze import work as lf_work
 from fantoch_tpu_torch.kernels.qualify_pop import work as qp_work
+from fantoch_tpu_torch.kernels.step_loop import clone_tree
 from fantoch_tpu_torch.kernels.tempo_handle import work as th_work
 from fantoch_tpu_torch.kernels.tempo_partial_handle import work as tp_work
 
@@ -185,10 +186,17 @@ def _outboxes_bytes(out):
 
 
 def _on_a_copy(kernel, ps, *rest):
-    """An in-place handler kernel (K4, K8, K10, K11) on a copy of ``ps``:
-    the call updates its state in place; work reads the state before
-    it."""
+    """An in-place handler kernel (K4, K8, K9, K10, K11) on a copy of
+    ``ps``: the call updates its state in place; work reads the state
+    before it."""
     return kernel({k: v.clone() for k, v in ps.items()}, *rest)
+
+
+def _emit_on_a_copy(st, *rest):
+    """K6 on a copy of the lane state ``st``: the call updates its
+    clients, metrics, channel counts and timers in place; work reads the
+    state before it."""
+    return emit_rewrite(clone_tree(st), *rest)
 
 
 def test_basic_handle_work_idle_submit_and_gc():
@@ -420,7 +428,7 @@ def _graphdep_idle(L=2):
 def test_graphdep_handle_work_idle_submit_gc_and_drain():
     t, dims, ps, has, rows, fire, ctx = _graphdep_idle()
     args = (ps, has, rows, fire, ctx, dims)
-    out = graphdep_handle(*args)
+    out = _on_a_copy(graphdep_handle, *args)
     idle, idle_ops = gh_work(*args, out)
     L, N = has.shape
     P, D, Q, G = dims.P, dims.D, t.dep_slots(N), t.G
@@ -436,7 +444,7 @@ def test_graphdep_handle_work_idle_submit_gc_and_drain():
     # table do not change)
     has[0, 0] = True
     rows[0, 0, PMT] = AtlasDev.SUBMIT
-    out = graphdep_handle(*args)
+    out = _on_a_copy(graphdep_handle, *args)
     n_bytes, _ = gh_work(*args, out)
     assert n_bytes == idle + 4 * (2 + P) + 4 * 3 + 4 * 2
     # a GC message from process 0 at process 2 (an all-zero frontier):
@@ -445,7 +453,7 @@ def test_graphdep_handle_work_idle_submit_gc_and_drain():
     # has not been seen, so nothing is stable yet)
     has[1, 2] = True
     rows[1, 2, PMT] = AtlasDev.MGC
-    out = graphdep_handle(*args)
+    out = _on_a_copy(graphdep_handle, *args)
     with_gc, ops = gh_work(*args, out)
     gc_read = 4 * N * N + N + 4 * 2 * N + 4 * N * D
     assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
@@ -456,13 +464,13 @@ def test_graphdep_handle_work_idle_submit_gc_and_drain():
     # nothing
     ps["vx_committed"][0, 1, 2, 0] = True
     ps["vx_seq"][0, 1, 2, 0] = 1
-    out = graphdep_handle(*args)
+    out = _on_a_copy(graphdep_handle, *args)
     with_vertex, vops = gh_work(*args, out)
     assert with_vertex == with_gc + 4 * (1 + 3 * Q)
     assert vops == ops + Q * (2 * G + 6) + Q * 3
     # a firing GC timer reads the committed clock
     fire[0, 1, 0] = True
-    out = graphdep_handle(*args)
+    out = _on_a_copy(graphdep_handle, *args)
     with_timer, _ = gh_work(*args, out)
     assert with_timer == with_vertex + 4 * N
 
@@ -673,7 +681,7 @@ def _emit_case():
 
 def test_emit_rewrite_work_counts_a_completion():
     args, hout = _emit_case()
-    out = emit_rewrite(*args)
+    out = _emit_on_a_copy(*args)
     n_bytes, ops = er_work(*args, 0, out)
     # the lane's flags, times, error words, outbox flags and small state
     # and ctx planes (the histogram and latency log apart): 162 bytes;
@@ -689,7 +697,7 @@ def test_emit_rewrite_work_counts_a_completion():
     assert ops == 14 * (7 + 2 * 2 + 2 + 32)
     # with no result at all only the step counter changes
     hout["valid"][:] = False
-    out = emit_rewrite(*args)
+    out = _emit_on_a_copy(*args)
     assert er_work(*args, 0, out)[0] == 162 + 14 + 4
 
 
@@ -719,7 +727,7 @@ def test_emit_rewrite_work_counts_the_open_loop_client():
     from fantoch_tpu_torch.engine import faults as fm
 
     args, _hout = _open_case()
-    out = emit_rewrite(*args, fm.FLAG_OPEN_LOOP)
+    out = _emit_on_a_copy(*args, fm.FLAG_OPEN_LOOP)
     new_rows, valid, upd = out
     assert new_rows.shape[1] == 16 and valid.sum() == 0
     assert upd["clients"]["completed"].tolist() == [[1, 0]]
@@ -748,11 +756,11 @@ def test_emit_rewrite_work_counts_the_think_delay():
     args, _hout = _emit_case()
     ctx = args[1]
     ctx["cmd_budget"] = torch.tensor([[2, 0]], dtype=torch.int32)
-    plain = emit_rewrite(*args)
+    plain = _emit_on_a_copy(*args)
     ctx.update(traffic_seq_epoch=torch.tensor([[0, 0, 1, 1]],
                                               dtype=torch.int32),
                traffic_think=torch.tensor([[4, 7]], dtype=torch.int32))
-    out = emit_rewrite(*args, fm.FLAG_THINK)
+    out = _emit_on_a_copy(*args, fm.FLAG_THINK)
     row = out[1][0].nonzero()[0, 0]
     # the SUBMIT of seq 1 is in epoch 0: 4 ms later
     assert out[0][0, row, PA] == plain[0][0, row, PA] + 4
@@ -820,10 +828,10 @@ def test_work_counts_the_fault_planes_under_their_flags():
                fault_drop_key=key, fault_jitter_key=key,
                fault_drop_num=torch.zeros((1,), dtype=torch.int32),
                fault_jitter_num=torch.ones((1,), dtype=torch.int32))
-    plain = er_work(*args, 0, emit_rewrite(*args))
+    plain = er_work(*args, 0, _emit_on_a_copy(*args))
     flags = (fm.FLAG_CRASH | fm.FLAG_HORIZON | fm.FLAG_WINDOWS
              | fm.FLAG_DROPS | fm.FLAG_JITTER)
-    got = er_work(*args, flags, emit_rewrite(*args, flags))
+    got = er_work(*args, flags, _emit_on_a_copy(*args, flags))
     assert got[0] == plain[0] + 4 + 4 + 6 * 32 + 2 * (8 + 4) + 4
     assert got[1] == plain[1] + 8 * 8 + 2 * 7 * THREEFRY_OPS
 
@@ -854,8 +862,8 @@ def test_emit_rewrite_work_counts_the_monitor_fold():
     N = args[10].N
     flags_word = torch.zeros((1, N), dtype=torch.int32)
     flags_word[0, 0] = 1
-    plain = er_work(*args, 0, emit_rewrite(*args))
-    out = emit_rewrite(*args, fm.FLAG_MONITOR, flags_word)
+    plain = er_work(*args, 0, _emit_on_a_copy(*args))
+    out = _emit_on_a_copy(*args, fm.FLAG_MONITOR, flags_word)
     assert out[2]["viol"].tolist() == [8]
     assert out[2]["viol_step"].tolist() == [1]
     got = er_work(*args, fm.FLAG_MONITOR, flags_word, out)

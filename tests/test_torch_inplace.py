@@ -1,10 +1,11 @@
 """The in-place contract of K2 (``land_emissions``), K4
-(``basic_handle``), K10 (``caesar_handle``) and K11
-(``tempo_partial_handle``) on the CPU, through their plain twins.
+(``basic_handle``), K9 (``graphdep_handle``), K10 (``caesar_handle``)
+and K11 (``tempo_partial_handle``) on the CPU, through their plain
+twins.
 
 A step consumes its input state: K2 writes the pool, and the Basic,
-Caesar and Tempo partial handlers their process state, in place, on the
-lanes whose run predicate holds at the step's start
+Atlas/EPaxos, Caesar and Tempo partial handlers their process state, in
+place, on the lanes whose run predicate holds at the step's start
 (``kernels/lane_freeze.py Cap``), and return the very tensors they were
 given. No runner consumes its caller's state. All comparisons are
 exact. The batches are the reference's tier-1 sweep shapes (n = 3, 4
@@ -23,7 +24,7 @@ pool of 4, 2 keys a command) over the same subsets at conflict 10 and
   empty;
 - (b) 64 ``frozen_step``s with those lanes frozen against the
   reference's vmapped run loop (its ``build_segment_runner``), whole
-  state, for Basic, Tempo, Caesar and Tempo partial;
+  state, for Basic, Tempo, Caesar, Tempo partial, Atlas and EPaxos;
 - (c) a mixed batch of all six protocols with lanes frozen the same way
   equals its homogeneous runs, whole state;
 - (d) the runners (eager, window, ``run_sweep``, the mixed eager
@@ -61,7 +62,7 @@ from fantoch_tpu_torch.engine.core import (
 )
 from fantoch_tpu_torch.engine.dims import ERR_POOL, ERR_STUCK, INF, PA, PMT
 from fantoch_tpu_torch.engine.driver import prepare_batch
-from fantoch_tpu_torch.engine.protocols import BasicDev, CaesarDev
+from fantoch_tpu_torch.engine.protocols import AtlasDev, BasicDev, CaesarDev
 from fantoch_tpu_torch.kernels.lane_freeze import Cap
 from fantoch_tpu_torch.kernels.step_loop import clone_tree
 from fantoch_tpu_torch.parallel import sweep
@@ -78,9 +79,10 @@ k10 = importlib.import_module("fantoch_tpu_torch.kernels.caesar_handle")
 k4 = importlib.import_module("fantoch_tpu_torch.kernels.basic_handle")
 k11 = importlib.import_module(
     "fantoch_tpu_torch.kernels.tempo_partial_handle")
+k9 = importlib.import_module("fantoch_tpu_torch.kernels.graphdep_handle")
 # the in-place handler kernels by name, with their modules
 HANDLERS = {"caesar_handle": k10, "basic_handle": k4,
-            "tempo_partial_handle": k11}
+            "tempo_partial_handle": k11, "graphdep_handle": k9}
 
 
 def _partial_specs(pkg, commands=COMMANDS):
@@ -256,6 +258,18 @@ def _basic_out_of_place(ps, has, rows, fire, ctx, dims):
     return rdy, new, pout, hout
 
 
+def _graphdep_out_of_place(ps, has, rows, fire, ctx, dims):
+    """K9's twin out of place: a new state tree."""
+    X = AtlasDev
+    none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
+    mtype0 = torch.where(has, rows[..., PMT], none)
+    rdy = X.ready_plain(ps, rows, mtype0, dims)
+    mtype = torch.where(has & rdy, mtype0, none)
+    new, pout = X.periodic_plain(ps, fire, ctx, dims)
+    new, hout = X.handle_plain(new, mtype, rows, ctx, dims)
+    return rdy, new, pout, hout
+
+
 def _tempo_partial_out_of_place(ps, has, rows, fire, now, ctx, dims):
     """K11's twin out of place: a new state tree."""
     X = k11._protocol(ps, ctx)
@@ -271,7 +285,8 @@ def _tempo_partial_out_of_place(ps, has, rows, fire, now, ctx, dims):
 # each in-place handler's out-of-place arithmetic
 OUT_OF_PLACE = {"caesar_handle": _caesar_out_of_place,
                 "basic_handle": _basic_out_of_place,
-                "tempo_partial_handle": _tempo_partial_out_of_place}
+                "tempo_partial_handle": _tempo_partial_out_of_place,
+                "graphdep_handle": _graphdep_out_of_place}
 
 
 # ----------------------------------------------------------------------
@@ -281,7 +296,8 @@ OUT_OF_PLACE = {"caesar_handle": _caesar_out_of_place,
 CASES = [("basic", "land_emissions"), ("tempo", "land_emissions"),
          ("caesar", "land_emissions"), ("caesar", "caesar_handle"),
          ("basic", "basic_handle"),
-         ("tempo_partial", "tempo_partial_handle")]
+         ("tempo_partial", "tempo_partial_handle"),
+         ("atlas", "graphdep_handle"), ("epaxos", "graphdep_handle")]
 
 
 @pytest.mark.parametrize("name,kname", CASES)
@@ -329,7 +345,7 @@ def test_twin_updates_running_lanes_in_place(name, kname):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["basic", "tempo", "caesar",
-                                  "tempo_partial"])
+                                  "tempo_partial", "atlas", "epaxos"])
 def test_frozen_steps_match_the_reference_run_loop(name):
     """From the port's state after 300 steps, every third lane failed and
     every other lane one step behind the cap at 363: 64 ``frozen_step``s
@@ -406,7 +422,7 @@ def _small(name):
     return pdev, pdims, specs
 
 
-@pytest.mark.parametrize("name", ["tempo", "caesar"])
+@pytest.mark.parametrize("name", ["tempo", "caesar", "atlas"])
 def test_runners_twice_on_one_prepared_batch(name):
     """The eager runner and the window runner (``build_runner``), each
     run twice on one prepared batch, give one result, equal to each
@@ -474,10 +490,12 @@ def test_caesar_handle_work_on_a_snapshot_equals_pr12():
 
 @pytest.mark.parametrize("name,kname", [("basic", "basic_handle"),
                                         ("tempo_partial",
-                                         "tempo_partial_handle")])
+                                         "tempo_partial_handle"),
+                                        ("atlas", "graphdep_handle"),
+                                        ("epaxos", "graphdep_handle")])
 def test_handler_work_on_a_snapshot_equals_out_of_place(name, kname):
-    """K4's and K11's ``work`` on the state copied before the call equals
-    its value on the out-of-place arithmetic's result."""
+    """K4's, K9's and K11's ``work`` on the state copied before the call
+    equals its value on the out-of-place arithmetic's result."""
     _st300, _pctx, calls = _step_301(name)
     a = calls[kname]
     mod = HANDLERS[kname]

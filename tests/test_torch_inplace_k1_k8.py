@@ -23,8 +23,11 @@ stops half the lanes (its ``_freeze``):
   the reference's ``_lane_step`` sections 1-2;
 - 64 ``frozen_step``s with lanes frozen against the reference's vmapped
   run loop (its ``build_segment_runner``), whole state, for a Tempo
-  batch under fault plans (a crash, windows, drops, jitter, horizons)
-  and for the monitored Tempo batch."""
+  batch under fault plans (a crash, windows, drops, jitter, horizons),
+  for the monitored Tempo batch and for an open-loop Tempo batch; the
+  planes a step updates in place (the pool, the process state, K6's
+  clients, metrics, channel counts and timers, the monitor planes) stay
+  the same tensors throughout."""
 
 import functools
 import importlib
@@ -42,6 +45,7 @@ from test_torch_kernels import W as K1_W
 from test_torch_kernels import _ref_qualify_pop, _with_inf
 from test_torch_monitor_step import _ctx_with_keys
 from test_torch_monitor_step import _tempo as _monitored_tempo
+from test_torch_open_loop_step import _batch as _open_batch
 from torch_threads import one_torch_thread  # noqa: F401
 
 from fantoch_tpu.engine.core import build_segment_runner as r_segment_runner
@@ -250,7 +254,18 @@ def _monitored():
     return ref, port, dims, ctx, state, batch_fault_flags(specs), mk
 
 
-@pytest.mark.parametrize("name", ["tempo_faults", "tempo_monitored"])
+def _open_loop():
+    """The open-loop Tempo batch of tests/test_torch_open_loop_step.py
+    (Poisson arrivals at load 400, a window of 2, and a burst lane)."""
+    ref, port, dims, ctx, state = _open_batch()
+    return ref, port, dims, ctx, state, batch_fault_flags([]), 0
+
+
+PROVIDERS = {"tempo_faults": _faults, "tempo_monitored": _monitored,
+             "tempo_open_loop": _open_loop}
+
+
+@pytest.mark.parametrize("name", sorted(PROVIDERS))
 def test_frozen_tempo_steps_match_the_reference_run_loop(name):
     """From the port's state after 20 steps, every third lane failed and
     every other lane one step behind the cap at 83: 64 ``frozen_step``s
@@ -260,8 +275,30 @@ def test_frozen_tempo_steps_match_the_reference_run_loop(name):
     its step and the digest of lanes that no longer run at the segment's
     end; so does the port's ``mon_finalize`` twin, applied to those
     lanes here."""
-    ref, port, dims, ctx, state, rflags, mk = {
-        "tempo_faults": _faults, "tempo_monitored": _monitored}[name]()
+    frozen_steps_against_reference(*PROVIDERS[name]())
+
+
+def _in_place_planes(st, flags: int):
+    """The planes a step updates in place: the pool, the process state,
+    the clients, metrics and channel counts, the timers (but under the
+    crash flag, whose masked timers are K1's copy) and the monitor
+    planes."""
+    out = [st["pool"], st["pair_cnt"]]
+    out += [st[g][k] for g in ("ps", "clients", "metrics") for k in st[g]]
+    if not flags & FLAG_CRASH:
+        out.append(st["next_periodic"])
+    return out + [st[k] for k in ("mon_hash", "mon_cnt", "mon_flags")
+                  if k in st]
+
+
+def frozen_steps_against_reference(ref, port, dims, ctx, state, rflags,
+                                   mk):
+    """64 ``frozen_step``s of the port against the reference's segment
+    runner from the port's state after 20 steps, every third lane
+    failed and every other lane one step behind the cap at 83; the
+    planes the step updates in place stay the same tensors throughout.
+    Lanes that no longer run have their monitor fields re-derived by the
+    ``mon_finalize`` twin, as the reference's segment end does."""
     pflags = FaultFlags(*rflags)
     warm, lim = 20, 20 + 63
     pctx = carry.to_torch(ctx, "cpu")
@@ -277,15 +314,12 @@ def test_frozen_tempo_steps_match_the_reference_run_loop(name):
                         np.int32(lim))
     want = jax.tree_util.tree_map(np.asarray, want)
     st = carry.to_torch(start, "cpu")
-
-    def in_place(st):
-        return ([st["ps"][k] for k in ("clocks", "votes_s", "pend_clock")]
-                + [st[k] for k in ("mon_hash", "mon_cnt") if mk])
-    planes = in_place(st)
+    planes = _in_place_planes(st, flag_bits(pflags))
     for _ in range(64):
         st, _running = frozen_step(port, dims, st, pctx, lim, False, pflags,
                                    mk)
-    assert all(x is y for x, y in zip(in_place(st), planes))
+    assert all(x is y for x, y in zip(
+        _in_place_planes(st, flag_bits(pflags)), planes))
     assert not bool(Cap(st, pctx, lim, flag_bits(pflags)).running().any())
     got = carry.to_numpy(st)
     if mk:

@@ -1,0 +1,262 @@
+"""The in-place contract of K6 (``emit_rewrite``) on the CPU, through its
+plain twin, and the step's plane table once K6 and K9 (``graphdep_handle``)
+update in place.
+
+K6 updates the lane's ``clients``, ``metrics``, ``pair_cnt`` and
+``next_periodic`` planes in place, on the lanes whose run predicate
+holds at the step's start (``kernels/lane_freeze.py Cap``), and returns
+the very tensors it was given; a frozen lane gets zero rows, none of
+which lands, and its ``[L]`` lane words as they were. All comparisons
+are exact. The inputs are tests/test_torch_emit.py's seeded random stub
+tables (16 lanes; K1's twin pops the pool) with each lane's fault plan
+drawn as tests/test_torch_kernels.py draws it, every third lane's error
+word set:
+
+- K6's twin with that cap under each flag (fault-free, crash + horizon,
+  windows + drops + jitter, reorder, open loop with a staged SUBMIT,
+  think, monitor): running lanes equal the uncapped twin, frozen lanes'
+  in-place planes are bit for bit as before, the planes returned are the
+  ones given, a frozen lane's rows are zero and not delivered and its
+  lane words are its own; ``work`` on a snapshot taken before the call
+  equals its value on the out-of-place arithmetic;
+- 64 ``frozen_step``s with lanes frozen against the reference's vmapped
+  run loop, whole state, on the monitored Atlas batch of
+  tests/torch_monitor_lanes.py (jitter, a crash, drops under a horizon:
+  the mc fault envelope), K9 and K6 in place throughout;
+- after a fault-free, unmonitored step, K7's plane table
+  (``lane_freeze.plane_pairs``) holds only the seven lane planes on
+  Basic, Tempo, Caesar, Tempo partial, Atlas and EPaxos, and those plus
+  process planes of K5 and K12 on FPaxos and Atlas partial (on the card,
+  where those two write every plane anew, 16 and 47 planes).
+
+K9's twin with the cap, its ``work`` on a snapshot, 64 frozen Atlas and
+EPaxos steps and the runners run twice on one prepared Atlas batch are
+cases of the tests in tests/test_torch_inplace.py; 64 frozen steps of an
+open-loop batch, of tests/test_torch_inplace_k1_k8.py."""
+
+import importlib
+
+import numpy as np
+import pytest
+import test_torch_emit as emit_case
+import torch
+import torch_monitor_lanes
+from test_torch_inplace_k1_k8 import frozen_steps_against_reference
+from test_torch_kernels import _random_fault_ctx
+from test_torch_monitor_step import _ctx_with_keys
+from torch_threads import one_torch_thread  # noqa: F401
+
+from fantoch_tpu.engine.driver import stack_states
+from fantoch_tpu.engine.faults import batch_fault_flags as r_batch_flags
+from fantoch_tpu_torch import carry, cli
+from fantoch_tpu_torch.engine.core import lane_step
+from fantoch_tpu_torch.engine.dims import ERR_STUCK, INF, PMT, PPAY, PSRC
+from fantoch_tpu_torch.engine.driver import prepare_batch
+from fantoch_tpu_torch.engine.faults import (
+    FLAG_CRASH, FLAG_DROPS, FLAG_HORIZON, FLAG_JITTER, FLAG_MONITOR,
+    FLAG_OPEN_LOOP, FLAG_REORDER, FLAG_THINK, FLAG_WINDOWS,
+    batch_fault_flags, flag_bits,
+)
+from fantoch_tpu_torch.kernels import qualify_pop
+from fantoch_tpu_torch.kernels.lane_freeze import Cap, plane_pairs
+from fantoch_tpu_torch.kernels.step_loop import clone_tree
+
+k6 = importlib.import_module("fantoch_tpu_torch.kernels.emit_rewrite")
+MAX_STEPS = 1 << 22
+L, N, C = emit_case.L, emit_case.N, emit_case.C
+# each case's flag word
+FLAGS = {
+    "fault_free": 0,
+    "crash_horizon": FLAG_CRASH | FLAG_HORIZON,
+    "windows_drops_jitter": FLAG_WINDOWS | FLAG_DROPS | FLAG_JITTER,
+    "reorder": FLAG_REORDER,
+    "open_loop": FLAG_OPEN_LOOP,
+    "think": FLAG_THINK,
+    "monitor": FLAG_MONITOR,
+}
+# the open-loop window and arrival table's extent, the think epochs
+WINDOW, TA, EPOCHS = 2, 8, 3
+# the lane words K6 writes out of place
+LANE_WORDS = k6.LANE_KEYS + ("fault_dropped", "viol", "viol_step")
+
+
+def _k6_case(name):
+    """K6's arguments under case ``name`` and the step's cap: the stub's
+    random state (every third lane's error word set, the others clear),
+    ctx and fault plans; K1's twin pops the pool. On the open-loop case
+    each lane whose process 0 pops is handed client 0's next SUBMIT,
+    which its window admits (trigger 1)."""
+    flags = FLAGS[name]
+    st, ctx = emit_case._inputs(16)
+    rng = np.random.default_rng(16)
+    ctx.update(_random_fault_ctx(rng, L, N))
+    ctx["extra_time"] = np.full((L,), 50, np.int32)
+    st["err"] = np.where(np.arange(L) % 3 == 0, ERR_STUCK, 0).astype(np.int32)
+    ri = lambda lo, hi, *s: rng.integers(lo, hi, (L, *s)).astype(np.int32)  # noqa: E731
+    if flags & FLAG_OPEN_LOOP:
+        st["clients"]["ol_comp_t"] = ri(0, 9, C, WINDOW)
+        st["clients"]["ol_last_rel"] = ri(0, 9, C)
+        st["clients"]["issued"][:, 0] = 1
+        st["clients"]["completed"][:, 0] = 1
+        ctx["ol_arrival"] = np.sort(ri(0, 20, C, TA), axis=2)
+    if flags & FLAG_THINK:
+        ctx["traffic_seq_epoch"] = np.sort(ri(0, EPOCHS, emit_case.T), axis=1)
+        ctx["traffic_think"] = ri(0, 6, EPOCHS)
+    mon_flags = None
+    if flags & FLAG_MONITOR:
+        st["viol"] = ri(0, 2) * 8
+        st["viol_step"] = np.where(st["viol"] != 0, ri(0, 9), INF).astype(
+            np.int32)
+        mon_flags = torch.from_numpy(ri(0, 4, N))
+    st, ctx = carry.to_torch(st, "cpu"), carry.to_torch(ctx, "cpu")
+    ps = st["ps"]
+    _arr, ep, _now, _act, fire, _slot, has, rows, timers = qualify_pop(
+        st["pool"], st["next_periodic"], ctx["lookahead"],
+        ctx["fault_crash_t"], ctx["fault_horizon"], flags)
+    if flags & FLAG_OPEN_LOOP:
+        pops = has[:, 0] & ps["rdy"][:, 0]
+        rows[pops, 0, PMT] = 0
+        rows[pops, 0, PSRC] = N
+        rows[pops, 0, PPAY + 1] = 1
+    if timers is not st["next_periodic"]:
+        st = dict(st, next_periodic=timers)
+
+    def outbox(side):
+        return {"valid": ps[side + "v"], "dst": ps[side + "d"],
+                "mtype": ps[side + "m"], "payload": ps[side + "p"]}
+
+    args = (st, ctx, ep, fire, has, ps["rdy"], rows, outbox("p"),
+            outbox("h"), ps["perr"], emit_case._dims()[1], 0, flags,
+            mon_flags)
+    return args, Cap(st, ctx, MAX_STEPS, flags)
+
+
+def _fresh(a):
+    """K6's arguments with its in-place planes copied."""
+    st = dict(a[0], **{k: clone_tree(a[0][k]) for k in
+                       ("clients", "metrics", "pair_cnt", "next_periodic")})
+    return (st,) + a[1:]
+
+
+def _planes(st):
+    """``(path, tensor)`` of the planes K6 updates in place."""
+    out = [(f"{g}/{k}", v) for g in ("clients", "metrics")
+           for k, v in st[g].items()]
+    return out + [(k, st[k]) for k in ("pair_cnt", "next_periodic")]
+
+
+@pytest.mark.parametrize("name", sorted(FLAGS))
+def test_emit_rewrite_twin_updates_running_lanes_in_place(name):
+    a, cap = _k6_case(name)
+    run = cap.running()
+    frozen = ~run
+    assert int(run.sum()) >= 4 and int(frozen.sum()) >= 5, run
+    before, given = _fresh(a), _fresh(a)
+    got = k6.emit_rewrite_plain(*given, cap)
+    free = k6.emit_rewrite_plain(*_fresh(a))
+    upd = {"clients": got[2]["clients"], "metrics": got[2]["metrics"],
+           **{k: got[2][k] for k in ("pair_cnt", "next_periodic")}}
+    moved = {"running": 0, "frozen": 0}
+    for (path, g), (_p, giv), (_q, b), (_r, f) in zip(
+            _planes(upd), _planes(given[0]), _planes(before[0]),
+            _planes(free[2])):
+        assert g is giv, f"{path}: a new tensor"
+        assert torch.equal(g[frozen], b[frozen]), f"{path}: a frozen lane moved"
+        assert torch.equal(g[run], f[run]), f"{path}: a running lane differs"
+        moved["running"] += int((f[run] != b[run]).sum())
+        moved["frozen"] += int((f[frozen] != b[frozen]).sum())
+    # the cap holds back what the uncapped step would change
+    assert moved["running"] > 0 and moved["frozen"] > 0, moved
+    lead = run[:, None, None]
+    assert torch.equal(got[0], torch.where(lead, free[0], 0))
+    assert torch.equal(got[1], free[1] & run[:, None])
+    for k in LANE_WORDS:
+        if k in free[2]:
+            assert torch.equal(got[2][k],
+                               torch.where(run, free[2][k], a[0][k])), k
+    if name == "open_loop":
+        # a staged SUBMIT (trigger 1) on a running lane
+        F2 = k6.rows_per_process(emit_case.F, FLAGS[name])
+        assert bool(got[1][run][:, F2 - 2].any())
+
+
+@pytest.mark.parametrize("name", sorted(FLAGS))
+def test_emit_rewrite_work_on_a_snapshot_equals_out_of_place(name):
+    """K6's ``work`` on the state copied before the call equals its value
+    on the out-of-place arithmetic's result."""
+    a, _cap = _k6_case(name)
+    want = k6.work(*a, k6.emit_out_of_place(*_fresh(a)))
+    given = _fresh(a)
+    out = k6.emit_rewrite(*given)
+    assert all(p is q for (_p, p), (_q, q) in zip(_planes(given[0]),
+                                                  _planes(out[2])))
+    assert k6.work(*a, out) == want
+
+
+# ----------------------------------------------------------------------
+# 64 frozen steps of a monitored Atlas batch against the reference
+# ----------------------------------------------------------------------
+
+def test_frozen_monitored_atlas_steps_match_the_reference_run_loop():
+    """From the port's state after 20 steps, every third lane failed and
+    every other lane one step behind the cap at 83: 64 ``frozen_step``s
+    of the port and the reference's segment runner to 83 end in the same
+    whole state, with K9's process state and monitor planes and K6's
+    planes updated in place throughout."""
+    ref, dims, specs = torch_monitor_lanes.lanes(True, "atlas")
+    port = torch_monitor_lanes.lanes(False, "atlas")[0]
+    mk = torch_monitor_lanes.MONITOR_KEYS
+    frozen_steps_against_reference(
+        ref, port, dims, _ctx_with_keys(specs, dims),
+        stack_states(ref, dims, specs, monitor_keys=mk),
+        r_batch_flags(specs), mk)
+
+
+# ----------------------------------------------------------------------
+# K7's plane table after a step
+# ----------------------------------------------------------------------
+
+# the step's lane planes K7 copies back on every protocol: K1's clock,
+# K2's pool peak and error word, K6's lane words
+LANE_PLANES = {"now", "pool_peak", "err", "done_time", "steps", "requeues",
+               "max_completion"}
+# how many process planes of each protocol's handler are written out of
+# place (K5's and K12's; the others update in place)
+OUT_OF_PLACE_PS = {"fpaxos": 9, "atlas_partial": 40}
+SMALL = ["--n", "3", "--subsets", "2", "--fs", "1", "--commands", "3"]
+PARTIAL = ["--shards", "2", "--keys-per-command", "2", "--pool-size", "4"]
+
+
+def _table(new, old, path=""):
+    """The paths of the planes of ``new`` that are not ``old``'s."""
+    if isinstance(new, dict):
+        return [p for k in new for p in _table(new[k], old[k], f"{path}/{k}")]
+    return [] if new is old else [path.lstrip("/")]
+
+
+@pytest.mark.parametrize("name", ["basic", "fpaxos", "tempo", "atlas",
+                                  "epaxos", "caesar", "tempo_partial",
+                                  "atlas_partial"])
+def test_plane_pairs_hold_the_lane_planes_after_a_step(name):
+    """A fault-free, unmonitored step under its cap: K7's table holds the
+    seven lane planes, and on FPaxos and Atlas partial also process
+    planes of their handler (on the card, where K5 and K12 write every
+    plane anew, 16 and 47 planes in all; their twins pass the planes a
+    step leaves as they are through)."""
+    protocol = name.replace("_partial", "")
+    argv = ["sweep", "--protocol", protocol, *SMALL]
+    argv += (PARTIAL + ["--conflicts", "10,100"] if "partial" in name
+             else ["--conflicts", "0,100"])
+    proto, dims, specs = cli.sweep_setup(cli.parse_args(argv))
+    st, ctx = prepare_batch(proto, dims, specs, "cpu")
+    faults = batch_fault_flags(specs)
+    cap = Cap(st, ctx, MAX_STEPS, flag_bits(faults))
+    new = lane_step(proto, dims, st, ctx, faults=faults, cap=cap)
+    table = _table(new, st)
+    assert len(plane_pairs(new, st)) == len(table)
+    extra = set(table) - LANE_PLANES
+    assert LANE_PLANES <= set(table), table
+    assert all(p.startswith("ps/") for p in extra), table
+    assert len(extra) <= OUT_OF_PLACE_PS.get(name, 0), table
+    if name == "fpaxos":
+        assert len(table) == 16, table
