@@ -142,7 +142,13 @@ K6 takes the step's cap; the frozen-lane checks hold both on every path
 that runs them, and on the mixed batch's groups and the monitored mc
 batches; K7's frozen-lane ms and plane count are printed by path, and
 each sweep's host seconds outside the step loop (``prepare_batch``,
-``finish_run`` + ``collect_results``) beside its points/s. Any
+``finish_run`` + ``collect_results``) beside its points/s. Slice 17: K5
+and K12 (FPaxos' and Atlas partial's process state) update in place too
+and are in ``IN_PLACE``, so every handler does; their frozen-lane checks
+run on the FPaxos and Atlas partial paths (K5 also in the mixed batches'
+FPaxos groups and on the monitored mc FPaxos batches), K7's table holds
+the seven lane planes on both paths, and K5's and K12's ms with all lanes
+running and with a third frozen are printed before the kernels line. Any
 failure
 raises; nothing
 is caught. Each phase prints its seconds. The last two lines
@@ -484,13 +490,15 @@ def _clone(x):
 
 
 # the kernels that update an argument in place (its position): K2 the
-# pool, K4, K8, K9, K10 and K11 their process state (Basic's, Tempo's,
-# Atlas's and EPaxos's, Caesar's, Tempo partial's), K6 the lane state's
-# K6_PLANES. A call consumes it, so every check hands each call a fresh
-# copy (a step consumes its input state)
-IN_PLACE = {"land_emissions": 0, "basic_handle": 0, "tempo_handle": 0,
-            "caesar_handle": 0, "tempo_partial_handle": 0,
-            "graphdep_handle": 0, "emit_rewrite": 0}
+# pool, every handler (K4, K5, K8, K9, K10, K11, K12) its process state
+# (Basic's, FPaxos', Tempo's, Atlas's and EPaxos's, Caesar's, Tempo
+# partial's, Atlas partial's), K6 the lane state's K6_PLANES. A call
+# consumes it, so every check hands each call a fresh copy (a step
+# consumes its input state)
+IN_PLACE = {"land_emissions": 0, "basic_handle": 0, "fpaxos_handle": 0,
+            "tempo_handle": 0, "caesar_handle": 0,
+            "tempo_partial_handle": 0, "graphdep_handle": 0,
+            "atlas_partial_handle": 0, "emit_rewrite": 0}
 # the planes of the lane state K6 updates in place (the rest of the tree
 # it takes is read only)
 K6_PLANES = ("clients", "metrics", "pair_cnt", "next_periodic")
@@ -803,6 +811,9 @@ def check_kernels(name, dev, rows):
     )
     n_bytes, n_ops = lf.work(new, old, fctx, ms_, lflags, got)
     planes = len(lf.plane_pairs(new, old))
+    if name in ("fpaxos", "atlas_partial"):
+        # every handler updates in place: the seven lane planes
+        assert planes == 7, (name, planes)
     FROZEN.setdefault("lane_freeze", {})[name] = dict(
         frozen=frozen, lanes=L, ms=ms, planes=planes)
     print(f"kernel lane_freeze ({name} path, {frozen} of {L} lanes "
@@ -2412,14 +2423,15 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
           f"== their twins after {warmup} steps, and each group's key "
           f"table; the step's bound {1e3 * bound_ms:.3f} us, by group "
           f"{ {g: round(1e3 * v, 3) for g, v in by_group.items()} }")
-    # K6 and K9 in each group that runs them, with every third lane
+    # K6, K9 and K5 in each group that runs them, with every third lane
     # failed
     for i, (kname, a) in enumerate(calls):
         group = groups[i // len(order)]
         if kname == "lane_freeze":
             cap, frozen = _third_frozen(a)
             for k2, a2 in calls[i - len(order) + 1:i]:
-                if k2 in ("emit_rewrite", "graphdep_handle"):
+                if k2 in ("emit_rewrite", "graphdep_handle",
+                          "fpaxos_handle"):
                     rows[k2]["max_abs_err"] = max(
                         rows[k2]["max_abs_err"],
                         frozen_check(f"{name} {group}", k2, mods[k2],
@@ -3705,6 +3717,12 @@ def _main(dev, card) -> int:
     print("lane_freeze with every third lane failed, by path: "
           + "; ".join(f"{p} {v['ms']:.5f} ms, {v['planes']} planes"
                       for p, v in FROZEN["lane_freeze"].items()))
+    for kname in ("fpaxos_handle", "atlas_partial_handle"):
+        print(f"{kname} ({rows[kname]['path']} path) all lanes running "
+              f"{rows[kname]['ms']:.5f} ms; every third lane failed: "
+              + "; ".join(f"{p} {v['ms']:.5f} ms ({v['frozen']} of "
+                          f"{v['lanes']} frozen)"
+                          for p, v in FROZEN[kname].items()))
     bottlenecks(rows, by_path)
 
     # 9. the kernels line, then the verdict

@@ -43,9 +43,10 @@ frozen (its new state is discarded; the ``lane_freeze`` kernel), so a
 finished lane is a fixed point.
 
 A step consumes its input state, like a donated buffer in JAX: the
-``land_emissions`` kernel writes the pool, the Basic, Tempo,
-Atlas/EPaxos, Caesar and Tempo partial handlers their process state
-(with the monitor planes), and the ``emit_rewrite`` kernel the
+``land_emissions`` kernel writes the pool, every protocol's handler
+(Basic, FPaxos, Tempo, Atlas/EPaxos, Caesar, Tempo partial and Atlas
+partial) its process state (with the monitor planes), and the
+``emit_rewrite`` kernel the
 clients, metrics, channel counts and timers, in place, on the lanes
 whose predicate holds at the step's start (:func:`frozen_step` hands
 them its ``Cap``; without one every lane), and return the very
@@ -118,7 +119,8 @@ def empty_outbox(dims: EngineDims, lead, device, slots: int | None = None):
 
 
 def write_running(ps, step, cap, dims: EngineDims):
-    """The in-place contract of a handler twin (K4, K10, K11) from its
+    """The in-place contract of a handler twin (every handler, K4, K5,
+    K8, K9, K10, K11 and K12) from its
     out-of-place step ``step = (rdy, new state, periodic outbox, handler
     outbox)``: the running lanes' rows (of ``cap``; every lane without
     one) of the new state are copied into ``ps``, in place, as the
@@ -301,9 +303,9 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     and ``reorder`` switch; ``monitor_keys > 0`` on a state built with the
     monitor planes. Open-loop lanes (ctx ``ol_arrival``) and traffic
     schedules (ctx ``traffic_think``) set their flag bits. The step
-    consumes ``st``: the pool (K2), the process state of Basic, Tempo,
-    Atlas/EPaxos, Caesar and Tempo partial (K4, K8, K9, K10, K11) and
-    the clients, metrics, channel counts and timers (K6) are updated in
+    consumes ``st``: the pool (K2), the process state of every protocol
+    (K4, K5, K8, K9, K10, K11, K12) and the clients, metrics, channel
+    counts and timers (K6) are updated in
     place, on the lanes ``cap`` lets run (every lane without one); K1
     and K6 read nothing of a lane ``cap`` freezes and give it defined
     outputs, which K7 discards."""
@@ -372,9 +374,11 @@ def frozen_step(protocol, dims: EngineDims, st, ctx, lim,
     predicate is false on ``st``, or whose step count reached ``lim``
     (an int, or on the card the device loop's limit word), keep their
     state, as under the reference's vmapped ``lax.while_loop``: K1 and
-    K6 skip frozen lanes, the in-place kernels (K2, K4, K6, K8, K9, K10,
-    K11) write only running lanes, and K7 restores frozen lanes' rows of
-    the planes the step wrote out of place. The step consumes ``st``."""
+    K6 skip frozen lanes, the in-place kernels (K2, K6 and every
+    handler: K4, K5, K8, K9, K10, K11, K12) write only running lanes,
+    and K7 restores frozen lanes' rows of the planes the step wrote out
+    of place (the seven lane planes; nine under faults). The step
+    consumes ``st``."""
     flags = flag_bits(faults, reorder)
     cap = Cap(st, ctx, lim, flags)
     return lane_freeze(

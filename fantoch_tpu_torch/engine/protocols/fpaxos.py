@@ -31,7 +31,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core import emit, emit_broadcast, empty_outbox
+from ..core import emit, emit_broadcast, empty_outbox, write_running
 from ..dims import (
     ERR_DOT, ERR_PROTO, INF, PMT, PPAY, PSRC, EngineDims, dot_slot,
 )
@@ -119,27 +119,30 @@ class FPaxosDev(DevIdentity):
                  cap=None):
         """Readiness gate, periodic timer and message handler of every
         (lane, process): ``(rdy, ps, periodic outbox, handler outbox)``
-        (the event times ``ep`` are not read).
-        Runs the ``fpaxos_handle`` kernel on CUDA tensors.
-        The run cap ``cap`` is not read: this handler writes out of
-        place, and K7 freezes its lanes."""
+        (the event times ``ep`` are not read). ``ps`` is updated in
+        place on the lanes ``cap`` lets run (every lane without one) and
+        returned as the same tensors. Runs the ``fpaxos_handle`` kernel
+        on CUDA tensors."""
         from ...kernels.fpaxos_handle import fpaxos_handle
 
-        return fpaxos_handle(ps, has, rows, fire, ctx, dims)
+        return fpaxos_handle(ps, has, rows, fire, ctx, dims, cap)
 
     @staticmethod
-    def step_plain(ps, has, rows, fire, ctx, dims: EngineDims):
+    def step_plain(ps, has, rows, fire, ctx, dims: EngineDims, cap=None):
         """The plain twin of the kernel, in the reference's order
         (core.py:890-918): ``ready`` on the incoming state, ``periodic``,
-        then ``handle`` on the state ``periodic`` returned."""
+        then ``handle`` on the state ``periodic`` returned, out of place;
+        then the running lanes' rows (of ``cap``; every lane without
+        one) are copied into ``ps``, in place, as the kernel writes them
+        (``core.write_running``)."""
         none = torch.full_like(rows[..., PMT], FPaxosDev.NUM_TYPES)
         mtype0 = torch.where(has, rows[..., PMT], none)
         rdy = FPaxosDev.ready_plain(ps, rows, mtype0, dims)
         valid = has & rdy
         mtype = torch.where(valid, mtype0, none)
         pout = FPaxosDev.periodic_plain(ps, fire, ctx["n"], dims)
-        ps, hout = FPaxosDev.handle_plain(ps, valid, mtype, rows, ctx, dims)
-        return rdy, ps, pout, hout
+        new, hout = FPaxosDev.handle_plain(ps, valid, mtype, rows, ctx, dims)
+        return write_running(ps, (rdy, new, pout, hout), cap, dims)
 
     @staticmethod
     def ready_plain(ps, rows, mtype, dims: EngineDims):

@@ -47,7 +47,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..core import emit, emit_broadcast, empty_outbox
+from ..core import emit, emit_broadcast, empty_outbox, write_running
 from ..dims import (
     ERR_CAPACITY, ERR_DOT, ERR_PROTO, ERR_SEQ, INF, PMT, PPAY, SEQ_BOUND,
     EngineDims, dot_slot,
@@ -205,26 +205,31 @@ class AtlasPartialDev(AtlasDev):
         """Readiness gate, both timers and the message handler (with the
         graph drain where the branch calls it) of every (lane, process):
         ``(rdy, ps, periodic outbox, handler outbox)`` (the event times
-        ``ep`` are not read). Runs the ``atlas_partial_handle`` kernel on
-        CUDA tensors.
-        The run cap ``cap`` is not read: this handler writes out of
-        place, and K7 freezes its lanes."""
+        ``ep`` are not read). ``ps`` is updated in place on the lanes
+        ``cap`` lets run (every lane without one) and returned as the
+        same tensors. Runs the ``atlas_partial_handle`` kernel on CUDA
+        tensors."""
         from ...kernels.atlas_partial_handle import atlas_partial_handle
 
-        return atlas_partial_handle(ps, has, rows, fire, ctx, dims)
+        return atlas_partial_handle(ps, has, rows, fire, ctx, dims, cap)
 
-    def step_plain(self, ps, has, rows, fire, ctx, dims: EngineDims):
+    def step_plain(self, ps, has, rows, fire, ctx, dims: EngineDims,
+                   cap=None):
         """The plain twin of the kernel, in the reference's order:
         ``ready`` on the incoming state, ``periodic``, then ``handle`` on
-        the state ``periodic`` returned."""
+        the state ``periodic`` returned, out of place; then the running
+        lanes' rows (of ``cap``; every lane without one) are copied into
+        ``ps``, in place, as the kernel writes them
+        (``core.write_running``). A frozen lane's ``rdy`` is false and
+        its outboxes empty."""
         X = AtlasPartialDev
         none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
         mtype0 = torch.where(has, rows[..., PMT], none)
         rdy = X.ready_plain(ps, rows, mtype0, dims)
         mtype = torch.where(has & rdy, mtype0, none)
-        ps, pout = self.periodic_plain(ps, fire, ctx, dims)
-        ps, hout = self.handle_plain(ps, mtype, rows, ctx, dims)
-        return rdy, ps, pout, hout
+        new, pout = self.periodic_plain(ps, fire, ctx, dims)
+        new, hout = self.handle_plain(new, mtype, rows, ctx, dims)
+        return write_running(ps, (rdy, new, pout, hout), cap, dims)
 
     @staticmethod
     def ready_plain(ps, rows, mtype, dims: EngineDims):

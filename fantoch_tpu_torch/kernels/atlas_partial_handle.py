@@ -16,6 +16,13 @@ source: ``csrc/atlas_partial_handle.cu`` with ``csrc/iset.cuh`` (bound by
 bytes, :func:`work`). :func:`atlas_partial_handle_plain` is its plain
 PyTorch twin (``AtlasPartialDev.step_plain``), used for tensors on the
 CPU.
+
+The process state is updated in place, on the lanes whose run predicate
+holds at the step's start (``cap``, :class:`lane_freeze.Cap`; every lane
+without one), and returned as the very tensors given: the step consumes
+its input, K7 copies none of these planes, and the device loop's
+write-back skips them. A frozen lane's ``rdy`` is false and its outboxes
+are empty.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from ..engine.dims import PMT, EngineDims
 from . import build, cost
+from .lane_freeze import cap_args
 
 I32 = torch.int32
 THREADS = 256  # csrc/atlas_partial_handle.cu THREADS
@@ -67,9 +75,12 @@ def _protocol(ps, ctx):
     )
 
 
-def atlas_partial_handle_plain(ps, has, rows, fire, ctx, dims: EngineDims):
-    """``(rdy, ps, periodic outbox, handler outbox)``."""
-    return _protocol(ps, ctx).step_plain(ps, has, rows, fire, ctx, dims)
+def atlas_partial_handle_plain(ps, has, rows, fire, ctx, dims: EngineDims,
+                               cap=None):
+    """``(rdy, ps, periodic outbox, handler outbox)``, ``ps`` updated in
+    place on the lanes ``cap`` lets run."""
+    return _protocol(ps, ctx).step_plain(ps, has, rows, fire, ctx, dims,
+                                         cap)
 
 
 def _state_shapes(L, dims: EngineDims, K, Q, QS, G, BB):
@@ -111,10 +122,12 @@ def smem_bytes(dims: EngineDims, G: int, Q: int) -> int:
     return 4 * ints + N * D
 
 
-def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
-    """``(bytes, ops)`` the region needs on these inputs (``out`` is its
-    result). Every (lane, process) reads its ``has`` and timer flags, a
-    popped message's type, source and payload, its buffered-request
+def work(ps, has, rows, fire, ctx, dims: EngineDims, *rest):
+    """``(bytes, ops)`` the region needs on these inputs (``ps`` a
+    snapshot taken before the call, which updates it in place; the last
+    argument is the call's result, one before it may be the cap). Every
+    (lane, process) reads its ``has`` and timer flags, a popped
+    message's type, source and payload, its buffered-request
     table when the cleanup tick fires (and, per buffered request, the
     dot's vertex words, dep rows and the source's executed set), and
     the state and ctx words its branch reads: a dot's cell and counters,
@@ -132,7 +145,7 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
     need, the missing-dep scan and the two argmins."""
     from ..engine.protocols.graphdep_partial import AtlasPartialDev as X
 
-    rdy, new_ps, pout, hout = out
+    rdy, new_ps, pout, hout = rest[-1]
     L, N, W = rows.shape
     P, D = dims.P, dims.D
     Q, QS = ps["qd_src"].shape[4], ps["vx_dep_src"].shape[4]
@@ -214,13 +227,17 @@ def _passes(ps, draining, dims: EngineDims):
     return out
 
 
-def atlas_partial_handle(ps, has, rows, fire, ctx, dims: EngineDims):
+def atlas_partial_handle(ps, has, rows, fire, ctx, dims: EngineDims,
+                         cap=None):
     """K12 on CUDA tensors, :func:`atlas_partial_handle_plain` on CPU
-    tensors. The kernel's outboxes carry the planes ``valid``, ``dst``,
-    ``mtype`` and ``payload``; a protocol handler's ``delay``/``src``
-    are always -1, which ``emit_rewrite`` assumes."""
+    tensors. ``ps`` is updated in place on the lanes ``cap`` lets run
+    and returned (the same tensors). The kernel's outboxes carry the
+    planes ``valid``, ``dst``, ``mtype`` and ``payload``; a protocol
+    handler's ``delay``/``src`` are always -1, which ``emit_rewrite``
+    assumes."""
     if rows.device.type == "cpu":
-        return atlas_partial_handle_plain(ps, has, rows, fire, ctx, dims)
+        return atlas_partial_handle_plain(ps, has, rows, fire, ctx, dims,
+                                          cap)
     L, N, W = rows.shape
     R = fire.shape[2]
     F, P, D, C = dims.F, dims.P, dims.D, dims.C
@@ -258,10 +275,6 @@ def atlas_partial_handle(ps, has, rows, fire, ctx, dims: EngineDims):
     build.check("cmd_kmask", ctx["cmd_kmask"], I32, (L, C, T1), dev)
     build.check("cmd_skey", ctx["cmd_skey"], I32, (L, C, T1, S, KPC), dev)
     rdy = torch.empty((L, N), dtype=torch.bool, device=dev)
-    new_ps = {
-        k: torch.empty(shapes[k][0], dtype=shapes[k][1], device=dev)
-        for k in STATE_KEYS
-    }
 
     def outbox():
         return {
@@ -272,27 +285,26 @@ def atlas_partial_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         }
 
     pout, hout = outbox(), outbox()
-    n_planes = len(STATE_KEYS)
-    ins = (ctypes.c_void_p * n_planes)(*[ps[k].data_ptr()
-                                         for k in STATE_KEYS])
-    outs = (ctypes.c_void_p * n_planes)(*[new_ps[k].data_ptr()
-                                          for k in STATE_KEYS])
+    planes = (ctypes.c_void_p * len(STATE_KEYS))(
+        *[ps[k].data_ptr() for k in STATE_KEYS])
+    tab, cap_flags = cap_args(cap, L, dev)
     tensors = (
         [has, rows, fire] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    ints = [L, N, D, F, P, W, C, K, G, KPC, S, T1, Q, QS, BB, smem]
+    ints = [L, N, D, F, P, W, C, K, G, KPC, S, T1, Q, QS, BB, smem,
+            cap_flags]
     fn = build.c_function("fantoch_atlas_partial_handle", 2 + len(tensors),
                           len(ints))
     build.launch(
         fn,
-        [ctypes.addressof(ins), ctypes.addressof(outs)]
+        [ctypes.addressof(planes), ctypes.addressof(tab)]
         + [t.data_ptr() for t in tensors],
         ints,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     atlas_partial_handle.launches += 1
-    return rdy, new_ps, pout, hout
+    return rdy, ps, pout, hout
 
 
 atlas_partial_handle.launches = 0

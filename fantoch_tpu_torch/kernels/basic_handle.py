@@ -156,7 +156,7 @@ def basic_handle(ps, has, rows, fire, ctx, dims: EngineDims, cap=None):
         [has, rows, fire, ctx["n"], ctx["quorum"], ctx["q_size"], rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    mon_ptrs, KM, _mon = build.mon_planes(ps, L, N, dev, in_place=True)
+    mon_ptrs, KM = build.mon_planes(ps, L, N, dev)
     fn = build.c_function("fantoch_basic_handle", 5 + len(tensors), 9)
     build.launch(
         fn,

@@ -151,25 +151,17 @@ def check(name: str, t, dtype, shape, device) -> None:
 MON_PS_KEYS = ("_mon_hash", "_mon_cnt", "_mon_flags")
 
 
-def mon_planes(ps, L: int, N: int, device, in_place: bool = False):
+def mon_planes(ps, L: int, N: int, device):
     """A handler kernel's monitor arguments (``csrc/monitor.cuh``):
-    ``(pointers, KM, new)`` — the hash, count and guard planes in, then
-    out; the key capacity; the new planes for the kernel's ``ps``. When
-    ``ps`` carries no monitor planes: six null pointers, 0 and ``{}``.
-    ``in_place`` (K4, K8, K9 and K10, which update the planes they are
-    given):
-    the three planes once, and ``new`` is ``{}``."""
+    ``(pointers, KM)`` — the hash, count and guard planes, which the
+    kernel updates in place, and the key capacity. When ``ps`` carries no
+    monitor planes: three null pointers and 0."""
     import torch
 
     if MON_PS_KEYS[0] not in ps:
-        return [0] * (3 if in_place else 6), 0, {}
+        return [0] * 3, 0
     KM = ps["_mon_hash"].shape[2]
     check("ps/_mon_hash", ps["_mon_hash"], torch.int32, (L, N, KM), device)
     check("ps/_mon_cnt", ps["_mon_cnt"], torch.int32, (L, N, KM), device)
     check("ps/_mon_flags", ps["_mon_flags"], torch.int32, (L, N), device)
-    if in_place:
-        return [ps[k].data_ptr() for k in MON_PS_KEYS], KM, {}
-    new = {k: torch.empty_like(ps[k]) for k in MON_PS_KEYS}
-    ptrs = ([ps[k].data_ptr() for k in MON_PS_KEYS]
-            + [new[k].data_ptr() for k in MON_PS_KEYS])
-    return ptrs, KM, new
+    return [ps[k].data_ptr() for k in MON_PS_KEYS], KM

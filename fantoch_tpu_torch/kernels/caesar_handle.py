@@ -258,7 +258,7 @@ def caesar_handle(ps, has, rows, fire, ctx, dims: EngineDims, cap=None):
         [has, rows, fire] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    mon_ptrs, KM, _mon = build.mon_planes(ps, L, N, dev, in_place=True)
+    mon_ptrs, KM = build.mon_planes(ps, L, N, dev)
     fn = build.c_function("fantoch_caesar_handle", 5 + len(tensors), 16)
     build.launch(
         fn,

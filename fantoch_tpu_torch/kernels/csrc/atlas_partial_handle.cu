@@ -19,13 +19,17 @@
 // hoisted: it runs only for a process whose branch calls it (MCommit,
 // MDrain, GReply, GReplyExec), as only the chosen branch's outputs count.
 //
-// 1. The whole block copies the process's 35 non-scalar state planes
-//    (557.8 KB per process at the main path's shapes, half of it the
-//    [N, D, QS] dep triples of the vertex store and a third the [N, D, Q]
-//    dep report tables) to the output tensors in 16-byte coalesced rows,
-//    then works on the outputs in place. The five scalar planes (sequence,
-//    metrics, error word) live in thread 0's registers and are stored once
-//    at the end.
+// 1. The block works on its process's rows of the state planes in place,
+//    on the lanes whose run predicate holds at the step's start
+//    (common.cuh RunCap; every lane without a cap). A frozen lane's blocks
+//    write rdy false and empty outboxes and return before the gate and any
+//    shared-memory staging, touching none of its state. Each block reads
+//    and writes only its own (lane, process) rows, and every step below
+//    reads what it needs before anything of the block writes it (the
+//    answers of 2b each free only their own entry; the branch runs after
+//    the barrier that ends 2b; 4d scans before 4e executes the pick), so
+//    no copy is needed. The five scalar planes (sequence, metrics, error
+//    word) live in thread 0's registers and are stored once at the end.
 // 2. Thread 0 runs the gate and stages the GC broadcast; then thread b of
 //    the first B answers buffered request b for the cleanup tick (each
 //    answer writes its own periodic slot N + 1 + b and frees its own
@@ -65,11 +69,10 @@
 // Bound on this card: bytes. The region reads a few state words per (lane,
 // process), the rows its branch touches and, for a draining process, its
 // committed vertices' dep rows, and writes the words that change and two
-// [F, P] outboxes (atlas_partial_handle.py work). This kernel copies each
-// process's whole state out of place, so it moves far more than that, but
-// in coalesced rows.
+// [F, P] outboxes (atlas_partial_handle.py work). The drain's flag pass
+// and its relaxation read every committed vertex's dep rows, which is most
+// of what this kernel moves.
 #include <climits>
-#include <cstdint>
 
 #include "common.cuh"
 #include "iset.cuh"
@@ -127,37 +130,13 @@ __device__ long long plane_words(int i, const Dims& d) {
   }
 }
 
-__device__ bool is_scalar(int i) {
-  return i == OWN_SEQ || i == M_FAST || i == M_SLOW || i == M_STABLE ||
-         i == ERR;
-}
-
-__device__ bool is_bool(int i) { return i == VX_COMMITTED || i == SEEN; }
-
-// Copy n words with the whole block. Source and destination sit at the
-// same offset from their planes' (aligned) bases, so after a short head
-// both are 16-byte aligned together.
-__device__ void block_copy(int* dst, const int* src, long long n) {
-  const int t = threadIdx.x;
-  long long head = ((16 - ((uintptr_t)dst & 15)) & 15) >> 2;
-  if ((((uintptr_t)dst ^ (uintptr_t)src) & 15) != 0) head = n;  // scalar
-  head = head < n ? head : n;
-  for (long long i = t; i < head; i += THREADS) dst[i] = src[i];
-  const long long n4 = (n - head) >> 2;
-  const int4* s4 = reinterpret_cast<const int4*>(src + head);
-  int4* d4 = reinterpret_cast<int4*>(dst + head);
-  for (long long i = t; i < n4; i += THREADS) d4[i] = s4[i];
-  for (long long i = head + (n4 << 2) + t; i < n; i += THREADS)
-    dst[i] = src[i];
-}
-
 // A staged outbox in shared memory: valid, dst, mtype [F], payload [F, P].
 struct Outbox {
   int *v, *dst, *mt, *pay;
 };
 
-// One (lane, process): its output planes (the state being updated), its
-// scalar planes, the lane ctx and the staged outboxes. The handlers run
+// One (lane, process): its rows of the state planes (updated in place),
+// its scalar planes, the lane ctx and the staged outboxes. The handlers run
 // on thread 0, an answer of the cleanup tick on the thread of its entry.
 struct Proc {
   Dims d;
@@ -741,7 +720,7 @@ __device__ void block_argmin(int best, int bidx, int* rv, int* ri) {
 }  // namespace
 
 __global__ void __launch_bounds__(THREADS) atlas_partial_handle_kernel(
-    const Planes in, const Planes out, const bool* __restrict__ has,
+    const Planes st, const RunCap cap, const bool* __restrict__ has,
     const int* __restrict__ rows, const bool* __restrict__ fire,
     const int* __restrict__ n_ctx, const int* __restrict__ f_ctx,
     const int* __restrict__ expected, const int* __restrict__ fp_mode,
@@ -759,6 +738,18 @@ __global__ void __launch_bounds__(THREADS) atlas_partial_handle_kernel(
   const int l = g / d.N, me = g % d.N;
   const int N = d.N, D = d.D, F = d.F, P = d.P, G = d.G, QS = d.QS;
   const int ND = N * D;
+
+  if (!cap.runs(l)) {  // frozen: the state stays, the outboxes are empty
+    const long long fb = (long long)g * F;
+    if (t == 0) rdy_out[g] = false;
+    for (long long i = t; i < (long long)F * P; i += THREADS)
+      pp[fb * P + i] = hp[fb * P + i] = 0;
+    for (int i = t; i < F; i += THREADS) {
+      pv[fb + i] = hv[fb + i] = false;
+      pd[fb + i] = pm[fb + i] = hd[fb + i] = hm[fb + i] = 0;
+    }
+    return;
+  }
 
   // shared memory (atlas_partial_handle.py smem_bytes)
   int* sp = smem;
@@ -781,27 +772,16 @@ __global__ void __launch_bounds__(THREADS) atlas_partial_handle_kernel(
   sp += 4 * d.Q;
   unsigned char* flags = reinterpret_cast<unsigned char*>(sp);
 
-  // 1. copy this process's state planes (the scalar ones go through
-  // thread 0's registers)
-  for (int i = 0; i < NPLANES; ++i) {
-    if (is_scalar(i)) continue;
-    const long long w = plane_words(i, d);
-    if (is_bool(i)) {
-      const bool* s = (const bool*)in.p[i] + (long long)g * w;
-      bool* o = (bool*)out.p[i] + (long long)g * w;
-      for (long long j = t; j < w; j += THREADS) o[j] = s[j];
-    } else {
-      block_copy((int*)out.p[i] + (long long)g * w,
-                 (const int*)in.p[i] + (long long)g * w, w);
-    }
-  }
+  // 1. this process's rows of the state planes, updated in place (the
+  // scalar ones go through thread 0's registers and are stored at the
+  // end, after every thread has read them here)
   for (int i = t; i < 4 * d.Q; i += THREADS) zero_q[i] = 0;
   __syncthreads();
 
   auto plane = [&](int i) {
-    return (int*)out.p[i] + (long long)g * plane_words(i, d);
+    return (int*)st.p[i] + (long long)g * plane_words(i, d);
   };
-  auto scalar = [&](int i) { return ((const int*)in.p[i])[g]; };
+  auto scalar = [&](int i) { return ((const int*)st.p[i])[g]; };
   const long long lN = (long long)l * N;
   const int s_me = shard_of[lN + me];
   Proc p{d, me,
@@ -814,8 +794,8 @@ __global__ void __launch_bounds__(THREADS) atlas_partial_handle_kernel(
          plane(REQ_SEQ), plane(BREQ_FROM), plane(BREQ_SRC), plane(BREQ_SEQ),
          plane(EXEC_FRONT), plane(EXEC_GAPS), plane(COMM_FRONT),
          plane(COMM_GAPS), plane(OTHERS), plane(PREV_STABLE),
-         (bool*)out.p[VX_COMMITTED] + (long long)g * ND,
-         (bool*)out.p[SEEN] + (long long)g * N,
+         (bool*)st.p[VX_COMMITTED] + (long long)g * ND,
+         (bool*)st.p[SEEN] + (long long)g * N,
          scalar(OWN_SEQ), scalar(M_FAST), scalar(M_SLOW), scalar(M_STABLE),
          scalar(ERR),
          n_ctx[l], f_ctx[l], expected[l], fp_mode[l], ack_self[l],
@@ -1054,11 +1034,11 @@ __global__ void __launch_bounds__(THREADS) atlas_partial_handle_kernel(
   }
 
   if (t == 0) {
-    ((int*)out.p[OWN_SEQ])[g] = p.own_seq;
-    ((int*)out.p[M_FAST])[g] = p.m_fast;
-    ((int*)out.p[M_SLOW])[g] = p.m_slow;
-    ((int*)out.p[M_STABLE])[g] = p.m_stable;
-    ((int*)out.p[ERR])[g] = p.err;
+    ((int*)st.p[OWN_SEQ])[g] = p.own_seq;
+    ((int*)st.p[M_FAST])[g] = p.m_fast;
+    ((int*)st.p[M_SLOW])[g] = p.m_slow;
+    ((int*)st.p[M_STABLE])[g] = p.m_stable;
+    ((int*)st.p[ERR])[g] = p.err;
   }
   __syncthreads();
 
@@ -1079,7 +1059,7 @@ __global__ void __launch_bounds__(THREADS) atlas_partial_handle_kernel(
 }
 
 extern "C" int fantoch_atlas_partial_handle(
-    const void* in_table, const void* out_table, const void* has,
+    const void* state_table, const void* cap_tab, const void* has,
     const void* rows, const void* fire, const void* n_ctx, const void* f_ctx,
     const void* expected, const void* fp_mode, const void* ack_self,
     const void* fq, const void* wq, const void* shard_of, const void* closest,
@@ -1087,17 +1067,15 @@ extern "C" int fantoch_atlas_partial_handle(
     void* rdy_out, void* pv, void* pd, void* pm, void* pp, void* hv, void* hd,
     void* hm, void* hp, int L, int N, int D, int F, int P, int W, int C,
     int K, int G, int KPC, int S, int T1, int Q, int QS, int B, int smem,
-    void* stream) {
+    int flags, void* stream) {
   const long long blocks = (long long)L * N;
   if (blocks == 0) return 0;
   if (S > MAXS || KPC > MAXKPC || B > THREADS || F < N + B + 2 ||
       F < KPC + 3 || P < 5 + 3 * QS)
     return (int)cudaErrorInvalidValue;
-  Planes in, out;
-  for (int i = 0; i < NPLANES; ++i) {
-    in.p[i] = ((void* const*)in_table)[i];
-    out.p[i] = ((void* const*)out_table)[i];
-  }
+  Planes st;
+  for (int i = 0; i < NPLANES; ++i)
+    st.p[i] = ((void* const*)state_table)[i];
   const Dims d{L, N, D, F, P, W, C, K, G, KPC, S, T1, Q, QS, B};
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -1107,7 +1085,8 @@ extern "C" int fantoch_atlas_partial_handle(
   }
   atlas_partial_handle_kernel<<<(unsigned)blocks, THREADS, (size_t)smem,
                                 (cudaStream_t)stream>>>(
-      in, out, (const bool*)has, (const int*)rows, (const bool*)fire,
+      st, run_cap((const void* const*)cap_tab, flags), (const bool*)has,
+      (const int*)rows, (const bool*)fire,
       (const int*)n_ctx, (const int*)f_ctx, (const int*)expected,
       (const int*)fp_mode, (const bool*)ack_self, (const bool*)fq,
       (const bool*)wq, (const int*)shard_of, (const int*)closest,

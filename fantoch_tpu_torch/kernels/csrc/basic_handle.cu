@@ -311,8 +311,7 @@ extern "C" int fantoch_basic_handle(
       (const bool*)quorum, (const int*)q_size, (bool*)rdy_out, (bool*)pv,
       (int*)pd, (int*)pm, (int*)pp, (bool*)hv, (int*)hd, (int*)hm,
       (int*)hp,
-      mon_args(mon_hash, mon_cnt, mon_flags, mon_hash, mon_cnt, mon_flags,
-               KM),
+      mon_args(mon_hash, mon_cnt, mon_flags, KM),
       L, N, D, F, P, R, W);
   return (int)cudaGetLastError();
 }

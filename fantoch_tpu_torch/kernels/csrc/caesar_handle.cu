@@ -1046,8 +1046,7 @@ extern "C" int fantoch_caesar_handle(
       (const int*)n_ctx, (const int*)fq, (const int*)wq, (const bool*)wait,
       (const int*)attach, (bool*)rdy_out, (bool*)pv, (int*)pd, (int*)pm,
       (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
-      mon_args(mon_hash, mon_cnt, mon_flags, mon_hash, mon_cnt, mon_flags,
-               KM),
+      mon_args(mon_hash, mon_cnt, mon_flags, KM),
       d);
   return (int)cudaGetLastError();
 }

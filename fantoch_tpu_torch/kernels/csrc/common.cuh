@@ -19,8 +19,9 @@ constexpr int PA = 0, PKS = 1, PKC = 2, PSRC = 3, PDST = 4, PMT = 5,
 // the planes a step started from: not finished (done time + extra time
 // reached), not idle, no error, fewer steps than the cap *lim, and under
 // the horizon flag before the horizon. K7 decides the freeze with it; K2,
-// K4, K6, K8, K9, K10 and K11 update in place only the lanes it holds
-// for, and K1 and K6 read nothing of a lane it does not hold for. A null
+// K6 and every handler (K4, K5, K8, K9, K10, K11, K12) update in place
+// only the lanes it holds for, and K1 and K6 read nothing of a lane it
+// does not hold for. A null
 // lim is no cap at all: every lane runs (a step outside the run loop).
 // The planes are never written in place by a step (K6 writes its lane
 // words out of place), so every kernel of the step reads the same

@@ -665,8 +665,7 @@ extern "C" int fantoch_graphdep_handle(
       (const int*)expected, (const int*)fp_mode, (const bool*)ack_self,
       (const int*)attach, (bool*)rdy_out, (bool*)pv, (int*)pd, (int*)pm,
       (int*)pp, (bool*)hv, (int*)hd, (int*)hm, (int*)hp,
-      mon_args(mon_hash, mon_cnt, mon_flags, mon_hash, mon_cnt, mon_flags,
-               KM),
+      mon_args(mon_hash, mon_cnt, mon_flags, KM),
       d);
   return (int)cudaGetLastError();
 }

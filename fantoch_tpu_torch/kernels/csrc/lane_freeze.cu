@@ -19,16 +19,16 @@
 // copies the old row of plane k over the new one, 16 bytes a thread
 // where the row is aligned, else 4 or 1. Planes the step passed through
 // unchanged are not in the table, so the step's outputs of running lanes
-// are never touched; nor are the planes K2, K4, K10 and K11 update in
-// place (the pool; the process state of Basic, Caesar and Tempo partial),
-// which the step returns as the very tensors it took: their kernels wrote
-// only running lanes' rows.
+// are never touched; nor are the planes K2, K6 and every handler update in
+// place (the pool; K6's clients, metrics, channel counts and timers;
+// every protocol's process state), which the step returns as the very
+// tensors it took: their kernels wrote only running lanes' rows.
 //
 // Bound on this card: bytes. The region needs the predicate's words and
 // the words of frozen lanes that the step changed (lane_freeze.py work);
 // this kernel copies frozen lanes' whole rows of the planes the step
-// wrote out of place (the handlers' other than K4's, K10's and K11's,
-// K6's).
+// wrote out of place (the seven lane planes of K1, K2 and K6; nine under
+// faults).
 #include <cstdint>
 
 #include "common.cuh"

@@ -816,8 +816,7 @@ extern "C" int fantoch_tempo_handle(
       (const bool*)bump_mode, (const bool*)skip_ack, (const int*)attach,
       (bool*)rdy_out, (bool*)pv, (int*)pd, (int*)pm, (int*)pp, (bool*)hv,
       (int*)hd, (int*)hm, (int*)hp,
-      mon_args(mon_hash, mon_cnt, mon_flags, mon_hash, mon_cnt, mon_flags,
-               KM),
+      mon_args(mon_hash, mon_cnt, mon_flags, KM),
       d);
   return (int)cudaGetLastError();
 }

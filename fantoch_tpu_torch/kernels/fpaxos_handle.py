@@ -7,17 +7,28 @@ Replaces ``fantoch_tpu/engine/core.py`` ``run_handlers`` (:422) and the
 ``fantoch_tpu/engine/protocols/fpaxos.py``, with the safety monitors'
 ``mon_exec`` at the slot executor's frontier (:282-291) on monitored
 steps. CUDA source:
-``csrc/fpaxos_handle.cu`` (bound by bytes, :func:`work`).
-:func:`fpaxos_handle_plain` is its plain PyTorch twin (the batched
-handlers of ``engine/protocols/fpaxos.py``), used for tensors on the CPU.
+``csrc/fpaxos_handle.cu``, one warp per (lane, process) (bound by bytes,
+:func:`work`). :func:`fpaxos_handle_plain` is its plain PyTorch twin (the
+batched handlers of ``engine/protocols/fpaxos.py``), used for tensors on
+the CPU.
+
+The process state (with the monitor planes) is updated in place, on
+the lanes whose run predicate holds at the step's start (``cap``,
+:class:`lane_freeze.Cap`; every lane without one), and returned as the
+very tensors given: the step consumes its input, K7 copies none of
+these planes, and the device loop's write-back skips them. A frozen
+lane's ``rdy`` is false and its outboxes are empty.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..engine.dims import PMT, EngineDims
 from . import build, cost
+from .lane_freeze import cap_args
 
 I32 = torch.int32
 
@@ -29,11 +40,13 @@ STATE_KEYS = (
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
-def fpaxos_handle_plain(ps, has, rows, fire, ctx, dims: EngineDims):
-    """``(rdy, ps, periodic outbox, handler outbox)``."""
+def fpaxos_handle_plain(ps, has, rows, fire, ctx, dims: EngineDims,
+                        cap=None):
+    """``(rdy, ps, periodic outbox, handler outbox)``, ``ps`` updated in
+    place on the lanes ``cap`` lets run."""
     from ..engine.protocols.fpaxos import FPaxosDev
 
-    return FPaxosDev.step_plain(ps, has, rows, fire, ctx, dims)
+    return FPaxosDev.step_plain(ps, has, rows, fire, ctx, dims, cap)
 
 
 def _state_shapes(L, dims: EngineDims):
@@ -51,10 +64,12 @@ def _state_shapes(L, dims: EngineDims):
     }
 
 
-def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
-    """``(bytes, ops)`` the region needs on these inputs (``out`` is its
-    result). Every (lane, process) reads its ``has`` and timer flags,
-    a popped message's type, source and payload, and the state words its
+def work(ps, has, rows, fire, ctx, dims: EngineDims, *rest):
+    """``(bytes, ops)`` the region needs on these inputs (``ps`` a
+    snapshot taken before the call, which updates it in place; the last
+    argument is the call's result, one before it may be the cap). Every
+    (lane, process) reads its ``has`` and timer flags, a popped message's
+    type, source and payload, and the state words its
     branch reads: the leader id, own last slot and commander entry, and
     the write quorum where it leads (SUBMIT, MFORWARD); the acceptor
     entry (MAccept, also when the gate refuses it); the commander entry,
@@ -65,7 +80,7 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
     outboxes and the state words that change."""
     from ..engine.protocols.fpaxos import FPaxosDev as X
 
-    rdy, new_ps, pout, hout = out
+    rdy, new_ps, pout, hout = rest[-1]
     L, N, W = rows.shape
     P, D = dims.P, dims.D
     mtype = torch.where(has, rows[..., PMT], -1)
@@ -99,13 +114,14 @@ def work(ps, has, rows, fire, ctx, dims: EngineDims, out):
     return read + write + cost.monitor_bytes(ps, new_ps), ops
 
 
-def fpaxos_handle(ps, has, rows, fire, ctx, dims: EngineDims):
+def fpaxos_handle(ps, has, rows, fire, ctx, dims: EngineDims, cap=None):
     """K5 on CUDA tensors, :func:`fpaxos_handle_plain` on CPU tensors.
-    The kernel's outboxes carry the planes ``valid``, ``dst``, ``mtype``
-    and ``payload``; a protocol handler's ``delay``/``src`` are always
-    -1, which ``emit_rewrite`` assumes."""
+    ``ps`` is updated in place on the lanes ``cap`` lets run and
+    returned (the same tensors). The kernel's outboxes carry the planes
+    ``valid``, ``dst``, ``mtype`` and ``payload``; a protocol handler's
+    ``delay``/``src`` are always -1, which ``emit_rewrite`` assumes."""
     if rows.device.type == "cpu":
-        return fpaxos_handle_plain(ps, has, rows, fire, ctx, dims)
+        return fpaxos_handle_plain(ps, has, rows, fire, ctx, dims, cap)
     L, N, W = rows.shape
     R = fire.shape[2]
     F, P, D = dims.F, dims.P, dims.D
@@ -125,10 +141,6 @@ def fpaxos_handle(ps, has, rows, fire, ctx, dims: EngineDims):
     build.check("q_size", ctx["q_size"], I32, (L,), dev)
     build.check("client_attach", ctx["client_attach"], I32, (L, C), dev)
     rdy = torch.empty((L, N), dtype=torch.bool, device=dev)
-    new_ps = {
-        k: torch.empty(shapes[k][0], dtype=shapes[k][1], device=dev)
-        for k in STATE_KEYS
-    }
 
     def outbox():
         return {
@@ -139,22 +151,25 @@ def fpaxos_handle(ps, has, rows, fire, ctx, dims: EngineDims):
         }
 
     pout, hout = outbox(), outbox()
-    mon_ptrs, KM, mon_new = build.mon_planes(ps, L, N, dev)
+    planes = (ctypes.c_void_p * len(STATE_KEYS))(
+        *[ps[k].data_ptr() for k in STATE_KEYS])
+    tab, cap_flags = cap_args(cap, L, dev)
+    mon_ptrs, KM = build.mon_planes(ps, L, N, dev)
     tensors = (
-        [ps[k] for k in STATE_KEYS]
-        + [has, rows, fire, ctx["n"], ctx["leader"], ctx["write_quorum"],
-           ctx["q_size"], ctx["client_attach"], rdy]
-        + [new_ps[k] for k in STATE_KEYS]
+        [has, rows, fire, ctx["n"], ctx["leader"], ctx["write_quorum"],
+         ctx["q_size"], ctx["client_attach"], rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    fn = build.c_function("fantoch_fpaxos_handle", len(tensors) + 6, 9)
+    fn = build.c_function("fantoch_fpaxos_handle", 5 + len(tensors), 10)
     build.launch(
-        fn, [t.data_ptr() for t in tensors] + mon_ptrs,
-        [L, N, D, F, P, R, W, C, KM],
+        fn,
+        [ctypes.addressof(planes), ctypes.addressof(tab)]
+        + [t.data_ptr() for t in tensors] + mon_ptrs,
+        [L, N, D, F, P, R, W, C, KM, cap_flags],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     fpaxos_handle.launches += 1
-    return rdy, {**new_ps, **mon_new}, pout, hout
+    return rdy, ps, pout, hout
 
 
 fpaxos_handle.launches = 0

@@ -213,7 +213,7 @@ def graphdep_handle(ps, has, rows, fire, ctx, dims: EngineDims, cap=None):
         [has, rows, fire] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    mon_ptrs, KM, _mon = build.mon_planes(ps, L, N, dev, in_place=True)
+    mon_ptrs, KM = build.mon_planes(ps, L, N, dev)
     fn = build.c_function("fantoch_graphdep_handle", 5 + len(tensors), 14)
     build.launch(
         fn,

@@ -12,15 +12,15 @@ CUDA source: ``csrc/lane_freeze.cu`` (bound by bytes, :func:`work`).
 the CPU.
 
 The same predicate (``csrc/common.cuh RunCap``; :func:`lane_running`
-here) tells K2, K4, K6, K8, K9, K10 and K11 which lanes to update: they
-write the pool, the process state of Basic, Tempo, Atlas/EPaxos, Caesar
-and Tempo partial, and the clients, metrics, channel counts and timers
-in place, on running lanes only, and return the very tensors they took,
-so K7 leaves those planes out of its table (:func:`plane_pairs` selects
-by identity): on a fault-free, unmonitored step only the seven lane
-planes K1, K2 and K6 write out of place (and K5's and K12's process
-planes). K1 and K6 read nothing of a frozen lane and give it defined
-outputs, which K7 discards. A step hands them its :class:`Cap`.
+here) tells K2, K6 and every handler (K4, K5, K8, K9, K10, K11, K12)
+which lanes to update: they write the pool, every protocol's process
+state, and the clients, metrics, channel counts and timers in place, on
+running lanes only, and return the very tensors they took, so K7 leaves
+those planes out of its table (:func:`plane_pairs` selects by
+identity): on a fault-free, unmonitored step of any protocol only the
+seven lane planes K1, K2 and K6 write out of place. K1 and K6 read
+nothing of a frozen lane and give it defined outputs, which K7
+discards. A step hands them its :class:`Cap`.
 """
 
 from __future__ import annotations

@@ -218,7 +218,7 @@ def tempo_handle(ps, has, rows, fire, now, ctx, dims: EngineDims,
         [has, rows, fire, now] + [ctx[k] for k in CTX_KEYS] + [rdy]
         + [pout[k] for k in OUTBOX_KEYS] + [hout[k] for k in OUTBOX_KEYS]
     )
-    mon_ptrs, KM, _mon = build.mon_planes(ps, L, N, dev, in_place=True)
+    mon_ptrs, KM = build.mon_planes(ps, L, N, dev)
     fn = build.c_function("fantoch_tempo_handle", 5 + len(tensors), 15)
     build.launch(
         fn,

@@ -91,10 +91,12 @@ class _Recording(AtlasPartialDev):
         self.calls = []
 
     def handlers(self, ps, has, rows, fire, ep, ctx, dims, cap=None):
+        # the inputs copied before the call, which updates ps in place
+        given = carry.to_numpy({"ps": ps, "has": has, "rows": rows,
+                                "fire": fire})
         out = super().handlers(ps, has, rows, fire, ep, ctx, dims, cap)
-        self.calls.append(carry.to_numpy(
-            {"in": {"ps": ps, "has": has, "rows": rows, "fire": fire},
-             "out": dict(zip(("rdy", "ps", "pout", "hout"), out))}))
+        self.calls.append({"in": given, "out": carry.to_numpy(
+            dict(zip(("rdy", "ps", "pout", "hout"), out)))})
         return out
 
 

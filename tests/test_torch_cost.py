@@ -186,9 +186,9 @@ def _outboxes_bytes(out):
 
 
 def _on_a_copy(kernel, ps, *rest):
-    """An in-place handler kernel (K4, K8, K9, K10, K11) on a copy of
-    ``ps``: the call updates its state in place; work reads the state
-    before it."""
+    """An in-place handler kernel (K4, K5, K8, K9, K10, K11, K12) on a
+    copy of ``ps``: the call updates its state in place; work reads the
+    state before it."""
     return kernel({k: v.clone() for k, v in ps.items()}, *rest)
 
 
@@ -245,7 +245,7 @@ def _fpaxos_idle(L=2):
 
 def test_fpaxos_handle_work_idle_submit_and_gc():
     dims, ps, has, rows, fire, ctx = _fpaxos_idle()
-    out = fpaxos_handle(ps, has, rows, fire, ctx, dims)
+    out = _on_a_copy(fpaxos_handle, ps, has, rows, fire, ctx, dims)
     idle, _ = fh_work(ps, has, rows, fire, ctx, dims, out)
     L, N = has.shape
     assert idle == cost.nbytes(has, fire, ctx["n"]) + L * N + \
@@ -255,7 +255,7 @@ def test_fpaxos_handle_work_idle_submit_and_gc():
     # the last slot and the entry's slot (its count stays 0)
     has[0, 0] = True
     rows[0, 0, PMT] = FPaxosDev.SUBMIT
-    out = fpaxos_handle(ps, has, rows, fire, ctx, dims)
+    out = _on_a_copy(fpaxos_handle, ps, has, rows, fire, ctx, dims)
     n_bytes, _ = fh_work(ps, has, rows, fire, ctx, dims, out)
     assert n_bytes == idle + 4 * (2 + P) + 4 + (4 + 4 + N) + 4 + 4
     # a GC message from process 0 at process 2 (an all-zero frontier):
@@ -263,7 +263,7 @@ def test_fpaxos_handle_work_idle_submit_and_gc():
     # and the stable count; changes one seen flag
     has[1, 2] = True
     rows[1, 2, PMT] = FPaxosDev.MGC
-    out = fpaxos_handle(ps, has, rows, fire, ctx, dims)
+    out = _on_a_copy(fpaxos_handle, ps, has, rows, fire, ctx, dims)
     with_gc, ops = fh_work(ps, has, rows, fire, ctx, dims, out)
     gc_read = 4 * N + N + 4 + 4 * dims.D + 4
     assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
@@ -504,7 +504,7 @@ def _atlas_partial_idle(L=2):
 def test_atlas_partial_handle_work_idle_submit_gc_drain_and_tick():
     t, dims, ps, has, rows, fire, ctx = _atlas_partial_idle()
     args = (ps, has, rows, fire, ctx, dims)
-    out = atlas_partial_handle(*args)
+    out = _on_a_copy(atlas_partial_handle, *args)
     idle, idle_ops = ap_work(*args, out)
     L, N = has.shape
     P, D, G, S, KPC = dims.P, dims.D, t.G, t.S, t.KPC
@@ -519,7 +519,7 @@ def test_atlas_partial_handle_work_idle_submit_gc_drain_and_tick():
     has[0, 0] = True
     rows[0, 0, PMT] = AtlasPartialDev.SUBMIT
     rows[0, 0, PPAY + 1] = 1
-    out = atlas_partial_handle(*args)
+    out = _on_a_copy(atlas_partial_handle, *args)
     n_bytes, _ = ap_work(*args, out)
     cmd = 4 * (1 + S * KPC)
     keys = 4 * 3 * KPC
@@ -530,7 +530,7 @@ def test_atlas_partial_handle_work_idle_submit_gc_drain_and_tick():
     has[1, 0] = True
     rows[1, 0, PMT] = AtlasPartialDev.MGC
     rows[1, 0, PSRC] = 1
-    out = atlas_partial_handle(*args)
+    out = _on_a_copy(atlas_partial_handle, *args)
     with_gc, ops = ap_work(*args, out)
     gc_read = 4 * N * N + N + 4 * 2 * N + 4 * N * D
     assert with_gc == n_bytes + 4 * (2 + P) + gc_read + 1
@@ -545,7 +545,7 @@ def test_atlas_partial_handle_work_idle_submit_gc_drain_and_tick():
     ps["vx_seq"][0, 2, 3, 0] = 1
     has[0, 2] = True
     rows[0, 2, PMT] = AtlasPartialDev.MDRAIN
-    out = atlas_partial_handle(*args)
+    out = _on_a_copy(atlas_partial_handle, *args)
     with_drain, dops = ap_work(*args, out)
     assert out[1]["exec_front"][0, 2, 3] == 1
     drain = N * D + 4 * N * (1 + 2 * G) + 4 * (5 + 3 * QS) + cmd
@@ -560,7 +560,7 @@ def test_atlas_partial_handle_work_idle_submit_gc_drain_and_tick():
     ps["breq_src"][1, 1, 0] = 3
     ps["breq_seq"][1, 1, 0] = 2
     fire[1, 1] = True
-    out = atlas_partial_handle(*args)
+    out = _on_a_copy(atlas_partial_handle, *args)
     with_tick, _ = ap_work(*args, out)
     assert not out[2]["valid"][1, 1, N + 1]
     assert with_tick == (with_drain + 4 * N + 4 * t.B

@@ -1,19 +1,23 @@
 """The in-place contract of K2 (``land_emissions``), K4
-(``basic_handle``), K9 (``graphdep_handle``), K10 (``caesar_handle``)
-and K11 (``tempo_partial_handle``) on the CPU, through their plain
-twins.
+(``basic_handle``), K5 (``fpaxos_handle``), K9 (``graphdep_handle``),
+K10 (``caesar_handle``), K11 (``tempo_partial_handle``) and K12
+(``atlas_partial_handle``) on the CPU, through their plain twins.
 
 A step consumes its input state: K2 writes the pool, and the Basic,
-Atlas/EPaxos, Caesar and Tempo partial handlers their process state, in
-place, on the lanes whose run predicate holds at the step's start
-(``kernels/lane_freeze.py Cap``), and return the very tensors they were
-given. No runner consumes its caller's state. All comparisons are
-exact. The batches are the reference's tier-1 sweep shapes (n = 3, 4
-region subsets x conflict 0 and 100, f = 1, one client a region) at 40
-commands a client, and for Tempo under partial replication the partial
-golden batch's shapes (tests/test_torch_tempo_partial.py: 2 shards, a
-pool of 4, 2 keys a command) over the same subsets at conflict 10 and
-100, so every lane still runs at step 300:
+FPaxos, Atlas/EPaxos, Caesar, Tempo partial and Atlas partial handlers
+their process state, in place, on the lanes whose run predicate holds
+at the step's start (``kernels/lane_freeze.py Cap``), and return the
+very tensors they were given. No runner consumes its caller's state.
+All comparisons are exact. The batches are the reference's tier-1 sweep
+shapes (n = 3, 4 region subsets x conflict 0 and 100, f = 1, one client
+a region) at 40 commands a client, and under partial replication (Tempo
+and Atlas) the partial golden batches' shapes
+(tests/test_torch_tempo_partial.py, tests/test_torch_atlas_partial.py:
+2 shards, a pool of 4, 2 keys a command) over the same subsets at
+conflict 10 and 100, so every lane still runs at step 300 (Atlas
+partial at step 100: its lane at conflict 10 on the third subset ends in
+ERR_CAPACITY at step 155, as the reference's does, so its warm-up is
+:data:`WARMUP_ATLAS_PARTIAL` steps):
 
 - (a) each twin on the arguments of step 301, with every third lane's
   error word set and a step cap that stops half the lanes: running
@@ -24,7 +28,8 @@ pool of 4, 2 keys a command) over the same subsets at conflict 10 and
   empty;
 - (b) 64 ``frozen_step``s with those lanes frozen against the
   reference's vmapped run loop (its ``build_segment_runner``), whole
-  state, for Basic, Tempo, Caesar, Tempo partial, Atlas and EPaxos;
+  state, for Basic, FPaxos, Tempo, Caesar, Tempo partial, Atlas, EPaxos
+  and Atlas partial;
 - (c) a mixed batch of all six protocols with lanes frozen the same way
   equals its homogeneous runs, whole state;
 - (d) the runners (eager, window, ``run_sweep``, the mixed eager
@@ -62,7 +67,9 @@ from fantoch_tpu_torch.engine.core import (
 )
 from fantoch_tpu_torch.engine.dims import ERR_POOL, ERR_STUCK, INF, PA, PMT
 from fantoch_tpu_torch.engine.driver import prepare_batch
-from fantoch_tpu_torch.engine.protocols import AtlasDev, BasicDev, CaesarDev
+from fantoch_tpu_torch.engine.protocols import (
+    AtlasDev, BasicDev, CaesarDev, FPaxosDev,
+)
 from fantoch_tpu_torch.kernels.lane_freeze import Cap
 from fantoch_tpu_torch.kernels.step_loop import clone_tree
 from fantoch_tpu_torch.parallel import sweep
@@ -70,6 +77,9 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 COMMANDS = 40
 WARMUP = 300
+# Atlas partial's warm-up: one of its lanes fills a dep table (ERR_CAPACITY,
+# as the reference's) at step 155, and every lane must still run after it
+WARMUP_ATLAS_PARTIAL = 100
 REF = (RConfig, RPlanet, RDims, rprotocols, rsweep, r_make_lane)
 PORT = (Config, Planet, EngineDims, pprotocols, sweep, make_lane)
 MAX_STEPS = 1 << 22
@@ -80,25 +90,34 @@ k4 = importlib.import_module("fantoch_tpu_torch.kernels.basic_handle")
 k11 = importlib.import_module(
     "fantoch_tpu_torch.kernels.tempo_partial_handle")
 k9 = importlib.import_module("fantoch_tpu_torch.kernels.graphdep_handle")
+k5 = importlib.import_module("fantoch_tpu_torch.kernels.fpaxos_handle")
+k12 = importlib.import_module(
+    "fantoch_tpu_torch.kernels.atlas_partial_handle")
 # the in-place handler kernels by name, with their modules
 HANDLERS = {"caesar_handle": k10, "basic_handle": k4,
-            "tempo_partial_handle": k11, "graphdep_handle": k9}
+            "tempo_partial_handle": k11, "graphdep_handle": k9,
+            "fpaxos_handle": k5, "atlas_partial_handle": k12}
 
 
-def _partial_specs(pkg, commands=COMMANDS):
-    """Tempo under partial replication at the partial golden batch's
-    shapes (tests/test_torch_tempo_partial.py ``golden_batches``: n = 3,
-    2 shards, a pool of 4, 2 keys a command, K = pool + n + 1): 4 region
-    subsets x conflict 10 and 100, f = 1, one client a region."""
+def _partial_specs(pkg, name, commands=COMMANDS):
+    """Tempo or Atlas (``name``) under partial replication at the partial
+    golden batches' shapes (tests/test_torch_tempo_partial.py
+    ``golden_batches``, tests/test_torch_atlas_partial.py
+    ``golden_batch``: n = 3, 2 shards, a pool of 4, 2 keys a command,
+    K = pool + n + 1): 4 region subsets x conflict 10 and 100, f = 1, one
+    client a region."""
     cfg, planet_cls, dims_cls, protos, _sweep, make = pkg
     planet = planet_cls.new()
     regions = planet.regions()
-    dev = protos.TempoPartialDev(keys=4 + 3 + 1, shards=2, keys_per_cmd=2)
+    cls = (protos.TempoPartialDev if name == "tempo_partial"
+           else protos.AtlasPartialDev)
+    dev = cls(keys=4 + 3 + 1, shards=2, keys_per_cmd=2)
     dims = dims_cls.for_partial(dev, 3, 3, commands * 3, regions=3)
+    detached = ({"tempo_detached_send_interval_ms": 100}
+                if name == "tempo_partial" else {})
     config = cfg(n=3, f=1, shard_count=2, gc_interval_ms=100,
                  executor_executed_notification_interval_ms=100,
-                 executor_cleanup_interval_ms=100,
-                 tempo_detached_send_interval_ms=100)
+                 executor_cleanup_interval_ms=100, **detached)
     specs = [make(dev, planet, config, conflict_rate=conflict, pool_size=4,
                   commands_per_client=commands, clients_per_region=1,
                   process_regions=regions[i:i + 3],
@@ -110,9 +129,10 @@ def _partial_specs(pkg, commands=COMMANDS):
 def _specs(pkg, name, commands=COMMANDS):
     """The reference's tier-1 sweep shapes (test_scan_window.py
     ``_specs``): 4 region subsets x conflict 0 and 100, f = 1, n = 3,
-    one client a region; :func:`_partial_specs` for Tempo partial."""
-    if name == "tempo_partial":
-        return _partial_specs(pkg, commands)
+    one client a region; :func:`_partial_specs` for Tempo and Atlas
+    partial."""
+    if name in ("tempo_partial", "atlas_partial"):
+        return _partial_specs(pkg, name, commands)
     cfg, planet_cls, dims_cls, protos, sweep_mod, _make = pkg
     planet = planet_cls.new()
     regions = planet.regions()
@@ -174,17 +194,22 @@ def _batch(name):
     return rdev, rdims, state, ctx, pdev, pdims
 
 
+def _warmup(name):
+    """The run-loop steps before the checked step of batch ``name``."""
+    return WARMUP_ATLAS_PARTIAL if name == "atlas_partial" else WARMUP
+
+
 @functools.lru_cache(maxsize=None)
 def _step_301(name):
-    """The port's batch after ``WARMUP`` run-loop steps (numpy), and the
-    arguments of step 301's K2 and handler calls, copied before each
-    call."""
+    """The port's batch after :func:`_warmup` run-loop steps (numpy), and
+    the arguments of the next step's K2 and handler calls, copied before
+    each call."""
     _rdev, _rdims, state, ctx, pdev, pdims = _batch(name)
     pctx = carry.to_torch(ctx, "cpu")
     st = carry.to_torch(state, "cpu")
-    for _ in range(WARMUP):
+    for _ in range(_warmup(name)):
         st, _running = frozen_step(pdev, pdims, st, pctx, MAX_STEPS)
-    assert bool(_running.all()), "every lane must still run at step 300"
+    assert bool(_running.all()), "every lane must still run after warm-up"
     st300 = carry.to_numpy(st)
     calls = {}
 
@@ -282,11 +307,38 @@ def _tempo_partial_out_of_place(ps, has, rows, fire, now, ctx, dims):
     return rdy, new, pout, hout
 
 
+def _fpaxos_out_of_place(ps, has, rows, fire, ctx, dims):
+    """K5's twin out of place: a new state tree."""
+    X = FPaxosDev
+    none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
+    mtype0 = torch.where(has, rows[..., PMT], none)
+    rdy = X.ready_plain(ps, rows, mtype0, dims)
+    valid = has & rdy
+    mtype = torch.where(valid, mtype0, none)
+    pout = X.periodic_plain(ps, fire, ctx["n"], dims)
+    new, hout = X.handle_plain(ps, valid, mtype, rows, ctx, dims)
+    return rdy, new, pout, hout
+
+
+def _atlas_partial_out_of_place(ps, has, rows, fire, ctx, dims):
+    """K12's twin out of place: a new state tree."""
+    X = k12._protocol(ps, ctx)
+    none = torch.full_like(rows[..., PMT], X.NUM_TYPES)
+    mtype0 = torch.where(has, rows[..., PMT], none)
+    rdy = X.ready_plain(ps, rows, mtype0, dims)
+    mtype = torch.where(has & rdy, mtype0, none)
+    new, pout = X.periodic_plain(ps, fire, ctx, dims)
+    new, hout = X.handle_plain(new, mtype, rows, ctx, dims)
+    return rdy, new, pout, hout
+
+
 # each in-place handler's out-of-place arithmetic
 OUT_OF_PLACE = {"caesar_handle": _caesar_out_of_place,
                 "basic_handle": _basic_out_of_place,
                 "tempo_partial_handle": _tempo_partial_out_of_place,
-                "graphdep_handle": _graphdep_out_of_place}
+                "graphdep_handle": _graphdep_out_of_place,
+                "fpaxos_handle": _fpaxos_out_of_place,
+                "atlas_partial_handle": _atlas_partial_out_of_place}
 
 
 # ----------------------------------------------------------------------
@@ -297,15 +349,17 @@ CASES = [("basic", "land_emissions"), ("tempo", "land_emissions"),
          ("caesar", "land_emissions"), ("caesar", "caesar_handle"),
          ("basic", "basic_handle"),
          ("tempo_partial", "tempo_partial_handle"),
-         ("atlas", "graphdep_handle"), ("epaxos", "graphdep_handle")]
+         ("atlas", "graphdep_handle"), ("epaxos", "graphdep_handle"),
+         ("fpaxos", "fpaxos_handle"),
+         ("atlas_partial", "atlas_partial_handle")]
 
 
 @pytest.mark.parametrize("name,kname", CASES)
 def test_twin_updates_running_lanes_in_place(name, kname):
     st300, pctx, calls = _step_301(name)
     a = calls[kname]
-    st = _freeze(carry.to_torch(st300, "cpu"), lim=WARMUP)
-    cap = Cap(st, pctx, WARMUP, 0)
+    st = _freeze(carry.to_torch(st300, "cpu"), lim=_warmup(name))
+    cap = Cap(st, pctx, _warmup(name), 0)
     run = cap.running()
     frozen = ~run
     assert int(run.sum()) >= 2 and int(frozen.sum()) >= 4, run
@@ -345,18 +399,19 @@ def test_twin_updates_running_lanes_in_place(name, kname):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["basic", "tempo", "caesar",
-                                  "tempo_partial", "atlas", "epaxos"])
+                                  "tempo_partial", "atlas", "epaxos",
+                                  "fpaxos", "atlas_partial"])
 def test_frozen_steps_match_the_reference_run_loop(name):
-    """From the port's state after 300 steps, every third lane failed and
-    every other lane one step behind the cap at 363: 64 ``frozen_step``s
-    of the port and the reference's segment runner to 363 end in the
-    same whole state (the lanes one step ahead stop at the cap one step
-    early)."""
+    """From the port's state after 300 steps (Atlas partial 100), every
+    third lane failed and every other lane one step behind the cap at 363
+    (163): 64 ``frozen_step``s of the port and the reference's segment
+    runner to the cap end in the same whole state (the lanes one step
+    ahead stop at the cap one step early)."""
     rdev, rdims, _state, ctx, pdev, pdims = _batch(name)
     st300, pctx, _calls = _step_301(name)
-    lim = WARMUP + 63
+    lim = _warmup(name) + 63
     start = carry.to_numpy(_freeze(carry.to_torch(st300, "cpu"),
-                                   lim=WARMUP))
+                                   lim=_warmup(name)))
     runner, _alive = r_segment_runner(rdev, rdims)
     want, _any = runner(jax.tree_util.tree_map(jnp.asarray, start),
                         jax.tree_util.tree_map(jnp.asarray, ctx),
@@ -492,10 +547,14 @@ def test_caesar_handle_work_on_a_snapshot_equals_pr12():
                                         ("tempo_partial",
                                          "tempo_partial_handle"),
                                         ("atlas", "graphdep_handle"),
-                                        ("epaxos", "graphdep_handle")])
+                                        ("epaxos", "graphdep_handle"),
+                                        ("fpaxos", "fpaxos_handle"),
+                                        ("atlas_partial",
+                                         "atlas_partial_handle")])
 def test_handler_work_on_a_snapshot_equals_out_of_place(name, kname):
-    """K4's, K9's and K11's ``work`` on the state copied before the call
-    equals its value on the out-of-place arithmetic's result."""
+    """K4's, K5's, K9's, K11's and K12's ``work`` on the state copied
+    before the call equals its value on the out-of-place arithmetic's
+    result."""
     _st300, _pctx, calls = _step_301(name)
     a = calls[kname]
     mod = HANDLERS[kname]

@@ -1,6 +1,7 @@
 """The in-place contract of K6 (``emit_rewrite``) on the CPU, through its
-plain twin, and the step's plane table once K6 and K9 (``graphdep_handle``)
-update in place.
+plain twin, and the step's plane table once K6 and every handler (K9
+``graphdep_handle`` since slice 16, K5 ``fpaxos_handle`` and K12
+``atlas_partial_handle`` since slice 17) update in place.
 
 K6 updates the lane's ``clients``, ``metrics``, ``pair_cnt`` and
 ``next_periodic`` planes in place, on the lanes whose run predicate
@@ -20,19 +21,19 @@ word set:
   lane words are its own; ``work`` on a snapshot taken before the call
   equals its value on the out-of-place arithmetic;
 - 64 ``frozen_step``s with lanes frozen against the reference's vmapped
-  run loop, whole state, on the monitored Atlas batch of
+  run loop, whole state, on the monitored Atlas and FPaxos batches of
   tests/torch_monitor_lanes.py (jitter, a crash, drops under a horizon:
-  the mc fault envelope), K9 and K6 in place throughout;
+  the mc fault envelope), the handler (K9, K5) and K6 in place
+  throughout;
 - after a fault-free, unmonitored step, K7's plane table
-  (``lane_freeze.plane_pairs``) holds only the seven lane planes on
-  Basic, Tempo, Caesar, Tempo partial, Atlas and EPaxos, and those plus
-  process planes of K5 and K12 on FPaxos and Atlas partial (on the card,
-  where those two write every plane anew, 16 and 47 planes).
+  (``lane_freeze.plane_pairs``) holds exactly the seven lane planes on
+  all eight protocols.
 
-K9's twin with the cap, its ``work`` on a snapshot, 64 frozen Atlas and
-EPaxos steps and the runners run twice on one prepared Atlas batch are
-cases of the tests in tests/test_torch_inplace.py; 64 frozen steps of an
-open-loop batch, of tests/test_torch_inplace_k1_k8.py."""
+K5's, K9's and K12's twins with the cap, their ``work`` on a snapshot,
+64 frozen FPaxos, Atlas, EPaxos and Atlas partial steps and the runners
+run twice on one prepared Atlas batch are cases of the tests in
+tests/test_torch_inplace.py; 64 frozen steps of an open-loop batch, of
+tests/test_torch_inplace_k1_k8.py."""
 
 import importlib
 
@@ -194,17 +195,19 @@ def test_emit_rewrite_work_on_a_snapshot_equals_out_of_place(name):
 
 
 # ----------------------------------------------------------------------
-# 64 frozen steps of a monitored Atlas batch against the reference
+# 64 frozen steps of a monitored batch against the reference
 # ----------------------------------------------------------------------
 
-def test_frozen_monitored_atlas_steps_match_the_reference_run_loop():
+@pytest.mark.parametrize("name", ["atlas", "fpaxos"])
+def test_frozen_monitored_atlas_steps_match_the_reference_run_loop(name):
     """From the port's state after 20 steps, every third lane failed and
     every other lane one step behind the cap at 83: 64 ``frozen_step``s
     of the port and the reference's segment runner to 83 end in the same
-    whole state, with K9's process state and monitor planes and K6's
-    planes updated in place throughout."""
-    ref, dims, specs = torch_monitor_lanes.lanes(True, "atlas")
-    port = torch_monitor_lanes.lanes(False, "atlas")[0]
+    whole state, with the handler's process state and monitor planes
+    (K9 on Atlas, K5 on FPaxos, the mc grid's monitored protocols) and
+    K6's planes updated in place throughout."""
+    ref, dims, specs = torch_monitor_lanes.lanes(True, name)
+    port = torch_monitor_lanes.lanes(False, name)[0]
     mk = torch_monitor_lanes.MONITOR_KEYS
     frozen_steps_against_reference(
         ref, port, dims, _ctx_with_keys(specs, dims),
@@ -220,9 +223,6 @@ def test_frozen_monitored_atlas_steps_match_the_reference_run_loop():
 # K2's pool peak and error word, K6's lane words
 LANE_PLANES = {"now", "pool_peak", "err", "done_time", "steps", "requeues",
                "max_completion"}
-# how many process planes of each protocol's handler are written out of
-# place (K5's and K12's; the others update in place)
-OUT_OF_PLACE_PS = {"fpaxos": 9, "atlas_partial": 40}
 SMALL = ["--n", "3", "--subsets", "2", "--fs", "1", "--commands", "3"]
 PARTIAL = ["--shards", "2", "--keys-per-command", "2", "--pool-size", "4"]
 
@@ -238,11 +238,9 @@ def _table(new, old, path=""):
                                   "epaxos", "caesar", "tempo_partial",
                                   "atlas_partial"])
 def test_plane_pairs_hold_the_lane_planes_after_a_step(name):
-    """A fault-free, unmonitored step under its cap: K7's table holds the
-    seven lane planes, and on FPaxos and Atlas partial also process
-    planes of their handler (on the card, where K5 and K12 write every
-    plane anew, 16 and 47 planes in all; their twins pass the planes a
-    step leaves as they are through)."""
+    """A fault-free, unmonitored step under its cap: K7's table holds
+    exactly the seven lane planes (every handler updates its process
+    state in place)."""
     protocol = name.replace("_partial", "")
     argv = ["sweep", "--protocol", protocol, *SMALL]
     argv += (PARTIAL + ["--conflicts", "10,100"] if "partial" in name
@@ -253,10 +251,5 @@ def test_plane_pairs_hold_the_lane_planes_after_a_step(name):
     cap = Cap(st, ctx, MAX_STEPS, flag_bits(faults))
     new = lane_step(proto, dims, st, ctx, faults=faults, cap=cap)
     table = _table(new, st)
-    assert len(plane_pairs(new, st)) == len(table)
-    extra = set(table) - LANE_PLANES
-    assert LANE_PLANES <= set(table), table
-    assert all(p.startswith("ps/") for p in extra), table
-    assert len(extra) <= OUT_OF_PLACE_PS.get(name, 0), table
-    if name == "fpaxos":
-        assert len(table) == 16, table
+    assert len(plane_pairs(new, st)) == len(table) == 7, table
+    assert set(table) == LANE_PLANES, table
