@@ -5,13 +5,14 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's fourteen CUDA kernels and the device loop's graph
+It builds the engine's thirteen CUDA kernels and the device loop's graph
 code from ``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in
 parallel), holds each kernel against its plain PyTorch twin on the card
 at the main paths' shapes (exact equality: all integer or bool data;
-``key_table`` also on a batch of Zipf lanes; ``lane_freeze`` also with
-frozen lanes and with its step cap a device word that stops some lanes
-and not others; ``loop_ctl`` (K14) before the loop and in a body on
+``key_table`` also on a batch of Zipf lanes; the whole step with every
+third lane failed, and with its step cap a device word that stops some
+lanes and not others (every plane of a frozen lane as it was, K2's
+``running`` the predicate); ``loop_ctl`` (K14) before the loop and in a body on
 ladders it has to walk; ``tempo_handle`` over further steps until every Tempo
 message type and the GC and detached-send timers have been handled;
 ``graphdep_handle``, on the Atlas and on the EPaxos path, until every
@@ -26,7 +27,7 @@ one of its fourteen message types, both timers, a two-shard commit, a
 request answered at once and one answered by the cleanup tick, and a
 drain chain have been, then on every step of a small batch whose
 cleanup tick runs every 5 ms; ``qualify_pop``, ``emit_rewrite`` and
-``lane_freeze`` under the fault flags on every step of a fault-coverage
+``land_emissions`` under the fault flags on every step of a fault-coverage
 batch until a crash purge, a crashed timer, a halted client, an
 unavailable lane, a multiplier and an override window, a partition, an
 overflowing multiplier, a jitter multiplier, a drop and a horizon-cut
@@ -103,23 +104,21 @@ then the mixed sweeps, counted: the reference bench's four mixed
 protocols (Basic, FPaxos, Tempo, Atlas) over the main grid, interleaved
 point by point, 8,192 lanes in 512-lane batches, and all six over the
 first 8 subsets; every lane equals its protocol's phase-7 line byte for
-byte, and K1, K6, K2 and K7 launch once a group a step and each handler
+byte, and K1, K6 and K2 launch once a group a step and each handler
 only for its own protocol's groups; the mixed step's row (one window of
 one body, the eager mixed step, the sum of the groups' bounds). The host
 twins run in worker processes started before the build, overlapping the
 card's phases. Slice 13: K2 and K10 update the pool and Caesar's process
 state in place, on running lanes only, so every check hands each call
 of them a fresh copy (``_fresh``; the copy is in ``call_ms``, not in
-``ms``), keeps the in-place planes shared when it copies a step's new
-tree for K7 (``_clone_new``), and phase 3 holds both, with every third
-lane failed and beside K7's frozen-lane check, to their twins: running
+``ms``), and phase 3 holds both, with every third lane failed, to their
+twins: running
 lanes as the twin computes them, frozen lanes' rows byte for byte as
 before, the planes returned the ones given (``frozen_check``; the
 frozen-lane ms are printed before the kernels line). Slice 14: K4
 (Basic) and K11 (Tempo partial) update their process state in place
 too, so both are in ``IN_PLACE`` and get the same fresh copies and
-frozen-lane checks, K7's table on their paths no longer holds their
-planes, and the Tempo partial path runs its whole grid again (slice
+frozen-lane checks, and the Tempo partial path runs its whole grid again (slice
 12's cuts of the Tempo partial and Caesar grids are gone). Slice 15: K8
 (Tempo) updates its process state in place too and is in ``IN_PLACE``;
 K1 takes the step's cap and reads nothing of a frozen lane, and phase 3
@@ -127,7 +126,7 @@ holds it, with every third lane failed, to its twin and on running
 lanes to an uncapped call, frozen lanes to the defined values
 (``qualify_frozen_check``), and on a pool of 60,000 slots, past what a
 block stages in shared memory (``qualify_large_pool``); the monitored
-mc phase captures and times K1, K2 and K7 on the mc grid's n = 5
+mc phase captures and times K1 and K2 on the mc grid's n = 5
 batches too; the mc grid prints each point's share of running
 lane-steps and runs again with eight steps in every 1,024 of each
 batch stepped through the wrappers under the profiler
@@ -140,18 +139,26 @@ and K9 (Atlas's and EPaxos's process state) update in place too and are
 in ``IN_PLACE`` (K6's fresh copy is of those planes only, ``_fresh``);
 K6 takes the step's cap; the frozen-lane checks hold both on every path
 that runs them, and on the mixed batch's groups and the monitored mc
-batches; K7's frozen-lane ms and plane count are printed by path, and
-each sweep's host seconds outside the step loop (``prepare_batch``,
+batches; each sweep's host seconds outside the step loop (``prepare_batch``,
 ``finish_run`` + ``collect_results``) beside its points/s. Slice 17: K5
 and K12 (FPaxos' and Atlas partial's process state) update in place too
 and are in ``IN_PLACE``, so every handler does; their frozen-lane checks
 run on the FPaxos and Atlas partial paths (K5 also in the mixed batches'
-FPaxos groups and on the monitored mc FPaxos batches), K7's table holds
-the seven lane planes on both paths, and K5's and K12's ms with all lanes
-running and with a third frozen are printed before the kernels line. Any
-failure
-raises; nothing
-is caught. Each phase prints its seconds. The last two lines
+FPaxos groups and on the monitored mc FPaxos batches), and K5's and
+K12's ms with all lanes running and with a third frozen are printed
+before the kernels line. Slice 18: K7 ``lane_freeze`` is gone, folded
+into K2 and the step's frozen-lane contract: every kernel of the step
+writes a frozen lane's planes as they were (K1 its timers under the
+crash flag too) and K2 writes the run predicate to ``running``, so a
+step is four launches (a captured body's per-body counts are 64 of each
+of K1, the handler, K6 and K2). Every path where K7 was held now holds
+K2's ``running`` to ``lane_running`` (the cap an int and a device word)
+and the whole step with every third lane failed: each leaf of its
+output equals the pre-step copy on the frozen lanes, exactly
+(``frozen_step_check``: every phase-3 path, the fault-coverage batch
+under crash, the monitored mc batches, the mixed batch's groups and the
+monitored open-loop Caesar batch). Any failure raises; nothing is
+caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
 ``{"ok": true, ...}``.
 Without a CUDA card it exits non-zero and prints no result.
@@ -338,7 +345,6 @@ REPLACES = {
     "basic_handle": "fantoch_tpu/engine/protocols/basic.py:119",
     "fpaxos_handle": "fantoch_tpu/engine/protocols/fpaxos.py:127",
     "emit_rewrite": "fantoch_tpu/engine/core.py:941",
-    "lane_freeze": "fantoch_tpu/engine/core.py:1565",
     "tempo_handle": "fantoch_tpu/engine/protocols/tempo.py:226",
     "graphdep_handle": "fantoch_tpu/engine/protocols/graphdep.py:215",
     "caesar_handle": "fantoch_tpu/engine/protocols/caesar.py:239",
@@ -368,6 +374,8 @@ WALLS = {}
 # the in-place kernels' ms with every third lane frozen, by kernel and
 # path (phase 3's frozen-lane checks)
 FROZEN = {}
+# the whole step's frozen-lane checks (frozen_step_check), by path
+FROZEN_STEPS = {}
 OUTBOX_KEYS = ("valid", "dst", "mtype", "payload")
 
 
@@ -536,24 +544,6 @@ def _in_place_planes(kname, got, given, before):
     return [(got[1][k], given[k], before[k]) for k in given]
 
 
-def _clone_new(new, old):
-    """A copy of a step's new tree for K7, which writes into it: the
-    planes the step updated in place (``new is old``) stay the same
-    objects, as K7 takes them (it leaves them out of its table)."""
-    if isinstance(new, dict):
-        return {k: _clone_new(v, old[k]) for k, v in new.items()}
-    return new if new is old else new.clone()
-
-
-def _snapshot(kname, args):
-    """What a recorder keeps of a call's arguments, before the call:
-    K7's new tree copied (it writes into it), an in-place argument
-    copied (the call consumes it)."""
-    if kname == "lane_freeze":
-        return (_clone_new(args[0], args[1]),) + args[1:]
-    return _fresh(kname, args)
-
-
 def _compare(got, want) -> float:
     """Exact equality of two output trees; returns the max abs error."""
     import torch
@@ -684,7 +674,7 @@ def check_kernels(name, dev, rows):
     from fantoch_tpu_torch.engine.driver import (
         batch_reorder_flag, prepare_batch,
     )
-    from fantoch_tpu_torch.engine.faults import batch_fault_flags
+    from fantoch_tpu_torch.engine.faults import batch_fault_flags, flag_bits
     from fantoch_tpu_torch.engine.spec import stack_lanes
     from fantoch_tpu_torch.kernels import cost
 
@@ -702,21 +692,20 @@ def check_kernels(name, dev, rows):
     handler = HANDLERS[base_path(name)]
     mods = {k: importlib.import_module(f"fantoch_tpu_torch.kernels.{k}")
             for k in ("qualify_pop", "land_emissions", "emit_rewrite",
-                      "lane_freeze", handler, "key_table")}
+                      handler, "key_table")}
     patched = {
         "qualify_pop": engine_core,
         "land_emissions": engine_core,
         "emit_rewrite": engine_core,
-        "lane_freeze": engine_core,
         handler: mods[handler],
     }
     captured = {}
 
     def recorder(kname, fn):
         def wrapped(*args):
-            # lane_freeze writes into the step's new planes, K2 and K10
-            # into their state: keep copies from before the call
-            captured[kname] = _snapshot(kname, args)
+            # the in-place kernels write into their state: keep copies
+            # from before the call
+            captured[kname] = _fresh(kname, args)
             return fn(*args)
         # the wrapper counts through its module-global name, which is
         # this recorder while it stands in
@@ -743,15 +732,13 @@ def check_kernels(name, dev, rows):
         mod = mods[kname]
         kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
         before = kern.launches
-        if kname == "lane_freeze":
-            got, want = kern(_clone_new(a[0], a[1]), *a[1:]), plain(*a)
-            run_kernel = (lambda a=a, new=_clone_new(a[0], a[1]):
-                          kern(new, *a[1:]))
-        else:
-            # an in-place kernel gets a fresh copy each call: the copy's
-            # time is in call_ms, not in ms (the kernel's own, by name)
-            got, want = kern(*_fresh(kname, a)), plain(*_fresh(kname, a))
-            run_kernel = (lambda a=a: kern(*_fresh(kname, a)))
+        # an in-place kernel gets a fresh copy each call: the copy's time
+        # is in call_ms, not in ms (the kernel's own, by name)
+        got, want = kern(*_fresh(kname, a)), plain(*_fresh(kname, a))
+        run_kernel = (lambda a=a: kern(*_fresh(kname, a)))
+        if kname == "land_emissions":
+            # K2 reports the run predicate of the step's cap
+            assert torch.equal(got[4], a[-1].running()), name
         if kname == handler:
             got, want = _handler_view(got), _handler_view(want)
         torch.cuda.synchronize()
@@ -779,6 +766,21 @@ def check_kernels(name, dev, rows):
               f"bytes, {n_ops} ops) library_ms={library_ms} "
               f"launches={kern.launches - before} shapes {shapes}")
 
+    # the whole step with every third lane failed, the cap an int and a
+    # device word that stops some lanes: no select after it (before the
+    # coverage runs, which step this state on)
+    fb = flag_bits(flags[1], flags[0])
+
+    def step(st, cx, lim):
+        return engine_core.frozen_step(protocol, dims, st, cx, lim, *flags)
+
+    for word in (False, True):
+        frozen_step_check(name, step, state, ctx, max_steps, fb, word)
+    # K14's lanes at two step counts (their [L] lane words, which no
+    # later step writes in place)
+    old = dict(state, steps=state["steps"].clone())
+    old["steps"][::2] -= 1
+
     if handler in COVERAGE and name in PATHS and name != "tempo_faults":
         rows[handler]["max_abs_err"] = max(
             rows[handler]["max_abs_err"],
@@ -795,72 +797,26 @@ def check_kernels(name, dev, rows):
             request_coverage(dev, mods[handler]),
         )
 
-    # K7 with frozen lanes (every third lane failed), whose rows of the
-    # planes the step wrote out of place it copies
-    new, old, fctx, ms_, lflags = captured["lane_freeze"]
-    old = dict(old, err=old["err"].clone())
-    old["err"][::3] = 64
-    lf = mods["lane_freeze"]
-    got = lf.lane_freeze(_clone_new(new, old), old, fctx, ms_, lflags)
-    err = _compare(got, lf.lane_freeze_plain(new, old, fctx, ms_, lflags))
-    frozen = int((~got[1]).sum())
-    ms = _device_ms(
-        lambda n=_clone_new(new, old): lf.lane_freeze(n, old, fctx, ms_,
-                                                      lflags),
-        "lane_freeze", 50,
-    )
-    n_bytes, n_ops = lf.work(new, old, fctx, ms_, lflags, got)
-    planes = len(lf.plane_pairs(new, old))
-    if name in ("fpaxos", "atlas_partial"):
-        # every handler updates in place: the seven lane planes
-        assert planes == 7, (name, planes)
-    FROZEN.setdefault("lane_freeze", {})[name] = dict(
-        frozen=frozen, lanes=L, ms=ms, planes=planes)
-    print(f"kernel lane_freeze ({name} path, {frozen} of {L} lanes "
-          f"frozen): exact=True max_abs_err={err} ms={ms:.5f} bound_us="
-          f"{1e3 * cost.bound(n_bytes, n_ops)[0]:.3f} ({n_bytes} bytes); "
-          f"{planes} planes in its table")
-    # K2, K6 and the in-place handler with the same lanes frozen: running
-    # lanes equal the twin, frozen lanes' in-place planes are untouched
-    cap = lf.Cap(old, fctx, ms_, lflags)
+    # K2, K6, the in-place handler and K1 with every third lane failed:
+    # running lanes equal the twin, frozen lanes' in-place planes are
+    # untouched (K1 reads nothing of them)
+    cap, frozen = _third_frozen(captured["land_emissions"][-1])
     for kname in [k for k in (handler, "emit_rewrite", "land_emissions")
                   if k in IN_PLACE]:
         a = captured[kname]
         a = a[:-1] + (cap,)
         rows[kname]["max_abs_err"] = max(
             rows[kname]["max_abs_err"],
-            frozen_check(name, kname, mods[kname], a, ~got[1]))
-    # K1 with the same lanes frozen: it reads nothing of them
+            frozen_check(name, kname, mods[kname], a, frozen))
     rows["qualify_pop"]["max_abs_err"] = max(
         rows["qualify_pop"]["max_abs_err"],
         qualify_frozen_check(name, mods["qualify_pop"],
-                             captured["qualify_pop"][:-1] + (cap,),
-                             ~got[1]))
+                             captured["qualify_pop"][:-1] + (cap,), frozen))
     BOUNDS[name] = {k: (r["bound_ms"], r["bound_by"])
                     for k, r in rows.items() if r["path"] == name}
     PHASE3_MS[name] = {k: r["ms"] for k, r in rows.items()
                        if r["path"] == name}
-
-    # K7 with its step cap a device word, as the device loop passes it:
-    # every other lane one step behind, so the cap stops the running
-    # lanes at it and lets the others step
-    new, old, fctx, _cap, lflags = captured["lane_freeze"]
-    old = dict(old, steps=old["steps"].clone())
-    old["steps"][::2] -= 1
-    top = int(old["steps"].max())
-    word = torch.tensor([top], dtype=torch.int32, device=dev)
-    got = lf.lane_freeze(_clone_new(new, old), old, fctx, word, lflags)
-    err = _compare(got, lf.lane_freeze_plain(new, old, fctx, top, lflags))
-    live = lf.lane_live(old, fctx, lflags)
-    stopped = int((live & (old["steps"] >= top)).sum())
-    stepping = int(got[1].sum())
-    assert stopped > 0 and stepping > 0, (stopped, stepping)
-    rows["lane_freeze"]["max_abs_err"] = max(
-        rows["lane_freeze"]["max_abs_err"], err)
-    print(f"kernel lane_freeze ({name} path, cap {top} a device word: "
-          f"{stopped} lanes stopped at it, {stepping} stepping): exact=True "
-          f"max_abs_err={err}")
-    check_loop_ctl(name, old, fctx, lflags, rows)
+    check_loop_ctl(name, old, ctx, fb, rows)
 
     if name == "basic":
         # K3's Zipf branch, which the main path's ConflictPool lanes do
@@ -913,6 +869,8 @@ def frozen_check(name, kname, mod, a, frozen) -> float:
     if kname == "emit_rewrite":
         # a frozen lane's rows are zero and none lands
         assert not bool(got[0][frozen].any() | got[1][frozen].any())
+    if kname == "land_emissions":
+        assert torch.equal(got[4], ~frozen)  # K2 reports the predicate
     if kname in HANDLERS.values():
         got, want = _handler_view(got), _handler_view(want)
     err = _compare(got, want)
@@ -926,16 +884,73 @@ def frozen_check(name, kname, mod, a, frozen) -> float:
     return err
 
 
-def _third_frozen(lf_args):
-    """The cap of a step whose K7 took ``lf_args``, with every third
-    lane failed, and the lanes it freezes."""
-    from fantoch_tpu_torch.kernels.lane_freeze import Cap
-
-    _new, old, ctx, lim, flags = lf_args
-    old = dict(old, err=old["err"].clone())
+def _third_frozen(cap):
+    """A step's ``cap`` with every third lane failed, and the lanes it
+    freezes."""
+    old = dict(cap.st, err=cap.st["err"].clone())
     old["err"][::3] = 64
-    cap = Cap(old, ctx, lim, flags)
+    cap = cap._replace(st=old)
     return cap, ~cap.running()
+
+
+def frozen_step_check(label, step, state, ctx, lim, flags, word=False):
+    """The step's frozen-lane contract on the card (no select follows a
+    step): from a copy of ``state`` with every third lane failed (and
+    with ``word`` every other lane one step behind the rest, the cap a
+    device word at the top count), one ``step(st, ctx, lim) -> (state,
+    running)`` gives ``running`` (K2's) equal to ``lane_running`` of the
+    copy under the cap and the flag word ``flags``, and every leaf of
+    its output equal to the copy's on the frozen lanes, exactly; a
+    running lane moved. A mixed batch's trees are grouped (``{group:
+    tree}``, ``running`` by group). Records the lanes frozen in
+    :data:`FROZEN_STEPS`."""
+    import torch
+
+    from fantoch_tpu_torch.kernels.lane_freeze import lane_live, lane_running
+    from fantoch_tpu_torch.kernels.step_loop import clone_tree
+
+    grouped = "now" not in state
+    pre = clone_tree(state)
+    trees = pre if grouped else {"": pre}
+    ctxs = ctx if grouped else {"": ctx}
+    for t in trees.values():
+        t["err"][::3] = 64
+        if word:
+            t["steps"][::2] -= 1
+    if word:
+        lim = max(int(t["steps"].max()) for t in trees.values())
+        dev = next(iter(trees.values()))["now"].device
+        lim_arg = torch.tensor([lim], dtype=torch.int32, device=dev)
+    else:
+        lim_arg = lim
+    want = {g: lane_running(t, ctxs[g], lim, flags) for g, t in trees.items()}
+    out, running = step(clone_tree(pre), ctx, lim_arg)
+    outs, runs = (out, running) if grouped else ({"": out}, {"": running})
+    torch.cuda.synchronize()
+    frozen, moved, planes, stopped = 0, 0, 0, 0
+    for g, t in trees.items():
+        run = runs[g]
+        assert torch.equal(run, want[g]), f"{label} {g}: running"
+        assert sorted(outs[g]) == sorted(t), (label, g)
+        for o, p in zip(_flatten(outs[g]), _flatten(t)):
+            assert o.shape == p.shape and o.dtype == p.dtype, (label, g)
+            assert torch.equal(o[~run], p[~run]), (
+                f"{label} {g}: a frozen lane's plane changed")
+            moved += int((o[run] != p[run]).sum())
+            planes += 1
+        frozen += int((~run).sum())
+        stopped += int((lane_live(t, ctxs[g], flags) & ~run).sum())
+    assert frozen > 0 and moved > 0, (label, frozen, moved)
+    if word:
+        assert stopped > 0, label  # live lanes that the cap word stopped
+    key = f"{label} cap word" if word else label
+    FROZEN_STEPS[key] = dict(frozen=frozen, stopped_by_cap=stopped,
+                             planes=planes)
+    print(f"step ({key}): every third lane failed, {frozen} lanes frozen"
+          + (f" ({stopped} live ones stopped by the cap word {lim})"
+             if word else "")
+          + f"; K2's running == lane_running; all {planes} planes of the "
+          f"frozen lanes as before the step, byte for byte")
 
 
 def qualify_frozen_check(name, mod, a, frozen) -> float:
@@ -943,7 +958,8 @@ def qualify_frozen_check(name, mod, a, frozen) -> float:
     kernel and twin are equal; running lanes equal an uncapped call's
     outputs; frozen lanes hold the defined values (ep INF, active, fire
     and has false, slot 0, rows zero, now the lane's now plane, arrival
-    INF, under the crash flag timers INF). Prints the kernel's ms with
+    INF, under the crash flag its input timers, copied). Prints the
+    kernel's ms with
     those lanes frozen (device time, by name) and records it in
     :data:`FROZEN`. Returns the max abs error."""
     import torch
@@ -967,7 +983,7 @@ def qualify_frozen_check(name, mod, a, frozen) -> float:
     assert not bool(slot[frozen].any() | rows_[frozen].any())
     assert torch.equal(now[frozen], a[-1].st["now"][frozen])
     if a[5] & FLAG_CRASH:
-        assert bool((timers[frozen] == inf).all())
+        assert torch.equal(timers[frozen], a[1][frozen])
     ms = _device_ms(lambda: kern(*a), "qualify_pop", 50)
     print(f"kernel qualify_pop ({name} path, {int(frozen.sum())} of "
           f"{frozen.numel()} lanes frozen): exact=True max_abs_err={err} "
@@ -1156,7 +1172,7 @@ def coverage(name, kname, protocol, dims, state, ctx, max_steps, first,
         box = {}
 
         def record(*a):
-            box["args"] = _snapshot(kname, a)
+            box["args"] = _fresh(kname, a)
             return kern(*a)
 
         # the wrapper counts through its module-global name
@@ -1187,7 +1203,7 @@ def _batch_coverage(label, kname, proto, dims, specs, dev, mod, **kw):
     box = {}
 
     def record(*a):
-        box["args"] = _snapshot(kname, a)
+        box["args"] = _fresh(kname, a)
         return kern(*a)
 
     record.launches = 0
@@ -1268,7 +1284,7 @@ def request_coverage(dev, mod) -> float:
                            dims, specs, dev, mod, bound=200, extras=extras)
 
 
-def _checked(mod_name, kname, compare, clone_first=False):
+def _checked(mod_name, kname, compare):
     """A stand-in for kernel ``kname`` in ``engine.core``: each call runs
     the kernel and its twin on the same arguments (an in-place kernel's
     twin on a copy), ``compare(args, got, want)`` holds them equal (the
@@ -1278,10 +1294,7 @@ def _checked(mod_name, kname, compare, clone_first=False):
     kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
 
     def run(*a):
-        if clone_first:  # lane_freeze writes into the step's new planes
-            want = plain(_clone_new(a[0], a[1]), *a[1:])
-            got = kern(_clone_new(a[0], a[1]), *a[1:])
-        elif kname in IN_PLACE:
+        if kname in IN_PLACE:
             # the twin on a copy, the kernel on the step's own state;
             # compare sees the arguments as they were before the call
             before = _fresh(kname, a)
@@ -1355,12 +1368,15 @@ def _tempo_lanes(plans, commands, cpr=1, seeds=None, reorder=False,
 
 
 def fault_coverage(dev) -> float:
-    """K1, K6 and K7 against their twins under the fault flags on every
+    """K1, K6 and K2 against their twins under the fault flags on every
     step of the fault-coverage batch (lane i runs COVERAGE_PLANS[i]),
     until each plan's event has been seen in a compared step: the event
     is where the twin's result with the plan's flag differs from it with
     the flag taken away (lost rows for the lossy plans, the error bit for
-    the unavailable lane). Returns the max abs error."""
+    the unavailable lane). Then the whole step's frozen-lane check on
+    the batch's last state under those flags (the crash flag among
+    them), every third lane failed, the cap an int and a device word.
+    Returns the max abs error."""
     import torch
 
     from fantoch_tpu_torch.engine import core as engine_core
@@ -1405,8 +1421,9 @@ def fault_coverage(dev) -> float:
         done = [x[2]["clients"]["completed"][8:] for x in (off, want)]
         seen[labels[8]] += int((done[0] != done[1]).sum())
 
-    def k7(a, got, want):
+    def k2(a, got, want):
         errs[0] = max(errs[0], _compare(got, want))
+        assert torch.equal(got[4], a[-1].running())
 
     flags = batch_fault_flags(specs)
     state, ctx = prepare_batch(proto, dims, specs, dev)
@@ -1414,7 +1431,7 @@ def fault_coverage(dev) -> float:
     with _Patched(
         qualify_pop=_checked("qualify_pop", "qualify_pop", k1),
         emit_rewrite=_checked("emit_rewrite", "emit_rewrite", k6),
-        lane_freeze=_checked("lane_freeze", "lane_freeze", k7, True),
+        land_emissions=_checked("land_emissions", "land_emissions", k2),
     ):
         while not (all(seen.values()) and halted):
             state, running = engine_core.frozen_step(
@@ -1426,7 +1443,17 @@ def fault_coverage(dev) -> float:
     assert halted > 0 and all(seen.values()), (
         f"fault coverage incomplete after {steps} steps: {seen}, "
         f"halted clients {halted}")
-    print(f"kernels qualify_pop, emit_rewrite, lane_freeze (fault-coverage "
+    fb = fm.flag_bits(flags)
+    assert fb & fm.FLAG_CRASH and fb & fm.FLAG_HORIZON, fb
+
+    def step(st, cx, lim):
+        return engine_core.frozen_step(proto, dims, st, cx, lim, False,
+                                       flags)
+
+    for word in (False, True):
+        frozen_step_check(f"fault-coverage batch at step {steps}", step,
+                          state, ctx, 1 << 22, fb, word)
+    print(f"kernels qualify_pop, emit_rewrite, land_emissions (fault-coverage "
           f"batch, flags {fm.flag_bits(flags)}): exact=True on every one of "
           f"{steps} steps; seen "
           + "; ".join(f"{k} {v}" for k, v in seen.items())
@@ -1957,7 +1984,7 @@ def sweep(name, dev):
           f"{ {k: v / steps_run for k, v in launches.items()} }")
     handler = HANDLERS[base_path(name)]
     path_kernels = ["qualify_pop", handler, "emit_rewrite",
-                    "land_emissions", "lane_freeze", "key_table"]
+                    "land_emissions", "key_table"]
     assert all(launches[k] > 0 for k in path_kernels), launches
     other = set(HANDLERS.values()) - {handler}
     assert all(launches[k] == 0 for k in other), launches
@@ -2150,8 +2177,9 @@ def step_loop_row(dev) -> dict:
 
     plain_ms = _time_ms(eager_body, 3)
     library_ms = _replay_ms(loop, box["until"])
-    step = ("qualify_pop", HANDLERS[name], "emit_rewrite", "land_emissions",
-            "lane_freeze")
+    step = ("qualify_pop", HANDLERS[name], "emit_rewrite", "land_emissions")
+    # a captured body: four step kernels a step, nothing else counted
+    assert loop.per_body == {k: G for k in step}, loop.per_body
     parts = [(G * BOUNDS[name][k][0], BOUNDS[name][k][1]) for k in step]
     parts.append(BOUNDS[name]["loop_ctl"])
     bound_ms = sum(ms_ for ms_, _by in parts)
@@ -2161,7 +2189,7 @@ def step_loop_row(dev) -> dict:
           f"eager loop over {G} steps plain_ms={plain_ms:.5f}; "
           f"CUDAGraph.replay of the body library_ms={library_ms:.5f}; "
           f"bound_ms={bound_ms:.5f} (the body's kernels' bounds x {G} "
-          f"+ K14's)")
+          f"+ K14's); per body {loop.per_body}")
     return dict(path=name, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
@@ -2177,7 +2205,7 @@ def graph_only_counts(label, single=True, groups=1) -> dict:
     from fantoch_tpu_torch import kernels
     from fantoch_tpu_torch.parallel import sweep as psweep
 
-    step = ("qualify_pop", "emit_rewrite", "land_emissions", "lane_freeze",
+    step = ("qualify_pop", "emit_rewrite", "land_emissions",
             *sorted(set(HANDLERS.values())))
     direct = {k: kernels.WRAPPERS[k].launches for k in step}
     assert not any(direct.values()), direct
@@ -2300,8 +2328,7 @@ def main_path_checks(name, dims, specs, results, total) -> None:
 # (64 points of each protocol, lanes 0-63 of each phase-7 grid), 384
 # lanes in one batch
 HETERO_SIX_SUBSETS = 8
-STEP_KERNELS = ("qualify_pop", "emit_rewrite", "land_emissions",
-                "lane_freeze")
+STEP_KERNELS = ("qualify_pop", "emit_rewrite", "land_emissions")
 
 
 def mixed_setup(name):
@@ -2341,15 +2368,17 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
     """Every group's kernels of a mixed batch against their twins: the
     first batch of mixed path ``name`` stepped ``warmup`` times through
     the eager per-call path (``hetero_frozen_step``), then one step's
-    calls recorded, group by group (K1, the group's handler, K6, K2,
-    K7), and each launch of the kernel held to its twin on them; each
-    group's key table (K3) too. Returns the state after the step, the
+    calls recorded, group by group (K1, the group's handler, K6, K2),
+    and each launch of the kernel held to its twin on them; each group's
+    key table (K3) too; the whole mixed step's frozen-lane check, every
+    third lane of each group failed. Returns the state after the step, the
     step's bound (the sum of the groups' bounds, each kernel's ``work``
     on the recorded arguments) and that bound by kernel."""
     import torch
 
     from fantoch_tpu_torch.engine import core as engine_core
     from fantoch_tpu_torch.engine import hetero
+    from fantoch_tpu_torch.engine.faults import flag_bits
     from fantoch_tpu_torch.kernels import cost
 
     hb, state, ctx, flags = _mixed_batch(name, dev)
@@ -2366,7 +2395,7 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
 
     def recorder(kname, fn):
         def wrapped(*args):
-            calls.append((kname, _snapshot(kname, args)))
+            calls.append((kname, _fresh(kname, args)))
             return fn(*args)
         wrapped.launches = 0
         return wrapped
@@ -2378,8 +2407,7 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
                                                 *flags)
     for k, m in patched.items():
         setattr(m, k, saved[k])
-    order = ("qualify_pop", "handler", "emit_rewrite", "land_emissions",
-             "lane_freeze")
+    order = ("qualify_pop", "handler", "emit_rewrite", "land_emissions")
     assert [("handler" if k in handlers else k) for k, _a in calls] == (
         list(order) * len(groups)), [k for k, _a in calls]
     bound_ms, by_group, by_kernel = 0.0, {}, {}
@@ -2388,10 +2416,9 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
         assert kname in STEP_KERNELS or kname == HANDLERS[group]
         mod = mods[kname]
         kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
-        if kname == "lane_freeze":
-            got, want = kern(_clone_new(a[0], a[1]), *a[1:]), plain(*a)
-        else:
-            got, want = kern(*_fresh(kname, a)), plain(*_fresh(kname, a))
+        got, want = kern(*_fresh(kname, a)), plain(*_fresh(kname, a))
+        if kname == "land_emissions":
+            assert torch.equal(got[4], a[-1].running()), group
         if kname in handlers:
             got, want = _handler_view(got), _handler_view(want)
         torch.cuda.synchronize()
@@ -2423,19 +2450,29 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
           f"== their twins after {warmup} steps, and each group's key "
           f"table; the step's bound {1e3 * bound_ms:.3f} us, by group "
           f"{ {g: round(1e3 * v, 3) for g, v in by_group.items()} }")
-    # K6, K9 and K5 in each group that runs them, with every third lane
-    # failed
+    # K6, K9, K5 and K2 in each group that runs them, with every third
+    # lane failed
     for i, (kname, a) in enumerate(calls):
         group = groups[i // len(order)]
-        if kname == "lane_freeze":
-            cap, frozen = _third_frozen(a)
-            for k2, a2 in calls[i - len(order) + 1:i]:
+        if kname == "land_emissions":
+            cap, frozen = _third_frozen(a[-1])
+            for k2, a2 in calls[i - len(order) + 1:i + 1]:
                 if k2 in ("emit_rewrite", "graphdep_handle",
-                          "fpaxos_handle"):
+                          "fpaxos_handle", "land_emissions"):
                     rows[k2]["max_abs_err"] = max(
                         rows[k2]["max_abs_err"],
                         frozen_check(f"{name} {group}", k2, mods[k2],
                                      a2[:-1] + (cap,), frozen))
+    # the whole mixed step, every group's lanes, with every third lane of
+    # each group failed, the cap an int and a device word
+    fb = flag_bits(flags[1], flags[0])
+
+    def step(st, cx, lim):
+        return hetero.hetero_frozen_step(hb, st, cx, lim, *flags)
+
+    for word in (False, True):
+        frozen_step_check(f"{name} batch", step, state, ctx, 1 << 22, fb,
+                          word)
     return state, ctx, hb, flags, bound_ms, by_kernel
 
 
@@ -2484,7 +2521,7 @@ def hetero_segments(dev) -> None:
 def hetero_sweep(name, dev):
     """Phase 7 for a mixed path: its sweep through ``run_sweep(...,
     hetero=True)``, counted; every lane equals its protocol's phase-7
-    line byte for byte; K1, K6, K2 and K7 launch once a group a batch
+    line byte for byte; K1, K6 and K2 launch once a group a batch
     step and each handler once for each group of its protocols (no
     handler runs on another protocol's lanes). Returns the launches."""
     from collections import Counter
@@ -2787,8 +2824,9 @@ class _McTaps:
 def check_monitored_kernels(dev, rows) -> None:
     """Phase 3 for the monitored paths: the first batch of the mc grid's
     n = 5 points, stepped 300 times with the monitors on, then one
-    step's K1, handler, K6, K2 and K7 arguments (the monitor branches
-    on) held against their twins and timed, and K13 on that state. K13's
+    step's K1, handler, K6 and K2 arguments (the monitor branches on)
+    held against their twins and timed, K13 on that state, and the whole
+    monitored step's frozen-lane check. K13's
     row goes to ``rows``; the other kernels' mc times go beside their
     rows (``monitored``); their time over the whole grid is
     :func:`mc_grid_profile`'s."""
@@ -2818,38 +2856,44 @@ def check_monitored_kernels(dev, rows) -> None:
         captured = {}
         mods = {k: importlib.import_module(f"fantoch_tpu_torch.kernels.{k}")
                 for k in ("qualify_pop", handler, "emit_rewrite",
-                          "land_emissions", "lane_freeze", "mon_finalize")}
+                          "land_emissions", "mon_finalize")}
 
         def rec(mod, kname):
             kern = getattr(mod, kname)
 
             def wrapped(*a):
-                captured[kname] = _snapshot(kname, a)
+                captured[kname] = _fresh(kname, a)
                 return kern(*a)
             wrapped.launches = 0
             return wrapped
 
-        step_kernels = ("qualify_pop", "emit_rewrite", "land_emissions",
-                        "lane_freeze")
+        step_kernels = ("qualify_pop", "emit_rewrite", "land_emissions")
+        fb = flag_bits(flags[1], flags[0])
+
+        def step(st, cx, lim):
+            return engine_core.frozen_step(proto, dims, st, cx, lim, *flags,
+                                           mk)
+
+        label = f"mc {spec.protocol} n={spec.n}"
+        for word in (False, True):
+            frozen_step_check(label, step, state, ctx, 1 << 22, fb, word)
         with _Patched(**{k: rec(engine_core, k) for k in step_kernels}), \
                 _PatchedHandler(handler, rec(mods[handler], handler)):
             state, _r = engine_core.frozen_step(proto, dims, state, ctx,
                                                 1 << 22, *flags, mk)
-        fb = flag_bits(flags[1], flags[0])
         captured["mon_finalize"] = (state, ctx, fb,
                                     getattr(proto, "MONITOR_ORDER", True))
-        label = f"mc {spec.protocol} n={spec.n}"
         for kname in ("qualify_pop", handler, "emit_rewrite",
-                      "land_emissions", "lane_freeze", "mon_finalize"):
+                      "land_emissions", "mon_finalize"):
             a, mod = captured[kname], mods[kname]
             kern, plain = getattr(mod, kname), getattr(mod, kname + "_plain")
 
             def call(a=a, kname=kname, kern=kern):
-                if kname == "lane_freeze":
-                    return kern(_clone_new(a[0], a[1]), *a[1:])
                 return kern(*_fresh(kname, a))
             got = call()
             want = plain(*_fresh(kname, a))
+            if kname == "land_emissions":
+                assert torch.equal(got[4], a[-1].running()), label
             if kname == handler:
                 got, want = _handler_view(got), _handler_view(want)
             torch.cuda.synchronize()
@@ -2874,9 +2918,9 @@ def check_monitored_kernels(dev, rows) -> None:
                     rows[kname] = row
             else:
                 rows[kname].setdefault("monitored", {})[label] = row
-        # K6 and the in-place handler with every third lane failed
-        cap, frozen = _third_frozen(captured["lane_freeze"])
-        for kname in (handler, "emit_rewrite"):
+        # K6, K2 and the in-place handler with every third lane failed
+        cap, frozen = _third_frozen(captured["land_emissions"][-1])
+        for kname in (handler, "emit_rewrite", "land_emissions"):
             if kname in IN_PLACE:
                 rows[kname]["max_abs_err"] = max(
                     rows[kname]["max_abs_err"],
@@ -2946,7 +2990,7 @@ def mc_grid(dev):
     assert total == 3072
     for k in ("qualify_pop", "tempo_handle", "fpaxos_handle",
               "graphdep_handle", "emit_rewrite", "land_emissions",
-              "lane_freeze", "key_table"):
+              "key_table"):
         assert launches[k] > 0, launches
     assert launches["mon_finalize"] == len(points), launches
     for k in ("basic_handle", "caesar_handle", "tempo_partial_handle",
@@ -3518,19 +3562,23 @@ def open_coverage(dev) -> float:
 
 
 def open_freeze(dev) -> float:
-    """K7 (and K6) against their twins on monitored open-loop Caesar,
-    the widest lane tree (its planes a step writes out of place are
-    K7's table), on every one of 50 steps of a two-lane batch whose lane
-    0 is frozen from the start. Returns the max abs error."""
+    """K2 (and K6) against their twins on monitored open-loop Caesar,
+    the widest lane tree, on every one of 50 steps of a two-lane batch
+    whose lane 0 is frozen from the start: K2's ``running`` is the cap's
+    predicate at every step, and lane 0's whole tree (the ring and the
+    release clamp, the monitor planes) is as it was at the start, byte
+    for byte. Returns the max abs error."""
+    import torch
+
     from fantoch_tpu_torch.engine import core as engine_core
     from fantoch_tpu_torch.engine.driver import prepare_batch
-    from fantoch_tpu_torch.kernels.lane_freeze import MAX_PLANES, plane_pairs
+    from fantoch_tpu_torch.kernels.step_loop import clone_tree
 
-    errs, planes = [0.0], [0]
+    errs = [0.0]
 
-    def k7(a, got, want):
+    def k2(a, got, want):
         errs[0] = max(errs[0], _compare(got, want))
-        planes[0] = max(planes[0], len(plane_pairs(a[0], a[1])))
+        assert torch.equal(got[4], a[-1].running())
 
     def k6(a, got, want):
         errs[0] = max(errs[0], _compare(got, want))
@@ -3539,18 +3587,23 @@ def open_freeze(dev) -> float:
                                      cpr=1)
     state, ctx = prepare_batch(proto, dims, lanes, dev, 4)
     state["err"][0] = 64
+    start = clone_tree(state)
     with _Patched(
-        lane_freeze=_checked("lane_freeze", "lane_freeze", k7, True),
+        land_emissions=_checked("land_emissions", "land_emissions", k2),
         emit_rewrite=_checked("emit_rewrite", "emit_rewrite", k6),
     ):
         for _ in range(50):
             state, running = engine_core.frozen_step(
                 proto, dims, state, ctx, 1 << 22, monitor_keys=4)
-    assert planes[0] <= MAX_PLANES and running.tolist() == [False, True], (
-        planes, running)
-    print(f"kernel lane_freeze (monitored open-loop Caesar, lane 0 frozen): "
-          f"exact=True on every one of 50 steps at {planes[0]} planes; "
-          f"max_abs_err={errs[0]}")
+            assert running.tolist() == [False, True], running
+    planes = list(zip(_flatten(state), _flatten(start)))
+    for got, was in planes:
+        assert torch.equal(got[0], was[0]), "lane 0's tree changed"
+    assert int(state["clients"]["completed"][1].sum()) > 0
+    print(f"kernels land_emissions, emit_rewrite (monitored open-loop "
+          f"Caesar, lane 0 frozen): exact=True on every one of 50 steps; "
+          f"all {len(planes)} planes of lane 0 as at the start, byte for "
+          f"byte; max_abs_err={errs[0]}")
     return errs[0]
 
 
@@ -3655,18 +3708,19 @@ def _main(dev, card) -> int:
     phase("6 golden faults", golden_faults, dev)
     phase("6 golden open loop", golden_open_loop, dev)
 
-    # the fault branches of K1, K6 and K7, K1 on a pool past its shared
+    # the fault branches of K1, K6 and K2, K1 on a pool past its shared
     # staging, and K6's reorder draws and wide lanes, each against its
     # twin
     for label, fn, knames in (
         ("fault coverage", fault_coverage,
-         ("qualify_pop", "emit_rewrite", "lane_freeze")),
+         ("qualify_pop", "emit_rewrite", "land_emissions")),
         ("large pool", qualify_large_pool, ("qualify_pop",)),
         ("reorder", reorder_coverage, ("emit_rewrite",)),
         ("wide emit", wide_emit, ("emit_rewrite",)),
         ("traffic keys", traffic_keys, ("key_table",)),
         ("open-loop coverage", open_coverage, ("emit_rewrite",)),
-        ("open-loop freeze", open_freeze, ("lane_freeze", "emit_rewrite")),
+        ("open-loop freeze", open_freeze, ("land_emissions",
+                                           "emit_rewrite")),
     ):
         err = phase(f"6 kernels ({label})", fn, dev)
         for kname in knames:
@@ -3714,9 +3768,12 @@ def _main(dev, card) -> int:
 
     print("frozen-lane checks, every third lane failed (ms by kernel and "
           f"path): {json.dumps(FROZEN, sort_keys=True)}")
-    print("lane_freeze with every third lane failed, by path: "
-          + "; ".join(f"{p} {v['ms']:.5f} ms, {v['planes']} planes"
-                      for p, v in FROZEN["lane_freeze"].items()))
+    print("the whole step with every third lane failed (frozen lanes, live "
+          "ones stopped by the cap word, planes compared): "
+          f"{json.dumps(FROZEN_STEPS, sort_keys=True)}")
+    print("lane_freeze (K7) is folded into land_emissions (K2): no kernel "
+          "selects after the step; K2 reports running; a step is four "
+          "launches")
     for kname in ("fpaxos_handle", "atlas_partial_handle"):
         print(f"{kname} ({rows[kname]['path']} path) all lanes running "
               f"{rows[kname]['ms']:.5f} ms; every third lane failed: "

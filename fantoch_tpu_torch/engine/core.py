@@ -24,23 +24,29 @@ A conservative-lookahead parallel DES, step for step the reference's
      kernel).
 
 The batch's fault flags and the reorder switch are fixed for a run, as
-they are trace-time in the reference: they reach K1, K6 and K7 as one
-integer (``faults.flag_bits``), and each fault branch runs only under
-its flag, so a fault-free batch runs exactly the fault-free step.
+they are trace-time in the reference: they reach K1, K6 and K2 as one
+integer (``faults.flag_bits``; every kernel's run predicate reads its
+horizon bit through the step's ``Cap``), and each fault branch runs
+only under its flag, so a fault-free batch runs exactly the fault-free
+step.
 
 ``monitor_keys > 0`` runs the safety monitors (``engine/monitor.py``):
 the lane state gains the monitor planes, the handler kernels record
 every execution at their executor's choke point, K6 folds the guard
 bits into the lane's violation word under ``FLAG_MONITOR`` (a monitored
-step is still five launches), and the ``mon_finalize`` kernel reduces
+step is still four launches), and the ``mon_finalize`` kernel reduces
 the planes once per batch when the run loop ends. At 0 the state tree,
 the launches and the results are an unmonitored run's.
 
 State and ctx are dicts of tensors with a leading ``[L]`` lane axis.
 As under the reference's vmapped ``lax.while_loop``, a lane whose
 predicate is false (or whose step count reached the segment's limit) is
-frozen (its new state is discarded; the ``lane_freeze`` kernel), so a
-finished lane is a fixed point.
+frozen (it keeps its state), so a finished lane is a fixed point. Here
+that select is a contract of the step's kernels, not a kernel: under
+its cap (:func:`frozen_step` hands every kernel the step's ``Cap``;
+without one every lane runs) a step writes every plane of a frozen lane
+as it was, and the ``land_emissions`` kernel reports the predicate as
+``running`` (``kernels/lane_freeze.py``).
 
 A step consumes its input state, like a donated buffer in JAX: the
 ``land_emissions`` kernel writes the pool, every protocol's handler
@@ -48,11 +54,12 @@ A step consumes its input state, like a donated buffer in JAX: the
 partial) its process state (with the monitor planes), and the
 ``emit_rewrite`` kernel the
 clients, metrics, channel counts and timers, in place, on the lanes
-whose predicate holds at the step's start (:func:`frozen_step` hands
-them its ``Cap``; without one every lane), and return the very
-tensors, so K7 copies none of them; the ``qualify_pop`` and
-``emit_rewrite`` kernels read nothing of a frozen lane and give it
-defined outputs. No runner consumes its caller's state: each clones
+whose predicate holds at the step's start, and return the very
+tensors; the ``[L]`` lane words, the clock and, under the crash flag,
+the masked timers are written out of place, a frozen lane's rows as
+they were. The ``qualify_pop`` and ``emit_rewrite`` kernels read
+nothing of a frozen lane's pool or outboxes and give it defined
+outputs. No runner consumes its caller's state: each clones
 it once, at entry. The runners (the reference's
 ``build_runner``, ``build_segment_runner``, ``build_window_runner`` and
 ``finish_segmented``) run the loop on the device: on the card one window
@@ -73,7 +80,7 @@ import torch
 
 from ..kernels.emit_rewrite import emit_rewrite
 from ..kernels.land_emissions import land_emissions
-from ..kernels.lane_freeze import Cap, lane_freeze
+from ..kernels.lane_freeze import Cap
 from ..kernels.loop_ctl import CTL_ALIVE, CTL_MAXS, CTL_W, loop_ctl, new_ctl
 from ..kernels.mon_finalize import mon_finalize
 from ..kernels.qualify_pop import qualify_pop
@@ -305,10 +312,18 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     schedules (ctx ``traffic_think``) set their flag bits. The step
     consumes ``st``: the pool (K2), the process state of every protocol
     (K4, K5, K8, K9, K10, K11, K12) and the clients, metrics, channel
-    counts and timers (K6) are updated in
-    place, on the lanes ``cap`` lets run (every lane without one); K1
-    and K6 read nothing of a lane ``cap`` freezes and give it defined
-    outputs, which K7 discards."""
+    counts and timers (K6) are updated in place, on the lanes ``cap``
+    lets run (every lane without one); every plane it writes out of
+    place keeps a lane ``cap`` freezes as it was, so the new state of a
+    frozen lane is its old one. Returns the new state
+    (:func:`frozen_step` also returns K2's ``running``)."""
+    return _step(protocol, dims, st, ctx, reorder, faults, monitor_keys,
+                 cap)[0]
+
+
+def _step(protocol, dims: EngineDims, st, ctx, reorder: bool,
+          faults: FaultFlags, monitor_keys: int, cap):
+    """:func:`lane_step` and K2's ``running``: ``(state, running)``."""
     pool = st["pool"]
     flags = flag_bits(faults, reorder, monitor=monitor_keys > 0,
                       open_loop="ol_arrival" in ctx,
@@ -334,8 +349,8 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     # 4-5 and 7. the emission tail, the wire faults, the termination
     # bookkeeping and the monitors' step fold (kernel K6), the clients,
     # metrics, channel counts and timers in place; fired timers re-arm
-    # from the masked ones (under the crash flag K1's copy, which K7
-    # restores on frozen lanes)
+    # from the masked ones (under the crash flag K1's copy, which holds
+    # a frozen lane's timers as they were)
     st_in = st if timers is st["next_periodic"] else dict(
         st, next_periodic=timers)
     new_rows, deliver, upd = emit_rewrite(
@@ -345,8 +360,9 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     )
 
     # 6. land the delivered emissions in free pool slots, in place
-    # (kernel K2), which also raises ERR_POOL on overflow
-    new_pool, _overflow, pool_peak, err = land_emissions(
+    # (kernel K2), which also raises ERR_POOL on overflow and reports
+    # the run predicate
+    new_pool, _overflow, pool_peak, err, running = land_emissions(
         pool, arrival, deliver, new_rows, st["pool_peak"], upd["err"], slot,
         has, flags, cap
     )
@@ -364,7 +380,7 @@ def lane_step(protocol, dims: EngineDims, st, ctx, reorder: bool = False,
     if monitor_keys:
         # the digest is derived once, at the run's end (mon_finalize)
         out["cov"] = st["cov"]
-    return out
+    return out, running
 
 
 def frozen_step(protocol, dims: EngineDims, st, ctx, lim,
@@ -373,19 +389,13 @@ def frozen_step(protocol, dims: EngineDims, st, ctx, lim,
     """One step of the run loop: ``(state, running)``. The lanes whose
     predicate is false on ``st``, or whose step count reached ``lim``
     (an int, or on the card the device loop's limit word), keep their
-    state, as under the reference's vmapped ``lax.while_loop``: K1 and
-    K6 skip frozen lanes, the in-place kernels (K2, K6 and every
-    handler: K4, K5, K8, K9, K10, K11, K12) write only running lanes,
-    and K7 restores frozen lanes' rows of the planes the step wrote out
-    of place (the seven lane planes; nine under faults). The step
-    consumes ``st``."""
-    flags = flag_bits(faults, reorder)
-    cap = Cap(st, ctx, lim, flags)
-    return lane_freeze(
-        lane_step(protocol, dims, st, ctx, reorder, faults, monitor_keys,
-                  cap),
-        st, ctx, lim, flags,
-    )
+    state, as under the reference's vmapped ``lax.while_loop``: the step
+    runs under that ``Cap``, so every kernel writes a frozen lane's
+    planes as they were, and ``running`` is the predicate as K2 (the
+    step's last kernel) evaluated it. The step consumes ``st``."""
+    cap = Cap(st, ctx, lim, flag_bits(faults, reorder))
+    return _step(protocol, dims, st, ctx, reorder, faults, monitor_keys,
+                 cap)
 
 
 def check_monitorable(protocol, monitor_keys: int) -> None:

@@ -25,8 +25,9 @@ fewer survivors than ``protocol.min_live``) makes the lane end at once
 with ``ERR_UNAVAIL``. Fault plans are single-shard.
 
 The device side (the crash cut-off and the horizon in ``qualify_pop``,
-the wire faults and the horizon in ``emit_rewrite``, the horizon in
-``lane_freeze``) reads :func:`fault_ctx`'s arrays under the batch's
+the wire faults and the horizon in ``emit_rewrite``, the horizon in the
+run predicate every kernel of the step reads, ``kernels/lane_freeze.py``)
+reads :func:`fault_ctx`'s arrays under the batch's
 :class:`FaultFlags`, which the step receives as one integer
 (:func:`flag_bits`). The draws here take ``u32`` values held in int64
 arrays — numpy or torch alike — so the host tables and the kernels'

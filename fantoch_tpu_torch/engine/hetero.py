@@ -19,7 +19,8 @@ is built:
 - :func:`hetero_step` is one step of the batch: for each group,
   ``lane_step`` on that group's lanes at its dims, so K1, the group's
   handler kernel, K6 and K2 launch once a group and touch no lane of
-  another protocol; :func:`hetero_frozen_step` adds K7;
+  another protocol; :func:`hetero_frozen_step` runs each group's step
+  under its cap and returns K2's ``running`` by group;
 - :func:`build_hetero_window_runner` (and the segment and eager
   runners) run that step in the native loop: on the card one window is
   one launch of a CUDA graph whose 64-step body holds every group's
@@ -149,11 +150,12 @@ def hetero_frozen_step(hb: HeteroBatch, st, ctx, lim, reorder: bool = False,
                        faults: FaultFlags = NO_FAULTS, streams=None):
     """One step of the run loop on a mixed batch: ``(state, running)``,
     ``running`` by group; each group's ``frozen_step`` (K1, its handler,
-    K6, K2, K7) in skeleton audit order, its K1, K2 and handler handed
-    the group's views of the linked liveness planes and the cap (K1
-    skips the group's frozen lanes; K2 and the handler update the
-    group's pool, and the process state of Basic, Tempo, Caesar and
-    Tempo partial, in place). With ``streams`` (a dict, on the card) each
+    K6, K2) in skeleton audit order, every kernel handed the group's
+    views of the linked liveness planes in the cap (K1 and K6 skip the
+    group's frozen lanes, K2, K6 and the handler update the group's
+    pool, process state and lane state in place, and each writes a
+    frozen lane's planes as they were; ``running`` is K2's). With
+    ``streams`` (a dict, on the card) each
     group steps on a CUDA stream of its own, kept there by group, forked
     from and joined to the current stream: the groups share no plane, so
     a group whose kernels leave the card idle (few lanes, or little

@@ -18,7 +18,6 @@ from .fpaxos_handle import fpaxos_handle
 from .graphdep_handle import graphdep_handle
 from .key_table import key_table
 from .land_emissions import land_emissions
-from .lane_freeze import lane_freeze
 from .loop_ctl import loop_ctl
 from .mon_finalize import mon_finalize
 from .qualify_pop import qualify_pop
@@ -35,7 +34,6 @@ WRAPPERS = {
     "basic_handle": basic_handle,
     "fpaxos_handle": fpaxos_handle,
     "emit_rewrite": emit_rewrite,
-    "lane_freeze": lane_freeze,
     "tempo_handle": tempo_handle,
     "graphdep_handle": graphdep_handle,
     "caesar_handle": caesar_handle,

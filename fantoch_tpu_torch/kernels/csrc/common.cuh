@@ -18,14 +18,16 @@ constexpr int PA = 0, PKS = 1, PKC = 2, PSRC = 3, PDST = 4, PMT = 5,
 // _lane_running :1565, with the fault plan's horizon :1574-1577), read on
 // the planes a step started from: not finished (done time + extra time
 // reached), not idle, no error, fewer steps than the cap *lim, and under
-// the horizon flag before the horizon. K7 decides the freeze with it; K2,
-// K6 and every handler (K4, K5, K8, K9, K10, K11, K12) update in place
-// only the lanes it holds for, and K1 and K6 read nothing of a lane it
-// does not hold for. A null
-// lim is no cap at all: every lane runs (a step outside the run loop).
-// The planes are never written in place by a step (K6 writes its lane
-// words out of place), so every kernel of the step reads the same
-// predicate.
+// the horizon flag before the horizon. It replaces the reference's
+// per-lane select after the step (build_runner :1591): every kernel of
+// the step (K1, the handler K4, K5, K8, K9, K10, K11 or K12, K6, K2)
+// writes every plane of a lane it does not hold for as it was (in place
+// planes untouched, out-of-place planes copied), K1 and K6 read nothing
+// of such a lane's pool or outboxes, and K2 writes it to `running`, the
+// run loop's predicate. A null lim is no cap at all: every lane runs (a
+// step outside the run loop). The planes are never written in place by a
+// step (K6 writes its lane words out of place), so every kernel of the
+// step reads the same predicate.
 struct RunCap {
   static constexpr int CRASH = 1, HORIZON = 8;  // engine/faults.py FLAG_*
   const int *done_time, *now, *err, *steps, *extra, *horizon, *lim;

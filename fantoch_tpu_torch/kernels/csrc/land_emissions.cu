@@ -8,9 +8,14 @@
 // run predicate holds at the step's start (common.cuh RunCap; every lane
 // without a cap). A frozen lane's block writes nothing of the pool and
 // exits: its overflow flag false, its peak and error word as they came,
-// which K7 discards. Ranks beyond the free count are dropped
-// (searchsorted returning M) and flagged as pool overflow, which also
-// sets ERR_POOL in the lane's error word.
+// so the step writes every plane of a frozen lane as it was and no
+// select follows it. Thread 0 of every block writes the predicate to
+// running_out (true on every lane without a cap): the run loop's
+// `running` (replaces the predicate of fantoch_tpu/engine/core.py
+// _lane_running :1565 that the per-lane select of build_runner :1591
+// read). Ranks beyond the free count are dropped (searchsorted returning
+// M) and flagged as pool overflow, which also sets ERR_POOL in the lane's
+// error word.
 //
 // One block of 512 threads per lane:
 // 1. The lane's free mask (arrival == INF over M slots) goes to shared
@@ -31,10 +36,11 @@
 //    gets the row's word instead.
 //
 // Bound on this card: bytes. The region needs the arrival row (the free
-// mask), deliver, the rows that land and the words that change
-// (land_emissions.py work); this kernel reads and writes just those, plus
-// K1's [N] popped slots (and under the crash flag a word of each free
-// slot). Tensor cores play no part: the ranks are integer.
+// mask), deliver, the rows that land, the words that change and running,
+// a byte a lane (land_emissions.py work); this kernel reads and writes
+// just those, plus K1's [N] popped slots, the run predicate's words (as
+// every kernel of the step reads them) and under the crash flag a word of
+// each free slot. Tensor cores play no part: the ranks are integer.
 #include "common.cuh"
 
 using namespace fantoch;
@@ -92,10 +98,12 @@ __global__ void __launch_bounds__(THREADS) land_emissions_kernel(
     const int* __restrict__ popped, const bool* __restrict__ has,
     const RunCap cap, int M, int W, int E, int N,
     bool* __restrict__ overflow_out, int* __restrict__ peak_out,
-    int* __restrict__ err_out) {
+    int* __restrict__ err_out, bool* __restrict__ running_out) {
   extern __shared__ unsigned smem[];
   const int l = blockIdx.x, t = threadIdx.x, lane = t & 31, w = t >> 5;
-  if (!cap.runs(l)) {
+  const bool runs = cap.runs(l);
+  if (t == 0) running_out[l] = runs;
+  if (!runs) {
     if (t == 0) {
       overflow_out[l] = false;
       peak_out[l] = peak_in[l];
@@ -207,14 +215,15 @@ extern "C" int fantoch_land_emissions(
     void* pool, const void* arrival, const void* deliver,
     const void* new_rows, const void* peak_in, const void* err_in,
     const void* popped, const void* has, const void* cap_tab,
-    void* overflow_out, void* peak_out, void* err_out, int L, int M, int W,
-    int E, int N, int flags, int smem, void* stream) {
+    void* overflow_out, void* peak_out, void* err_out, void* running_out,
+    int L, int M, int W, int E, int N, int flags, int smem, void* stream) {
   if (L == 0) return 0;
   land_emissions_kernel<<<L, THREADS, (size_t)smem, (cudaStream_t)stream>>>(
       (int*)pool, (const int*)arrival, (const bool*)deliver,
       (const int*)new_rows, (const int*)peak_in, (const int*)err_in,
       (const int*)popped, (const bool*)has,
       run_cap((const void* const*)cap_tab, flags), M, W, E, N,
-      (bool*)overflow_out, (int*)peak_out, (int*)err_out);
+      (bool*)overflow_out, (int*)peak_out, (int*)err_out,
+      (bool*)running_out);
   return (int)cudaGetLastError();
 }

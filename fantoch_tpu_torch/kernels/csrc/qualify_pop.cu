@@ -43,12 +43,13 @@
 //    INF.
 //
 // Frozen lanes: a lane whose run predicate is false at the step's start
-// (common.cuh RunCap; every lane without a cap) reads nothing of the pool
-// or the timers. Its block writes the defined "nothing happens" outputs
-// and returns: ep INF, active, fire and has false, slot 0, rows zero,
-// now the lane's now plane, arrival INF and, under FLAG_CRASH, timers
-// INF. K2 writes no frozen lane, and K7 restores every out-of-place plane
-// of a frozen lane (now included), so no result reads them.
+// (common.cuh RunCap; every lane without a cap) reads nothing of the pool.
+// Its block writes the defined "nothing happens" outputs and returns: ep
+// INF, active, fire and has false, slot 0, rows zero, arrival INF, now the
+// lane's now plane and, under FLAG_CRASH, timers_out its input timers as
+// they were. The step's state planes that K1 writes (now, and the timers
+// under the crash flag) keep a frozen lane's rows, as every kernel of the
+// step does: no select follows the step.
 //
 // Bound on this card: bytes: every slot's arrival and destination words,
 // the key words of the slots that compete in a pop and the outputs
@@ -99,7 +100,7 @@ __global__ void qualify_pop_kernel(
     }
     for (int i = t; i < N * R; i += nt) {
       fire_out[lN * R + i] = false;
-      if (crash) timers_out[lN * R + i] = INF;
+      if (crash) timers_out[lN * R + i] = next_periodic[lN * R + i];
     }
     for (int i = t; i < N * W; i += nt) rows_out[lN * W + i] = 0;
     for (int m = t; m < M; m += nt) arrival_out[(size_t)l * M + m] = INF;

@@ -5,7 +5,7 @@
 //
 // The loop body is a CUDA graph captured by PyTorch (kernels/
 // step_loop.py): G engine steps over resident state and ctx buffers (K1,
-// the handler kernel, K6, K2, K7 each step, K7 cut at the control
+// the handler kernel, K6 and K2 each step, each cut at the control
 // block's step limit), ending by writing the final state back into the
 // resident buffers. This file builds the outer graph around it:
 //

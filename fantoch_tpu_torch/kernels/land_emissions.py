@@ -13,8 +13,12 @@ The pool is updated in place, like a donated buffer in JAX: the step
 consumes its input state (the runners clone their caller's once, at
 entry). Only the lanes whose run predicate holds at the step's start
 are written (``cap``, :class:`lane_freeze.Cap`; every lane without
-one), and the pool returned is the tensor given, so K7 leaves it out
-of its table and the device loop's write-back skips it.
+one), and the pool returned is the tensor given, so the device loop's
+write-back skips it; a frozen lane's peak and error word are the ones
+given. K2 also reports that predicate, ``running``, the run loop's
+(the reference's ``_lane_running`` :1565 as ``build_runner``'s select
+:1591 read it): the step's last kernel, it is where the loop learns
+which lanes stepped.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ THREADS = 512
 
 def land_emissions_plain(pool, arrival, deliver, new_rows, pool_peak, err,
                          slot=None, has=None, flags: int = 0, cap=None):
-    """``(pool, overflow, pool_peak, err)``: the k-th delivered row
+    """``(pool, overflow, pool_peak, err, running)``: the k-th delivered row
     (in row order) lands in the k-th free slot (in index order) of
     ``pool``, in place; ranks past the free count drop and set
     ``ERR_POOL`` in the lane's error word. pool ``[L, M, W]``, arrival
@@ -43,7 +47,8 @@ def land_emissions_plain(pool, arrival, deliver, new_rows, pool_peak, err,
     slots) and ``flags`` tell the kernel which arrival words changed,
     which this twin need not know. A lane that ``cap`` freezes keeps
     its pool rows, and its overflow flag is false, its peak and error
-    word the ones given."""
+    word the ones given; ``running`` ``[L]`` is the cap's predicate
+    (every lane without one)."""
     del slot, has, flags
     L, M, W = pool.shape
     rank = torch.cumsum(deliver, dim=1, dtype=I32)          # 1-based
@@ -64,10 +69,10 @@ def land_emissions_plain(pool, arrival, deliver, new_rows, pool_peak, err,
     running = cap_running(cap)
     if running is None:
         pool.copy_(out)
-        return pool, overflow, peak, new_err
+        return pool, overflow, peak, new_err, torch.ones_like(overflow)
     pool[running] = out[running]
     return (pool, overflow & running, torch.where(running, peak, pool_peak),
-            torch.where(running, new_err, err))
+            torch.where(running, new_err, err), running)
 
 
 def work(pool, arrival, deliver, new_rows, pool_peak, err, *rest):
@@ -77,8 +82,8 @@ def work(pool, arrival, deliver, new_rows, pool_peak, err, *rest):
     arguments, which change nothing here). The region updates the pool:
     it reads the arrival column (the free mask), ``deliver`` and the
     rows that land, and writes the rows that land and the freed arrival
-    words no landing row covers, besides the overflow flag, the peak and
-    the error word."""
+    words no landing row covers, besides the overflow flag, the peak,
+    the error word and ``running``."""
     out = rest[-1]
     L, M, W = pool.shape
     free = arrival == INF
@@ -109,8 +114,9 @@ def land_emissions(pool, arrival, deliver, new_rows, pool_peak, err,
     the crash flag the changed arrival words (each now INF, as K1 leaves
     them) are found among the free slots. ``cap`` is the run
     predicate's inputs (:class:`lane_freeze.Cap`), or ``None`` to update
-    every lane. Returns ``(pool, overflow, pool_peak, err)``, ``pool``
-    the tensor given."""
+    every lane. Returns ``(pool, overflow, pool_peak, err, running)``,
+    ``pool`` the tensor given, ``running`` ``[L]`` the cap's predicate
+    as the kernel evaluated it (every lane true without a cap)."""
     if pool.device.type == "cpu":
         return land_emissions_plain(pool, arrival, deliver, new_rows,
                                     pool_peak, err, slot, has, flags, cap)
@@ -135,19 +141,20 @@ def land_emissions(pool, arrival, deliver, new_rows, pool_peak, err,
     overflow = torch.empty((L,), dtype=torch.bool, device=dev)
     peak = torch.empty((L,), dtype=I32, device=dev)
     new_err = torch.empty_like(err)
+    running = torch.empty((L,), dtype=torch.bool, device=dev)
     tab, cap_flags = cap_args(cap, L, dev)
-    fn = build.c_function("fantoch_land_emissions", 12, 7)
+    fn = build.c_function("fantoch_land_emissions", 13, 7)
     build.launch(
         fn,
         [t.data_ptr() for t in (pool, arrival, deliver, new_rows, pool_peak,
                                 err, slot, has)]
         + [ctypes.addressof(tab)]
-        + [t.data_ptr() for t in (overflow, peak, new_err)],
+        + [t.data_ptr() for t in (overflow, peak, new_err, running)],
         [L, M, W, E, N, flags | cap_flags, smem_bytes(M, E)],
         torch.cuda.current_stream(dev).cuda_stream,
     )
     land_emissions.launches += 1
-    return pool, overflow, peak, new_err
+    return pool, overflow, peak, new_err, running
 
 
 land_emissions.launches = 0

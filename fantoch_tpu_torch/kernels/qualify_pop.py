@@ -9,10 +9,11 @@ CUDA source: ``csrc/qualify_pop.cu`` (bound by bytes, :func:`work`).
 the CPU.
 
 A lane whose run predicate is false at the step's start (``cap``,
-:class:`lane_freeze.Cap`; every lane runs without one) is not read: its
-outputs are the defined "nothing happens" values of :func:`frozen_out`
-(K2 writes no frozen lane, and K7 restores every out-of-place plane of
-one).
+:class:`lane_freeze.Cap`; every lane runs without one) reads nothing of
+the pool: its outputs are the defined "nothing happens" values of
+:func:`frozen_out`, and the state planes K1 writes (``now``, and the
+timers under the crash flag) keep its rows as they were, so the step
+needs no select after it.
 """
 
 from __future__ import annotations
@@ -38,12 +39,12 @@ def block_threads(L: int, M: int) -> int:
     return 1024 if L < 256 or M > 4096 else 256
 
 
-def frozen_out(out, running, now0, flags: int):
+def frozen_out(out, running, now0, timers0, flags: int):
     """``out`` with the lanes not ``running`` set to the defined values
     of a frozen lane: ep INF, active, fire and has false, slot 0, rows
-    zero, now ``now0`` (the lane's ``now`` plane), arrival INF and,
-    under :data:`FLAG_CRASH`, timers INF (else the input timers, as
-    they are)."""
+    zero, arrival INF, now ``now0`` (the lane's ``now`` plane) and the
+    timers ``timers0`` (the input timers; under :data:`FLAG_CRASH` the
+    masked copy keeps a frozen lane's rows as they were)."""
     arrival, ep, now, active, fire, slot, has, rows, timers = out
 
     def sel(t, v):
@@ -51,7 +52,7 @@ def frozen_out(out, running, now0, flags: int):
             running.reshape(running.shape + (1,) * (t.dim() - 1)), t, v)
 
     if flags & FLAG_CRASH:
-        timers = sel(timers, INF)
+        timers = sel(timers, timers0)
     return (sel(arrival, INF), sel(ep, INF), torch.where(running, now, now0),
             sel(active, False), sel(fire, False), sel(slot, 0),
             sel(has, False), sel(rows, 0), timers)
@@ -74,6 +75,7 @@ def qualify_pop_plain(pool, next_periodic, lookahead, crash_t=None,
     L, M, W = pool.shape
     N = next_periodic.shape[1]
     dev = pool.device
+    timers0 = next_periodic
     arrival = pool[..., PA]
     ksrc = pool[..., PKS]
     prio = pool[..., PPR] != 0
@@ -134,7 +136,7 @@ def qualify_pop_plain(pool, next_periodic, lookahead, crash_t=None,
     running = cap_running(cap)
     if running is None:
         return out
-    return frozen_out(out, running, cap.st["now"], flags)
+    return frozen_out(out, running, cap.st["now"], timers0, flags)
 
 
 def work(pool, next_periodic, lookahead, crash_t, horizon, flags: int,
@@ -145,7 +147,7 @@ def work(pool, next_periodic, lookahead, crash_t, horizon, flags: int,
     slots that compete in a pop, the timers and lookahead, the popped
     rows, the crash times and the horizon under their flags, and every
     output written once (the masked timers only under the crash
-    flag)."""
+    flag; a frozen lane's are its input timers, copied)."""
     out = rest[-1]
     L, M, W = pool.shape
     N = next_periodic.shape[1]
@@ -176,8 +178,8 @@ def work(pool, next_periodic, lookahead, crash_t, horizon, flags: int,
 def qualify_pop(pool, next_periodic, lookahead, crash_t=None, horizon=None,
                 flags: int = 0, cap=None):
     """K1 on CUDA tensors, :func:`qualify_pop_plain` on CPU tensors; the
-    lanes ``cap`` freezes are not read and give :func:`frozen_out`'s
-    values."""
+    lanes ``cap`` freezes read nothing of the pool and give
+    :func:`frozen_out`'s values."""
     if pool.device.type == "cpu":
         return qualify_pop_plain(pool, next_periodic, lookahead, crash_t,
                                  horizon, flags, cap)

@@ -7,12 +7,13 @@ the ``lax.scan`` of W segments a call in ``window_batch_fn`` (:1860).
 
 :class:`DeviceLoop` captures a body of G = ``steps_per_body`` engine
 steps with ``torch.cuda.CUDAGraph(keep_graph=True)`` over **resident**
-state and ctx buffers (each step K1, the handler kernel, K6, K2 and K7,
-K7 cut at the control block's step limit), ending with the final state
-written back into the resident buffers (a plane the body passes through,
-or updates in place as K2 does the pool and K4, K8, K10 and K11 the
-process state of Basic, Tempo, Caesar and Tempo partial, is not copied:
-it stays resident across the body's steps).
+state and ctx buffers (each step K1, the handler kernel, K6 and K2, each
+kernel cut at the control block's step limit: a frozen lane's planes are
+written as they were), ending with the final state written back into the
+resident buffers (a plane the body passes through, or updates in place
+as K2 does the pool, every handler its process state and K6 the clients,
+metrics, channel counts and timers, is not copied: it stays resident
+across the body's steps).
 ``csrc/step_loop.cu`` builds the outer graph around it,
 
     K14 → while (cond) { body → K14 }

@@ -17,8 +17,8 @@ twin (``TempoPartialDev.step_plain``), used for tensors on the CPU.
 The process state is updated in place, on the lanes whose run predicate
 holds at the step's start (``cap``, :class:`lane_freeze.Cap`; every
 lane without one), and returned as the very tensors given: the step
-consumes its input, K7 copies none of these planes, and the device
-loop's write-back skips them. A frozen lane's ``rdy`` is false and its
+consumes its input, a frozen lane keeps its rows (no select follows
+the step), and the device loop's write-back skips them. A frozen lane's ``rdy`` is false and its
 outboxes are empty.
 """
 

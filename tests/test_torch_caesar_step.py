@@ -1,15 +1,16 @@
 """Caesar one engine step at a time: the port's ``lane_step`` (on the CPU,
 through the plain twins of ``qualify_pop``, ``caesar_handle``,
 ``emit_rewrite`` and ``land_emissions``) against
-``jax.jit(jax.vmap(_lane_step))``, starting from the reference's own lane
-state and ctx carried across with ``carry.to_torch``; the whole state
-tree, and each step's handler phase with both outboxes, must be equal
-at each of the first 64 steps, on a batch that
-reaches a waiting proposal, a reject, an MRetry round, an exec chain,
-the notification timer and a GC free. Also: the run loop's freeze on
-these lanes (whose tree fits ``lane_freeze``'s plane table), the CLI
-summary of small Caesar sweeps (wait condition on and off) against the
-reference CLI's, and the refusal to run the sweep without a GPU."""
+``jax.jit(jax.vmap(_lane_step))``, starting from the reference's own
+lane state and ctx carried across with ``carry.to_torch``; the whole
+state tree, and each step's handler phase with both outboxes, must be
+equal at each of the first 64 steps, on a batch that reaches a waiting
+proposal, a reject, an MRetry round, an exec chain, the notification
+timer and a GC free. Also: the run loop's freeze on these lanes, 64
+``frozen_step``s with every third lane failed against the reference's
+trajectory and predicate (tests/torch_frozen.py), the CLI summary of
+small Caesar sweeps (wait condition on and off) against the reference
+CLI's, and the refusal to run the sweep without a GPU."""
 
 import functools
 import json
@@ -31,7 +32,7 @@ from fantoch_tpu_torch.engine.dims import INF, PA, PMT, PPAY, PSRC
 from fantoch_tpu_torch.engine.protocols import CaesarDev
 from fantoch_tpu_torch.kernels.caesar_handle import caesar_handle_plain
 from fantoch_tpu_torch.kernels.qualify_pop import qualify_pop
-from fantoch_tpu_torch.kernels.lane_freeze import MAX_PLANES, plane_pairs
+from torch_frozen import frozen_steps_match
 from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 64
@@ -218,14 +219,14 @@ def test_runner_freezes_finished_lanes(trajectories):
     _assert_tree_equal(want, carry.to_numpy(final))
 
 
-def test_tree_fits_the_freeze_plane_table(trajectories):
-    """``lane_freeze`` passes one plane table per launch: the lane tree
-    (60 planes, 38 of them protocol planes) fits it."""
-    port, dims, _r, _p, state, port_ctx, _o = trajectories
-    old = carry.to_torch(state, "cpu")
-    new = lane_step(port, dims, old, port_ctx)
-    assert len(new["ps"]) == 38
-    assert len(plane_pairs(new, old)) <= 60 <= MAX_PLANES
+def test_frozen_steps_match_the_reference(trajectories):
+    """With every third lane failed, each of 64 ``frozen_step``s leaves
+    the failed lanes' whole tree as it was (no select follows the step),
+    steps the others as the reference does, and reports the reference's
+    predicate as K2's ``running``."""
+    port, dims, ref_states, _p, state, port_ctx, _o = trajectories
+    frozen_steps_match(port, dims, state, carry.to_numpy(port_ctx),
+                       ref_states)
 
 
 @pytest.mark.parametrize("extra", [[], ["--no-wait-condition"]])

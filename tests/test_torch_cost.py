@@ -18,7 +18,7 @@ from fantoch_tpu_torch.engine.protocols import (
 from fantoch_tpu_torch.kernels import (
     atlas_partial_handle, basic_handle, caesar_handle, cost, emit_rewrite,
     fpaxos_handle,
-    graphdep_handle, key_table, land_emissions, lane_freeze, qualify_pop,
+    graphdep_handle, key_table, land_emissions, qualify_pop,
     tempo_handle, tempo_partial_handle,
 )
 from fantoch_tpu_torch.kernels.atlas_partial_handle import work as ap_work
@@ -31,7 +31,6 @@ from fantoch_tpu_torch.kernels.graphdep_handle import work as gh_work
 from fantoch_tpu_torch.kernels.key_table import THREEFRY_OPS
 from fantoch_tpu_torch.kernels.key_table import work as kt_work
 from fantoch_tpu_torch.kernels.land_emissions import work as le_work
-from fantoch_tpu_torch.kernels.lane_freeze import work as lf_work
 from fantoch_tpu_torch.kernels.qualify_pop import work as qp_work
 from fantoch_tpu_torch.kernels.step_loop import clone_tree
 from fantoch_tpu_torch.kernels.tempo_handle import work as th_work
@@ -90,7 +89,8 @@ def test_land_emissions_work_counts_the_rows_that_land(deliver, n_land,
     assert out[3].tolist() == [9 if sum(deliver) > 2 else 8]
     n_bytes, n_ops = le_work(pool, arrival, dl, rows, peak, err, out)
     read = 16 + 3 + 4 + 4 + 4 * W * n_land
-    write = 4 * W * n_land + 4 * n_freed + 1 + 4 + 4
+    # and the overflow flag, peak, error word and running
+    write = 4 * W * n_land + 4 * n_freed + 1 + 4 + 4 + 1
     assert n_bytes == read + write
     assert n_ops == 2 * (4 + 3) + W * n_land
 
@@ -768,25 +768,33 @@ def test_emit_rewrite_work_counts_the_think_delay():
         er_work(*args, 0, plain)[0] + 8)
 
 
-def test_lane_freeze_work_counts_the_frozen_lanes_changes():
+def test_land_emissions_work_counts_the_running_word():
+    """K2 reports the run predicate, a byte a lane: ``work`` counts it
+    with or without a cap. Lane 0 is frozen (its error word set), so K6
+    delivered nothing for it; lane 1 lands one row."""
+    from fantoch_tpu_torch.kernels.lane_freeze import Cap
+
     i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
+    pool = torch.zeros((2, 2, W), dtype=torch.int32)
+    pool[:, :, PA] = INF
+    arrival = pool[..., PA].clone()
+    dl = torch.tensor([[False], [True]])
+    rows = torch.ones((2, 1, W), dtype=torch.int32)
+    peak, err = i32([0, 0]), i32([0, 0])
     old = {"done_time": i32([INF, INF]), "now": i32([3, 3]),
-           "err": i32([8, 0]), "steps": i32([1, 1]),
-           "x": i32([[1, 2, 3], [4, 5, 6]]),
-           "b": torch.tensor([[True, False], [True, True]]),
-           "same": i32([0, 0])}
-    new = dict(old, steps=i32([2, 2]), x=i32([[0, 0, 3], [0, 0, 0]]),
-               b=torch.tensor([[False, False], [False, True]]))
-    ctx = {"extra_time": i32([10, 10])}
-    out = lane_freeze(new, old, ctx, 100)
-    assert out[1].tolist() == [False, True]
-    assert out[0]["x"].tolist() == [[1, 2, 3], [0, 0, 0]]
-    n_bytes, ops = lf_work(new, old, ctx, 100, 0, out)
-    moved = 4 + 2 * 4 + 1       # lane 0's steps, two x words, one flag
-    # the predicate's four words and the extra time of each lane, the
-    # step cap's word, the moved words read and written, ``running``
-    assert n_bytes == 5 * 2 * 4 + 4 + 2 * moved + 2
-    assert ops == 8 * 2 + moved // 4
+           "err": i32([8, 0]), "steps": i32([1, 1])}
+    cap = Cap(old, {"extra_time": i32([10, 10])}, 100)
+    a = (pool, arrival, dl, rows, peak, err, None, None, 0)
+    out = land_emissions(pool.clone(), *a[1:], cap)
+    assert out[4].tolist() == [False, True]
+    free = land_emissions(pool.clone(), *a[1:])
+    assert free[4].tolist() == [True, True]
+    n_bytes, n_ops = le_work(*a, cap, out)
+    # the free mask, deliver, the peak and error words, the landing row
+    # read and written; overflow, peak, error word and running written
+    read = 2 * 2 * 4 + 2 + 2 * 4 + 2 * 4 + 4 * W
+    assert n_bytes == read + 4 * W + 2 + 2 * 4 + 2 * 4 + 2
+    assert le_work(*a, free) == (n_bytes, n_ops)
 
 
 def test_work_counts_the_fault_planes_under_their_flags():
@@ -794,7 +802,7 @@ def test_work_counts_the_fault_planes_under_their_flags():
     branches need: K1 the crash times, the masked timers it writes and
     the horizon; K6 the horizon and unavailability words, the windows,
     the wire keys and rates, the lost count and one threefry chain of 7
-    blocks per wire hop and draw; K7 the horizon."""
+    blocks per wire hop and draw."""
     from fantoch_tpu_torch.engine import faults as fm
     from fantoch_tpu_torch.kernels.key_table import THREEFRY_OPS
 
@@ -835,17 +843,31 @@ def test_work_counts_the_fault_planes_under_their_flags():
     assert got[0] == plain[0] + 4 + 4 + 6 * 32 + 2 * (8 + 4) + 4
     assert got[1] == plain[1] + 8 * 8 + 2 * 7 * THREEFRY_OPS
 
-    # K7: the horizon word of each lane
+    # K1 under the crash flag with lane 0 frozen: the frozen lane's
+    # timers are its input timers, copied (read and written like a
+    # running lane's masked ones), not INF
+    from fantoch_tpu_torch.kernels.lane_freeze import Cap
+
     i32 = lambda v: torch.tensor(v, dtype=torch.int32)  # noqa: E731
-    old = {"done_time": i32([INF]), "now": i32([3]), "err": i32([0]),
-           "steps": i32([1])}
-    new = dict(old, steps=i32([2]))
-    lctx = {"extra_time": i32([10]), "fault_horizon": i32([3])}
-    out = lane_freeze(new, old, lctx, 100, fm.FLAG_HORIZON)
-    assert out[1].tolist() == [False]  # the clock reached the horizon
-    assert lf_work(new, old, lctx, 100, fm.FLAG_HORIZON, out)[0] == (
-        lf_work(new, old, lctx, 100, 0, lane_freeze(new, old, lctx, 100))[0]
-        + 4 + 2 * 4)
+    pool2 = pool.expand(2, -1, -1).clone()
+    timers2 = torch.tensor([[[7], [12]], [[7], [12]]], dtype=torch.int32)
+    look2 = lookahead.expand(2, -1, -1).clone()
+    # process 1 crashes at 10: its timer (12) masks, slot 2 (9) stays
+    crash2 = torch.tensor([[INF, 10], [INF, 10]], dtype=torch.int32)
+    old = {"done_time": i32([INF, INF]), "now": i32([3, 3]),
+           "err": i32([8, 0]), "steps": i32([1, 1])}
+    cap = Cap(old, {"extra_time": i32([10, 10])}, 100, fm.FLAG_CRASH)
+    a = (pool2, timers2, look2, crash2, None, fm.FLAG_CRASH)
+    out = qualify_pop(*a, cap)
+    assert out[8][0].tolist() == [[7], [12]]    # frozen: as it was
+    assert out[8][1].tolist() == [[7], [INF]]   # process 1 crashed
+    cap0 = cap._replace(flags=0)
+    plain = qp_work(*a[:5], 0, cap0, qualify_pop(*a[:5], 0, cap0))
+    got = qp_work(*a, cap, out)
+    # the crash times read, every lane's timers written (4 words), and
+    # a compare a slot and a timer
+    assert got[0] == plain[0] + 2 * 8 + 4 * 4
+    assert got[1] == plain[1] + 2 * 4 + 4
 
 
 def test_emit_rewrite_work_counts_the_monitor_fold():

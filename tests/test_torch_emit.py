@@ -1,6 +1,6 @@
-"""The step's tail and the run loop's freeze: the plain twins of
-``emit_rewrite`` (K6) and ``lane_freeze`` (K7) against the reference's
-own code on seeded random inputs (numpy).
+"""The step's tail and the run loop's predicate: the plain twins of
+``emit_rewrite`` (K6) and ``land_emissions`` (K2) against the
+reference's own code on seeded random inputs (numpy).
 
 - ``emit_rewrite``: the reference's whole ``_lane_step`` runs with a
   stub protocol whose gate, timers and handlers return given tables
@@ -10,14 +10,17 @@ own code on seeded random inputs (numpy).
   equal. The tables reach what one run's trajectory may not: clients
   past the table, requeues, several results for one client, padded
   clients and region rows, histogram buckets past the last.
-- ``lane_freeze``: ``_lane_running`` and the vmapped while loop's
-  per-lane select (core.py:1565, :1591) against the twin, with lanes
-  frozen for each reason and planes the step passed through."""
+- ``land_emissions``' ``running``: ``_lane_running`` (core.py:1565),
+  which the vmapped while loop's per-lane select (:1591) reads, against
+  the predicate K2's twin reports under the step's cap, with lanes
+  frozen for each reason; a frozen lane keeps K2's planes as they
+  were."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from fantoch_tpu.engine import EngineDims as RDims
 from fantoch_tpu.engine.core import _lane_running, _lane_step
@@ -26,7 +29,7 @@ from fantoch_tpu_torch.engine.dims import (
     INF, PA, PDST, PKC, PKS, PPR, PRQ, EngineDims,
 )
 from fantoch_tpu_torch.kernels import (
-    emit_rewrite, land_emissions, lane_freeze, qualify_pop,
+    emit_rewrite, land_emissions, qualify_pop,
 )
 
 SEEDS = [0, 1, 2, 3]
@@ -163,7 +166,7 @@ def _port_step(st, ctx, dims):
         ps["perr"], dims, Stub.SUBMIT,
     )
     assert emit_rewrite.launches == before  # the twin, not the kernel
-    pool, _o, peak, err = land_emissions(
+    pool, _o, peak, err, _running = land_emissions(
         st["pool"], arrival, valid, new_rows, st["pool_peak"], upd["err"]
     )
     return {**upd, "pool": pool, "now": now, "pool_peak": peak,
@@ -266,34 +269,61 @@ def _freeze_inputs(seed):
     return new, old, ctx
 
 
+def land_under_cap(old, ctx, max_steps, flags=0, seed=0):
+    """K2's twin (through its wrapper, on CPU tensors) on a random pool
+    and emissions under the cap of ``old`` (``_freeze_inputs``' lane
+    words), ``max_steps`` and ``flags``: returns ``(running, pool
+    before, capped call's result, uncapped call's result)``, each call
+    on its own copy of the pool."""
+    from fantoch_tpu_torch.kernels.lane_freeze import Cap
+
+    rng = np.random.default_rng(seed + 100)
+    t_old = carry.to_torch(old, "cpu")
+    lanes, slots = t_old["pool"].shape[:2]
+    pool = t_old["pool"]
+    arrival = torch.from_numpy(np.where(
+        rng.random((lanes, slots)) < 0.5, INF, 3).astype(np.int32))
+    deliver = torch.from_numpy(rng.random((lanes, 4)) < 0.7)
+    rows = torch.from_numpy(rng.integers(0, 9, (lanes, 4, W)).astype(np.int32))
+    peak = torch.from_numpy(rng.integers(0, slots, lanes).astype(np.int32))
+    a = (arrival, deliver, rows, peak, t_old["err"])
+    cap = Cap(t_old, carry.to_torch(ctx, "cpu"), max_steps, flags)
+    before = land_emissions.launches
+    got = land_emissions(pool.clone(), *a, None, None, flags, cap)
+    free = land_emissions(pool.clone(), *a, None, None, flags)
+    assert land_emissions.launches == before  # the twin, not the kernel
+    assert bool(free[4].all())                # no cap: every lane runs
+    return got[4], pool, got, free
+
+
+def assert_frozen_lanes_kept(running, pool, got, free, err):
+    """K2 under its cap: a frozen lane's pool rows, peak and error word
+    as given and no overflow; a running lane as the uncapped call."""
+    run, frozen = running, ~running
+    assert torch.equal(got[0][frozen], pool[frozen])
+    for g, f in zip(got[:4], free[:4]):
+        assert torch.equal(g[run], f[run])
+    assert not bool(got[1][frozen].any())
+    assert torch.equal(got[3][frozen], err[frozen])
+    assert bool((got[0][run] != pool[run]).any())
+
+
 @pytest.mark.parametrize("seed", SEEDS)
-def test_lane_freeze_twin_matches_reference(seed):
-    new, old, ctx = _freeze_inputs(seed)
+def test_land_emissions_running_matches_reference(seed):
+    """K2 reports the run loop's predicate: its ``running`` equals the
+    reference's ``_lane_running`` (core.py:1565), with lanes frozen for
+    each reason, and a frozen lane's planes are K2's inputs as they
+    were (no select after the step)."""
+    _new, old, ctx = _freeze_inputs(seed)
     max_steps = 10
     running = jax.vmap(
         lambda s, c: _lane_running(None, s, c, max_steps)
     )(old, ctx)
-    want = jax.tree_util.tree_map(
-        lambda n, o: np.where(
-            np.asarray(running).reshape((-1,) + (1,) * (n.ndim - 1)), n, o
-        ), new, old,
-    )
-    t_new, t_old = carry.to_torch(new, "cpu"), carry.to_torch(old, "cpu")
-    t_new["hlog"] = t_old["hlog"]             # a plane the step kept
-    before = lane_freeze.launches
-    got, got_running = lane_freeze(t_new, t_old, carry.to_torch(ctx, "cpu"),
-                                   max_steps)
-    assert lane_freeze.launches == before
-    assert got["hlog"] is t_old["hlog"]
+    got_running, pool, got, free = land_under_cap(old, ctx, max_steps,
+                                                  seed=seed)
     np.testing.assert_array_equal(got_running.numpy(), np.asarray(running))
-    got = carry.to_numpy(got)
-    for k in want:
-        for path, g, w in (
-            [(f"{k}/{j}", got[k][j], want[k][j]) for j in want[k]]
-            if isinstance(want[k], dict) else [(k, got[k], want[k])]
-        ):
-            assert g.dtype == w.dtype, path
-            np.testing.assert_array_equal(g, w, err_msg=path)
+    assert_frozen_lanes_kept(got_running, pool, got, free,
+                             torch.from_numpy(old["err"]))
     # idle, finished, failed and cut lanes freeze; one in its extra
     # time runs on
     r = np.asarray(running)

@@ -7,7 +7,10 @@ switch, from the reference's own lane state and ctx carried across with
 first 64 steps. Two Tempo batches: one mixing a crash, a multiplier
 window, a partition, drops, jitter and a horizon with a fault-free lane;
 one of reorder lanes. Also the run loop's freeze and horizon stop on the
-fault batch. Tolerance: none (integer state)."""
+fault batch, and 64 ``frozen_step``s with every third lane failed (K1
+keeping a frozen lane's timers under the crash flag) against the
+reference's trajectory and predicate. Tolerance: none (integer
+state)."""
 
 import functools
 
@@ -15,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from fantoch_tpu.core import Config, Planet
 from fantoch_tpu.engine import EngineDims, FaultPlan, make_lane, stack_lanes
@@ -26,6 +30,7 @@ from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.core import build_runner, lane_step
 from fantoch_tpu_torch.engine.faults import FaultFlags
 from fantoch_tpu_torch.engine.protocols import TempoDev
+from torch_frozen import MAX_STEPS, failed_third, frozen_steps_match
 from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 64
@@ -147,6 +152,32 @@ def test_batches_reach_their_branches(trajectories):
     done = [int(s["clients"]["completed"][horizon].sum())
             for s in ref_states]
     assert done[-1] == done[-10]  # nothing completes past the horizon
+
+
+def test_frozen_steps_keep_timers_and_match_the_reference(trajectories):
+    """Every third lane failed (a third of the lanes frozen): K1's twin
+    under the batch's flags (the crash flag on the fault batch) returns
+    a frozen lane's timers as they were, not INF, and each of 64
+    ``frozen_step``s matches the reference's trajectory and predicate,
+    the frozen lanes' whole tree as it was (tests/torch_frozen.py)."""
+    from fantoch_tpu_torch.engine.faults import FLAG_CRASH, flag_bits
+    from fantoch_tpu_torch.kernels.lane_freeze import Cap
+    from fantoch_tpu_torch.kernels.qualify_pop import qualify_pop
+
+    name, port, dims, ref_states, _p, state, port_ctx, flags = trajectories
+    reorder = name == "reorder"
+    bits = flag_bits(flags, reorder)
+    assert bool(bits & FLAG_CRASH) != reorder
+    st = carry.to_torch(failed_third(state), "cpu")
+    cap = Cap(st, port_ctx, MAX_STEPS, bits)
+    frozen = ~cap.running()
+    timers = qualify_pop(st["pool"], st["next_periodic"],
+                         port_ctx["lookahead"], port_ctx["fault_crash_t"],
+                         port_ctx["fault_horizon"], bits, cap)[8]
+    assert torch.equal(timers[frozen], st["next_periodic"][frozen])
+    assert bool((timers[frozen] < INF).any()) and bool(frozen.any())
+    frozen_steps_match(port, dims, state, carry.to_numpy(port_ctx),
+                       ref_states, reorder, tuple(flags))
 
 
 def test_runner_freezes_lanes_at_their_horizon(trajectories):

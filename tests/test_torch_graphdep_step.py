@@ -4,9 +4,11 @@
 ``jax.jit(jax.vmap(_lane_step))``, starting from the reference's own
 lane state and ctx carried across with ``carry.to_torch``; the whole
 state tree must be equal after each of the first 64 steps. Also: the
-run loop's freeze on these lanes (whose tree fits ``lane_freeze``'s
-plane table), the CLI summary of small Atlas and EPaxos sweeps against
-the reference CLI's, and the refusal to run the sweep without a GPU."""
+run loop's freeze on these lanes, 64 ``frozen_step``s with every third
+lane failed against the reference's trajectory and predicate
+(tests/torch_frozen.py), the CLI summary of small Atlas and EPaxos
+sweeps against the reference CLI's, and the refusal to run the sweep
+without a GPU."""
 
 import functools
 import json
@@ -27,7 +29,7 @@ from fantoch_tpu.engine.protocols import EPaxosDev as REPaxos
 from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.core import build_runner, lane_step
 from fantoch_tpu_torch.engine.protocols import AtlasDev, EPaxosDev
-from fantoch_tpu_torch.kernels.lane_freeze import MAX_PLANES, plane_pairs
+from torch_frozen import frozen_steps_match
 from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 64
@@ -155,14 +157,14 @@ def test_runner_freezes_finished_lanes(trajectories):
     _assert_tree_equal(want, carry.to_numpy(final))
 
 
-def test_tree_fits_the_freeze_plane_table(trajectories):
-    """``lane_freeze`` passes one plane table per launch: the lane tree
-    (51 planes, 29 of them protocol planes) fits it."""
-    _name, port, dims, _r, _p, state, port_ctx = trajectories
-    old = carry.to_torch(state, "cpu")
-    new = lane_step(port, dims, old, port_ctx)
-    assert len(new["ps"]) == 29
-    assert len(plane_pairs(new, old)) <= 51 <= MAX_PLANES
+def test_frozen_steps_match_the_reference(trajectories):
+    """With every third lane failed, each of 64 ``frozen_step``s leaves
+    the failed lanes' whole tree as it was (no select follows the step),
+    steps the others as the reference does, and reports the reference's
+    predicate as K2's ``running``."""
+    _name, port, dims, ref_states, _p, state, port_ctx = trajectories
+    frozen_steps_match(port, dims, state, carry.to_numpy(port_ctx),
+                       ref_states)
 
 
 @pytest.mark.parametrize("name", sorted(PROTOCOLS))

@@ -373,6 +373,7 @@ def test_twin_updates_running_lanes_in_place(name, kname):
         befores, givens = {"pool": before}, {"pool": given}
         outs = [(got[i], want[i], dflt) for i, dflt in
                 ((1, torch.zeros_like(want[1])), (2, a[4]), (3, a[5]))]
+        assert torch.equal(got[4], run)  # K2 reports the predicate
     else:
         twin = getattr(HANDLERS[kname], kname + "_plain")
         got = twin(given, *a[1:-1], cap)
@@ -524,7 +525,9 @@ def test_land_emissions_work_on_a_snapshot_equals_pr12(name):
     (the out-of-place call's)."""
     _st300, _pctx, calls = _step_301(name)
     a = calls["land_emissions"]
-    want = k2.work(*a[:6], _land_out_of_place(*a[:6]))
+    # K2 also writes ``running``, every lane true here
+    want = k2.work(*a[:6], _land_out_of_place(*a[:6])
+                   + (torch.ones(a[0].shape[0], dtype=torch.bool),))
     pool = clone_tree(a[0])
     out = k2.land_emissions(pool, *a[1:])
     assert out[0] is pool

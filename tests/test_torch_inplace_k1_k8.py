@@ -4,7 +4,8 @@
 K8 updates Tempo's process state (with the monitor planes) in place, on
 the lanes whose run predicate holds at the step's start
 (``kernels/lane_freeze.py Cap``), and returns the very tensors it was
-given; K1 reads nothing of a frozen lane and gives it defined outputs.
+given; K1 reads nothing of a frozen lane's pool and gives it defined
+outputs, its timers as they were.
 All comparisons are exact. The arguments are those of step 301 of the
 reference's tier-1 Tempo sweep batch (``tests/test_torch_inplace.py
 _step_301``), with every third lane's error word set and a step cap that
@@ -171,7 +172,8 @@ def test_qualify_pop_twin_skips_frozen_lanes(flags):
     """K1's twin with the cap equals the uncapped twin on running lanes
     and gives the defined values on frozen lanes: ep and arrival INF,
     active, fire and has false, slot 0, rows zero, now the lane's now
-    plane, and under the crash flag timers INF (else the timers given).
+    plane, and the timers given (under the crash flag the masked copy
+    holds a frozen lane's timers as they were: no select follows).
     Under the fault flags each lane's crash times and horizon are drawn
     from a seed, inside the step's event times."""
     _st, pctx, calls = _calls()
@@ -198,7 +200,8 @@ def test_qualify_pop_twin_skips_frozen_lanes(flags):
     assert not bool(slot[frozen].any() | rows[frozen].any())
     assert torch.equal(now[frozen], cap.st["now"][frozen])
     if flags & FLAG_CRASH:
-        assert bool((t_out[frozen] == INF).all())
+        assert torch.equal(t_out[frozen], timers[frozen])
+        assert bool((timers[frozen] < INF).any())
         assert bool((t_out[run] < INF).any() & (t_out[run] == INF).any())
     else:
         assert t_out is timers

@@ -1,7 +1,7 @@
 """The in-place contract of K6 (``emit_rewrite``) on the CPU, through its
-plain twin, and the step's plane table once K6 and every handler (K9
-``graphdep_handle`` since slice 16, K5 ``fpaxos_handle`` and K12
-``atlas_partial_handle`` since slice 17) update in place.
+plain twin, and the step's frozen-lane contract once K6 and every
+handler (K9 ``graphdep_handle`` since slice 16, K5 ``fpaxos_handle`` and
+K12 ``atlas_partial_handle`` since slice 17) update in place.
 
 K6 updates the lane's ``clients``, ``metrics``, ``pair_cnt`` and
 ``next_periodic`` planes in place, on the lanes whose run predicate
@@ -25,9 +25,11 @@ word set:
   tests/torch_monitor_lanes.py (jitter, a crash, drops under a horizon:
   the mc fault envelope), the handler (K9, K5) and K6 in place
   throughout;
-- after a fault-free, unmonitored step, K7's plane table
-  (``lane_freeze.plane_pairs``) holds exactly the seven lane planes on
-  all eight protocols.
+- a step under its cap, every third lane failed, leaves every plane of
+  every frozen lane as it was (no select follows the step), its running
+  lanes equal an uncapped step's and K2's ``running`` is the predicate,
+  on all eight protocols and on Tempo under a crash plan, monitored,
+  open loop and under a traffic schedule.
 
 K5's, K9's and K12's twins with the cap, their ``work`` on a snapshot,
 64 frozen FPaxos, Atlas, EPaxos and Atlas partial steps and the runners
@@ -50,7 +52,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 from fantoch_tpu.engine.driver import stack_states
 from fantoch_tpu.engine.faults import batch_fault_flags as r_batch_flags
 from fantoch_tpu_torch import carry, cli
-from fantoch_tpu_torch.engine.core import lane_step
+from fantoch_tpu_torch.engine.core import frozen_step, lane_step
 from fantoch_tpu_torch.engine.dims import ERR_STUCK, INF, PMT, PPAY, PSRC
 from fantoch_tpu_torch.engine.driver import prepare_batch
 from fantoch_tpu_torch.engine.faults import (
@@ -59,7 +61,7 @@ from fantoch_tpu_torch.engine.faults import (
     batch_fault_flags, flag_bits,
 )
 from fantoch_tpu_torch.kernels import qualify_pop
-from fantoch_tpu_torch.kernels.lane_freeze import Cap, plane_pairs
+from fantoch_tpu_torch.kernels.lane_freeze import Cap
 from fantoch_tpu_torch.kernels.step_loop import clone_tree
 
 k6 = importlib.import_module("fantoch_tpu_torch.kernels.emit_rewrite")
@@ -216,40 +218,81 @@ def test_frozen_monitored_atlas_steps_match_the_reference_run_loop(name):
 
 
 # ----------------------------------------------------------------------
-# K7's plane table after a step
+# a step under its cap keeps every plane of every frozen lane
 # ----------------------------------------------------------------------
 
-# the step's lane planes K7 copies back on every protocol: K1's clock,
-# K2's pool peak and error word, K6's lane words
-LANE_PLANES = {"now", "pool_peak", "err", "done_time", "steps", "requeues",
-               "max_completion"}
 SMALL = ["--n", "3", "--subsets", "2", "--fs", "1", "--commands", "3"]
 PARTIAL = ["--shards", "2", "--keys-per-command", "2", "--pool-size", "4"]
+PROTOCOLS = ["basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
+             "tempo_partial", "atlas_partial"]
+# the other batches' sweep arguments (Tempo); "monitored" is the
+# monitored Tempo batch of tests/torch_monitor_lanes.py
+BATCHES = {
+    "crash": ["--conflicts", "0,100", "--faults",
+              '[{}, {"crash": {"1": 30}}]'],
+    "open_loop": ["--conflicts", "0,100", "--arrivals", "burst",
+                  "--open-window", "2"],
+    "traffic": ["--conflicts", "0,50", "--traffic", "churn"],
+}
+WARM = 20
 
 
-def _table(new, old, path=""):
-    """The paths of the planes of ``new`` that are not ``old``'s."""
+def _batch_case(name):
+    """``(protocol, dims, state, ctx, faults, monitor_keys)`` of batch
+    ``name`` on the CPU."""
+    if name == "monitored":
+        proto, dims, specs = torch_monitor_lanes.lanes(False, "tempo")
+        mk = torch_monitor_lanes.MONITOR_KEYS
+    else:
+        protocol = name.replace("_partial", "")
+        if name in BATCHES:
+            argv = ["sweep", "--protocol", "tempo", *SMALL, *BATCHES[name]]
+        elif "partial" in name:
+            argv = ["sweep", "--protocol", protocol, *SMALL, *PARTIAL,
+                    "--conflicts", "10,100"]
+        else:
+            argv = ["sweep", "--protocol", protocol, *SMALL,
+                    "--conflicts", "0,100"]
+        proto, dims, specs = cli.sweep_setup(cli.parse_args(argv))
+        mk = 0
+    st, ctx = prepare_batch(proto, dims, specs, "cpu", monitor_keys=mk)
+    return proto, dims, st, ctx, batch_fault_flags(specs), mk
+
+
+def _leaves(new, before, free, path=""):
+    """``(path, new, before, free)`` for every plane of three trees."""
     if isinstance(new, dict):
-        return [p for k in new for p in _table(new[k], old[k], f"{path}/{k}")]
-    return [] if new is old else [path.lstrip("/")]
+        return [x for k in new for x in _leaves(new[k], before[k], free[k],
+                                               f"{path}/{k}")]
+    return [(path.lstrip("/"), new, before, free)]
 
 
-@pytest.mark.parametrize("name", ["basic", "fpaxos", "tempo", "atlas",
-                                  "epaxos", "caesar", "tempo_partial",
-                                  "atlas_partial"])
-def test_plane_pairs_hold_the_lane_planes_after_a_step(name):
-    """A fault-free, unmonitored step under its cap: K7's table holds
-    exactly the seven lane planes (every handler updates its process
-    state in place)."""
-    protocol = name.replace("_partial", "")
-    argv = ["sweep", "--protocol", protocol, *SMALL]
-    argv += (PARTIAL + ["--conflicts", "10,100"] if "partial" in name
-             else ["--conflicts", "0,100"])
-    proto, dims, specs = cli.sweep_setup(cli.parse_args(argv))
-    st, ctx = prepare_batch(proto, dims, specs, "cpu")
-    faults = batch_fault_flags(specs)
-    cap = Cap(st, ctx, MAX_STEPS, flag_bits(faults))
-    new = lane_step(proto, dims, st, ctx, faults=faults, cap=cap)
-    table = _table(new, st)
-    assert len(plane_pairs(new, st)) == len(table) == 7, table
-    assert set(table) == LANE_PLANES, table
+@pytest.mark.parametrize("name", PROTOCOLS + ["crash", "monitored",
+                                              "open_loop", "traffic"])
+def test_a_step_under_its_cap_keeps_every_frozen_lane(name):
+    """After 20 steps, every third lane failed: one ``frozen_step`` leaves
+    every plane of every frozen lane (the pool, the process state, the
+    lane state, the lane words, the clock, the timers) as it was, byte
+    for byte, with no select after the step; the running lanes equal an
+    uncapped step's, and K2's ``running`` is the cap's predicate. On all
+    eight protocols, and on Tempo under a crash plan, monitored, open
+    loop and under a traffic schedule."""
+    proto, dims, st, ctx, faults, mk = _batch_case(name)
+    for _ in range(WARM):
+        st, _running = frozen_step(proto, dims, st, ctx, MAX_STEPS, False,
+                                   faults, mk)
+    failed = dict(st, err=st["err"].clone())
+    failed["err"][::3] |= ERR_STUCK
+    want_running = Cap(failed, ctx, MAX_STEPS, flag_bits(faults)).running()
+    assert not bool(want_running[::3].any()) and bool(want_running.any())
+    before = clone_tree(failed)
+    free = lane_step(proto, dims, clone_tree(st), ctx, False, faults, mk)
+    new, running = frozen_step(proto, dims, failed, ctx, MAX_STEPS, False,
+                               faults, mk)
+    assert torch.equal(running, want_running)
+    frozen, moved = ~running, 0
+    for path, n, b, f in _leaves(new, before, free):
+        assert torch.equal(n[frozen], b[frozen]), f"{path}: a frozen lane"
+        assert torch.equal(n[running], f[running]), f"{path}: a running lane"
+        moved += int((n[running] != b[running]).sum())
+    assert moved > 0

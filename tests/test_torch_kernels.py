@@ -17,7 +17,8 @@ full pools, out-of-range sources and dot slots that wrap.
   link windows with the overflow clamp, jitter, drops, ERR_UNAVAIL and
   the reorder draws) against the reference's whole ``_lane_step`` with
   the flags, around ``tests/test_torch_emit.py``'s stub protocol, and
-  ``lane_freeze`` with the horizon against ``_lane_running``.
+  ``land_emissions``' ``running`` with the horizon against
+  ``_lane_running``.
 
 The wrappers get CPU tensors, so they run their twins; the CUDA kernels
 are held against the same twins on the card by ``chip_smoke.py``."""
@@ -1597,7 +1598,7 @@ def test_atlas_partial_handle_twin_matches_reference(seed):
 
 
 # ----------------------------------------------------------------------
-# K1, K6 and K7 under the fault flags and the reorder switch
+# K1, K6 and K2 under the fault flags and the reorder switch
 # ----------------------------------------------------------------------
 
 def _random_fault_ctx(rng, lanes, n):
@@ -1652,7 +1653,7 @@ def _fault_port_step(st, ctx, dims, flags):
         dict(st, next_periodic=timers), ctx, ep, fire, has, ps["rdy"], rows,
         outbox("p"), outbox("h"), ps["perr"], dims, 0, flags,
     )
-    pool, _o, peak, err = land_emissions(
+    pool, _o, peak, err, _running = land_emissions(
         st["pool"], arrival, deliver, new_rows, st["pool_peak"], upd["err"]
     )
     return {**upd, "pool": pool, "now": now, "pool_peak": peak, "err": err}
@@ -1713,17 +1714,17 @@ def test_step_twins_under_fault_flags_match_reference(mode, seed):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-def test_lane_freeze_horizon_twin_matches_reference(seed):
-    """K7's predicate under the horizon flag: a lane whose clock reached
-    its horizon stops, as ``_lane_running(..., faults)``."""
+def test_land_emissions_horizon_running_matches_reference(seed):
+    """K2's ``running`` under the horizon flag: a lane whose clock
+    reached its horizon stops, as ``_lane_running(..., faults)``, and
+    keeps K2's planes as they were."""
     import test_torch_emit as emit_case
 
     from fantoch_tpu.engine.core import _lane_running
     from fantoch_tpu.engine.faults import FaultFlags as RFlags
     from fantoch_tpu_torch.engine.faults import FLAG_HORIZON
-    from fantoch_tpu_torch.kernels import lane_freeze
 
-    new, old, ctx = emit_case._freeze_inputs(seed)
+    _new, old, ctx = emit_case._freeze_inputs(seed)
     rng = np.random.default_rng(seed + 7)
     lanes = old["now"].shape[0]
     ctx["fault_horizon"] = np.where(
@@ -1732,15 +1733,11 @@ def test_lane_freeze_horizon_twin_matches_reference(seed):
     ctx["fault_horizon"][2] = old["now"][2]  # lane 2 was in its extra time
     running = np.asarray(jax.vmap(lambda s, c: _lane_running(
         None, s, c, 10, RFlags(horizon=True)))(old, ctx))
-    got, got_running = lane_freeze(
-        carry.to_torch(new, "cpu"), carry.to_torch(old, "cpu"),
-        carry.to_torch(ctx, "cpu"), 10, FLAG_HORIZON,
-    )
+    got_running, pool, got, free = emit_case.land_under_cap(
+        old, ctx, 10, FLAG_HORIZON, seed)
     np.testing.assert_array_equal(got_running.numpy(), running)
     plain = np.asarray(jax.vmap(lambda s, c: _lane_running(
         None, s, c, 10))(old, ctx))
     assert (plain & ~running).any()  # the horizon stopped a lane
-    got = carry.to_numpy(got)
-    np.testing.assert_array_equal(
-        got["pool"], np.where(running[:, None, None], new["pool"],
-                              old["pool"]))
+    emit_case.assert_frozen_lanes_kept(got_running, pool, got, free,
+                                       torch.from_numpy(old["err"]))

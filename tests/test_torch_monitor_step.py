@@ -9,9 +9,11 @@ Tempo batch (jittered and clean lanes, two clients per region) and of a
 Caesar batch (European regions, wait condition on and off). Also:
 ``monitor_keys=0`` leaves the state tree and every plane of a run as
 they are; protocols without hooks (the partial twins, a protocol with
-no ``MONITORED``) refuse monitors with the reference's message; and a
-monitored step's tree (Caesar: 62 changed planes) fits ``lane_freeze``'s
-plane table. Tolerance: none."""
+no ``MONITORED``) refuse monitors with the reference's message; and 64
+monitored ``frozen_step``s with every third lane failed equal the
+reference's trajectory and predicate, the failed lanes' whole tree
+(monitor planes included) as it was (tests/torch_frozen.py). Tolerance:
+none."""
 
 import functools
 import json
@@ -43,7 +45,7 @@ from fantoch_tpu_torch.engine.driver import prepare_batch
 from fantoch_tpu_torch.engine.protocols import (
     AtlasPartialDev, BasicDev, CaesarDev, TempoDev, TempoPartialDev,
 )
-from fantoch_tpu_torch.kernels.lane_freeze import MAX_PLANES, plane_pairs
+from torch_frozen import frozen_steps_match
 from torch_threads import one_torch_thread  # noqa: F401
 
 STEPS = 64
@@ -167,40 +169,16 @@ def test_monitored_state_equal_after_every_step(trajectories):
     assert last["mon_cnt"].sum() > 0, name
 
 
-def _kernel_planes(new, old, passed):
-    """The planes a launch of ``lane_freeze`` carries on the card, where
-    every kernel writes fresh outputs: all but the ones the step passes
-    through (``passed``, top-level keys)."""
-    def fresh(n, o):
-        if isinstance(n, dict):
-            return {k: fresh(n[k], o[k]) for k in n}
-        return n.clone()
-
-    full = {k: (v if k in passed else fresh(v, old[k]))
-            for k, v in new.items()}
-    return plane_pairs(full, old)
-
-
-def test_monitored_step_tree_fits_the_freeze_plane_table(trajectories):
-    """A monitored step changes five more planes (hashes, counts, guard
-    words, violation word and step; the digest passes through): a
-    monitored Caesar tree is 62 planes, two short of the 64 one launch
-    carried before, and Tempo's (jitter lanes: the lost count is a plane
-    too) 55; both fit the table with room to spare."""
-    name, port, dims, _r, _p, state, pctx = trajectories
-    old = carry.to_torch(state, "cpu")
-    mk = old["mon_hash"].shape[2]
-    passed = {"hlog", "hlog_n", "cov"}
-    if name == "caesar":
-        passed.add("fault_dropped")  # no wire-fault lane in this batch
-    flags = _port_flags(rfaults.FaultFlags(jitter=name == "tempo"))
-    new = lane_step(port, dims, old, pctx, False, flags, monitor_keys=mk)
-    pairs = _kernel_planes(new, old, passed)
-    plain = {k: v for k, v in old.items() if k not in MON_STATE}
-    base = _kernel_planes(lane_step(port, dims, plain, pctx, False, flags),
-                          plain, passed)
-    assert len(pairs) == len(base) + 5 <= MAX_PLANES
-    assert len(pairs) == {"caesar": 62, "tempo": 55}[name]
+def test_monitored_frozen_steps_match_the_reference(trajectories):
+    """With every third lane failed, each of 64 monitored
+    ``frozen_step``s leaves the failed lanes' whole tree (hashes,
+    counts, guard words, violation word and step, digest) as it was,
+    steps the others as the reference does, and reports the reference's
+    predicate as K2's ``running``."""
+    name, port, dims, ref_states, _p, state, pctx = trajectories
+    frozen_steps_match(port, dims, state, carry.to_numpy(pctx), ref_states,
+                       faults=rfaults.FaultFlags(jitter=name == "tempo"),
+                       monitor_keys=state["mon_hash"].shape[2])
 
 
 @pytest.mark.parametrize("name", ["tempo", "caesar"])

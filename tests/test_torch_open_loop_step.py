@@ -166,11 +166,12 @@ def test_batch_reaches_both_triggers_and_multi_completions(trajectories):
     assert (multi > 0) == (name == "double_reply"), multi
 
 
-def test_open_loop_monitored_caesar_tree_fits_the_freeze_plane_table():
-    """The widest lane tree K7 carries: monitored Caesar (62 changed
-    planes) on open-loop lanes adds the ring and the release clamp, 64
-    planes, inside the kernel's table of 128; the freeze's twin keeps a
-    frozen lane's open-loop planes."""
+def test_open_loop_monitored_caesar_frozen_steps_keep_a_frozen_lane():
+    """The widest lane tree: monitored Caesar on open-loop lanes (with
+    the ring and the release clamp), lane 0 failed. Each of 64
+    ``frozen_step``s leaves lane 0's whole tree as it was and reports it
+    not running (K2's ``running``), and lane 1 steps as in an unfrozen
+    run of the batch."""
     from fantoch_tpu_torch.core import Config as PConfig
     from fantoch_tpu_torch.core import Planet as PPlanet
     from fantoch_tpu_torch.engine import EngineDims as PDims
@@ -179,9 +180,8 @@ def test_open_loop_monitored_caesar_tree_fits_the_freeze_plane_table():
     from fantoch_tpu_torch.engine.protocols import (
         dev_config_kwargs, dev_protocol,
     )
-    from fantoch_tpu_torch.kernels.lane_freeze import (
-        MAX_PLANES, lane_freeze_plain, plane_pairs,
-    )
+    from fantoch_tpu_torch.engine.core import frozen_step
+    from fantoch_tpu_torch.kernels.step_loop import clone_tree
 
     n = 3
     proto = dev_protocol("caesar", n)
@@ -199,21 +199,28 @@ def test_open_loop_monitored_caesar_tree_fits_the_freeze_plane_table():
         for seed in (0, 1)
     ]
     state, ctx = prepare_batch(proto, dims, specs, "cpu", monitor_keys=4)
-    new = lane_step(proto, dims, state, ctx, monitor_keys=4)
-    passed = {"hlog", "hlog_n", "cov", "fault_dropped"}
+    free = clone_tree(state)
+    st = dict(clone_tree(state), err=state["err"].clone())
+    st["err"][0] = 64
+    before = carry.to_numpy(st)
+    for _ in range(64):
+        free = lane_step(proto, dims, free, ctx, monitor_keys=4)
+        st, running = frozen_step(proto, dims, st, ctx, 1 << 22,
+                                  monitor_keys=4)
+        assert running.tolist() == [False, True]
+    got, want = carry.to_numpy(st), carry.to_numpy(free)
+    leaves = _leaves(got, before, want)
+    assert {"ol_comp_t", "ol_last_rel", "mon_hash", "viol"} <= {
+        path.split("/")[-1] for path, *_ in leaves}
+    for path, g, b, w in leaves:
+        np.testing.assert_array_equal(g[0], b[0], err_msg=path)
+        np.testing.assert_array_equal(g[1], w[1], err_msg=path)
+    assert got["clients"]["completed"][1].sum() > 0
 
-    def fresh(n_, o):
-        if isinstance(n_, dict):
-            return {k: fresh(n_[k], o[k]) for k in n_}
-        return n_.clone()
 
-    full = {k: (v if k in passed else fresh(v, state[k]))
-            for k, v in new.items()}
-    assert len(plane_pairs(full, state)) == 64 <= MAX_PLANES
-    old = dict(state, err=state["err"].clone())
-    old["err"][0] = 64
-    out, running = lane_freeze_plain(full, old, ctx, 1 << 22)
-    assert running.tolist() == [False, True]
-    for k in ("ol_comp_t", "ol_last_rel"):
-        assert torch.equal(out["clients"][k][0], old["clients"][k][0])
-        assert torch.equal(out["clients"][k][1], full["clients"][k][1])
+def _leaves(got, before, want, path=""):
+    """``(path, got, before, want)`` for every plane of three trees."""
+    if isinstance(got, dict):
+        return [x for k in got for x in _leaves(got[k], before[k], want[k],
+                                               f"{path}/{k}")]
+    return [(path, got, before, want)]

@@ -6,11 +6,12 @@ against ``jax.jit(jax.vmap(_lane_step))`` of the reference's
 ctx (with the sweep's key table, as the reference's ``run_sweep``
 carries it) moved across with ``carry.to_torch``. After each of the
 first 64 steps the whole state tree must be equal, and so must the
-handler phase's outputs (readiness, state and both outboxes) against
-the reference's ``ready``/``periodic``/``run_handlers`` on the same
-inputs. The lanes reach all fifteen message types and the three
-timers within those steps. Also: the run loop's freeze on these lanes
-(whose tree fits ``lane_freeze``'s plane table), the CLI summary of a
+handler phase's outputs (readiness, state and both outboxes) against the
+reference's ``ready``/``periodic``/``run_handlers`` on the same inputs.
+The lanes reach all fifteen message types and the three timers within
+those steps. Also: the run loop's freeze on these lanes, 64
+``frozen_step``s with every third lane failed against the reference's
+trajectory and predicate (tests/torch_frozen.py), the CLI summary of a
 small partial sweep against the reference CLI's, and the refusal to run
 the sweep without a GPU."""
 
@@ -32,9 +33,7 @@ from fantoch_tpu_torch import carry
 from fantoch_tpu_torch.engine.core import build_runner, lane_step
 from fantoch_tpu_torch.engine.dims import PMT
 from fantoch_tpu_torch.engine.protocols import TempoPartialDev
-from fantoch_tpu_torch.kernels.lane_freeze import (
-    MAX_PLANES, TooManyPlanesError, _leaves, plane_pairs,
-)
+from torch_frozen import frozen_steps_match
 from test_torch_kernels import _ref_handler_lane
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -202,22 +201,13 @@ def test_runner_freezes_finished_lanes(trajectories):
     _assert_tree_equal(want, carry.to_numpy(final))
 
 
-def test_partial_tree_fits_the_freeze_plane_table(trajectories):
-    """``lane_freeze`` passes one plane table per launch: the partial
-    lane tree (63 planes, 41 of them protocol planes) fits it, and a
-    tree over the limit is refused by name."""
-    _r, port, dims, _c, _rs, _p, state, port_ctx = trajectories
-    old = carry.to_torch(state, "cpu")
-    new = lane_step(port, dims, old, port_ctx)
-    assert len(_leaves(new, old)) == 63
-    assert len(new["ps"]) == 41
-    pairs = plane_pairs(new, old)
-    assert len(pairs) <= MAX_PLANES
-    more = MAX_PLANES + 1 - len(pairs)
-    wide = dict(new, extra={f"p{i}": torch.zeros(2) for i in range(more)})
-    wide_old = dict(old, extra={f"p{i}": torch.ones(2) for i in range(more)})
-    with pytest.raises(TooManyPlanesError, match=f"{MAX_PLANES + 1} planes"):
-        plane_pairs(wide, wide_old)
+def test_partial_frozen_steps_match_the_reference(trajectories):
+    """With every third lane failed, each of 64 ``frozen_step``s leaves
+    the failed lanes' whole tree as it was (no select follows the step),
+    steps the others as the reference does, and reports the reference's
+    predicate as K2's ``running``."""
+    _r, port, dims, ctx, ref_states, _p, state, _pc = trajectories
+    frozen_steps_match(port, dims, state, ctx, ref_states)
 
 
 GRID = ["sweep", "--protocol", "tempo", "--n", "3", "--shards", "2",
