@@ -157,8 +157,18 @@ and the whole step with every third lane failed: each leaf of its
 output equals the pre-step copy on the frozen lanes, exactly
 (``frozen_step_check``: every phase-3 path, the fault-coverage batch
 under crash, the monitored mc batches, the mixed batch's groups and the
-monitored open-loop Caesar batch). Any failure raises; nothing is
-caught. Each phase prints its seconds. The last two lines
+monitored open-loop Caesar batch). Slice 19: partial-replication
+lanes in a mixed batch (``hetero_partial``: the first 128 lanes of the
+Tempo, Tempo partial and Atlas partial paths, interleaved, one batch):
+every group's kernels against their twins at step 301 (K11 and K12
+among them, and with every third lane failed), then its sweep, counted,
+every lane equal to its path's phase-7 line, its points/s beside the
+homogeneous sweeps' rates; then checkpointed runs (Tempo's first 512
+lanes, the same lanes monitored, the mixed partial batch) stopped after
+their first window and resumed, byte-equal to their uninterrupted runs,
+with the artifact's bytes, the save seconds (blocking and overlapped)
+and the walls; and one empty kernel's device ms, the launch floor. Any
+failure raises; nothing is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
 ``{"ok": true, ...}``.
 Without a CUDA card it exits non-zero and prints no result.
@@ -362,7 +372,9 @@ HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo_partial": "tempo_partial_handle",
             "atlas_partial": "atlas_partial_handle",
             "tempo_faults": "tempo_handle", "tempo_open": "tempo_handle",
-            "tempo_traffic": "tempo_handle"}
+            "tempo_traffic": "tempo_handle",
+            "tempo@2shards": "tempo_partial_handle",
+            "atlas@2shards": "atlas_partial_handle"}
 PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
          "tempo_partial", "atlas_partial", "tempo_faults")
 # each protocol sweep's to_json lines and wall seconds: the Tempo sweep's
@@ -371,6 +383,8 @@ PATHS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar",
 # lane of the mixed sweeps must equal its protocol's line
 LINES = {}
 WALLS = {}
+# the mixed partial sweep's to_json lines, in its lane order
+HETERO_LINES = {}
 # the in-place kernels' ms with every third lane frozen, by kernel and
 # path (phase 3's frozen-lane checks)
 FROZEN = {}
@@ -1988,7 +2002,7 @@ def sweep(name, dev):
     assert all(launches[k] > 0 for k in path_kernels), launches
     other = set(HANDLERS.values()) - {handler}
     assert all(launches[k] == 0 for k in other), launches
-    if name in cli.ENGINE_PROTOCOLS:
+    if name in cli.ENGINE_PROTOCOLS or name in HETERO_PARTIAL.values():
         LINES[name] = [json.dumps(r.to_json(), sort_keys=True)
                        for r in results]
         WALLS[name] = wall
@@ -2329,16 +2343,36 @@ def main_path_checks(name, dims, specs, results, total) -> None:
 # lanes in one batch
 HETERO_SIX_SUBSETS = 8
 STEP_KERNELS = ("qualify_pop", "emit_rewrite", "land_emissions")
+# slice 19's mixed batch with partial-replication lanes: each group's
+# lanes the first HETERO_PARTIAL_LANES of its path (group: path), one
+# batch, interleaved point by point
+HETERO_PARTIAL = {"tempo": "tempo", "tempo@2shards": "tempo_partial",
+                  "atlas@2shards": "atlas_partial"}
+HETERO_PARTIAL_LANES = 128
 
 
 def mixed_setup(name):
     """``(args, protocols, dims, mixed)`` of mixed path ``name``:
     ``hetero`` the bench's four mixed protocols over the main grid
     (``cli.MAIN_PATHS["hetero"]``), ``hetero_six`` all six over its first
-    :data:`HETERO_SIX_SUBSETS` subsets; lanes interleaved point by
-    point."""
+    :data:`HETERO_SIX_SUBSETS` subsets, ``hetero_partial`` the groups of
+    :data:`HETERO_PARTIAL` (Tempo, Tempo partial, Atlas partial), the
+    first :data:`HETERO_PARTIAL_LANES` lanes of each one's path; lanes
+    interleaved point by point."""
     from fantoch_tpu_torch import cli
 
+    if name == "hetero_partial":
+        protocols, dims, specs = {}, {}, {}
+        for group, path in HETERO_PARTIAL.items():
+            args = cli.parse_args(cli.MAIN_PATHS[path])
+            per_subset = len(args.fs) * len(args.conflicts)
+            args.subsets = -(-HETERO_PARTIAL_LANES // per_subset)
+            protocols[group], dims[group], all_specs = cli.sweep_setup(args)
+            specs[group] = all_specs[:HETERO_PARTIAL_LANES]
+        mixed = [(g, spec) for point in zip(*specs.values())
+                 for g, spec in zip(specs, point)]
+        assert args.batch_lanes >= len(mixed)
+        return args, protocols, dims, mixed
     argv = list(cli.MAIN_PATHS["hetero"])
     if name == "hetero_six":
         argv[argv.index("--protocol") + 1] = ",".join(cli.ENGINE_PROTOCOLS)
@@ -2450,15 +2484,16 @@ def check_mixed_kernels(name, dev, rows, warmup=300):
           f"== their twins after {warmup} steps, and each group's key "
           f"table; the step's bound {1e3 * bound_ms:.3f} us, by group "
           f"{ {g: round(1e3 * v, 3) for g, v in by_group.items()} }")
-    # K6, K9, K5 and K2 in each group that runs them, with every third
-    # lane failed
+    # K6, K9, K5, K11, K12 and K2 in each group that runs them, with
+    # every third lane failed
     for i, (kname, a) in enumerate(calls):
         group = groups[i // len(order)]
         if kname == "land_emissions":
             cap, frozen = _third_frozen(a[-1])
             for k2, a2 in calls[i - len(order) + 1:i + 1]:
                 if k2 in ("emit_rewrite", "graphdep_handle",
-                          "fpaxos_handle", "land_emissions"):
+                          "fpaxos_handle", "land_emissions",
+                          "tempo_partial_handle", "atlas_partial_handle"):
                     rows[k2]["max_abs_err"] = max(
                         rows[k2]["max_abs_err"],
                         frozen_check(f"{name} {group}", k2, mods[k2],
@@ -2518,6 +2553,28 @@ def hetero_segments(dev) -> None:
           f"{getattr(runner.loop, 'per_body', None)}")
 
 
+def group_key_tables(protocols, dims, mixed, dev) -> int:
+    """K3's launches when each group of the one mixed batch ``mixed`` is
+    prepared alone by the native driver, on the same lanes: one for its
+    key table and, on a partial group, those that draw and regrow its
+    per-command tables' key streams (at widths of the group's own
+    command budget, so the mixed prepare launches as many). The counts
+    are reset before and after."""
+    import torch
+
+    from fantoch_tpu_torch import kernels
+    from fantoch_tpu_torch.engine.driver import prepare_batch
+
+    kernels.reset_counts()
+    for group in protocols:
+        prepare_batch(protocols[group], dims[group],
+                      [spec for g, spec in mixed if g == group], dev)
+    torch.cuda.synchronize()
+    n = kernels.counts()["key_table"]
+    kernels.reset_counts()
+    return n
+
+
 def hetero_sweep(name, dev):
     """Phase 7 for a mixed path: its sweep through ``run_sweep(...,
     hetero=True)``, counted; every lane equals its protocol's phase-7
@@ -2548,13 +2605,20 @@ def hetero_sweep(name, dev):
     per_handler = Counter(HANDLERS[n] for n in names)
     for h in set(HANDLERS.values()):
         assert launches[h] == per_handler.get(h, 0) * steps, (h, launches)
-    assert launches["key_table"] == len(names) * psweep.LAST_STATS["batches"]
+    tables = len(names) * psweep.LAST_STATS["batches"]
+    if name == "hetero_partial":
+        tables = group_key_tables(protocols, dims, mixed, dev)
+    assert launches["key_table"] == tables, (tables, launches)
     for i, r in enumerate(results):
         proto, point = names[i % len(names)], i // len(names)
         got = json.dumps(r.to_json(), sort_keys=True)
-        assert got == LINES[proto][point], (
+        assert got == LINES[HETERO_PARTIAL.get(proto, proto)][point], (
             f"{name} lane {i} ({proto} point {point}) differs from its "
             f"homogeneous sweep")
+    if name == "hetero_partial":
+        HETERO_LINES[name] = [json.dumps(r.to_json(), sort_keys=True)
+                              for r in results]
+        WALLS[name] = wall
     rate = len(results) / wall
     line = (f"sweep {name} ({len(results)} lanes, {names}, "
             f"{psweep.LAST_STATS['batches']} mixed batches of "
@@ -2570,6 +2634,17 @@ def hetero_sweep(name, dev):
                  f"{sum(len(LINES[n]) for n in names)} points in "
                  f"{sum(WALLS[n] for n in names):.3f} s = {homo:.3f} "
                  f"points/s (mixed / homogeneous {rate / homo:.3f})")
+    if name == "hetero_partial":
+        per = len(results) // len(names)
+        paths = [HETERO_PARTIAL[n] for n in names]
+        secs = sum(per * WALLS[p] / len(LINES[p]) for p in paths)
+        homo = len(results) / secs
+        line += (f"; at the homogeneous sweeps' rates ("
+                 + ", ".join(f"{p} {len(LINES[p]) / WALLS[p]:.3f}"
+                             for p in paths)
+                 + f" points/s) these lanes take {secs:.3f} s = "
+                 f"{homo:.3f} points/s (mixed / homogeneous "
+                 f"{rate / homo:.3f})")
     print(line)
     return launches
 
@@ -2624,6 +2699,177 @@ def hetero_step_row(dev, rows) -> None:
           f"ms a step; bound {bound_ms:.6f} ms a step (the sum of the "
           f"groups' kernels' bounds; {ms / bound_ms:.1f}x); per body "
           f"{loop.per_body}")
+
+
+# ----------------------------------------------------------------------
+# checkpoints (slice 19)
+# ----------------------------------------------------------------------
+
+# the checkpointed runs: (label, segment_steps); each stops after its
+# first window (scan_window 1), mid-run: Tempo's lanes take up to 3,858
+# steps, the mixed partial batch's 10,000-16,209 (its state is about
+# 12.5 MB a lane, so its segments are long and its saves few)
+CHECKPOINT_CASES = (("tempo", 1024), ("tempo monitored", 1024),
+                    ("hetero partial", 8192))
+
+
+def _checkpoint_case(label):
+    """``(protocol(s), dims, specs, run_sweep kwargs, lines)``: Tempo's
+    first 512 lanes (one batch) and their phase-7 lines, the same lanes
+    monitored (pool + clients keys; no lines: its uninterrupted run
+    gives them), and the mixed partial batch with its phase-7 lines."""
+    from fantoch_tpu_torch import cli
+
+    if label == "hetero partial":
+        _args, protocols, dims, mixed = mixed_setup("hetero_partial")
+        return (protocols, dims, mixed, {"hetero": True},
+                HETERO_LINES["hetero_partial"])
+    args = cli.parse_args(cli.MAIN_PATHS["tempo"])
+    args.subsets = args.batch_lanes // (len(args.fs) * len(args.conflicts))
+    protocol, dims, specs = cli.sweep_setup(args)
+    assert len(specs) == args.batch_lanes
+    if label == "tempo":
+        return protocol, dims, specs, {}, LINES["tempo"][:512]
+    mk = args.pool_size + args.n * args.clients_per_region
+    return protocol, dims, specs, {"monitor_keys": mk}, None
+
+
+def checkpoint_runs(dev) -> None:
+    """Each of :data:`CHECKPOINT_CASES` through ``run_sweep`` in
+    segments with ``scan_window=1``: uninterrupted (``checkpoint=None``;
+    for the mixed partial batch its phase-7 sweep, in default windows,
+    stands for it), then with ``CheckpointSpec(stop_after_segments=1)``,
+    which saves after the first window and raises ``SweepInterrupted``,
+    then resumed from the artifact (saving at every later boundary, each
+    save's copy home and write overlapping the next window) and
+    discarded at the end. The resumed results equal the uninterrupted
+    run's byte for byte (and Tempo's and the mixed batch's phase-7
+    lines), and the resumed run counts its own steps. Prints the
+    artifact's bytes, the stopping save's seconds (blocking), the
+    resumed run's saves and their seconds (overlapped) and the walls.
+    The artifacts go under ``_build/checkpoints/``."""
+    import shutil
+
+    import torch
+
+    from fantoch_tpu_torch.engine.checkpoint import (
+        CheckpointSpec, SweepInterrupted, checkpoint_exists,
+    )
+    from fantoch_tpu_torch.kernels import build
+    from fantoch_tpu_torch.parallel import run_sweep
+    from fantoch_tpu_torch.parallel import sweep as psweep
+
+    root = build.BUILD_ROOT / "checkpoints"
+    shutil.rmtree(root, ignore_errors=True)
+    for label, seg in CHECKPOINT_CASES:
+        proto, dims, specs, kw, lines = _checkpoint_case(label)
+        path = str(root / label.replace(" ", "_"))
+
+        def run(**ck):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run_sweep(proto, dims, specs, device=dev,
+                            segment_steps=seg, scan_window=1, **kw, **ck)
+            torch.cuda.synchronize()
+            return ([json.dumps(r.to_json(), sort_keys=True) for r in out],
+                    max(r.steps for r in out), time.perf_counter() - t0)
+
+        if kw.get("hetero"):
+            plain = (f"the uninterrupted phase-7 sweep (default windows) "
+                     f"{WALLS['hetero_partial']:.3f} s")
+        else:
+            control, _steps, plain_s = run()
+            assert lines is None or control == lines, (
+                f"{label}: the segments differ from phase 7")
+            lines = control
+            plain = f"the uninterrupted run {plain_s:.3f} s"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            run(checkpoint=CheckpointSpec(path=path, stop_after_segments=1))
+            raise AssertionError(f"{label}: the run was not stopped")
+        except SweepInterrupted as e:
+            assert e.reason == "segment-limit" and e.until == seg, e
+        stop_s = time.perf_counter() - t0
+        first = dict(psweep.LAST_STATS)
+        assert checkpoint_exists(path) and first["checkpoint_saves"] == 1
+        got, steps, resumed_s = run(checkpoint=CheckpointSpec(path=path))
+        st = dict(psweep.LAST_STATS)
+        assert got == lines, f"{label}: the resumed run differs"
+        assert not checkpoint_exists(path)
+        assert st["resume_until"] == seg
+        assert st["batch_steps"] - st["overshoot_steps"] == steps - seg
+        print(f"checkpoint {label} ({len(specs)} lanes, segment_steps="
+              f"{seg}, scan_window=1): stopped after the first window, "
+              f"resumed == the uninterrupted run, byte for byte; artifact "
+              f"{first['checkpoint_bytes']} bytes; the stopping save "
+              f"{first['checkpoint_blocking_s']:.3f} s (blocking), the "
+              f"stopped run {stop_s:.3f} s; load "
+              f"{st['checkpoint_load_s']:.3f} s; the resumed run "
+              f"{resumed_s:.3f} s with {st['checkpoint_saves']} saves, "
+              f"{st['checkpoint_overlapped_s']:.3f} s of them overlapping "
+              f"its windows; stopped + resumed {stop_s + resumed_s:.3f} s "
+              f"against {plain}; resumed batch steps {st['batch_steps']} "
+              f"(overshoot {st['overshoot_steps']})")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+# one empty kernel, the launch floor beside K3's, K13's and K14's rows
+EMPTY_SRC = r"""
+__global__ void fantoch_empty_kernel() {}
+
+extern "C" int fantoch_empty_launch(void* stream, int n) {
+  for (int i = 0; i < n; ++i)
+    fantoch_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_kernel(dev) -> None:
+    """An empty kernel built into ``_build/empty/`` (one block of 32
+    threads), its device ms a launch by ``torch.profiler`` over 1,000
+    launches and by CUDA events around each of 200, and the wall ms a
+    launch of 1,000 back to back (the host's launch rate)."""
+    import ctypes
+    import subprocess
+
+    import torch
+
+    from fantoch_tpu_torch.kernels import build
+
+    out = build.BUILD_ROOT / "empty"
+    out.mkdir(parents=True, exist_ok=True)
+    src, lib = out / "empty.cu", out / "libempty.so"
+    src.write_text(EMPTY_SRC)
+    subprocess.run([build._nvcc(), "-O3", build.ARCH, "-shared",
+                    "-Xcompiler", "-fPIC", "-o", str(lib), str(src)],
+                   check=True)
+    fn = ctypes.CDLL(str(lib)).fantoch_empty_launch
+    fn.argtypes, fn.restype = (ctypes.c_void_p, ctypes.c_int), ctypes.c_int
+
+    def launch(n=1):
+        rc = fn(torch.cuda.current_stream(dev).cuda_stream, n)
+        assert rc == 0, f"empty kernel launch: cudaError {rc}"
+
+    launch(10)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        launch(1000)
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.name.startswith("fantoch_empty_kernel")]
+    assert times, "the profiler recorded no empty kernel"
+    ms = sum(times) / len(times)
+    event = _event_ms(launch, 200)
+    wall = _time_ms(lambda: launch(1000), 3) / 1000
+    print(f"empty kernel (1 block of 32 threads): device ms a launch "
+          f"{ms:.5f} (torch.profiler, {len(times)} of 1000 recorded); "
+          f"CUDA events around each launch {event:.5f} ms; 1,000 back to "
+          f"back {wall:.5f} ms a launch")
 
 
 # ----------------------------------------------------------------------
@@ -3683,6 +3929,7 @@ def _main(dev, card) -> int:
     # 2. build
     phase("2 build", build.build)
     print(f"build: nvcc+link {build.BUILD_SECONDS} s")
+    phase("2 empty kernel", empty_kernel, dev)
 
     # 3. every kernel against its plain twin at the main paths' shapes
     rows = {}
@@ -3694,6 +3941,10 @@ def _main(dev, card) -> int:
           rows)
     phase("3 kernels (hetero six batch)", check_mixed_kernels, "hetero_six",
           dev, rows)
+    # slice 19: K11 and K12 (and every other kernel of the step) inside a
+    # mixed step with partial-replication groups
+    phase("3 kernels (hetero partial batch)", check_mixed_kernels,
+          "hetero_partial", dev, rows)
     assert sorted(rows) == sorted(set(kernels.WRAPPERS) - {"step_loop"}), (
         sorted(rows))
 
@@ -3750,6 +4001,11 @@ def _main(dev, card) -> int:
     by_path["hetero"] = phase("7 sweep hetero", hetero_sweep, "hetero", dev)
     by_path["hetero_six"] = phase("7 sweep hetero six", hetero_sweep,
                                   "hetero_six", dev)
+    # slice 19: the partial twins in a mixed batch, each lane held to its
+    # path's sweep above; then checkpointed runs stopped and resumed
+    by_path["hetero_partial"] = phase("7 sweep hetero partial",
+                                      hetero_sweep, "hetero_partial", dev)
+    phase("7 checkpoint", checkpoint_runs, dev)
     phase("7 hetero step", hetero_step_row, dev, rows)
     # the traffic sweeps and the open-loop offered-load ladder (slice
     # 10's main path), each counted on its own

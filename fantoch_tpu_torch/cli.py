@@ -7,7 +7,8 @@ under an optional traffic schedule (``--traffic``) or open-loop arrival
 process (``--arrivals``, ``--offered-load``, ``--open-window``,
 ``--arrival-gap-ms``), each batch in segments of the device loop
 (``--scan-window`` segments a device call, ``--pipeline-depth`` calls
-in flight), and prints the reference CLI's summary JSON. The
+in flight), and prints the reference CLI's summary JSON; ``--out``
+writes each point's results as a JSONL line (``plot/db.py``). The
 ``mc`` subcommand fuzzes a
 (protocol × n) grid of schedules with the safety monitors on
 (``mc/fuzz.py``) and prints the reference's summary JSON; it runs only
@@ -361,7 +362,36 @@ def cmd_sweep(args) -> None:
             1 for r in results if r.faults and r.faults.get("unavail")
         )
         summary["messages_dropped"] = sum(r.dropped for r in results)
+    if args.out:
+        from .plot import save_results
+
+        save_results(args.out, sweep_rows(args, specs, results))
+        summary["out"] = args.out
     print(json.dumps(summary))
+
+
+def sweep_rows(args, specs, results):
+    """``(attrs, results)`` of every sweep point, the reference CLI's
+    ``--out`` rows: protocol, n, f, shards, conflict and regions, and
+    the fault, traffic and arrival metadata where a lane has them."""
+    rows = []
+    for spec, res in zip(specs, results):
+        attrs = {
+            "protocol": args.protocol,
+            "n": spec.config.n,
+            "f": spec.config.f,
+            "shards": spec.config.shard_count,
+            "conflict": int(spec.ctx["conflict_rate"]),
+            "regions": spec.process_regions,
+        }
+        if spec.fault_meta is not None:
+            attrs["faults"] = spec.fault_meta
+        if spec.traffic_meta is not None:
+            attrs["traffic"] = spec.traffic_meta
+        if spec.arrival_meta is not None:
+            attrs["arrivals"] = spec.arrival_meta
+        rows.append((attrs, res))
+    return rows
 
 
 def mc_specs(args):
@@ -563,6 +593,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         "--arrival-gap-ms", type=int, default=4,
         help="open-loop base mean inter-arrival gap in ms at 100%% load",
     )
+    sw.add_argument("--out", default=None, help="results JSONL path")
     sw.set_defaults(fn=cmd_sweep)
 
     mc = sub.add_parser(

@@ -461,7 +461,9 @@ class WindowRunner:
 
     def bodies(self) -> int:
         """Bodies this runner's loop ran since its first call (reads the
-        device)."""
+        device); 0 before any call."""
+        if self.loop is None:
+            return 0
         return self.loop.iterations() - self.it_start
 
     def alive(self, state, ctx):

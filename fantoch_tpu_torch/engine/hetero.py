@@ -11,7 +11,10 @@ is built:
 - :func:`prepare_batch` groups the lanes by protocol (``(group,
   LaneSpec)`` pairs, the caller's order), prepares each group as the
   native driver does (its ctx stacked, its key table by K3 under the
-  batch's T rule, its initial states) at its own dims, and lays the
+  batch's T rule, its initial states; a partial-replication group, such
+  as the reference grids' ``tempo@2shards`` and ``atlas@2shards``, also
+  its per-command shard and key tables and its first SUBMITs to each
+  first command's target shard) at its own dims, and lays the
   groups one after another: the state and ctx are grouped trees
   ``{group: native tree}`` in skeleton audit order, each group's
   liveness planes views of the batch's ``[L]`` buffers
@@ -46,6 +49,7 @@ import torch
 
 from .. import resolve_device
 from ..kernels.step_loop import clone_tree, link, tree_device
+from .checkpoint import canonical_json, run_flags, step_signature
 from .core import (
     STEPS_PER_BODY, WindowRunner, finish_segmented, frozen_step, lane_step,
 )
@@ -348,17 +352,15 @@ def _table_T(skeleton: "Skeleton | None", audit: str, T: int) -> int:
 
 def _prepare_groups(protocols, dims, groups, device, skeleton):
     """Each group prepared as the native driver prepares a batch, under
-    the batch's key-table extent: ``(states, ctxs)`` by group."""
+    the batch's key-table extent: ``(states, ctxs)`` by group. A
+    partial-replication group's per-command tables come from its own key
+    stream, drawn and regrown at widths of its own command budget
+    (``driver.partial_tables``), whatever the batch's extent."""
     for a in sorted(groups):
         if a not in protocols or a not in dims:
             raise HeteroBatchError(
                 f"mixed batch names group {a!r} with no (protocol, dims) "
                 "mapping entry"
-            )
-        if any("shard_of" in s.ctx for _, s in groups[a]):
-            raise HeteroBatchError(
-                f"group {a!r} carries partial-replication lanes, which "
-                "mixed batches do not take yet; run them homogeneous"
             )
     if skeleton is not None:
         stray = sorted(set(groups) - set(skeleton.audits))
@@ -436,6 +438,28 @@ def build_grid_skeleton(
                                    resolve_device(device), None)
     return build_skeleton(classify_planes(_classify_specs(gstate, gctx)),
                           audits=tuple(order))
+
+
+# ----------------------------------------------------------------------
+# the checkpoint signature
+# ----------------------------------------------------------------------
+
+def hetero_step_signature(hb: HeteroBatch, *, reorder: bool,
+                          faults: FaultFlags) -> Dict[str, str]:
+    """The mixed twin of ``engine/checkpoint.py step_signature`` (the
+    reference's ``hetero_step_signature``; mixed batches run no
+    monitors): the batch's run flags, the skeleton's fingerprint as its
+    marker, and one native signature per skeleton audit, present in the
+    batch or not (``group <audit>``, its canonical JSON), so every batch
+    of one grid signs alike."""
+    sig = run_flags(reorder, faults, 0)
+    sig["protocol"] = "hetero[" + "+".join(hb.audits) + "]"
+    sig["skeleton"] = hb.fingerprint
+    for a in hb.audits:
+        sig[f"group {a}"] = canonical_json(step_signature(
+            hb.protocols[a], hb.dims[a], reorder=reorder, faults=faults,
+            monitor_keys=0))
+    return sig
 
 
 # ----------------------------------------------------------------------

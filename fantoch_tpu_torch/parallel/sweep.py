@@ -10,22 +10,33 @@ in segments of ``segment_steps`` steps, ``scan_window`` segments a
 device call (one launch of the device loop's graph) and up to
 ``pipeline_depth`` calls in flight, as the reference's ``run_sweep``
 (:355) does. ``hetero=True`` runs mixed-protocol batches
-(``engine/hetero.py``). Checkpoints, sharding and storage narrowing are
-not ported yet (ROADMAP items 12, 15 and 5).
+(``engine/hetero.py``), partial-replication groups among them.
+``checkpoint=`` saves a one-batch sweep at window boundaries and
+resumes it bit for bit (``engine/checkpoint.py``). Sharding and storage
+narrowing are not ported yet (ROADMAP items 15 and 5).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
+import os
+import signal
 import time
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 from .. import resolve_device
+from ..carry import to_torch
 from ..core.config import Config
 from ..core.planet import Planet
 from ..engine import core as engine_core
+from ..engine.checkpoint import (
+    CheckpointMismatchError, CheckpointSpec, SweepInterrupted,
+    checkpoint_exists, ctx_sha256, discard_checkpoint,
+    load_sweep_checkpoint, save_sweep_checkpoint, step_signature,
+)
 from ..engine.dims import EngineDims
 from ..engine import hetero as engine_hetero
 from ..engine.driver import batch_reorder_flag, prepare_batch
@@ -33,7 +44,8 @@ from ..engine.faults import FaultPlan, batch_fault_flags
 from ..engine.skeleton import Skeleton
 from ..engine.results import LaneResults, collect_results
 from ..engine.spec import LaneSpec, make_lane
-from .pipeline import SegmentWindow
+from ..kernels.step_loop import link
+from .pipeline import CheckpointBuffer, SegmentWindow
 
 # scan-fused windows: how many segments one device call covers when the
 # caller does not pin ``scan_window`` (the reference's rule,
@@ -80,8 +92,9 @@ def _window_untils(base: int, segment_steps: int, window: int,
 #: batch's stages, summed: ``prepare_s`` (``prepare_batch``),
 #: ``windows_s`` (``run_windows``, the capture included) and
 #: ``collect_s`` (``finish_run`` and ``collect_results``), each read on
-#: the host clock with no device sync of its own. Not part of any
-#: result.
+#: the host clock with no device sync of its own. A checkpointed run
+#: adds :meth:`BatchCheckpoint.stats` and ``resume_until`` (also when
+#: it is interrupted). Not part of any result.
 LAST_STATS: dict = {}
 
 
@@ -148,17 +161,21 @@ def make_sweep_specs(
 
 
 def run_windows(runner, state, ctx, segment_steps: int, scan_window: int,
-                pipeline_depth: int, max_steps: int, stats=None):
+                pipeline_depth: int, max_steps: int, stats=None,
+                start: int = 0, saver: "BatchCheckpoint | None" = None):
     """One batch through the segment loop: windows of ``scan_window``
     segments (``runner``, an ``engine.core.WindowRunner``) dispatched
     until a resolved liveness flag says no lane is alive or the ladder
-    reaches ``max_steps``, up to ``pipeline_depth`` in flight. Returns
+    reaches ``max_steps``, up to ``pipeline_depth`` in flight; the
+    ladder starts after step ``start`` (a resumed batch's). Returns
     the batch's state after its last window (before
     ``finish_run``); counts ``device_calls``, ``segments_covered`` and
-    ``windows`` into ``stats`` (default :data:`LAST_STATS`)."""
+    ``windows`` into ``stats`` (default :data:`LAST_STATS`). With a
+    ``saver`` each window's dispatch is followed by its
+    :meth:`BatchCheckpoint.boundary`."""
     stats = LAST_STATS if stats is None else stats
     window = SegmentWindow(pipeline_depth)
-    until = 0
+    until = int(start)
     while window.running and until < max_steps:
         untils = _window_untils(until, segment_steps, scan_window, max_steps)
         until = int(untils[-1])
@@ -167,10 +184,189 @@ def run_windows(runner, state, ctx, segment_steps: int, scan_window: int,
         stats["device_calls"] = stats.get("device_calls", 0) + 1
         stats["segments_covered"] = (stats.get("segments_covered", 0)
                                      + scan_window)
+        if saver is not None and saver.boundary(window, state, until):
+            continue
         window.poll()
     window.drain()
     stats["windows"] = stats.get("windows", 0) + window.resolved
     return state
+
+
+def _checkpoint_meta(specs, hetero: bool, max_steps: int, segment_steps: int,
+                     monitor_keys: int, marker: str) -> "tuple[dict, list]":
+    """``(meta, expect)``: a checkpoint's meta (the reference's keys but
+    ``narrow``: the port stores no narrowed planes) and the keys a
+    resume must match by name (``traffic`` and ``arrivals`` only when
+    the batch runs a schedule; ``skeleton``, the mixed batch's
+    fingerprint, is compared both ways by :class:`BatchCheckpoint`)."""
+    bare = [s for _g, s in specs] if hetero else list(specs)
+    meta = {
+        "lanes": len(specs),
+        "max_steps": int(max_steps),
+        "segment_steps": int(segment_steps),
+        "monitor_keys": int(monitor_keys),
+        "traffic": sorted({(s.traffic_meta or {"name": "flat"})["name"]
+                           for s in bare}),
+        "arrivals": sorted({(s.arrival_meta or {"name": "closed"})["name"]
+                            for s in bare}),
+        **({"skeleton": marker} if marker else {}),
+        "specs": [
+            {
+                "n": s.config.n,
+                "f": s.config.f,
+                "conflict": int(s.ctx["conflict_rate"]),
+                "regions": list(s.process_regions),
+                "faults": s.fault_meta,
+                "traffic": s.traffic_meta,
+                "arrivals": s.arrival_meta,
+                **({"group": str(specs[i][0])} if hetero else {}),
+            }
+            for i, s in enumerate(bare)
+        ],
+    }
+    expect = ["lanes", "max_steps", "segment_steps", "monitor_keys"]
+    if meta["traffic"] != ["flat"]:
+        expect.append("traffic")
+    if meta["arrivals"] != ["closed"]:
+        expect.append("arrivals")
+    return meta, expect
+
+
+class BatchCheckpoint:
+    """The checkpointing of one batch (``run_sweep(checkpoint=)``, the
+    reference's ``run_sweep`` :1100-1195): the load of a valid artifact
+    at resume, a save at every ``spec.every``-th drained window
+    boundary (:class:`~.pipeline.CheckpointBuffer`: the copy home and
+    the write overlap the next window), a synchronous save and
+    :class:`SweepInterrupted` at a stop (a signal, the budget or the
+    window limit), and at the end the discard (or, kept or signalled,
+    the pending save's flush and the signal's re-delivery).
+
+    ``ctx`` is the batch's ctx as prepared (grouped for a mixed batch);
+    its sha256 is saved with every state and compared with the saved
+    one at load. ``saves``, ``bytes`` (the last payload's),
+    ``load_s`` and the buffer's ``blocking_s``/``overlapped_s`` say what
+    the checkpoints cost."""
+
+    def __init__(self, spec: CheckpointSpec, signature: dict, meta: dict,
+                 expect: Sequence[str], ctx):
+        self.spec, self.signature = spec, signature
+        self.meta, self.expect = meta, list(expect)
+        self.ctx_digest = ctx_sha256(ctx)
+        self.buf = CheckpointBuffer()
+        self.windows = 0
+        self.saves = 0
+        self.bytes = 0
+        self.load_s = 0.0
+        self.steps0 = 0
+        self.signal: "int | None" = None
+        self._t0 = time.perf_counter()
+
+    def stats(self) -> dict:
+        """The checkpoint counts and seconds, under
+        :data:`LAST_STATS`'s ``checkpoint_*`` keys."""
+        return {"checkpoint_saves": self.saves,
+                "checkpoint_bytes": self.bytes,
+                "checkpoint_blocking_s": self.buf.blocking_s,
+                "checkpoint_overlapped_s": self.buf.overlapped_s,
+                "checkpoint_load_s": self.load_s}
+
+    def load(self, device, grouped: bool):
+        """``(state, until)`` of a valid checkpoint at the path (the
+        state on ``device``, linked when ``grouped``), or ``(None, 0)``
+        without one or when ``spec.resume`` is off. A stale or corrupt
+        artifact is refused by name."""
+        if not (self.spec.resume and checkpoint_exists(self.spec.path)):
+            return None, 0
+        t0 = time.perf_counter()
+        state, meta = load_sweep_checkpoint(
+            self.spec.path, signature=self.signature,
+            ctx_digest=self.ctx_digest,
+            meta_expect={k: self.meta[k] for k in self.expect})
+        saved = str(meta.get("skeleton") or "")
+        mine = str(self.meta.get("skeleton") or "")
+        if saved != mine:
+            raise CheckpointMismatchError(
+                f"checkpoint skeleton marker {saved!r} does not match the "
+                f"current run's {mine!r}: a mixed batch's grouped state "
+                "and a native state are not interchangeable"
+            )
+        steps = [v["steps"] for v in state.values()] if grouped else [
+            state["steps"]]
+        self.steps0 = int(max(int(np.max(s)) for s in steps))
+        state = to_torch(state, device)
+        self.load_s = time.perf_counter() - t0
+        return (link(state) if grouped else state), int(meta["until"])
+
+    def _save(self, host_state, until: int) -> None:
+        self.bytes = save_sweep_checkpoint(
+            self.spec.path, state=host_state, ctx_digest=self.ctx_digest,
+            signature=self.signature, until=until, meta=self.meta)
+        self.saves += 1
+
+    def boundary(self, window: SegmentWindow, state, until: int) -> bool:
+        """After a window's dispatch: write the previous boundary's save
+        (it overlaps this window), then at a save boundary drain the
+        window and begin this one's save (True: the caller skips its
+        poll). At a stop the save is synchronous and
+        :class:`SweepInterrupted` is raised once it is on disk."""
+        self.buf.flush(self._save)
+        self.windows += 1
+        spec = self.spec
+        stop = None
+        if self.signal is not None:
+            stop = f"signal {self.signal}"
+        elif (spec.stop_after_segments is not None
+              and self.windows >= spec.stop_after_segments):
+            stop = "segment-limit"
+        elif (spec.budget_s is not None
+              and time.perf_counter() - self._t0 > spec.budget_s):
+            stop = "budget exhausted"
+        if stop is None and self.windows % max(1, int(spec.every)):
+            return False
+        if not window.drain():
+            return True  # the batch just finished: nothing to save
+        self.buf.begin(state, until)
+        if stop is not None:
+            self.buf.flush(self._save, overlapped=False)
+            raise SweepInterrupted(spec.path, until, stop)
+        return True
+
+    @contextlib.contextmanager
+    def signals(self):
+        """SIGTERM and SIGINT only set :attr:`signal` while the batch
+        runs (the save happens at the next window boundary); the
+        previous handlers come back at the end. Off the main thread
+        there is no signal flush."""
+        restores = []
+
+        def on_signal(num, _frame):
+            self.signal = num
+
+        try:
+            for s in (signal.SIGTERM, signal.SIGINT):
+                restores.append((s, signal.signal(s, on_signal)))
+        except ValueError:
+            pass
+        self._t0 = time.perf_counter()
+        try:
+            yield self
+        finally:
+            for s, old in restores:
+                signal.signal(s, old)
+
+    def finish(self) -> None:
+        """After the last window: a kept or signalled run flushes its
+        pending save; a signal that landed during the last window is
+        re-delivered now that the old handlers are back (before the
+        discard: a default handler ends the process with the state on
+        disk); then the artifact is discarded unless ``keep``."""
+        if self.spec.keep or self.signal is not None:
+            self.buf.flush(self._save)
+        if self.signal is not None:
+            os.kill(os.getpid(), self.signal)
+        if not self.spec.keep:
+            discard_checkpoint(self.spec.path)
 
 
 def run_sweep(
@@ -186,6 +382,7 @@ def run_sweep(
     scan_window: "int | None" = None,
     hetero: bool = False,
     skeleton: "Skeleton | None" = None,
+    checkpoint: "CheckpointSpec | str | None" = None,
 ) -> List[LaneResults]:
     """Run every lane, ``batch_lanes`` per batch, on ``device`` (default:
     the CUDA card), each batch under its reorder flag and fault-flag
@@ -211,8 +408,33 @@ def run_sweep(
     :class:`~..engine.skeleton.Skeleton`, e.g. a grid's
     ``build_grid_skeleton``) fixes every batch's skeleton; ``None``
     derives each batch's own. Each lane's result equals its homogeneous
-    run's. Monitored mixed batches are refused."""
+    run's, partial-replication lanes' too. Monitored mixed batches are
+    refused.
+
+    ``checkpoint`` (a :class:`~..engine.checkpoint.CheckpointSpec` or a
+    bare path) makes the run durable (:class:`BatchCheckpoint`): the
+    batch's whole state is saved at drained window boundaries (before
+    the monitors' end-of-run reduction), flushed on SIGTERM/SIGINT, and
+    a valid checkpoint at the path resumes the run where it stopped,
+    with byte-identical results; a stale or corrupt one is refused by
+    name. A stop at the budget or the window limit raises
+    :class:`~..engine.checkpoint.SweepInterrupted` with the state on
+    disk; a completed run discards the artifact unless ``keep``. As in
+    the reference a checkpointed sweep is one batch: specs past
+    ``batch_lanes`` are refused (the campaign layer, ROADMAP item 14,
+    splits larger grids into units)."""
     dev = resolve_device(device)
+    ck = None
+    if checkpoint is not None:
+        ck = (checkpoint if isinstance(checkpoint, CheckpointSpec)
+              else CheckpointSpec(path=str(checkpoint)))
+        if len(specs) > batch_lanes:
+            raise ValueError(
+                f"a checkpointed sweep is one batch, as the reference's "
+                f"run_sweep is: {len(specs)} specs exceed batch_lanes="
+                f"{batch_lanes}; split the grid into units (the campaign "
+                "layer, ROADMAP item 14) or raise batch_lanes"
+            )
     if hetero:
         if skeleton is not None and not isinstance(skeleton, Skeleton):
             raise ValueError(
@@ -245,13 +467,6 @@ def run_sweep(
             reorder, faults = batch_reorder_flag(bare), batch_fault_flags(bare)
             runner, _alive = engine_hetero.build_hetero_window_runner(
                 hb, max_steps, reorder, faults)
-            t1 = time.perf_counter()
-            state = run_windows(runner, state, ctx, segment_steps, win,
-                                pipeline_depth, max_steps)
-            t2 = time.perf_counter()
-            results = engine_hetero.collect_hetero_results(
-                hb, chunk, engine_hetero.result_fetch_tree(hb, state),
-                max_steps)
         else:
             reorder = batch_reorder_flag(chunk)
             faults = batch_fault_flags(chunk)
@@ -259,10 +474,38 @@ def run_sweep(
                 protocol, dims, max_steps, reorder, faults, monitor_keys)
             state, ctx = prepare_batch(protocol, dims, chunk, dev,
                                        monitor_keys)
-            t1 = time.perf_counter()
-            state = run_windows(runner, state, ctx, segment_steps, win,
-                                pipeline_depth, max_steps)
-            t2 = time.perf_counter()
+        saver, start = None, 0
+        if ck is not None:
+            if hetero:
+                sig = engine_hetero.hetero_step_signature(
+                    hb, reorder=reorder, faults=faults)
+            else:
+                sig = step_signature(protocol, dims, reorder=reorder,
+                                     faults=faults,
+                                     monitor_keys=monitor_keys)
+            saver = BatchCheckpoint(ck, sig, *_checkpoint_meta(
+                chunk, hetero, max_steps, segment_steps, monitor_keys,
+                hb.fingerprint if hetero else ""), ctx)
+            loaded, start = saver.load(dev, hetero)
+            if loaded is not None:
+                state = loaded
+        t1 = time.perf_counter()
+        try:
+            with saver.signals() if saver else contextlib.nullcontext():
+                state = run_windows(runner, state, ctx, segment_steps, win,
+                                    pipeline_depth, max_steps, start=start,
+                                    saver=saver)
+            if saver is not None:
+                saver.finish()
+        finally:
+            if saver is not None:
+                LAST_STATS.update(saver.stats(), resume_until=start)
+        t2 = time.perf_counter()
+        if hetero:
+            results = engine_hetero.collect_hetero_results(
+                hb, chunk, engine_hetero.result_fetch_tree(hb, state),
+                max_steps)
+        else:
             final = engine_core.finish_run(protocol, state, ctx, max_steps,
                                            reorder, faults, monitor_keys)
             results = collect_results(protocol, dims, final, chunk)
@@ -275,8 +518,9 @@ def run_sweep(
         LAST_STATS["captures"] += runner.captures
         LAST_STATS["capture_s"] += runner.capture_s
         LAST_STATS["body_iterations"] += bodies
-        LAST_STATS["batch_steps"] += runner.loop.G * bodies
-        LAST_STATS["overshoot_steps"] += runner.loop.G * bodies - max(
-            r.steps for r in results)
+        steps = runner.loop.G * bodies if bodies else 0
+        LAST_STATS["batch_steps"] += steps
+        LAST_STATS["overshoot_steps"] += steps - (
+            max(r.steps for r in results) - (saver.steps0 if saver else 0))
         out.extend(results)
     return out

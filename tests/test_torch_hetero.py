@@ -20,8 +20,9 @@ reference's own tier-1 tests (``tests/test_hetero.py`` ``_build`` and
   runs (every group under the batch's fault flag union);
 - the refusals by name: monitor keys, a bare fingerprint, a slashed
   group key, groups outside a given skeleton, a missing mapping entry,
-  a lane that is not a pair, partial-replication lanes, a drifted
-  group, and the default device without a GPU.
+  a lane that is not a pair, a drifted group, and the default device
+  without a GPU (partial-replication groups are taken since slice 19:
+  ``tests/test_torch_hetero_partial.py``).
 
 The CPU runs the device loop's plain twin (``kernels/step_loop.py
 HostLoop``) over the grouped trees."""
@@ -397,20 +398,6 @@ def test_prepare_batch_refusals():
     with pytest.raises(SkeletonMismatchError, match="native spec"):
         hetero.prepare_batch(protocols, dims, mixed, "cpu",
                              skeleton=drifted)
-
-
-def test_partial_lanes_refused():
-    from fantoch_tpu_torch import cli
-
-    args = cli.parse_args([
-        "sweep", "--protocol", "tempo", "--n", "3", "--shards", "2",
-        "--keys-per-command", "2", "--pool-size", "4", "--subsets", "1",
-        "--commands", "2", "--conflicts", "100",
-    ])
-    proto, dims, specs = cli.sweep_setup(args)
-    with pytest.raises(HeteroBatchError, match="partial-replication"):
-        hetero.prepare_batch({"tp": proto}, {"tp": dims},
-                             [("tp", specs[0])], "cpu")
 
 
 def test_liveness_must_be_shared():
