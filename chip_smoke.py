@@ -167,8 +167,21 @@ homogeneous sweeps' rates; then checkpointed runs (Tempo's first 512
 lanes, the same lanes monitored, the mixed partial batch) stopped after
 their first window and resumed, byte-equal to their uninterrupted runs,
 with the artifact's bytes, the save seconds (blocking and overlapped)
-and the walls; and one empty kernel's device ms, the launch floor. Any
-failure raises; nothing is caught. Each phase prints its seconds. The last two lines
+and the walls; and one empty kernel's device ms, the launch floor.
+Slice 20, the host oracle (``sim/``, Basic and FPaxos) and phase 9
+(``mc_confirm``): ``mc --protocols fpaxos --ns 3,5`` with host
+confirmation (1,024 schedules), counted, flagged and confirmed lanes,
+schedules/s and the host seconds of confirmation; the reference's Basic
+fuzz point with confirmation; a 64-schedule FPaxos point whose 1 ms
+drain tail makes lanes flag on the card, confirm on the host and shrink
+to repro artifacts that ``mc --replay`` reproduces; the FPaxos grid
+without jitter; and the first lanes of each plan kind and every flagged
+lane of each point held to the host oracle (completed and per-region
+counts on every lane, latency means on Basic and on the jitter-free
+FPaxos lanes: the CPU tests show the reference's own engine and oracle
+disagree on jittered FPaxos means). The monitor coverage's batches run
+a 1,500 ms drain tail (the fuzz default is 5,000 ms), which halves their
+steps. Any failure raises; nothing is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
 ``{"ok": true, ...}``.
 Without a CUDA card it exits non-zero and prints no result.
@@ -2886,8 +2899,11 @@ BUG_POINT = dict(protocol="tempo", n=3, f=1, schedules=8,
 # and Caesar). No drop lanes: a lost message can stall a lane in requeues
 # up to its horizon, thousands of steps of the twins; the mc grid's drop
 # and horizon lanes go through K13's check
+# a 1,500 ms drain tail (the fuzz default is 1000 + 500 x jitter_max =
+# 5,000 ms of periodic events): half the steps of each batch, every
+# kernel still held to its twin on each of them
 MON_COVERAGE = dict(n=3, f=1, schedules=4, commands_per_client=3, seed=1,
-                    crash_share=0.5, drop_share=0.0)
+                    crash_share=0.5, drop_share=0.0, extra_time_ms=1500)
 MON_PROTOCOLS = ("basic", "fpaxos", "tempo", "atlas", "epaxos", "caesar")
 # every K13 launch of a monitored phase, held against its twin
 K13_CHECKED = {"launches": 0, "err": 0.0}
@@ -3386,6 +3402,250 @@ def bench_point(dev) -> None:
           f"max {max(r.steps for r in res.lane_results)}")
     assert res.flagged == 0, res.summary()
     assert not bad, res.engine_errors
+
+
+# slice 20: the lanes of each confirmed FPaxos point held to the host
+# oracle: the first lanes of each plan kind (3 crash, 2 drop, 3 jitter
+# only: 8) and every flagged lane
+MC_CONFIRM_KINDS = {"crash": 3, "drop": 2, "jitter": 3}
+# the reference's Basic fuzz point (tests/test_mc_fuzz.py:356-368)
+BASIC_FUZZ = dict(protocol="basic", n=3, f=1, schedules=6,
+                  commands_per_client=5, seed=1, crash_share=0.0,
+                  drop_share=0.0)
+# a point that flags on the card: under strict_missing a 1 ms drain
+# tail ends a lane before each follower has executed (6 of the first 16
+# lanes flag on the CPU; tests/test_torch_mc_confirm.py's TAIL point)
+MC_TAIL = dict(protocol="fpaxos", n=3, f=1, schedules=64,
+               commands_per_client=2, seed=1, crash_share=0.0,
+               drop_share=0.0, extra_time_ms=1)
+MC_TAIL_POINT = dict(strict_missing=True, max_confirmations=2,
+                     shrink_budget=20)
+
+
+def _plan_kind(plan) -> str:
+    return "crash" if plan.crashes else "drop" if plan.drop_bp else "jitter"
+
+
+def _by_region(hists) -> dict:
+    return {r: (h.count(), h.mean()) for r, h in hists.items() if h.count()}
+
+
+def _cli_mc(argv, dev, points):
+    """``python -m fantoch_tpu_torch mc ...`` in this process on the card:
+    its summary (or ``--replay``'s verdict), with each point's
+    ``FuzzPointResult`` appended to ``points`` (K13 against its twin on
+    every batch)."""
+    import contextlib
+    import io
+
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.mc import fuzz
+
+    run = fuzz.run_fuzz_point
+
+    def recorded(*a, **kw):
+        points.append(run(*a, **kw))
+        return points[-1]
+
+    out = io.StringIO()
+    with _PatchedAttr(fuzz, "run_fuzz_point", recorded), \
+            _Patched(mon_finalize=_k13_stand_in()), \
+            contextlib.redirect_stdout(out):
+        cli.main(["--device", str(dev.type), *argv])
+    text = out.getvalue().strip()
+    # --replay prints one indented object, a grid its summary last
+    return json.loads(text if "--replay" in argv else
+                      text.splitlines()[-1])
+
+
+def _hold_to_oracle(point, means: bool, kinds=None):
+    """The sampled lanes of one fuzz point (the first lanes of each plan
+    kind, ``kinds`` or ``MC_CONFIRM_KINDS``, and every flagged lane, of
+    those without an engine error) through the host oracle
+    (``fuzz.host_run``): each lane's completed count and per-region
+    counts equal the card's, and every region's latency mean too on
+    each lane whose readiness gate bounced nothing (``requeues`` 0), or
+    on every lane with ``means``. A bounce delays a message that
+    overtook its prerequisite by 1 ms where the oracle's executor
+    buffers it (engine/core.py's readiness gate), so only a bounced
+    lane's means may differ. Returns (lanes held, lanes whose means
+    also agree, lanes that bounced, host seconds)."""
+    from fantoch_tpu_torch.mc import fuzz
+
+    spec = point.spec
+    plans = fuzz.draw_plans(spec, fuzz.point_config(spec),
+                            fuzz.point_protocol(spec))
+    want = dict(kinds or MC_CONFIRM_KINDS)
+    lanes = []
+    # a lane with an engine error (a drop lane's requeue livelock) ended
+    # where the device gave up: not a run to hold to the oracle's
+    clean = [i for i, r in enumerate(point.lane_results) if not r.err]
+    for i in clean:
+        if want.get(_plan_kind(plans[i]), 0) > 0:
+            want[_plan_kind(plans[i])] -= 1
+            lanes.append(i)
+    lanes += [i for i in clean
+              if point.lane_results[i].violation and i not in lanes]
+    t0 = time.perf_counter()
+    same_means = bounced = 0
+    for i in lanes:
+        res = point.lane_results[i]
+        _m, _mon, lat, _p = fuzz.host_run(spec, plans[i])
+        host = _by_region({r: h for r, (_iss, h) in lat.items()})
+        card = _by_region({r: res.histogram(r) for r in res.region_rows})
+        assert res.completed == sum(c for c, _ in host.values()), (
+            spec, i, res.completed, host)
+        assert {r: c for r, (c, _) in card.items()} == {
+            r: c for r, (c, _) in host.items()}, (spec, i, card, host)
+        same_means += card == host
+        bounced += res.requeues > 0
+        if means or res.requeues == 0:
+            assert card == host, (spec, i, plans[i].meta(), res.requeues,
+                                  card, host)
+    return lanes, same_means, bounced, time.perf_counter() - t0
+
+
+def _print_findings(label, point) -> None:
+    """Each confirmed or unconfirmed flagged lane with both causes (an
+    unconfirmed one does not fail the run: that is what confirmation is
+    for)."""
+    for f in point.findings:
+        print(f"{label} lane {f.lane}: card {f.violation_cause} at step "
+              f"{f.violation_step}; host {f.host_violation}"
+              + (f"; shrunk to {f.shrunk.size} perturbations in "
+                 f"{f.shrunk.runs} host runs" if f.shrunk else ""))
+
+
+def mc_confirm(dev):
+    """Phase 9, slice 20's main path: ``mc --protocols fpaxos --ns 3,5``
+    with host confirmation (1,024 schedules, seed 0), counted, through
+    the CLI; the reference's Basic fuzz point with confirmation; an
+    FPaxos point with a 1 ms drain tail whose lanes flag on the card,
+    confirm on the host oracle and shrink to repro artifacts
+    (``artifact_dir``, the code path of ``mc --out``) that ``--replay``
+    reproduces; and the same FPaxos grid without
+    jitter (``--jitter-max 1``). Sampled lanes of every point against
+    the port's host oracle: the CPU tests showed every plan kind's
+    completed counts exact, and latency means exact on every lane whose
+    readiness gate bounced nothing (the reference's engine and oracle
+    disagree only on bounced lanes' means, all but a few jittered FPaxos
+    lanes), so every lane is held on counts, the Basic point's and the
+    ``--jitter-max 1`` grid's lanes and every lane without a bounce also
+    on means. The oracle launches no kernel. Returns the main run's
+    launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from fantoch_tpu_torch import cli, kernels
+    from fantoch_tpu_torch.mc import fuzz
+
+    def confirm_s(points):
+        return sum(p.confirm_s for p in points)
+
+    # the main path, counted
+    specs = cli.mc_specs(cli.parse_args(cli.MAIN_PATH_MC_CONFIRM))
+    assert [(s.protocol, s.n) for s in specs] == [("fpaxos", 3),
+                                                  ("fpaxos", 5)]
+    points = []
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = _cli_mc(cli.MAIN_PATH_MC_CONFIRM, dev, points)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = graph_only_counts("mc confirm", single=False)
+    for k in ("qualify_pop", "fpaxos_handle", "emit_rewrite",
+              "land_emissions", "key_table"):
+        assert launches[k] > 0, launches
+    assert launches["mon_finalize"] == len(points) == 2, launches
+    for k in set(HANDLERS.values()) - {"fpaxos_handle"}:
+        assert launches[k] == 0, launches
+    assert summary["schedules"] == sum(s.schedules for s in specs)
+    for p in points:
+        print(f"mc confirm fpaxos n={p.spec.n}: {p.schedules} schedules, "
+              f"{p.schedules_per_sec:.3f} schedules/s on the card; flagged "
+              f"{p.flagged}, confirmed {p.confirmed}; host confirmation "
+              f"{p.confirm_s:.3f} s; engine errors {p.engine_errors}")
+        _print_findings(f"mc confirm fpaxos n={p.spec.n}", p)
+    print(f"mc confirm: {summary['schedules']} schedules in {wall:.3f} s "
+          f"({summary['schedules_per_sec']} schedules/s of fan-out); "
+          f"flagged {summary['flagged']}, confirmed {summary['confirmed']}; "
+          f"host confirmation {confirm_s(points):.3f} s; launches "
+          f"{launches}")
+
+    # the reference's Basic point, with confirmation
+    kernels.reset_counts()
+    with _Patched(mon_finalize=_k13_stand_in()):
+        basic = fuzz.run_fuzz_point(fuzz.FuzzSpec(**BASIC_FUZZ), device=dev)
+    torch.cuda.synchronize()
+    blaunch = graph_only_counts("mc confirm basic", single=False)
+    assert blaunch["basic_handle"] > 0 and blaunch["fpaxos_handle"] == 0
+    assert basic.flagged == 0 and not basic.engine_errors, basic.summary()
+    print(f"mc confirm basic (tests/test_mc_fuzz.py point): "
+          f"{basic.schedules} schedules, flagged {basic.flagged}, confirmed "
+          f"{basic.confirmed}; basic_handle launches "
+          f"{blaunch['basic_handle']}")
+
+    # lanes that flag on the card, confirmed, shrunk, written, replayed
+    out_dir = tempfile.mkdtemp(prefix="mc_confirm_")
+    try:
+        kernels.reset_counts()
+        with _Patched(mon_finalize=_k13_stand_in()):
+            tail = [fuzz.run_fuzz_point(
+                fuzz.FuzzSpec(**MC_TAIL), device=dev, artifact_dir=out_dir,
+                **MC_TAIL_POINT)]
+        torch.cuda.synchronize()
+        graph_only_counts("mc confirm tail", single=False)
+        artifacts = [f.artifact_path for f in tail[0].findings
+                     if f.artifact_path]
+        assert tail[0].flagged > 0 and tail[0].confirmed > 0, (
+            tail[0].summary())
+        assert artifacts, tail[0].summary()
+        _print_findings("mc confirm tail", tail[0])
+        replay = _cli_mc(["mc", "--replay", artifacts[0]], dev, [])
+        assert replay["reproduced"], replay
+        print(f"mc confirm tail (fpaxos n=3, 64 schedules, 1 ms drain "
+              f"tail, strict_missing): flagged {tail[0].flagged}, "
+              f"confirmed {tail[0].confirmed}, {len(artifacts)} artifacts; "
+              f"host confirmation {confirm_s(tail):.3f} s; --replay of "
+              f"{Path(artifacts[0]).name}: reproduced "
+              f"{replay['reproduced']}, matches {replay['matches_expected']}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the grid without jitter: crash, drop and clean plans
+    still = []
+    kernels.reset_counts()
+    ssum = _cli_mc(cli.MAIN_PATH_MC_CONFIRM + ["--jitter-max", "1"], dev,
+                   still)
+    torch.cuda.synchronize()
+    graph_only_counts("mc confirm no jitter", single=False)
+    print(f"mc confirm fpaxos --jitter-max 1: {ssum['schedules']} "
+          f"schedules, flagged {ssum['flagged']}, confirmed "
+          f"{ssum['confirmed']}")
+
+    # sampled lanes of every point against the host oracle, which
+    # launches no kernel
+    kernels.reset_counts()
+    for label, pts, means, kinds in (
+            ("jitter 8", points, False, None),
+            ("basic", [basic], True, {"jitter": BASIC_FUZZ["schedules"]}),
+            ("tail", tail, False, None),
+            ("jitter 1", still, True, None)):
+        for p in pts:
+            lanes, same, bounced, secs = _hold_to_oracle(p, means, kinds)
+            print(f"mc confirm {label} {p.spec.protocol} n={p.spec.n}: "
+                  f"lanes {lanes} card == host oracle in completed and "
+                  f"per-region counts"
+                  + (" and latency means" if means else
+                     f" ({same} of {len(lanes)} also in latency means; "
+                     f"{bounced} bounced by the readiness gate, the "
+                     f"others held on means)")
+                  + f"; {secs:.3f} s on the host")
+    assert not any(kernels.counts().values()), kernels.counts()
+    return launches
 
 
 def _checked_handler(kname, seen, errs):
@@ -4015,6 +4275,9 @@ def _main(dev, card) -> int:
     # 8. the bench's fuzz self-check point, then the mc grid's lanes
     # against the host replays
     phase("8 mc bench point", bench_point, dev)
+    # 9. slice 20's main path: the FPaxos grid with host confirmation,
+    # its lanes held to the port's host oracle
+    by_path["mc_confirm"] = phase("9 mc confirm", mc_confirm, dev)
     phase("8 mc grid host replays", mc_check)
     assert K13_CHECKED["launches"] > 0
     rows["mon_finalize"]["max_abs_err"] = max(

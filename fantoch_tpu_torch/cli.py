@@ -1,5 +1,5 @@
-"""Command line: ``python -m fantoch_tpu_torch [--device cpu] sweep ...``
-and ``... mc --no-confirm ...``.
+"""Command line: ``python -m fantoch_tpu_torch [--device cpu] sweep ...``,
+``... mc ...`` and ``... sim ...``.
 
 The ``sweep`` subcommand runs the batched engine over a (region subset
 × f × conflict) grid, each point once per fault plan of ``--faults``,
@@ -11,9 +11,14 @@ in flight), and prints the reference CLI's summary JSON; ``--out``
 writes each point's results as a JSONL line (``plot/db.py``). The
 ``mc`` subcommand fuzzes a
 (protocol × n) grid of schedules with the safety monitors on
-(``mc/fuzz.py``) and prints the reference's summary JSON; it runs only
-under ``--no-confirm``, since confirmation needs the host oracle. Both
-run on the CUDA card unless ``--device cpu`` is given.
+(``mc/fuzz.py``), replays each flagged lane through the host oracle,
+shrinks a confirmed violation to a repro artifact (``--out``;
+``--replay`` re-runs one) and prints the reference's summary JSON; the
+host oracle covers Basic and FPaxos, so a grid with another protocol
+runs only under ``--no-confirm``. Both run on the CUDA card unless
+``--device cpu`` is given. The ``sim`` subcommand is one exact run of
+the host simulator (``sim/``, Basic or FPaxos); it never touches a
+device.
 """
 
 from __future__ import annotations
@@ -118,6 +123,10 @@ MAIN_PATH_TEMPO_TRAFFIC = [
 # the mc subcommand's default grid: the reference CLI's own defaults
 # (Tempo, FPaxos and Atlas x n in {3, 5}, 512 schedules a point)
 MAIN_PATH_MC = ["mc", "--no-confirm"]
+# the FPaxos half of that grid with host confirmation: FPaxos has a host
+# oracle (Basic too; Tempo and Atlas not yet), n in {3, 5}, 512
+# schedules a point
+MAIN_PATH_MC_CONFIRM = ["mc", "--protocols", "fpaxos", "--ns", "3,5"]
 # the reference bench's fuzz self-check point (bench.py _fuzz_selfcheck):
 # Tempo, n = 5, 256 schedules of 10 commands a client, mixed plans
 BENCH_FUZZ = dict(protocol="tempo", n=5, f=1, schedules=256,
@@ -419,29 +428,132 @@ def _mc_refuse(what: str, item: str) -> None:
     raise SystemExit(2)
 
 
+def _refuse(cmd: str, e: NotImplementedError) -> None:
+    print(f"{cmd} refused: {e}", file=sys.stderr)
+    raise SystemExit(2)
+
+
+# the reference CLI's oracle protocol names (its sim command's choices);
+# fantoch_tpu_torch/protocol BY_NAME holds the ported ones
+ORACLE_PROTOCOLS = ENGINE_PROTOCOLS + ("tempo_atomic",)
+
+
+def cmd_sim(args) -> None:
+    """One exact run of the host simulator (the reference CLI's ``sim``):
+    per-region issued counts, mean/p95/p99 latency and the fast/slow path
+    totals, as JSON on stdout. A protocol whose host oracle is not ported
+    is refused by name (exit 2)."""
+    from .client import ConflictPool, Workload, Zipf
+    from .engine.protocols import dev_config_kwargs
+    from .mc.fuzz import oracle_protocol
+    from .protocol.base import ProtocolMetricsKind
+    from .sim import Runner
+    from .traffic import ARRIVAL_PRESETS
+
+    try:
+        protocol_cls = oracle_protocol(args.protocol)
+    except NotImplementedError as e:
+        _refuse("sim", e)
+    planet = (Planet.from_dataset("latency_aws_2021_02_13") if args.aws
+              else Planet.new())
+    regions = args.regions or planet.regions()[: args.n]
+    config = Config(**dev_config_kwargs(args.protocol, args.n, args.f,
+                                        **_config_overrides(args)))
+    if args.zipf:
+        coef, keys = args.zipf.split(",")
+        key_gen = Zipf(coefficient=float(coef), total_keys_per_shard=int(keys))
+    else:
+        key_gen = ConflictPool(
+            conflict_rate=args.conflict, pool_size=args.pool_size
+        )
+    workload = Workload(
+        shard_count=1,
+        key_gen=key_gen,
+        keys_per_command=1,
+        commands_per_client=args.commands,
+        payload_size=0,
+    )
+    if args.arrivals is not None:
+        if args.arrivals not in ARRIVAL_PRESETS or args.arrivals == "closed":
+            open_presets = [a for a in ARRIVAL_PRESETS if a != "closed"]
+            raise SystemExit(
+                f"unknown arrival preset {args.arrivals!r}; choose "
+                f"from {','.join(open_presets)}"
+            )
+        if args.reorder:
+            raise SystemExit(
+                "--arrivals pins FIFO delivery (the open-loop "
+                "device/oracle equivalence relies on it); drop "
+                "--reorder"
+            )
+    runner = Runner(
+        protocol_cls,
+        planet,
+        config,
+        workload,
+        args.clients_per_region,
+        list(regions),
+        list(regions),
+        seed=args.seed,
+        arrivals=args.arrivals,
+        arrival_load=args.offered_load,
+        arrival_gap_ms=args.arrival_gap_ms,
+        open_window=args.open_window,
+    )
+    if args.reorder:
+        runner.reorder_messages = True
+    metrics, _, latencies = runner.run(extra_sim_time_ms=args.extra_time)
+    out = {"protocol": args.protocol, "n": args.n, "f": args.f,
+           "conflict": args.conflict, "regions": {}}
+    for region, (issued, hist) in latencies.items():
+        out["regions"][region] = {
+            "issued": issued,
+            "mean_ms": hist.mean(),
+            "p95_ms": hist.percentile(0.95),
+            "p99_ms": hist.percentile(0.99),
+        }
+    fast = slow = 0
+    for pm, _em in metrics.values():
+        fast += pm.get_aggregated(ProtocolMetricsKind.FAST_PATH) or 0
+        slow += pm.get_aggregated(ProtocolMetricsKind.SLOW_PATH) or 0
+    out["fast_path"], out["slow_path"] = fast, slow
+    print(json.dumps(out, indent=2))
+
+
 def cmd_mc(args) -> None:
     """Device-scale schedule fuzzing (``mc/fuzz.py``) over a (protocol ×
     n) grid: per point one batch of perturbed schedules with the safety
     monitors on; prints each point's summary on stderr and the grid's
-    summary JSON (the reference's keys) on stdout. Confirmation,
-    shrinking and ``--replay`` need the host oracle (item 17), the
-    coverage map and the farm the campaign drivers (item 14): each is
-    refused by name, exit 2, before any lane runs."""
+    summary JSON (the reference's keys) on stdout. Unless
+    ``--no-confirm``, each point's flagged lanes (at most
+    ``--max-confirm``) replay through the host oracle and a confirmed
+    violation shrinks to a repro artifact, written to ``--out``;
+    ``--replay`` re-executes one (exit 0 iff a violation reproduces).
+    Refused by name, exit 2, before any lane runs: confirmation or
+    ``--replay`` of a protocol whose host oracle is not ported (item 17:
+    Tempo, Atlas, EPaxos, Caesar; ``--inject-bug`` needs Tempo's), the
+    coverage map and the farm (the campaign drivers, item 14)."""
     import time
 
     from . import resolve_device
-    from .mc.fuzz import HOST_ORACLE_ITEM, run_fuzz_point
+    from .mc.fuzz import (
+        load_artifact, oracle_protocol, replay_artifact, run_fuzz_point,
+    )
 
-    if args.replay:
-        _mc_refuse("--replay (the host oracle)", HOST_ORACLE_ITEM)
     for flag, value in (("--farm", args.farm),
                         ("--coverage-dir", args.coverage_dir),
                         ("--migrate-covmaps", args.migrate_covmaps)):
         if value:
             _mc_refuse(f"{flag} (the campaign drivers)", "14")
-    if not args.no_confirm:
-        _mc_refuse("host confirmation (run with --no-confirm)",
-                   HOST_ORACLE_ITEM)
+    if args.replay:
+        try:
+            out = replay_artifact(load_artifact(args.replay))
+        except NotImplementedError as e:
+            _refuse("mc", e)
+        print(json.dumps(out, indent=2))
+        if not out["reproduced"]:
+            raise SystemExit("artifact did not reproduce its violation")
+        return
     protocols = args.protocols.split(",")
     unknown = [p for p in protocols if p not in ENGINE_PROTOCOLS]
     if unknown:
@@ -454,10 +566,20 @@ def cmd_mc(args) -> None:
             "--inject-bug is a Tempo-specific self-check; pass "
             "--protocols tempo"
         )
+    if not args.no_confirm:
+        # every protocol of the grid needs its host oracle: refuse before
+        # any point burns its budget, not mid-grid
+        try:
+            for proto in protocols:
+                oracle_protocol(proto, args.inject_bug)
+        except NotImplementedError as e:
+            _refuse("mc", NotImplementedError(
+                f"host confirmation (run with --no-confirm): {e}"))
     device = resolve_device(args.device)
     planet = (Planet.from_dataset("latency_aws_2021_02_13") if args.aws
               else Planet.new())
     points = []
+    artifacts = []
     skipped_points = 0
     t0 = time.perf_counter()
     for spec in mc_specs(args):
@@ -465,11 +587,15 @@ def cmd_mc(args) -> None:
             skipped_points += 1
             continue
         res = run_fuzz_point(
-            spec, planet=planet, confirm=False,
+            spec, planet=planet, confirm=not args.no_confirm,
             max_confirmations=args.max_confirm,
-            strict_missing=args.strict_missing, device=device,
+            shrink_budget=args.shrink_budget,
+            strict_missing=args.strict_missing, artifact_dir=args.out,
+            device=device,
         )
         point = res.summary()
+        artifacts += [f.artifact_path for f in res.findings
+                      if f.artifact_path]
         points.append(point)
         print(json.dumps(point), file=sys.stderr, flush=True)
     elapsed = time.perf_counter() - t0
@@ -489,8 +615,7 @@ def cmd_mc(args) -> None:
         "flagged": sum(p["flagged"] for p in points),
         "confirmed": sum(p["confirmed"] for p in points),
         "engine_errors": errors,
-        # repro artifacts come from confirmed, shrunk lanes only
-        "artifacts": [],
+        "artifacts": artifacts,
         "grid": points,
     }))
 
@@ -599,7 +724,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     mc = sub.add_parser(
         "mc",
         help="device-scale schedule fuzzing with safety monitors "
-        "(mc/fuzz.py); runs under --no-confirm",
+        "(mc/fuzz.py); --replay re-executes a repro artifact",
     )
     mc.add_argument("--protocols", default="tempo,fpaxos,atlas",
                     help="comma-separated engine protocols to fuzz")
@@ -622,21 +747,63 @@ def parse_args(argv=None) -> argparse.Namespace:
     mc.add_argument("--budget-s", type=float, default=None,
                     help="wall-clock guard: skip grid points past this")
     mc.add_argument("--max-confirm", type=int, default=8,
-                    help="flagged lanes listed per point")
+                    help="flagged lanes host-confirmed per point")
+    mc.add_argument("--shrink-budget", type=int, default=150,
+                    help="host-oracle runs per shrink")
     mc.add_argument("--strict-missing", action="store_true",
                     help="treat missing-execution as a finding")
     mc.add_argument("--no-confirm", action="store_true",
                     help="skip host confirmation (device flags only); "
-                    "required: confirmation needs the host oracle")
+                    "required for protocols without a host oracle "
+                    "(all but basic and fpaxos)")
     mc.add_argument("--inject-bug", action="store_true",
                     help="fuzz the deliberately broken Tempo twin "
                     "(pipeline self-check)")
     mc.add_argument("--aws", action="store_true")
-    for flag in ("--replay", "--coverage-dir", "--farm",
-                 "--migrate-covmaps"):
+    mc.add_argument("--out", default=None,
+                    help="directory for repro artifacts")
+    mc.add_argument("--replay", default=None,
+                    help="re-execute a repro artifact (host oracle)")
+    for flag in ("--coverage-dir", "--farm", "--migrate-covmaps"):
         mc.add_argument(flag, default=None,
                         help="refused: not ported yet")
     mc.set_defaults(fn=cmd_mc)
+
+    sim = sub.add_parser(
+        "sim", help="one exact run of the host simulator (no device)")
+    sim.add_argument("--protocol", required=True, choices=ORACLE_PROTOCOLS)
+    sim.add_argument("--n", type=int, default=3)
+    sim.add_argument("--regions", type=lambda s: s.split(","), default=None,
+                     help="comma-separated region names (default: first n "
+                     "of planet)")
+    sim.add_argument("--aws", action="store_true",
+                     help="use the AWS planet instead of GCP")
+    sim.add_argument("--commands", type=int, default=100,
+                     help="commands per client")
+    sim.add_argument("--clients-per-region", type=int, default=1)
+    sim.add_argument("--conflict", type=int, default=100)
+    sim.add_argument("--pool-size", type=int, default=1,
+                     help="ConflictPool shared-key pool size")
+    sim.add_argument("--zipf", default=None,
+                     help="coef,keys — Zipf key generator instead of pool")
+    sim.add_argument("--gc-interval", type=int, default=100)
+    sim.add_argument("--detached-interval", type=int, default=100)
+    sim.add_argument("--clock-bump-interval", type=int, default=None)
+    sim.add_argument("--no-wait-condition", action="store_true")
+    sim.add_argument("--extra-time", type=int, default=1000)
+    sim.add_argument("--seed", type=int, default=0)
+    sim.add_argument("--arrivals", default=None,
+                     help="open-loop arrival preset (poisson,burst,ramp); "
+                     "mirrors the engine's open-loop client mode exactly")
+    sim.add_argument("--offered-load", type=int, default=100,
+                     help="open-loop offered load (percent of base)")
+    sim.add_argument("--open-window", type=int, default=4,
+                     help="open-loop in-flight cap per client")
+    sim.add_argument("--arrival-gap-ms", type=int, default=4,
+                     help="base mean inter-arrival gap (ms) at 100%% load")
+    sim.add_argument("--f", type=int, default=1)
+    sim.add_argument("--reorder", action="store_true")
+    sim.set_defaults(fn=cmd_sim)
     return parser.parse_args(argv)
 
 

@@ -1,14 +1,16 @@
-"""Exact host histogram (fantoch/src/metrics/histogram.rs:15-130).
+"""Exact host histogram (fantoch/src/metrics/histogram.rs:15-130) and
+keyed metrics (metrics/mod.rs:9-61).
 
 A value→count map with mean/stddev/cov/mdtm/percentile; the device
 engine's 1 ms bucket arrays convert into it with :meth:`from_buckets`.
+The host oracle's processes and executors keep :class:`Metrics`.
 """
 
 from __future__ import annotations
 
 import math
 from collections import Counter
-from typing import List
+from typing import Dict, Generic, Hashable, List, Optional, TypeVar
 
 import numpy as np
 
@@ -118,3 +120,27 @@ class Histogram:
         p95 = self.percentile(0.95)
         p99 = self.percentile(0.99)
         return f"avg={avg:.1f} p95={p95:.0f} p99={p99:.0f} count={self.count()}"
+
+
+K = TypeVar("K", bound=Hashable)
+
+
+class Metrics(Generic[K]):
+    """Keyed metrics: histograms (collected) + counters (aggregated)
+    (metrics/mod.rs:9-61)."""
+
+    def __init__(self) -> None:
+        self.collected: Dict[K, Histogram] = {}
+        self.aggregated: Counter = Counter()
+
+    def collect(self, kind: K, value: int) -> None:
+        self.collected.setdefault(kind, Histogram()).increment(value)
+
+    def aggregate(self, kind: K, delta: int) -> None:
+        self.aggregated[kind] += delta
+
+    def get_collected(self, kind: K) -> Optional[Histogram]:
+        return self.collected.get(kind)
+
+    def get_aggregated(self, kind: K) -> Optional[int]:
+        return self.aggregated.get(kind)

@@ -139,7 +139,8 @@ class FaultPlan:
     jitter_max: int = 0
     jitter_seed: int = 0
     # explicit per-message perturbations by (src, dst, channel index):
-    # replayed by the reference's host oracle only, refused by make_lane
+    # shrunk repro artifacts, replayed by the host oracle only
+    # (sim/runner.py), refused by make_lane
     jitter_overrides: Mapping[Tuple[int, int, int], int] = field(
         default_factory=dict
     )
@@ -204,7 +205,7 @@ class FaultPlan:
 
     def host_only(self) -> bool:
         """Plans carrying explicit per-message perturbations replay
-        through the reference's host oracle only."""
+        through the host oracle only."""
         return bool(self.jitter_overrides) or bool(self.drop_list)
 
     def window_at(self, src: int, dst: int, send_ms: int
@@ -220,7 +221,10 @@ class FaultPlan:
              ) -> Tuple[int, bool]:
         """One message's ``(effective delay, lost?)``: the window by send
         time, then the jitter multiplier, then the drop verdict, all by
-        channel emission index ``kcnt``."""
+        channel emission index ``kcnt``. The host oracle calls it once a
+        process-to-process message (sim/runner.py); explicit
+        ``jitter_overrides``/``drop_list`` entries take the seeded tables'
+        place per message."""
         delay, lost = base_delay, False
         w = self.window_at(src, dst, send_ms)
         if w is not None:
@@ -232,7 +236,7 @@ class FaultPlan:
             delay = min(delay * mult, INF)
             if delay >= INF:
                 return delay, True
-        if (src, dst, kcnt) in set(self.drop_list):
+        if (src, dst, kcnt) in self._drop_set:
             lost = True
         elif drop_table is not None:
             assert kcnt < drop_table.shape[2], (
@@ -253,6 +257,14 @@ class FaultPlan:
             )
             mult = int(jitter_table[src, dst, kcnt])
         return mult
+
+    @property
+    def _drop_set(self):
+        s = self.__dict__.get("_drop_set_cache")
+        if s is None:
+            s = frozenset(self.drop_list)
+            object.__setattr__(self, "_drop_set_cache", s)
+        return s
 
     def drop_table(self, n: int, kmax: int = 1 << 14) -> np.ndarray:
         """``[n, n, kmax]`` drop verdicts: ``table[src, dst, k]`` is the

@@ -1,24 +1,29 @@
-"""Schedule fuzzing on the device: the device half of the reference's
-``fantoch_tpu/mc`` (``fuzz.py``).
+"""Schedule fuzzing (the reference's ``fantoch_tpu/mc``: ``fuzz.py`` and
+``shrink.py``).
 
 Thousands of independently perturbed schedules of one closed-loop
 workload run as lanes of one batch with the safety monitors on
 (``engine/monitor.py``); each lane comes back with its violation word,
-the step where it first showed and its coverage digest. Confirming a
-flagged lane on the host oracle, shrinking it and replaying repro
-artifacts need the reference's host simulator, which the port does not
-have yet (ROADMAP Queue A item 17): those entry points raise
-``NotImplementedError`` naming the item.
+the step where it first showed and its coverage digest. A flagged lane
+replays through the host oracle (``sim/``), which confirms it; a
+confirmed violation shrinks to a minimal perturbation set written as a
+replayable repro artifact. The host oracle covers Basic and FPaxos; the
+other protocols' confirmation and replay refuse by name (ROADMAP Queue A
+item 17), as does the bounded model checker (``mc/checker.py``).
 """
 
 from .fuzz import (
-    FuzzPointResult, FuzzSpec, LaneFinding, class_spec, draw_plans,
-    plan_rng, point_config, point_protocol, restore_rng, rng_state,
-    run_fuzz_point,
+    REPLAY_HORIZON_MS, FuzzPointResult, FuzzSpec, LaneFinding,
+    check_host_monitors, class_spec, draw_plans, host_check, load_artifact,
+    plan_rng, point_config, point_protocol, replay_artifact, restore_rng,
+    rng_state, run_fuzz_point,
 )
+from .shrink import RecordingPlan, ShrinkResult, ddmin
 
 __all__ = [
-    "FuzzPointResult", "FuzzSpec", "LaneFinding", "class_spec",
-    "draw_plans", "plan_rng", "point_config", "point_protocol",
-    "restore_rng", "rng_state", "run_fuzz_point",
+    "FuzzPointResult", "FuzzSpec", "LaneFinding", "REPLAY_HORIZON_MS",
+    "RecordingPlan", "ShrinkResult", "check_host_monitors", "class_spec",
+    "ddmin", "draw_plans", "host_check", "load_artifact", "plan_rng",
+    "point_config", "point_protocol", "replay_artifact", "restore_rng",
+    "rng_state", "run_fuzz_point",
 ]

@@ -1,5 +1,4 @@
-"""Device-scale schedule fuzzing: the device half of the reference's
-``fantoch_tpu/mc/fuzz.py``.
+"""Device-scale schedule fuzzing (the reference's ``fantoch_tpu/mc/fuzz.py``).
 
 Per (protocol, config) point:
 
@@ -11,15 +10,19 @@ Per (protocol, config) point:
    plans within the protocol's ``min_live`` on another;
 2. the whole batch runs through ``run_sweep(monitor_keys=...)``: every
    lane returns its violation word, first violating step and coverage
-   digest (:class:`FuzzPointResult`).
+   digest (:class:`FuzzPointResult`);
+3. every flagged lane (at most ``max_confirmations``) replays through
+   the host oracle (``sim/runner.py`` with the ``DeviceStream`` workload
+   and the lane's fault plan, :func:`host_check`), which confirms it
+   against the protocol's execution monitors;
+4. a confirmed violation shrinks (``shrink.py``) to a minimal explicit
+   perturbation set, a JSON repro artifact that :func:`replay_artifact`
+   (``mc --replay``) re-executes on the host.
 
-The reference goes on to replay every flagged lane through its host
-oracle (confirmation), shrink a confirmed violation to a minimal
-perturbation set and write a replayable repro artifact. The port has no
-host oracle yet (ROADMAP Queue A item 17), so :func:`run_fuzz_point`
-runs only with ``confirm=False`` and :func:`replay_artifact` /
-:func:`load_artifact` raise; each refusal names the item before any
-lane runs.
+Basic and FPaxos have a host oracle. Tempo, Atlas, EPaxos and Caesar do
+not yet (ROADMAP Queue A item 17): confirmation, ``--replay`` and the
+injected bug (which needs Tempo's oracle) refuse them by name, before
+any lane runs; ``confirm=False`` fuzzes every protocol.
 
 ``TempoStabilityBugDev`` is the reference's deliberately broken Tempo
 (stability threshold off by one), the self-check that the monitors catch
@@ -28,33 +31,59 @@ an ordering bug.
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass, field, replace
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..client import DeviceStream, Workload
 from ..core.config import Config
 from ..core.planet import Planet
-from ..engine.dims import EngineDims
+from ..engine.dims import INF, EngineDims
 from ..engine.faults import FaultPlan, unavailable
 from ..engine.monitor import VIOL_MISSING, viol_names
 from ..engine.protocols import dev_config_kwargs, dev_protocol
 from ..engine.protocols.tempo import TempoDev
 from ..engine.spec import make_lane
 from ..parallel.sweep import run_sweep
+from ..protocol import BY_NAME as ORACLES
+from ..sim import Runner
+from .shrink import (
+    ARTIFACT_KIND,
+    RecordingPlan,
+    ShrinkResult,
+    artifact as make_artifact,
+    shrink as shrink_plan,
+)
 
-# the ROADMAP Queue A item that ports the host oracle (sim/, protocol/,
-# executor/, the client's Workload/DeviceStream, mc/checker.py and
-# mc/shrink.py), which confirmation, shrinking and replay need
+# the ROADMAP Queue A item that ports the host oracle, protocol by
+# protocol: Basic and FPaxos are ported, Tempo, Atlas, EPaxos, Caesar
+# (and mc/checker.py) are not
 HOST_ORACLE_ITEM = "17"
 
+# host replays of lossless plans still get a horizon: a buggy protocol
+# can deadlock the oracle loop (a client that never completes keeps
+# periodic events flowing forever); past the lane's natural end the
+# horizon changes nothing
+REPLAY_HORIZON_MS = 600_000
 
-def host_oracle_missing(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} needs the host oracle, which is not ported yet "
-        f"(ROADMAP Queue A item {HOST_ORACLE_ITEM})"
-    )
+
+def oracle_protocol(name: str, inject_bug: bool = False):
+    """The host oracle class of a protocol; raises
+    ``NotImplementedError`` naming item 17 and the protocol when its
+    oracle is not ported (the injected bug needs Tempo's)."""
+    if inject_bug:
+        name = "tempo (the injected bug's broken twin)"
+    cls = None if inject_bug else ORACLES.get(name)
+    if cls is None:
+        raise NotImplementedError(
+            f"the host oracle of {name} is not ported yet (ROADMAP Queue "
+            f"A item {HOST_ORACLE_ITEM}; ported: {', '.join(ORACLES)})"
+        )
+    return cls
 
 
 # ----------------------------------------------------------------------
@@ -119,6 +148,12 @@ class FuzzSpec:
         # the drain tail must cover a jittered RTT plus a few periodic
         # intervals, else correct protocols report missing executions
         return self.extra_time_ms or (1000 + 500 * self.jitter_max)
+
+
+def _oracle(spec: FuzzSpec):
+    """The oracle half of the reference's ``_protocol_pair``: the host
+    class the spec's flagged lanes replay through."""
+    return oracle_protocol(spec.protocol, spec.inject_bug)
 
 
 def _device_protocol(spec: FuzzSpec, clients: int):
@@ -294,20 +329,185 @@ def point_lanes(spec: FuzzSpec, planet: Optional[Planet] = None,
 
 
 # ----------------------------------------------------------------------
+# host-oracle confirmation
+# ----------------------------------------------------------------------
+
+
+def _live_pids(plan: Optional[FaultPlan], n: int) -> List[int]:
+    doomed = set() if plan is None else {r + 1 for r in plan.crashes}
+    return [pid for pid in range(1, n + 1) if pid not in doomed]
+
+
+def check_host_monitors(
+    monitors: dict,
+    live_pids: Sequence[int],
+    expected_total: Optional[int],
+    lossless: bool,
+) -> Optional[str]:
+    """The host-side violation check over the oracle's per-process
+    ExecutionOrderMonitors: the reference ``check_monitors`` plus
+    exactly-once, with the device monitors' loss gating (order and count
+    comparisons bind only on lossless runs: a dropped commit can skip
+    one process for good)."""
+    orders = {}
+    for pid in live_pids:
+        m = monitors.get(pid)
+        if m is None:
+            return f"process {pid}: no execution monitor"
+        orders[pid] = {k: list(m.get_order(k)) for k in m.keys()}
+    for pid, od in sorted(orders.items()):
+        for key, order in od.items():
+            if len(set(order)) != len(order):
+                return f"process {pid} key {key!r}: duplicate execution"
+    if not lossless:
+        return None
+    pids = sorted(orders)
+    for i, pa in enumerate(pids):
+        for pb in pids[i + 1:]:
+            a, b = orders[pa], orders[pb]
+            for key in sorted(set(a) | set(b), key=str):
+                oa, ob = a.get(key, []), b.get(key, [])
+                m = min(len(oa), len(ob))
+                bad = next(
+                    (x for x in range(m) if oa[x] != ob[x]), None
+                )
+                if bad is not None:
+                    return (
+                        f"execution orders diverge on key {key!r} at "
+                        f"index {bad}: p{pa}={oa[bad]} p{pb}={ob[bad]}"
+                    )
+                if len(oa) != len(ob):
+                    return (
+                        f"key {key!r}: execution counts diverge "
+                        f"(p{pa}={len(oa)} p{pb}={len(ob)})"
+                    )
+    if expected_total is not None:
+        for pid, od in sorted(orders.items()):
+            total = sum(len(v) for v in od.values())
+            if total != expected_total:
+                return (
+                    f"process {pid} executed {total} != "
+                    f"{expected_total} commands"
+                )
+    return None
+
+
+def host_run(
+    spec: FuzzSpec,
+    plan: Optional[FaultPlan],
+    *,
+    planet: Optional[Planet] = None,
+    regions: Optional[Sequence[str]] = None,
+):
+    """One perturbed schedule of ``spec`` through the host oracle:
+    ``(metrics, monitors, latencies, the plan the runner ran)``. A
+    lossless plan gets :data:`REPLAY_HORIZON_MS`; a
+    :class:`RecordingPlan` keeps its events."""
+    planet = planet or spec.planet()
+    regions = list(regions or spec.regions or planet.regions()[: spec.n])
+    oracle_cls = _oracle(spec)
+    config = Config(
+        **dev_config_kwargs(spec.protocol, spec.n, spec.f)
+    ).with_(executor_monitor_execution_order=True)
+    run_plan = plan
+    if run_plan is not None and run_plan.horizon_ms is None:
+        # deadlock guard for buggy protocols; inert past the natural end
+        # (a RecordingPlan stays one: replace keeps the class)
+        run_plan = replace(run_plan, horizon_ms=REPLAY_HORIZON_MS)
+    workload = Workload(
+        shard_count=1,
+        key_gen=DeviceStream(
+            conflict_rate=spec.conflict,
+            pool_size=spec.pool_size,
+            seed=spec.seed,
+        ),
+        keys_per_command=1,
+        commands_per_client=spec.commands_per_client,
+        payload_size=0,
+    )
+    runner = Runner(
+        oracle_cls,
+        planet,
+        config,
+        workload,
+        spec.clients_per_region,
+        regions,
+        regions,
+        fault_plan=run_plan,
+    )
+    metrics, monitors, latencies = runner.run(
+        extra_sim_time_ms=spec.extra_ms
+    )
+    return metrics, monitors, latencies, run_plan
+
+
+def host_check(
+    spec: FuzzSpec,
+    plan: Optional[FaultPlan],
+    *,
+    planet: Optional[Planet] = None,
+    regions: Optional[Sequence[str]] = None,
+    record: bool = False,
+) -> Tuple[Optional[str], Optional[list]]:
+    """Replay one perturbed schedule through the host oracle and check
+    its execution monitors. Returns (violation | None, the recorded wire
+    events when ``record``)."""
+    planet = planet or spec.planet()
+    regions = list(regions or spec.regions or planet.regions()[: spec.n])
+    clients = spec.clients_per_region * len(regions)
+    run_plan = plan
+    if record and plan is not None:
+        run_plan = RecordingPlan.of(plan)
+    _metrics, monitors, latencies, run_plan = host_run(
+        spec, run_plan, planet=planet, regions=regions)
+    lossy = plan is not None and (
+        plan.drop_bp > 0
+        or plan.drop_list
+        or any(
+            w.delay is not None and w.delay >= INF for w in plan.windows
+        )
+    )
+    crashed = plan is not None and bool(plan.crashes)
+    completed = sum(h.count() for _iss, h in latencies.values())
+    expected = (
+        spec.commands_per_client * clients
+        if not lossy and not crashed and completed
+        == spec.commands_per_client * clients
+        else None
+    )
+    violation = check_host_monitors(
+        monitors,
+        _live_pids(plan, spec.n),
+        expected,
+        lossless=not lossy,
+    )
+    events = (
+        list(run_plan.events)
+        if record and isinstance(run_plan, RecordingPlan)
+        else None
+    )
+    return violation, events
+
+
+# ----------------------------------------------------------------------
 # results
 # ----------------------------------------------------------------------
 
 
 @dataclass
 class LaneFinding:
-    """One device-flagged lane. ``host_violation`` stays None: host
-    confirmation needs the host oracle."""
+    """One device-flagged lane and what became of it."""
 
     lane: int
     plan: Optional[FaultPlan]
     violation: int
     violation_step: int
     host_violation: Optional[str] = None
+    shrunk: Optional[ShrinkResult] = None
+    artifact: Optional[dict] = None
+    # where the artifact was written (run_fuzz_point(artifact_dir=..)
+    # writes each one the moment it exists)
+    artifact_path: Optional[str] = None
 
     @property
     def violation_cause(self) -> str:
@@ -333,10 +533,12 @@ class FuzzPointResult:
     digests: List[int] = field(default_factory=list)
     # every lane's LaneResults, in plan order
     lane_results: list = field(default_factory=list, repr=False)
+    # host seconds spent confirming and shrinking (not in the summary,
+    # as the reference's: its timings are the device fan-out's)
+    confirm_s: float = 0.0
 
     def summary(self) -> dict:
-        """The reference's summary keys (confirmation fields stay at
-        their unconfirmed values)."""
+        """The reference's summary keys."""
         return {
             "protocol": self.spec.protocol,
             "n": self.spec.n,
@@ -356,6 +558,14 @@ class FuzzPointResult:
                     "device": f.violation_cause,
                     "step": f.violation_step,
                     "host": f.host_violation,
+                    **(
+                        {
+                            "shrunk_to": f.shrunk.size,
+                            "shrink_runs": f.shrunk.runs,
+                        }
+                        if f.shrunk
+                        else {}
+                    ),
                 }
                 for f in self.findings
             ],
@@ -367,25 +577,34 @@ def run_fuzz_point(
     *,
     planet: Optional[Planet] = None,
     confirm: bool = True,
+    do_shrink: bool = True,
+    shrink_budget: int = 150,
     max_confirmations: int = 8,
     strict_missing: bool = False,
     plans: Optional[Sequence[FaultPlan]] = None,
     lane_offset: int = 0,
+    artifact_dir: Optional[str] = None,
     device=None,
 ) -> FuzzPointResult:
     """Fuzz one (protocol, config) point on ``device`` (default: the
-    CUDA card): fan the schedule batch out with the monitors on and
-    collect the flagged lanes (at most ``max_confirmations`` findings,
-    the rest counted as unprocessed). ``strict_missing`` promotes the
-    advisory missing-execution bit to a finding. ``plans`` overrides the
-    draw, ``lane_offset`` shifts reported lane indices.
+    CUDA card): fan the schedule batch out with the monitors on, then
+    host-confirm and shrink the flagged lanes.
 
-    ``confirm=True`` (the reference's default) needs the host oracle and
-    raises before any lane runs."""
+    At most ``max_confirmations`` flagged lanes go through the host
+    pipeline (the rest are counted as unprocessed) and each shrink spends
+    at most ``shrink_budget`` host runs. ``strict_missing`` promotes the
+    advisory missing-execution bit to a finding. ``plans`` overrides the
+    draw, ``lane_offset`` shifts reported lane indices and
+    ``artifact_dir`` writes every shrunk repro artifact the moment it
+    exists.
+
+    ``confirm=True`` (the default) on a protocol whose host oracle is not
+    ported raises ``NotImplementedError`` naming item 17 and the
+    protocol, before any lane runs."""
     if confirm:
-        raise host_oracle_missing(
-            "run_fuzz_point(confirm=True) (host confirmation and shrink)"
-        )
+        _oracle(spec)
+    planet = planet or spec.planet()
+    regions = list(spec.regions or planet.regions()[: spec.n])
     dev, dims, lane_specs, plans, monitor_keys = point_lanes(
         spec, planet, plans)
     t0 = time.perf_counter()
@@ -411,24 +630,141 @@ def run_fuzz_point(
         (i, r) for i, r in enumerate(results) if (r.violation & mask)
     ]
     out.flagged = len(flagged)
+    t1 = time.perf_counter()
     for i, r in flagged:
         if len(out.findings) >= max_confirmations:
             out.unprocessed += 1
             continue
-        out.findings.append(LaneFinding(
+        finding = LaneFinding(
             lane=lane_offset + i,
             plan=plans[i],
             violation=r.violation,
             violation_step=r.violation_step,
-        ))
+        )
+        if confirm:
+            _confirm(spec, finding, planet, regions, do_shrink,
+                     shrink_budget, artifact_dir)
+            out.confirmed += finding.confirmed
+        out.findings.append(finding)
+    out.confirm_s = time.perf_counter() - t1
     return out
 
 
+def _confirm(spec: FuzzSpec, finding: LaneFinding, planet: Planet,
+             regions: List[str], do_shrink: bool, shrink_budget: int,
+             artifact_dir: Optional[str]) -> None:
+    """Replay one flagged lane through the host oracle; shrink a
+    confirmed violation to a repro artifact (written to ``artifact_dir``
+    when given)."""
+    plan = finding.plan
+    violation, events = host_check(
+        spec, plan, planet=planet, regions=regions, record=True)
+    finding.host_violation = violation
+    if violation is None or not do_shrink:
+        return
+    run_plan = plan
+    if run_plan.horizon_ms is None:
+        run_plan = replace(run_plan, horizon_ms=REPLAY_HORIZON_MS)
+
+    def check(p):
+        return host_check(spec, p, planet=planet, regions=regions)[0]
+
+    finding.shrunk = shrink_plan(run_plan, events or [], check,
+                                 budget=shrink_budget)
+    if finding.shrunk is None:
+        return
+    finding.artifact = make_artifact(
+        finding.shrunk,
+        protocol=spec.protocol,
+        n=spec.n,
+        f=spec.f,
+        conflict=spec.conflict,
+        pool_size=spec.pool_size,
+        clients_per_region=spec.clients_per_region,
+        commands_per_client=spec.commands_per_client,
+        regions=regions,
+        workload_seed=spec.seed,
+        extra_time_ms=spec.extra_ms,
+        inject_bug=spec.inject_bug,
+        aws=spec.aws,
+        device={
+            "lane": finding.lane,
+            "violation": finding.violation,
+            "violation_step": finding.violation_step,
+        },
+    )
+    if artifact_dir is not None:
+        finding.artifact_path = _persist_artifact(artifact_dir, spec,
+                                                  finding)
+
+
+def _persist_artifact(artifact_dir: str, spec: FuzzSpec,
+                      finding: LaneFinding) -> str:
+    """Write one repro artifact durably (atomic rename), in the
+    canonical bytes every artifact is written in."""
+    from ..engine.checkpoint import atomic_write, canonical_json
+
+    os.makedirs(artifact_dir, exist_ok=True)
+    path = os.path.join(
+        artifact_dir,
+        f"repro_{spec.protocol}_n{spec.n}_lane{finding.lane}.json",
+    )
+    atomic_write(path, canonical_json(finding.artifact, indent=2))
+    return path
+
+
+# ----------------------------------------------------------------------
+# repro-artifact replay (cli.py mc --replay)
+# ----------------------------------------------------------------------
+
+
+def artifact_spec(obj: dict) -> FuzzSpec:
+    """The fuzz point a repro artifact was shrunk on."""
+    assert obj.get("kind") == ARTIFACT_KIND, "not a fuzz repro artifact"
+    return FuzzSpec(
+        protocol=obj["protocol"],
+        n=int(obj["n"]),
+        f=int(obj["f"]),
+        conflict=int(obj["conflict"]),
+        pool_size=int(obj["pool_size"]),
+        clients_per_region=int(obj["clients_per_region"]),
+        commands_per_client=int(obj["commands_per_client"]),
+        seed=int(obj["workload_seed"]),
+        extra_time_ms=int(obj["extra_time_ms"]),
+        regions=tuple(obj["regions"]),
+        aws=bool(obj.get("aws", False)),
+        inject_bug=bool(obj.get("inject_bug", False)),
+    )
+
+
 def replay_artifact(obj: dict, planet: Optional[Planet] = None) -> dict:
-    """Re-executing a repro artifact needs the host oracle."""
-    raise host_oracle_missing("replay_artifact (mc --replay)")
+    """Re-execute a shrunk repro artifact through the host oracle and
+    report whether its violation reproduces. An artifact of a protocol
+    whose oracle is not ported raises ``NotImplementedError`` naming
+    item 17."""
+    spec = artifact_spec(obj)
+    _oracle(spec)
+    plan = FaultPlan.from_json(obj["perturbations"])
+    violation, _ = host_check(
+        spec, plan, planet=planet, regions=spec.regions
+    )
+    return {
+        # shrinking keeps "some violation", not a given one: reproduced
+        # means a violation occurred, matches_expected whether it is the
+        # recorded string
+        "reproduced": violation is not None,
+        "matches_expected": violation == obj.get("violation"),
+        "violation": violation,
+        "expected": obj.get("violation"),
+        "perturbation_count": obj.get("perturbation_count"),
+    }
 
 
 def load_artifact(path: str) -> dict:
-    """Repro artifacts are written and replayed by the host pipeline."""
-    raise host_oracle_missing("load_artifact (mc --replay)")
+    """Read a repro artifact; one whose protocol has no ported host
+    oracle raises ``NotImplementedError`` naming item 17, before any
+    replay."""
+    with open(path) as fh:
+        obj = json.load(fh)
+    _oracle(artifact_spec(obj))
+    return obj

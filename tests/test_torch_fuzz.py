@@ -10,8 +10,10 @@ against the reference's ``fantoch_tpu/mc/fuzz.py`` on the CPU.
   digests; the injected bug's per-lane results equal the committed
   fixture ``tests/fixtures/torch_fuzz_bug_golden.json``;
 * ``mc --no-confirm``'s summary on a small grid equals the reference
-  CLI's outside its timings; what needs the host oracle or the campaign
-  drivers is refused by name before any lane runs.
+  CLI's outside its timings; what needs a host oracle that is not
+  ported (Tempo's, Atlas's, EPaxos's, Caesar's) or the campaign drivers
+  is refused by name before any lane runs, and so is ``sim`` of those
+  protocols.
 
 The mixed crash/drop Tempo spec of ``test_mc_fuzz.py`` (lossy lanes to
 a 20,000 ms horizon) is in the slow tier. Tolerance: none."""
@@ -157,28 +159,61 @@ def test_mc_summary_matches_the_reference_cli(capsys):
     assert got["points"] == 2 and got["schedules"] == 4
 
 
+def _tempo_artifact():
+    """A repro artifact of Tempo, whose host oracle is not ported."""
+    return {"kind": "fantoch-fuzz-repro", "version": 1, "protocol": "tempo",
+            "n": 3, "f": 1, "conflict": 100, "pool_size": 1,
+            "clients_per_region": 1, "commands_per_client": 2,
+            "regions": ["asia-east1", "asia-east2", "asia-northeast1"],
+            "workload_seed": 0, "extra_time_ms": 0, "violation": "x",
+            "perturbations": {}, "perturbation_count": 0}
+
+
 @pytest.mark.parametrize("argv,item", [
     (["mc", "--protocols", "tempo"], "17"),
-    (["mc", "--no-confirm", "--replay", "x.json"], "17"),
+    (["mc", "--no-confirm", "--replay", "{tempo_artifact}"], "17"),
     (["mc", "--no-confirm", "--farm", "farm"], "14"),
     (["mc", "--no-confirm", "--coverage-dir", "cov"], "14"),
     (["mc", "--no-confirm", "--migrate-covmaps", "cov"], "14"),
 ])
-def test_mc_refuses_what_is_not_ported_by_name(argv, item, capsys):
+def test_mc_refuses_what_is_not_ported_by_name(argv, item, capsys,
+                                               tmp_path):
     from fantoch_tpu_torch.cli import main
 
+    path = tmp_path / "repro_tempo.json"
+    path.write_text(json.dumps(_tempo_artifact()))
+    argv = [str(path) if a == "{tempo_artifact}" else a for a in argv]
     with pytest.raises(SystemExit) as e:
         main(["--device", "cpu", *argv])
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert f"ROADMAP Queue A item {item}" in err and "mc refused" in err
+    if item == "17":
+        assert "tempo" in err
 
 
-def test_host_oracle_entry_points_refuse_by_name():
-    spec = fuzz.FuzzSpec(**BASIC)
+@pytest.mark.parametrize("protocol", ["tempo", "tempo_atomic", "atlas",
+                                      "epaxos", "caesar"])
+def test_sim_refuses_what_is_not_ported_by_name(protocol, capsys):
+    from fantoch_tpu_torch.cli import main
+
+    with pytest.raises(SystemExit) as e:
+        main(["sim", "--protocol", protocol, "--commands", "2"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert "sim refused" in err and "ROADMAP Queue A item 17" in err
+    assert f"host oracle of {protocol} " in err
+
+
+def test_host_oracle_entry_points_refuse_by_name(tmp_path):
+    spec = fuzz.FuzzSpec(**dict(BASIC, protocol="tempo"))
+    path = tmp_path / "repro_tempo.json"
+    path.write_text(json.dumps(_tempo_artifact()))
     for call in (lambda: fuzz.run_fuzz_point(spec, device="cpu"),
-                 lambda: fuzz.replay_artifact({}),
-                 lambda: fuzz.load_artifact("x.json")):
+                 lambda: fuzz.run_fuzz_point(fuzz.FuzzSpec(**BUG),
+                                             device="cpu"),
+                 lambda: fuzz.replay_artifact(_tempo_artifact()),
+                 lambda: fuzz.load_artifact(str(path))):
         with pytest.raises(NotImplementedError,
                            match="ROADMAP Queue A item 17"):
             call()
