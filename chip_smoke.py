@@ -177,9 +177,19 @@ drain tail makes lanes flag on the card, confirm on the host and shrink
 to repro artifacts that ``mc --replay`` reproduces; the FPaxos grid
 without jitter; and the first lanes of each plan kind and every flagged
 lane of each point held to the host oracle (completed and per-region
-counts on every lane, latency means on Basic and on the jitter-free
-FPaxos lanes: the CPU tests show the reference's own engine and oracle
-disagree on jittered FPaxos means). The monitor coverage's batches run
+counts on every lane, latency histograms on every lane the readiness
+gate did not bounce: the CPU tests show the reference's own engine and
+oracle disagree on bounced FPaxos lanes' means). Slice 21, the rest of
+the host oracle (Tempo, TempoAtomic, Atlas, EPaxos, Caesar, the partial
+twins) and phase ``9 mc confirm grid`` (``mc_confirm_grid``): ``mc``,
+the default grid, with host confirmation, counted, each point's handler
+alone, its FPaxos points equal to slice 20's, Atlas n = 5's host
+verdicts printed; the injected-bug point through ``mc --inject-bug
+--out`` (confirmed, shrunk, ``--replay`` reproduced); an EPaxos and a
+Caesar point; sampled lanes held to the oracle by protocol
+(``_same_hists``: latency histograms with the oracle's values clamped
+into the card's last bucket); every host run asserted to launch no
+kernel. The monitor coverage's batches run
 a 1,500 ms drain tail (the fuzz default is 5,000 ms), which halves their
 steps. Any failure raises; nothing is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
@@ -3349,7 +3359,8 @@ def bottlenecks(rows, by_path) -> None:
     n = 5 rows' bound at step 301 a launch; on the mixed sweep the
     profiled eager body's ms a step (steps 1,280-1,343 of its first
     batch) against the step's bound by kernel, times the sweep's batch
-    steps. Each line gives the
+    steps; a kernel timed on one path only (K13, K14) that path's ms
+    and bound times its launches on every path. Each line gives the
     kernel's five largest paths."""
     gap = {}
     for path, counts in by_path.items():
@@ -3370,12 +3381,20 @@ def bottlenecks(rows, by_path) -> None:
             if k in mixed["bound"]:
                 gap.setdefault(k, {})["hetero"] = (
                     steps * (ms - mixed["bound"][k]) / 1e3)
+    # the kernels timed on one path only: that path's ms and bound
+    # against their launches on every path
+    for k in ("mon_finalize", "loop_ctl"):
+        row = rows[k]
+        for path, counts in by_path.items():
+            if counts.get(k):
+                gap.setdefault(k, {})[path] = (
+                    counts[k] * (row["ms"] - row["bound_ms"]) / 1e3)
     print("bottlenecks: launches x (device ms - bound ms), s, by kernel "
           "and path")
     for k, d in sorted(gap.items(), key=lambda kv: -sum(kv[1].values())):
         top = sorted(d.items(), key=lambda kv: -kv[1])[:5]
-        print(f"bottleneck {k}: {sum(d.values()):.2f} s; "
-              + ", ".join(f"{p} {v:.2f}" for p, v in top))
+        print(f"bottleneck {k}: {sum(d.values()):.4f} s; "
+              + ", ".join(f"{p} {v:.4f}" for p, v in top))
 
 
 def bench_point(dev) -> None:
@@ -3458,51 +3477,83 @@ def _cli_mc(argv, dev, points):
                       text.splitlines()[-1])
 
 
-def _hold_to_oracle(point, means: bool, kinds=None):
-    """The sampled lanes of one fuzz point (the first lanes of each plan
-    kind, ``kinds`` or ``MC_CONFIRM_KINDS``, and every flagged lane, of
-    those without an engine error) through the host oracle
-    (``fuzz.host_run``): each lane's completed count and per-region
-    counts equal the card's, and every region's latency mean too on
-    each lane whose readiness gate bounced nothing (``requeues`` 0), or
-    on every lane with ``means``. A bounce delays a message that
-    overtook its prerequisite by 1 ms where the oracle's executor
-    buffers it (engine/core.py's readiness gate), so only a bounced
-    lane's means may differ. Returns (lanes held, lanes whose means
-    also agree, lanes that bounced, host seconds)."""
+# slice 21: what the card's lanes must share with the host oracle, by
+# protocol, as the CPU showed it with the reference's engine and oracle
+# (the port reproduces both): every lane's completed and per-region
+# counts, but Caesar's under a drop plan; the latency histograms (the
+# oracle's latencies clamped into the card's last bucket, 511 ms) on
+# every Basic, Tempo, Atlas and EPaxos lane (bounced or not; Basic's
+# on the reference's fuzz point), on FPaxos lanes the readiness gate
+# did not bounce or without jitter, on no
+# jittered Caesar lane (the oracle broadcasts an empty GC message every
+# interval, the engine none, so the channel indices that key the jitter
+# and drop draws part; ROADMAP Queue C)
+def _same_hists(proto, res, plan) -> bool:
+    if proto == "caesar":
+        return plan.jitter_max <= 1 and not plan.drop_bp
+    if proto == "fpaxos":
+        # without jitter nothing overtakes its prerequisite: a requeue
+        # (a drop lane's) delays no completion
+        return res.requeues == 0 or plan.jitter_max <= 1
+    return True
+
+
+def _hold_clamped(point, flagged, kinds=None):
+    """Sampled lanes of one point (the first lanes of each plan kind,
+    ``kinds`` or ``MC_CONFIRM_KINDS``, and the ``flagged`` ones, of
+    those without an engine error: a drop lane's requeue livelock ended
+    where the device gave up) through the host oracle, held by the rules
+    above. Returns (lanes, lanes held on histograms, host seconds)."""
     from fantoch_tpu_torch.mc import fuzz
 
     spec = point.spec
     plans = fuzz.draw_plans(spec, fuzz.point_config(spec),
                             fuzz.point_protocol(spec))
     want = dict(kinds or MC_CONFIRM_KINDS)
-    lanes = []
-    # a lane with an engine error (a drop lane's requeue livelock) ended
-    # where the device gave up: not a run to hold to the oracle's
     clean = [i for i, r in enumerate(point.lane_results) if not r.err]
+    lanes = []
     for i in clean:
         if want.get(_plan_kind(plans[i]), 0) > 0:
             want[_plan_kind(plans[i])] -= 1
             lanes.append(i)
-    lanes += [i for i in clean
-              if point.lane_results[i].violation and i not in lanes]
+    lanes += [i for i in flagged if i in clean and i not in lanes]
     t0 = time.perf_counter()
-    same_means = bounced = 0
+    hists = 0
     for i in lanes:
-        res = point.lane_results[i]
-        _m, _mon, lat, _p = fuzz.host_run(spec, plans[i])
-        host = _by_region({r: h for r, (_iss, h) in lat.items()})
-        card = _by_region({r: res.histogram(r) for r in res.region_rows})
-        assert res.completed == sum(c for c, _ in host.values()), (
-            spec, i, res.completed, host)
-        assert {r: c for r, (c, _) in card.items()} == {
-            r: c for r, (c, _) in host.items()}, (spec, i, card, host)
-        same_means += card == host
-        bounced += res.requeues > 0
-        if means or res.requeues == 0:
-            assert card == host, (spec, i, plans[i].meta(), res.requeues,
-                                  card, host)
-    return lanes, same_means, bounced, time.perf_counter() - t0
+        res, plan = point.lane_results[i], plans[i]
+        _m, _mon, lat, _p = fuzz.host_run(spec, plan)
+        cap = len(res.hist[0]) - 1
+        host = {r: h for r, (_iss, h) in lat.items() if h.count()}
+        card = {r: res.histogram(r) for r in res.region_rows}
+        card = {r: h for r, h in card.items() if h.count()}
+        if not (spec.protocol == "caesar" and plan.drop_bp):
+            assert res.completed == sum(h.count() for h in host.values()), (
+                spec, i, res.completed)
+            assert {r: h.count() for r, h in card.items()} == {
+                r: h.count() for r, h in host.items()}, (spec, i)
+        if _same_hists(spec.protocol, res, plan):
+            clamped = {r: sorted(min(v, cap) for v in h.all_values())
+                       for r, h in host.items()}
+            assert {r: sorted(h.all_values()) for r, h in card.items()} == (
+                clamped), (spec, i, plan.meta(), res.requeues)
+            hists += 1
+    return lanes, hists, time.perf_counter() - t0
+
+
+def _hold_points(label, points, kinds=None, every_flagged=False) -> None:
+    """``_hold_clamped`` on each point, with its host-checked flagged
+    lanes (``every_flagged``: every flagged lane)."""
+    for p in points:
+        flagged = ([i for i, r in enumerate(p.lane_results) if r.violation]
+                   if every_flagged else [f.lane for f in p.findings])
+        lanes, hists, secs = _hold_clamped(p, flagged, kinds)
+        print(f"{label} {p.spec.protocol} n={p.spec.n}: lanes {lanes} card "
+              f"== host oracle in completed and per-region counts"
+              + (" (but drop lanes, where the reference's engine and "
+                 "oracle differ)" if p.spec.protocol == "caesar" else "")
+              + f", {hists} of {len(lanes)} also in latency histograms "
+              f"(the oracle's clamped at the card's last bucket); "
+              f"{secs:.3f} s on the host")
 
 
 def _print_findings(label, point) -> None:
@@ -3529,10 +3580,10 @@ def mc_confirm(dev):
     completed counts exact, and latency means exact on every lane whose
     readiness gate bounced nothing (the reference's engine and oracle
     disagree only on bounced lanes' means, all but a few jittered FPaxos
-    lanes), so every lane is held on counts, the Basic point's and the
-    ``--jitter-max 1`` grid's lanes and every lane without a bounce also
-    on means. The oracle launches no kernel. Returns the main run's
-    launches."""
+    lanes), so every lane is held on counts and every lane without a
+    bounce (the Basic point's and the ``--jitter-max 1`` grid's all) also
+    on its latency histograms (``_hold_clamped``). The oracle launches
+    no kernel. Returns the main run's launches and its points."""
     import shutil
     import tempfile
 
@@ -3629,23 +3680,231 @@ def mc_confirm(dev):
     # sampled lanes of every point against the host oracle, which
     # launches no kernel
     kernels.reset_counts()
-    for label, pts, means, kinds in (
-            ("jitter 8", points, False, None),
-            ("basic", [basic], True, {"jitter": BASIC_FUZZ["schedules"]}),
-            ("tail", tail, False, None),
-            ("jitter 1", still, True, None)):
-        for p in pts:
-            lanes, same, bounced, secs = _hold_to_oracle(p, means, kinds)
-            print(f"mc confirm {label} {p.spec.protocol} n={p.spec.n}: "
-                  f"lanes {lanes} card == host oracle in completed and "
-                  f"per-region counts"
-                  + (" and latency means" if means else
-                     f" ({same} of {len(lanes)} also in latency means; "
-                     f"{bounced} bounced by the readiness gate, the "
-                     f"others held on means)")
-                  + f"; {secs:.3f} s on the host")
+    for label, pts, kinds in (
+            ("jitter 8", points, None),
+            ("basic", [basic], {"jitter": BASIC_FUZZ["schedules"]}),
+            ("tail", tail, None),
+            ("jitter 1", still, None)):
+        _hold_points(f"mc confirm {label}", pts, kinds, every_flagged=True)
     assert not any(kernels.counts().values()), kernels.counts()
-    return launches
+    return launches, points
+
+
+# slice 21: the injected-bug point (tests/test_mc_fuzz.py:291-319, the
+# reference's self-check that the monitors catch, the oracle confirms and
+# the shrinker reduces an ordering bug) and one EPaxos and one Caesar
+# point, each through the mc command with confirmation
+MC_BUG = ["mc", "--protocols", "tempo", "--ns", "3", "--schedules", "8",
+          "--seed", "3", "--inject-bug", "--crash-share", "0",
+          "--drop-share", "0", "--max-confirm", "1", "--shrink-budget", "80"]
+MC_GRAPH = ["mc", "--protocols", "epaxos,caesar", "--ns", "3",
+            "--schedules", "64"]
+
+
+class _HostRuns:
+    """Wraps ``fuzz.host_run`` while open: every host run of the oracle
+    (confirmation, shrinking, replay) counted and timed, and each one
+    held to launch no kernel (``kernels.counts()`` the same after it as
+    before it)."""
+
+    def __init__(self):
+        from fantoch_tpu_torch.mc import fuzz
+
+        self.fuzz, self.runs, self.secs = fuzz, 0, 0.0
+
+    def __enter__(self):
+        from fantoch_tpu_torch import kernels
+
+        run = self.old = self.fuzz.host_run
+
+        def counted(*a, **kw):
+            before = kernels.counts()
+            t0 = time.perf_counter()
+            out = run(*a, **kw)
+            self.secs += time.perf_counter() - t0
+            self.runs += 1
+            assert kernels.counts() == before, (before, kernels.counts())
+            return out
+
+        self.fuzz.host_run = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.fuzz.host_run = self.old
+
+
+def _cli_mc_counted(argv, dev, label):
+    """``_cli_mc`` with every launch counter at 0 just before and read
+    just after, the launches of each point (the counters' growth over
+    its ``run_fuzz_point``) and the oracle's host runs counted and held
+    to launch nothing. Returns (summary, points, launches, launches by
+    point, host runs)."""
+    import torch
+
+    from fantoch_tpu_torch import kernels
+    from fantoch_tpu_torch.mc import fuzz
+
+    points, per_point = [], []
+    run = fuzz.run_fuzz_point
+
+    def counted(*a, **kw):
+        before = kernels.counts()
+        out = run(*a, **kw)
+        torch.cuda.synchronize()
+        after = kernels.counts()
+        per_point.append({k: after[k] - before[k] for k in after})
+        return out
+
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    with _PatchedAttr(fuzz, "run_fuzz_point", counted), \
+            _HostRuns() as host:
+        summary = _cli_mc(argv, dev, points)
+    torch.cuda.synchronize()
+    launches = graph_only_counts(label, single=False)
+    return summary, points, launches, per_point, host
+
+
+def _print_points(label, points, per_point) -> None:
+    for p, counts in zip(points, per_point):
+        handlers = {k: v for k, v in counts.items()
+                    if k in set(HANDLERS.values()) and v}
+        shrink_runs = sum(f.shrunk.runs for f in p.findings if f.shrunk)
+        print(f"{label} {p.spec.protocol} n={p.spec.n}: {p.schedules} "
+              f"schedules, {p.schedules_per_sec:.3f} schedules/s of "
+              f"fan-out on the card; flagged {p.flagged}, confirmed "
+              f"{p.confirmed}, unprocessed {p.unprocessed}; confirm_s "
+              f"{p.confirm_s:.3f} s on the host; shrink runs "
+              f"{shrink_runs}; engine errors {p.engine_errors}; handler "
+              f"launches {handlers}")
+        _print_findings(f"{label} {p.spec.protocol} n={p.spec.n}", p)
+
+
+def mc_confirm_grid(dev, fpaxos_points):
+    """Phase 9, slice 21's main path: ``mc`` (the reference CLI's
+    default grid, Tempo, FPaxos and Atlas x n in {3, 5}, 512 schedules a
+    point, seed 0) with host confirmation, counted, through the CLI; each
+    point's handler is the one of its protocol (K8, K5, K9) and the
+    others stay at 0; the FPaxos points equal ``fpaxos_points``, slice
+    20's FPaxos grid (``plan_rng`` draws from (seed, n, f, conflict), not
+    from the protocol). Then the injected-bug point (``mc --inject-bug --out``:
+    flagged, confirmed as an order divergence, shrunk to at most 10
+    perturbations, ``--replay`` reproduces it) and one EPaxos and one
+    Caesar point (K9, K10). Atlas n = 5's host-checked lanes are printed
+    with the card's cause and the host's verdict; an unconfirmed lane
+    fails nothing. Sampled lanes of every point are held to the host
+    oracle, and the oracle's host runs launch no kernel. Returns the
+    launches of the default grid, the bug point and the EPaxos/Caesar
+    point."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.engine.monitor import VIOL_ORDER
+    from fantoch_tpu_torch.mc import fuzz
+
+    # the default grid, counted
+    specs = cli.mc_specs(cli.parse_args(cli.MAIN_PATH_MC_CONFIRM_GRID))
+    assert [(s.protocol, s.n, s.schedules) for s in specs] == [
+        (p, n, 512) for p in ("tempo", "fpaxos", "atlas") for n in (3, 5)]
+    fpaxos = cli.mc_specs(cli.parse_args(cli.MAIN_PATH_MC_CONFIRM))
+    for s in fpaxos:
+        assert (fuzz.plan_rng(s).bit_generator.state
+                == fuzz.plan_rng(replace(s, protocol="tempo"))
+                .bit_generator.state)
+    t0 = time.perf_counter()
+    summary, points, launches, per_point, host = _cli_mc_counted(
+        cli.MAIN_PATH_MC_CONFIRM_GRID, dev, "mc confirm grid")
+    wall = time.perf_counter() - t0
+    for k in ("qualify_pop", "tempo_handle", "fpaxos_handle",
+              "graphdep_handle", "emit_rewrite", "land_emissions",
+              "key_table"):
+        assert launches[k] > 0, launches
+    assert launches["mon_finalize"] == len(points) == 6, launches
+    for k in ("basic_handle", "caesar_handle", "tempo_partial_handle",
+              "atlas_partial_handle"):
+        assert launches[k] == 0, launches
+    for p, counts in zip(points, per_point):
+        mine = HANDLERS[p.spec.protocol]
+        assert counts[mine] > 0, (p.spec, counts)
+        for k in set(HANDLERS.values()) - {mine}:
+            assert counts[k] == 0, (p.spec, counts)
+    assert summary["schedules"] == 3072
+    _print_points("mc confirm grid", points, per_point)
+    print(f"mc confirm grid: {summary['schedules']} schedules in "
+          f"{wall:.3f} s ({summary['schedules_per_sec']} schedules/s of "
+          f"fan-out); flagged {summary['flagged']}, confirmed "
+          f"{summary['confirmed']}; host runs {host.runs} in "
+          f"{host.secs:.3f} s, no kernel launched by them; launches "
+          f"{launches}")
+    # the FPaxos points equal slice 20's FPaxos grid run on their own
+    for p in points:
+        if p.spec.protocol == "fpaxos":
+            same = [q for q in fpaxos_points if q.spec == p.spec]
+            assert len(same) == 1, p.spec
+            assert [r.to_json() for r in p.lane_results] == [
+                r.to_json() for r in same[0].lane_results], p.spec
+            assert p.summary()["violations"] == same[0].summary()[
+                "violations"]
+    atlas5 = next(p for p in points if (p.spec.protocol, p.spec.n)
+                  == ("atlas", 5))
+    print(f"mc confirm grid atlas n=5 host verdicts: "
+          + "; ".join(f"lane {f.lane} card {f.violation_cause} -> host "
+                      f"{f.host_violation}" for f in atlas5.findings))
+
+    # the injected bug: caught, confirmed, shrunk, written, replayed
+    out_dir = tempfile.mkdtemp(prefix="mc_bug_")
+    try:
+        bsum, bug, blaunch, bper, bhost = _cli_mc_counted(
+            MC_BUG + ["--out", out_dir], dev, "mc bug")
+        assert blaunch["tempo_handle"] > 0, blaunch
+        for k in set(HANDLERS.values()) - {"tempo_handle"}:
+            assert blaunch[k] == 0, blaunch
+        (b,) = bug
+        assert b.flagged >= 1 and b.confirmed >= 1, b.summary()
+        found = next(f for f in b.findings if f.confirmed)
+        assert found.violation & VIOL_ORDER, found.violation_cause
+        assert found.shrunk is not None and found.shrunk.size <= 10, (
+            found.shrunk)
+        assert bsum["artifacts"] == [found.artifact_path], bsum
+        _print_points("mc bug", bug, bper)
+        with _HostRuns() as rhost:
+            replay = _cli_mc(["mc", "--replay", found.artifact_path], dev,
+                             [])
+        assert replay["reproduced"], replay
+        print(f"mc bug (tempo n=3, 8 schedules, seed 3, --inject-bug): "
+              f"flagged {b.flagged}, confirmed {b.confirmed} "
+              f"({found.host_violation}); shrunk to {found.shrunk.size} "
+              f"perturbations in {found.shrunk.runs} host runs; --replay "
+              f"of {Path(found.artifact_path).name}: reproduced "
+              f"{replay['reproduced']}, matches "
+              f"{replay['matches_expected']} ({rhost.runs} host run); "
+              f"host runs {bhost.runs} in {bhost.secs:.3f} s")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # one EPaxos and one Caesar point
+    gsum, graph, glaunch, gper, ghost = _cli_mc_counted(
+        MC_GRAPH, dev, "mc confirm epaxos/caesar")
+    for p, counts in zip(graph, gper):
+        mine = HANDLERS[p.spec.protocol]
+        assert counts[mine] > 0, (p.spec, counts)
+        for k in set(HANDLERS.values()) - {mine}:
+            assert counts[k] == 0, (p.spec, counts)
+    _print_points("mc confirm", graph, gper)
+    print(f"mc confirm epaxos/caesar: {gsum['schedules']} schedules, "
+          f"flagged {gsum['flagged']}, confirmed {gsum['confirmed']}; host "
+          f"runs {ghost.runs} in {ghost.secs:.3f} s")
+
+    # sampled lanes of every point against the host oracle
+    with _HostRuns() as hold:
+        _hold_points("mc confirm grid", points)
+        _hold_points("mc bug", bug)
+        _hold_points("mc confirm", graph)
+    print(f"mc confirm holds: {hold.runs} host runs in {hold.secs:.3f} s, "
+          f"no kernel launched by them")
+    return launches, blaunch, glaunch
 
 
 def _checked_handler(kname, seen, errs):
@@ -4277,7 +4536,14 @@ def _main(dev, card) -> int:
     phase("8 mc bench point", bench_point, dev)
     # 9. slice 20's main path: the FPaxos grid with host confirmation,
     # its lanes held to the port's host oracle
-    by_path["mc_confirm"] = phase("9 mc confirm", mc_confirm, dev)
+    by_path["mc_confirm"], fpaxos_points = phase("9 mc confirm",
+                                                 mc_confirm, dev)
+    # slice 21: the default grid with confirmation, the injected bug and
+    # an EPaxos and a Caesar point, on the host oracles of every protocol
+    (by_path["mc_confirm_grid"], by_path["mc_bug"],
+     by_path["mc_confirm_graph"]) = phase("9 mc confirm grid",
+                                          mc_confirm_grid, dev,
+                                          fpaxos_points)
     phase("8 mc grid host replays", mc_check)
     assert K13_CHECKED["launches"] > 0
     rows["mon_finalize"]["max_abs_err"] = max(

@@ -123,10 +123,13 @@ MAIN_PATH_TEMPO_TRAFFIC = [
 # the mc subcommand's default grid: the reference CLI's own defaults
 # (Tempo, FPaxos and Atlas x n in {3, 5}, 512 schedules a point)
 MAIN_PATH_MC = ["mc", "--no-confirm"]
-# the FPaxos half of that grid with host confirmation: FPaxos has a host
-# oracle (Basic too; Tempo and Atlas not yet), n in {3, 5}, 512
+# the FPaxos half of that grid with host confirmation, n in {3, 5}, 512
 # schedules a point
 MAIN_PATH_MC_CONFIRM = ["mc", "--protocols", "fpaxos", "--ns", "3,5"]
+# the whole default grid with host confirmation (every protocol of it
+# has its host oracle): the reference CLI's own defaults, 8 confirmed
+# lanes a point at most, 150 host runs a shrink at most
+MAIN_PATH_MC_CONFIRM_GRID = ["mc"]
 # the reference bench's fuzz self-check point (bench.py _fuzz_selfcheck):
 # Tempo, n = 5, 256 schedules of 10 commands a client, mixed plans
 BENCH_FUZZ = dict(protocol="tempo", n=5, f=1, schedules=256,
@@ -330,10 +333,11 @@ def _traffic_setup(args):
 
 def _config_overrides(args) -> dict:
     """The CLI's config knobs, as the reference's ``_build_config``:
-    the GC interval, for Tempo the detached-send interval and the
-    optional real-time clock bump, for Caesar the wait condition."""
+    the GC interval, for Tempo and TempoAtomic the detached-send interval
+    and the optional real-time clock bump, for Caesar the wait
+    condition."""
     kw = dict(gc_interval_ms=args.gc_interval)
-    if args.protocol == "tempo":
+    if args.protocol.startswith("tempo"):
         kw["tempo_detached_send_interval_ms"] = args.detached_interval
         if args.clock_bump_interval:
             kw["tempo_clock_bump_interval_ms"] = args.clock_bump_interval
@@ -428,7 +432,7 @@ def _mc_refuse(what: str, item: str) -> None:
     raise SystemExit(2)
 
 
-def _refuse(cmd: str, e: NotImplementedError) -> None:
+def _refuse(cmd: str, e: Exception) -> None:
     print(f"{cmd} refused: {e}", file=sys.stderr)
     raise SystemExit(2)
 
@@ -441,8 +445,8 @@ ORACLE_PROTOCOLS = ENGINE_PROTOCOLS + ("tempo_atomic",)
 def cmd_sim(args) -> None:
     """One exact run of the host simulator (the reference CLI's ``sim``):
     per-region issued counts, mean/p95/p99 latency and the fast/slow path
-    totals, as JSON on stdout. A protocol whose host oracle is not ported
-    is refused by name (exit 2)."""
+    totals, as JSON on stdout. A protocol outside ``protocol.BY_NAME`` is
+    refused by name (exit 2)."""
     from .client import ConflictPool, Workload, Zipf
     from .engine.protocols import dev_config_kwargs
     from .mc.fuzz import oracle_protocol
@@ -452,7 +456,7 @@ def cmd_sim(args) -> None:
 
     try:
         protocol_cls = oracle_protocol(args.protocol)
-    except NotImplementedError as e:
+    except ValueError as e:
         _refuse("sim", e)
     planet = (Planet.from_dataset("latency_aws_2021_02_13") if args.aws
               else Planet.new())
@@ -529,16 +533,15 @@ def cmd_mc(args) -> None:
     ``--max-confirm``) replay through the host oracle and a confirmed
     violation shrinks to a repro artifact, written to ``--out``;
     ``--replay`` re-executes one (exit 0 iff a violation reproduces).
-    Refused by name, exit 2, before any lane runs: confirmation or
-    ``--replay`` of a protocol whose host oracle is not ported (item 17:
-    Tempo, Atlas, EPaxos, Caesar; ``--inject-bug`` needs Tempo's), the
-    coverage map and the farm (the campaign drivers, item 14)."""
+    Every protocol of the grid has its host oracle (``--inject-bug``
+    confirms through the broken Tempo twin ``TempoStabilityBug``).
+    Refused by name, exit 2, before any lane runs: ``--replay`` of an
+    artifact whose protocol has no host oracle, the coverage map and the
+    farm (the campaign drivers, item 14)."""
     import time
 
     from . import resolve_device
-    from .mc.fuzz import (
-        load_artifact, oracle_protocol, replay_artifact, run_fuzz_point,
-    )
+    from .mc.fuzz import load_artifact, replay_artifact, run_fuzz_point
 
     for flag, value in (("--farm", args.farm),
                         ("--coverage-dir", args.coverage_dir),
@@ -548,7 +551,7 @@ def cmd_mc(args) -> None:
     if args.replay:
         try:
             out = replay_artifact(load_artifact(args.replay))
-        except NotImplementedError as e:
+        except ValueError as e:
             _refuse("mc", e)
         print(json.dumps(out, indent=2))
         if not out["reproduced"]:
@@ -566,15 +569,6 @@ def cmd_mc(args) -> None:
             "--inject-bug is a Tempo-specific self-check; pass "
             "--protocols tempo"
         )
-    if not args.no_confirm:
-        # every protocol of the grid needs its host oracle: refuse before
-        # any point burns its budget, not mid-grid
-        try:
-            for proto in protocols:
-                oracle_protocol(proto, args.inject_bug)
-        except NotImplementedError as e:
-            _refuse("mc", NotImplementedError(
-                f"host confirmation (run with --no-confirm): {e}"))
     device = resolve_device(args.device)
     planet = (Planet.from_dataset("latency_aws_2021_02_13") if args.aws
               else Planet.new())

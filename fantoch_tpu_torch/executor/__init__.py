@@ -1,7 +1,12 @@
 """Execution layer of the host oracle (reference:
 ``fantoch/src/executor/`` and ``fantoch_ps/src/executor/``): the basic
-and the slot executor, the ones Basic and FPaxos use."""
+executor (Basic), the slot executor (FPaxos), the table executor
+(Tempo), the graph executor (Atlas, EPaxos) and the predecessors
+executor (Caesar)."""
 
+# the protocols import their executors' modules: load them first, so an
+# import that starts here finds no module half initialized
+from .. import protocol  # noqa: F401
 from .base import (
     AggregatePending,
     BasicExecutionInfo,
@@ -11,10 +16,20 @@ from .base import (
     ExecutorMetricsKind,
     ExecutorResult,
 )
+from .graph import GraphAdd, GraphExecutor
+from .pred import PredecessorsExecutionInfo, PredecessorsExecutor
 from .slot import SlotExecutionInfo, SlotExecutor
+from .table import (
+    AttachedVotes,
+    DetachedVotes,
+    StableAtShard,
+    TableExecutor,
+)
 
 __all__ = [
-    "AggregatePending", "BasicExecutionInfo", "BasicExecutor", "Executor",
-    "ExecutorMetrics", "ExecutorMetricsKind", "ExecutorResult",
-    "SlotExecutionInfo", "SlotExecutor",
+    "AggregatePending", "AttachedVotes", "BasicExecutionInfo",
+    "BasicExecutor", "DetachedVotes", "Executor", "ExecutorMetrics",
+    "ExecutorMetricsKind", "ExecutorResult", "GraphAdd", "GraphExecutor",
+    "PredecessorsExecutionInfo", "PredecessorsExecutor",
+    "SlotExecutionInfo", "SlotExecutor", "StableAtShard", "TableExecutor",
 ]

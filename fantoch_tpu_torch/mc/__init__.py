@@ -7,9 +7,9 @@ workload run as lanes of one batch with the safety monitors on
 the step where it first showed and its coverage digest. A flagged lane
 replays through the host oracle (``sim/``), which confirms it; a
 confirmed violation shrinks to a minimal perturbation set written as a
-replayable repro artifact. The host oracle covers Basic and FPaxos; the
-other protocols' confirmation and replay refuse by name (ROADMAP Queue A
-item 17), as does the bounded model checker (``mc/checker.py``).
+replayable repro artifact. The host oracle covers every protocol of the
+grid (Basic, FPaxos, Tempo, Atlas, EPaxos, Caesar); the bounded model
+checker (``mc/checker.py``) is not ported (ROADMAP Queue A item 17).
 """
 
 from .fuzz import (

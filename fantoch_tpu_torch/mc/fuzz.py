@@ -19,14 +19,14 @@ Per (protocol, config) point:
    perturbation set, a JSON repro artifact that :func:`replay_artifact`
    (``mc --replay``) re-executes on the host.
 
-Basic and FPaxos have a host oracle. Tempo, Atlas, EPaxos and Caesar do
-not yet (ROADMAP Queue A item 17): confirmation, ``--replay`` and the
-injected bug (which needs Tempo's oracle) refuse them by name, before
-any lane runs; ``confirm=False`` fuzzes every protocol.
+Every protocol of the mc grid has its host oracle (``protocol.BY_NAME``):
+Basic, FPaxos, Tempo, Atlas, EPaxos and Caesar confirm, shrink and
+replay. A protocol name outside ``BY_NAME`` is refused by name.
 
-``TempoStabilityBugDev`` is the reference's deliberately broken Tempo
-(stability threshold off by one), the self-check that the monitors catch
-an ordering bug.
+``TempoStabilityBugDev`` and its host twin ``TempoStabilityBug`` are the
+reference's deliberately broken Tempo (stability threshold off by one),
+the self-check that the monitors catch, the oracle confirms and the
+shrinker reduces an ordering bug (``--inject-bug``).
 """
 
 from __future__ import annotations
@@ -48,8 +48,10 @@ from ..engine.monitor import VIOL_MISSING, viol_names
 from ..engine.protocols import dev_config_kwargs, dev_protocol
 from ..engine.protocols.tempo import TempoDev
 from ..engine.spec import make_lane
+from ..executor.table import TableExecutor
 from ..parallel.sweep import run_sweep
 from ..protocol import BY_NAME as ORACLES
+from ..protocol import Tempo
 from ..sim import Runner
 from .shrink import (
     ARTIFACT_KIND,
@@ -59,9 +61,8 @@ from .shrink import (
     shrink as shrink_plan,
 )
 
-# the ROADMAP Queue A item that ports the host oracle, protocol by
-# protocol: Basic and FPaxos are ported, Tempo, Atlas, EPaxos, Caesar
-# (and mc/checker.py) are not
+# the ROADMAP Queue A item that ports the host oracle: every protocol's
+# is ported; the bounded model checker (mc/checker.py) is not
 HOST_ORACLE_ITEM = "17"
 
 # host replays of lossless plans still get a horizon: a buggy protocol
@@ -72,22 +73,26 @@ REPLAY_HORIZON_MS = 600_000
 
 
 def oracle_protocol(name: str, inject_bug: bool = False):
-    """The host oracle class of a protocol; raises
-    ``NotImplementedError`` naming item 17 and the protocol when its
-    oracle is not ported (the injected bug needs Tempo's)."""
+    """The host oracle class of a protocol (the injected bug's broken
+    Tempo twin when asked, as the reference's ``_protocol_pair``); a name
+    outside ``protocol.BY_NAME`` raises ``ValueError`` naming it."""
     if inject_bug:
-        name = "tempo (the injected bug's broken twin)"
-    cls = None if inject_bug else ORACLES.get(name)
+        if name != "tempo":
+            raise ValueError(
+                f"--inject-bug is a Tempo-specific self-check, not {name!r}"
+            )
+        return TempoStabilityBug
+    cls = ORACLES.get(name)
     if cls is None:
-        raise NotImplementedError(
-            f"the host oracle of {name} is not ported yet (ROADMAP Queue "
-            f"A item {HOST_ORACLE_ITEM}; ported: {', '.join(ORACLES)})"
+        raise ValueError(
+            f"no host oracle for protocol {name!r}; choose from "
+            f"{', '.join(ORACLES)}"
         )
     return cls
 
 
 # ----------------------------------------------------------------------
-# the deliberately broken twin (--inject-bug)
+# the deliberately broken twins (--inject-bug)
 # ----------------------------------------------------------------------
 
 
@@ -103,6 +108,20 @@ class TempoStabilityBugDev(TempoDev):
         ctx = dict(super().lane_ctx(config, dims, sorted_idx))
         ctx["threshold"] = np.int32(max(int(ctx["threshold"]) - 1, 1))
         return ctx
+
+
+class _BuggyTableExecutor(TableExecutor):
+    def __init__(self, process_id, shard_id, config, **kw):
+        super().__init__(process_id, shard_id, config, **kw)
+        self.stability_threshold = max(self.stability_threshold - 1, 1)
+
+
+class TempoStabilityBug(Tempo):
+    """Host twin of :class:`TempoStabilityBugDev` (the same off-by-one in
+    the table executor), so the injected bug's flagged lanes confirm
+    through the ordinary host replay. Never registered in ``BY_NAME``."""
+
+    EXECUTOR = _BuggyTableExecutor
 
 
 # ----------------------------------------------------------------------
@@ -598,9 +617,8 @@ def run_fuzz_point(
     ``artifact_dir`` writes every shrunk repro artifact the moment it
     exists.
 
-    ``confirm=True`` (the default) on a protocol whose host oracle is not
-    ported raises ``NotImplementedError`` naming item 17 and the
-    protocol, before any lane runs."""
+    ``confirm=True`` (the default) on a protocol without a host oracle
+    raises ``ValueError`` naming it, before any lane runs."""
     if confirm:
         _oracle(spec)
     planet = planet or spec.planet()
@@ -740,8 +758,7 @@ def artifact_spec(obj: dict) -> FuzzSpec:
 def replay_artifact(obj: dict, planet: Optional[Planet] = None) -> dict:
     """Re-execute a shrunk repro artifact through the host oracle and
     report whether its violation reproduces. An artifact of a protocol
-    whose oracle is not ported raises ``NotImplementedError`` naming
-    item 17."""
+    without a host oracle raises ``ValueError`` naming it."""
     spec = artifact_spec(obj)
     _oracle(spec)
     plan = FaultPlan.from_json(obj["perturbations"])
@@ -761,9 +778,8 @@ def replay_artifact(obj: dict, planet: Optional[Planet] = None) -> dict:
 
 
 def load_artifact(path: str) -> dict:
-    """Read a repro artifact; one whose protocol has no ported host
-    oracle raises ``NotImplementedError`` naming item 17, before any
-    replay."""
+    """Read a repro artifact; one whose protocol has no host oracle
+    raises ``ValueError`` naming it, before any replay."""
     with open(path) as fh:
         obj = json.load(fh)
     _oracle(artifact_spec(obj))

@@ -10,10 +10,15 @@ against the reference's ``fantoch_tpu/mc/fuzz.py`` on the CPU.
   digests; the injected bug's per-lane results equal the committed
   fixture ``tests/fixtures/torch_fuzz_bug_golden.json``;
 * ``mc --no-confirm``'s summary on a small grid equals the reference
-  CLI's outside its timings; what needs a host oracle that is not
-  ported (Tempo's, Atlas's, EPaxos's, Caesar's) or the campaign drivers
-  is refused by name before any lane runs, and so is ``sim`` of those
-  protocols.
+  CLI's outside its timings; the campaign drivers are refused by name
+  before any lane runs;
+* ``mc --protocols tempo --inject-bug`` with confirmation and ``--out`` on
+  the injected-bug point prints the reference CLI's summary (timings and
+  directories aside) and writes the reference's artifact bytes, whose
+  ``mc --replay`` gives the reference's replay; ``run_fuzz_point``,
+  ``load_artifact`` and ``replay_artifact`` take a Tempo spec and
+  artifact as the reference's do, and refuse a protocol outside
+  ``protocol.BY_NAME`` by name, before any lane runs.
 
 The mixed crash/drop Tempo spec of ``test_mc_fuzz.py`` (lossy lanes to
 a 20,000 ms horizon) is in the slow tier. Tolerance: none."""
@@ -160,7 +165,8 @@ def test_mc_summary_matches_the_reference_cli(capsys):
 
 
 def _tempo_artifact():
-    """A repro artifact of Tempo, whose host oracle is not ported."""
+    """A clean repro artifact of Tempo: no perturbations, a full drain
+    tail."""
     return {"kind": "fantoch-fuzz-repro", "version": 1, "protocol": "tempo",
             "n": 3, "f": 1, "conflict": 100, "pool_size": 1,
             "clients_per_region": 1, "commands_per_client": 2,
@@ -170,50 +176,105 @@ def _tempo_artifact():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["mc", "--protocols", "tempo"], "17"),
-    (["mc", "--no-confirm", "--replay", "{tempo_artifact}"], "17"),
     (["mc", "--no-confirm", "--farm", "farm"], "14"),
     (["mc", "--no-confirm", "--coverage-dir", "cov"], "14"),
     (["mc", "--no-confirm", "--migrate-covmaps", "cov"], "14"),
 ])
-def test_mc_refuses_what_is_not_ported_by_name(argv, item, capsys,
-                                               tmp_path):
+def test_mc_refuses_what_is_not_ported_by_name(argv, item, capsys):
     from fantoch_tpu_torch.cli import main
 
-    path = tmp_path / "repro_tempo.json"
-    path.write_text(json.dumps(_tempo_artifact()))
-    argv = [str(path) if a == "{tempo_artifact}" else a for a in argv]
     with pytest.raises(SystemExit) as e:
         main(["--device", "cpu", *argv])
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert f"ROADMAP Queue A item {item}" in err and "mc refused" in err
-    if item == "17":
-        assert "tempo" in err
 
 
-@pytest.mark.parametrize("protocol", ["tempo", "tempo_atomic", "atlas",
-                                      "epaxos", "caesar"])
-def test_sim_refuses_what_is_not_ported_by_name(protocol, capsys):
+# the injected-bug point (BUG, tests/test_mc_fuzz.py:291-319) through the
+# CLI: every lane flags, lane 0 confirms and shrinks (the reference's
+# device run is BUG's, compiled once)
+BUG_GRID = ["mc", "--protocols", "tempo", "--ns", "3", "--schedules", "8",
+            "--seed", "3", "--inject-bug", "--crash-share", "0",
+            "--drop-share", "0", "--max-confirm", "1", "--shrink-budget",
+            "80"]
+
+
+@pytest.fixture(scope="module")
+def bug_grid(tmp_path_factory):
+    """``BUG_GRID`` with ``--out`` through the reference CLI and the
+    port's: (port line, reference line, port dir, reference dir)."""
+    import contextlib
+    import io
+
+    from fantoch_tpu.cli import main as r_main
     from fantoch_tpu_torch.cli import main
 
-    with pytest.raises(SystemExit) as e:
-        main(["sim", "--protocol", protocol, "--commands", "2"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert "sim refused" in err and "ROADMAP Queue A item 17" in err
-    assert f"host oracle of {protocol} " in err
+    dirs = tmp_path_factory.mktemp("port"), tmp_path_factory.mktemp("ref")
+    lines = []
+    for call, flag, out in ((main, "--device", dirs[0]),
+                            (r_main, "--platform", dirs[1])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(io.StringIO()):
+            call([flag, "cpu", *BUG_GRID, "--out", str(out)])
+        lines.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
+    return (*lines, *dirs)
+
+
+def _untimed_grid(line, out):
+    line = dict(line, grid=[dict(p) for p in line["grid"]])
+    for d in [line] + line["grid"]:
+        for k in ("elapsed_s", "fuzz_elapsed_s", "schedules_per_sec"):
+            d.pop(k, None)
+    line["artifacts"] = [str(Path(p).relative_to(out))
+                         for p in line["artifacts"]]
+    return line
+
+
+def test_mc_confirms_tempo_as_the_reference_cli(bug_grid):
+    got, want, out, rout = bug_grid
+    assert _untimed_grid(got, out) == _untimed_grid(want, rout)
+    assert got["flagged"] >= 1 and got["confirmed"] == 1
+    (viol,) = got["grid"][0]["violations"]
+    assert viol["device"] == "order-divergence" and viol["host"]
+    assert viol["shrunk_to"] <= 10
+    (name,) = _untimed_grid(got, out)["artifacts"]
+    assert (out / name).read_bytes() == (rout / name).read_bytes()
+
+
+def test_mc_replays_a_tempo_artifact(bug_grid, capsys):
+    from fantoch_tpu_torch.cli import main
+
+    got, _want, _out, _rout = bug_grid
+    path = got["artifacts"][0]
+    main(["mc", "--replay", path])
+    replay = json.loads(capsys.readouterr().out)
+    assert replay == rfuzz.replay_artifact(rfuzz.load_artifact(path))
+    assert replay["reproduced"] and replay["matches_expected"]
+
+
+def test_host_oracle_entry_points_take_tempo(tmp_path):
+    spec = fuzz.FuzzSpec(**dict(BASIC, protocol="tempo", schedules=2))
+    res = fuzz.run_fuzz_point(spec, device="cpu")
+    assert res.flagged == 0 and res.confirmed == 0 and not res.findings
+    path = tmp_path / "repro_tempo.json"
+    path.write_text(json.dumps(_tempo_artifact()))
+    obj = fuzz.load_artifact(str(path))
+    assert obj == rfuzz.load_artifact(str(path))
+    replay = fuzz.replay_artifact(obj)
+    assert replay == rfuzz.replay_artifact(obj)
+    assert not replay["reproduced"] and replay["violation"] is None
 
 
 def test_host_oracle_entry_points_refuse_by_name(tmp_path):
-    spec = fuzz.FuzzSpec(**dict(BASIC, protocol="tempo"))
-    path = tmp_path / "repro_tempo.json"
-    path.write_text(json.dumps(_tempo_artifact()))
-    for call in (lambda: fuzz.run_fuzz_point(spec, device="cpu"),
-                 lambda: fuzz.run_fuzz_point(fuzz.FuzzSpec(**BUG),
-                                             device="cpu"),
-                 lambda: fuzz.replay_artifact(_tempo_artifact()),
-                 lambda: fuzz.load_artifact(str(path))):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 17"):
+    unknown = dict(_tempo_artifact(), protocol="tempo_partial")
+    path = tmp_path / "repro_tempo_partial.json"
+    path.write_text(json.dumps(unknown))
+    for call in (lambda: fuzz.load_artifact(str(path)),
+                 lambda: fuzz.replay_artifact(unknown),
+                 lambda: fuzz.run_fuzz_point(
+                     fuzz.FuzzSpec(**dict(BASIC, protocol="paxos")),
+                     device="cpu")):
+        with pytest.raises(ValueError,
+                           match="no host oracle for protocol '"):
             call()

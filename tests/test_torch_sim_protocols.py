@@ -11,7 +11,8 @@
 * the single-decree ``Synod`` against the reference's under the
   hypothesis actions of ``tests/test_synod_property.py`` (every output
   of every handler equal), with a fixed ``max_examples``;
-* ``python -m fantoch_tpu_torch sim`` prints the reference CLI's bytes.
+* ``python -m fantoch_tpu_torch sim`` prints the reference CLI's bytes,
+  for every protocol of ``protocol.BY_NAME``.
 
 Tolerance: none."""
 
@@ -185,6 +186,14 @@ def test_synod_matches_the_reference(actions):
      "--conflict", "50", "--reorder", "--seed", "3"],
     ["--protocol", "basic", "--n", "3", "--commands", "10", "--arrivals",
      "burst", "--aws"],
+    ["--protocol", "tempo", "--n", "3", "--commands", "10"],
+    ["--protocol", "tempo_atomic", "--n", "5", "--f", "2", "--commands",
+     "5", "--conflict", "50", "--reorder", "--seed", "3"],
+    ["--protocol", "atlas", "--n", "5", "--f", "2", "--commands", "5"],
+    ["--protocol", "epaxos", "--n", "3", "--commands", "10", "--conflict",
+     "50", "--reorder", "--seed", "1"],
+    ["--protocol", "caesar", "--n", "5", "--f", "2", "--commands", "5",
+     "--conflict", "50"],
 ])
 def test_sim_cli_matches_the_reference(argv, capsys):
     from fantoch_tpu.cli import main as r_main

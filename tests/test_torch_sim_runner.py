@@ -26,6 +26,7 @@ from fantoch_tpu.traffic import schedule as rtraffic
 from fantoch_tpu_torch import client, core, protocol, sim
 from fantoch_tpu_torch.engine import faults
 from fantoch_tpu_torch.traffic import schedule as traffic
+from torch_oracle import snapshot
 
 PORT = (client, core, protocol, sim, faults)
 REF = (rclient, rcore, rprotocol, rsim, rfaults)
@@ -42,15 +43,6 @@ SCENARIOS = {
               "jitter_max": 4, "jitter_seed": 2}, False, None),
     "open_loop": (None, False, "poisson"),
 }
-
-
-def _metrics(m):
-    return {
-        "aggregated": {k.value: v for k, v in sorted(
-            m.aggregated.items(), key=lambda kv: kv[0].value)},
-        "collected": {k.value: h.all_values() for k, h in sorted(
-            m.collected.items(), key=lambda kv: kv[0].value)},
-    }
 
 
 def run(pkgs, name, scenario, commands=10, runners=None):
@@ -75,18 +67,10 @@ def run(pkgs, name, scenario, commands=10, runners=None):
         arrivals=arrivals, open_window=2,
     )
     runner.reorder_messages = reorder
-    metrics, monitors, latencies = runner.run(extra_sim_time_ms=1000)
+    out = runner.run(extra_sim_time_ms=1000)
     if runners is not None:
         runners.append(runner)
-    return {
-        "latencies": {r: (issued, h.all_values())
-                      for r, (issued, h) in sorted(latencies.items())},
-        "metrics": {pid: (_metrics(pm), _metrics(em))
-                    for pid, (pm, em) in sorted(metrics.items())},
-        "orders": {pid: {k: [(r.source, r.sequence) for r in m.get_order(k)]
-                         for k in sorted(m.keys())}
-                   for pid, m in sorted(monitors.items())},
-    }
+    return snapshot(*out)
 
 
 @pytest.mark.parametrize("scenario", list(SCENARIOS))
