@@ -189,7 +189,26 @@ verdicts printed; the injected-bug point through ``mc --inject-bug
 Caesar point; sampled lanes held to the oracle by protocol
 (``_same_hists``: latency histograms with the oracle's values clamped
 into the card's last bucket); every host run asserted to launch no
-kernel. The monitor coverage's batches run
+kernel. Slice 22, the campaign layer and the model checker (phase 10):
+the reference bench's Tempo grid as a sweep campaign (``campaign
+--grid``, 2,048 lanes in 4 units of 512) in child processes running
+the CLI, uninterrupted (counted: the child's launch counts and every
+unit's ``run_sweep`` stats come home in a file), stopped by
+``--stop-after-segments 1`` and resumed, and (``python -m
+fantoch_tpu_torch campaign``) SIGKILLed inside a unit with its
+checkpoint on disk and resumed, the interrupted two at one segment a
+window; the three ``results.jsonl`` byte-equal, lanes 0 and 7 of each
+unit held to the host twins (the campaign drains 500 ms, the sweep CLI
+1,000, so no lane is a phase-7 lane); its points/s beside phase 7's
+Tempo rate, the checkpoints' saves, bytes and seconds; ``mc --farm``
+over the mc default grid (4 fault classes, chunks of 256), counted,
+K13 against its twin on every chunk, then under ``--budget-s`` until
+it drains: the same ``summary.json`` and binary maps, byte for byte;
+``mc --coverage-dir`` twice on FPaxos n = 3 (the map grows) and
+``--migrate-covmaps``; ``knee`` at its defaults, counted, its
+``knee.json`` equal to the same run's on the host and after a budget
+stop and resume; ``ModelChecker`` (Tempo, n = 3, 5,000 states) on the
+host with every launch counter at 0. The monitor coverage's batches run
 a 1,500 ms drain tail (the fuzz default is 5,000 ms), which halves their
 steps. Any failure raises; nothing is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
@@ -505,6 +524,38 @@ def _host_segment(spec_kw, plan, state, steps, flags, last):
         line = json.dumps(collect_results(proto, dims, end, specs)[0].to_json(),
                           sort_keys=True)
     return to_numpy(st), line, time.perf_counter() - t0
+
+
+def _host_campaign_unit(grid, unit, held):
+    """Worker task: lanes ``held`` of unit ``unit`` of sweep campaign
+    ``grid`` on the host, in the campaign manager's own enumeration."""
+    from fantoch_tpu_torch.campaign import campaign_from_json
+    from fantoch_tpu_torch.campaign.manager import _sweep_batches
+    from fantoch_tpu_torch.engine import run_lanes
+
+    t0 = time.perf_counter()
+    key, proto, dims, lanes = _sweep_batches(campaign_from_json(grid))[unit]
+    host = run_lanes(proto, dims, [lanes[i] for i in held], device="cpu")
+    return (key, [json.dumps(h.to_json(), sort_keys=True) for h in host],
+            time.perf_counter() - t0)
+
+
+def _host_knee(argv):
+    """Worker task: ``knee`` at ``argv`` through the CLI on the host
+    (``--device cpu``) in a directory of its own; returns ``knee.json``'s
+    text."""
+    import contextlib
+    import io
+    import tempfile
+
+    from fantoch_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="knee_host_") as d, \
+            contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["--device", "cpu", *argv, "--dir", d])
+        text = (Path(d) / "knee.json").read_text()
+    return text, time.perf_counter() - t0
 
 
 # the host pool (main() opens it)
@@ -4403,6 +4454,473 @@ def golden_open_loop(dev) -> None:
           f"({len(text)} bytes)")
 
 
+# slice 22, phase 10: the campaign layer. The reference bench's Tempo
+# grid as a sweep campaign (2,048 lanes in 4 units of 512)
+CAMPAIGN_GRID = {"kind": "sweep", "protocols": ["tempo"], "ns": [5],
+                 "fs": [1, 2], "conflicts": [0, 10, 50, 100],
+                 "subsets": 256, "commands_per_client": 50,
+                 "batch_lanes": 512}
+# the interrupted runs take one segment a window: the default window (8
+# segments of 2,048 steps) holds a whole Tempo batch (its longest lane
+# runs 3,858 steps), so no stop could land inside a unit; the window is
+# not a checkpoint key and changes no result
+CAMPAIGN_STOPPABLE = dict(CAMPAIGN_GRID, scan_window=1)
+CAMPAIGN_UNITS = 4
+# the lanes of each unit held to the host twins (the campaign's lanes
+# drain 500 ms, extra_time_ms's default, the sweep CLI's 1,000 ms: no
+# campaign lane's spec is one of phase 7's)
+CAMPAIGN_HELD = (0, 7)
+# the standing farm over the mc default grid (Tempo, FPaxos, Atlas x n in
+# {3, 5}, 512 schedules a point in chunks of 256) at the farm's default
+# classes
+FARM_ARGV = ["mc", "--protocols", "tempo,fpaxos,atlas", "--ns", "3,5",
+             "--schedules", "512", "--chunk", "256"]
+FARM_BUDGET_S = 5.0
+COVERAGE_ARGV = ["mc", "--protocols", "fpaxos", "--ns", "3"]
+# the knee at the CLI's defaults (Tempo and FPaxos, n = 3, loads 50 /
+# 100 / 200 / 400, 20 commands a client)
+KNEE_ARGV = ["knee"]
+# ModelChecker(Tempo, n = 3, f = 1, detached sends every 1,000 ms, two
+# clients, 5,000 states): the CheckResult the CPU test pins
+# (tests/test_torch_mc_checker.py TEMPO_AT_BOUND)
+MC_CHECKER = {"states": 5001, "quiescent": 1763, "truncated": True,
+              "violation": None}
+# runs the CLI (``cli.main``, what ``python -m fantoch_tpu_torch`` runs)
+# in a child process and writes its launch counts, its seconds in the CLI
+# and every run_sweep's stats (a campaign unit each) to argv[1] at exit
+CAMPAIGN_CHILD = r"""
+import json, sys, time
+from fantoch_tpu_torch import cli, kernels
+from fantoch_tpu_torch.parallel import sweep as psweep
+units, run = [], psweep.run_sweep
+def counted(*a, **kw):
+    try:
+        return run(*a, **kw)
+    finally:
+        units.append(dict(psweep.LAST_STATS))
+psweep.run_sweep = counted
+t0 = time.perf_counter()
+try:
+    cli.main(sys.argv[2:])
+finally:
+    info = {"secs": time.perf_counter() - t0, "counts": kernels.counts(),
+            "direct": {k: w.launches for k, w in kernels.WRAPPERS.items()},
+            "units": units}
+    with open(sys.argv[1], "w") as fh:
+        json.dump(info, fh)
+"""
+
+
+def _phase_dir(name):
+    import shutil
+
+    from fantoch_tpu_torch.kernels import build
+
+    root = build.BUILD_ROOT / "campaign" / name
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    return root
+
+
+def _child_cli(argv, counts):
+    """``CAMPAIGN_CHILD`` on ``argv``: (exit code, last stdout line,
+    the child's info, wall s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", CAMPAIGN_CHILD, str(counts), *argv],
+        cwd=str(ROOT), capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode not in (0, 75) or not lines:
+        raise AssertionError(f"{argv}: exit {proc.returncode}\n"
+                             f"{proc.stderr[-4000:]}")
+    return (proc.returncode, json.loads(lines[-1]),
+            json.loads(Path(counts).read_text()), wall)
+
+
+def _child_launches(label, info, handler) -> dict:
+    """A child's launch counts, held as ``graph_only_counts`` holds a
+    path's: no step kernel through its wrapper, the path's kernels
+    launched, the other handlers not."""
+    direct = {k: info["direct"][k] for k in ("qualify_pop", "emit_rewrite",
+                                             "land_emissions",
+                                             *set(HANDLERS.values()))}
+    assert not any(direct.values()), direct
+    launches = info["counts"]
+    for k in ("qualify_pop", handler, "emit_rewrite", "land_emissions",
+              "key_table", "step_loop", "loop_ctl"):
+        assert launches[k] > 0, (label, launches)
+    for k in set(HANDLERS.values()) - {handler}:
+        assert launches[k] == 0, (label, launches)
+    return launches
+
+
+def _ckpt_stats(info) -> str:
+    units = info["units"]
+    saves = sum(u.get("checkpoint_saves", 0) for u in units)
+    save_s = sum(u.get("checkpoint_blocking_s", 0.0)
+                 + u.get("checkpoint_overlapped_s", 0.0) for u in units)
+    load_s = sum(u.get("checkpoint_load_s", 0.0) for u in units)
+    size = max((u.get("checkpoint_bytes", 0) for u in units), default=0)
+    resumed = [u.get("resume_until", 0) for u in units]
+    return (f"{len(units)} units run, {saves} checkpoint saves of up to "
+            f"{size} bytes, {save_s:.3f} s saving (blocking + overlapped), "
+            f"{load_s:.3f} s loading, resumed from steps {resumed}")
+
+
+def campaign_sweep(dev):
+    """Phase 10, ``10 campaign sweep``: :data:`CAMPAIGN_GRID` through the
+    CLI's ``campaign`` in child processes, three ways: (a) uninterrupted,
+    counted; (b) ``--stop-after-segments 1`` (exit 75), then
+    ``--resume``; (c) ``python -m fantoch_tpu_torch campaign`` killed
+    with SIGKILL once its journal holds a line, then ``--resume``. The
+    three ``results.jsonl`` are byte-equal. Returns run (a)'s launches
+    and its results (``(batch, lane) -> line``)."""
+    from fantoch_tpu_torch import cli
+    from fantoch_tpu_torch.campaign import campaign_from_json
+    from fantoch_tpu_torch.campaign.manager import _sweep_batches
+
+    del dev  # the children run on the card
+    import numpy as np
+
+    # the campaign's lanes against phase 7's Tempo lanes
+    batches = _sweep_batches(campaign_from_json(CAMPAIGN_GRID))
+    lanes = [lane for *_k, ls in batches for lane in ls]
+    assert len(batches) == CAMPAIGN_UNITS, len(batches)
+    _p, _d, specs = cli.sweep_setup(cli.parse_args(cli.MAIN_PATH_TEMPO))
+    differ = sorted({k for a, b in zip(lanes, specs)
+                     for k in set(a.ctx) | set(b.ctx)
+                     if k not in a.ctx or k not in b.ctx
+                     or not np.array_equal(np.asarray(a.ctx[k]),
+                                           np.asarray(b.ctx[k]))})
+    same_config = all(a.config == b.config for a, b in zip(lanes, specs))
+    print(f"campaign sweep lanes vs phase 7's Tempo lanes: {len(lanes)} "
+          f"and {len(specs)}, configs equal {same_config}, ctx differs in "
+          f"{differ} (the campaign's extra_time_ms 500, the sweep CLI's "
+          f"--extra-time 1000): no campaign lane is a phase-7 lane; lanes "
+          f"{list(CAMPAIGN_HELD)} of each unit are held to the host twins")
+    root = _phase_dir("sweep")
+    grid, stoppable = json.dumps(CAMPAIGN_GRID), json.dumps(CAMPAIGN_STOPPABLE)
+
+    # (a) uninterrupted, counted
+    a = root / "a"
+    code, summary, info, wall = _child_cli(
+        ["campaign", "--dir", str(a), "--grid", grid], root / "a.json")
+    assert code == 0 and summary["done"], summary
+    assert summary["lanes"] == len(lanes) and summary["errors"] == 0
+    assert summary["batches_done"] == CAMPAIGN_UNITS, summary
+    launches = _child_launches("campaign sweep", info, "tempo_handle")
+    rate = len(lanes) / info["secs"]
+    print(f"campaign sweep (a) uninterrupted: {summary['lanes']} lanes in "
+          f"{summary['batches_total']} units, errors {summary['errors']}; "
+          f"{info['secs']:.3f} s in the CLI ({wall:.3f} s with the child's "
+          f"start) = {rate:.3f} points/s against phase 7's Tempo sweep "
+          f"{2048 / WALLS['tempo']:.3f} points/s ({WALLS['tempo']:.3f} s); "
+          f"host s by stage over the units: prepare_batch "
+          f"{sum(u['prepare_s'] for u in info['units']):.3f}, run_windows "
+          f"{sum(u['windows_s'] for u in info['units']):.3f}, finish_run + "
+          f"collect_results {sum(u['collect_s'] for u in info['units']):.3f}"
+          f", captures {sum(u['captures'] for u in info['units'])} "
+          f"({sum(u['capture_s'] for u in info['units']):.3f} s); "
+          f"{_ckpt_stats(info)}; launches {launches}")
+
+    # (b) stopped after one segment, then resumed
+    b = root / "b"
+    code, s1, info1, w1 = _child_cli(
+        ["campaign", "--dir", str(b), "--grid", stoppable,
+         "--stop-after-segments", "1"], root / "b1.json")
+    assert code == 75 and s1["interrupted"] == "segment-limit", s1
+    manifests = sorted(p.parent.name for p in
+                       (b / "ckpt").glob("*/manifest.json"))
+    assert manifests, "no checkpoint on disk after the stop"
+    code, s2, info2, w2 = _child_cli(
+        ["campaign", "--dir", str(b), "--resume"], root / "b2.json")
+    assert code == 0 and s2["done"], s2
+    print(f"campaign sweep (b) scan_window 1, --stop-after-segments 1: exit "
+          f"75 after {s1['batches_done']} units ({info1['secs']:.3f} s in "
+          f"the CLI; {_ckpt_stats(info1)}; checkpoints on disk "
+          f"{manifests}); --resume: exit 0, {info2['secs']:.3f} s in the "
+          f"CLI ({_ckpt_stats(info2)})")
+
+    # (c) SIGKILLed once the journal holds a line, then resumed
+    c = root / "c"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fantoch_tpu_torch", "campaign", "--dir",
+         str(c), "--grid", stoppable], cwd=str(ROOT),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    journal = c / "journal.jsonl"
+    t0 = time.perf_counter()
+    try:
+        while proc.poll() is None and time.perf_counter() - t0 < 600:
+            if journal.exists() and journal.stat().st_size:
+                break
+            time.sleep(0.01)
+        # then, for up to 20 s, until the next unit has saved a window
+        # (the kill lands inside a unit with its checkpoint on disk)
+        t1 = time.perf_counter()
+        while proc.poll() is None and time.perf_counter() - t1 < 20:
+            done = {json.loads(x)["id"].replace("/", "_")
+                    for x in journal.read_text().splitlines()
+                    if x.endswith("}")}
+            if any(p.parent.name not in done
+                   for p in (c / "ckpt").glob("*/manifest.json")):
+                break
+            time.sleep(0.01)
+        assert proc.poll() is None, "the campaign ended before the kill"
+        proc.kill()
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    killed_s = time.perf_counter() - t0
+    lines = len(journal.read_text().splitlines())
+    on_disk = sorted(p.parent.name for p in
+                     (c / "ckpt").glob("*/manifest.json"))
+    code, s3, info3, w3 = _child_cli(
+        ["campaign", "--dir", str(c), "--resume"], root / "c.json")
+    assert code == 0 and s3["done"], s3
+    print(f"campaign sweep (c) scan_window 1: SIGKILL after {killed_s:.3f} s "
+          f"(once the journal held a line and the next unit had saved) "
+          f"with {lines} journal line(s) and checkpoints {on_disk} on disk; "
+          f"--resume: exit 0, {info3['secs']:.3f} s in the CLI "
+          f"({_ckpt_stats(info3)})")
+
+    results = [(d / "results.jsonl").read_bytes() for d in (a, b, c)]
+    assert results[0] == results[1] == results[2], "results.jsonl differ"
+    rows = [json.loads(x) for x in results[0].decode().splitlines()]
+    assert len(rows) == len(lanes)
+    print(f"campaign sweep: the three results.jsonl are byte-equal "
+          f"({len(results[0])} bytes, {len(rows)} lines)")
+    held = {(r["batch"], r["lane"]): json.dumps(r["result"], sort_keys=True)
+            for r in rows if r["lane"] in CAMPAIGN_HELD}
+    return launches, held
+
+
+def campaign_holds(held) -> None:
+    """The held campaign lanes against their host runs (the plain twins
+    on the host, submitted at phase 10's start)."""
+    t0 = time.perf_counter()
+    secs = 0.0
+    for unit in range(CAMPAIGN_UNITS):
+        key, lines, s = HOST.result(("campaign", unit))
+        secs += s
+        for lane, line in zip(CAMPAIGN_HELD, lines):
+            assert held[(key, lane)] == line, (
+                f"campaign {key} lane {lane} differs from the host run")
+    print(f"campaign sweep lanes {list(CAMPAIGN_HELD)} of each of "
+          f"{CAMPAIGN_UNITS} units: "
+          f"card == host plain twins, byte for byte ({secs:.1f} s on the "
+          f"host, waited {time.perf_counter() - t0:.1f} s)")
+
+
+def _cli_code(argv, dev):
+    """The CLI in this process on the card: (exit code, last stdout line
+    as JSON)."""
+    import contextlib
+    import io
+
+    from fantoch_tpu_torch import cli
+
+    out, code = io.StringIO(), 0
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(["--device", str(dev.type), *argv])
+        except SystemExit as e:
+            code = 0 if e.code is None else e.code
+    lines = out.getvalue().strip().splitlines()
+    return code, (json.loads(lines[-1]) if lines else None)
+
+
+def _covmaps(path) -> dict:
+    return {p.name: p.read_bytes()
+            for p in sorted((path / "covmaps").glob("*.covmap"))}
+
+
+def campaign_fuzz(dev):
+    """Phase 10, ``10 campaign fuzz``: the standing farm
+    (:data:`FARM_ARGV`) in this process, counted, uninterrupted; then in
+    a second directory under ``--budget-s`` re-invoked until it exits 0.
+    Both ``summary.json`` and every final binary map are byte-equal. Then
+    ``mc --coverage-dir`` twice on the FPaxos n = 3 point (the second run
+    starts from the first's map and ends with at least as many buckets)
+    and ``mc --migrate-covmaps`` on that directory (each binary map loads
+    back to its JSON state's map). K13 is held to its twin on every
+    chunk; every host run of the oracle launches no kernel. Returns the
+    farm's launches."""
+    import torch
+
+    from fantoch_tpu_torch import kernels
+    from fantoch_tpu_torch.mc import covmap as cvm
+
+    root = _phase_dir("fuzz")
+    a, b = root / "a", root / "b"
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _HostRuns() as host, _Patched(mon_finalize=_k13_stand_in()):
+        code, summary = _cli_code(FARM_ARGV + ["--farm", str(a)], dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = graph_only_counts("campaign fuzz", single=False)
+    assert code == 0 and summary["done"], (code, summary)
+    chunks = sum(1 for x in (a / "journal.jsonl").read_text().splitlines()
+                 if json.loads(x).get("kind") == "fuzz")
+    assert launches["mon_finalize"] == chunks, (launches, chunks)
+    for k in ("tempo_handle", "fpaxos_handle", "graphdep_handle"):
+        assert launches[k] > 0, launches
+    for k in ("basic_handle", "caesar_handle", "tempo_partial_handle",
+              "atlas_partial_handle"):
+        assert launches[k] == 0, launches
+    points = summary["points"]
+    classes = (FARM_ARGV[FARM_ARGV.index("--classes") + 1]
+               if "--classes" in FARM_ARGV else "crash,drop,jitter,mixed")
+    print(f"campaign fuzz (a) mc --farm, classes {classes}: "
+          f"{summary['points_total']} points, {chunks} chunks, "
+          f"{summary['schedules_tried']} schedules in {wall:.3f} s = "
+          f"{summary['schedules_tried'] / wall:.3f} schedules/s; flagged "
+          f"{sum(p['flagged'] for p in points.values())}, confirmed "
+          f"{sum(p['confirmed'] for p in points.values())}, retired "
+          f"{len(summary.get('retired', []))} (--retire-after 0); host runs "
+          f"{host.runs} in {host.secs:.3f} s, no kernel launched by them; "
+          f"launches {launches}")
+    print("campaign fuzz buckets by point: " + "; ".join(
+        f"{k} {p['cov_buckets']} (flagged {p['flagged']})"
+        for k, p in sorted(points.items())))
+
+    # (b) budgeted, re-invoked until it drains
+    codes = []
+    t0 = time.perf_counter()
+    with _HostRuns(), _Patched(mon_finalize=_k13_stand_in()):
+        while not codes or codes[-1] != 0:
+            code, _s = _cli_code(FARM_ARGV + [
+                "--farm", str(b), "--budget-s", str(FARM_BUDGET_S)], dev)
+            assert code in (0, 75), code
+            codes.append(code)
+            assert len(codes) < 200, "the budgeted farm does not drain"
+    wall_b = time.perf_counter() - t0
+    assert 75 in codes, codes
+    assert (a / "summary.json").read_bytes() == (b / "summary.json").read_bytes()
+    maps_a, maps_b = _covmaps(a), _covmaps(b)
+    assert maps_a == maps_b and len(maps_a) == summary["points_total"], (
+        sorted(maps_a), sorted(maps_b))
+    print(f"campaign fuzz (b) --budget-s {FARM_BUDGET_S}: {len(codes)} "
+          f"invocations (exits {codes}) in {wall_b:.3f} s; summary.json "
+          f"({(a / 'summary.json').stat().st_size} bytes) and all "
+          f"{len(maps_a)} final binary maps "
+          f"({sum(len(v) for v in maps_a.values())} bytes) byte-equal to "
+          f"(a)'s")
+
+    # mc --coverage-dir twice, then --migrate-covmaps
+    cov = root / "cov"
+    with _HostRuns() as chost:
+        runs = [_cli_code(COVERAGE_ARGV + ["--coverage-dir", str(cov)], dev)
+                for _ in range(2)]
+    assert all(code == 0 for code, _s in runs), runs
+    p1, p2 = (s["grid"][0] for _c, s in runs)
+    assert p1["tried_total"] == p1["schedules"] > 0
+    assert p2["tried_total"] == p1["schedules"] + p2["schedules"]
+    assert p2["coverage_buckets"] >= p1["coverage_buckets"] > 0
+    assert p2["coverage_buckets"] == p1["coverage_buckets"] + p2["new_buckets"]
+    code, mig = _cli_code(["mc", "--migrate-covmaps", str(cov)], dev)
+    assert code == 0 and mig["count"] == 1, mig
+    state = json.loads((cov / "cov_fpaxos_n3.json").read_text())
+    back = cvm.load_covmap(mig["migrated"][0])
+    assert back.to_json() == state["coverage"]
+    print(f"campaign fuzz mc --coverage-dir (fpaxos n=3, {p1['schedules']} "
+          f"schedules a run): buckets {p1['coverage_buckets']} then "
+          f"{p2['coverage_buckets']} (+{p2['new_buckets']}), flagged "
+          f"{p1['flagged']} and {p2['flagged']}, {p1['schedules_per_sec']} "
+          f"and {p2['schedules_per_sec']} schedules/s of fan-out; host "
+          f"runs {chost.runs}; --migrate-covmaps: "
+          f"{Path(mig['migrated'][0]).name} "
+          f"({Path(mig['migrated'][0]).stat().st_size} bytes) loads back "
+          f"to the JSON state's map")
+    return launches
+
+
+def knee_phase(dev):
+    """Phase 10, ``10 knee``: ``knee`` at the CLI's defaults in this
+    process, counted; its ``knee.json`` equals the same run's on the
+    host (``--device cpu``, a worker started at phase 10's start); then
+    stopped by ``--budget-s 0`` mid-grid (exit 75) and ``--resume``d:
+    byte-equal too. Returns the launches."""
+    import torch
+
+    from fantoch_tpu_torch import kernels
+
+    root = _phase_dir("knee")
+    a, b = root / "a", root / "b"
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    code, summary = _cli_code(KNEE_ARGV + ["--dir", str(a)], dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = graph_only_counts("knee", single=False)
+    assert code == 0 and summary["done"], summary
+    for k in ("qualify_pop", "tempo_handle", "fpaxos_handle",
+              "emit_rewrite", "land_emissions", "key_table"):
+        assert launches[k] > 0, launches
+    t1 = time.perf_counter()
+    code1, s1 = _cli_code(KNEE_ARGV + ["--dir", str(b), "--budget-s", "0"],
+                          dev)
+    assert code1 == 75 and not s1["done"], s1
+    code2, s2 = _cli_code(KNEE_ARGV + ["--dir", str(b), "--resume"], dev)
+    assert code2 == 0 and s2["done"], s2
+    wall_b = time.perf_counter() - t1
+    text = (a / "knee.json").read_text()
+    assert (b / "knee.json").read_text() == text
+    t2 = time.perf_counter()
+    host, secs = HOST.result(("knee",))
+    assert host == text, "knee.json differs from the host run"
+    art = json.loads(text)
+    print(f"knee (CLI defaults: {art['protocols']}, loads {art['loads']}, "
+          f"{art['commands_per_client']} commands): {summary['lanes']} "
+          f"lanes in {summary['batches_total']} units, {wall:.3f} s; "
+          "knees " + "; ".join(
+              f"{p['protocol']} {p['knee']} (p99 by load "
+              f"{ {k: v['p99'] for k, v in p['curve'].items()} }, goodput "
+              f"{ {k: v['goodput_cps'] for k, v in p['curve'].items()} })"
+              for p in art["points"])
+          + f"; --budget-s 0: exit 75 after {s1['batches_done']} of "
+          f"{s1['batches_total']} units, --resume: exit 0 ({wall_b:.3f} s "
+          f"both); knee.json == the host run's (device cpu, {secs:.1f} s "
+          f"on the host, waited {time.perf_counter() - t2:.1f} s) == the "
+          f"resumed run's, byte for byte; launches {launches}")
+    return launches
+
+
+def model_checker() -> None:
+    """Phase 10, ``10 model checker``: the bounded explorer on the host,
+    Tempo n = 3, its ``CheckResult`` the CPU test's, with every launch
+    counter 0 before and after."""
+    import dataclasses
+
+    import torch
+
+    from fantoch_tpu_torch import kernels
+    from fantoch_tpu_torch.core import Config
+    from fantoch_tpu_torch.mc import ModelChecker
+    from fantoch_tpu_torch.protocol import Tempo
+
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    before = kernels.counts()
+    t0 = time.perf_counter()
+    res = ModelChecker(Tempo, Config(n=3, f=1,
+                                     tempo_detached_send_interval_ms=1000),
+                       clients=2, max_states=5000).run()
+    secs = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    after = kernels.counts()
+    assert not any(before.values()) and not any(after.values()), after
+    assert dataclasses.asdict(res) == MC_CHECKER, res
+    print(f"model checker (Tempo n=3, 2 clients, 5,000 states): {res} in "
+          f"{secs:.3f} s on the host, == the CPU test's; launch counters "
+          f"0 before and after")
+
+
 def main() -> int:
     import torch
 
@@ -4545,6 +5063,18 @@ def _main(dev, card) -> int:
                                           mc_confirm_grid, dev,
                                           fpaxos_points)
     phase("8 mc grid host replays", mc_check)
+    # 10. slice 22's paths: the campaign layer (the host runs its lanes
+    # and the knee on the CPU meanwhile)
+    for unit in range(CAMPAIGN_UNITS):
+        HOST.submit(("campaign", unit), _host_campaign_unit, CAMPAIGN_GRID,
+                    unit, CAMPAIGN_HELD)
+    HOST.submit(("knee",), _host_knee, KNEE_ARGV)
+    by_path["campaign_sweep"], held = phase("10 campaign sweep",
+                                            campaign_sweep, dev)
+    by_path["campaign_fuzz"] = phase("10 campaign fuzz", campaign_fuzz, dev)
+    by_path["knee"] = phase("10 knee", knee_phase, dev)
+    phase("10 model checker", model_checker)
+    phase("10 campaign sweep host holds", campaign_holds, held)
     assert K13_CHECKED["launches"] > 0
     rows["mon_finalize"]["max_abs_err"] = max(
         rows["mon_finalize"]["max_abs_err"], K13_CHECKED["err"])

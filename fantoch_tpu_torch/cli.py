@@ -1,5 +1,5 @@
 """Command line: ``python -m fantoch_tpu_torch [--device cpu] sweep ...``,
-``... mc ...`` and ``... sim ...``.
+``... mc ...``, ``... sim ...``, ``... campaign ...`` and ``... knee ...``.
 
 The ``sweep`` subcommand runs the batched engine over a (region subset
 × f × conflict) grid, each point once per fault plan of ``--faults``,
@@ -9,16 +9,18 @@ process (``--arrivals``, ``--offered-load``, ``--open-window``,
 (``--scan-window`` segments a device call, ``--pipeline-depth`` calls
 in flight), and prints the reference CLI's summary JSON; ``--out``
 writes each point's results as a JSONL line (``plot/db.py``). The
-``mc`` subcommand fuzzes a
-(protocol × n) grid of schedules with the safety monitors on
-(``mc/fuzz.py``), replays each flagged lane through the host oracle,
-shrinks a confirmed violation to a repro artifact (``--out``;
-``--replay`` re-runs one) and prints the reference's summary JSON; the
-host oracle covers Basic and FPaxos, so a grid with another protocol
-runs only under ``--no-confirm``. Both run on the CUDA card unless
+``mc`` subcommand fuzzes a (protocol × n) grid of schedules with the
+safety monitors on (``mc/fuzz.py``), replays each flagged lane through
+the host oracle, shrinks a confirmed violation to a repro artifact
+(``--out``; ``--replay`` re-runs one) and prints the reference's summary
+JSON; ``--coverage-dir`` steers it by coverage across invocations,
+``--farm`` runs the standing fuzz farm (a fuzz campaign) and
+``--migrate-covmaps`` converts coverage states to binary maps. The
+``campaign`` subcommand runs a journal-backed, resumable sweep or fuzz
+campaign (``campaign/``), and ``knee`` the open-loop knee sweep through
+it (``serving/knee.py``). All of these run on the CUDA card unless
 ``--device cpu`` is given. The ``sim`` subcommand is one exact run of
-the host simulator (``sim/``, Basic or FPaxos); it never touches a
-device.
+the host simulator (``sim/``); it never touches a device.
 """
 
 from __future__ import annotations
@@ -426,12 +428,6 @@ def mc_specs(args):
     ]
 
 
-def _mc_refuse(what: str, item: str) -> None:
-    print(f"mc refused: {what} is not ported yet (ROADMAP Queue A item "
-          f"{item})", file=sys.stderr)
-    raise SystemExit(2)
-
-
 def _refuse(cmd: str, e: Exception) -> None:
     print(f"{cmd} refused: {e}", file=sys.stderr)
     raise SystemExit(2)
@@ -536,18 +532,38 @@ def cmd_mc(args) -> None:
     Every protocol of the grid has its host oracle (``--inject-bug``
     confirms through the broken Tempo twin ``TempoStabilityBug``).
     Refused by name, exit 2, before any lane runs: ``--replay`` of an
-    artifact whose protocol has no host oracle, the coverage map and the
-    farm (the campaign drivers, item 14)."""
+    artifact whose protocol has no host oracle.
+
+    ``--coverage-dir`` makes repeated invocations coverage-guided
+    (``mc/coverage.py``): each point's bucket map, seed pool and
+    generator positions persist in the directory, so every session
+    mutates the seeds the previous ones found; a stored map whose point
+    signature disagrees is refused (exit 2). ``--farm DIR`` runs the
+    standing fuzz farm instead: a durable coverage campaign in DIR with
+    fault-class-sharded points (``--classes``), frontier-weighted
+    mutation, plateau retirement (``--retire-after``) and binary
+    coverage maps; re-invoking the same command resumes it (exit 0
+    drained, 75 interrupted, 2 refused). ``--migrate-covmaps DIR``
+    converts a ``--coverage-dir``'s JSON point states to the binary
+    format, proving each conversion lossless."""
     import time
 
     from . import resolve_device
     from .mc.fuzz import load_artifact, replay_artifact, run_fuzz_point
 
-    for flag, value in (("--farm", args.farm),
-                        ("--coverage-dir", args.coverage_dir),
-                        ("--migrate-covmaps", args.migrate_covmaps)):
-        if value:
-            _mc_refuse(f"{flag} (the campaign drivers)", "14")
+    if args.migrate_covmaps:
+        from .mc import coverage as cov
+        from .mc import covmap as cvm
+
+        try:
+            written = cvm.migrate_point_states(args.migrate_covmaps)
+        except cov.CoverageError as e:
+            _refuse("mc", f"{type(e).__name__}: {e}")
+        print(json.dumps({"migrated": written, "count": len(written)}))
+        return
+    if args.farm:
+        _mc_farm(args)
+        return
     if args.replay:
         try:
             out = replay_artifact(load_artifact(args.replay))
@@ -557,18 +573,7 @@ def cmd_mc(args) -> None:
         if not out["reproduced"]:
             raise SystemExit("artifact did not reproduce its violation")
         return
-    protocols = args.protocols.split(",")
-    unknown = [p for p in protocols if p not in ENGINE_PROTOCOLS]
-    if unknown:
-        raise SystemExit(
-            f"unknown protocol(s) {unknown}; choose from "
-            f"{','.join(ENGINE_PROTOCOLS)}"
-        )
-    if args.inject_bug and protocols != ["tempo"]:
-        raise SystemExit(
-            "--inject-bug is a Tempo-specific self-check; pass "
-            "--protocols tempo"
-        )
+    _mc_protocols(args)
     device = resolve_device(args.device)
     planet = (Planet.from_dataset("latency_aws_2021_02_13") if args.aws
               else Planet.new())
@@ -580,14 +585,20 @@ def cmd_mc(args) -> None:
         if args.budget_s and time.perf_counter() - t0 > args.budget_s:
             skipped_points += 1
             continue
+        plans, lane_offset, steering = None, 0, None
+        if args.coverage_dir:
+            plans, lane_offset, steering = _coverage_plans(args, spec)
         res = run_fuzz_point(
             spec, planet=planet, confirm=not args.no_confirm,
             max_confirmations=args.max_confirm,
             shrink_budget=args.shrink_budget,
-            strict_missing=args.strict_missing, artifact_dir=args.out,
-            device=device,
+            strict_missing=args.strict_missing, plans=plans,
+            lane_offset=lane_offset, artifact_dir=args.out, device=device,
         )
         point = res.summary()
+        if steering is not None:
+            point.update(_coverage_fold(args, spec, steering, res, plans,
+                                        lane_offset))
         artifacts += [f.artifact_path for f in res.findings
                       if f.artifact_path]
         points.append(point)
@@ -612,6 +623,240 @@ def cmd_mc(args) -> None:
         "artifacts": artifacts,
         "grid": points,
     }))
+
+
+def _mc_protocols(args) -> List[str]:
+    """``--protocols`` of an ``mc`` command line, refused (before any
+    lane runs) when a name is not an engine protocol or ``--inject-bug``
+    is asked of another protocol than Tempo."""
+    protocols = args.protocols.split(",")
+    unknown = [p for p in protocols if p not in ENGINE_PROTOCOLS]
+    if unknown:
+        raise SystemExit(
+            f"unknown protocol(s) {unknown}; choose from "
+            f"{','.join(ENGINE_PROTOCOLS)}"
+        )
+    if args.inject_bug and protocols != ["tempo"]:
+        raise SystemExit(
+            "--inject-bug is a Tempo-specific self-check; pass "
+            "--protocols tempo"
+        )
+    return protocols
+
+
+def _coverage_plans(args, spec):
+    """``(plans, lane_offset, steering)`` of one ``mc --coverage-dir``
+    point: its stored steering state (a foreign point signature or a
+    damaged file is refused, exit 2), the coverage-steered draw of
+    ``--schedules`` plans continuing the stored generator positions, and
+    the lane offset of the schedules tried before."""
+    from .mc import coverage as cov
+    from .mc.fuzz import plan_rng, point_config, point_protocol, restore_rng
+
+    try:
+        stored = cov.load_point_state(args.coverage_dir, spec)
+        cmap, pool, mrng = cov.restore_steering(spec, stored)
+    except cov.CoverageError as e:
+        _refuse("mc", f"{type(e).__name__}: {e}")
+    rng = restore_rng(stored["rng_state"]) if stored else plan_rng(spec)
+    plans = cov.draw_steered(spec, point_config(spec), point_protocol(spec),
+                             spec.schedules, rng, mrng, pool, cmap=cmap)
+    offset = int(stored["tried"]) if stored else 0
+    return plans, offset, (cmap, pool, rng, mrng)
+
+
+def _coverage_fold(args, spec, steering, res, plans, lane_offset) -> dict:
+    """Fold one point's digests into its map and seed pool, persist the
+    steering state, and return the summary's coverage fields."""
+    from .mc import coverage as cov
+    from .mc.fuzz import rng_state
+
+    cmap, pool, rng, mrng = steering
+    fresh = cov.fold_chunk(cmap, pool, res.digests, plans)
+    tried_total = lane_offset + res.schedules
+    cov.save_point_state(args.coverage_dir, spec, {
+        "kind": cov.COVERAGE_KIND,
+        "version": cov.COVERAGE_VERSION,
+        "tried": tried_total,
+        "rng_state": rng_state(rng),
+        "mrng_state": rng_state(mrng),
+        "coverage": cmap.to_json(),
+        "seeds": pool.to_json(),
+        "seed_digests": pool.digests_json(),
+    })
+    return {"coverage_buckets": cmap.bucket_count,
+            "new_buckets": len(fresh), "tried_total": tried_total}
+
+
+# the exit code of a campaign, knee sweep or farm that stopped with work
+# left (re-run to continue), as the reference CLI's
+EXIT_INTERRUPTED = 75
+
+
+def _mc_farm(args) -> None:
+    """``mc --farm DIR``: the standing fuzz farm, a coverage-steered,
+    class-sharded, binary-mapped fuzz campaign (the reference CLI's grid,
+    field for field)."""
+    from . import resolve_device
+    from .campaign import CampaignError, campaign_from_json, run_campaign
+    from .engine.checkpoint import CheckpointError
+
+    protocols = _mc_protocols(args)
+    grid = {
+        "kind": "fuzz",
+        "protocols": protocols,
+        "ns": list(args.ns),
+        "f": args.f,
+        "conflict": args.conflict,
+        "pool_size": args.pool_size,
+        "clients_per_region": args.clients_per_region,
+        "commands_per_client": args.commands,
+        "schedules": args.schedules,
+        "chunk": args.chunk,
+        "seed": args.seed,
+        "jitter_max": args.jitter_max,
+        "crash_share": args.crash_share,
+        "drop_share": args.drop_share,
+        "confirm": not args.no_confirm,
+        "max_confirm": args.max_confirm,
+        "shrink_budget": args.shrink_budget,
+        "strict_missing": bool(args.strict_missing),
+        "inject_bug": bool(args.inject_bug),
+        "aws": bool(args.aws),
+        "coverage": True,
+        "binary_maps": True,
+        "classes": [c for c in args.classes.split(",") if c],
+        "retire_after": args.retire_after,
+    }
+    device = resolve_device(args.device)
+    try:
+        spec = campaign_from_json(grid)
+        summary = run_campaign(args.farm, spec, budget_s=args.budget_s,
+                               device=device)
+    except (CheckpointError, CampaignError) as e:
+        _refuse("mc", f"{type(e).__name__}: {e}")
+    print(json.dumps(summary))
+    if not summary["done"]:
+        print(f"farm interrupted ({summary['interrupted']}); state is "
+              "journaled — re-run the same command to continue",
+              file=sys.stderr)
+        raise SystemExit(EXIT_INTERRUPTED)
+
+
+def cmd_campaign(args) -> None:
+    """Durable, resumable campaigns (``campaign/``): a journal-backed
+    manager chunks a sweep or fuzz grid into units, checkpoints the
+    in-flight sweep batch at window boundaries (engine/checkpoint.py)
+    and resumes exactly where it stopped across process restarts. Exits
+    0 when the grid is done, 75 when work remains (re-run with
+    ``--resume``), 2 when a stale or corrupt checkpoint, a
+    campaign-directory disagreement or a spec field the port does not
+    run (``aot``, ``shard_lanes``, ``mesh_shard``) is refused."""
+    from . import resolve_device
+    from .campaign import CampaignError, campaign_from_json, run_campaign
+    from .engine.checkpoint import CheckpointError
+
+    spec = None
+    if args.grid:
+        text = args.grid
+        if text.startswith("@"):
+            with open(text[1:]) as fh:
+                text = fh.read()
+        try:
+            spec = campaign_from_json(json.loads(text))
+        except (ValueError, CampaignError) as e:
+            raise SystemExit(f"bad --grid spec: {e}")
+    device = resolve_device(args.device)
+    try:
+        summary = run_campaign(
+            args.dir, spec, resume=args.resume, budget_s=args.budget_s,
+            stop_after_segments=args.stop_after_segments, device=device,
+        )
+    except (CheckpointError, CampaignError) as e:
+        _refuse("campaign", f"{type(e).__name__}: {e}")
+    print(json.dumps(summary))
+    if not summary["done"]:
+        print(f"campaign interrupted ({summary['interrupted']}); state is "
+              "checkpointed — re-run with --resume to continue",
+              file=sys.stderr)
+        raise SystemExit(EXIT_INTERRUPTED)
+
+
+def cmd_knee(args) -> None:
+    """The measured throughput–latency knee sweep (``serving/knee.py``):
+    one open-loop arrival preset at a ladder of offered loads per
+    (protocol, region set, traffic) point, through the campaign manager;
+    once the grid completes the curves and the located knee are written
+    as one canonical ``knee.json``. ``--dryrun`` writes the parameter
+    shell with ``points: null``. Exits 0 done, 75 interrupted, 2
+    refused."""
+    from . import resolve_device
+    from .campaign import CampaignError
+    from .engine.checkpoint import CheckpointError
+    from .serving import run_knee_sweep
+    from .traffic import ARRIVAL_PRESETS, TRAFFIC_PRESETS
+
+    protocols = args.protocols.split(",")
+    unknown = [p for p in protocols if p not in ENGINE_PROTOCOLS]
+    if unknown:
+        raise SystemExit(
+            f"unknown protocol(s) {unknown}; choose from "
+            f"{','.join(ENGINE_PROTOCOLS)}"
+        )
+    if args.arrival not in ARRIVAL_PRESETS or args.arrival == "closed":
+        open_presets = [a for a in ARRIVAL_PRESETS if a != "closed"]
+        raise SystemExit(
+            f"unknown arrival preset {args.arrival!r}; choose from "
+            f"{','.join(open_presets)}"
+        )
+    traffic = args.traffic.split(",")
+    bad = [t for t in traffic if t not in TRAFFIC_PRESETS]
+    if bad:
+        raise SystemExit(
+            f"unknown traffic preset(s) {bad}; choose from "
+            f"{','.join(TRAFFIC_PRESETS)}"
+        )
+    carry_think = [t for t in traffic if t in ("diurnal", "flash")]
+    if carry_think:
+        raise SystemExit(
+            f"--traffic {','.join(carry_think)} carries think delays, "
+            "which open-loop arrivals replace; combine with flat or "
+            "churn traffic"
+        )
+    device = None if args.dryrun else resolve_device(args.device)
+    try:
+        artifact, summary = run_knee_sweep(
+            args.dir,
+            protocols=protocols,
+            ns=args.ns,
+            region_sets=[args.regions] if args.regions else None,
+            arrival=args.arrival,
+            loads=args.loads,
+            traffic=traffic,
+            fs=args.fs or [1],
+            conflicts=args.conflicts,
+            commands_per_client=args.commands,
+            clients_per_region=args.clients_per_region,
+            open_window=args.open_window,
+            mean_gap_ms=args.mean_gap_ms,
+            batch_lanes=args.batch_lanes,
+            segment_steps=args.segment_steps,
+            knee_mult=args.knee_mult,
+            aws=bool(args.aws),
+            resume=args.resume,
+            budget_s=args.budget_s,
+            dryrun=args.dryrun,
+            out=args.out,
+            device=device,
+        )
+    except (CheckpointError, CampaignError) as e:
+        _refuse("knee sweep", f"{type(e).__name__}: {e}")
+    print(json.dumps(summary))
+    if artifact is None:
+        print(f"knee sweep interrupted ({summary['interrupted']}); the "
+              "campaign is checkpointed — re-run with --resume to "
+              "continue", file=sys.stderr)
+        raise SystemExit(EXIT_INTERRUPTED)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -739,7 +984,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     mc.add_argument("--crash-share", type=float, default=0.2)
     mc.add_argument("--drop-share", type=float, default=0.15)
     mc.add_argument("--budget-s", type=float, default=None,
-                    help="wall-clock guard: skip grid points past this")
+                    help="wall-clock guard: skip grid points past this "
+                    "(--farm: stop at the next chunk boundary, exit 75)")
     mc.add_argument("--max-confirm", type=int, default=8,
                     help="flagged lanes host-confirmed per point")
     mc.add_argument("--shrink-budget", type=int, default=150,
@@ -747,9 +993,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     mc.add_argument("--strict-missing", action="store_true",
                     help="treat missing-execution as a finding")
     mc.add_argument("--no-confirm", action="store_true",
-                    help="skip host confirmation (device flags only); "
-                    "required for protocols without a host oracle "
-                    "(all but basic and fpaxos)")
+                    help="skip host confirmation (device flags only)")
     mc.add_argument("--inject-bug", action="store_true",
                     help="fuzz the deliberately broken Tempo twin "
                     "(pipeline self-check)")
@@ -758,10 +1002,122 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="directory for repro artifacts")
     mc.add_argument("--replay", default=None,
                     help="re-execute a repro artifact (host oracle)")
-    for flag in ("--coverage-dir", "--farm", "--migrate-covmaps"):
-        mc.add_argument(flag, default=None,
-                        help="refused: not ported yet")
+    mc.add_argument(
+        "--coverage-dir", default=None,
+        help="persist per-point coverage maps + seed pools here and "
+        "draw coverage-steered plans (mc/coverage.py): repeated "
+        "invocations accumulate distinct-interleaving coverage; a "
+        "stored map whose point signature disagrees is refused (exit 2)",
+    )
+    mc.add_argument(
+        "--farm", default=None, metavar="DIR",
+        help="run the standing fuzz farm in DIR instead of a one-shot "
+        "grid: a durable coverage campaign with fault-class-sharded "
+        "points (--classes), frontier-weighted mutation, plateau "
+        "retirement (--retire-after) and binary coverage maps; "
+        "re-running the identical command resumes, a drifted one is "
+        "refused (exit 2); exits 0 drained, 75 interrupted",
+    )
+    mc.add_argument("--chunk", type=int, default=128,
+                    help="farm mode: schedules per journaled chunk")
+    mc.add_argument(
+        "--classes", default="crash,drop,jitter,mixed",
+        help="farm mode: comma-separated fault classes to shard each "
+        "(protocol, n) point into, each with its own PRNG streams and "
+        "coverage map; 'mixed' alone is the unsharded unit",
+    )
+    mc.add_argument(
+        "--retire-after", type=int, default=0,
+        help="farm mode: retire a point after this many consecutive "
+        "chunks with zero new coverage buckets; 0 = never retire",
+    )
+    mc.add_argument(
+        "--migrate-covmaps", default=None, metavar="DIR",
+        help="convert a --coverage-dir's JSON point states to the "
+        "binary covmap format (mc/covmap.py), proving each conversion "
+        "lossless by round trip; the JSON files are left untouched",
+    )
     mc.set_defaults(fn=cmd_mc)
+
+    ca = sub.add_parser(
+        "campaign",
+        help="durable, resumable sweep/fuzz campaigns with "
+        "checkpoint/restore (campaign/)",
+    )
+    ca.add_argument("--dir", required=True,
+                    help="campaign directory (journal, checkpoints, "
+                    "artifacts, results)")
+    ca.add_argument(
+        "--grid", default=None,
+        help="campaign spec: JSON object or @file, e.g. "
+        '\'{"kind": "sweep", "protocols": ["tempo"], "ns": [3, 5], '
+        '"conflicts": [0, 100], "subsets": 4}\' or '
+        '\'{"kind": "fuzz", "protocols": ["tempo"], "ns": [3], '
+        '"schedules": 2048, "chunk": 256}\' (required for a new '
+        "campaign; optional but verified with --resume)",
+    )
+    ca.add_argument("--resume", action="store_true",
+                    help="continue the campaign stored in --dir exactly "
+                    "where it stopped")
+    ca.add_argument("--budget-s", type=float, default=None,
+                    help="wall-clock budget: make at least one unit of "
+                    "progress, then checkpoint and exit 75 at the next "
+                    "boundary once exceeded")
+    ca.add_argument("--stop-after-segments", type=int, default=None,
+                    help="deterministic interruption: checkpoint and "
+                    "exit 75 after N sweep segments")
+    ca.set_defaults(fn=cmd_campaign)
+
+    kn = sub.add_parser(
+        "knee",
+        help="measured throughput-latency knee sweep: an open-loop "
+        "arrival preset at a ladder of offered loads, through the "
+        "campaign manager, emitting latency-vs-offered-load curves and "
+        "the located knee as knee.json (serving/knee.py)",
+    )
+    kn.add_argument("--dir", required=True,
+                    help="campaign/artifact directory")
+    kn.add_argument("--protocols", default="tempo,fpaxos",
+                    help="comma-separated engine protocols")
+    kn.add_argument("--ns", type=_ints, default=[3],
+                    help="region-set sizes when --regions unset")
+    kn.add_argument("--regions", type=lambda s: s.split(","),
+                    default=None,
+                    help="comma-separated region names (default: the "
+                    "campaign manager's per-n default sets)")
+    kn.add_argument("--arrival", default="poisson",
+                    help="open-loop arrival preset (poisson,burst,ramp)")
+    kn.add_argument("--loads", type=_ints, default=[50, 100, 200, 400],
+                    help="offered-load ladder as percent of the preset's "
+                    "base rate")
+    kn.add_argument("--traffic", default="flat",
+                    help="comma-separated traffic presets (flat,churn; "
+                    "diurnal/flash carry think delays and are refused)")
+    kn.add_argument("--fs", type=_ints, default=None)
+    kn.add_argument("--conflicts", type=_ints, default=[100])
+    kn.add_argument("--commands", type=int, default=20,
+                    help="commands per client per lane")
+    kn.add_argument("--clients-per-region", type=int, default=1)
+    kn.add_argument("--open-window", type=int, default=4,
+                    help="open-loop in-flight cap per client")
+    kn.add_argument("--mean-gap-ms", type=int, default=4,
+                    help="base mean inter-arrival gap in ms at 100%% "
+                    "load")
+    kn.add_argument("--knee-mult", type=float, default=3.0,
+                    help="knee threshold: first load whose p99 exceeds "
+                    "this multiple of the lowest load's p99")
+    kn.add_argument("--batch-lanes", type=int, default=64)
+    kn.add_argument("--segment-steps", type=int, default=2048)
+    kn.add_argument("--aws", action="store_true")
+    kn.add_argument("--resume", action="store_true",
+                    help="continue an interrupted knee campaign")
+    kn.add_argument("--budget-s", type=float, default=None)
+    kn.add_argument("--dryrun", action="store_true",
+                    help="skip the device sweeps; emit the artifact shell "
+                    "with points: null (schema-check path)")
+    kn.add_argument("--out", default=None,
+                    help="knee artifact path (default <dir>/knee.json)")
+    kn.set_defaults(fn=cmd_knee)
 
     sim = sub.add_parser(
         "sim", help="one exact run of the host simulator (no device)")

@@ -85,6 +85,31 @@ class LaneResults:
             "coverage": int(self.coverage),
         }
 
+    @staticmethod
+    def from_json(obj: dict) -> "LaneResults":
+        """Inverse of :meth:`to_json` (the journaled rows a knee sweep
+        reads back)."""
+        return LaneResults(
+            region_rows=list(obj["region_rows"]),
+            hist=np.asarray(obj["hist"], np.int64),
+            lat_sum=np.asarray(obj["lat_sum"], np.int64),
+            lat_count=np.asarray(obj["lat_count"], np.int64),
+            protocol_metrics={
+                k: np.asarray(v, np.int64)
+                for k, v in obj["protocol_metrics"].items()
+            },
+            steps=int(obj["steps"]),
+            err=int(obj["err"]),
+            completed=int(obj["completed"]),
+            pool_peak=int(obj["pool_peak"]),
+            requeues=int(obj["requeues"]),
+            faults=obj.get("faults"),
+            dropped=int(obj.get("dropped", 0)),
+            violation=int(obj.get("violation", 0)),
+            violation_step=int(obj.get("violation_step", INF)),
+            coverage=int(obj.get("coverage", 0)),
+        )
+
 
 def collect_results(
     protocol,

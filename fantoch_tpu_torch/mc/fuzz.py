@@ -61,10 +61,6 @@ from .shrink import (
     shrink as shrink_plan,
 )
 
-# the ROADMAP Queue A item that ports the host oracle: every protocol's
-# is ported; the bounded model checker (mc/checker.py) is not
-HOST_ORACLE_ITEM = "17"
-
 # host replays of lossless plans still get a horizon: a buggy protocol
 # can deadlock the oracle loop (a client that never completes keeps
 # periodic events flowing forever); past the lane's natural end the

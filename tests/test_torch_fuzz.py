@@ -10,8 +10,9 @@ against the reference's ``fantoch_tpu/mc/fuzz.py`` on the CPU.
   digests; the injected bug's per-lane results equal the committed
   fixture ``tests/fixtures/torch_fuzz_bug_golden.json``;
 * ``mc --no-confirm``'s summary on a small grid equals the reference
-  CLI's outside its timings; the campaign drivers are refused by name
-  before any lane runs;
+  CLI's outside its timings (``--farm``, ``--coverage-dir`` and
+  ``--migrate-covmaps`` are held to the reference CLI in
+  ``tests/test_torch_mc_farm.py``);
 * ``mc --protocols tempo --inject-bug`` with confirmation and ``--out`` on
   the injected-bug point prints the reference CLI's summary (timings and
   directories aside) and writes the reference's artifact bytes, whose
@@ -173,21 +174,6 @@ def _tempo_artifact():
             "regions": ["asia-east1", "asia-east2", "asia-northeast1"],
             "workload_seed": 0, "extra_time_ms": 0, "violation": "x",
             "perturbations": {}, "perturbation_count": 0}
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["mc", "--no-confirm", "--farm", "farm"], "14"),
-    (["mc", "--no-confirm", "--coverage-dir", "cov"], "14"),
-    (["mc", "--no-confirm", "--migrate-covmaps", "cov"], "14"),
-])
-def test_mc_refuses_what_is_not_ported_by_name(argv, item, capsys):
-    from fantoch_tpu_torch.cli import main
-
-    with pytest.raises(SystemExit) as e:
-        main(["--device", "cpu", *argv])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP Queue A item {item}" in err and "mc refused" in err
 
 
 # the injected-bug point (BUG, tests/test_mc_fuzz.py:291-319) through the
