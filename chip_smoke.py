@@ -5,7 +5,7 @@ Run from the root of a checkout, with one CUDA card and no arguments:
 
     python3 chip_smoke.py
 
-It builds the engine's thirteen CUDA kernels and the device loop's graph
+It builds the engine's fourteen CUDA kernels and the device loop's graph
 code from ``fantoch_tpu_torch/kernels/csrc`` (one nvcc per source, in
 parallel), holds each kernel against its plain PyTorch twin on the card
 at the main paths' shapes (exact equality: all integer or bool data;
@@ -210,7 +210,24 @@ it drains: the same ``summary.json`` and binary maps, byte for byte;
 stop and resume; ``ModelChecker`` (Tempo, n = 3, 5,000 states) on the
 host with every launch counter at 0. The monitor coverage's batches run
 a 1,500 ms drain tail (the fuzz default is 5,000 ms), which halves their
-steps. Any failure raises; nothing is caught. Each phase prints its seconds. The last two lines
+steps. Slice 23, bote and the fleet (phase 11): K15 ``bote_stats``
+against its twin on the card, exactly (every latency plane, the leader
+and the COV plane), on every subset of the GCP planet at n = 3 to 13
+(507,604 configurations) and of the AWS planet at n = 3 and 5, with its
+row at the ``bote`` CLI's largest default launch (GCP n = 7); ``bote`` at
+its defaults and at ``--max-n 13``, counted (one K15 launch an n, no
+other kernel), its stdout byte-equal to the host's ``--device cpu``;
+``bote --validate --n 3 --top 2``, counted (K15 once, the Atlas and
+FPaxos step kernels in the device loop), its ``frontier.json`` byte-equal
+to the host's; ``fleet --workers 2 --merge`` over phase 10's campaign
+grid in child processes (each worker's launch counts come home in a
+file), its merged ``results.jsonl`` byte-equal to phase 10's
+uninterrupted campaign's; a worker SIGKILLed once a unit it holds has
+saved a checkpoint, reclaimed after its lease's TTL and resumed from the
+checkpoint by a second worker, then ``--merge``: the same bytes; ``fleet
+--farm --workers 2 --merge`` over a small steered farm (Tempo n = 3, two
+fault classes, chunks of 64), its ``summary.json`` and binary maps equal
+to an in-process solo ``run_campaign`` on the card. Any failure raises; nothing is caught. Each phase prints its seconds. The last two lines
 are one JSON object per kernel (``{"kernels": [...]}``) and the verdict
 ``{"ok": true, ...}``.
 Without a CUDA card it exits non-zero and prints no result.
@@ -407,6 +424,7 @@ REPLACES = {
     "mon_finalize": "fantoch_tpu/engine/monitor.py:217",
     "loop_ctl": "fantoch_tpu/engine/core.py:1565",
     "step_loop": "fantoch_tpu/engine/core.py:1591",
+    "bote_stats": "fantoch_tpu/bote/model.py:91",
 }
 HANDLERS = {"basic": "basic_handle", "fpaxos": "fpaxos_handle",
             "tempo": "tempo_handle", "atlas": "graphdep_handle",
@@ -3434,7 +3452,7 @@ def bottlenecks(rows, by_path) -> None:
                     steps * (ms - mixed["bound"][k]) / 1e3)
     # the kernels timed on one path only: that path's ms and bound
     # against their launches on every path
-    for k in ("mon_finalize", "loop_ctl"):
+    for k in ("mon_finalize", "loop_ctl", "bote_stats"):
         row = rows[k]
         for path, counts in by_path.items():
             if counts.get(k):
@@ -4522,12 +4540,12 @@ def _phase_dir(name):
     return root
 
 
-def _child_cli(argv, counts):
-    """``CAMPAIGN_CHILD`` on ``argv``: (exit code, last stdout line,
-    the child's info, wall s)."""
+def _child_cli(argv, counts, script=CAMPAIGN_CHILD):
+    """``script`` (``CAMPAIGN_CHILD``) on ``argv``: (exit code, last
+    stdout line, the child's info, wall s)."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-c", CAMPAIGN_CHILD, str(counts), *argv],
+        [sys.executable, "-c", script, str(counts), *argv],
         cwd=str(ROOT), capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     lines = proc.stdout.strip().splitlines()
@@ -4610,6 +4628,7 @@ def campaign_sweep(dev):
     assert summary["lanes"] == len(lanes) and summary["errors"] == 0
     assert summary["batches_done"] == CAMPAIGN_UNITS, summary
     launches = _child_launches("campaign sweep", info, "tempo_handle")
+    WALLS["campaign"] = (info["secs"], wall)
     rate = len(lanes) / info["secs"]
     print(f"campaign sweep (a) uninterrupted: {summary['lanes']} lanes in "
           f"{summary['batches_total']} units, errors {summary['errors']}; "
@@ -4921,6 +4940,397 @@ def model_checker() -> None:
           f"0 before and after")
 
 
+# slice 23, phase 11: bote and the fleet. K15 against its twin on every
+# subset of the GCP planet at these n (507,604 configurations) and of the
+# AWS planet at n = 3 and 5, at the f1f2 metric (every quorum plane the
+# search reads)
+BOTE_SHAPES = ([("gcp", n) for n in (3, 5, 7, 9, 11, 13)]
+               + [("aws", 3), ("aws", 5)])
+# bote through the CLI at its defaults (n = 3, 5, 7) and to n = 13, and
+# the validation of the top two n = 3 candidates at its defaults (Atlas
+# and FPaxos, conflicts 0 and 100, 20 commands)
+BOTE_ARGV = (("bote",), ("bote", "--max-n", "13"))
+BOTE_VALIDATE = ("bote", "--validate", "--n", "3", "--top", "2")
+# K15's row: the CLI's largest default launch (GCP n = 7, metric f1)
+BOTE_ROW = ("gcp", 7, "f1")
+# the killed worker's lease and its reclaimer's: short, so the reclaim
+# comes within the reclaimer's start
+FLEET_TTL_S = 2.0
+# a small steered farm: one point (Tempo, n = 3), two fault classes,
+# two chunks of 64 a class
+FARM_GRID = {"kind": "fuzz", "protocols": ["tempo"], "ns": [3],
+             "schedules": 128, "chunk": 64, "confirm": False,
+             "coverage": True, "binary_maps": True,
+             "classes": ["crash", "jitter"]}
+# the keys of a fuzz campaign's summary.json that a fleet merge writes
+# too (the manager adds done, interrupted and points_total)
+MERGED_KEYS = ("kind", "points", "retired", "schedules_tried")
+# runs the CLI as CAMPAIGN_CHILD does, and each worker that ``fleet
+# --workers`` spawns (``python -m fantoch_tpu_torch ...``) through
+# CAMPAIGN_CHILD too, its info written to ``<argv[1]>.<worker id>.json``
+FLEET_PARENT = (
+    "import subprocess, sys\n"
+    f"CHILD = {CAMPAIGN_CHILD!r}\n"
+    "real = subprocess.Popen\n"
+    "def popen(cmd, *a, **kw):\n"
+    "    if list(cmd[1:3]) == ['-m', 'fantoch_tpu_torch']:\n"
+    "        wid = cmd[cmd.index('--worker-id') + 1]\n"
+    "        cmd = [cmd[0], '-c', CHILD, f'{sys.argv[1]}.{wid}.json',\n"
+    "               *cmd[3:]]\n"
+    "    return real(cmd, *a, **kw)\n"
+    "subprocess.Popen = popen\n"
+) + CAMPAIGN_CHILD
+
+
+def _host_bote(argv):
+    """Worker task: ``argv`` (a ``bote`` command) through the CLI on the
+    host (``--device cpu``); returns its stdout, or with ``--validate``
+    its frontier artifact, run in a directory of its own."""
+    import contextlib
+    import io
+    import tempfile
+
+    from fantoch_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="bote_host_") as d:
+        out = io.StringIO()
+        extra = ["--dir", d] if "--validate" in argv else []
+        with contextlib.redirect_stdout(out):
+            cli.main(["--device", "cpu", *argv, *extra])
+        text = ((Path(d) / "frontier.json").read_text() if extra
+                else out.getvalue())
+    return text, time.perf_counter() - t0
+
+
+def _cli_text(argv, dev):
+    """The CLI in this process on the card: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    from fantoch_tpu_torch import cli
+
+    out, code = io.StringIO(), 0
+    with contextlib.redirect_stdout(out):
+        try:
+            cli.main(["--device", str(dev.type), *argv])
+        except SystemExit as e:
+            code = 0 if e.code is None else e.code
+    return code, out.getvalue()
+
+
+def _bote_inputs(planet, n, metric, dev):
+    """K15's arguments for every n-subset of ``planet`` (``"gcp"`` or
+    ``"aws"``), every region a client, as ``Search._rank_n`` passes them
+    at ``metric``."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from fantoch_tpu_torch.bote import FTMetric, ProtocolModel
+    from fantoch_tpu_torch.core import Planet
+
+    pl = (Planet.new() if planet == "gcp"
+          else Planet.from_dataset("latency_aws_2021_02_13"))
+    regions = sorted(pl.regions())
+    R = len(regions)
+    lat = torch.as_tensor(pl.latency_matrix(regions).astype(np.float32),
+                          device=dev)
+    subsets = torch.as_tensor(
+        np.asarray(list(itertools.combinations(range(R), n)), np.int32),
+        device=dev)
+    fs = FTMetric.fs(metric, n)
+    quorums = sorted({ProtocolModel.atlas(n, f) for f in fs}
+                     | {ProtocolModel.epaxos(n)})
+    return (lat, subsets, torch.arange(R, dtype=torch.int32, device=dev),
+            quorums, ProtocolModel.fpaxos(n, 1),
+            [ProtocolModel.fpaxos(n, f) for f in fs])
+
+
+def bote_phase(dev, rows):
+    """Phase 11, ``11 bote``: K15 against its twin on the card, exactly
+    (every latency plane, the leader and the COV plane), at every shape
+    of :data:`BOTE_SHAPES`, and its row at :data:`BOTE_ROW`; ``bote``
+    through the CLI at :data:`BOTE_ARGV`, each counted and byte-equal to
+    the host's ``--device cpu`` stdout; ``bote --validate``
+    (:data:`BOTE_VALIDATE`), counted (K15 once, the step kernels in the
+    device loop), its frontier artifact byte-equal to the host's.
+    Returns the launches by run."""
+    import math
+
+    import torch
+
+    from fantoch_tpu_torch import kernels
+
+    mod = importlib.import_module("fantoch_tpu_torch.kernels.bote_stats")
+    err, total = 0.0, 0
+    t0 = time.perf_counter()
+    for planet, n in BOTE_SHAPES:
+        a = _bote_inputs(planet, n, "f1f2", dev)
+        got, want = mod.bote_stats(*a), mod.bote_stats_plain(*a)
+        torch.cuda.synchronize()
+        err = max(err, _compare(got, want))
+        total += a[1].shape[0]
+        print(f"kernel bote_stats ({planet} n={n}): exact=True on "
+              f"{a[1].shape[0]} configurations (lat_q {tuple(got[0].shape)},"
+              f" leader, FPaxos {tuple(got[2].shape)}, cov "
+              f"{tuple(got[3].shape)}), quorums {a[3]} / {a[5]}")
+    print(f"kernel bote_stats: == its twin on the card on all {total} "
+          f"configurations ({time.perf_counter() - t0:.1f} s)")
+
+    a = _bote_inputs(*BOTE_ROW, dev)
+    run = (lambda: mod.bote_stats(*a))
+    ms = _device_ms(run, "bote_stats", 50)
+    call_ms = _time_ms(run, 50)
+    plain_ms = _time_ms(lambda: mod.bote_stats_plain(*a), 5)
+    n_bytes, n_ops = mod.work(*a)
+    bound_ms, bound_by = mod.bound(*a)
+    # no PyTorch call computes the function; the sort of the gathered
+    # within block alone, beside it
+    sub = a[1].long()
+    within = a[0][sub[:, :, None], sub[:, None, :]]
+    sort_ms = _time_ms(lambda: torch.sort(within, dim=2), 50)
+    B = a[1].shape[0]
+    rows["bote_stats"] = dict(
+        path="bote", max_abs_err=err, ms=ms, call_ms=call_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=None, sort_ms=sort_ms)
+    print(f"kernel bote_stats ({BOTE_ROW[0]} n={BOTE_ROW[1]} "
+          f"{BOTE_ROW[2]}): ms={ms:.5f} call_ms={call_ms:.5f} "
+          f"plain_ms={plain_ms:.5f} bound_us={1e3 * bound_ms:.3f} "
+          f"({bound_by}: {n_bytes} bytes, {n_ops} f32 ops) library_ms=None "
+          f"(torch.sort of the [B, n, n] within block alone {sort_ms:.5f}) "
+          f"B={B} n={BOTE_ROW[1]} C={a[2].shape[0]}; "
+          f"{B / ms:.1f} configurations a device ms")
+
+    launches = {}
+    for argv in BOTE_ARGV:
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        code, text = _cli_text(list(argv), dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = kernels.counts()
+        max_n = int(argv[argv.index("--max-n") + 1]) if "--max-n" in argv \
+            else 7
+        ns = range(3, max_n + 1, 2)
+        assert code == 0 and counts["bote_stats"] == len(ns), counts
+        assert not any(v for k, v in counts.items() if k != "bote_stats")
+        t2 = time.perf_counter()
+        host, secs = HOST.result(("bote", argv))
+        assert text == host, f"{argv}: the card's stdout differs"
+        configs = sum(math.comb(20, n) for n in ns)
+        launches[" ".join(argv)] = counts
+        print(f"{' '.join(argv)}: {counts['bote_stats']} K15 launches, "
+              f"{configs} configurations in {wall:.3f} s = "
+              f"{configs / wall:.1f} configurations/s (the whole CLI "
+              f"command: the search, host ranking and output); stdout "
+              f"({len(text)} bytes) == the host's --device cpu "
+              f"({secs:.1f} s there, waited {time.perf_counter() - t2:.1f} "
+              f"s)")
+
+    root = _phase_dir("bote")
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    code, text = _cli_text(list(BOTE_VALIDATE) + ["--dir", str(root / "v")],
+                           dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts = graph_only_counts("bote validate", single=False)
+    assert code == 0, (code, text)
+    assert counts["bote_stats"] == 1, counts
+    for k in ("qualify_pop", "graphdep_handle", "fpaxos_handle",
+              "emit_rewrite", "land_emissions", "key_table"):
+        assert counts[k] > 0, counts
+    art = (root / "v" / "frontier.json").read_text()
+    t2 = time.perf_counter()
+    host, secs = HOST.result(("bote_validate",))
+    assert art == host, "frontier.json differs from the host run"
+    summary = json.loads(text.strip().splitlines()[-1])
+    cands = json.loads(art)["candidates"]
+    launches["bote validate"] = counts
+    print(f"{' '.join(BOTE_VALIDATE)}: {summary['lanes']} lanes in "
+          f"{summary['batches_total']} units, {wall:.3f} s, errors "
+          f"{summary['errors']}; candidates "
+          + "; ".join(
+              f"{c['regions']} score {c['score']:.3f} p99 "
+              + ", ".join(f"{p} {c['measured'][p]['f1']['flat'][cf]['p99']}"
+                          for p in ("atlas", "fpaxos") for cf in ("0", "100"))
+              for c in cands)
+          + f"; frontier.json ({len(art)} bytes) == the host's (device cpu,"
+          f" {secs:.1f} s there, waited {time.perf_counter() - t2:.1f} s); "
+          f"launches {counts}")
+    return launches
+
+
+def _worker_infos(counts):
+    """The infos of the workers a ``FLEET_PARENT`` child spawned."""
+    return {p.name.rsplit(".", 2)[-2]: json.loads(p.read_text())
+            for p in sorted(counts.parent.glob(counts.name + ".*.json"))}
+
+
+def _sum_counts(infos) -> dict:
+    out = {}
+    for info in infos:
+        for k, v in info["counts"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def fleet_phase(dev):
+    """Phase 11, ``11 fleet``: (a) ``fleet --workers 2 --merge`` over
+    phase 10's ``CAMPAIGN_GRID`` in child processes (each worker's launch
+    counts and unit stats come home in a file), its merged
+    ``results.jsonl`` byte-equal to phase 10's uninterrupted campaign's;
+    (b) at ``scan_window`` 1 a worker SIGKILLed once a unit it holds has
+    saved a checkpoint, a second worker with ``--ttl-s`` 2 reclaiming and
+    resuming it, then ``--merge``: the same bytes; (c) ``fleet --farm
+    --workers 2 --merge`` over :data:`FARM_GRID`, its ``summary.json``
+    (every key a merge writes) and binary maps equal to an in-process
+    solo ``run_campaign`` of the grid on the card. Returns the launches
+    by run."""
+    import torch
+
+    from fantoch_tpu_torch import kernels
+    from fantoch_tpu_torch.campaign import campaign_from_json, run_campaign
+    from fantoch_tpu_torch.kernels import build
+
+    want = (build.BUILD_ROOT / "campaign" / "sweep" / "a"
+            / "results.jsonl").read_bytes()
+    root = _phase_dir("fleet")
+    launches = {}
+
+    # (a) two workers, merged
+    a = root / "a"
+    code, summary, info, wall = _child_cli(
+        ["fleet", "--dir", str(a), "--grid", json.dumps(CAMPAIGN_GRID),
+         "--workers", "2", "--merge"], root / "a.json", FLEET_PARENT)
+    assert code == 0 and summary["merged"] and summary["errors"] == 0, (
+        summary)
+    assert not any(info["counts"].values()), info["counts"]
+    workers = _worker_infos(root / "a.json")
+    assert sorted(workers) == ["w0", "w1"], sorted(workers)
+    units = {w: len(i["units"]) for w, i in workers.items()}
+    assert sum(units.values()) == CAMPAIGN_UNITS, units
+    for w, i in workers.items():
+        if units[w]:
+            _child_launches(f"fleet {w}", i, "tempo_handle")
+    launches["fleet sweep"] = _sum_counts(workers.values())
+    assert (a / "results.jsonl").read_bytes() == want
+    secs, cwall = WALLS["campaign"]
+    print(f"fleet (a) --workers 2 --merge over the campaign grid: units by "
+          f"worker {units}, their seconds in the CLI "
+          + ", ".join(f"{w} {i['secs']:.3f}" for w, i in workers.items())
+          + f"; {wall:.3f} s for the whole command (the parent's start, the "
+          f"workers' starts, the merge) against phase 10's single campaign "
+          f"{cwall:.3f} s ({secs:.3f} s in its CLI); results.jsonl "
+          f"({len(want)} bytes) == phase 10's uninterrupted campaign's; "
+          f"launches {launches['fleet sweep']}")
+
+    # (b) a worker killed once its unit has saved, a reclaimer resumes
+    b = root / "b"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "fantoch_tpu_torch", "fleet", "--dir",
+         str(b), "--grid", json.dumps(CAMPAIGN_STOPPABLE), "--worker-id",
+         "doomed", "--ttl-s", str(FLEET_TTL_S)], cwd=str(ROOT),
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    journal = b / "journals" / "doomed.jsonl"
+    t0 = time.perf_counter()
+    try:
+        while proc.poll() is None and time.perf_counter() - t0 < 600:
+            done = ({json.loads(x)["id"].replace("/", "_")
+                     for x in journal.read_text().splitlines()
+                     if x.endswith("}")} if journal.exists() else set())
+            if any(p.parent.name not in done
+                   for p in (b / "ckpt").glob("*/manifest.json")):
+                break
+            time.sleep(0.01)
+        assert proc.poll() is None, "the worker ended before the kill"
+        proc.kill()
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    killed_s = time.perf_counter() - t0
+    held = sorted(p.name for p in (b / "leases").glob("*.lock"))
+    on_disk = sorted(p.parent.name for p in (b / "ckpt").glob(
+        "*/manifest.json"))
+    assert held and on_disk, (held, on_disk)
+    codes, infos = [], []
+    t1 = time.perf_counter()
+    while not codes or codes[-1] != 0:
+        assert len(codes) < 10, codes
+        code, s, info, _w = _child_cli(
+            ["fleet", "--dir", str(b), "--worker-id", "reclaimer",
+             "--ttl-s", str(FLEET_TTL_S)], root / f"b{len(codes)}.json")
+        codes.append(code)
+        infos.append(info)
+        if code != 0:
+            time.sleep(1.0)
+    reclaim_s = time.perf_counter() - t1
+    resumed = [u.get("resume_until", 0) for i in infos for u in i["units"]]
+    assert any(resumed), resumed
+    for i in infos:
+        if i["units"]:
+            _child_launches("fleet reclaimer", i, "tempo_handle")
+    launches["fleet reclaim"] = _sum_counts(infos)
+    code, merged = _cli_code(["fleet", "--dir", str(b), "--merge"], dev)
+    assert code == 0 and merged["merged"], merged
+    assert (b / "results.jsonl").read_bytes() == want
+    print(f"fleet (b) scan_window 1: worker 'doomed' SIGKILLed after "
+          f"{killed_s:.3f} s holding {held} with checkpoints {on_disk} on "
+          f"disk; 'reclaimer' (--ttl-s {FLEET_TTL_S}) exits {codes} in "
+          f"{reclaim_s:.3f} s, its units resumed from steps {resumed} "
+          f"({_ckpt_stats({'units': [u for i in infos for u in i['units']]})}"
+          f"); --merge: results.jsonl == phase 10's; launches "
+          f"{launches['fleet reclaim']}")
+
+    # (c) the farm over two workers against a solo campaign on the card
+    c, solo = root / "c", root / "solo"
+    code, summary, info, wall = _child_cli(
+        ["fleet", "--farm", "--dir", str(c), "--grid",
+         json.dumps(FARM_GRID), "--workers", "2", "--merge"],
+        root / "c.json", FLEET_PARENT)
+    assert code == 0 and summary["merged"], summary
+    workers = _worker_infos(root / "c.json")
+    fl = _sum_counts(workers.values())
+    chunks = sum(1 for p in (c / "journals").glob("*.jsonl")
+                 for x in p.read_text().splitlines()
+                 if json.loads(x).get("kind") == "fuzz")
+    assert fl["mon_finalize"] == chunks and fl["tempo_handle"] > 0, (
+        fl, chunks)
+    launches["fleet farm"] = fl
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    s = run_campaign(str(solo), campaign_from_json(FARM_GRID), device=dev)
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t1
+    solo_counts = graph_only_counts("farm solo", single=False)
+    assert s["done"], s
+    got = json.loads((c / "summary.json").read_text())
+    ref = json.loads((solo / "summary.json").read_text())
+    assert {k: got.get(k) for k in MERGED_KEYS} == {
+        k: ref.get(k) for k in MERGED_KEYS}, "farm summaries differ"
+    assert _covmaps(c) == _covmaps(solo) and len(_covmaps(c)) == 2
+    print(f"fleet (c) --farm --workers 2 --merge ({FARM_GRID['classes']}, "
+          f"{FARM_GRID['schedules']} schedules a class in chunks of "
+          f"{FARM_GRID['chunk']}): {chunks} chunks, chunks by worker "
+          + ", ".join(f"{w} {i['counts']['mon_finalize']}"
+                      for w, i in workers.items())
+          + f", {wall:.3f} s for the command; summary.json == the solo "
+          f"run_campaign's on {MERGED_KEYS} (buckets "
+          + ", ".join(f"{k} {p['cov_buckets']}"
+                      for k, p in sorted(got["points"].items()))
+          + f"), the 2 binary maps byte-equal; solo {solo_wall:.3f} s on "
+          f"the card, launches {solo_counts}; the fleet's launches {fl}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4982,7 +5392,9 @@ def _main(dev, card) -> int:
     # mixed step with partial-replication groups
     phase("3 kernels (hetero partial batch)", check_mixed_kernels,
           "hetero_partial", dev, rows)
-    assert sorted(rows) == sorted(set(kernels.WRAPPERS) - {"step_loop"}), (
+    # (K15's row comes from phase 11)
+    assert sorted(rows) == sorted(set(kernels.WRAPPERS)
+                                  - {"step_loop", "bote_stats"}), (
         sorted(rows))
 
     # 4-6. golden batches and fixture bytes on the card
@@ -5021,7 +5433,8 @@ def _main(dev, card) -> int:
     # the device loop against the eager loop, whole state, and its row
     phase("6 segments", segments, dev, rows)
     phase("6 segments hetero", hetero_segments, dev)
-    assert sorted(rows) == sorted(kernels.WRAPPERS), sorted(rows)
+    assert sorted(rows) == sorted(set(kernels.WRAPPERS) - {"bote_stats"}), (
+        sorted(rows))
 
     # 8. slice 9's main path, the mc default grid, counted, before the
     # sweeps: the host replays its sampled lanes' segments meanwhile
@@ -5069,12 +5482,25 @@ def _main(dev, card) -> int:
         HOST.submit(("campaign", unit), _host_campaign_unit, CAMPAIGN_GRID,
                     unit, CAMPAIGN_HELD)
     HOST.submit(("knee",), _host_knee, KNEE_ARGV)
+    # slice 23: phase 11's host runs of bote
+    for argv in BOTE_ARGV:
+        HOST.submit(("bote", argv), _host_bote, argv)
+    HOST.submit(("bote_validate",), _host_bote, BOTE_VALIDATE)
     by_path["campaign_sweep"], held = phase("10 campaign sweep",
                                             campaign_sweep, dev)
     by_path["campaign_fuzz"] = phase("10 campaign fuzz", campaign_fuzz, dev)
     by_path["knee"] = phase("10 knee", knee_phase, dev)
     phase("10 model checker", model_checker)
     phase("10 campaign sweep host holds", campaign_holds, held)
+    # 11. slice 23's paths: bote (K15) and the fleet
+    bote_runs = phase("11 bote", bote_phase, dev, rows)
+    by_path["bote"] = bote_runs["bote"]
+    by_path["bote_max_n_13"] = bote_runs["bote --max-n 13"]
+    by_path["bote_validate"] = bote_runs["bote validate"]
+    fleet_runs = phase("11 fleet", fleet_phase, dev)
+    for label, counts in fleet_runs.items():
+        by_path[label.replace(" ", "_")] = counts
+    assert sorted(rows) == sorted(kernels.WRAPPERS), sorted(rows)
     assert K13_CHECKED["launches"] > 0
     rows["mon_finalize"]["max_abs_err"] = max(
         rows["mon_finalize"]["max_abs_err"], K13_CHECKED["err"])

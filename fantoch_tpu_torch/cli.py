@@ -17,10 +17,14 @@ JSON; ``--coverage-dir`` steers it by coverage across invocations,
 ``--farm`` runs the standing fuzz farm (a fuzz campaign) and
 ``--migrate-covmaps`` converts coverage states to binary maps. The
 ``campaign`` subcommand runs a journal-backed, resumable sweep or fuzz
-campaign (``campaign/``), and ``knee`` the open-loop knee sweep through
-it (``serving/knee.py``). All of these run on the CUDA card unless
-``--device cpu`` is given. The ``sim`` subcommand is one exact run of
-the host simulator (``sim/``); it never touches a device.
+campaign (``campaign/``), ``fleet`` runs one over lease-sharded worker
+processes (``fleet/``), and ``knee`` the open-loop knee sweep through it
+(``serving/knee.py``). ``bote`` ranks region sets with the closed-form
+latency model (``bote/``, one launch of K15 per n); ``bote --validate``
+measures the top candidates through a campaign. All of these run on the
+CUDA card unless ``--device cpu`` is given. The ``sim`` subcommand is
+one exact run of the host simulator (``sim/``); it never touches a
+device.
 """
 
 from __future__ import annotations
@@ -180,6 +184,13 @@ def _ints(s: str) -> List[int]:
     return [int(x) for x in s.split(",") if x != ""]
 
 
+def _planet(args) -> Planet:
+    """``--aws``: the AWS planet (2021-02-13); else the GCP planet."""
+    if getattr(args, "aws", False):
+        return Planet.from_dataset("latency_aws_2021_02_13")
+    return Planet.new()
+
+
 def sweep_setup(args):
     """``(protocol, dims, specs)`` of a ``sweep`` command line: the
     region subsets, dims and grid exactly as ``cmd_sweep`` runs them."""
@@ -197,10 +208,7 @@ def sweep_setup(args):
             raise SystemExit("--faults is single-shard for now")
     traffic, traffic_keys = _traffic_setup(args)
 
-    planet = (
-        Planet.from_dataset("latency_aws_2021_02_13") if args.aws
-        else Planet.new()
-    )
+    planet = _planet(args)
     all_regions = planet.regions()
     if args.regions:
         region_sets = [args.regions]
@@ -352,6 +360,10 @@ def cmd_sweep(args) -> None:
     from . import resolve_device
     from .parallel.sweep import run_sweep
 
+    if args.aot_dir:
+        _refuse("sweep", "--aot-dir loads or writes a serialized sweep "
+                "executable, and the port has none to share: it builds its "
+                "CUDA kernels from kernels/csrc/ at first use")
     device = resolve_device(args.device)
     dev, dims, specs = sweep_setup(args)
     results = run_sweep(
@@ -454,8 +466,7 @@ def cmd_sim(args) -> None:
         protocol_cls = oracle_protocol(args.protocol)
     except ValueError as e:
         _refuse("sim", e)
-    planet = (Planet.from_dataset("latency_aws_2021_02_13") if args.aws
-              else Planet.new())
+    planet = _planet(args)
     regions = args.regions or planet.regions()[: args.n]
     config = Config(**dev_config_kwargs(args.protocol, args.n, args.f,
                                         **_config_overrides(args)))
@@ -575,8 +586,7 @@ def cmd_mc(args) -> None:
         return
     _mc_protocols(args)
     device = resolve_device(args.device)
-    planet = (Planet.from_dataset("latency_aws_2021_02_13") if args.aws
-              else Planet.new())
+    planet = _planet(args)
     points = []
     artifacts = []
     skipped_points = 0
@@ -859,6 +869,307 @@ def cmd_knee(args) -> None:
         raise SystemExit(EXIT_INTERRUPTED)
 
 
+def _spawn_fleet_workers(args, grid_text) -> "tuple[bool, bool]":
+    """The ``--workers N`` convenience mode: N subprocess workers
+    (``python -m fantoch_tpu_torch --device <this one's> fleet``) drain
+    the campaign concurrently, re-spawned in rounds while they make
+    progress (a round where a worker dies or exits with units still
+    leased leaves reclaimable work for the next). Returns ``(done,
+    refused)``."""
+    import subprocess
+
+    base = [
+        sys.executable, "-m", "fantoch_tpu_torch",
+        "--device", args.device, "fleet", "--dir", args.dir,
+    ]
+    if args.ttl_s is not None:
+        base += ["--ttl-s", str(args.ttl_s)]
+    if args.budget_s is not None:
+        base += ["--budget-s", str(args.budget_s)]
+    done = False
+    for round_no in range(5):
+        cmds = []
+        for i in range(args.workers):
+            cmd = list(base) + ["--worker-id", f"w{i}"]
+            # only the first touch needs the grid; later rounds (and
+            # late-starting workers) resume the stored campaign.json
+            if grid_text and round_no == 0:
+                cmd += ["--grid", grid_text]
+            cmds.append(cmd)
+        procs = [subprocess.Popen(c) for c in cmds]
+        rcs = [p.wait() for p in procs]
+        print(
+            f"fleet round {round_no + 1}: worker exits {rcs}",
+            file=sys.stderr,
+        )
+        if any(rc == 2 for rc in rcs):
+            return False, True
+        if any(rc == 0 for rc in rcs):
+            done = True
+            break
+        if all(rc not in (0, EXIT_INTERRUPTED) for rc in rcs):
+            # every worker crashed outright — re-spawning would loop
+            return False, True
+    return done, False
+
+
+def cmd_fleet(args) -> None:
+    """Lease-sharded multi-worker campaigns (``fleet/``): workers claim
+    grid units from a shared campaign dir via atomic-rename leases with
+    heartbeat TTLs, journal into worker-scoped journals, and any worker
+    resumes any abandoned unit's signed checkpoint; ``--merge`` writes
+    the deterministic merged output (byte-identical to a 1-worker
+    control). ``--workers N`` builds the kernels once (on the card)
+    before it spawns its workers. Exits 0 done, 75 with work remaining,
+    2 refused (a spec field the port does not run — ``aot``,
+    ``shard_lanes``, ``mesh_shard`` — among the refusals)."""
+    import os
+
+    from . import resolve_device
+    from .campaign import CampaignError, campaign_from_json
+    from .campaign.manager import _CAMPAIGN
+    from .engine.checkpoint import CheckpointError
+    from .fleet import (
+        DEFAULT_TTL_S,
+        FleetError,
+        merge_campaign,
+        run_fleet_worker,
+    )
+
+    grid_text = None
+    spec = None
+    if args.grid:
+        grid_text = args.grid
+        if grid_text.startswith("@"):
+            with open(grid_text[1:]) as fh:
+                grid_text = fh.read()
+        try:
+            spec = campaign_from_json(json.loads(grid_text))
+        except (ValueError, CampaignError) as e:
+            raise SystemExit(f"bad --grid spec: {e}")
+    if args.workers and args.worker_id:
+        raise SystemExit("--workers spawns its own worker ids; drop "
+                         "--worker-id")
+    if not (args.workers or args.worker_id or args.merge):
+        raise SystemExit("fleet needs --workers N, --worker-id ID, "
+                         "and/or --merge")
+    if args.farm:
+        # the farm contract is asserted up front, against --grid or
+        # the stored campaign.json, so no worker claims a unit of a
+        # grid that silently lacks the farm posture
+        fspec = spec
+        if fspec is None:
+            cpath = os.path.join(args.dir, _CAMPAIGN)
+            if os.path.exists(cpath):
+                try:
+                    fspec = campaign_from_json(json.load(open(cpath)))
+                except (ValueError, CampaignError) as e:
+                    _refuse("fleet", f"{type(e).__name__}: {e}")
+        shape = (
+            fspec is not None
+            and getattr(fspec, "kind", None) == "fuzz"
+            and bool(getattr(fspec, "coverage", False))
+            and bool(getattr(fspec, "binary_maps", False))
+        )
+        if not shape:
+            _refuse(
+                "fleet",
+                "--farm needs a standing-farm fuzz grid (coverage + "
+                'binary_maps, docs/MC.md "Standing farm"); got '
+                + ("no campaign spec" if fspec is None
+                   else f"kind={getattr(fspec, 'kind', None)!r}"),
+            )
+    device = None
+    if args.workers or args.worker_id:
+        device = resolve_device(args.device)
+
+    done = True
+    try:
+        if args.worker_id:
+            summary = run_fleet_worker(
+                args.dir,
+                spec,
+                worker_id=args.worker_id,
+                budget_s=args.budget_s,
+                ttl_s=(
+                    args.ttl_s if args.ttl_s is not None
+                    else DEFAULT_TTL_S
+                ),
+                stop_after_units=args.stop_after_units,
+                stop_after_segments=args.stop_after_segments,
+                device=device,
+            )
+            print(json.dumps(summary))
+            done = summary["done"]
+            if not done:
+                reason = summary["interrupted"] or "units leased elsewhere"
+                print(
+                    f"fleet worker stopped ({reason}); every completed "
+                    "unit is journaled — re-run (any worker id) to "
+                    "continue",
+                    file=sys.stderr,
+                )
+        elif args.workers:
+            if device.type == "cuda":
+                # one build before N processes load the library
+                from .kernels import build
+
+                build.build()
+            done, refused = _spawn_fleet_workers(args, grid_text)
+            if refused:
+                print(
+                    "fleet refused or crashed in a worker (see above)",
+                    file=sys.stderr,
+                )
+                raise SystemExit(2)
+        if args.merge:
+            merged = merge_campaign(args.dir)
+            print(json.dumps(merged))
+            if not merged["merged"]:
+                print(
+                    "fleet merge incomplete: units missing — run more "
+                    "workers, then --merge again",
+                    file=sys.stderr,
+                )
+                raise SystemExit(EXIT_INTERRUPTED)
+            return
+    except (CheckpointError, CampaignError, FleetError, ValueError) as e:
+        # refusal, not recovery: stale/corrupt checkpoints, campaign
+        # disagreements, unported spec fields, bad worker ids,
+        # conflicting journals — named
+        _refuse("fleet", f"{type(e).__name__}: {e}")
+    if not done:
+        raise SystemExit(EXIT_INTERRUPTED)
+
+
+def cmd_bote(args) -> None:
+    """The closed-form region-set search (``bote/search.py``): every
+    n-subset of the planet's regions for odd n in ``--min-n..--max-n``,
+    one K15 launch per n, ranked on the host; prints the top ``--top``
+    of each n as the reference CLI does. ``--validate`` measures the
+    top candidates at ``--n`` instead."""
+    from . import resolve_device
+    from .bote.search import RankingParams, Search
+
+    if args.validate:
+        return cmd_bote_validate(args)
+    device = resolve_device(args.device)
+    search = Search(planet=_planet(args))
+    params = RankingParams(
+        min_mean_fpaxos_improv=args.min_mean_improv,
+        min_fairness_fpaxos_improv=args.min_fairness_improv,
+        min_n=args.min_n,
+        max_n=args.max_n,
+        ft_metric=args.metric,
+    )
+    ranked = search.rank(params, device=device)
+    out = {}
+    for n, configs in sorted(ranked.items()):
+        out[n] = [
+            {"regions": list(c.config), "score": float(c.score)}
+            for c in configs[: args.top]
+        ]
+    print(json.dumps(out, indent=2))
+
+
+def cmd_bote_validate(args) -> None:
+    """Measured validation of the closed-form frontier
+    (``bote/validate.py``): top-K ranked candidates at --n each get a
+    sweep campaign (protocols × f × conflict × traffic) over their region
+    sub-matrix, resumable across SIGKILL via the campaign manager; once
+    complete, a frontier artifact compares closed-form vs measured
+    p50/p99 per candidate. --dryrun emits the artifact with measured:
+    null. Exits 0 done, 75 interrupted, 2 refused."""
+    from . import resolve_device
+    from .bote.search import RankingParams
+    from .bote.validate import frontier_candidates, validate_frontier
+    from .campaign import CampaignError
+    from .engine.checkpoint import CheckpointError
+    from .traffic import ARRIVAL_PRESETS, TRAFFIC_PRESETS
+
+    protocols = args.protocols.split(",")
+    unknown = [p for p in protocols if p not in ENGINE_PROTOCOLS]
+    if unknown:
+        raise SystemExit(
+            f"unknown protocol(s) {unknown}; choose from "
+            f"{','.join(ENGINE_PROTOCOLS)}"
+        )
+    traffic = args.traffic.split(",")
+    bad = [t for t in traffic if t not in TRAFFIC_PRESETS]
+    if bad:
+        raise SystemExit(
+            f"unknown traffic preset(s) {bad}; choose from "
+            f"{','.join(TRAFFIC_PRESETS)}"
+        )
+    if args.rank_by == "knee":
+        if args.arrival not in ARRIVAL_PRESETS or args.arrival == "closed":
+            open_presets = [a for a in ARRIVAL_PRESETS if a != "closed"]
+            raise SystemExit(
+                f"unknown arrival preset {args.arrival!r}; choose "
+                f"from {','.join(open_presets)}"
+            )
+        carry_think = [t for t in traffic if t in ("diurnal", "flash")]
+        if carry_think:
+            raise SystemExit(
+                f"--traffic {','.join(carry_think)} carries think "
+                "delays, which open-loop arrivals replace; --rank-by "
+                "knee combines with flat or churn traffic"
+            )
+    device = resolve_device(args.device)
+    planet = _planet(args)
+    params = RankingParams(
+        min_mean_fpaxos_improv=args.min_mean_improv,
+        min_fairness_fpaxos_improv=args.min_fairness_improv,
+        min_n=args.n,
+        max_n=args.n,
+        ft_metric=args.metric,
+    )
+    try:
+        candidates = frontier_candidates(
+            planet, args.n, args.top, params=params, device=device
+        )
+    except ValueError as e:
+        raise SystemExit(str(e))
+    try:
+        artifact, summary = validate_frontier(
+            args.dir,
+            planet=planet,
+            candidates=candidates,
+            protocols=protocols,
+            fs=args.fs or [1],
+            conflicts=args.conflicts,
+            traffic=traffic,
+            commands=args.commands,
+            clients_per_region=args.clients_per_region,
+            pool_size=args.pool_size,
+            batch_lanes=args.batch_lanes,
+            segment_steps=args.segment_steps,
+            aws=bool(args.aws),
+            resume=args.resume,
+            budget_s=args.budget_s,
+            dryrun=args.dryrun,
+            out=args.out,
+            rank_by=args.rank_by,
+            arrival=args.arrival,
+            loads=args.loads,
+            open_window=args.open_window,
+            mean_gap_ms=args.mean_gap_ms,
+            knee_mult=args.knee_mult,
+            device=device,
+        )
+    except (CheckpointError, CampaignError) as e:
+        _refuse("bote validate", f"{type(e).__name__}: {e}")
+    print(json.dumps(summary))
+    if artifact is None:
+        print(
+            f"validation interrupted ({summary['interrupted']}); the "
+            "campaign is checkpointed — re-run with --resume to "
+            "continue",
+            file=sys.stderr,
+        )
+        raise SystemExit(EXIT_INTERRUPTED)
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(prog="fantoch_tpu_torch")
     parser.add_argument(
@@ -956,6 +1267,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     sw.add_argument(
         "--arrival-gap-ms", type=int, default=4,
         help="open-loop base mean inter-arrival gap in ms at 100%% load",
+    )
+    sw.add_argument(
+        "--aot-dir", default=None,
+        help="the reference's serialized sweep executable; refused (exit "
+        "2): the port builds its CUDA kernels at first use and has no "
+        "executable to share",
     )
     sw.add_argument("--out", default=None, help="results JSONL path")
     sw.set_defaults(fn=cmd_sweep)
@@ -1068,6 +1385,61 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "exit 75 after N sweep segments")
     ca.set_defaults(fn=cmd_campaign)
 
+    fl = sub.add_parser(
+        "fleet",
+        help="lease-sharded multi-worker campaigns over one shared "
+        "campaign dir (fleet/): preemptible workers claim, checkpoint, "
+        "resume and journal units; --merge writes the deterministic "
+        "merged results",
+    )
+    fl.add_argument("--dir", required=True,
+                    help="shared campaign directory (spec, leases, "
+                    "worker journals, checkpoints, merged results)")
+    fl.add_argument("--grid", default=None,
+                    help="campaign spec: JSON object or @file (same "
+                    "schema as `campaign --grid`, incl. fuzz-grid "
+                    '"coverage": true for fleet-steered budgets; '
+                    '"aot", "shard_lanes" and "mesh_shard" are refused); '
+                    "required on first touch, optional-but-verified "
+                    "afterwards")
+    fl.add_argument("--worker-id", default=None,
+                    help="run ONE worker loop in this process under "
+                    "this id ([A-Za-z0-9_-], at most 64, not lock, stale "
+                    "or tmp); exits 0 when the whole grid is journaled, "
+                    "75 with work remaining")
+    fl.add_argument("--workers", type=int, default=None,
+                    help="convenience mode: spawn N subprocess workers "
+                    "(ids w0..wN-1) and wait; re-spawns in rounds "
+                    "while progress is possible")
+    fl.add_argument("--budget-s", type=float, default=None,
+                    help="per-worker wall-clock budget: at least one "
+                    "unit of progress, then checkpoint + release at "
+                    "the next boundary")
+    fl.add_argument("--ttl-s", type=float, default=None,
+                    help="lease TTL seconds (default "
+                    "fleet.DEFAULT_TTL_S); a dead worker's unit is "
+                    "reclaimable once its lease mtime is older than "
+                    "this — heartbeats refresh it at TTL/4")
+    fl.add_argument("--merge", action="store_true",
+                    help="after any workers finish: merge every worker "
+                    "journal into the canonical results.jsonl/"
+                    "summary.json (byte-identical to a 1-worker "
+                    "control); exits 75 if units are missing")
+    fl.add_argument("--stop-after-units", type=int, default=None,
+                    help="test hook: stop this worker after N "
+                    "completed units")
+    fl.add_argument("--stop-after-segments", type=int, default=None,
+                    help="test hook: interrupt each claimed sweep unit "
+                    "after N segments (checkpoint durable, lease "
+                    "released — the unit returns to the pool)")
+    fl.add_argument(
+        "--farm", action="store_true",
+        help="assert the campaign is a standing fuzz farm (a fuzz "
+        "grid with coverage + binary_maps); a non-farm spec is refused "
+        "(exit 2) before any worker claims a unit",
+    )
+    fl.set_defaults(fn=cmd_fleet)
+
     kn = sub.add_parser(
         "knee",
         help="measured throughput-latency knee sweep: an open-loop "
@@ -1118,6 +1490,76 @@ def parse_args(argv=None) -> argparse.Namespace:
     kn.add_argument("--out", default=None,
                     help="knee artifact path (default <dir>/knee.json)")
     kn.set_defaults(fn=cmd_knee)
+
+    bt = sub.add_parser(
+        "bote",
+        help="closed-form latency config search (one K15 launch per n); "
+        "--validate runs measured sweep campaigns over the top "
+        "candidates and emits a closed-form-vs-measured frontier "
+        "artifact (bote/validate.py)",
+    )
+    bt.add_argument("--metric", default="f1", choices=["f1", "f1f2"])
+    bt.add_argument("--min-mean-improv", type=float, default=0.0)
+    bt.add_argument("--min-fairness-improv", type=float, default=0.0)
+    bt.add_argument("--min-n", type=int, default=3)
+    bt.add_argument("--max-n", type=int, default=7)
+    bt.add_argument("--top", type=int, default=3)
+    bt.add_argument("--aws", action="store_true")
+    bt.add_argument("--validate", action="store_true",
+                    help="validate the top candidates with measured "
+                    "sweep campaigns (resumable; exits 75 when "
+                    "interrupted — re-run with --resume)")
+    bt.add_argument("--dir", default=None,
+                    help="campaign/artifact directory (required with "
+                    "--validate)")
+    bt.add_argument("--n", type=int, default=5,
+                    help="candidate region-set size to validate")
+    bt.add_argument("--protocols", default="atlas,fpaxos",
+                    help="engine protocols for the measured sweeps")
+    bt.add_argument("--fs", type=_ints, default=None)
+    bt.add_argument("--conflicts", type=_ints, default=[0, 100])
+    bt.add_argument("--traffic", default="flat",
+                    help="comma-separated traffic presets "
+                    "(flat,diurnal,flash,churn) — one measured axis "
+                    "per preset")
+    bt.add_argument("--commands", type=int, default=20,
+                    help="commands per client per measured lane")
+    bt.add_argument("--clients-per-region", type=int, default=1)
+    bt.add_argument("--pool-size", type=int, default=1)
+    bt.add_argument("--batch-lanes", type=int, default=64)
+    bt.add_argument("--segment-steps", type=int, default=2048)
+    bt.add_argument("--rank-by", default="score",
+                    choices=["score", "knee"],
+                    help="knee: replace the closed-loop conflict grid "
+                    "with an open-loop offered-load ladder "
+                    "(serving/knee.py) and re-rank candidates by their "
+                    "measured throughput-latency knee")
+    bt.add_argument("--arrival", default="poisson",
+                    help="open-loop arrival preset for --rank-by knee "
+                    "(poisson,burst,ramp)")
+    bt.add_argument("--loads", type=_ints, default=None,
+                    help="offered-load ladder (percent of base rate) "
+                    "for --rank-by knee; default 50,100,200,400")
+    bt.add_argument("--open-window", type=int, default=4,
+                    help="open-loop in-flight cap per client "
+                    "(--rank-by knee)")
+    bt.add_argument("--mean-gap-ms", type=int, default=4,
+                    help="base mean inter-arrival gap in ms at 100%% "
+                    "load (--rank-by knee)")
+    bt.add_argument("--knee-mult", type=float, default=None,
+                    help="knee threshold: first load whose p99 exceeds "
+                    "this multiple of the lowest load's p99 "
+                    "(default 3.0)")
+    bt.add_argument("--resume", action="store_true",
+                    help="continue an interrupted validation campaign")
+    bt.add_argument("--budget-s", type=float, default=None)
+    bt.add_argument("--dryrun", action="store_true",
+                    help="skip the measured sweeps; emit the frontier "
+                    "artifact with measured: null (schema-check path)")
+    bt.add_argument("--out", default=None,
+                    help="frontier artifact path (default "
+                    "<dir>/frontier.json)")
+    bt.set_defaults(fn=cmd_bote)
 
     sim = sub.add_parser(
         "sim", help="one exact run of the host simulator (no device)")

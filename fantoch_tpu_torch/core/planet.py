@@ -1,8 +1,10 @@
 """Region-to-region latency data ("planet").
 
-The reference's ``fantoch/src/planet/`` as lane construction needs it: a
-latency matrix between named regions with sorted-by-distance lists
-(planet/mod.rs:30-140).
+The reference's ``fantoch/src/planet/``: a latency matrix between named
+regions with sorted-by-distance lists (planet/mod.rs:30-140), synthetic
+equidistant planets (mod.rs:57-99), markdown distance matrices
+(mod.rs:144-177) and a dense matrix over an explicit region order (what
+lane construction and bote's batched search read).
 
 The datasets are the JSON matrices shipped in ``fantoch_tpu_torch/data/``
 (avg ping truncated to ms, intra-region latency 0), a copy of the JAX
@@ -14,9 +16,13 @@ from __future__ import annotations
 import json
 from functools import lru_cache
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 Region = str
+
+INTRA_REGION_LATENCY = 0
 
 DATA_DIR = Path(__file__).resolve().parent.parent / "data"
 
@@ -58,6 +64,28 @@ class Planet:
         ``latency_aws_2020_06_05`` or ``latency_aws_2021_02_13``."""
         return cls(_load_dataset(name))
 
+    @classmethod
+    def from_latencies(
+        cls, latencies: Dict[Region, Dict[Region, int]]
+    ) -> "Planet":
+        return cls(latencies)
+
+    @classmethod
+    def equidistant(
+        cls, planet_distance: int, region_number: int
+    ) -> Tuple[List[Region], "Planet"]:
+        """Synthetic planet where all distinct regions are at the same
+        distance (planet/mod.rs:57-99)."""
+        regions = [f"r_{i}" for i in range(region_number)]
+        latencies = {
+            a: {
+                b: (INTRA_REGION_LATENCY if a == b else planet_distance)
+                for b in regions
+            }
+            for a in regions
+        }
+        return regions, cls(latencies)
+
     # -- queries --------------------------------------------------------
 
     def regions(self) -> List[Region]:
@@ -74,3 +102,24 @@ class Planet:
         """Regions sorted by distance (ASC) from ``from_``
         (planet/mod.rs:117-119)."""
         return self.sorted_.get(from_)
+
+    def latency_matrix(self, regions: Sequence[Region]) -> np.ndarray:
+        """Dense i32 ping-latency matrix over the given region ordering."""
+        mat = np.empty((len(regions), len(regions)), dtype=np.int32)
+        for i, a in enumerate(regions):
+            for j, b in enumerate(regions):
+                lat = self.ping_latency(a, b)
+                assert lat is not None, f"missing latency {a} -> {b}"
+                mat[i, j] = lat
+        return mat
+
+    def distance_matrix(self, regions: Sequence[Region]) -> str:
+        """Markdown distance matrix (planet/mod.rs:144-177)."""
+        out = ["| |" + "".join(f' "{r}" |' for r in regions)]
+        out.append("|:---:|" + ":---:|" * len(regions))
+        for a in regions:
+            row = f'| __"{a}"__ |'
+            for b in regions:
+                row += f" {self.ping_latency(a, b)} |"
+            out.append(row)
+        return "\n".join(out) + "\n"

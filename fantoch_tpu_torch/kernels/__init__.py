@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from .atlas_partial_handle import atlas_partial_handle
 from .basic_handle import basic_handle
+from .bote_stats import bote_stats
 from .caesar_handle import caesar_handle
 from .emit_rewrite import emit_rewrite
 from .fpaxos_handle import fpaxos_handle
@@ -42,6 +43,7 @@ WRAPPERS = {
     "mon_finalize": mon_finalize,
     "loop_ctl": loop_ctl,
     "step_loop": launch_window,
+    "bote_stats": bote_stats,
 }
 
 

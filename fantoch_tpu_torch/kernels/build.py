@@ -5,7 +5,10 @@ started together, for ``sm_90a`` (Hopper); the objects are linked into
 one shared library with a plain C interface, loaded with ``ctypes``.
 The build runs at first use, into ``fantoch_tpu_torch/_build/`` (keyed
 by a hash of the sources), and uses nothing but the sources in this
-package and the CUDA toolkit.
+package and the CUDA toolkit. Processes may build at once (``fleet
+--workers``): each compiles and links in a directory of its own under the
+digest and moves the finished library into place with one atomic
+``os.replace``, so no process links or loads a file another is writing.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -57,7 +61,12 @@ def _digest() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile every source (one ``nvcc`` each, in parallel) and link
     them into ``libfantoch_kernels.so``; returns its path. Reuses a
-    library already built from identical sources."""
+    library already built from identical sources. The objects, the log
+    and the library are written in a directory of this process's own,
+    removed at the end; the library and the log reach the digest's
+    directory by ``os.replace`` (whole files only, the last process's
+    winning: every process that builds one digest links the same
+    sources)."""
     global BUILD_SECONDS
     out = BUILD_ROOT / _digest()
     lib = out / "libfantoch_kernels.so"
@@ -66,36 +75,43 @@ def build(verbose: bool = False) -> Path:
     out.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     nvcc = _nvcc()
-    flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-             "-Xptxas", "-v", f"-I{CSRC}"]
-    procs = []
-    for src in _sources():
-        obj = out / (src.stem + ".o")
-        procs.append((src, obj, subprocess.Popen(
-            [nvcc, *flags, "-c", str(src), "-o", str(obj)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )))
-    log = []
-    failed = []
-    for src, _obj, proc in procs:
-        text, _ = proc.communicate()
-        log.append(f"== {src.name}\n{text}")
-        if proc.returncode != 0:
-            failed.append(src.name)
-    (out / "nvcc.log").write_text("\n".join(log))
-    if failed:
-        raise RuntimeError(
-            f"nvcc failed for {failed}:\n" + "\n".join(log)
+    work = Path(tempfile.mkdtemp(prefix=f".build-{os.getpid()}-", dir=out))
+    try:
+        flags = [ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", f"-I{CSRC}"]
+        procs = []
+        for src in _sources():
+            obj = work / (src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *flags, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )))
+        log = []
+        failed = []
+        for src, _obj, proc in procs:
+            text, _ = proc.communicate()
+            log.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        (work / "nvcc.log").write_text("\n".join(log))
+        os.replace(work / "nvcc.log", out / "nvcc.log")
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed for {failed}:\n" + "\n".join(log)
+            )
+        built = work / lib.name
+        link = subprocess.run(
+            [nvcc, ARCH, "-shared", "-o", str(built),
+             *[str(o) for _s, o, _p in procs]],
+            capture_output=True, text=True,
         )
-    tmp = out / "libfantoch_kernels.so.tmp"
-    link = subprocess.run(
-        [nvcc, ARCH, "-shared", "-o", str(tmp),
-         *[str(o) for _s, o, _p in procs]],
-        capture_output=True, text=True,
-    )
-    if link.returncode != 0:
-        raise RuntimeError(f"link failed:\n{link.stdout}{link.stderr}")
-    tmp.rename(lib)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"link failed:\n{link.stdout}{link.stderr}")
+        os.replace(built, lib)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     BUILD_SECONDS = time.perf_counter() - t0
     if verbose:
         print("\n".join(log))

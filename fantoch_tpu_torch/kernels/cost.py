@@ -10,13 +10,15 @@ a kernel's time can be held against a floor.
 
 Peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet): 3.35 TB/s
 of HBM3, and the int32 rate, 132 SMs × 64 int32 lanes × 1.98 GHz (Hopper
-has half as many int32 as fp32 lanes).
+has half as many int32 as fp32 lanes); K15 (bote's search) computes in
+f32 outside the tensor cores, at 67 TFLOP/s.
 """
 
 from __future__ import annotations
 
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_OPS_PER_S = 67e12
 
 
 def nbytes(*tensors) -> int:
@@ -24,10 +26,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(n_bytes: int, n_ops: int):
-    """``(ms, "bytes" | "operations")``: the larger of the two times."""
+def bound(n_bytes: int, n_ops: int, ops_per_s: float = INT32_OPS_PER_S):
+    """``(ms, "bytes" | "operations")``: the larger of the two times, the
+    operations at ``ops_per_s`` (default the int32 rate)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / INT32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes"
     return t_ops, "operations"

@@ -29,7 +29,10 @@ def test_importing_every_module_loads_no_jax():
     mods = _modules()
     for name in ("kernels.qualify_pop", "kernels.loop_ctl",
                  "kernels.step_loop", "parallel.pipeline", "engine.hetero",
-                 "engine.skeleton", "engine.checkpoint", "plot.db"):
+                 "engine.skeleton", "engine.checkpoint", "plot.db",
+                 "kernels.bote_stats", "bote.model", "bote.search",
+                 "bote.validate", "fleet.leases", "fleet.worker",
+                 "fleet.merge"):
         assert f"fantoch_tpu_torch.{name}" in mods
     code = (
         "import importlib, sys\n"
